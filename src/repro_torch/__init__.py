@@ -1,0 +1,19 @@
+"""PipeSim on PyTorch: the batched wave-loop engine for one NVIDIA H100.
+
+A port of the JAX package :mod:`repro`, which stays the reference. The
+layout mirrors it file for file (``repro/core/vdes.py`` ->
+``repro_torch/core/vdes.py``, ...), and each module keeps the names of its
+reference. This package imports ``torch``, numpy and scipy, never ``jax``
+and never a module of ``repro``: what it needs of the reference's
+numpy-only modules it keeps as its own copy.
+
+Ported so far: the wave loop (:mod:`repro_torch.core.vdes`: select,
+completion/retry, capacity-schedule control, admission), its host side
+(workload generator, scenarios, padding/stacking, trace flattening and
+summaries) and the admission kernel
+(:mod:`repro_torch.kernels.queue_scan`, CUDA for ``sm_90a``).
+
+Entry points run on the card (``device=None`` means ``"cuda"``) and raise
+when there is none; the CPU is used only when the caller passes
+``device="cpu"``.
+"""

@@ -1,0 +1,90 @@
+"""The wave loop's admission kernel (mirrors :mod:`repro.kernels.queue_scan`).
+
+``fused_admission`` is one ranked admission round of
+``vdes._admission_stage``: for each queued job, its seat under the stable
+lexicographic ``(resource, policy key, enqueue wave, id)`` ranking, tested
+against the free slots of its resource. On a CUDA tensor it launches the
+hand-written kernel ``csrc/fused_admission.cu`` (built by
+:mod:`repro_torch.kernels._build` at first use); on a CPU tensor it runs
+the plain version, :func:`repro_torch.kernels.ref.admission_mask_dense`.
+There is no fallback between the two: a CUDA tensor launches the kernel or
+raises.
+
+The reference's ``queue_scan`` (c-server FIFO station) is not ported yet;
+it waits for the reliability slice.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import admission_mask_dense
+
+_SIGNATURES = {"fused_admission_launch":
+               [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]}
+_MAX_GRID_Y = 65535
+
+
+def _check(res_q, pkey, enq_wave, free) -> None:
+    if res_q.dim() != 2 or res_q.shape[0] < 1 or res_q.shape[1] < 1:
+        raise ValueError(f"res_q must be a non-empty [R, N] tensor, got "
+                         f"shape {tuple(res_q.shape)}")
+    R = res_q.shape[0]
+    for name, t, dt, shape in (
+            ("res_q", res_q, torch.int32, res_q.shape),
+            ("pkey", pkey, torch.float32, res_q.shape),
+            ("enq_wave", enq_wave, torch.int32, res_q.shape),
+            ("free", free, torch.int32, None)):
+        if t.dtype != dt:
+            raise TypeError(f"{name} must be {dt}, got {t.dtype}")
+        if shape is not None and t.shape != shape:
+            raise ValueError(f"{name} shape {tuple(t.shape)} != "
+                             f"{tuple(shape)}")
+        if t.device != res_q.device:
+            raise ValueError(f"{name} is on {t.device}, res_q on "
+                             f"{res_q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if free.dim() != 2 or free.shape[0] != R or free.shape[1] < 1:
+        raise ValueError(f"free must be [R={R}, nres >= 1], got shape "
+                         f"{tuple(free.shape)}")
+
+
+def fused_admission(res_q: torch.Tensor, pkey: torch.Tensor,
+                    enq_wave: torch.Tensor,
+                    free: torch.Tensor) -> torch.Tensor:
+    """The wave loop's admission round: ``[R, N]`` bool admitted mask.
+
+    ``res_q [R, N]`` i32 — each job's resource, with the ``nres`` sentinel
+    for non-queued rows; ``pkey [R, N]`` f32 — the policy key;
+    ``enq_wave [R, N]`` i32 — FIFO tie-break wave counter; ``free
+    [R, nres]`` i32 — free slots per resource. All contiguous, on one
+    device. Bit-identical to the sorted ranking of the reference engine.
+    ``fused_admission.launches`` counts the kernel's launches."""
+    _check(res_q, pkey, enq_wave, free)
+    if res_q.device.type == "cpu":
+        return admission_mask_dense(res_q, pkey, enq_wave, free)
+    if res_q.device.type != "cuda":
+        raise ValueError(f"fused_admission runs on cuda or cpu tensors, "
+                         f"got {res_q.device}")
+    R, N = res_q.shape
+    if R > _MAX_GRID_Y:
+        raise ValueError(f"fused_admission takes at most {_MAX_GRID_Y} "
+                         f"replicas, got {R}")
+    lib = _build.load("fused_admission", _SIGNATURES)
+    out = torch.empty((R, N), dtype=torch.bool, device=res_q.device)
+    with torch.cuda.device(res_q.device):
+        err = lib.fused_admission_launch(
+            res_q.data_ptr(), pkey.data_ptr(), enq_wave.data_ptr(),
+            free.data_ptr(), out.data_ptr(), R, N, free.shape[1],
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_admission: kernel launch failed with "
+                           f"CUDA error {err}")
+    fused_admission.launches += 1
+    return out
+
+
+fused_admission.launches = 0

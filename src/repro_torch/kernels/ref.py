@@ -1,0 +1,52 @@
+"""Plain PyTorch versions of the port's kernels.
+
+Each function computes what its kernel computes, with ordinary tensor ops.
+The kernel wrappers run them for tensors on the CPU (the tests), and
+``chip_smoke.py`` holds each kernel against its plain version on the card.
+"""
+from __future__ import annotations
+
+import torch
+
+# pairs held in one [R, rows, N] comparison block: bounds the plain
+# admission's temporaries (a few bool tensors of this many elements) at
+# any N, so the on-card check runs at N = 17000 too
+_PAIR_BLOCK = 1 << 25
+
+
+def admission_mask_dense(res_q: torch.Tensor, pkey: torch.Tensor,
+                         enq_wave: torch.Tensor,
+                         free: torch.Tensor) -> torch.Tensor:
+    """One admission round of the wave loop: the ``[R, N]`` bool admitted
+    mask, by a pairwise seat count (:func:`repro.core.vdes.
+    admission_mask_dense` with a replica axis written out).
+
+    ``res_q [R, N]`` i32 is each job's resource, with the sentinel ``nres``
+    for rows that are not queued; ``pkey [R, N]`` f32 the policy key;
+    ``enq_wave [R, N]`` i32 the enqueue wave; ``free [R, nres]`` i32 the
+    free slots per resource (negative after a capacity decrease). A job's
+    seat is the count of same-resource jobs with a lex-smaller
+    ``(pkey, enq_wave, id)`` key — its position under the stable sort — and
+
+        admitted_i  =  res_i < nres  &  seat_i < free[res_i]
+
+    Comparisons and integer counts only, so the mask is exact. Rows are
+    compared in blocks so the ``[R, rows, N]`` temporaries stay bounded."""
+    R, N = res_q.shape
+    nres = free.shape[1]
+    ids = torch.arange(N, dtype=torch.int32, device=res_q.device)
+    rj, pj, wj = res_q[:, None, :], pkey[:, None, :], enq_wave[:, None, :]
+    seat = torch.empty((R, N), dtype=torch.int32, device=res_q.device)
+    step = max(1, _PAIR_BLOCK // max(R * N, 1))
+    for i0 in range(0, N, step):
+        sl = slice(i0, min(N, i0 + step))
+        ri, pi, wi = res_q[:, sl, None], pkey[:, sl, None], enq_wave[:, sl, None]
+        id_lt = ids[None, None, :] < ids[None, sl, None]
+        lt = (pj < pi) | ((pj == pi) & ((wj < wi) | ((wj == wi) & id_lt)))
+        seat[:, sl] = ((rj == ri) & lt).sum(dim=2, dtype=torch.int32)
+    # free[res] by a select over the (tiny) resource count; sentinel rows
+    # keep 0 and never admit
+    free_q = torch.zeros_like(res_q)
+    for r in range(nres):
+        free_q = torch.where(res_q == r, free[:, r:r + 1], free_q)
+    return (res_q < nres) & (seat < free_q)

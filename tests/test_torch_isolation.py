@@ -1,0 +1,88 @@
+"""The port stands alone: no JAX, no reference module, no silent CPU.
+
+An AST walk finds no ``jax`` and no ``repro`` import in ``src/repro_torch``,
+``chip_smoke.py`` or ``tools/``; a fresh interpreter runs the port without
+loading ``jax``; with no card the entry points raise unless the caller asks
+for the CPU; the arguments of stages that are not ported yet are refused.
+"""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import vdes, workload
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
+
+
+def _imports(path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    assert path.exists()
+    for name in _imports(path):
+        top = name.split(".")[0]
+        assert top != "jax" and top != "jaxlib", f"{path}: imports {name}"
+        assert top != "repro", f"{path}: imports {name}"
+
+
+def test_cpu_run_leaves_jax_unloaded():
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "from repro_torch.core import batching, vdes, workload\n"
+        "from repro_torch.core import model as M\n"
+        "wl = workload.generate_empirical_workload(0, 1800.0)\n"
+        "cols = batching.pad_workloads([wl, wl], M.PlatformConfig())\n"
+        "out = vdes.simulate_ensemble(**batching.to_tensors(cols, 'cpu'),\n"
+        "    capacities=np.array([[4, 2], [8, 4]]), device='cpu')\n"
+        "assert bool(out['done'].all()), out['done']\n"
+        "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "assert not any(m == 'repro' or m.startswith('repro.')\n"
+        "               for m in sys.modules), 'repro was imported'\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_no_card_raises_unless_cpu_is_asked_for(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    wl = workload.generate_empirical_workload(0, 1800.0)
+    args = (wl.arrival[None], wl.n_tasks[None], wl.task_res[None],
+            wl.exec_time[None], wl.priority[None], np.array([[4, 2]]))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        vdes.simulate_ensemble(*args)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        vdes.simulate_to_trace(wl)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        vdes.VWorkload.from_workload(wl)
+    assert vdes.simulate_ensemble(*args, device="cpu")["done"].all()
+
+
+def test_unported_arguments_are_refused():
+    wl = workload.generate_empirical_workload(0, 1800.0)
+    args = (wl.arrival[None], wl.n_tasks[None], wl.task_res[None],
+            wl.exec_time[None], wl.priority[None], np.array([[4, 2]]))
+    for kw in ("controllers", "fleets", "probes", "rel_times", "resume",
+               "wave_budget", "time_budget", "return_state"):
+        with pytest.raises(TypeError):
+            vdes.simulate_ensemble(*args, device="cpu", **{kw: None})
+    with pytest.raises(ValueError):
+        vdes.simulate_ensemble(*args, device="cpu", admission_sort="fused")
