@@ -26,6 +26,19 @@ Phases (any failure exits non-zero, with no result line):
 4. The single-replica path: ``simulate_to_trace`` -> ``flatten_trace`` ->
    ``summarize`` with a schedule, an SLO and cost rates, equal to the
    ensemble's replica.
+5. The flash-attention kernel against its plain PyTorch version on the
+   card over a grid: B, S (ragged 200 included), (H, Hkv), D, f32 and bf16,
+   causal and not; to ``tests/test_kernels.py``'s tolerances.
+6. The serving path: ``run_serving("llama3.2-1b", batch=4,
+   prompt_len=1024, new_tokens=32, smoke=False)`` at full width in bf16
+   with random weights. Checks: tokens in the vocab, finite logits, one
+   kernel launch per layer (prefill only). Prints the time to first token
+   and the decode and total tokens/s. Twin: the same weights in f32 (no
+   TF32), prefill and 32 teacher-forced decode steps through the kernel
+   and through the plain path, held to ``TWIN_ATOL``. On the kernel's
+   inputs from layer 0 of the bf16 prefill, the kernel, its plain version
+   and ``scaled_dot_product_attention`` are timed with CUDA events, beside
+   the bound.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -36,6 +49,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -51,10 +65,25 @@ KEEP_EVERY = 500     # keep every 500th admission input of the main path
 # the kernel-vs-plain grid: replicas, rows, resources, sentinel shares
 CHECK_R, CHECK_N = (1, 32), (1, 127, 128, 2500, 17000)
 CHECK_NRES, CHECK_SENTINELS = (1, 2, 5), (0.0, 0.5, 0.9)
-# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s and the f32 /
-# int32 rate of the CUDA cores (the admission kernel does no tensor-core work)
+# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s, the f32 / int32
+# rate of the CUDA cores (the admission kernel does no tensor-core work)
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = 67e12
+# attention's products at their type's peak: bf16 on the tensor cores,
+# f32 (no TF32) on the CUDA cores
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": PEAK_OPS_S}
+KERNELS = ("fused_admission", "flash_attention")
+# the flash kernel-vs-plain grid, and tests/test_kernels.py's tolerances
+FLASH_B, FLASH_S = (1, 4), (1, 64, 128, 256, 1024, 2048, 200)
+FLASH_HEADS, FLASH_D = ((4, 4), (4, 2), (8, 1), (32, 8)), (64, 128)
+FLASH_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# the serving main path: llama3.2-1b at full width, 4 prompts of 1024 tokens
+SERVE_ARCH, SERVE_B, SERVE_PROMPT, SERVE_NEW, SERVE_SEED = (
+    "llama3.2-1b", 4, 1024, 32, 0)
+# f32 flash-vs-plain twin of the whole model on the logits (|logits| ~ 1-5):
+# the two paths differ only in attention's summation order (~1e-6 relative
+# per layer in f32); a wrong mask, head or scale moves logits by O(0.1)
+TWIN_ATOL = 1e-3
 
 
 def log(*a):
@@ -396,12 +425,220 @@ def phase_single(torch, fused_admission, inputs, ens):
         f"{summ['deadline_miss_rate']:.4f}")
 
 
+# ------------------------------------------------------------ phase 1
+
+def build_kernels(_build):
+    """One nvcc per kernel source, all started together."""
+    t0 = time.perf_counter()
+
+    def one(name):
+        t = time.perf_counter()
+        _build.build(name)
+        return time.perf_counter() - t
+
+    with ThreadPoolExecutor(len(KERNELS)) as ex:
+        secs = list(ex.map(one, KERNELS))
+    log(f"[1] built {', '.join(f'{n} ({s:.2f} s)' for n, s in zip(KERNELS, secs))}"
+        f" in parallel: {time.perf_counter() - t0:.2f} s")
+    for name in KERNELS:
+        for line in _build.build_log(name).splitlines():
+            if "ptxas info" in line and ("Used" in line or "entry" in line):
+                log(f"[1]   {name}: {line.strip()}")
+
+
+# ------------------------------------------------------------ phase 5
+
+def phase_flash_grid(torch, flash_attention):
+    """The flash kernel against its plain version over the grid; returns
+    the largest difference (within tolerance, or it raises)."""
+    from repro_torch.kernels.ref import flash_attention_ref
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    worst = {dt: 0.0 for dt in FLASH_TOL}
+    n_cases = 0
+    t0 = time.perf_counter()
+    for B in FLASH_B:
+        for S in FLASH_S:
+            for H, Hkv in FLASH_HEADS:
+                for D in FLASH_D:
+                    for dt in FLASH_TOL:
+                        q, k, v = (torch.randn(B, S, h, D, generator=gen,
+                                               device="cuda")
+                                   .to(getattr(torch, dt))
+                                   for h in (H, Hkv, Hkv))
+                        for causal in (True, False):
+                            got = flash_attention(q, k, v, causal=causal)
+                            want = flash_attention_ref(q, k, v, causal=causal)
+                            err = float((got.float() - want.float())
+                                        .abs().max())
+                            if not err <= FLASH_TOL[dt]:
+                                raise AssertionError(
+                                    f"flash_attention differs from its plain "
+                                    f"version by {err} at B={B} S={S} H={H} "
+                                    f"Hkv={Hkv} D={D} {dt} causal={causal}")
+                            worst[dt] = max(worst[dt], err)
+                            n_cases += 1
+    log(f"[5] flash_attention == flash_attention_ref on {n_cases} cases "
+        f"(B in {FLASH_B}, S in {FLASH_S}, (H, Hkv) in {FLASH_HEADS}, D in "
+        f"{FLASH_D}, f32/bf16, causal/not) in {time.perf_counter() - t0:.2f} "
+        f"s: max |diff| f32 {worst['float32']:.3g} (tol "
+        f"{FLASH_TOL['float32']}), bf16 {worst['bfloat16']:.3g} (tol "
+        f"{FLASH_TOL['bfloat16']})")
+    return max(worst.values())
+
+
+# ------------------------------------------------------------ phase 6
+
+class FirstCallTap:
+    """Stands in for ``flash_attention`` inside the model: launches it and
+    keeps a copy of the first call's inputs (layer 0 of the prefill)."""
+
+    def __init__(self, kernel):
+        self.kernel, self.kept = kernel, None
+
+    def __call__(self, q, k, v, **kw):
+        if self.kept is None:
+            self.kept = [t.clone() for t in (q, k, v)]
+        return self.kernel(q, k, v, **kw)
+
+
+def phase_serving(torch, flash_attention):
+    """The serving main path at full width in bf16, through the kernel."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import attention
+    cfg = configs.get_config(SERVE_ARCH)
+    tap = FirstCallTap(flash_attention)
+    attention.flash_attention = tap
+    torch.cuda.synchronize()
+    flash_attention.launches = 0
+    try:
+        out = serve.run_serving(SERVE_ARCH, batch=SERVE_B,
+                                prompt_len=SERVE_PROMPT,
+                                new_tokens=SERVE_NEW, smoke=False,
+                                attn_impl="flash", device="cuda",
+                                seed=SERVE_SEED)
+    finally:
+        attention.flash_attention = flash_attention
+    launches = flash_attention.launches
+    if launches != cfg.n_layers:
+        raise AssertionError(f"flash_attention launched {launches} times, "
+                             f"not once per layer ({cfg.n_layers})")
+    if not (out["all_in_vocab"] and out["logits_finite"]
+            and out["generated_shape"] == [SERVE_B, SERVE_NEW]):
+        raise AssertionError(f"serving run failed its checks: {out}")
+    log(f"[6] run_serving({SERVE_ARCH}, batch={SERVE_B}, prompt_len="
+        f"{SERVE_PROMPT}, new_tokens={SERVE_NEW}, bf16, flash) on the card: "
+        f"{out['n_params']:,} parameters; time to first token "
+        f"{out['prefill_s']:.4f} s; decode {out['decode_tokens_per_s']:.1f} "
+        f"tokens/s; total {out['tokens_per_s']:.1f} tokens/s (wall "
+        f"{out['wall_s']:.4f} s); flash_attention launches {launches}; tokens "
+        "in vocab, logits finite")
+    return out, launches, tap.kept
+
+
+def phase_serving_twin(torch):
+    """The same weights in f32: prefill and teacher-forced decode through
+    the kernel and through the plain path agree within TWIN_ATOL."""
+    from repro_torch import configs
+    from repro_torch.launch.serve import random_prompts
+    from repro_torch.models.transformer import get_model
+    from repro_torch.serving.engine import ServeConfig, ServingEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    f32 = dict(param_dtype="float32", compute_dtype="float32")
+    cfgs = {impl: configs.get_config(SERVE_ARCH, attn_impl=impl, **f32)
+            for impl in ("flash", "xla")}
+    params = get_model(cfgs["flash"]).init(SERVE_SEED, "cuda")
+    scfg = ServeConfig(batch=SERVE_B, max_len=SERVE_PROMPT + SERVE_NEW + 1)
+    eng = {impl: ServingEngine(c, scfg, params=params, device="cuda")
+           for impl, c in cfgs.items()}
+    gen = torch.Generator(device="cuda").manual_seed(SERVE_SEED + 1)
+    prompts = random_prompts(cfgs["flash"].vocab_size, SERVE_B, SERVE_PROMPT,
+                             gen)
+    logits, caches = {}, {}
+    for impl, e in eng.items():
+        logits[impl], caches[impl] = e.prefill(prompts)
+    prefill_err = float((logits["flash"] - logits["xla"]).abs().max())
+    scale = float(logits["xla"].abs().max())
+    decode_err = 0.0
+    for i in range(SERVE_NEW):
+        tok = logits["flash"][:, -1].argmax(-1)[:, None].to(torch.int32)
+        for impl, e in eng.items():
+            logits[impl], caches[impl] = e.decode(tok, caches[impl],
+                                                  SERVE_PROMPT + i)
+        decode_err = max(decode_err,
+                         float((logits["flash"] - logits["xla"]).abs().max()))
+    if not (prefill_err <= TWIN_ATOL and decode_err <= TWIN_ATOL):
+        raise AssertionError(f"f32 flash vs plain: prefill logits differ by "
+                             f"{prefill_err}, decode logits by {decode_err} "
+                             f"(tol {TWIN_ATOL})")
+    log(f"[6] f32 twin (same weights, no TF32), flash vs plain: prefill "
+        f"logits max |diff| {prefill_err:.3g}, {SERVE_NEW} teacher-forced "
+        f"decode steps {decode_err:.3g} (tol {TWIN_ATOL}; max |logit| "
+        f"{scale:.3g}) in {time.perf_counter() - t0:.2f} s")
+
+
+def flash_bound(q, k):
+    """Least time for one causal call on these inputs, as ``(bytes_ms,
+    ops_ms)``. Bytes: q, k, v read and o written once. Operations: the
+    pairs (query, key <= query) the causal softmax needs, 2 D FLOPs each for
+    q.k and for p.v, at the card's peak rate for the input type."""
+    B, S, H, D = q.shape
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    flops = 2 * 2 * B * H * D * S * (S + 1) // 2
+    dt = "bfloat16" if q.element_size() == 2 else "float32"
+    return nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_FLOPS[dt] * 1e3
+
+
+def time_flash(torch, flash_attention, kept):
+    """On layer 0's inputs of the bf16 prefill: the kernel and
+    ``scaled_dot_product_attention`` against the plain version, then the
+    three timed with CUDA events, and the bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.ref import flash_attention_ref
+    q, k, v = kept
+    want = flash_attention_ref(q, k, v, causal=True)
+    got = flash_attention(q, k, v, causal=True)
+    err = float((got.float() - want.float()).abs().max())
+    if not err <= FLASH_TOL["bfloat16"]:
+        raise AssertionError(f"flash_attention differs from its plain version "
+                             f"by {err} on layer 0's inputs")
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+
+    lib_err = float((library().transpose(1, 2).float() - want.float())
+                    .abs().max())
+    if not lib_err <= FLASH_TOL["bfloat16"]:
+        raise AssertionError(f"scaled_dot_product_attention differs from the "
+                             f"plain version by {lib_err}")
+    ms = cuda_ms(lambda: flash_attention(q, k, v), iters=100)
+    plain_ms = cuda_ms(lambda: flash_attention_ref(q, k, v), iters=10,
+                       warmup=2)
+    library_ms = cuda_ms(library, iters=100)
+    bytes_ms, ops_ms = flash_bound(q, k)
+    bound_ms = max(bytes_ms, ops_ms)
+    log(f"[6] flash_attention on layer 0's inputs of the prefill (q "
+        f"{list(q.shape)}, k/v {list(k.shape)}, {str(q.dtype)[6:]}, causal): "
+        f"kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
+        f"scaled_dot_product_attention {library_ms:.6f} ms, bound "
+        f"{bound_ms:.6f} ms (bytes {bytes_ms:.6f}, operations {ops_ms:.6f}); "
+        f"max |diff| to plain: kernel {err:.3g}, sdpa {lib_err:.3g}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                library_ms=library_ms)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.queue_scan import fused_admission
     from repro_torch.kernels.ref import admission_mask_dense
 
@@ -410,25 +647,34 @@ def main() -> int:
     log(f"[1] python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
     log(f"[1] card: {card}")
-    t0 = time.perf_counter()
-    _build.build("fused_admission")
-    log(f"[1] built fused_admission in {time.perf_counter() - t0:.2f} s")
-    for line in _build.build_log("fused_admission").splitlines():
-        if "ptxas info" in line:
-            log(f"[1]   {line.strip()}")
+    build_kernels(_build)
     t0 = time.perf_counter()
     inputs = build_ensemble()
     log(f"[1] workloads and scenarios built on the host in "
         f"{time.perf_counter() - t0:.2f} s")
 
     grid_err = phase_kernels(torch, fused_admission, admission_mask_dense)
+    flash_attention.launches = 0
     ens, launches, wall, kept = phase_main_path(torch, fused_admission,
                                                 inputs)
+    if flash_attention.launches:
+        raise AssertionError("the wave loop launched flash_attention")
     rec = time_admission(torch, fused_admission, admission_mask_dense, kept)
     log(f"[3] fused_admission: {launches} launches x {rec['ms']:.6f} ms = "
         f"{100 * launches * rec['ms'] / (wall * 1e3):.2f} % of the "
         "main path's wall")
     phase_single(torch, fused_admission, inputs, ens)
+
+    flash_grid_err = phase_flash_grid(torch, flash_attention)
+    fused_admission.launches = 0
+    serve, flash_launches, kept_qkv = phase_serving(torch, flash_attention)
+    if fused_admission.launches:
+        raise AssertionError("the serving path launched fused_admission")
+    phase_serving_twin(torch)
+    frec = time_flash(torch, flash_attention, kept_qkv)
+    log(f"[6] flash_attention: {flash_launches} launches x {frec['ms']:.6f} "
+        f"ms = {100 * flash_launches * frec['ms'] / (serve['prefill_s'] * 1e3):.2f}"
+        " % of the time to first token")
 
     kernels = [dict(
         name="fused_admission", route="cuda",
@@ -436,7 +682,14 @@ def main() -> int:
         replaces="src/repro/kernels/queue_scan.py:125",
         launches=launches, max_abs_err=max(grid_err, rec["max_abs_err"]),
         ms=rec["ms"], plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
-        bound_by=rec["bound_by"], library_ms=rec["library_ms"])]
+        bound_by=rec["bound_by"], library_ms=rec["library_ms"]), dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:25",
+        launches=flash_launches,
+        max_abs_err=max(flash_grid_err, frec["max_abs_err"]),
+        ms=frec["ms"], plain_ms=frec["plain_ms"], bound_ms=frec["bound_ms"],
+        bound_by=frec["bound_by"], library_ms=frec["library_ms"])]
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card_line())

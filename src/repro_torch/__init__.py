@@ -1,4 +1,4 @@
-"""PipeSim on PyTorch: the batched wave-loop engine for one NVIDIA H100.
+"""PipeSim on PyTorch, for one NVIDIA H100.
 
 A port of the JAX package :mod:`repro`, which stays the reference. The
 layout mirrors it file for file (``repro/core/vdes.py`` ->
@@ -11,7 +11,11 @@ Ported so far: the wave loop (:mod:`repro_torch.core.vdes`: select,
 completion/retry, capacity-schedule control, admission), its host side
 (workload generator, scenarios, padding/stacking, trace flattening and
 summaries) and the admission kernel
-(:mod:`repro_torch.kernels.queue_scan`, CUDA for ``sm_90a``).
+(:mod:`repro_torch.kernels.queue_scan`); the LM substrate's serving path
+for the dense plan (:mod:`repro_torch.models`, :mod:`repro_torch.configs`,
+:mod:`repro_torch.serving`, :mod:`repro_torch.launch.serve`) and its
+flash-attention kernel (:mod:`repro_torch.kernels.flash_attention`). Both
+kernels are CUDA for ``sm_90a``.
 
 Entry points run on the card (``device=None`` means ``"cuda"``) and raise
 when there is none; the CPU is used only when the caller passes

@@ -51,6 +51,7 @@ import torch
 from repro_torch.core import model as M
 from repro_torch.core.des import (CTRL_INF, POLICY_FIFO, POLICY_PRIORITY,
                                   POLICY_SJF)
+from repro_torch.device import resolve_device
 from repro_torch.kernels.queue_scan import fused_admission
 from repro_torch.kernels.ref import admission_mask_dense
 
@@ -62,17 +63,6 @@ _NOT_ARRIVED, _QUEUED, _RUNNING, _DONE = 0, 1, 2, 3
 _NO_RETRY_BACKOFF = (0.0, 2.0, 3600.0)
 
 ADMISSION_SORTS = ("kernel", "dense")
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the card. There is no fallback: with no card the
-    default raises, and the CPU runs only when asked for."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "repro_torch runs on a CUDA device by default and none is "
-            "available; pass device='cpu' to run on the CPU")
-    return dev
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,0 +1,138 @@
+"""Grouped-query self-attention (mirrors :mod:`repro.models.attention`).
+
+Two modes share one softmax core:
+  prefill  full sequence, causal (with or without a KV cache)
+  decode   one query token against a cached KV prefix
+
+``impl="flash"`` routes the full-sequence causal path through the
+hand-written flash-attention kernel
+(:func:`repro_torch.kernels.flash_attention.flash_attention`); ``"xla"`` is
+the plain PyTorch path, named as in the reference. The reference's sharding
+constraints are the identity on one device and are dropped; its MLA and
+cross-attention are not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models.common import Builder, apply_rope, einsum
+
+_NEG = -1e30
+
+
+def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+         causal: bool, q_positions: Optional[torch.Tensor] = None,
+         kv_valid_len: Optional[torch.Tensor] = None, impl: str = "xla",
+         q_chunk: int = -1) -> torch.Tensor:
+    """Grouped scaled-dot-product attention.
+
+    q: [B, Sq, H, Dh]; k, v: [B, Skv, Hkv, Dh] with H % Hkv == 0.
+    ``q_positions``: absolute positions of the queries (causal masking
+    when Sq != Skv, e.g. decode). ``kv_valid_len``: [B] valid cache
+    entries (decode).
+    """
+    B, Sq, H, Dh = q.shape
+    rep = H // k.shape[2]
+    if impl == "flash" and Sq == k.shape[1] and causal and kv_valid_len is None:
+        # the kernel reads [B, S, H, D] in place: no copy unless a
+        # projection returned a strided view
+        return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                               causal=True)
+
+    scale = float(1.0 / torch.sqrt(torch.tensor(Dh, dtype=torch.float32)))
+    qpos = (q_positions if q_positions is not None
+            else torch.arange(Sq, device=q.device))
+
+    if Sq == 1 and kv_valid_len is not None:
+        return _decode_core_grouped(q, k, v, kv_valid_len, scale, rep)
+
+    if rep > 1:
+        k = k.repeat_interleave(rep, dim=2)
+        v = v.repeat_interleave(rep, dim=2)
+
+    # q-chunking bounds the [B, H, q_chunk, Skv] score block
+    if q_chunk < 0:
+        q_chunk = Sq if Sq <= 2048 else max(1024, Sq // 16)
+    if q_chunk == 0 or Sq % q_chunk != 0:
+        q_chunk = Sq
+    outs = [_attn_core(q[:, i:i + q_chunk], k, v, qpos[i:i + q_chunk],
+                       causal, kv_valid_len, scale)
+            for i in range(0, Sq, q_chunk)]
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+
+
+def _decode_core_grouped(q, k, v, kv_valid_len, scale, rep):
+    """Single-token decode, grouped GQA: q [B,1,H,D], k/v [B,S,Hkv,D]."""
+    B, _, H, Dh = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    qg = q.reshape(B, Hkv, rep, Dh)
+    scores = einsum("bgrd,bkgd->bgrk", qg, k).float() * scale
+    kv_idx = torch.arange(Skv, device=q.device)
+    ok = kv_idx[None, :] < kv_valid_len[:, None]             # [B, Skv]
+    scores = scores.masked_fill(~ok[:, None, None], _NEG)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = einsum("bgrk,bkgd->bgrd", probs, v)
+    return out.reshape(B, 1, H, v.shape[-1])
+
+
+def _attn_core(q, k, v, qpos, causal, kv_valid_len, scale):
+    scores = einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    kv_idx = torch.arange(k.shape[1], device=q.device)
+    if causal:
+        mask = qpos[:, None] >= kv_idx[None, :]              # [Sq, Skv]
+        scores = scores.masked_fill(~mask[None, None], _NEG)
+    if kv_valid_len is not None:
+        ok = kv_idx[None, :] < kv_valid_len[:, None]         # [B, Skv]
+        scores = scores.masked_fill(~ok[:, None, None], _NEG)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+# ---------------------------------------------------------------------------
+# GQA self-attention block piece
+# ---------------------------------------------------------------------------
+
+def init_gqa(gen: torch.Generator, d_model: int, n_heads: int, n_kv: int,
+             head_dim: int, dtype, device=None) -> dict:
+    b = Builder(gen, dtype, device)
+    b.dense("wq", (d_model, n_heads, head_dim))
+    b.dense("wk", (d_model, n_kv, head_dim))
+    b.dense("wv", (d_model, n_kv, head_dim))
+    b.dense("wo", (n_heads, head_dim, d_model))
+    return b.done()
+
+
+def apply_gqa(p: dict, x: torch.Tensor, *, positions: torch.Tensor,
+              rope_theta: float = 10000.0, causal: bool = True,
+              cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+              cache_pos: int = 0, impl: str = "xla", q_chunk: int = -1):
+    """x: [B, S, D]. If ``cache`` (k, v of [B, Smax, Hkv, Dh]) is given, the
+    new K/V are written into it at ``cache_pos``, in place (the reference
+    returns updated copies; writing in place keeps one cache on the card),
+    and decode attends the cache prefix. Returns (out, cache)."""
+    q = einsum("bsd,dhk->bshk", x, p["wq"])
+    k = einsum("bsd,dhk->bshk", x, p["wk"])
+    v = einsum("bsd,dhk->bshk", x, p["wv"])
+    q = apply_rope(q, positions, rope_theta)
+    k = apply_rope(k, positions, rope_theta)
+
+    if cache is None:
+        out = sdpa(q, k, v, causal=causal, impl=impl, q_chunk=q_chunk)
+    else:
+        ck, cv = cache
+        S = x.shape[1]
+        ck[:, cache_pos:cache_pos + S] = k.to(ck.dtype)
+        cv[:, cache_pos:cache_pos + S] = v.to(cv.dtype)
+        if S > 1:
+            # prefill (cache_pos == 0): attend the freshly computed K/V
+            out = sdpa(q, k, v, causal=causal, impl=impl, q_chunk=q_chunk)
+        else:
+            valid = torch.full((x.shape[0],), cache_pos + S,
+                               dtype=torch.int32, device=x.device)
+            out = sdpa(q, ck, cv, causal=causal, q_positions=positions,
+                       kv_valid_len=valid, impl=impl, q_chunk=q_chunk)
+    y = einsum("bshk,hkd->bsd", out, p["wo"])
+    return y, cache

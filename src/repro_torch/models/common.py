@@ -1,0 +1,149 @@
+"""Shared model components (mirrors :mod:`repro.models.common`): the
+parameter builder, RMS norm, RoPE, the SwiGLU MLP and the LM head.
+
+Parameters are nested dicts of tensors with the reference's layouts
+(stacked ``[L, ...]`` leaves for repeated blocks, ``wq [D, H, Dh]``, ...),
+so a reference parameter tree converts by copying
+(:mod:`repro_torch.models.weights`). The reference's logical sharding axes
+have no counterpart: the port runs on one card.
+
+Where the reference's ``einsum`` mixes dtypes, JAX promotes; ``torch``
+refuses, so :func:`einsum` promotes first.
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+Params = Dict[str, object]
+
+
+def einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` of two operands after JAX's dtype promotion."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return torch.einsum(eq, a.to(dt), b.to(dt))
+
+
+class Builder:
+    """Collects parameters, drawn from ``gen`` on ``device``, into a dict.
+
+    ``dense`` draws ``normal * scale`` in f32 (``scale`` defaults to
+    ``1/sqrt(fan_in)``, ``fan_in = shape[0]``) and casts to
+    ``param_dtype``, so two builds from one seed in two dtypes hold the
+    same draws, rounded differently."""
+
+    def __init__(self, gen: torch.Generator, param_dtype=torch.float32,
+                 device=None):
+        self.gen = gen
+        self.device = torch.device(device or gen.device)
+        self.param_dtype = param_dtype
+        self.params: Params = {}
+
+    def dense(self, name: str, shape: Tuple[int, ...],
+              scale: Optional[float] = None, zero: bool = False) -> None:
+        if zero:
+            arr = torch.zeros(shape, dtype=self.param_dtype,
+                              device=self.device)
+        else:
+            fan_in = shape[0] if len(shape) >= 2 else shape[-1]
+            s = scale if scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
+            arr = (torch.randn(shape, generator=self.gen, dtype=torch.float32,
+                               device=self.device) * s).to(self.param_dtype)
+        self.params[name] = arr
+
+    def ones(self, name: str, shape: Tuple[int, ...]) -> None:
+        self.params[name] = torch.ones(shape, dtype=self.param_dtype,
+                                       device=self.device)
+
+    def sub(self, name: str, params: Params) -> None:
+        self.params[name] = params
+
+    def done(self) -> Params:
+        return self.params
+
+
+def _stack(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def stack_layers(gen: torch.Generator, n: int,
+                 init_one: Callable[[torch.Generator], Params]) -> Params:
+    """``n`` blocks from ``init_one(gen)``, each leaf stacked along a new
+    leading layer axis."""
+    return _stack([init_one(gen) for _ in range(n)])
+
+
+def layer(params: Params, i: int) -> Params:
+    """Block ``i`` of a stacked parameter tree, as views."""
+    if isinstance(params, dict):
+        return {k: layer(v, i) for k, v in params.items()}
+    return params[i]
+
+
+# ---------------------------------------------------------------------------
+# ops
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """Normalised in f32 and cast back to x's dtype before the gamma
+    multiply, as the reference does."""
+    x32 = x.float()
+    var = (x32 * x32).mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * gamma
+
+
+def rope_freqs(head_dim: int, theta: float = 10000.0,
+               device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0) -> torch.Tensor:
+    """x: [..., S, H, D]; positions: [..., S] int. Half-split rotation (not
+    interleaved), in f32, cast back to x's dtype."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)      # [D/2]
+    ang = positions[..., None].float() * freqs            # [..., S, D/2]
+    cos = torch.cos(ang)[..., None, :]                    # [..., S, 1, D/2]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor) -> torch.Tensor:
+    g = einsum("...d,df->...f", x, w_gate)
+    u = einsum("...d,df->...f", x, w_up)
+    return einsum("...f,fd->...d", F.silu(g) * u, w_down)
+
+
+def init_swiglu(gen: torch.Generator, d_model: int, d_ff: int, dtype,
+                device=None) -> Params:
+    b = Builder(gen, dtype, device)
+    b.dense("w_gate", (d_model, d_ff))
+    b.dense("w_up", (d_model, d_ff))
+    b.dense("w_down", (d_ff, d_model))
+    return b.done()
+
+
+def padded_vocab(v: int, tp: int = 16, align: int = 256) -> int:
+    """The reference's LM-head width: ``v`` rounded up to ``align`` unless
+    it already divides by ``tp``."""
+    return v if v % tp == 0 else -(-v // align) * align
+
+
+def lm_head_logits(x: torch.Tensor, head: torch.Tensor,
+                   vocab_size: int) -> torch.Tensor:
+    """x: [B, S, D] @ head [D, V_pad], padded columns set to -1e30 (so
+    softmax and argmax over the padded width are exact)."""
+    logits = torch.einsum("bsd,dv->bsv", x, head.to(x.dtype))
+    if head.shape[-1] != vocab_size:
+        logits[..., vocab_size:] = -1e30
+    return logits

@@ -1,0 +1,221 @@
+"""The decoder-only LM of the reference's dense plan (mirrors
+:mod:`repro.models.transformer`).
+
+``DecoderLM`` for the plan ``[("dense", L, 0)]``: pre-norm residual blocks
+of GQA self-attention and a SwiGLU MLP, with the one stage's parameters
+stacked ``[L, ...]`` under ``"stage0"``, as in the reference. It serves (``prefill``, ``decode_step``) and runs a full
+forward (``_forward``, no loss). A Python loop over the layers takes the
+place of the reference's ``lax.scan``; ``remat`` and ``stream_unroll`` are
+kept as fields and mean nothing here. The MoE, MLA, VLM, hybrid-SSM, xLSTM
+and encoder-decoder models are not ported yet: :func:`get_model` refuses
+them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import attention as A
+from repro_torch.models.common import (Builder, init_swiglu, layer,
+                                       lm_head_logits, padded_vocab, rms_norm,
+                                       stack_layers, swiglu)
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float16": torch.float16}
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                    # dense | moe | hybrid | ssm | vlm | audio
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0              # 0 -> d_model // n_heads
+    rope_theta: float = 500000.0
+    # --- MoE
+    n_experts: int = 0
+    moe_top_k: int = 1
+    moe_d_ff: int = 0
+    n_shared_experts: int = 0
+    moe_interleave: int = 1        # every k-th layer uses MoE FFN
+    n_dense_layers: int = 0
+    capacity_factor: float = 1.25
+    moe_aux_coef: float = 0.01
+    moe_token_chunks: int = 1      # stream dispatch over token chunks
+    # --- MLA
+    use_mla: bool = False
+    q_rank: int = 1536
+    kv_rank: int = 512
+    d_nope: int = 128
+    d_rope: int = 64
+    d_v: int = 128
+    mla_absorbed: bool = False
+    # --- SSM / hybrid
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    d_conv: int = 4
+    attn_every: int = 0            # hybrid: shared attn after every k ssm blocks
+    ssd_chunk: int = 128
+    # --- VLM
+    cross_every: int = 0           # every k-th layer is a cross-attn layer
+    n_ctx: int = 0                 # context tokens (image patches / frames)
+    d_ctx: int = 0
+    # --- enc-dec
+    n_enc_layers: int = 0
+    n_dec_layers: int = 0
+    mlp_type: str = "swiglu"       # swiglu | gelu (2-matrix, gpt_bigcode)
+    # --- runtime
+    attn_q_chunk: int = -1         # -1 auto; 0 disable (audit mode)
+    stream_unroll: bool = False    # unroll streaming scans (audit mode)
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+    remat: str = "none"            # none | block
+    attn_impl: str = "xla"         # xla | flash
+    ssm_impl: str = "xla"          # xla | mamba_kernel
+    norm_eps: float = 1e-6
+    tie_embeddings: bool = False
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def pdt(self):
+        return DTYPES[self.param_dtype]
+
+    @property
+    def cdt(self):
+        return DTYPES[self.compute_dtype]
+
+
+# ---------------------------------------------------------------------------
+# the block: GQA self-attention + SwiGLU
+# ---------------------------------------------------------------------------
+
+def _init_attn_block(gen, cfg: ModelConfig, device) -> dict:
+    b = Builder(gen, cfg.pdt, device)
+    b.ones("ln1", (cfg.d_model,))
+    b.ones("ln2", (cfg.d_model,))
+    b.sub("attn", A.init_gqa(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                             cfg.hd, cfg.pdt, device))
+    b.sub("ffn", init_swiglu(gen, cfg.d_model, cfg.d_ff, cfg.pdt, device))
+    return b.done()
+
+
+def _apply_ffn(p: dict, x: torch.Tensor) -> torch.Tensor:
+    return swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
+
+
+def _apply_attn_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
+                      positions, cache=None, cache_pos: int = 0):
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    att, new_cache = A.apply_gqa(
+        p["attn"], h, positions=positions, rope_theta=cfg.rope_theta,
+        cache=cache, cache_pos=cache_pos, impl=cfg.attn_impl,
+        q_chunk=cfg.attn_q_chunk)
+    x = x + att
+    h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + _apply_ffn(p["ffn"], h2), new_cache
+
+
+def _check_ported(cfg: ModelConfig) -> None:
+    if cfg.family != "dense" or cfg.n_experts > 0:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family!r} family (moe/vlm plans, hybrid, "
+            "ssm and audio models) is not ported yet; the port serves the "
+            "dense plan")
+    if cfg.use_mla or cfg.mlp_type != "swiglu":
+        raise NotImplementedError(
+            f"{cfg.name}: MLA attention and the gelu MLP are not ported yet")
+
+
+# ---------------------------------------------------------------------------
+# DecoderLM: the dense plan
+# ---------------------------------------------------------------------------
+
+class DecoderLM:
+    def __init__(self, cfg: ModelConfig):
+        _check_ported(cfg)
+        self.cfg = cfg
+
+    # ---------------- init
+    def init(self, seed: int = 0, device=None) -> dict:
+        """Random parameters from ``seed``, drawn on ``device`` (``None``:
+        the card, raising without one)."""
+        c = self.cfg
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        b = Builder(gen, c.pdt, dev)
+        b.dense("embed", (c.vocab_size, c.d_model), scale=0.02)
+        b.ones("ln_f", (c.d_model,))
+        if not c.tie_embeddings:
+            b.dense("lm_head", (c.d_model, padded_vocab(c.vocab_size)))
+        b.sub("stage0", stack_layers(
+            gen, c.n_layers, lambda g: _init_attn_block(g, c, dev)))
+        return b.done()
+
+    def _head(self, params):
+        return (params["embed"].T if self.cfg.tie_embeddings
+                else params["lm_head"])
+
+    # ---------------- forward (no cache)
+    def _forward(self, params, tokens: torch.Tensor) -> torch.Tensor:
+        """Logits [B, S, V_pad] of the full sequence."""
+        c = self.cfg
+        x = params["embed"][tokens].to(c.cdt)
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        for i in range(c.n_layers):
+            x, _ = _apply_attn_block(layer(params["stage0"], i), x, c,
+                                     positions=positions)
+        x = rms_norm(x, params["ln_f"], c.norm_eps)
+        return lm_head_logits(x, self._head(params), c.vocab_size)
+
+    # ---------------- caches
+    def init_cache(self, batch_size: int, max_len: int,
+                   device=None) -> Dict[str, Any]:
+        """Zero K/V caches ``{"stage0": (k, v)}``, each
+        ``[L, B, max_len, Hkv, Dh]`` in the compute dtype."""
+        c = self.cfg
+        shape = (c.n_layers, batch_size, max_len, c.n_kv_heads, c.hd)
+        dev = resolve_device(device)
+        return {"stage0": tuple(torch.zeros(shape, dtype=c.cdt, device=dev)
+                                for _ in range(2))}
+
+    def _with_cache(self, params, tokens: torch.Tensor, cache, pos: int):
+        """Shared prefill/decode path: runs tokens (S >= 1) at cache offset
+        ``pos``, writing the cache in place. Returns the last position's
+        logits [B, 1, V_pad] and the cache."""
+        c = self.cfg
+        x = params["embed"][tokens].to(c.cdt)
+        positions = pos + torch.arange(tokens.shape[1], device=tokens.device)
+        ck, cv = cache["stage0"]
+        for i in range(c.n_layers):
+            x, _ = _apply_attn_block(layer(params["stage0"], i), x, c,
+                                     positions=positions,
+                                     cache=(ck[i], cv[i]), cache_pos=pos)
+        x = rms_norm(x, params["ln_f"], c.norm_eps)
+        logits = lm_head_logits(x[:, -1:], self._head(params), c.vocab_size)
+        return logits, cache
+
+    def prefill(self, params, tokens: torch.Tensor, max_len: int):
+        cache = self.init_cache(tokens.shape[0], max_len, tokens.device)
+        return self._with_cache(params, tokens, cache, 0)
+
+    def decode_step(self, params, tokens: torch.Tensor, cache, pos: int):
+        return self._with_cache(params, tokens, cache, pos)
+
+
+# ---------------------------------------------------------------------------
+
+def get_model(cfg: ModelConfig) -> DecoderLM:
+    """The model of ``cfg``; raises ``NotImplementedError`` for what the
+    port does not have yet."""
+    return DecoderLM(cfg)

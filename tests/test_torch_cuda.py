@@ -1,5 +1,6 @@
-"""The port on the card: each kernel against its plain version, and the
-engine through the kernel against the engine through the plain version.
+"""The port on the card: each kernel against its plain version, the
+engine through the kernel against the engine through the plain version,
+and the serving path through the flash kernel against the plain path.
 
 These tests need a CUDA device and ``nvcc`` and skip elsewhere. They
 import the port only (no JAX, no reference), so they also run where the
@@ -14,9 +15,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import configs
 from repro_torch.core import batching, des, vdes, workload
 from repro_torch.core import model as M
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import queue_scan, ref
+from repro_torch.models.transformer import get_model
 from repro_torch.ops.capacity import MaintenanceWindows
 from repro_torch.ops.failures import FailureModel
 from repro_torch.ops.scenario import Scenario
@@ -88,3 +92,63 @@ def test_kernel_engine_equals_dense_on_card():
             x, y = x.view(torch.int32), y.view(torch.int32)
         assert torch.equal(x, y), k
     assert a["done"][0, :wls[0].n].all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,Hkv,D", [
+    (1, 1, 4, 4, 64), (2, 200, 4, 2, 64), (4, 1024, 32, 8, 64),
+    (1, 256, 8, 1, 128), (2, 130, 4, 4, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_matches_plain_on_card(B, S, H, Hkv, D, dtype, causal):
+    """Within tests/test_kernels.py's tolerances (1e-5 f32, 2e-2 bf16), and
+    one launch counted per call."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(S + H + D)
+    q, k, v = (torch.randn(B, S, h, D, generator=g, device="cuda").to(dtype)
+               for h in (H, Hkv, Hkv))
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    assert got.dtype == dtype
+    assert float((got.float() - want.float()).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+def test_flash_kernel_refuses_what_it_cannot_take():
+    """A CUDA tensor the kernel cannot take raises; nothing falls back."""
+    _need_card()
+    q = torch.randn(1, 8, 2, 96, device="cuda")
+    with pytest.raises(ValueError, match="head dims"):
+        fa.flash_attention(q, q, q)
+    q = torch.randn(1, 8, 2, 64, device="cuda", dtype=torch.float16)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q, q, q)
+    q = torch.randn(1, 2, 8, 64, device="cuda").transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q, q, q)
+
+
+@pytest.mark.cuda
+def test_serving_flash_matches_plain_on_card():
+    """The smoke model at head dim 64 in f32: prefill through the kernel
+    (one launch per layer) equals the plain path's within 1e-4."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for impl in ("flash", "xla"):
+        cfg = configs.get_smoke_config("llama3.2-1b", head_dim=64,
+                                       attn_impl=impl)
+        model = get_model(cfg)
+        params = model.init(0)
+        toks = torch.randint(0, cfg.vocab_size, (2, 100), device="cuda",
+                             generator=torch.Generator(device="cuda")
+                             .manual_seed(1))
+        before = fa.flash_attention.launches
+        out[impl], _ = model.prefill(params, toks, max_len=101)
+        launched = fa.flash_attention.launches - before
+        assert launched == (cfg.n_layers if impl == "flash" else 0)
+    assert float((out["flash"] - out["xla"]).abs().max()) <= 1e-4

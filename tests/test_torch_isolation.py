@@ -1,9 +1,10 @@
 """The port stands alone: no JAX, no reference module, no silent CPU.
 
 An AST walk finds no ``jax`` and no ``repro`` import in ``src/repro_torch``,
-``chip_smoke.py`` or ``tools/``; a fresh interpreter runs the port without
-loading ``jax``; with no card the entry points raise unless the caller asks
-for the CPU; the arguments of stages that are not ported yet are refused.
+``chip_smoke.py`` or ``tools/``; a fresh interpreter runs the port (the wave
+loop, and the serving path) without loading ``jax``; with no card the entry
+points raise unless the caller asks for the CPU; the arguments of stages
+and the model families that are not ported yet are refused.
 """
 import ast
 import os
@@ -15,7 +16,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import configs
 from repro_torch.core import vdes, workload
+from repro_torch.launch.serve import run_serving
+from repro_torch.models.transformer import DecoderLM, get_model
+from repro_torch.serving.engine import ServeConfig, ServingEngine
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -40,8 +45,23 @@ def test_no_jax_or_reference_imports(path):
         assert top != "repro", f"{path}: imports {name}"
 
 
+NO_REFERENCE = (
+    "assert 'jax' not in sys.modules, 'jax was imported'\n"
+    "assert not any(m == 'repro' or m.startswith('repro.')\n"
+    "               for m in sys.modules), 'repro was imported'\n"
+    "print('ok')\n")
+
+
+def run_fresh(code):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "ok"
+
+
 def test_cpu_run_leaves_jax_unloaded():
-    code = (
+    run_fresh(
         "import sys\n"
         "import numpy as np\n"
         "from repro_torch.core import batching, vdes, workload\n"
@@ -50,16 +70,17 @@ def test_cpu_run_leaves_jax_unloaded():
         "cols = batching.pad_workloads([wl, wl], M.PlatformConfig())\n"
         "out = vdes.simulate_ensemble(**batching.to_tensors(cols, 'cpu'),\n"
         "    capacities=np.array([[4, 2], [8, 4]]), device='cpu')\n"
-        "assert bool(out['done'].all()), out['done']\n"
-        "assert 'jax' not in sys.modules, 'jax was imported'\n"
-        "assert not any(m == 'repro' or m.startswith('repro.')\n"
-        "               for m in sys.modules), 'repro was imported'\n"
-        "print('ok')\n")
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
-                          capture_output=True, text=True, timeout=300)
-    assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip() == "ok"
+        "assert bool(out['done'].all()), out['done']\n" + NO_REFERENCE)
+
+
+def test_cpu_serving_run_leaves_jax_unloaded():
+    run_fresh(
+        "import sys\n"
+        "from repro_torch.launch.serve import run_serving\n"
+        "r = run_serving('llama3.2-1b', batch=2, prompt_len=8, new_tokens=3,\n"
+        "                smoke=True, device='cpu')\n"
+        "assert r['all_in_vocab'] and r['logits_finite'], r\n"
+        "assert r['generated_shape'] == [2, 3], r\n" + NO_REFERENCE)
 
 
 def test_no_card_raises_unless_cpu_is_asked_for(monkeypatch):
@@ -74,6 +95,34 @@ def test_no_card_raises_unless_cpu_is_asked_for(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         vdes.VWorkload.from_workload(wl)
     assert vdes.simulate_ensemble(*args, device="cpu")["done"].all()
+
+
+def test_serving_without_card_raises_unless_cpu_is_asked_for(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = configs.get_smoke_config("llama3.2-1b")
+    kw = dict(batch=1, prompt_len=4, new_tokens=2, smoke=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_serving("llama3.2-1b", **kw)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingEngine(cfg, ServeConfig(batch=1, max_len=8))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DecoderLM(cfg).init(0)
+    assert run_serving("llama3.2-1b", device="cpu", **kw)["all_in_vocab"]
+
+
+@pytest.mark.parametrize("overrides", [
+    dict(family="moe", n_experts=4), dict(family="vlm", cross_every=2),
+    dict(family="hybrid"), dict(family="ssm"), dict(family="audio"),
+    dict(use_mla=True), dict(mlp_type="gelu")])
+def test_unported_models_are_refused(overrides):
+    with pytest.raises(NotImplementedError):
+        get_model(configs.get_smoke_config("llama3.2-1b", **overrides))
+
+
+def test_unported_archs_are_refused():
+    assert configs.ARCHS == ["llama3.2-1b"]
+    with pytest.raises(ValueError, match="unported"):
+        configs.get_config("zamba2-1.2b")
 
 
 def test_unported_arguments_are_refused():
