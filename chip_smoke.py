@@ -39,6 +39,23 @@ Phases (any failure exits non-zero, with no result line):
    inputs from layer 0 of the bf16 prefill, the kernel, its plain version
    and ``scaled_dot_product_attention`` are timed with CUDA events, beside
    the bound.
+7. The GMM kernel against its plain PyTorch version on the card over a
+   grid of N, D and K, to ``GMM_ATOL`` plus ``GMM_RTOL`` of |logpdf|.
+8. The paper's fit -> synthesize -> simulate path (§V-A, the path of
+   ``repro.launch.simulate`` and of ``benchmarks/common.py``'s
+   ``fitted_params``): 14 days of ground truth (seed 123, 27,948
+   pipelines) fitted on the card by ``fit_simulation_params`` with its
+   defaults, then ``run_experiment`` of 32 synthesized one-day replicas as
+   one ensemble. Checks: 550 kernel launches in the fit (one per EM
+   iteration of its 12 GMMs), no NaN in any GMM, the asset GMM's mean
+   log-likelihood on the ground truth not below the committed
+   ``artifacts/pipesim_params.npz`` GMM's by more than ``FIT_LL_MARGIN``,
+   every synthesized pipeline finished, and the reference CLI's summary
+   keys. Prints the fit's wall split into EM on the card and the host, the
+   synthesis wall per replica, and the ensemble's wall and pipelines/s. On
+   the asset E-step inputs kept from the fit, the kernel, its plain version
+   and ``MultivariateNormal.log_prob`` are timed with CUDA events, beside
+   the bound.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -72,7 +89,7 @@ PEAK_OPS_S = 67e12
 # attention's products at their type's peak: bf16 on the tensor cores,
 # f32 (no TF32) on the CUDA cores
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": PEAK_OPS_S}
-KERNELS = ("fused_admission", "flash_attention")
+KERNELS = ("fused_admission", "flash_attention", "gmm_logpdf")
 # the flash kernel-vs-plain grid, and tests/test_kernels.py's tolerances
 FLASH_B, FLASH_S = (1, 4), (1, 64, 128, 256, 1024, 2048, 200)
 FLASH_HEADS, FLASH_D = ((4, 4), (4, 2), (8, 1), (32, 8)), (64, 128)
@@ -84,6 +101,25 @@ SERVE_ARCH, SERVE_B, SERVE_PROMPT, SERVE_NEW, SERVE_SEED = (
 # the two paths differ only in attention's summation order (~1e-6 relative
 # per layer in f32); a wrong mask, head or scale moves logits by O(0.1)
 TWIN_ATOL = 1e-3
+# the GMM kernel-vs-plain grid; tests/test_kernels.py's atol, plus a
+# relative part for |logpdf| far above 1 (about 5e5 at D = 128 with far
+# components): the two sum the D terms of each row in another order, about
+# D f32 roundings of the larger terms
+GMM_N, GMM_D, GMM_K = (1, 255, 1024, 27948), (1, 3, 8, 32, 128), \
+    (1, 3, 6, 50, 64)
+GMM_ATOL, GMM_RTOL = 5e-4, 2e-5
+# the fit path: benchmarks/common.py's fitted_params(days=14, seed=123)
+FIT_DAYS, FIT_SEED, FIT_LAUNCHES = 14.0, 123, 550
+ARTIFACT = ROOT / "artifacts" / "pipesim_params.npz"
+# EM from other k-means++ draws ends in other local optima; the CPU twins
+# see up to 0.05 nats between the packages' fits
+FIT_LL_MARGIN = 0.1
+SYN_REPLICAS, SYN_SEED = 32, 0
+# the reference CLI's summary keys for a replica ensemble without a
+# scenario (repro/core/engines.py::_aggregate_replicas)
+REF_ENSEMBLE_KEYS = {"mean_wait_s", "p95_wait_s", "wait_ci95_halfwidth",
+                     "wall_s", "n_replicas"}
+GMM_KEEP_EVERY = 10      # keep every 10th asset E-step input of the fit
 
 
 def log(*a):
@@ -632,6 +668,238 @@ def time_flash(torch, flash_attention, kept):
                 library_ms=library_ms)
 
 
+# ------------------------------------------------------------ phase 7
+
+def gmm_case(torch, gen, N, D, K):
+    """Log-scale-like data and well-conditioned factors (diagonal in
+    [0.5, 2]), so |logpdf| reaches about 5e5 at D = 128."""
+    from repro_torch.core.gmm import inverse_chol
+    x = torch.randn(N, D, generator=gen, device="cuda") * 2.0 + 1.0
+    mu = torch.randn(K, D, generator=gen, device="cuda") * 2.0
+    L = torch.randn(K, D, D, generator=gen, device="cuda").tril(-1) * 0.2
+    L = L + torch.diag_embed(
+        torch.rand(K, D, generator=gen, device="cuda") * 1.5 + 0.5)
+    lw = torch.log_softmax(torch.randn(K, generator=gen, device="cuda"), 0)
+    return x, mu, inverse_chol(L).contiguous(), lw
+
+
+def gmm_err(torch, got, want, where):
+    """max |got - want|; raises past GMM_ATOL + GMM_RTOL |want|."""
+    diff = (got - want).abs()
+    if not bool((diff <= GMM_ATOL + GMM_RTOL * want.abs()).all()):
+        raise AssertionError(f"gmm_logpdf differs from its plain version by "
+                             f"{float(diff.max())} {where}")
+    return float(diff.max())
+
+
+def phase_gmm_grid(torch, gmm_logpdf):
+    from repro_torch.kernels.ref import gmm_logpdf_ref
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    worst, top, n_cases = 0.0, 0.0, 0
+    t0 = time.perf_counter()
+    for N in GMM_N:
+        for D in GMM_D:
+            for K in GMM_K:
+                args = gmm_case(torch, gen, N, D, K)
+                want = gmm_logpdf_ref(*args)
+                worst = max(worst, gmm_err(
+                    torch, gmm_logpdf(*args), want,
+                    f"at N={N} D={D} K={K}"))
+                top = max(top, float(want.abs().max()))
+                n_cases += 1
+    torch.cuda.synchronize()
+    log(f"[7] gmm_logpdf == gmm_logpdf_ref on {n_cases} cases (N in {GMM_N}, "
+        f"D in {GMM_D}, K in {GMM_K}) in {time.perf_counter() - t0:.2f} s: "
+        f"max |diff| {worst:.3g} (tol {GMM_ATOL} + {GMM_RTOL} |logpdf|; "
+        f"max |logpdf| {top:.4g})")
+    return worst
+
+
+# ------------------------------------------------------------ phase 8
+
+class GmmTap:
+    """Stands in for ``gmm_logpdf`` inside ``core/gmm.py``: launches it and
+    keeps a copy of every ``every``-th asset E-step's inputs (D = 3)."""
+
+    def __init__(self, kernel, every):
+        self.kernel, self.every = kernel, every
+        self.asset_calls, self.kept = 0, []
+
+    def __call__(self, x, means, inv_chol, log_w):
+        if x.shape[1] == 3:
+            if self.asset_calls % self.every == 0:
+                self.kept.append([t.clone() for t in
+                                  (x, means, inv_chol, log_w)])
+            self.asset_calls += 1
+        return self.kernel(x, means, inv_chol, log_w)
+
+
+class Stopwatch:
+    """Wraps a function: accumulates its wall time, synchronizing the card
+    before and after so the time is the call's own."""
+
+    def __init__(self, torch, fn):
+        self.torch, self.fn, self.s, self.calls = torch, fn, 0.0, 0
+
+    def __call__(self, *a, **k):
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.fn(*a, **k)
+        self.torch.cuda.synchronize()
+        self.s += time.perf_counter() - t0
+        self.calls += 1
+        return out
+
+
+def gmm_finite(torch, g) -> bool:
+    return all(bool(torch.isfinite(t).all())
+               for t in (g.log_weights, g.means, g.chol))
+
+
+def phase_fit_path(torch, gmm_logpdf, fused_admission, flash_attention):
+    """fit -> synthesize -> simulate on the card, through the kernels."""
+    from repro_torch.core import engines, experiment, fitting
+    from repro_torch.core import gmm as gmm_mod
+    from repro_torch.core import vdes
+    from repro_torch.core.workload import generate_empirical_workload
+    t0 = time.perf_counter()
+    wl = generate_empirical_workload(seed=FIT_SEED,
+                                     horizon_s=FIT_DAYS * 86400.0)
+    gen_s = time.perf_counter() - t0
+    tap = GmmTap(gmm_logpdf, GMM_KEEP_EVERY)
+    em = Stopwatch(torch, fitting.fit_gmm)
+    syn = Stopwatch(torch, engines.synthesize_workload)
+    ens = Stopwatch(torch, vdes.simulate_ensemble)
+    gmm_mod.gmm_logpdf, fitting.fit_gmm = tap, em
+    engines.synthesize_workload, vdes.simulate_ensemble = syn, ens
+    torch.cuda.synchronize()
+    gmm_logpdf.launches = fused_admission.launches = 0
+    flash_attention.launches = 0
+    try:
+        t0 = time.perf_counter()
+        params = fitting.fit_simulation_params(wl, device="cuda")
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        fit_launches = gmm_logpdf.launches
+        spec = experiment.ExperimentSpec(
+            name="chip", horizon_s=86400.0, n_replicas=SYN_REPLICAS,
+            seed=SYN_SEED)
+        t0 = time.perf_counter()
+        res = experiment.run_experiment(spec, params, device="cuda")
+        run_s = time.perf_counter() - t0
+    finally:
+        gmm_mod.gmm_logpdf, fitting.fit_gmm = gmm_logpdf, em.fn
+        engines.synthesize_workload, vdes.simulate_ensemble = syn.fn, ens.fn
+    launches = gmm_logpdf.launches
+    adm_launches = fused_admission.launches
+    if fit_launches != FIT_LAUNCHES or launches != FIT_LAUNCHES:
+        raise AssertionError(f"gmm_logpdf launched {fit_launches} times in "
+                             f"the fit ({launches} on the whole path), not "
+                             f"{FIT_LAUNCHES}")
+    if adm_launches <= 0 or flash_attention.launches:
+        raise AssertionError(f"the ensemble launched fused_admission "
+                             f"{adm_launches} and flash_attention "
+                             f"{flash_attention.launches} times")
+    bad = [k for k, g in params.gmms().items() if not gmm_finite(torch, g)]
+    if bad:
+        raise AssertionError(f"NaN or inf in the fitted GMMs {bad}")
+    X = torch.as_tensor(fitting.asset_matrix(wl), dtype=torch.float32,
+                        device="cuda")
+    art = fitting.SimulationParams.load(str(ARTIFACT), device="cuda")
+    ll = float(params.asset_gmm.log_prob(X).mean())
+    ll_art = float(art.asset_gmm.log_prob(X).mean())
+    if not ll >= ll_art - FIT_LL_MARGIN:
+        raise AssertionError(f"asset GMM mean log-likelihood {ll} is below "
+                             f"the committed fit's {ll_art} by more than "
+                             f"{FIT_LL_MARGIN}")
+    log(f"[8] fit on {FIT_DAYS:g} days of ground truth (seed {FIT_SEED}: "
+        f"{wl.n} pipelines, {X.shape[0]} assets kept; generated in "
+        f"{gen_s:.2f} s): wall {fit_s:.3f} s = EM on the card {em.s:.3f} s "
+        f"({em.calls} GMMs) + host {fit_s - em.s:.3f} s; gmm_logpdf "
+        f"launches {fit_launches}; no NaN in the 12 GMMs; asset GMM (K="
+        f"{params.asset_gmm.n_components}) mean log-likelihood {ll:.6f} vs "
+        f"the committed fit's {ll_art:.6f} (margin {FIT_LL_MARGIN})")
+
+    n_syn = sum(s["n_pipelines"] for s in res.replica_summaries)
+    if set(res.summary) != REF_ENSEMBLE_KEYS:
+        raise AssertionError(f"summary keys {sorted(res.summary)} != the "
+                             f"reference CLI's {sorted(REF_ENSEMBLE_KEYS)}")
+    rec = res.records
+    if not (np.isfinite(rec.finish).all() and np.isfinite(rec.start).all()
+            and (rec.finish >= rec.start).all()):
+        raise AssertionError("a synthesized pipeline did not finish")
+    if syn.calls != SYN_REPLICAS or ens.calls != 1:
+        raise AssertionError(f"{syn.calls} syntheses and {ens.calls} "
+                             "ensemble calls")
+    log(f"[8] run_experiment({SYN_REPLICAS} synthesized one-day replicas, "
+        f"seed {SYN_SEED}) on the card: {n_syn} pipelines, {len(rec.start)} "
+        f"tasks, all finished; synthesis {syn.s:.3f} s ({syn.s / syn.calls:.4f}"
+        f" s per replica-day); ensemble {ens.s:.3f} s ({n_syn / ens.s:.1f} "
+        f"pipelines/s; fused_admission launches {adm_launches}); "
+        f"run_experiment wall {run_s:.3f} s; summary: "
+        f"{json.dumps(res.summary)}")
+    return dict(launches=launches, fit_s=fit_s, em_s=em.s, syn_s=syn.s,
+                ens_s=ens.s, n_syn=n_syn), tap.kept
+
+
+def gmm_bound(x, means):
+    """Least time for one call on these inputs, as ``(bytes_ms, ops_ms)``.
+    Bytes: x, the means, factors and weights read once, the [N, K] output
+    written once. Operations: per (row, component) D subtractions, the
+    D x D product (2 D^2), D squares and adds, and 4 for the weight, the
+    constant and the log-determinant, on the CUDA cores' f32 rate."""
+    N, D = x.shape
+    K = means.shape[0]
+    nbytes = 4 * (N * D + K * D + K * D * D + K + N * K)
+    ops = N * K * (2 * D * D + 3 * D + 4)
+    return nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_OPS_S * 1e3
+
+
+def time_gmm(torch, gmm_logpdf, kept):
+    """On each kept asset E-step input of the fit: the kernel and the
+    ``MultivariateNormal`` yardstick against the plain version, then the
+    three timed with CUDA events, and the bound. Returns the means over
+    the inputs and the largest difference."""
+    from repro_torch.kernels.ref import gmm_logpdf_ref
+    rows, err, lib_err = [], 0.0, 0.0
+    for x, means, inv, lw in kept:
+        eye = torch.eye(x.shape[1], device="cuda").expand_as(inv)
+        chol = torch.linalg.solve_triangular(inv, eye, upper=False)
+
+        def library():
+            mvn = torch.distributions.MultivariateNormal(
+                means, scale_tril=chol, validate_args=False)
+            return mvn.log_prob(x[:, None]) + lw
+
+        want = gmm_logpdf_ref(x, means, inv, lw)
+        err = max(err, gmm_err(torch, gmm_logpdf(x, means, inv, lw), want,
+                               "on a kept asset E-step input"))
+        lib_err = max(lib_err, float((library() - want).abs().max()))
+        bytes_ms, ops_ms = gmm_bound(x, means)
+        rows.append(dict(
+            ms=cuda_ms(lambda: gmm_logpdf(x, means, inv, lw), iters=200),
+            plain_ms=cuda_ms(lambda: gmm_logpdf_ref(x, means, inv, lw),
+                             iters=100),
+            library_ms=cuda_ms(library, iters=100),
+            bytes_ms=bytes_ms, ops_ms=ops_ms))
+    mean = {k: float(np.mean([r[k] for r in rows]))
+            for k in ("ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms")}
+    bound_ms = max(mean["bytes_ms"], mean["ops_ms"])
+    x, means = kept[0][0], kept[0][1]
+    log(f"[8] gmm_logpdf on {len(rows)} asset E-step inputs kept from the "
+        f"fit (x {list(x.shape)}, K={means.shape[0]}): kernel "
+        f"{mean['ms']:.6f} ms, plain {mean['plain_ms']:.6f} ms, "
+        f"MultivariateNormal.log_prob {mean['library_ms']:.6f} ms, bound "
+        f"{bound_ms:.6f} ms (bytes {mean['bytes_ms']:.6f}, operations "
+        f"{mean['ops_ms']:.6f}); max |diff| to plain: kernel {err:.3g}, "
+        f"MultivariateNormal {lib_err:.3g}")
+    return dict(max_abs_err=err, ms=mean["ms"], plain_ms=mean["plain_ms"],
+                bound_ms=bound_ms,
+                bound_by="bytes" if mean["bytes_ms"] >= mean["ops_ms"]
+                else "operations",
+                library_ms=mean["library_ms"])
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -639,6 +907,7 @@ def main() -> int:
         return 2
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.gmm_logpdf import gmm_logpdf
     from repro_torch.kernels.queue_scan import fused_admission
     from repro_torch.kernels.ref import admission_mask_dense
 
@@ -676,6 +945,14 @@ def main() -> int:
         f"ms = {100 * flash_launches * frec['ms'] / (serve['prefill_s'] * 1e3):.2f}"
         " % of the time to first token")
 
+    gmm_grid_err = phase_gmm_grid(torch, gmm_logpdf)
+    fit, kept_gmm = phase_fit_path(torch, gmm_logpdf, fused_admission,
+                                   flash_attention)
+    grec = time_gmm(torch, gmm_logpdf, kept_gmm)
+    log(f"[8] gmm_logpdf: {fit['launches']} launches x {grec['ms']:.6f} ms "
+        f"= {100 * fit['launches'] * grec['ms'] / (fit['em_s'] * 1e3):.2f} % "
+        "of the EM's wall on the card")
+
     kernels = [dict(
         name="fused_admission", route="cuda",
         source="src/repro_torch/kernels/csrc/fused_admission.cu",
@@ -689,7 +966,14 @@ def main() -> int:
         launches=flash_launches,
         max_abs_err=max(flash_grid_err, frec["max_abs_err"]),
         ms=frec["ms"], plain_ms=frec["plain_ms"], bound_ms=frec["bound_ms"],
-        bound_by=frec["bound_by"], library_ms=frec["library_ms"])]
+        bound_by=frec["bound_by"], library_ms=frec["library_ms"]), dict(
+        name="gmm_logpdf", route="cuda",
+        source="src/repro_torch/kernels/csrc/gmm_logpdf.cu",
+        replaces="src/repro/kernels/gmm_logpdf.py:21",
+        launches=fit["launches"],
+        max_abs_err=max(gmm_grid_err, grec["max_abs_err"]),
+        ms=grec["ms"], plain_ms=grec["plain_ms"], bound_ms=grec["bound_ms"],
+        bound_by=grec["bound_by"], library_ms=grec["library_ms"])]
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card_line())

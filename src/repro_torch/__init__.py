@@ -14,8 +14,12 @@ summaries) and the admission kernel
 (:mod:`repro_torch.kernels.queue_scan`); the LM substrate's serving path
 for the dense plan (:mod:`repro_torch.models`, :mod:`repro_torch.configs`,
 :mod:`repro_torch.serving`, :mod:`repro_torch.launch.serve`) and its
-flash-attention kernel (:mod:`repro_torch.kernels.flash_attention`). Both
-kernels are CUDA for ``sm_90a``.
+flash-attention kernel (:mod:`repro_torch.kernels.flash_attention`); the
+paper's fit -> synthesize -> simulate path (:mod:`repro_torch.core.stats`,
+``gmm``, ``fitting``, ``synthesizer``, ``engines``, ``experiment`` and
+:mod:`repro_torch.launch.simulate`) and its GMM E-step kernel
+(:mod:`repro_torch.kernels.gmm_logpdf`). All three kernels are CUDA for
+``sm_90a``.
 
 Entry points run on the card (``device=None`` means ``"cuda"``) and raise
 when there is none; the CPU is used only when the caller passes

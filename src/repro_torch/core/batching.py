@@ -166,12 +166,19 @@ def to_tensors(cols: dict, device) -> dict:
 
 
 def batch_trace(out: dict, idx: int, wl: M.Workload,
-                capacities: np.ndarray) -> M.SimTrace:
+                capacities: np.ndarray,
+                with_scenario: bool = True) -> M.SimTrace:
     """Slice entry ``idx`` of a ``simulate_ensemble`` result back into a
-    numpy :class:`SimTrace` for ``wl`` (dropping padded pipelines)."""
+    numpy :class:`SimTrace` for ``wl`` (dropping padded pipelines). With
+    ``with_scenario=False`` the attempt/completion columns are omitted so
+    the trace is indistinguishable from a plain single-replica run."""
     n = wl.n
 
     def sl(k, dtype=np.float64):
+        if not with_scenario and k not in ("start", "finish", "ready"):
+            return None
+        if k not in out:
+            return None
         return out[k][idx][:n].cpu().numpy().astype(dtype)
 
     return M.SimTrace(
@@ -180,7 +187,6 @@ def batch_trace(out: dict, idx: int, wl: M.Workload,
         task_type=wl.task_type, arrival=np.asarray(wl.arrival, np.float64),
         capacities=np.asarray(capacities, np.int64),
         attempts=sl("attempts", np.int64), completed=sl("done", bool),
-        att_start=sl("att_start") if "att_start" in out else None,
-        att_finish=sl("att_finish") if "att_finish" in out else None,
+        att_start=sl("att_start"), att_finish=sl("att_finish"),
         waves=int(out["waves"][idx]),
     )

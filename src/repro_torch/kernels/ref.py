@@ -75,3 +75,31 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         s = torch.where(mask, s, torch.tensor(-1e30, device=q.device))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+
+
+_LOG2PI = 1.8378770664093453
+
+
+def gmm_logpdf_ref(x: torch.Tensor, means: torch.Tensor,
+                   inv_chol: torch.Tensor,
+                   log_w: torch.Tensor) -> torch.Tensor:
+    """Per-component GMM log densities plus log weights, ``[N, K]`` f32
+    (:func:`repro.kernels.ref.gmm_logpdf_ref`).
+
+    ``x [N, D]``, ``means [K, D]``, ``inv_chol [K, D, D]`` (the inverse of
+    each component's lower Cholesky factor), ``log_w [K]``:
+
+        out[n, k] = log_w[k] - 0.5 (||inv_chol[k] (x[n] - means[k])||^2
+                                    + D log 2 pi) - logdet[k],
+        logdet[k] = -sum_i log |inv_chol[k, i, i]|
+
+    The full ``D x D`` product, as the reference's kernel computes it."""
+    x = x.float()
+    diff = x[:, None, :] - means.float()[None]                   # [N, K, D]
+    y = torch.einsum("kij,nkj->nki", inv_chol.float(), diff)
+    maha = torch.sum(y * y, dim=-1)
+    logdet = -torch.sum(torch.log(torch.abs(
+        torch.diagonal(inv_chol.float(), dim1=-2, dim2=-1))), dim=-1)
+    d = x.shape[-1]
+    return (log_w.float()[None] - 0.5 * (maha + d * _LOG2PI)
+            - logdet[None])

@@ -1,6 +1,7 @@
 """The port on the card: each kernel against its plain version, the
 engine through the kernel against the engine through the plain version,
-and the serving path through the flash kernel against the plain path.
+the serving path through the flash kernel against the plain path, and the
+EM through the GMM kernel with no host sync per iteration.
 
 These tests need a CUDA device and ``nvcc`` and skip elsewhere. They
 import the port only (no JAX, no reference), so they also run where the
@@ -16,9 +17,10 @@ import pytest
 import torch
 
 from repro_torch import configs
-from repro_torch.core import batching, des, vdes, workload
+from repro_torch.core import batching, des, gmm, vdes, workload
 from repro_torch.core import model as M
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import gmm_logpdf as gl
 from repro_torch.kernels import queue_scan, ref
 from repro_torch.models.transformer import get_model
 from repro_torch.ops.capacity import MaintenanceWindows
@@ -152,3 +154,74 @@ def test_serving_flash_matches_plain_on_card():
         launched = fa.flash_attention.launches - before
         assert launched == (cfg.n_layers if impl == "flash" else 0)
     assert float((out["flash"] - out["xla"]).abs().max()) <= 1e-4
+
+
+def gmm_case(N, D, K, seed=0):
+    """Log-scale-like data and well-conditioned factors (diagonal in
+    [0.5, 2]): |logpdf| far above 1 at D = 128."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(N, D, generator=g, device="cuda") * 2.0 + 1.0
+    mu = torch.randn(K, D, generator=g, device="cuda") * 2.0
+    L = torch.randn(K, D, D, generator=g, device="cuda").tril(-1) * 0.2
+    L = L + torch.diag_embed(
+        torch.rand(K, D, generator=g, device="cuda") * 1.5 + 0.5)
+    inv = gmm.inverse_chol(L).contiguous()
+    lw = torch.log_softmax(torch.randn(K, generator=g, device="cuda"), 0)
+    return x, mu, inv, lw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,D,K", [(1, 1, 1), (255, 3, 50), (1024, 1, 6),
+                                   (300, 8, 8), (2000, 32, 64),
+                                   (129, 128, 64)])
+def test_gmm_kernel_matches_plain_on_card(N, D, K):
+    """Within atol 5e-4 (tests/test_kernels.py's) plus 2e-5 of |logpdf|
+    (the D-term sums run in another order), and one launch per call."""
+    _need_card()
+    args = gmm_case(N, D, K, seed=N + D + K)
+    before = gl.gmm_logpdf.launches
+    got = gl.gmm_logpdf(*args)
+    torch.cuda.synchronize()
+    assert gl.gmm_logpdf.launches == before + 1
+    want = ref.gmm_logpdf_ref(*args)
+    assert got.shape == (N, K)
+    assert bool(((got - want).abs() <= 5e-4 + 2e-5 * want.abs()).all())
+
+
+@pytest.mark.cuda
+def test_gmm_kernel_refuses_what_it_cannot_take():
+    """K > 64 or D > 128 on CUDA tensors raise; nothing falls back."""
+    _need_card()
+    for N, D, K in ((16, 3, 65), (16, 129, 2)):
+        args = gmm_case(N, D, K)
+        with pytest.raises(ValueError, match="K <= 64"):
+            gl.gmm_logpdf(*args)
+    x, mu, inv, lw = gmm_case(16, 3, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        gl.gmm_logpdf(x, mu, inv.transpose(1, 2), lw)
+
+
+@pytest.mark.cuda
+def test_em_on_card_makes_no_host_sync():
+    """Every EM iteration launches the kernel once and nothing in the loop
+    waits for the card (CUDA sync debug mode raises on a synchronizing
+    op); the fit matches the same EM on the CPU within 1e-3."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.cat([torch.randn(3000, 3, generator=g, device="cuda") - 2.0,
+                   torch.randn(3000, 3, generator=g, device="cuda") * 0.5
+                   + 2.0])
+    means0 = gmm.kmeanspp_init(g, x, 8)
+    torch.cuda.synchronize()
+    before = gl.gmm_logpdf.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fit = gmm.em(x, means0, 20)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert gl.gmm_logpdf.launches == before + 20
+    cpu = gmm.em(x.cpu(), means0.cpu(), 20)
+    for name in ("log_weights", "means", "chol"):
+        a, b = getattr(fit, name).cpu(), getattr(cpu, name)
+        assert torch.isfinite(a).all()
+        assert torch.allclose(a, b, rtol=1e-3, atol=1e-3), name

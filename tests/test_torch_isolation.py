@@ -2,7 +2,8 @@
 
 An AST walk finds no ``jax`` and no ``repro`` import in ``src/repro_torch``,
 ``chip_smoke.py`` or ``tools/``; a fresh interpreter runs the port (the wave
-loop, and the serving path) without loading ``jax``; with no card the entry
+loop, the serving path, and the fit -> synthesize -> simulate path) without
+loading ``jax``; with no card the entry
 points raise unless the caller asks for the CPU; the arguments of stages
 and the model families that are not ported yet are refused.
 """
@@ -17,12 +18,14 @@ import pytest
 import torch
 
 from repro_torch import configs
-from repro_torch.core import vdes, workload
+from repro_torch.core import experiment, fitting, vdes, workload
+from repro_torch.launch import simulate
 from repro_torch.launch.serve import run_serving
 from repro_torch.models.transformer import DecoderLM, get_model
 from repro_torch.serving.engine import ServeConfig, ServingEngine
 
 ROOT = Path(__file__).resolve().parents[1]
+ARTIFACT = ROOT / "artifacts" / "pipesim_params.npz"
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
 
@@ -81,6 +84,37 @@ def test_cpu_serving_run_leaves_jax_unloaded():
         "                smoke=True, device='cpu')\n"
         "assert r['all_in_vocab'] and r['logits_finite'], r\n"
         "assert r['generated_shape'] == [2, 3], r\n" + NO_REFERENCE)
+
+
+def test_cpu_fit_path_leaves_jax_unloaded():
+    run_fresh(
+        "import sys\n"
+        "from repro_torch.core import experiment, fitting, workload\n"
+        "wl = workload.generate_empirical_workload(1, 0.3 * 86400.0)\n"
+        "p = fitting.fit_simulation_params(wl, asset_components=4,\n"
+        "    em_iters=3, interarrival_families=(0,), device='cpu')\n"
+        "res = experiment.run_experiment(experiment.ExperimentSpec(\n"
+        "    'x', horizon_s=1800.0, n_replicas=2), p, device='cpu')\n"
+        "assert res.summary['n_replicas'] == 2, res.summary\n"
+        + NO_REFERENCE)
+
+
+def test_fit_path_without_card_raises_unless_cpu_is_asked_for(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    wl = workload.generate_empirical_workload(0, 1800.0)
+    spec = experiment.ExperimentSpec("x", horizon_s=1800.0, workload=wl)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fitting.fit_simulation_params(wl)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fitting.SimulationParams.load(str(ARTIFACT))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        experiment.run_experiment(spec)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        experiment.Sweep(spec, {"policy": [0, 2]}).run()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        simulate.main(["--params-cache", str(ARTIFACT)])
+    assert experiment.run_experiment(spec, device="cpu").summary[
+        "n_pipelines"] == wl.n
 
 
 def test_no_card_raises_unless_cpu_is_asked_for(monkeypatch):
