@@ -56,6 +56,37 @@ Phases (any failure exits non-zero, with no result line):
    the asset E-step inputs kept from the fit, the kernel, its plain version
    and ``MultivariateNormal.log_prob`` are timed with CUDA events, beside
    the bound.
+9. The SSD kernel (``mamba2_scan``) against its plain PyTorch version on
+   the card over a grid of S, H, P, N, chunk, f32/bf16 and B, to
+   ``SSD_ATOL`` plus ``SSD_RTOL`` of |y|, and against the O(S) recurrence
+   on the small cases.
+10. The hybrid's full-sequence forward: ``loss_fn`` of zamba2-1.2b at full
+    width in bf16 (random weights from a seed) on 2 x 4,096 tokens, through
+    the SSD kernel in all 38 Mamba blocks and the flash kernel in the 6
+    shared-attention applications, cold then warm. Checks: a finite loss
+    and exactly 38 + 6 launches per forward. Twin: the same
+    model in f32 (no TF32) on 1 x 1,024 tokens through the kernel and
+    through the plain chunked scan, logits within ``HYB_TWIN_LOGIT_ATOL``
+    and loss within ``HYB_TWIN_LOSS_ATOL``. On layer 0's inputs the SSD
+    kernel and its plain version are timed with CUDA events, beside the
+    bound (no single PyTorch call computes the scan); on the first
+    shared-attention inputs the flash kernel and
+    ``scaled_dot_product_attention`` are held against the plain version
+    and the three timed, beside the bound; each kernel's share of the warm
+    forward is printed.
+11. Serving zamba2-1.2b at full width (batch 4, 1,024-token prompts, 32 new
+    tokens): the prefill runs the chunked scan from a zero state and the
+    flash kernel 6 times, decode the recurrence. Checks: tokens in the
+    vocab, finite logits, 6 flash launches and no SSD launch, and the
+    flash kernel on the first shared-attention inputs of the prefill
+    within ``FLASH_TOL`` of the plain version.
+12. ``ops.queue_scan`` on a capacity sweep: 4,096 stations of 4,096 jobs
+    (Poisson arrivals, exponential service at loads 0.5-1.1), capacities
+    1, 2, 7, 32, 64, one launch each. Checks: bit for bit equal to the
+    plain version with finite outputs, and a subsample of rows within
+    ``QUEUE_ORACLE_ATOL`` of the f64 oracle. Each launch is timed with CUDA
+    events beside its bound and the plain version (no single PyTorch call
+    computes it).
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -89,10 +120,12 @@ PEAK_OPS_S = 67e12
 # attention's products at their type's peak: bf16 on the tensor cores,
 # f32 (no TF32) on the CUDA cores
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": PEAK_OPS_S}
-KERNELS = ("fused_admission", "flash_attention", "gmm_logpdf")
+KERNELS = ("fused_admission", "flash_attention", "gmm_logpdf", "mamba2_scan",
+           "queue_scan")
 # the flash kernel-vs-plain grid, and tests/test_kernels.py's tolerances
 FLASH_B, FLASH_S = (1, 4), (1, 64, 128, 256, 1024, 2048, 200)
-FLASH_HEADS, FLASH_D = ((4, 4), (4, 2), (8, 1), (32, 8)), (64, 128)
+FLASH_HEADS = ((4, 4), (4, 2), (8, 1), (32, 8), (32, 32))
+FLASH_D = (64, 128)
 FLASH_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # the serving main path: llama3.2-1b at full width, 4 prompts of 1024 tokens
 SERVE_ARCH, SERVE_B, SERVE_PROMPT, SERVE_NEW, SERVE_SEED = (
@@ -120,6 +153,29 @@ SYN_REPLICAS, SYN_SEED = 32, 0
 REF_ENSEMBLE_KEYS = {"mean_wait_s", "p95_wait_s", "wait_ci95_halfwidth",
                      "wall_s", "n_replicas"}
 GMM_KEEP_EVERY = 10      # keep every 10th asset E-step input of the fit
+# the SSD kernel-vs-plain grid (S % chunk != 0 is skipped: the wrapper
+# refuses it, as the reference asserts)
+SSD_S, SSD_H, SSD_P, SSD_N = (128, 192, 256, 1024, 4096), (1, 4, 64), \
+    (32, 64), (32, 64)
+SSD_CHUNK, SSD_B = (64, 128), (1, 2)
+# tests/test_kernels.py's atol, plus a relative part: the kernel sums each
+# chunk's Q-term products in another order than the einsums, and |y|
+# reaches tens at S = 4096 where slowly decaying heads pile up the state
+SSD_ATOL, SSD_RTOL = 2e-4, 1e-4
+SSD_RECURRENT_MAX_S = 256    # the O(S) recurrence is held on S <= 256
+# the hybrid's full-sequence forward: train_4k's length, batch 2
+HYB_ARCH, HYB_B, HYB_S, HYB_SEED = "zamba2-1.2b", 2, 4096, 0
+HYB_CHUNK, HYB_N_SUPER = 128, 6      # the config's ssd_chunk; 38 // 6
+# its f32 twin at full width, kernel vs plain SSD: the two differ in the
+# scan's summation order (~1e-6 relative per layer); a wrong decay, mask or
+# state order moves the logits (|logits| ~ 1-10) by O(0.1)
+HYB_TWIN_B, HYB_TWIN_S = 1, 1024
+HYB_TWIN_LOGIT_ATOL, HYB_TWIN_LOSS_ATOL = 1e-3, 1e-4
+# the capacity sweep: R stations of N jobs each, one launch per capacity
+QUEUE_R, QUEUE_N, QUEUE_CAPS = 4096, 4096, (1, 2, 7, 32, 64)
+QUEUE_LOADS = (0.5, 1.1)     # per-station utilisation, uniform in between
+QUEUE_ORACLE_ROWS = 8        # rows per capacity held against the f64 oracle
+QUEUE_ORACLE_ATOL = 1e-2     # tests/test_kernels.py's
 
 
 def log(*a):
@@ -524,17 +580,17 @@ def phase_flash_grid(torch, flash_attention):
 
 # ------------------------------------------------------------ phase 6
 
-class FirstCallTap:
-    """Stands in for ``flash_attention`` inside the model: launches it and
-    keeps a copy of the first call's inputs (layer 0 of the prefill)."""
+class CallTap:
+    """Stands in for a kernel wrapper inside the model: launches it and
+    keeps a copy of the first call's tensor arguments (layer 0)."""
 
     def __init__(self, kernel):
         self.kernel, self.kept = kernel, None
 
-    def __call__(self, q, k, v, **kw):
+    def __call__(self, *args, **kw):
         if self.kept is None:
-            self.kept = [t.clone() for t in (q, k, v)]
-        return self.kernel(q, k, v, **kw)
+            self.kept = [a.clone() for a in args]
+        return self.kernel(*args, **kw)
 
 
 def phase_serving(torch, flash_attention):
@@ -543,7 +599,7 @@ def phase_serving(torch, flash_attention):
     from repro_torch.launch import serve
     from repro_torch.models import attention
     cfg = configs.get_config(SERVE_ARCH)
-    tap = FirstCallTap(flash_attention)
+    tap = CallTap(flash_attention)
     attention.flash_attention = tap
     torch.cuda.synchronize()
     flash_attention.launches = 0
@@ -627,19 +683,21 @@ def flash_bound(q, k):
     return nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_FLOPS[dt] * 1e3
 
 
-def time_flash(torch, flash_attention, kept):
-    """On layer 0's inputs of the bf16 prefill: the kernel and
-    ``scaled_dot_product_attention`` against the plain version, then the
-    three timed with CUDA events, and the bound."""
+def check_flash(torch, flash_attention, kept, where):
+    """The kernel and ``scaled_dot_product_attention`` against the plain
+    version on kept causal inputs, each within FLASH_TOL; returns both
+    differences and the library call."""
     import torch.nn.functional as F
     from repro_torch.kernels.ref import flash_attention_ref
     q, k, v = kept
     want = flash_attention_ref(q, k, v, causal=True)
     got = flash_attention(q, k, v, causal=True)
+    tol = FLASH_TOL[str(q.dtype)[6:]]
     err = float((got.float() - want.float()).abs().max())
-    if not err <= FLASH_TOL["bfloat16"]:
+    if not err <= tol:
         raise AssertionError(f"flash_attention differs from its plain version "
-                             f"by {err} on layer 0's inputs")
+                             f"by {err} {where}")
+    del got
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
 
     def library():
@@ -648,17 +706,27 @@ def time_flash(torch, flash_attention, kept):
 
     lib_err = float((library().transpose(1, 2).float() - want.float())
                     .abs().max())
-    if not lib_err <= FLASH_TOL["bfloat16"]:
+    if not lib_err <= tol:
         raise AssertionError(f"scaled_dot_product_attention differs from the "
-                             f"plain version by {lib_err}")
+                             f"plain version by {lib_err} {where}")
+    return err, lib_err, library
+
+
+def time_flash(torch, flash_attention, kept, tag, where):
+    """On kept causal inputs of a path: the kernel and
+    ``scaled_dot_product_attention`` against the plain version, then the
+    three timed with CUDA events, and the bound."""
+    from repro_torch.kernels.ref import flash_attention_ref
+    q, k, v = kept
+    err, lib_err, library = check_flash(torch, flash_attention, kept, where)
     ms = cuda_ms(lambda: flash_attention(q, k, v), iters=100)
     plain_ms = cuda_ms(lambda: flash_attention_ref(q, k, v), iters=10,
                        warmup=2)
     library_ms = cuda_ms(library, iters=100)
     bytes_ms, ops_ms = flash_bound(q, k)
     bound_ms = max(bytes_ms, ops_ms)
-    log(f"[6] flash_attention on layer 0's inputs of the prefill (q "
-        f"{list(q.shape)}, k/v {list(k.shape)}, {str(q.dtype)[6:]}, causal): "
+    log(f"[{tag}] flash_attention {where} (q {list(q.shape)}, k/v "
+        f"{list(k.shape)}, {str(q.dtype)[6:]}, causal): "
         f"kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
         f"scaled_dot_product_attention {library_ms:.6f} ms, bound "
         f"{bound_ms:.6f} ms (bytes {bytes_ms:.6f}, operations {ops_ms:.6f}); "
@@ -900,6 +968,384 @@ def time_gmm(torch, gmm_logpdf, kept):
                 library_ms=mean["library_ms"])
 
 
+# ------------------------------------------------------------ phase 9
+
+def ssd_case(torch, gen, B, S, H, P, N, dtype):
+    """The reference kernel test's scales: x * 0.5, B/C * 0.3,
+    dt = softplus(.) * 0.1, A = -exp(. * 0.3)."""
+    r = lambda *sh: torch.randn(*sh, generator=gen, device="cuda")
+    x = (r(B, S, H, P) * 0.5).to(dtype)
+    dt = (torch.nn.functional.softplus(r(B, S, H)) * 0.1).to(dtype)
+    A = -torch.exp(r(H) * 0.3)
+    Bm, Cm = ((r(B, S, N) * 0.3).to(dtype) for _ in range(2))
+    return x, dt, A, Bm, Cm
+
+
+def ssd_err(got, want, where):
+    """max |got - want| over y and h_last; raises past SSD_ATOL + SSD_RTOL
+    |want|."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        diff = (g - w).abs()
+        if g.dtype != w.dtype or g.shape != w.shape or not bool(
+                (diff <= SSD_ATOL + SSD_RTOL * w.abs()).all()):
+            raise AssertionError(f"mamba2_scan differs from its plain "
+                                 f"version by {float(diff.max())} {where}")
+        worst = max(worst, float(diff.max()))
+    return worst
+
+
+def phase_ssd_grid(torch, mamba2_scan):
+    """The SSD kernel against its plain version (and, on the small cases,
+    against the O(S) recurrence) over the grid; returns the largest
+    difference (within tolerance, or it raises)."""
+    from repro_torch.kernels.ref import mamba2_recurrent_ref, mamba2_scan_ref
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    worst = worst_rec = top = 0.0
+    n_cases = n_rec = 0
+    t0 = time.perf_counter()
+    for S in SSD_S:
+        for H in SSD_H:
+            for P in SSD_P:
+                for N in SSD_N:
+                    for chunk in SSD_CHUNK:
+                        if S % chunk:
+                            continue
+                        for dt in ("float32", "bfloat16"):
+                            for B in SSD_B:
+                                args = ssd_case(torch, gen, B, S, H, P, N,
+                                                getattr(torch, dt))
+                                got = mamba2_scan(*args, chunk=chunk)
+                                want = mamba2_scan_ref(*args, chunk=chunk)
+                                where = (f"at B={B} S={S} H={H} P={P} N={N} "
+                                         f"chunk={chunk} {dt}")
+                                worst = max(worst, ssd_err(got, want, where))
+                                top = max(top, float(want[0].abs().max()))
+                                n_cases += 1
+                                if S <= SSD_RECURRENT_MAX_S and H <= 4:
+                                    rec = mamba2_recurrent_ref(*args)
+                                    worst_rec = max(worst_rec, ssd_err(
+                                        got, rec, where + " (recurrence)"))
+                                    n_rec += 1
+    torch.cuda.synchronize()
+    log(f"[9] mamba2_scan == mamba2_scan_ref on {n_cases} cases (S in "
+        f"{SSD_S}, H in {SSD_H}, P in {SSD_P}, N in {SSD_N}, chunk in "
+        f"{SSD_CHUNK}, f32/bf16, B in {SSD_B}; S % chunk == 0) in "
+        f"{time.perf_counter() - t0:.2f} s: max |diff| {worst:.3g} (tol "
+        f"{SSD_ATOL} + {SSD_RTOL} |y|; max |y| {top:.4g}); against the O(S) "
+        f"recurrence on {n_rec} cases (S <= {SSD_RECURRENT_MAX_S}, H <= 4): "
+        f"max |diff| {worst_rec:.3g}")
+    return max(worst, worst_rec)
+
+
+# ------------------------------------------------------------ phase 10
+
+def hybrid_batch(torch, cfg, B, S, seed):
+    """Tokens and next-token labels from a seeded generator on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    t = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen,
+                      device="cuda")
+    return {"tokens": t[:, :-1], "labels": t[:, 1:]}
+
+
+def phase_hybrid_forward(torch, mamba2_scan, flash_attention, counts):
+    """The full-sequence forward and loss of zamba2-1.2b at full width in
+    bf16, through both kernels: a cold call, then a warm one timed."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import attention, ssm
+    from repro_torch.models.transformer import get_model
+    cfg = configs.get_config(HYB_ARCH, ssm_impl="mamba_kernel",
+                             attn_impl="flash")
+    model = get_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(HYB_SEED, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in serve.leaves(params))
+    batch = hybrid_batch(torch, cfg, HYB_B, HYB_S, HYB_SEED + 1)
+    ssd_tap, attn_tap = CallTap(mamba2_scan), CallTap(flash_attention)
+    ssm.mamba2_scan, attention.flash_attention = ssd_tap, attn_tap
+    walls, losses = [], []
+    try:
+        for _ in range(2):
+            torch.cuda.synchronize()
+            for k in counts:
+                k.launches = 0
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                loss, _ = model.loss_fn(params, batch)
+            loss = float(loss)
+            walls.append(time.perf_counter() - t0)
+            losses.append(loss)
+            launched = {k.__name__: k.launches for k in counts}
+            want = {k.__name__: 0 for k in counts}
+            want.update(mamba2_scan=cfg.n_layers,
+                        flash_attention=model.n_super)
+            if launched != want:
+                raise AssertionError(f"the hybrid forward launched "
+                                     f"{launched}, not {want}")
+    finally:
+        ssm.mamba2_scan, attention.flash_attention = mamba2_scan, \
+            flash_attention
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"hybrid losses {losses}")
+    log(f"[10] {HYB_ARCH} loss_fn at full width (bf16, {n_params:,} "
+        f"parameters from seed {HYB_SEED}, drawn on the card in "
+        f"{init_s:.2f} s; batch {HYB_B} x {HYB_S} tokens, ssm_impl="
+        f"mamba_kernel, attn_impl=flash): loss {losses[0]:.6f} and "
+        f"{losses[1]:.6f} (finite); wall cold {walls[0]:.4f} s, warm {walls[1]:.4f} s "
+        f"({HYB_B * HYB_S / walls[1]:.0f} tokens/s); launches per forward: "
+        f"mamba2_scan {launched['mamba2_scan']}, flash_attention "
+        f"{launched['flash_attention']}, others 0")
+    del params
+    torch.cuda.empty_cache()
+    return (dict(wall_s=walls[1], ssd_launches=launched["mamba2_scan"],
+                 flash_launches=launched["flash_attention"], loss=losses[0]),
+            ssd_tap.kept, attn_tap.kept)
+
+
+def phase_hybrid_twin(torch, mamba2_scan):
+    """The full-width model in f32 (no TF32), batch 1 x 1024: logits and
+    loss through the SSD kernel against the plain chunked scan."""
+    from repro_torch import configs
+    from repro_torch.models.common import cross_entropy_loss
+    from repro_torch.models.transformer import get_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    f32 = dict(param_dtype="float32", compute_dtype="float32",
+               attn_impl="flash")
+    models = {impl: get_model(configs.get_config(HYB_ARCH, ssm_impl=impl,
+                                                 **f32))
+              for impl in ("mamba_kernel", "xla")}
+    params = models["xla"].init(HYB_SEED, "cuda")
+    batch = hybrid_batch(torch, models["xla"].cfg, HYB_TWIN_B, HYB_TWIN_S,
+                         HYB_SEED + 2)
+    logits, loss = {}, {}
+    for impl, m in models.items():
+        before = mamba2_scan.launches
+        with torch.inference_mode():
+            logits[impl] = m._forward(params, batch["tokens"])
+            loss[impl] = float(cross_entropy_loss(logits[impl],
+                                                  batch["labels"]))
+        want = m.cfg.n_layers if impl == "mamba_kernel" else 0
+        if mamba2_scan.launches - before != want:
+            raise AssertionError(f"{impl}: mamba2_scan launched "
+                                 f"{mamba2_scan.launches - before} times")
+    v = models["xla"].cfg.vocab_size
+    lerr = float((logits["mamba_kernel"][..., :v] - logits["xla"][..., :v])
+                 .abs().max())
+    scale = float(logits["xla"][..., :v].abs().max())
+    loss_err = abs(loss["mamba_kernel"] - loss["xla"])
+    if not (lerr <= HYB_TWIN_LOGIT_ATOL and loss_err <= HYB_TWIN_LOSS_ATOL):
+        raise AssertionError(f"f32 SSD kernel vs plain: logits differ by "
+                             f"{lerr}, loss by {loss_err}")
+    log(f"[10] f32 twin at full width (batch {HYB_TWIN_B} x {HYB_TWIN_S}, "
+        f"no TF32), mamba2_scan vs plain ssd_chunked: logits max |diff| "
+        f"{lerr:.3g} (tol {HYB_TWIN_LOGIT_ATOL}; max |logit| {scale:.3g}), "
+        f"loss {loss['xla']:.6f} vs {loss['mamba_kernel']:.6f}, |diff| "
+        f"{loss_err:.3g} (tol {HYB_TWIN_LOSS_ATOL}) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    del params, logits
+    torch.cuda.empty_cache()
+
+
+def ssd_bound(x, Bm, chunk):
+    """Least time for one call on these inputs, as ``(bytes_ms, ops_ms)``.
+    Bytes: x, dt, A, B, C read once, y (f32) and h_last (f32) written once.
+    Operations: per (b, h, chunk) the masked C Bᵀ and M x over the Q(Q+1)/2
+    pairs j <= i (N and P multiply-adds each), the readout C stateᵀ and the
+    update xᵀ(B w) (Q P N each), 2 FLOPs per multiply-add, at the card's
+    peak rate for the input type."""
+    B, S, H, P = x.shape
+    N = Bm.shape[2]
+    esz = x.element_size()
+    nbytes = (esz * (B * S * H * P + B * S * H + 2 * B * S * N) + 4 * H
+              + 4 * B * S * H * P + 4 * B * H * P * N)
+    pairs = chunk * (chunk + 1) // 2
+    flops = 2 * B * H * (S // chunk) * (pairs * (N + P) + 2 * chunk * P * N)
+    dt = "bfloat16" if esz == 2 else "float32"
+    return nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_FLOPS[dt] * 1e3
+
+
+def time_ssd(torch, mamba2_scan, kept):
+    """On layer 0's inputs of the bf16 forward: the kernel against its
+    plain version, then both timed with CUDA events, and the bound. No
+    single PyTorch call computes the SSD scan: no library yardstick."""
+    from repro_torch.kernels.ref import mamba2_scan_ref
+    x, dt, A, Bm, Cm = kept
+    chunk = HYB_CHUNK
+    want = mamba2_scan_ref(x, dt, A, Bm, Cm, chunk=chunk)
+    err = ssd_err(mamba2_scan(x, dt, A, Bm, Cm, chunk=chunk), want,
+                  "on layer 0's inputs of the forward")
+    ms = cuda_ms(lambda: mamba2_scan(x, dt, A, Bm, Cm, chunk=chunk), iters=20,
+                 warmup=3)
+    plain_ms = cuda_ms(lambda: mamba2_scan_ref(x, dt, A, Bm, Cm, chunk=chunk),
+                       iters=3, warmup=1)
+    bytes_ms, ops_ms = ssd_bound(x, Bm, chunk)
+    bound_ms = max(bytes_ms, ops_ms)
+    log(f"[10] mamba2_scan on layer 0's inputs of the forward (x "
+        f"{list(x.shape)}, B/C {list(Bm.shape)}, {str(x.dtype)[6:]}, chunk "
+        f"{chunk}): kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, no single "
+        f"PyTorch call computes it; bound {bound_ms:.6f} ms (bytes "
+        f"{bytes_ms:.6f}, operations {ops_ms:.6f}); max |diff| to plain "
+        f"{err:.3g}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
+# ------------------------------------------------------------ phase 11
+
+def phase_hybrid_serving(torch, flash_attention, counts):
+    """zamba2-1.2b served at full width in bf16: the prefill runs the
+    chunked scan from a zero state (as the reference) and the flash kernel
+    in the shared block's 6 applications; decode runs the recurrence. The
+    first flash call's inputs are then held against the plain version;
+    returns the kernel's difference."""
+    from repro_torch.launch import serve
+    from repro_torch.models import attention
+    tap = CallTap(flash_attention)
+    attention.flash_attention = tap
+    torch.cuda.synchronize()
+    for k in counts:
+        k.launches = 0
+    try:
+        out = serve.run_serving(HYB_ARCH, batch=SERVE_B,
+                                prompt_len=SERVE_PROMPT,
+                                new_tokens=SERVE_NEW, smoke=False,
+                                attn_impl="flash", device="cuda",
+                                seed=HYB_SEED)
+    finally:
+        attention.flash_attention = flash_attention
+    launched = {k.__name__: k.launches for k in counts}
+    want = {k.__name__: 0 for k in counts}
+    want.update(flash_attention=HYB_N_SUPER)
+    if launched != want:
+        raise AssertionError(f"hybrid serving launched {launched}, not {want}")
+    if not (out["all_in_vocab"] and out["logits_finite"]
+            and out["generated_shape"] == [SERVE_B, SERVE_NEW]):
+        raise AssertionError(f"hybrid serving failed its checks: {out}")
+    log(f"[11] run_serving({HYB_ARCH}, batch={SERVE_B}, prompt_len="
+        f"{SERVE_PROMPT}, new_tokens={SERVE_NEW}, bf16, flash) on the card: "
+        f"{out['n_params']:,} parameters; time to first token "
+        f"{out['prefill_s']:.4f} s; decode {out['decode_tokens_per_s']:.1f} "
+        f"tokens/s; total {out['tokens_per_s']:.1f} tokens/s (wall "
+        f"{out['wall_s']:.4f} s); flash_attention launches "
+        f"{launched['flash_attention']}, mamba2_scan 0 (the prefill passes a "
+        "zero state); tokens in vocab, logits finite")
+    q, k, _ = tap.kept
+    err, lib_err, _ = check_flash(torch, flash_attention, tap.kept,
+                                  "on the first shared-attention inputs of "
+                                  "the hybrid prefill")
+    log(f"[11] flash_attention on the first shared-attention inputs of the "
+        f"prefill (q {list(q.shape)}, k/v {list(k.shape)}, "
+        f"{str(q.dtype)[6:]}, causal): max |diff| to plain: kernel "
+        f"{err:.3g}, sdpa {lib_err:.3g} (tol {FLASH_TOL[str(q.dtype)[6:]]})")
+    del tap
+    torch.cuda.empty_cache()
+    return err
+
+
+# ------------------------------------------------------------ phase 12
+
+def queue_jobs(torch, gen, cap):
+    """QUEUE_R stations of QUEUE_N jobs: Poisson arrivals at rate 1,
+    exponential service at a per-station load uniform in QUEUE_LOADS (mean
+    service load * cap); each row's ready times are sorted by
+    construction."""
+    R, N = QUEUE_R, QUEUE_N
+    inter = torch.empty(R, N, device="cuda").exponential_(generator=gen)
+    ready = torch.cumsum(inter, dim=1)
+    lo, hi = QUEUE_LOADS
+    load = lo + (hi - lo) * torch.rand(R, 1, generator=gen, device="cuda")
+    service = torch.empty(R, N, device="cuda").exponential_(generator=gen)
+    return ready, service * load * cap
+
+
+def queue_bound(R, N, cap):
+    """Least time for one call, as ``(bytes_ms, ops_ms)``. Bytes: ready and
+    service read once, start and finish written once (f32). Operations: per
+    job, the c - 1 comparisons of the arg-min, a max and an add, on the
+    CUDA cores' rate."""
+    return (16 * R * N / PEAK_BYTES_S * 1e3,
+            R * N * (cap + 1) / PEAK_OPS_S * 1e3)
+
+
+def phase_queue_sweep(torch, queue_scan, counts):
+    """``ops.queue_scan`` on a capacity sweep, one launch per capacity, then
+    each launch's inputs held bit for bit against the plain version (and a
+    subsample of rows against the f64 oracle) and timed."""
+    from repro_torch.core.des import single_station_fifo
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import queue_scan_ref
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    cases = [(c, *queue_jobs(torch, gen, c)) for c in QUEUE_CAPS]
+    torch.cuda.synchronize()
+    for k in counts:
+        k.launches = 0
+    t0 = time.perf_counter()
+    outs = [ops.queue_scan(r, s, capacity=c) for c, r, s in cases]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {k.__name__: k.launches for k in counts}
+    want = {k.__name__: 0 for k in counts}
+    want.update(queue_scan=len(QUEUE_CAPS))
+    if launched != want:
+        raise AssertionError(f"the capacity sweep launched {launched}, not "
+                             f"{want}")
+    rng = np.random.default_rng(15)
+    rows, oracle_err, plain_err = [], 0.0, 0.0
+    for (c, r, s), (st, fi) in zip(cases, outs):
+        pst, pfi = queue_scan_ref(r, s, capacity=c)
+        err = max(float((st - pst).abs().max()), float((fi - pfi).abs().max()))
+        if not (np.isfinite(err) and same_bits(st, pst)
+                and same_bits(fi, pfi)):
+            raise AssertionError(f"queue_scan differs from its plain version "
+                                 f"at capacity {c} (max |diff| {err})")
+        plain_err = max(plain_err, err)
+        rn, sn, stn, fin = (a.cpu().numpy() for a in (r, s, st, fi))
+        for i in rng.choice(QUEUE_R, QUEUE_ORACLE_ROWS, replace=False):
+            ost, ofi = single_station_fifo(rn[i], sn[i], c)
+            e = max(float(np.abs(stn[i] - ost).max()),
+                    float(np.abs(fin[i] - ofi).max()))
+            if not e <= QUEUE_ORACLE_ATOL:
+                raise AssertionError(f"queue_scan row {i} at capacity {c} "
+                                     f"differs from the f64 oracle by {e}")
+            oracle_err = max(oracle_err, e)
+        wait = float((st - r).mean())
+        bytes_ms, ops_ms = queue_bound(QUEUE_R, QUEUE_N, c)
+        rows.append(dict(
+            c=c, wait=wait,
+            ms=cuda_ms(lambda: queue_scan(r, s, capacity=c), iters=10,
+                       warmup=2),
+            plain_ms=cuda_ms(lambda: queue_scan_ref(r, s, capacity=c),
+                             iters=2, warmup=1),
+            bytes_ms=bytes_ms, ops_ms=ops_ms))
+    for row in rows:
+        log(f"[12] capacity {row['c']}: kernel {row['ms']:.6f} ms, plain "
+            f"{row['plain_ms']:.6f} ms, bound {max(row['bytes_ms'], row['ops_ms']):.6f}"
+            f" ms; mean wait {row['wait']:.3f}")
+    mean = {k: float(np.mean([r[k] for r in rows]))
+            for k in ("ms", "plain_ms", "bytes_ms", "ops_ms")}
+    bound_ms = float(np.mean([max(r["bytes_ms"], r["ops_ms"]) for r in rows]))
+    log(f"[12] ops.queue_scan on {QUEUE_R} stations x {QUEUE_N} jobs (loads "
+        f"{QUEUE_LOADS[0]}-{QUEUE_LOADS[1]}), capacities {QUEUE_CAPS}: "
+        f"{launched['queue_scan']} launches in {wall:.4f} s; equal to the "
+        f"plain version bit for bit at every capacity (max |diff| "
+        f"{plain_err:.3g}, outputs finite); {QUEUE_ORACLE_ROWS} rows per "
+        f"capacity within {oracle_err:.3g} of the f64 oracle (tol "
+        f"{QUEUE_ORACLE_ATOL}); kernel mean {mean['ms']:.6f} ms, plain "
+        f"{mean['plain_ms']:.6f} ms, no single PyTorch call computes it; "
+        f"bound {bound_ms:.6f} ms (bytes {mean['bytes_ms']:.6f}, operations "
+        f"{mean['ops_ms']:.6f})")
+    return launched["queue_scan"], dict(
+        max_abs_err=plain_err, ms=mean["ms"], plain_ms=mean["plain_ms"],
+        bound_ms=bound_ms,
+        bound_by="bytes" if mean["bytes_ms"] >= mean["ops_ms"]
+        else "operations")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -908,7 +1354,8 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.gmm_logpdf import gmm_logpdf
-    from repro_torch.kernels.queue_scan import fused_admission
+    from repro_torch.kernels.mamba2_scan import mamba2_scan
+    from repro_torch.kernels.queue_scan import fused_admission, queue_scan
     from repro_torch.kernels.ref import admission_mask_dense
 
     t_start = time.perf_counter()
@@ -940,7 +1387,8 @@ def main() -> int:
     if fused_admission.launches:
         raise AssertionError("the serving path launched fused_admission")
     phase_serving_twin(torch)
-    frec = time_flash(torch, flash_attention, kept_qkv)
+    frec = time_flash(torch, flash_attention, kept_qkv, 6,
+                      "on layer 0's inputs of the prefill")
     log(f"[6] flash_attention: {flash_launches} launches x {frec['ms']:.6f} "
         f"ms = {100 * flash_launches * frec['ms'] / (serve['prefill_s'] * 1e3):.2f}"
         " % of the time to first token")
@@ -953,6 +1401,26 @@ def main() -> int:
         f"= {100 * fit['launches'] * grec['ms'] / (fit['em_s'] * 1e3):.2f} % "
         "of the EM's wall on the card")
 
+    ssd_grid_err = phase_ssd_grid(torch, mamba2_scan)
+    counts = (fused_admission, flash_attention, gmm_logpdf, mamba2_scan,
+              queue_scan)
+    hyb, kept_ssd, kept_hyb_attn = phase_hybrid_forward(torch, mamba2_scan,
+                                                        flash_attention,
+                                                        counts)
+    phase_hybrid_twin(torch, mamba2_scan)
+    srec = time_ssd(torch, mamba2_scan, kept_ssd)
+    hfrec = time_flash(torch, flash_attention, kept_hyb_attn, 10,
+                       "on the first shared-attention inputs of the forward")
+    log(f"[10] per forward ({hyb['wall_s']:.4f} s warm): mamba2_scan "
+        f"{hyb['ssd_launches']} launches x {srec['ms']:.6f} ms = "
+        f"{100 * hyb['ssd_launches'] * srec['ms'] / (hyb['wall_s'] * 1e3):.2f}"
+        f" %; flash_attention {hyb['flash_launches']} launches x "
+        f"{hfrec['ms']:.6f} ms = "
+        f"{100 * hyb['flash_launches'] * hfrec['ms'] / (hyb['wall_s'] * 1e3):.2f}"
+        " % of the forward's wall")
+    hserve_flash_err = phase_hybrid_serving(torch, flash_attention, counts)
+    queue_launches, qrec = phase_queue_sweep(torch, queue_scan, counts)
+
     kernels = [dict(
         name="fused_admission", route="cuda",
         source="src/repro_torch/kernels/csrc/fused_admission.cu",
@@ -964,7 +1432,8 @@ def main() -> int:
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:25",
         launches=flash_launches,
-        max_abs_err=max(flash_grid_err, frec["max_abs_err"]),
+        max_abs_err=max(flash_grid_err, frec["max_abs_err"],
+                        hfrec["max_abs_err"], hserve_flash_err),
         ms=frec["ms"], plain_ms=frec["plain_ms"], bound_ms=frec["bound_ms"],
         bound_by=frec["bound_by"], library_ms=frec["library_ms"]), dict(
         name="gmm_logpdf", route="cuda",
@@ -973,7 +1442,23 @@ def main() -> int:
         launches=fit["launches"],
         max_abs_err=max(gmm_grid_err, grec["max_abs_err"]),
         ms=grec["ms"], plain_ms=grec["plain_ms"], bound_ms=grec["bound_ms"],
-        bound_by=grec["bound_by"], library_ms=grec["library_ms"])]
+        bound_by=grec["bound_by"], library_ms=grec["library_ms"]), dict(
+        name="mamba2_scan", route="cuda",
+        source="src/repro_torch/kernels/csrc/mamba2_scan.cu",
+        replaces="src/repro/kernels/mamba2_scan.py:22",
+        launches=hyb["ssd_launches"],
+        max_abs_err=max(ssd_grid_err, srec["max_abs_err"]),
+        ms=srec["ms"], plain_ms=srec["plain_ms"], bound_ms=srec["bound_ms"],
+        bound_by=srec["bound_by"], library_ms=None), dict(
+        name="queue_scan", route="cuda",
+        source="src/repro_torch/kernels/csrc/queue_scan.cu",
+        replaces="src/repro/kernels/queue_scan.py:65",
+        launches=queue_launches, max_abs_err=qrec["max_abs_err"],
+        ms=qrec["ms"], plain_ms=qrec["plain_ms"], bound_ms=qrec["bound_ms"],
+        bound_by=qrec["bound_by"], library_ms=None)]
+    log("[done] launches x (ms - bound_ms) on each kernel's path: " + ", ".join(
+        f"{k['name']} {k['launches'] * (k['ms'] - k['bound_ms']):.3f} ms"
+        for k in kernels))
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card_line())

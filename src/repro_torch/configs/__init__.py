@@ -9,6 +9,7 @@ from repro_torch.models.transformer import ModelConfig
 
 _MODULES = {
     "llama3.2-1b": "repro_torch.configs.llama3_2_1b",
+    "zamba2-1.2b": "repro_torch.configs.zamba2_1_2b",
 }
 
 ARCHS = list(_MODULES)

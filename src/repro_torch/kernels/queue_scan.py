@@ -1,17 +1,23 @@
-"""The wave loop's admission kernel (mirrors :mod:`repro.kernels.queue_scan`).
+"""The queue kernels (mirrors :mod:`repro.kernels.queue_scan`).
+
+``queue_scan`` is a batch of independent c-server FIFO stations, one per
+row: each job, in ready order, takes the earliest free of ``capacity``
+slots (a Monte-Carlo capacity sweep of thousands of stations in one call;
+public as :func:`repro_torch.kernels.ops.queue_scan`). On a CUDA tensor it
+launches the hand-written kernel ``csrc/queue_scan.cu``; on a CPU tensor it
+runs the plain version, :func:`repro_torch.kernels.ref.queue_scan_ref`. Both
+are exact, and equal bit for bit.
 
 ``fused_admission`` is one ranked admission round of
 ``vdes._admission_stage``: for each queued job, its seat under the stable
 lexicographic ``(resource, policy key, enqueue wave, id)`` ranking, tested
 against the free slots of its resource. On a CUDA tensor it launches the
-hand-written kernel ``csrc/fused_admission.cu`` (built by
-:mod:`repro_torch.kernels._build` at first use); on a CPU tensor it runs
+hand-written kernel ``csrc/fused_admission.cu``; on a CPU tensor it runs
 the plain version, :func:`repro_torch.kernels.ref.admission_mask_dense`.
-There is no fallback between the two: a CUDA tensor launches the kernel or
-raises.
 
-The reference's ``queue_scan`` (c-server FIFO station) is not ported yet;
-it waits for the reliability slice.
+Both kernels are built by :mod:`repro_torch.kernels._build` at first use.
+There is no fallback between a kernel and its plain version: a CUDA tensor
+launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -20,11 +26,66 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import admission_mask_dense
+from repro_torch.kernels.ref import admission_mask_dense, queue_scan_ref
 
 _SIGNATURES = {"fused_admission_launch":
                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]}
+_QUEUE_SIGNATURES = {"queue_scan_launch":
+                     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                     + [ctypes.c_void_p]}
 _MAX_GRID_Y = 65535
+MAX_CAPACITY = 256          # slots the queue kernel holds in registers
+
+
+def queue_scan(ready: torch.Tensor, service: torch.Tensor, *,
+               capacity: int):
+    """``ready``, ``service [R, N]`` (each row sorted by ready time) ->
+    ``(start, finish) [R, N]`` f32: exact M/G/c FIFO station times, one
+    station per row (oracle: :func:`repro_torch.core.des.
+    single_station_fifo` per row). Float inputs are cast to f32, as the
+    reference does. ``queue_scan.launches`` counts the kernel's launches."""
+    if ready.dim() != 2 or min(ready.shape) < 1:
+        raise ValueError(f"ready must be a non-empty [R, N] tensor, got "
+                         f"shape {tuple(ready.shape)}")
+    if service.shape != ready.shape:
+        raise ValueError(f"service shape {tuple(service.shape)} != ready "
+                         f"shape {tuple(ready.shape)}")
+    if service.device != ready.device:
+        raise ValueError(f"service is on {service.device}, ready on "
+                         f"{ready.device}")
+    for name, t in (("ready", ready), ("service", service)):
+        if not t.is_floating_point():
+            raise TypeError(f"{name} must be a float tensor, got {t.dtype}")
+    if int(capacity) != capacity or capacity < 1:
+        raise ValueError(f"capacity must be an integer >= 1, got {capacity}")
+    capacity = int(capacity)
+    if ready.device.type == "cpu":
+        return queue_scan_ref(ready, service, capacity=capacity)
+    if ready.device.type != "cuda":
+        raise ValueError(f"queue_scan runs on cuda or cpu tensors, got "
+                         f"{ready.device}")
+    R, N = ready.shape
+    if capacity > MAX_CAPACITY:
+        raise ValueError(f"the kernel takes capacity <= {MAX_CAPACITY}, got "
+                         f"{capacity}")
+    ready = ready.float().contiguous()
+    service = service.float().contiguous()
+    lib = _build.load("queue_scan", _QUEUE_SIGNATURES)
+    start = torch.empty_like(ready)
+    finish = torch.empty_like(ready)
+    with torch.cuda.device(ready.device):
+        err = lib.queue_scan_launch(
+            ready.data_ptr(), service.data_ptr(), start.data_ptr(),
+            finish.data_ptr(), R, N, capacity,
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"queue_scan: kernel launch failed with CUDA "
+                           f"error {err}")
+    queue_scan.launches += 1
+    return start, finish
+
+
+queue_scan.launches = 0
 
 
 def _check(res_q, pkey, enq_wave, free) -> None:

@@ -103,3 +103,62 @@ def gmm_logpdf_ref(x: torch.Tensor, means: torch.Tensor,
     d = x.shape[-1]
     return (log_w.float()[None] - 0.5 * (maha + d * _LOG2PI)
             - logdet[None])
+
+
+def mamba2_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                    Bm: torch.Tensor, Cm: torch.Tensor, *,
+                    chunk: int = 128):
+    """The Mamba-2 SSD scan from a zero state, in f32: the model's chunked
+    form (:func:`repro.kernels.ref.mamba2_scan_ref`, which delegates the
+    same way). ``x [B, S, H, P]``, ``dt [B, S, H]``, ``A [H]``,
+    ``Bm``/``Cm [B, S, N]`` -> ``(y [B, S, H, P], h_last [B, H, P, N])``,
+    both f32."""
+    from repro_torch.models.ssm import ssd_chunked
+    return ssd_chunked(x.float(), dt.float(), A.float(), Bm.float(),
+                       Cm.float(), chunk=chunk)
+
+
+def mamba2_recurrent_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                         Bm: torch.Tensor, Cm: torch.Tensor):
+    """The O(S) step-by-step recurrence, the ground truth of the SSD
+    semantics (:func:`repro.kernels.ref.mamba2_recurrent_ref`):
+
+        h <- exp(dt_t A) h + dt_t x_t B_tᵀ,   y_t = h C_t
+
+    with ``h [B, H, P, N]`` from zero, all in f32."""
+    Bsz, S, H, P = x.shape
+    x, dt, A, Bm, Cm = (a.float() for a in (x, dt, A, Bm, Cm))
+    h = torch.zeros((Bsz, H, P, Bm.shape[-1]), dtype=torch.float32,
+                    device=x.device)
+    ys = []
+    for t in range(S):
+        dec = torch.exp(dt[:, t] * A[None, :])                   # [B, H]
+        h = h * dec[:, :, None, None] + torch.einsum(
+            "bhp,bn,bh->bhpn", x[:, t], Bm[:, t], dt[:, t])
+        ys.append(torch.einsum("bhpn,bn->bhp", h, Cm[:, t]))
+    return torch.stack(ys, dim=1), h
+
+
+def queue_scan_ref(ready: torch.Tensor, service: torch.Tensor, *,
+                   capacity: int):
+    """Exact c-server FIFO stations, one per row
+    (:func:`repro.kernels.ref.queue_scan_ref`): ``ready``/``service
+    [R, N]``, each row sorted by ready time, -> ``(start, finish) [R, N]``
+    f32. One step per job, over all rows at once: the earliest free slot
+    ``k = argmin(slots)``, ``start = max(ready, slots[k])``, ``finish =
+    start + service``, ``slots[k] = finish``. Comparisons and one f32 add
+    per job, so the result is exact."""
+    ready, service = ready.float(), service.float()
+    R, N = ready.shape
+    slots = torch.zeros((R, capacity), dtype=torch.float32,
+                        device=ready.device)
+    start = torch.empty_like(ready)
+    finish = torch.empty_like(ready)
+    for j in range(N):
+        k = slots.argmin(dim=1, keepdim=True)
+        s = torch.maximum(ready[:, j:j + 1], slots.gather(1, k))
+        f = s + service[:, j:j + 1]
+        slots.scatter_(1, k, f)
+        start[:, j:j + 1] = s
+        finish[:, j:j + 1] = f
+    return start, finish

@@ -48,7 +48,7 @@ def run_serving(arch: str, *, batch: int, prompt_len: int, new_tokens: int,
         "arch": arch,
         "attn_impl": attn_impl,
         "device": str(dev),
-        "n_params": sum(p.numel() for p in _leaves(params)),
+        "n_params": sum(p.numel() for p in leaves(params)),
         "generated_shape": list(out.shape),
         "prefill_s": st["prefill_s"],
         "decode_tokens_per_s": (batch * (new_tokens - 1) / st["decode_s"]
@@ -68,10 +68,11 @@ def random_prompts(vocab_size: int, batch: int, prompt_len: int,
                          device=gen.device, dtype=torch.int32)
 
 
-def _leaves(tree):
+def leaves(tree):
+    """The tensors of a nested parameter dict."""
     if isinstance(tree, dict):
         for v in tree.values():
-            yield from _leaves(v)
+            yield from leaves(v)
     else:
         yield tree
 

@@ -147,3 +147,16 @@ def lm_head_logits(x: torch.Tensor, head: torch.Tensor,
     if head.shape[-1] != vocab_size:
         logits[..., vocab_size:] = -1e30
     return logits
+
+
+def cross_entropy_loss(logits: torch.Tensor,
+                       labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross entropy (:func:`repro.models.common.
+    cross_entropy_loss` without a mask): logits ``[B, S, V]`` cast to f32,
+    labels ``[B, S]``. The gold logit is gathered (the reference sums an
+    iota-compare mask, which gives the same value, to keep a vocab-sharded
+    tensor sharded)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return (logz - gold).mean()

@@ -1,14 +1,20 @@
-"""The decoder-only LM of the reference's dense plan (mirrors
-:mod:`repro.models.transformer`).
+"""Model families of the port (mirrors :mod:`repro.models.transformer`).
 
-``DecoderLM`` for the plan ``[("dense", L, 0)]``: pre-norm residual blocks
-of GQA self-attention and a SwiGLU MLP, with the one stage's parameters
-stacked ``[L, ...]`` under ``"stage0"``, as in the reference. It serves (``prefill``, ``decode_step``) and runs a full
-forward (``_forward``, no loss). A Python loop over the layers takes the
-place of the reference's ``lax.scan``; ``remat`` and ``stream_unroll`` are
-kept as fields and mean nothing here. The MoE, MLA, VLM, hybrid-SSM, xLSTM
-and encoder-decoder models are not ported yet: :func:`get_model` refuses
-them.
+``DecoderLM`` for the reference's dense plan ``[("dense", L, 0)]``:
+pre-norm residual blocks of GQA self-attention and a SwiGLU MLP, with the
+one stage's parameters stacked ``[L, ...]`` under ``"stage0"``, as in the
+reference. It serves (``prefill``, ``decode_step``) and runs a full forward
+(``_forward``, no loss).
+
+``HybridSSM`` (zamba2): a Mamba-2 backbone with ONE shared attention block
+applied after every ``attn_every`` Mamba blocks, then the trailing Mamba
+blocks. It runs the full-sequence forward and loss (``loss_fn``, through
+the ``mamba2_scan`` kernel under ``ssm_impl="mamba_kernel"``) and serves.
+
+A Python loop over the layers takes the place of the reference's
+``lax.scan``; ``remat`` and ``stream_unroll`` are kept as fields and mean
+nothing here. The MoE, MLA, VLM, xLSTM and encoder-decoder models are not
+ported yet: :func:`get_model` refuses them.
 """
 from __future__ import annotations
 
@@ -19,9 +25,11 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as A
-from repro_torch.models.common import (Builder, init_swiglu, layer,
-                                       lm_head_logits, padded_vocab, rms_norm,
-                                       stack_layers, swiglu)
+from repro_torch.models import ssm as SSM
+from repro_torch.models.common import (Builder, cross_entropy_loss,
+                                       init_swiglu, layer, lm_head_logits,
+                                       padded_vocab, rms_norm, stack_layers,
+                                       swiglu)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
@@ -126,15 +134,28 @@ def _apply_attn_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     return x + _apply_ffn(p["ffn"], h2), new_cache
 
 
-def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.n_experts > 0:
+def _check_ported(cfg: ModelConfig, family: str) -> None:
+    """Refuses what the port has not got, and a hybrid config without its
+    SSM fields (the reference asserts ``attn_every > 0``)."""
+    if cfg.family != family or (family == "dense" and cfg.n_experts > 0):
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family (moe/vlm plans, hybrid, "
-            "ssm and audio models) is not ported yet; the port serves the "
-            "dense plan")
+            f"{cfg.name}: the {cfg.family!r} family (moe/vlm plans, ssm and "
+            "audio models) is not ported yet; the port has the dense plan "
+            "and the hybrid")
     if cfg.use_mla or cfg.mlp_type != "swiglu":
         raise NotImplementedError(
             f"{cfg.name}: MLA attention and the gelu MLP are not ported yet")
+    if family == "hybrid" and (cfg.attn_every < 1 or cfg.ssm_state < 1):
+        raise ValueError(f"{cfg.name}: a hybrid config needs attn_every >= 1 "
+                         f"and ssm_state >= 1, got {cfg.attn_every} and "
+                         f"{cfg.ssm_state}")
+
+
+def _generator(seed: int, dev: torch.device) -> torch.Generator:
+    """A generator for drawing on ``dev``; on the meta device (shapes only,
+    no memory) a CPU generator, which torch accepts there."""
+    return torch.Generator(
+        device="cpu" if dev.type == "meta" else dev).manual_seed(seed)
 
 
 # ---------------------------------------------------------------------------
@@ -143,7 +164,7 @@ def _check_ported(cfg: ModelConfig) -> None:
 
 class DecoderLM:
     def __init__(self, cfg: ModelConfig):
-        _check_ported(cfg)
+        _check_ported(cfg, "dense")
         self.cfg = cfg
 
     # ---------------- init
@@ -152,7 +173,7 @@ class DecoderLM:
         the card, raising without one)."""
         c = self.cfg
         dev = resolve_device(device)
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        gen = _generator(seed, dev)
         b = Builder(gen, c.pdt, dev)
         b.dense("embed", (c.vocab_size, c.d_model), scale=0.02)
         b.ones("ln_f", (c.d_model,))
@@ -214,8 +235,147 @@ class DecoderLM:
 
 
 # ---------------------------------------------------------------------------
+# HybridSSM (zamba2): Mamba2 backbone + shared attention block
+# ---------------------------------------------------------------------------
 
-def get_model(cfg: ModelConfig) -> DecoderLM:
+class HybridSSM:
+    """``n_super = n_layers // attn_every`` groups of ``attn_every`` Mamba
+    blocks, each group followed by the shared attention block, then
+    ``n_tail`` Mamba blocks. Parameters as the reference's:
+    ``supers.mamba.*`` stacked ``[n_super, attn_every, ...]``, ``tail.*``
+    ``[n_tail, ...]``, ``shared_attn.*`` once."""
+
+    def __init__(self, cfg: ModelConfig):
+        _check_ported(cfg, "hybrid")
+        self.cfg = cfg
+        self.n_super = cfg.n_layers // cfg.attn_every
+        self.n_tail = cfg.n_layers - self.n_super * cfg.attn_every
+
+    def _init_mamba(self, gen, dev) -> dict:
+        c = self.cfg
+        return SSM.init_mamba2(gen, c.d_model, c.ssm_state, c.ssm_head_dim,
+                               c.ssm_expand, c.d_conv, c.pdt, dev)
+
+    # ---------------- init
+    def init(self, seed: int = 0, device=None) -> dict:
+        """Random parameters from ``seed``, drawn on ``device`` (``None``:
+        the card, raising without one; ``"meta"``: shapes only)."""
+        c = self.cfg
+        dev = resolve_device(device)
+        gen = _generator(seed, dev)
+        b = Builder(gen, c.pdt, dev)
+        b.dense("embed", (c.vocab_size, c.d_model), scale=0.02)
+        b.ones("ln_f", (c.d_model,))
+        b.dense("lm_head", (c.d_model, padded_vocab(c.vocab_size)))
+        b.sub("supers", stack_layers(gen, self.n_super, lambda g: {
+            "mamba": stack_layers(g, c.attn_every,
+                                  lambda gg: self._init_mamba(gg, dev))}))
+        if self.n_tail:
+            b.sub("tail", stack_layers(
+                gen, self.n_tail, lambda g: self._init_mamba(g, dev)))
+        # the SHARED attention block (one set of weights, applied n_super x)
+        b.sub("shared_attn", _init_attn_block(gen, c, dev))
+        return b.done()
+
+    # ---------------- the backbone
+    def _mamba(self, p, x, states=None, idx=()):
+        """One Mamba block with its residual. In cached mode its state is
+        ``states[k][idx]``, read and then overwritten in place."""
+        c = self.cfg
+        st = None if states is None else {k: v[idx] for k, v in states.items()}
+        y, ns = SSM.apply_mamba2(p, x, d_state=c.ssm_state,
+                                 head_dim=c.ssm_head_dim, chunk=c.ssd_chunk,
+                                 state=st, impl=c.ssm_impl)
+        if states is not None:
+            for k, v in ns.items():
+                states[k][idx].copy_(v)
+        return x + y
+
+    def _backbone(self, params, x, positions, *, states=None, kv=None,
+                  pos: int = 0):
+        """``states``/``kv`` given: cached mode, both updated in place."""
+        c = self.cfg
+        shared = params["shared_attn"]
+        cached = states is not None
+        for i in range(self.n_super):
+            sp = layer(params["supers"]["mamba"], i)
+            for j in range(c.attn_every):
+                x = self._mamba(layer(sp, j), x,
+                                states["supers"]["mamba"] if cached else None,
+                                (i, j))
+            cache = (kv["shared"][0][i], kv["shared"][1][i]) if cached else None
+            x, _ = _apply_attn_block(shared, x, c, positions=positions,
+                                     cache=cache, cache_pos=pos)
+        for j in range(self.n_tail):
+            x = self._mamba(layer(params["tail"], j), x,
+                            states["tail"] if cached else None, (j,))
+        return x
+
+    def _forward(self, params, tokens: torch.Tensor) -> torch.Tensor:
+        """Logits [B, S, V_pad] of the full sequence (no cache)."""
+        c = self.cfg
+        x = params["embed"][tokens].to(c.cdt)
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        x = self._backbone(params, x, positions)
+        x = rms_norm(x, params["ln_f"], c.norm_eps)
+        return lm_head_logits(x, params["lm_head"], c.vocab_size)
+
+    def loss_fn(self, params, batch):
+        """Mean next-token cross entropy of ``batch["tokens"]`` against
+        ``batch["labels"]`` (both ``[B, S]``): ``(loss, {"ce_loss": loss})``."""
+        loss = cross_entropy_loss(self._forward(params, batch["tokens"]),
+                                  batch["labels"])
+        return loss, {"ce_loss": loss}
+
+    # ---------------- caches
+    def init_cache(self, batch_size: int, max_len: int,
+                   device=None) -> Dict[str, Any]:
+        """Zero caches: per Mamba block a conv state ``[B, K-1, C]`` in the
+        compute dtype and an SSM state ``[B, H, P, N]`` in f32, stacked as
+        the parameters; the shared block's K/V ``[n_super, B, max_len, Hkv,
+        Dh]`` in the compute dtype."""
+        c = self.cfg
+        dev = resolve_device(device)
+        d_inner = c.ssm_expand * c.d_model
+        H = d_inner // c.ssm_head_dim
+        mk = lambda *s: torch.zeros(s, dtype=c.cdt, device=dev)
+        mkf = lambda *s: torch.zeros(s, dtype=torch.float32, device=dev)
+        mstate = lambda *n: {
+            "conv": mk(*n, batch_size, c.d_conv - 1, d_inner + 2 * c.ssm_state),
+            "ssm": mkf(*n, batch_size, H, c.ssm_head_dim, c.ssm_state)}
+        states = {"supers": {"mamba": mstate(self.n_super, c.attn_every)}}
+        if self.n_tail:
+            states["tail"] = mstate(self.n_tail)
+        shape = (self.n_super, batch_size, max_len, c.n_kv_heads, c.hd)
+        kv = {"shared": (mk(*shape), mk(*shape))}
+        return {"states": states, "kv": kv}
+
+    def _with_cache(self, params, tokens: torch.Tensor, cache, pos: int):
+        """Shared prefill/decode path at cache offset ``pos``, the caches
+        updated in place. Returns the last position's logits [B, 1, V_pad]
+        and the cache."""
+        c = self.cfg
+        x = params["embed"][tokens].to(c.cdt)
+        positions = pos + torch.arange(tokens.shape[1], device=tokens.device)
+        x = self._backbone(params, x, positions, states=cache["states"],
+                           kv=cache["kv"], pos=pos)
+        x = rms_norm(x, params["ln_f"], c.norm_eps)
+        logits = lm_head_logits(x[:, -1:], params["lm_head"], c.vocab_size)
+        return logits, cache
+
+    def prefill(self, params, tokens: torch.Tensor, max_len: int):
+        cache = self.init_cache(tokens.shape[0], max_len, tokens.device)
+        return self._with_cache(params, tokens, cache, 0)
+
+    def decode_step(self, params, tokens: torch.Tensor, cache, pos: int):
+        return self._with_cache(params, tokens, cache, pos)
+
+
+# ---------------------------------------------------------------------------
+
+def get_model(cfg: ModelConfig):
     """The model of ``cfg``; raises ``NotImplementedError`` for what the
     port does not have yet."""
+    if cfg.family == "hybrid":
+        return HybridSSM(cfg)
     return DecoderLM(cfg)

@@ -1,7 +1,8 @@
 """The port on the card: each kernel against its plain version, the
 engine through the kernel against the engine through the plain version,
-the serving path through the flash kernel against the plain path, and the
-EM through the GMM kernel with no host sync per iteration.
+the serving path through the flash kernel against the plain path, the EM
+through the GMM kernel with no host sync per iteration, and the hybrid's
+forward through the SSD kernel against its plain path.
 
 These tests need a CUDA device and ``nvcc`` and skip elsewhere. They
 import the port only (no JAX, no reference), so they also run where the
@@ -21,6 +22,7 @@ from repro_torch.core import batching, des, gmm, vdes, workload
 from repro_torch.core import model as M
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gmm_logpdf as gl
+from repro_torch.kernels import mamba2_scan as ms
 from repro_torch.kernels import queue_scan, ref
 from repro_torch.models.transformer import get_model
 from repro_torch.ops.capacity import MaintenanceWindows
@@ -225,3 +227,112 @@ def test_em_on_card_makes_no_host_sync():
         a, b = getattr(fit, name).cpu(), getattr(cpu, name)
         assert torch.isfinite(a).all()
         assert torch.allclose(a, b, rtol=1e-3, atol=1e-3), name
+
+
+def ssd_case(B, S, H, P, N, dtype, seed=0):
+    """The reference kernel test's scales: x * 0.5, B/C * 0.3,
+    dt = softplus(.) * 0.1, A = -exp(. * 0.3)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=g, device="cuda")
+    x = (r(B, S, H, P) * 0.5).to(dtype)
+    dt = (torch.nn.functional.softplus(r(B, S, H)) * 0.1).to(dtype)
+    A = -torch.exp(r(H) * 0.3)
+    return x, dt, A, (r(B, S, N) * 0.3).to(dtype), (r(B, S, N) * 0.3).to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [
+    (2, 128, 2, 64, 32, 64), (2, 256, 4, 32, 64, 128),
+    (2, 192, 1, 64, 64, 64), (1, 4096, 4, 64, 64, 128),
+    (1, 16, 3, 16, 16, 8), (1, 100, 2, 8, 4, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba2_kernel_matches_plain_on_card(B, S, H, P, N, chunk, dtype):
+    """y and h_last within 2e-4 (tests/test_kernels.py's atol) plus 1e-4 of
+    |plain| (the kernel sums each chunk's products in another order), and
+    one launch per call."""
+    _need_card()
+    args = ssd_case(B, S, H, P, N, dtype, seed=S + H)
+    before = ms.mamba2_scan.launches
+    y, h = ms.mamba2_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ms.mamba2_scan.launches == before + 1
+    yw, hw = ref.mamba2_scan_ref(*args, chunk=min(chunk, S))
+    for got, want in ((y, yw), (h, hw)):
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        assert bool(((got - want).abs() <= 2e-4 + 1e-4 * want.abs()).all())
+
+
+@pytest.mark.cuda
+def test_mamba2_kernel_refuses_what_it_cannot_take():
+    """Head dims or states past 64, ragged S, mixed or other types,
+    strided inputs and tensors that require grad raise; nothing falls
+    back."""
+    _need_card()
+    x, dt, A, Bm, Cm = ssd_case(1, 64, 2, 128, 16, torch.float32)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        ms.mamba2_scan(x, dt, A, Bm, Cm, chunk=64)
+    x, dt, A, Bm, Cm = ssd_case(1, 96, 2, 16, 16, torch.float32)
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        ms.mamba2_scan(x, dt, A, Bm, Cm, chunk=64)
+    with pytest.raises(TypeError, match="dt is"):
+        ms.mamba2_scan(x, dt.bfloat16(), A, Bm, Cm, chunk=32)
+    with pytest.raises(TypeError, match="kernel takes"):
+        ms.mamba2_scan(x.half(), dt.half(), A, Bm.half(), Cm.half(), chunk=32)
+    with pytest.raises(ValueError, match="contiguous"):
+        ms.mamba2_scan(x.transpose(2, 3).contiguous().transpose(2, 3), dt, A,
+                       Bm, Cm, chunk=32)
+    with pytest.raises(ValueError, match="requires grad"):
+        ms.mamba2_scan(x.requires_grad_(), dt, A, Bm, Cm, chunk=32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 2, 7, 32, 33, 64, 256])
+def test_queue_kernel_matches_plain_on_card(c):
+    """Bit for bit, and one launch per call."""
+    _need_card()
+    rng = np.random.default_rng(c)
+    rdy = np.sort(rng.uniform(0, 500, (37, 300)), axis=1).astype(np.float32)
+    svc = rng.exponential(5.0 * c ** 0.5, (37, 300)).astype(np.float32)
+    r, s = torch.from_numpy(rdy).cuda(), torch.from_numpy(svc).cuda()
+    before = queue_scan.queue_scan.launches
+    got = queue_scan.queue_scan(r, s, capacity=c)
+    torch.cuda.synchronize()
+    assert queue_scan.queue_scan.launches == before + 1
+    for a, b in zip(got, ref.queue_scan_ref(r, s, capacity=c)):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_queue_kernel_refuses_what_it_cannot_take():
+    _need_card()
+    r = torch.zeros(2, 8, device="cuda")
+    with pytest.raises(ValueError, match="capacity <= 256"):
+        queue_scan.queue_scan(r, r, capacity=257)
+
+
+@pytest.mark.cuda
+def test_hybrid_kernel_matches_plain_on_card():
+    """The smoke hybrid in f32 (no TF32): the loss through the SSD kernel
+    (one launch per Mamba block) equals the plain path's within 1e-5, and
+    the prefill, which takes the chunked scan from a zero state, launches
+    it no time."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    loss = {}
+    for impl in ("mamba_kernel", "xla"):
+        cfg = configs.get_smoke_config("zamba2-1.2b", ssm_impl=impl)
+        model = get_model(cfg)
+        params = model.init(0)
+        toks = torch.randint(0, cfg.vocab_size, (2, 64), device="cuda",
+                             generator=torch.Generator(device="cuda")
+                             .manual_seed(1))
+        before = ms.mamba2_scan.launches
+        loss[impl], _ = model.loss_fn(params, {"tokens": toks,
+                                               "labels": toks})
+        assert ms.mamba2_scan.launches - before == (
+            cfg.n_layers if impl == "mamba_kernel" else 0)
+        before = ms.mamba2_scan.launches
+        logits, _ = model.prefill(params, toks, max_len=65)
+        assert ms.mamba2_scan.launches == before
+        assert bool(torch.isfinite(logits).all())
+    assert abs(float(loss["mamba_kernel"] - loss["xla"])) <= 1e-5

@@ -88,3 +88,18 @@ def test_wrapper_checks_and_counts_no_cpu_launch():
         fa.flash_attention(q[:, :, :3], k, v)      # H % Hkv != 0
     with pytest.raises(TypeError):
         fa.flash_attention(q, k.double(), v.double())
+
+
+def test_public_wrapper_matches_pallas_kernel_and_takes_no_tiles():
+    """``repro_torch.kernels.ops.flash_attention`` against the reference's
+    public wrapper (interpret mode); the port's kernel picks its own tiles,
+    so a tile argument is refused rather than ignored."""
+    from repro_torch.kernels import ops as tops
+    (jq, jk, jv), (tq, tk, tv) = both(make_qkv(3, 1, 128, 4, 2, 64),
+                                      "float32")
+    want = ops.flash_attention(jq, jk, jv, causal=True, block_q=64,
+                               block_k=64)
+    got = tops.flash_attention(tq, tk, tv, causal=True)
+    np.testing.assert_allclose(as_f32(got), as_f32(want), atol=TOL["float32"])
+    with pytest.raises(TypeError):
+        tops.flash_attention(tq, tk, tv, block_q=64)

@@ -203,3 +203,17 @@ def test_draws_kmeanspp_and_fit_recover_modes():
     assert mus[0] == pytest.approx(-3.0, abs=0.15)
     assert mus[1] == pytest.approx(3.0, abs=0.15)
     assert torch.exp(g.log_weights).min() > 0.4
+
+
+def test_public_wrapper_matches_pallas_kernel_and_takes_no_tiles():
+    """``repro_torch.kernels.ops.gmm_logpdf`` against the reference's public
+    wrapper (interpret mode); a tile argument is refused, not ignored."""
+    from repro_torch.kernels import ops as tops
+    x, mu, inv, lw = kernel_case(np.random.default_rng(11), 300, 3, 5)
+    want = np.asarray(ref_ops.gmm_logpdf(
+        *(jnp.asarray(a) for a in (x, mu, inv, lw)), block_n=128,
+        interpret=True))
+    got = tops.gmm_logpdf(t(x), t(mu), t(inv), t(lw))
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL)
+    with pytest.raises(TypeError):
+        tops.gmm_logpdf(t(x), t(mu), t(inv), t(lw), block_n=128)

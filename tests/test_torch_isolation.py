@@ -2,8 +2,8 @@
 
 An AST walk finds no ``jax`` and no ``repro`` import in ``src/repro_torch``,
 ``chip_smoke.py`` or ``tools/``; a fresh interpreter runs the port (the wave
-loop, the serving path, and the fit -> synthesize -> simulate path) without
-loading ``jax``; with no card the entry
+loop, the serving paths, the hybrid's forward, and the fit -> synthesize ->
+simulate path) without loading ``jax``; with no card the entry
 points raise unless the caller asks for the CPU; the arguments of stages
 and the model families that are not ported yet are refused.
 """
@@ -86,6 +86,25 @@ def test_cpu_serving_run_leaves_jax_unloaded():
         "assert r['generated_shape'] == [2, 3], r\n" + NO_REFERENCE)
 
 
+def test_cpu_hybrid_run_leaves_jax_unloaded():
+    run_fresh(
+        "import sys\n"
+        "import torch\n"
+        "from repro_torch import configs, kernels\n"
+        "from repro_torch.launch.serve import run_serving\n"
+        "from repro_torch.models.transformer import get_model\n"
+        "cfg = configs.get_smoke_config('zamba2-1.2b',\n"
+        "                               ssm_impl='mamba_kernel')\n"
+        "m = get_model(cfg)\n"
+        "toks = torch.randint(0, cfg.vocab_size, (2, 16))\n"
+        "loss, _ = m.loss_fn(m.init(0, 'cpu'), {'tokens': toks,\n"
+        "                                       'labels': toks})\n"
+        "assert bool(torch.isfinite(loss)), loss\n"
+        "r = run_serving('zamba2-1.2b', batch=2, prompt_len=8, new_tokens=3,\n"
+        "                smoke=True, device='cpu')\n"
+        "assert r['all_in_vocab'] and r['logits_finite'], r\n" + NO_REFERENCE)
+
+
 def test_cpu_fit_path_leaves_jax_unloaded():
     run_fresh(
         "import sys\n"
@@ -144,19 +163,24 @@ def test_serving_without_card_raises_unless_cpu_is_asked_for(monkeypatch):
     assert run_serving("llama3.2-1b", device="cpu", **kw)["all_in_vocab"]
 
 
-@pytest.mark.parametrize("overrides", [
-    dict(family="moe", n_experts=4), dict(family="vlm", cross_every=2),
-    dict(family="hybrid"), dict(family="ssm"), dict(family="audio"),
-    dict(use_mla=True), dict(mlp_type="gelu")])
-def test_unported_models_are_refused(overrides):
-    with pytest.raises(NotImplementedError):
+@pytest.mark.parametrize("overrides,error", [
+    (dict(family="moe", n_experts=4), NotImplementedError),
+    (dict(family="vlm", cross_every=2), NotImplementedError),
+    # a hybrid without its SSM fields is malformed, not unported
+    (dict(family="hybrid"), ValueError),
+    (dict(family="ssm"), NotImplementedError),
+    (dict(family="audio"), NotImplementedError),
+    (dict(use_mla=True), NotImplementedError),
+    (dict(mlp_type="gelu"), NotImplementedError)])
+def test_unported_models_are_refused(overrides, error):
+    with pytest.raises(error):
         get_model(configs.get_smoke_config("llama3.2-1b", **overrides))
 
 
 def test_unported_archs_are_refused():
-    assert configs.ARCHS == ["llama3.2-1b"]
+    assert configs.ARCHS == ["llama3.2-1b", "zamba2-1.2b"]
     with pytest.raises(ValueError, match="unported"):
-        configs.get_config("zamba2-1.2b")
+        configs.get_config("xlstm-125m")
 
 
 def test_unported_arguments_are_refused():
