@@ -3,12 +3,14 @@
 ``flash_attention`` is causal or non-causal grouped-query attention with an
 online softmax in f32: the prefill attention of every GQA layer under
 ``ModelConfig.attn_impl="flash"``. On a CUDA tensor it launches the
-hand-written kernel ``csrc/flash_attention.cu`` (built by
-:mod:`repro_torch.kernels._build` at first use), which takes f32 or bf16,
-head dims 64 and 128 and any ``H % Hkv == 0``, and reads the ``[B, S, H, D]``
-layout in place. On a CPU tensor it runs the plain version,
-:func:`repro_torch.kernels.ref.flash_attention_ref`. There is no fallback
-between the two: a CUDA tensor launches the kernel or raises.
+hand-written kernels of ``csrc/flash_attention.cu`` (built by
+:mod:`repro_torch.kernels._build` at first use), chosen by dtype: bf16 runs
+on the tensor cores (wgmma, K and V fed by TMA), f32 on the CUDA cores (the
+tensor cores' only f32 path, TF32, cannot meet the f32 tolerance). Both
+take head dims 64 and 128 and any ``H % Hkv == 0``, and read the
+``[B, S, H, D]`` layout in place. On a CPU tensor it runs the plain
+version, :func:`repro_torch.kernels.ref.flash_attention_ref`. There is no
+fallback between the two: a CUDA tensor launches a kernel or raises.
 """
 from __future__ import annotations
 

@@ -53,9 +53,12 @@ def make_case(seed, R, N, nres, sentinel_frac, float_keys):
 @pytest.mark.parametrize("R,N,nres,sent,float_keys", [
     (1, 1, 1, 0.0, False), (2, 127, 2, 0.5, False), (3, 128, 5, 0.9, False),
     (4, 300, 2, 0.0, True), (32, 2500, 2, 0.8, True),
-    (2, 5000, 5, 0.0, False)])
+    (2, 5000, 5, 0.0, False), (1, 17000, 5, 0.0, False),
+    (2, 6000, 2, 0.3, True)])
 def test_kernel_matches_plain_on_card(R, N, nres, sent, float_keys):
-    """Exactly equal, and one launch counted per call."""
+    """Exactly equal, and one launch counted per call; among the inputs,
+    every row queued at N = 17,000, and replicas whose ~4,200 queued rows
+    span three of the kernel's shared tiles (2,048 entries each)."""
     _need_card()
     args = make_case(N, R, N, nres, sent, float_keys)
     before = queue_scan.fused_admission.launches
@@ -63,6 +66,20 @@ def test_kernel_matches_plain_on_card(R, N, nres, sent, float_keys):
     torch.cuda.synchronize()
     assert queue_scan.fused_admission.launches == before + 1
     assert torch.equal(got, ref.admission_mask_dense(*args))
+
+
+@pytest.mark.cuda
+def test_kernel_with_one_queued_row_on_card():
+    """One queued row in a 32 x 2,673 input (the wave loop's width): every
+    other chunk exits at once; the mask equals the plain version's and
+    admits exactly that row."""
+    _need_card()
+    res, pkey, wave, free = make_case(0, 32, 2673, 2, 1.0, True)
+    res[16, 1336] = 1
+    free[16, 1] = 1
+    got = queue_scan.fused_admission(res, pkey, wave, free)
+    assert torch.equal(got, ref.admission_mask_dense(res, pkey, wave, free))
+    assert int(got.sum()) == 1
 
 
 @pytest.mark.cuda
@@ -101,12 +118,18 @@ def test_kernel_engine_equals_dense_on_card():
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,S,H,Hkv,D", [
     (1, 1, 4, 4, 64), (2, 200, 4, 2, 64), (4, 1024, 32, 8, 64),
-    (1, 256, 8, 1, 128), (2, 130, 4, 4, 128)])
+    (1, 256, 8, 1, 128), (2, 130, 4, 4, 128), (2, 4096, 32, 32, 64),
+    (1, 129, 4, 2, 64), (1, 129, 4, 2, 128), (2, 200, 8, 1, 128)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_kernel_matches_plain_on_card(B, S, H, Hkv, D, dtype, causal):
-    """Within tests/test_kernels.py's tolerances (1e-5 f32, 2e-2 bf16), and
-    one launch counted per call."""
+    """Within tests/test_kernels.py's tolerances (1e-5 f32, 2e-2 bf16) on
+    the largest difference, in bf16 also within 1e-2 on each output row's
+    ||diff|| / ||want|| (the largest difference sits in the early causal
+    rows, where |o| is largest; the row-relative one also sees the late
+    key tiles, and one bf16 step is 0.4-0.8 % of a value), and one launch
+    counted per call; among the shapes, the hybrid forward's and ragged
+    lengths whose last key tile TMA fills with zeros past S."""
     _need_card()
     g = torch.Generator(device="cuda").manual_seed(S + H + D)
     q, k, v = (torch.randn(B, S, h, D, generator=g, device="cuda").to(dtype)
@@ -118,7 +141,33 @@ def test_flash_kernel_matches_plain_on_card(B, S, H, Hkv, D, dtype, causal):
     want = ref.flash_attention_ref(q, k, v, causal=causal)
     tol = 1e-5 if dtype == torch.float32 else 2e-2
     assert got.dtype == dtype
-    assert float((got.float() - want.float()).abs().max()) <= tol
+    diff = got.float() - want.float()
+    assert float(diff.abs().max()) <= tol
+    if dtype == torch.bfloat16:
+        row_rel = diff.norm(dim=-1) / want.float().norm(dim=-1)
+        assert float(row_rel.max()) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_f32_stays_on_cuda_cores(D):
+    """f32 inputs take the f32 kernel: within 1e-5 of the plain version,
+    which no path that rounds q, k, v or p to bf16 or TF32 can reach (the
+    same function on bf16-rounded inputs is shown to miss by far more)."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(D)
+    q, k, v = (torch.randn(2, 300, h, D, generator=g, device="cuda")
+               for h in (8, 2, 2))
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    assert got.dtype == torch.float32
+    want = ref.flash_attention_ref(q, k, v)
+    assert float((got - want).abs().max()) <= 1e-5
+    rounded = ref.flash_attention_ref(*(t.bfloat16().float()
+                                        for t in (q, k, v)))
+    assert float((rounded - want).abs().max()) > 1e-3
 
 
 @pytest.mark.cuda

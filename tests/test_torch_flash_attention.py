@@ -103,3 +103,90 @@ def test_public_wrapper_matches_pallas_kernel_and_takes_no_tiles():
     np.testing.assert_allclose(as_f32(got), as_f32(want), atol=TOL["float32"])
     with pytest.raises(TypeError):
         tops.flash_attention(tq, tk, tv, block_q=64)
+
+
+def emulate_bf16_kernel(q, k, v, causal, block_k=128):
+    """The arithmetic of the bf16 kernel in ``csrc/flash_attention.cu``,
+    in f32 on the CPU: scores of the bf16 inputs in f32, an online softmax
+    over 128-key tiles (the -1e30 mask and the running max on the unscaled
+    scores, exp2 of the scores scaled by ``log2(e) / sqrt(D)``), P split
+    into bf16 hi + lo and both products accumulated in f32, then
+    ``acc / max(l, 1e-20)`` rounded to bf16."""
+    B, S, H, D = q.shape
+    rep = H // k.shape[2]
+    qf = q.float().permute(0, 2, 1, 3)                            # [B,H,S,D]
+    kf = k.float().repeat_interleave(rep, 2).permute(0, 2, 1, 3)
+    vf = v.float().repeat_interleave(rep, 2).permute(0, 2, 1, 3)
+    sl2 = np.float32(1.0 / np.sqrt(D)) * np.float32(1.4426950408889634)
+    m = torch.full((B, H, S, 1), -1e30)
+    l = torch.zeros((B, H, S, 1))
+    acc = torch.zeros((B, H, S, D))
+    rows = torch.arange(S)[:, None]
+    for k0 in range(0, S, block_k):
+        keys = torch.arange(k0, min(S, k0 + block_k))[None, :]
+        x = qf @ kf[:, :, k0:k0 + block_k].transpose(2, 3)
+        if causal:
+            x = torch.where(keys > rows, torch.tensor(-1e30), x)
+        m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+        alpha = torch.exp2((m - m_new) * sl2)
+        p = torch.exp2(x * sl2 - m_new * sl2)
+        hi = p.bfloat16().float()
+        lo = (p - hi).bfloat16().float()
+        vt = vf[:, :, k0:k0 + block_k]
+        acc = acc * alpha + hi @ vt + lo @ vt
+        l = l * alpha + p.sum(-1, keepdim=True)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-20)
+    return out.permute(0, 2, 1, 3).bfloat16()
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,D", [
+    (1, 1, 4, 4, 64), (4, 64, 4, 2, 128), (1, 128, 8, 1, 64),
+    (1, 200, 32, 8, 64), (1, 200, 4, 4, 128), (4, 256, 4, 2, 64),
+    (1, 1024, 32, 8, 64), (1, 1024, 4, 4, 128), (1, 2048, 8, 1, 64),
+    (1, 2048, 4, 2, 128),
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_kernel_arithmetic_within_gate(B, S, H, Hkv, D, causal):
+    """A check of the emulation only, not of the kernel: it runs no code
+    of the port but ``flash_attention_ref``, and passes whatever the CUDA
+    kernel does (the card-only tests in ``test_torch_cuda.py`` and
+    ``chip_smoke.py`` phase 5 check the kernel). It pins the error budget
+    the kernel's design rests on, at the card grid's shapes (B and heads
+    cut where the CPU would take long): bf16 inputs, f32 scores, P as bf16
+    hi + lo, f32 accumulation and one rounding to bf16 stay within the
+    2e-2 gate of the plain version on randn inputs."""
+    tq, tk, tv = (torch.from_numpy(a).bfloat16()
+                  for a in make_qkv(S + H + D, B, S, H, Hkv, D))
+    want = ref.flash_attention_ref(tq, tk, tv, causal=causal)
+    got = emulate_bf16_kernel(tq, tk, tv, causal)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert float((got.float() - want.float()).abs().max()) <= TOL["bfloat16"]
+
+
+def test_smoke_row_check_sees_late_rows():
+    """``chip_smoke.py``'s bf16 check on each output row's ||diff|| /
+    ||want|| passes the emulated kernel and catches a 3 % error in the
+    last eighth of the causal rows, where |o| is small enough that the
+    2e-2 gate on the largest difference alone lets it through."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    S = 1024
+    tq, tk, tv = (torch.from_numpy(a).bfloat16()
+                  for a in make_qkv(7, 1, S, 8, 2, 64))
+    want = ref.flash_attention_ref(tq, tk, tv, causal=True)
+    got = emulate_bf16_kernel(tq, tk, tv, True)
+    err, rel = smoke.flash_errs(got, want, "on the emulated kernel")
+    assert err <= smoke.FLASH_TOL["bfloat16"]
+    assert rel <= smoke.FLASH_ROW_REL_TOL
+    bad = got.float()
+    bad[:, S - S // 8:] *= 1.03
+    bad = bad.bfloat16()
+    assert (float((bad.float() - want.float()).abs().max())
+            <= smoke.FLASH_TOL["bfloat16"])
+    with pytest.raises(AssertionError, match="row-relative"):
+        smoke.flash_errs(bad, want, "on a late-row fault")
