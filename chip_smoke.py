@@ -8,10 +8,11 @@ Run from the repository root with one CUDA device and the CUDA toolkit:
 Phases (any failure exits non-zero, with no result line):
 
 1. Setup: torch/CUDA versions, the card's name and power limit, the
-   build of the kernels (one nvcc each, in parallel), the counts of
-   ``HGMMA`` and ``UTMALDG`` instructions in the flash kernels' SASS (where
-   the toolkit has ``cuobjdump``; the bf16 kernels must have HGMMA), and
-   the workloads of phase 3.
+   build of the kernels (one nvcc each, in parallel; ptxas's registers,
+   shared memory and spills of each kernel), the counts of ``HGMMA`` and
+   ``UTMALDG`` instructions in the flash and SSD kernels' SASS (where the
+   toolkit has ``cuobjdump``; the bf16 flash kernels and the SSD scan's
+   tensor-core kernel must have HGMMA), and the workloads of phase 3.
 2. The admission kernel against its plain PyTorch version on the card,
    exactly, over a grid of shapes, ties, sentinel shares and negative free
    slots, and on one queued row in a 32 x 2,673 input.
@@ -73,7 +74,8 @@ Phases (any failure exits non-zero, with no result line):
     width in bf16 (random weights from a seed) on 2 x 4,096 tokens, through
     the SSD kernel in all 38 Mamba blocks and the flash kernel in the 6
     shared-attention applications, cold then warm. Checks: a finite loss
-    and exactly 38 + 6 launches per forward. Twin: the same
+    and exactly 38 + 6 launches per forward, the 38 on the SSD kernel's
+    tensor-core route. Twin: the same
     model in f32 (no TF32) on 1 x 1,024 tokens through the kernel and
     through the plain chunked scan, logits within ``HYB_TWIN_LOGIT_ATOL``
     and loss within ``HYB_TWIN_LOSS_ATOL``. On layer 0's inputs the SSD
@@ -96,6 +98,14 @@ Phases (any failure exits non-zero, with no result line):
     ``QUEUE_ORACLE_ATOL`` of the f64 oracle. Each launch is timed with CUDA
     events beside its bound and the plain version (no single PyTorch call
     computes it).
+13. The card's engine against the CPU path, which the CPU twins hold bit
+    for bit against the reference's numpy engine (so card == CPU ==
+    oracle): a 4-replica one-tenth-day ensemble with whole-second times,
+    mixed policies, retries with backoff, a partial-progress replica, a
+    resampled-attempt replica and drains below the busy count, through
+    ``simulate_ensemble`` on the card and with ``device="cpu"``. Checks:
+    every replica retried, then every output key equal bit for bit; prints
+    ``engine_card_vs_cpu: identical, ...`` on a line of its own.
 
 The last lines are the kernels' JSON record (a kernel launched on two
 main paths, as flash in the llama prefill and the hybrid forward, has its
@@ -198,6 +208,13 @@ QUEUE_R, QUEUE_N, QUEUE_CAPS = 4096, 4096, (1, 2, 7, 32, 64)
 QUEUE_LOADS = (0.5, 1.1)     # per-station utilisation, uniform in between
 QUEUE_ORACLE_ROWS = 8        # rows per capacity held against the f64 oracle
 QUEUE_ORACLE_ATOL = 1e-2     # tests/test_kernels.py's
+# the card's engine against the CPU path: whole-second one-tenth days
+ORACLE_R, ORACLE_HORIZON_S, ORACLE_SEED = 4, 0.1 * 86400.0, 100
+ORACLE_LEARNING_CAP = 8      # small, so queues form and the drain bites
+ORACLE_DRAIN = (1800.0, 5400.0, 1, 0.0)    # the learning cluster to zero
+ORACLE_DRAINED = (0, 3)
+ORACLE_KEYS = ("start", "finish", "ready", "attempts", "done", "waves",
+               "att_start", "att_finish")
 
 
 def log(*a):
@@ -602,39 +619,50 @@ def build_kernels(_build):
         f" in parallel: {time.perf_counter() - t0:.2f} s")
     for name in KERNELS:
         for line in _build.build_log(name).splitlines():
-            if "ptxas info" in line and ("Used" in line or "entry" in line):
+            if ("ptxas info" in line and ("Used" in line or "entry" in line)
+                    or "spill" in line):
                 log(f"[1]   {name}: {line.strip()}")
-    flash_sass(_build)
+    kernel_sass(_build)
 
 
-def flash_sass(_build):
+# the libraries whose tensor-core kernels must show HGMMA in their SASS:
+# library -> (the tensor-core kernels' name part, the other kernels')
+TC_KERNELS = {"flash_attention": ("flash_bf16", "flash_f32"),
+              "mamba2_scan": ("mamba2_tc", "mamba2_scan_kernel")}
+
+
+def kernel_sass(_build):
     """Counts of tensor-core (``HGMMA``) and TMA-load (``UTMALDG``)
-    instructions in each kernel of the flash library, from ``cuobjdump
-    -sass`` where the toolkit has it; fails if the bf16 kernels have no
-    HGMMA."""
+    instructions in each kernel of the flash and SSD libraries, from
+    ``cuobjdump -sass`` where the toolkit has it; fails if a tensor-core
+    kernel (bf16 flash, the SSD scan's bf16 route) has no HGMMA."""
     import os
     tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
     if not os.path.isfile(tool):
         log("[1] no cuobjdump in the toolkit: SASS not counted")
         return
-    sass = subprocess.run([tool, "-sass", str(_build.build("flash_attention"))],
-                          capture_output=True, text=True, timeout=120,
-                          check=True).stdout
-    counts, fn = {}, None
-    for line in sass.splitlines():
-        if "Function :" in line:
-            fn = line.split("Function :")[1].strip()
-            counts[fn] = {"HGMMA": 0, "UTMALDG": 0}
-        elif fn is not None:
-            for op in counts[fn]:
-                counts[fn][op] += op in line
-    for fn, c in counts.items():
-        kind = "bf16" if "flash_bf16" in fn else "f32"
-        dim = fn.split("ILi")[1].split("E")[0] if "ILi" in fn else "?"
-        log(f"[1]   flash_attention {kind} D={dim}: {c['HGMMA']} HGMMA, "
-            f"{c['UTMALDG']} UTMALDG in the SASS")
-        if kind == "bf16" and not c["HGMMA"]:
-            raise AssertionError(f"no HGMMA in {fn}")
+    for lib, (tc, other) in TC_KERNELS.items():
+        sass = subprocess.run([tool, "-sass", str(_build.build(lib))],
+                              capture_output=True, text=True, timeout=120,
+                              check=True).stdout
+        counts, fn = {}, None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :")[1].strip()
+                counts[fn] = {"HGMMA": 0, "UTMALDG": 0}
+            elif fn is not None:
+                for op in counts[fn]:
+                    counts[fn][op] += op in line
+        for fn, c in counts.items():
+            kind = ("tensor cores" if tc in fn else
+                    "CUDA cores" if other in fn else "?")
+            tmpl = fn.split("ILi")[1].split("E")[0] if "ILi" in fn else "-"
+            log(f"[1]   {lib} {kind} (template {tmpl}): {c['HGMMA']} HGMMA, "
+                f"{c['UTMALDG']} UTMALDG in the SASS")
+            if tc in fn and not c["HGMMA"]:
+                raise AssertionError(f"no HGMMA in {fn}")
+        if not any(tc in fn for fn in counts):
+            raise AssertionError(f"no {tc} kernel in the {lib} library")
 
 
 # ------------------------------------------------------------ phase 5
@@ -1128,6 +1156,7 @@ def phase_ssd_grid(torch, mamba2_scan):
     gen = torch.Generator(device="cuda").manual_seed(14)
     worst = worst_rec = top = 0.0
     n_cases = n_rec = 0
+    routes = dict(mamba2_scan.route_launches)
     t0 = time.perf_counter()
     for S in SSD_S:
         for H in SSD_H:
@@ -1153,9 +1182,11 @@ def phase_ssd_grid(torch, mamba2_scan):
                                         got, rec, where + " (recurrence)"))
                                     n_rec += 1
     torch.cuda.synchronize()
+    routes = {k: n - routes[k] for k, n in mamba2_scan.route_launches.items()}
     log(f"[9] mamba2_scan == mamba2_scan_ref on {n_cases} cases (S in "
         f"{SSD_S}, H in {SSD_H}, P in {SSD_P}, N in {SSD_N}, chunk in "
-        f"{SSD_CHUNK}, f32/bf16, B in {SSD_B}; S % chunk == 0) in "
+        f"{SSD_CHUNK}, f32/bf16, B in {SSD_B}; S % chunk == 0; launches by "
+        f"route {routes}) in "
         f"{time.perf_counter() - t0:.2f} s: max |diff| {worst:.3g} (tol "
         f"{SSD_ATOL} + {SSD_RTOL} |y|; max |y| {top:.4g}); against the O(S) "
         f"recurrence on {n_rec} cases (S <= {SSD_RECURRENT_MAX_S}, H <= 4): "
@@ -1197,6 +1228,7 @@ def phase_hybrid_forward(torch, mamba2_scan, flash_attention, counts):
             torch.cuda.synchronize()
             for k in counts:
                 k.launches = 0
+            routes = dict(mamba2_scan.route_launches)
             t0 = time.perf_counter()
             with torch.inference_mode():
                 loss, _ = model.loss_fn(params, batch)
@@ -1210,6 +1242,11 @@ def phase_hybrid_forward(torch, mamba2_scan, flash_attention, counts):
             if launched != want:
                 raise AssertionError(f"the hybrid forward launched "
                                      f"{launched}, not {want}")
+            routes = {k: n - routes[k]
+                      for k, n in mamba2_scan.route_launches.items()}
+            if routes["tensor_cores"] != cfg.n_layers:
+                raise AssertionError(f"the hybrid forward's SSD launches took "
+                                     f"the routes {routes}")
     finally:
         ssm.mamba2_scan, attention.flash_attention = mamba2_scan, \
             flash_attention
@@ -1221,8 +1258,8 @@ def phase_hybrid_forward(torch, mamba2_scan, flash_attention, counts):
         f"mamba_kernel, attn_impl=flash): loss {losses[0]:.6f} and "
         f"{losses[1]:.6f} (finite); wall cold {walls[0]:.4f} s, warm {walls[1]:.4f} s "
         f"({HYB_B * HYB_S / walls[1]:.0f} tokens/s); launches per forward: "
-        f"mamba2_scan {launched['mamba2_scan']}, flash_attention "
-        f"{launched['flash_attention']}, others 0")
+        f"mamba2_scan {launched['mamba2_scan']} (all on the tensor cores), "
+        f"flash_attention {launched['flash_attention']}, others 0")
     del params
     torch.cuda.empty_cache()
     return (dict(wall_s=walls[1], ssd_launches=launched["mamba2_scan"],
@@ -1294,29 +1331,56 @@ def ssd_bound(x, Bm, chunk):
     return nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_FLOPS[dt] * 1e3
 
 
+def cuda_core_ssd(torch, x, dt, A, Bm, Cm, chunk):
+    """The SSD source's CUDA-core kernel on bf16 inputs that the wrapper
+    sends to the tensor cores: called through the library directly, for a
+    comparison of the two kernels in one run only (no path launches it so,
+    and it adds nothing to the wrapper's counts)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import mamba2_scan as ms
+    B, S, H, P = x.shape
+    N = Bm.shape[2]
+    y = torch.empty((B, S, H, P), dtype=torch.float32, device=x.device)
+    h = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
+    err = _build.load("mamba2_scan", ms._SIGNATURES).mamba2_scan_launch(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+        Cm.data_ptr(), y.data_ptr(), h.data_ptr(), B, S, H, P, N, chunk,
+        int(x.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"the CUDA-core SSD kernel failed with error {err}")
+    return y, h
+
+
 def time_ssd(torch, mamba2_scan, kept):
-    """On layer 0's inputs of the bf16 forward: the kernel against its
-    plain version, then both timed with CUDA events, and the bound. No
-    single PyTorch call computes the SSD scan: no library yardstick."""
+    """On layer 0's inputs of the bf16 forward: the kernel (its tensor-core
+    route) and the source's CUDA-core kernel against the plain version,
+    then the three timed with CUDA events, and the bound. No single
+    PyTorch call computes the SSD scan: no library yardstick."""
     from repro_torch.kernels.ref import mamba2_scan_ref
     x, dt, A, Bm, Cm = kept
     chunk = HYB_CHUNK
     want = mamba2_scan_ref(x, dt, A, Bm, Cm, chunk=chunk)
-    err = ssd_err(mamba2_scan(x, dt, A, Bm, Cm, chunk=chunk), want,
-                  "on layer 0's inputs of the forward")
-    ms = cuda_ms(lambda: mamba2_scan(x, dt, A, Bm, Cm, chunk=chunk), iters=20,
-                 warmup=3)
+    where = "on layer 0's inputs of the forward"
+    err = ssd_err(mamba2_scan(x, dt, A, Bm, Cm, chunk=chunk), want, where)
+    core_err = ssd_err(cuda_core_ssd(torch, x, dt, A, Bm, Cm, chunk), want,
+                       where + " (CUDA-core kernel)")
+    ms = cuda_ms(lambda: mamba2_scan(x, dt, A, Bm, Cm, chunk=chunk), iters=50,
+                 warmup=5)
+    core_ms = cuda_ms(lambda: cuda_core_ssd(torch, x, dt, A, Bm, Cm, chunk),
+                      iters=20, warmup=3)
     plain_ms = cuda_ms(lambda: mamba2_scan_ref(x, dt, A, Bm, Cm, chunk=chunk),
                        iters=3, warmup=1)
     bytes_ms, ops_ms = ssd_bound(x, Bm, chunk)
     bound_ms = max(bytes_ms, ops_ms)
     log(f"[10] mamba2_scan on layer 0's inputs of the forward (x "
         f"{list(x.shape)}, B/C {list(Bm.shape)}, {str(x.dtype)[6:]}, chunk "
-        f"{chunk}): kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, no single "
-        f"PyTorch call computes it; bound {bound_ms:.6f} ms (bytes "
+        f"{chunk}): kernel (tensor cores) {ms:.6f} ms, the CUDA-core kernel "
+        f"on the same inputs {core_ms:.6f} ms, plain {plain_ms:.6f} ms, no "
+        f"single PyTorch call computes it; bound {bound_ms:.6f} ms (bytes "
         f"{bytes_ms:.6f}, operations {ops_ms:.6f}); max |diff| to plain "
-        f"{err:.3g}")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        f"{err:.3g} (CUDA-core kernel {core_err:.3g})")
+    return dict(max_abs_err=err, ms=ms, cuda_core_ms=core_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
 
@@ -1472,6 +1536,121 @@ def phase_queue_sweep(torch, queue_scan, counts):
         else "operations")
 
 
+# ------------------------------------------------------------ phase 13
+
+def oracle_ensemble():
+    """Phase 13's host side (also ``tests/test_torch_cuda.py``'s): ORACLE_R
+    one-tenth-day ground-truth workloads with every time rounded up to whole
+    seconds (``whole_seconds``) and integer priorities; FIFO / PRIORITY /
+    SJF / PRIORITY; every replica fails 35 % of its attempts and retries
+    them after the (30, 2, 1800) backoff; replica 1's failing attempts hold
+    their slot for half the service time, replica 2 resamples its attempt
+    durations (rounded up to whole seconds), and replicas 0 and 3 drain the
+    learning cluster to zero for an hour, below its busy count. Returns the
+    stacked columns, capacities and policies, and each replica's workload,
+    compiled scenario and platform."""
+    import dataclasses
+    from repro_torch.core import batching, des
+    from repro_torch.core import model as M
+    from repro_torch.core.workload import (generate_empirical_workload,
+                                           whole_seconds)
+    from repro_torch.ops.capacity import MaintenanceWindows
+    from repro_torch.ops.failures import FailureModel
+    from repro_torch.ops.scenario import CompiledScenario, Scenario
+    flaky = dict(p_fail_by_type=(0.35,) * 6)
+    drain = MaintenanceWindows((ORACLE_DRAIN,))
+    scens = [Scenario(capacity=drain if i in ORACLE_DRAINED else None,
+                      failures=FailureModel(**flaky, **extra))
+             for i, extra in enumerate(({}, {"fail_holds_frac": 0.5},
+                                        {"resample_service": True}, {}))]
+    pols = np.array([des.POLICY_FIFO, des.POLICY_PRIORITY, des.POLICY_SJF,
+                     des.POLICY_PRIORITY], np.int32)
+    plat = M.PlatformConfig().with_capacity("learning_cluster",
+                                            ORACLE_LEARNING_CAP)
+    rng = np.random.default_rng(ORACLE_SEED)
+    wls, comps = [], []
+    for i in range(ORACLE_R):
+        wl = whole_seconds(generate_empirical_workload(
+            ORACLE_SEED + i, ORACLE_HORIZON_S), plat.datastore)
+        wl = dataclasses.replace(wl, priority=rng.integers(
+            0, 4, wl.n).astype(np.float32))
+        c = scens[i].compile(wl, plat, ORACLE_HORIZON_S, seed=i,
+                             policy=int(pols[i]))
+        if c.attempt_service is not None:
+            c = CompiledScenario(schedule=c.schedule, attempts=c.attempts,
+                                 backoff=c.backoff,
+                                 attempt_service=np.ceil(c.attempt_service),
+                                 fail_holds_frac=c.fail_holds_frac)
+        wls.append(wl)
+        comps.append(c)
+    plats = [plat] * ORACLE_R
+    cols = batching.pad_workloads(wls, plats)
+    cols.update(batching.stack_scenarios(
+        comps, cols["n_max"], ORACLE_HORIZON_S,
+        services=[w.service_time(p.datastore) for w, p in zip(wls, plats)]))
+    caps = np.stack([p.capacities for p in plats]).astype(np.int32)
+    return cols, caps, pols, wls, comps, plat
+
+
+def engine_card_vs_cpu(torch, counts):
+    """``simulate_ensemble`` on the oracle ensemble, on the card (kernel
+    admission) and with ``device="cpu"`` (the plain admission: the path the
+    CPU twins hold bit for bit against the reference's ``des.simulate``).
+    Checks first that every replica retried, that the drains pushed free
+    slots below zero and that the card run launched the admission kernel
+    only; then that every output key is equal bit for bit. Returns the
+    number of keys and the largest wave count."""
+    from repro_torch.core import batching, vdes
+    cols, caps, pols = oracle_ensemble()[:3]
+    torch.cuda.synchronize()
+    for k in counts:
+        k.launches = 0
+    card = vdes.simulate_ensemble(**batching.to_tensors(cols, "cuda"),
+                                  capacities=caps, policies=pols,
+                                  device="cuda")
+    torch.cuda.synchronize()
+    launched = {k.__name__: k.launches for k in counts}
+    if launched["fused_admission"] <= 0 or any(
+            n for name, n in launched.items() if name != "fused_admission"):
+        raise AssertionError(f"the card's engine launched {launched}")
+    cpu = vdes.simulate_ensemble(**batching.to_tensors(cols, "cpu"),
+                                 capacities=caps, policies=pols,
+                                 device="cpu")
+    if set(cpu) != set(ORACLE_KEYS) or set(card) != set(ORACLE_KEYS):
+        raise AssertionError(f"output keys {sorted(card)} / {sorted(cpu)}")
+    att = cpu["attempts"].numpy()
+    if not (att.max(axis=(1, 2)) > 1).all():
+        raise AssertionError("a replica of the oracle ensemble never retried")
+    a_s, a_f = cpu["att_start"].numpy(), cpu["att_finish"].numpy()
+    t0_drain, t1_drain = ORACLE_DRAIN[:2]
+    for i in ORACLE_DRAINED:
+        on = (cols["task_res"][i] == ORACLE_DRAIN[2])[..., None]
+        busy = int((on & (a_s[i] < t0_drain) & (a_f[i] > t0_drain)).sum())
+        started = int((on & (a_s[i] >= t0_drain) & (a_s[i] < t1_drain)).sum())
+        if busy < 1 or started:
+            raise AssertionError(f"replica {i}: {busy} attempts ran when the "
+                                 f"drain began and {started} started in it")
+    for k in ORACLE_KEYS:
+        if not same_bits(card[k].cpu(), cpu[k]):
+            diff = card[k].cpu() != cpu[k]
+            raise AssertionError(f"the card's engine differs from the CPU path "
+                                 f"in {k}: {int(diff.sum())} entries")
+    return len(ORACLE_KEYS), int(cpu["waves"].max()), launched
+
+
+def phase_engine_oracle(torch, counts):
+    t0 = time.perf_counter()
+    n_keys, waves, launched = engine_card_vs_cpu(torch, counts)
+    log(f"[13] the oracle ensemble ({ORACLE_R} replicas x "
+        f"{ORACLE_HORIZON_S / 86400:g} day, whole-second times; retries with "
+        f"backoff, fail_holds_frac 0.5, resampled attempts, drains below the "
+        f"busy count) on the card (fused_admission launches "
+        f"{launched['fused_admission']}) and through the CPU path in "
+        f"{time.perf_counter() - t0:.2f} s")
+    log(f"engine_card_vs_cpu: identical, {n_keys} keys, {ORACLE_R} replicas, "
+        f"{waves} waves")
+
+
 def both_paths(paths):
     """One kernel's record over the main paths that launch it: launches
     summed, and each time and bound the launch-weighted mean of the paths'
@@ -1562,6 +1741,7 @@ def main() -> int:
         " % of the forward's wall")
     hserve_flash_err = phase_hybrid_serving(torch, flash_attention, counts)
     queue_launches, qrec = phase_queue_sweep(torch, queue_scan, counts)
+    phase_engine_oracle(torch, counts)
 
     kernels = [dict(
         name="fused_admission", route="cuda",
@@ -1592,7 +1772,8 @@ def main() -> int:
         replaces="src/repro/kernels/mamba2_scan.py:22",
         launches=hyb["ssd_launches"],
         max_abs_err=max(ssd_grid_err, srec["max_abs_err"]),
-        ms=srec["ms"], plain_ms=srec["plain_ms"], bound_ms=srec["bound_ms"],
+        ms=srec["ms"], cuda_core_ms=srec["cuda_core_ms"],
+        plain_ms=srec["plain_ms"], bound_ms=srec["bound_ms"],
         bound_by=srec["bound_by"], library_ms=None), dict(
         name="queue_scan", route="cuda",
         source="src/repro_torch/kernels/csrc/queue_scan.cu",

@@ -252,6 +252,21 @@ def generate_structures(rng: np.random.Generator, n: int,
     return tt, cnt
 
 
+def whole_seconds(wl: M.Workload, datastore: M.DataStoreConfig) -> M.Workload:
+    """The same workload with every time a whole number of seconds:
+    arrivals rounded up, each task's execution time set to its service
+    time (execution plus data-store I/O) rounded up, and no I/O bytes, so
+    the service time is that whole number. Whole seconds are exact in f32
+    and f64, where the port's engine and the reference's agree bit for
+    bit."""
+    live = wl.task_type >= 0
+    none = np.zeros_like(wl.read_bytes)
+    return dataclasses.replace(
+        wl, arrival=np.ceil(wl.arrival),
+        exec_time=np.where(live, np.ceil(wl.service_time(datastore)), 0.0),
+        read_bytes=none, write_bytes=none.copy())
+
+
 # ---------------------------------------------------------------------------
 # Full empirical workload.
 # ---------------------------------------------------------------------------

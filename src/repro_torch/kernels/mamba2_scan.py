@@ -6,9 +6,13 @@ every Mamba layer of the hybrid model's full-sequence forward under
 hand-written kernel ``csrc/mamba2_scan.cu`` (built by
 :mod:`repro_torch.kernels._build` at first use), which takes f32 or bf16
 inputs, head dims and state sizes that are multiples of 4 up to 64, and
-chunks that are multiples of 4 up to 128. On a CPU tensor it runs the plain
-version, :func:`repro_torch.kernels.ref.mamba2_scan_ref`. There is no
-fallback between the two: a CUDA tensor launches the kernel or raises.
+chunks that are multiples of 4 up to 128. The source holds two kernels and
+:func:`kernel_route` picks one from the type and the shapes alone: bf16 at
+chunks of 64 or 128 with P and N multiples of 16 (every Mamba layer of the
+hybrid forward) runs on the tensor cores, every other input on the CUDA
+cores. On a CPU tensor the wrapper runs the plain version,
+:func:`repro_torch.kernels.ref.mamba2_scan_ref`. There is no fallback
+between any of them: a CUDA tensor launches its route's kernel or raises.
 
 The reference's kernel has no gradient (``jax.grad`` through it raises), so
 neither has this one: tensors that require grad are refused.
@@ -22,12 +26,27 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import mamba2_scan_ref
 
-_SIGNATURES = {"mamba2_scan_launch":
-               [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]}
+_SIGNATURES = {
+    "mamba2_scan_launch":
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+    "mamba2_scan_tc_launch":
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]}
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = MAX_STATE = 64
 MAX_CHUNK = 128
+TC_CHUNKS = (64, 128)
 _MAX_BLOCKS = 2 ** 31 - 1
+
+
+def kernel_route(dtype: torch.dtype, P: int, N: int, chunk: int) -> str:
+    """The kernel a CUDA input of this type and these shapes launches:
+    ``"tensor_cores"`` (wgmma, TMA) for bf16 at a chunk in ``TC_CHUNKS``
+    with P and N multiples of 16 up to 64, else ``"cuda_cores"`` (f32,
+    which TF32 cannot hold to the gate, and small or odd shapes)."""
+    if (dtype == torch.bfloat16 and chunk in TC_CHUNKS and P % 16 == 0
+            and N % 16 == 0 and P <= MAX_HEAD_DIM and N <= MAX_STATE):
+        return "tensor_cores"
+    return "cuda_cores"
 
 
 def _check(x, dt, A, Bm, Cm, chunk) -> int:
@@ -65,7 +84,8 @@ def mamba2_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """``x [B, S, H, P]``, ``dt [B, S, H]`` (> 0), ``A [H]`` (< 0),
     ``Bm``/``Cm [B, S, N]`` -> ``(y [B, S, H, P], h_last [B, H, P, N])``,
     both f32, from a zero state; S must be a multiple of ``min(chunk, S)``.
-    ``mamba2_scan.launches`` counts the kernel's launches."""
+    ``mamba2_scan.launches`` counts the kernel's launches, and
+    ``mamba2_scan.route_launches`` the launches of each route."""
     chunk = _check(x, dt, A, Bm, Cm, chunk)
     if x.device.type == "cpu":
         return mamba2_scan_ref(x, dt, A, Bm, Cm, chunk=chunk)
@@ -87,9 +107,9 @@ def mamba2_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             f"the kernel takes P and N that are multiples of 4 up to "
             f"{MAX_HEAD_DIM} and chunks that are multiples of 4 up to "
             f"{MAX_CHUNK}, got P={P}, N={N}, chunk={chunk}")
-    if B * H > _MAX_BLOCKS:
+    if B * H > _MAX_BLOCKS or B * S > _MAX_BLOCKS:
         raise ValueError(f"the kernel takes at most {_MAX_BLOCKS} (batch, "
-                         f"head) pairs, got {B * H}")
+                         f"head) pairs and rows, got {B * H} and {B * S}")
     for name, t in (("x", x), ("dt", dt), ("A", A), ("Bm", Bm), ("Cm", Cm)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -98,17 +118,25 @@ def mamba2_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     lib = _build.load("mamba2_scan", _SIGNATURES)
     y = torch.empty((B, S, H, P), dtype=torch.float32, device=x.device)
     h_last = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
+    route = kernel_route(x.dtype, P, N, chunk)
+    ptrs = (x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+            Cm.data_ptr(), y.data_ptr(), h_last.data_ptr())
     with torch.cuda.device(x.device):
-        err = lib.mamba2_scan_launch(
-            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-            Cm.data_ptr(), y.data_ptr(), h_last.data_ptr(), B, S, H, P, N,
-            chunk, int(x.dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if route == "tensor_cores":
+            err = lib.mamba2_scan_tc_launch(*ptrs, B, S, H, P, N, chunk,
+                                            stream)
+        else:
+            err = lib.mamba2_scan_launch(*ptrs, B, S, H, P, N, chunk,
+                                         int(x.dtype == torch.bfloat16),
+                                         stream)
     if err != 0:
-        raise RuntimeError(f"mamba2_scan: kernel launch failed with CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"mamba2_scan: kernel launch ({route}) failed "
+                           f"with CUDA error {err}")
     mamba2_scan.launches += 1
+    mamba2_scan.route_launches[route] += 1
     return y, h_last
 
 
 mamba2_scan.launches = 0
+mamba2_scan.route_launches = {"tensor_cores": 0, "cuda_cores": 0}

@@ -1,8 +1,10 @@
 """The port on the card: each kernel against its plain version, the
 engine through the kernel against the engine through the plain version,
 the serving path through the flash kernel against the plain path, the EM
-through the GMM kernel with no host sync per iteration, and the hybrid's
-forward through the SSD kernel against its plain path.
+through the GMM kernel with no host sync per iteration, the hybrid's
+forward through the SSD kernel against its plain path, and the card's
+engine against the port's CPU path on ``chip_smoke.py`` phase 13's
+ensemble.
 
 These tests need a CUDA device and ``nvcc`` and skip elsewhere. They
 import the port only (no JAX, no reference), so they also run where the
@@ -13,6 +15,9 @@ reference is not installed. On the card:
 (``--noconftest``: the suite's conftest releases JAX caches after each
 module and so needs JAX.)
 """
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -114,6 +119,30 @@ def test_kernel_engine_equals_dense_on_card():
         assert torch.equal(x, y), k
     assert a["done"][0, :wls[0].n].all()
 
+
+def _chip_smoke():
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.cuda
+def test_engine_card_equals_cpu_oracle_chain():
+    """``chip_smoke.py`` phase 13: a whole-second ensemble with retries,
+    backoff, partial-progress failures, resampled attempts and drains below
+    the busy count, on the card (kernel admission) and through the CPU path,
+    equal bit for bit on every output key, after checking that every
+    replica retried. ``tests/test_torch_engine_oracle.py`` holds the CPU
+    path bit for bit against the reference's numpy engine on the same
+    ensemble."""
+    _need_card()
+    counts = (queue_scan.fused_admission, fa.flash_attention,
+              gl.gmm_logpdf, ms.mamba2_scan, queue_scan.queue_scan)
+    n_keys, waves, launched = _chip_smoke().engine_card_vs_cpu(torch, counts)
+    assert n_keys == 8 and waves > 0
+    assert launched["fused_admission"] > 0
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,S,H,Hkv,D", [
@@ -224,10 +253,16 @@ def gmm_case(N, D, K, seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("N,D,K", [(1, 1, 1), (255, 3, 50), (1024, 1, 6),
                                    (300, 8, 8), (2000, 32, 64),
-                                   (129, 128, 64)])
+                                   (129, 128, 64), (1001, 1, 1),
+                                   (257, 1, 64), (999, 3, 64), (1003, 3, 1),
+                                   (333, 128, 1), (300, 128, 64),
+                                   (27948, 3, 50)])
 def test_gmm_kernel_matches_plain_on_card(N, D, K):
     """Within atol 5e-4 (tests/test_kernels.py's) plus 2e-5 of |logpdf|
-    (the D-term sums run in another order), and one launch per call."""
+    (the D-term sums run in another order), and one launch per call; among
+    the shapes, row counts that fill no whole tile of the kernel, one and
+    64 components, a last chunk of components narrower than the others
+    (D = 32 and 128) and the asset E-step's."""
     _need_card()
     args = gmm_case(N, D, K, seed=N + D + K)
     before = gl.gmm_logpdf.launches
@@ -293,12 +328,16 @@ def ssd_case(B, S, H, P, N, dtype, seed=0):
 @pytest.mark.parametrize("B,S,H,P,N,chunk", [
     (2, 128, 2, 64, 32, 64), (2, 256, 4, 32, 64, 128),
     (2, 192, 1, 64, 64, 64), (1, 4096, 4, 64, 64, 128),
-    (1, 16, 3, 16, 16, 8), (1, 100, 2, 8, 4, 128)])
+    (1, 16, 3, 16, 16, 8), (1, 100, 2, 8, 4, 128),
+    (2, 4096, 64, 64, 64, 128), (1, 192, 3, 32, 32, 64),
+    (2, 256, 2, 16, 48, 128)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_mamba2_kernel_matches_plain_on_card(B, S, H, P, N, chunk, dtype):
     """y and h_last within 2e-4 (tests/test_kernels.py's atol) plus 1e-4 of
     |plain| (the kernel sums each chunk's products in another order), and
-    one launch per call."""
+    one launch per call; among the shapes, the hybrid forward's own
+    (2, 4096, 64, 64, 64, 128), and P or N below the tensor-core kernel's
+    64-wide rows, which TMA fills with zeros."""
     _need_card()
     args = ssd_case(B, S, H, P, N, dtype, seed=S + H)
     before = ms.mamba2_scan.launches
@@ -310,6 +349,30 @@ def test_mamba2_kernel_matches_plain_on_card(B, S, H, P, N, chunk, dtype):
         assert got.dtype == torch.float32 and got.shape == want.shape
         assert bool(((got - want).abs() <= 2e-4 + 1e-4 * want.abs()).all())
 
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,P,N,chunk,route", [
+    (torch.bfloat16, 64, 64, 128, "tensor_cores"),
+    (torch.bfloat16, 32, 32, 64, "tensor_cores"),
+    (torch.float32, 64, 64, 128, "cuda_cores"),
+    (torch.bfloat16, 16, 16, 8, "cuda_cores"),
+    (torch.bfloat16, 8, 4, 64, "cuda_cores"),
+    (torch.bfloat16, 64, 64, 32, "cuda_cores")])
+def test_mamba2_routes_on_card(dtype, P, N, chunk, route):
+    """bf16 at the hybrid's and the grid's shapes launches the tensor-core
+    kernel; f32 and small or odd shapes launch the CUDA-core kernel, one
+    launch counted on that route and none on the other."""
+    _need_card()
+    args = ssd_case(1, 128, 2, P, N, dtype, seed=P + N + chunk)
+    before = dict(ms.mamba2_scan.route_launches)
+    y, _ = ms.mamba2_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ms.kernel_route(dtype, P, N, chunk) == route
+    after = ms.mamba2_scan.route_launches
+    assert {k: after[k] - before[k] for k in after} == {
+        k: int(k == route) for k in after}
+    yw, _ = ref.mamba2_scan_ref(*args, chunk=chunk)
+    assert bool(((y - yw).abs() <= 2e-4 + 1e-4 * yw.abs()).all())
 
 @pytest.mark.cuda
 def test_mamba2_kernel_refuses_what_it_cannot_take():

@@ -105,13 +105,16 @@ def test_public_wrapper_matches_pallas_kernel_and_takes_no_tiles():
         tops.flash_attention(tq, tk, tv, block_q=64)
 
 
-def emulate_bf16_kernel(q, k, v, causal, block_k=128):
+def emulate_bf16_kernel(q, k, v, causal, block_k=128, fold=True):
     """The arithmetic of the bf16 kernel in ``csrc/flash_attention.cu``,
     in f32 on the CPU: scores of the bf16 inputs in f32, an online softmax
     over 128-key tiles (the -1e30 mask and the running max on the unscaled
     scores, exp2 of the scores scaled by ``log2(e) / sqrt(D)``), P split
     into bf16 hi + lo and both products accumulated in f32, then
-    ``acc / max(l, 1e-20)`` rounded to bf16."""
+    ``acc / max(l, 1e-20)`` rounded to bf16. ``fold``: the exponent as the
+    kernel computes it, one FMA ``fmaf(s, sl2, -m sl2)`` (the product
+    exact, one rounding); without it, ``s sl2`` is rounded before the
+    subtraction."""
     B, S, H, D = q.shape
     rep = H // k.shape[2]
     qf = q.float().permute(0, 2, 1, 3)                            # [B,H,S,D]
@@ -129,7 +132,11 @@ def emulate_bf16_kernel(q, k, v, causal, block_k=128):
             x = torch.where(keys > rows, torch.tensor(-1e30), x)
         m_new = torch.maximum(m, x.amax(-1, keepdim=True))
         alpha = torch.exp2((m - m_new) * sl2)
-        p = torch.exp2(x * sl2 - m_new * sl2)
+        msl = m_new * sl2
+        if fold:
+            p = torch.exp2((x.double() * float(sl2) - msl.double()).float())
+        else:
+            p = torch.exp2(x * sl2 - msl)
         hi = p.bfloat16().float()
         lo = (p - hi).bfloat16().float()
         vt = vf[:, :, k0:k0 + block_k]
@@ -190,3 +197,33 @@ def test_smoke_row_check_sees_late_rows():
             <= smoke.FLASH_TOL["bfloat16"])
     with pytest.raises(AssertionError, match="row-relative"):
         smoke.flash_errs(bad, want, "on a late-row fault")
+
+
+def row_rel(got, want):
+    """The largest ||got - want|| / ||want|| over the output's rows."""
+    diff = got.float() - want.float()
+    return float((diff.norm(dim=-1) / want.float().norm(dim=-1)).max())
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,D", [(1, 1024, 32, 8, 64),
+                                         (1, 2048, 32, 32, 64),
+                                         (4, 1024, 4, 2, 128)])
+def test_bf16_fma_fold_and_row_error(B, S, H, Hkv, D, capsys):
+    """The kernel's FMA fold of the softmax scale against the two-rounding
+    exponent the emulation used before: both within the 1e-2 row-relative
+    gate, and the two differ by far less than the largest row error
+    itself (printed with ``-s``: the fold is not what sets the card's row
+    error). An emulation check only, as the test above."""
+    tq, tk, tv = (torch.from_numpy(a).bfloat16()
+                  for a in make_qkv(S + H + D + 1, B, S, H, Hkv, D))
+    want = ref.flash_attention_ref(tq, tk, tv, causal=True)
+    folded = emulate_bf16_kernel(tq, tk, tv, True)
+    unfolded = emulate_bf16_kernel(tq, tk, tv, True, fold=False)
+    rel_f, rel_u = row_rel(folded, want), row_rel(unfolded, want)
+    moved = float((folded.float() - unfolded.float()).abs().max())
+    with capsys.disabled():
+        print(f"\nflash bf16 emulation {(B, S, H, Hkv, D)} causal: largest "
+              f"row-relative error {rel_f:.5f} with the FMA fold, "
+              f"{rel_u:.5f} without; largest output change {moved:.3g}")
+    assert rel_f <= 1e-2 and rel_u <= 1e-2
+    assert abs(rel_f - rel_u) <= 0.25 * rel_u
