@@ -97,7 +97,11 @@ Phases (any failure exits non-zero, with no result line):
     plain version with finite outputs, and a subsample of rows within
     ``QUEUE_ORACLE_ATOL`` of the f64 oracle. Each launch is timed with CUDA
     events beside its bound and the plain version (no single PyTorch call
-    computes it).
+    computes it), and logged with its route (S slots per lane, G lanes per
+    station) as the C entry point reports it. Then a tie-heavy sweep
+    (``QUEUE_TIE_R`` x 4,096 jobs at integer ready times with zero
+    services among the integer ones, capacities ``QUEUE_TIE_CAPS``), bit
+    for bit against the plain version.
 13. The card's engine against the CPU path, which the CPU twins hold bit
     for bit against the reference's numpy engine (so card == CPU ==
     oracle): a 4-replica one-tenth-day ensemble with whole-second times,
@@ -208,6 +212,7 @@ QUEUE_R, QUEUE_N, QUEUE_CAPS = 4096, 4096, (1, 2, 7, 32, 64)
 QUEUE_LOADS = (0.5, 1.1)     # per-station utilisation, uniform in between
 QUEUE_ORACLE_ROWS = 8        # rows per capacity held against the f64 oracle
 QUEUE_ORACLE_ATOL = 1e-2     # tests/test_kernels.py's
+QUEUE_TIE_R, QUEUE_TIE_CAPS = 512, (7, 64)   # the tie-heavy sweep
 # the card's engine against the CPU path: whole-second one-tenth days
 ORACLE_R, ORACLE_HORIZON_S, ORACLE_SEED = 4, 0.1 * 86400.0, 100
 ORACLE_LEARNING_CAP = 8      # small, so queues form and the drain bites
@@ -1462,12 +1467,40 @@ def queue_bound(R, N, cap):
             R * N * (cap + 1) / PEAK_OPS_S * 1e3)
 
 
+def queue_ties(torch, queue_scan):
+    """QUEUE_TIE_R stations of QUEUE_N jobs whose ready times take a few
+    distinct integers and whose services are integers in {0, 1, 2, 3}
+    (scaled with the capacity): equal slots and finishes equal to the slot
+    they free everywhere. Bit for bit against the plain version."""
+    from repro_torch.kernels import queue_scan as qs
+    from repro_torch.kernels.ref import queue_scan_ref
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    for c in QUEUE_TIE_CAPS:
+        ready = torch.randint(0, QUEUE_N // 2, (QUEUE_TIE_R, QUEUE_N),
+                              generator=gen, device="cuda")
+        ready = ready.sort(dim=1).values.float()
+        service = torch.randint(0, 4, (QUEUE_TIE_R, QUEUE_N), generator=gen,
+                                device="cuda").float() * (1 + c // 8)
+        st, fi = queue_scan(ready, service, capacity=c)
+        pst, pfi = queue_scan_ref(ready, service, capacity=c)
+        if not (same_bits(st, pst) and same_bits(fi, pfi)
+                and bool(torch.isfinite(fi).all())):
+            raise AssertionError(f"queue_scan differs from its plain version "
+                                 f"on the tie-heavy sweep at capacity {c}")
+        log(f"[12] tie-heavy sweep, {QUEUE_TIE_R} x {QUEUE_N} jobs at "
+            f"capacity {c}, route {qs.kernel_route(c)}: equal to the plain "
+            f"version bit for bit ({int((service == 0).sum())} zero services, "
+            f"{int((st[:, 1:] == st[:, :-1]).sum())} starts equal to the "
+            f"one before)")
+
+
 def phase_queue_sweep(torch, queue_scan, counts):
     """``ops.queue_scan`` on a capacity sweep, one launch per capacity, then
     each launch's inputs held bit for bit against the plain version (and a
     subsample of rows against the f64 oracle) and timed."""
     from repro_torch.core.des import single_station_fifo
     from repro_torch.kernels import ops
+    from repro_torch.kernels import queue_scan as qs
     from repro_torch.kernels.ref import queue_scan_ref
     gen = torch.Generator(device="cuda").manual_seed(15)
     cases = [(c, *queue_jobs(torch, gen, c)) for c in QUEUE_CAPS]
@@ -1506,16 +1539,19 @@ def phase_queue_sweep(torch, queue_scan, counts):
         wait = float((st - r).mean())
         bytes_ms, ops_ms = queue_bound(QUEUE_R, QUEUE_N, c)
         rows.append(dict(
-            c=c, wait=wait,
+            c=c, wait=wait, route=qs.kernel_route(c),
             ms=cuda_ms(lambda: queue_scan(r, s, capacity=c), iters=10,
                        warmup=2),
             plain_ms=cuda_ms(lambda: queue_scan_ref(r, s, capacity=c),
                              iters=2, warmup=1),
             bytes_ms=bytes_ms, ops_ms=ops_ms))
     for row in rows:
-        log(f"[12] capacity {row['c']}: kernel {row['ms']:.6f} ms, plain "
-            f"{row['plain_ms']:.6f} ms, bound {max(row['bytes_ms'], row['ops_ms']):.6f}"
-            f" ms; mean wait {row['wait']:.3f}")
+        bound = max(row["bytes_ms"], row["ops_ms"])
+        log(f"[12] capacity {row['c']}, route (S, G) = {row['route']}: kernel "
+            f"{row['ms']:.6f} ms beside its bound {bound:.6f} ms "
+            f"({row['ms'] / bound:.2f}x), plain {row['plain_ms']:.6f} ms; "
+            f"mean wait {row['wait']:.3f}")
+    queue_ties(torch, queue_scan)
     mean = {k: float(np.mean([r[k] for r in rows]))
             for k in ("ms", "plain_ms", "bytes_ms", "ops_ms")}
     bound_ms = float(np.mean([max(r["bytes_ms"], r["ops_ms"]) for r in rows]))

@@ -4,9 +4,11 @@
 row: each job, in ready order, takes the earliest free of ``capacity``
 slots (a Monte-Carlo capacity sweep of thousands of stations in one call;
 public as :func:`repro_torch.kernels.ops.queue_scan`). On a CUDA tensor it
-launches the hand-written kernel ``csrc/queue_scan.cu``; on a CPU tensor it
-runs the plain version, :func:`repro_torch.kernels.ref.queue_scan_ref`. Both
-are exact, and equal bit for bit.
+launches the hand-written kernel ``csrc/queue_scan.cu``, which keeps each
+station's slots sorted over G lanes of S slots each, the route ``(S, G)``
+that :func:`kernel_route` names; on a CPU tensor it runs the plain version,
+:func:`repro_torch.kernels.ref.queue_scan_ref`. Both are exact, and equal
+bit for bit.
 
 ``fused_admission`` is one ranked admission round of
 ``vdes._admission_stage``: for each queued job, its seat under the stable
@@ -30,11 +32,31 @@ from repro_torch.kernels.ref import admission_mask_dense, queue_scan_ref
 
 _SIGNATURES = {"fused_admission_launch":
                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]}
-_QUEUE_SIGNATURES = {"queue_scan_launch":
-                     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-                     + [ctypes.c_void_p]}
+_QUEUE_SIGNATURES = {
+    "queue_scan_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+    + [ctypes.c_void_p],
+    "queue_scan_launch_route": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+    + [ctypes.c_void_p],
+    "queue_scan_route": [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 2}
 _MAX_GRID_Y = 65535
 MAX_CAPACITY = 256          # slots the queue kernel holds in registers
+# the kernel's routes (S slots per lane, G lanes per station), as
+# csrc/queue_scan.cu instantiates them
+ROUTES = ((1, 1), (8, 1), (8, 2), (8, 4), (8, 8), (16, 8), (16, 16))
+
+
+def kernel_route(capacity: int) -> tuple:
+    """The route ``(S, G)`` the kernel takes at this capacity (1 to
+    ``MAX_CAPACITY``), as its library reports it (``csrc/queue_scan.cu::
+    route_for``); builds the library at first use."""
+    if not 1 <= capacity <= MAX_CAPACITY:
+        raise ValueError(f"the kernel takes 1 <= capacity <= {MAX_CAPACITY},"
+                         f" got {capacity}")
+    lib = _build.load("queue_scan", _QUEUE_SIGNATURES)
+    S, G = ctypes.c_int(), ctypes.c_int()
+    if lib.queue_scan_route(capacity, ctypes.byref(S), ctypes.byref(G)):
+        raise RuntimeError(f"queue_scan_route refused capacity {capacity}")
+    return S.value, G.value
 
 
 def queue_scan(ready: torch.Tensor, service: torch.Tensor, *,

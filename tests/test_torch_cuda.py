@@ -397,21 +397,120 @@ def test_mamba2_kernel_refuses_what_it_cannot_take():
         ms.mamba2_scan(x.requires_grad_(), dt, A, Bm, Cm, chunk=32)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("c", [1, 2, 7, 32, 33, 64, 256])
-def test_queue_kernel_matches_plain_on_card(c):
-    """Bit for bit, and one launch per call."""
-    _need_card()
-    rng = np.random.default_rng(c)
-    rdy = np.sort(rng.uniform(0, 500, (37, 300)), axis=1).astype(np.float32)
-    svc = rng.exponential(5.0 * c ** 0.5, (37, 300)).astype(np.float32)
-    r, s = torch.from_numpy(rdy).cuda(), torch.from_numpy(svc).cuda()
+def queue_matches_plain(r, s, c):
+    """One launch through the wrapper, bit for bit against the plain
+    version."""
     before = queue_scan.queue_scan.launches
     got = queue_scan.queue_scan(r, s, capacity=c)
     torch.cuda.synchronize()
     assert queue_scan.queue_scan.launches == before + 1
     for a, b in zip(got, ref.queue_scan_ref(r, s, capacity=c)):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def tie_jobs(seed, R, N, c):
+    """Ready times from a few distinct integers, integer services with
+    zeros among them."""
+    rng = np.random.default_rng(seed)
+    rdy = np.sort(rng.choice(np.arange(0, N, 7), (R, N)), axis=1)
+    svc = rng.integers(0, 4, (R, N)) * (1 + c // 8)
+    return (torch.from_numpy(rdy.astype(np.float32)).cuda(),
+            torch.from_numpy(svc.astype(np.float32)).cuda())
+
+
+def random_jobs(seed, R, N, c):
+    rng = np.random.default_rng(seed)
+    rdy = np.sort(rng.uniform(0, 500, (R, N)), axis=1).astype(np.float32)
+    svc = rng.exponential(5.0 * c ** 0.5, (R, N)).astype(np.float32)
+    return torch.from_numpy(rdy).cuda(), torch.from_numpy(svc).cuda()
+
+
+# the sweep's capacities and each route's boundaries (kernel_route)
+QUEUE_CARD_CAPS = [1, 2, 7, 8, 9, 16, 17, 32, 33, 64, 65, 128, 256]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", QUEUE_CARD_CAPS)
+def test_queue_kernel_matches_plain_on_card(c):
+    """Bit for bit, and one launch per call."""
+    _need_card()
+    queue_matches_plain(*random_jobs(c, 37, 300, c), c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", QUEUE_CARD_CAPS)
+def test_queue_kernel_ties_on_card(c):
+    """Tie-heavy integer times with zero services: equal slots everywhere,
+    finishes equal to the slot they free."""
+    _need_card()
+    queue_matches_plain(*tie_jobs(c, 37, 300, c), c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [2, 9, 33, 65, 256])
+def test_queue_kernel_fewer_jobs_than_slots_on_card(c):
+    _need_card()
+    queue_matches_plain(*random_jobs(c, 5, c - 1, c), c)
+    queue_matches_plain(*tie_jobs(c, 5, 1, c), c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,R,N", [(1, 37, 1001), (7, 37, 1001),
+                                   (17, 37, 1000), (64, 37, 1001),
+                                   (256, 3, 67)])
+def test_queue_kernel_ragged_shapes_on_card(c, R, N):
+    """R and N that are not multiples of the block's rows or the tile's
+    jobs: 4-byte copies where N % 4 != 0, 16-byte ones with a partial last
+    tile at N = 1,000."""
+    _need_card()
+    queue_matches_plain(*random_jobs(c, R, N, c), c)
+
+
+@pytest.mark.cuda
+def test_queue_kernel_unaligned_rows_on_card():
+    """Contiguous views 4 bytes past a 16-byte boundary take the 4-byte
+    copies."""
+    _need_card()
+    r, s = random_jobs(5, 37, 300, 9)
+    rb, sb = (torch.empty(37 * 300 + 1, device="cuda") for _ in range(2))
+    rb[1:] = r.flatten()
+    sb[1:] = s.flatten()
+    queue_matches_plain(rb[1:].view(37, 300), sb[1:].view(37, 300), 9)
+
+
+@pytest.mark.cuda
+def test_queue_every_route_on_card():
+    """Every route the source instantiates, at its full width and at just
+    over half of it, through the C entry point that takes the route."""
+    _need_card()
+    from repro_torch.kernels import _build
+    lib = _build.load("queue_scan", queue_scan._QUEUE_SIGNATURES)
+    for S, G in queue_scan.ROUTES:
+        for c in sorted({S * G, S * G // 2 + 1}):
+            for r, s in (random_jobs(S * G, 37, 300, c),
+                         tie_jobs(S * G, 37, 300, c)):
+                st, fi = torch.empty_like(r), torch.empty_like(r)
+                err = lib.queue_scan_launch_route(
+                    r.data_ptr(), s.data_ptr(), st.data_ptr(), fi.data_ptr(),
+                    37, 300, c, S, G, torch.cuda.current_stream().cuda_stream)
+                torch.cuda.synchronize()
+                assert err == 0, (S, G, c)
+                for a, b in zip((st, fi), ref.queue_scan_ref(r, s,
+                                                             capacity=c)):
+                    assert torch.equal(a.view(torch.int32),
+                                       b.view(torch.int32)), (S, G, c)
+
+
+@pytest.mark.cuda
+def test_queue_route_holds_every_capacity_on_card():
+    """The route the C entry point takes at every capacity is one the
+    source instantiates, and its width holds the capacity."""
+    _need_card()
+    for c in range(1, queue_scan.MAX_CAPACITY + 1):
+        S, G = queue_scan.kernel_route(c)
+        assert (S, G) in queue_scan.ROUTES and S * G >= c and 32 % G == 0
+    with pytest.raises(ValueError, match="capacity"):
+        queue_scan.kernel_route(queue_scan.MAX_CAPACITY + 1)
 
 
 @pytest.mark.cuda
