@@ -110,6 +110,31 @@ Phases (any failure exits non-zero, with no result line):
     ``simulate_ensemble`` on the card and with ``device="cpu"``. Checks:
     every replica retried, then every output key equal bit for bit; prints
     ``engine_card_vs_cpu: identical, ...`` on a line of its own.
+14. The full stack: (a) ``run_experiment`` of ``examples/observability.py``'s
+    spec (a closed-loop controller, 6 drifting models with a drift
+    trigger, a probe every 30 min) with ``examples/reliability_frontier.py``'s
+    reliability scaled to one day (2 zones x 4 racks, zone MTBF 12 h,
+    rack MTBF 6 h, MTTR 1 h, 2 repair crews, a 20 % spot slice), 32
+    replicas of one day from the committed ``artifacts/pipesim_params.npz``.
+    Checks: one ``simulate_ensemble`` call, the admission kernel and no
+    other launched, the stages acted (each replica's controller moves,
+    reliability events, triggers and redeploys printed), every replica's
+    probe ran its whole grid, and phase 3's invariants (every pipeline
+    that entered done, start >= ready, finish >= start, no resource above
+    its schedule's largest capacity plus the controller's largest move).
+    As in phase 3, every ``KEEP_EVERY``-th admission input of the run is
+    kept, and on those the kernel is held exactly against its plain
+    version and timed beside its bound; ``FS_DENSE_N`` replicas (those on
+    which the most stages acted) are re-run with the plain admission on
+    the card, every output key equal bit for bit. The same replicas run
+    with no stage on beside it; both print their wall, waves/s and
+    pipelines/s with the card's name and power limit.
+    (b) The full-stack oracle ensemble (``fullstack_oracle_ensemble``: 4
+    whole-second one-tenth days, every stage on under the reference's
+    parity conditions, padding rows on one replica whose model redeploys
+    three times in one wave) on the card and through the CPU path, every
+    output key equal bit for bit; prints ``fullstack_card_vs_cpu:
+    identical, ...`` on a line of its own.
 
 The last lines are the kernels' JSON record (a kernel launched on two
 main paths, as flash in the llama prefill and the hybrid forward, has its
@@ -220,6 +245,24 @@ ORACLE_DRAIN = (1800.0, 5400.0, 1, 0.0)    # the learning cluster to zero
 ORACLE_DRAINED = (0, 3)
 ORACLE_KEYS = ("start", "finish", "ready", "attempts", "done", "waves",
                "att_start", "att_finish")
+# the full stack at width: examples/observability.py's spec (controller,
+# fleet + trigger, probe) with 32 replicas of one day, plus
+# examples/reliability_frontier.py's reliability scaled to the day
+FS_SEED = 3
+FS_DENSE_N = 2    # replicas re-run through the plain admission
+# the full-stack oracle ensemble: whole-second one-tenth days, every stage
+FSO_SEED, FSO_LEARNING_CAP = 300, 8
+FSO_BURST = 3     # this replica's one model redeploys three times in a wave
+FSO_BURST_DRAIN = (1000.0, 3000.0, 0, 0.0)   # compute to zero meanwhile
+# three redeploy gains whose f32 sum depends on the order of the adds,
+# by one ulp of the model's performance (the reference adds in slot order)
+FSO_BURST_GAINS = (0.008586719632148743, 0.018224574625492096,
+                   0.004860853310674429)
+FSO_BURST_PERF0 = 0.88772327
+FSO_KEYS = ORACLE_KEYS + (
+    "ctrl_act", "ctrl_n", "rel_act", "rel_n", "fleet_perf", "fleet_stale",
+    "fleet_act", "fleet_n", "pool_arr", "pool_model", "pool_next",
+    "probe_vals", "probe_n")
 
 
 def log(*a):
@@ -398,8 +441,10 @@ class InputTap:
         return self.kernel(*args)
 
 
-def time_admission(torch, fused_admission, dense, kept):
-    """On each kept input of the main path: the kernel and the
+def time_admission(torch, fused_admission, dense, kept, phase="3",
+                   where="the main path"):
+    """On each kept input of a path (``where``, logged under ``phase``):
+    the kernel and the
     ``torch.sort`` yardstick against the plain version, then the three
     timed call after call (``cuda_ms``, as every kernel's ``ms``), the
     kernel also on the device alone (``graph_ms``: the wrapper's host side
@@ -415,10 +460,10 @@ def time_admission(torch, fused_admission, dense, kept):
         if err:
             raise AssertionError(
                 f"fused_admission differs from its plain version in "
-                f"{int((got != want).sum())} rows on a main-path input")
+                f"{int((got != want).sum())} rows on an input of {where}")
         if not bool(torch.equal(sorted_admission(*a), want)):
-            raise AssertionError("the torch.sort yardstick differs on a "
-                                 "main-path input")
+            raise AssertionError("the torch.sort yardstick differs on an "
+                                 f"input of {where}")
         bytes_ms, ops_ms = admission_bound(a[0], a[3])
         rows.append(dict(
             queued=int((a[0] < a[3].shape[1]).sum()),
@@ -433,8 +478,8 @@ def time_admission(torch, fused_admission, dense, kept):
     bound_ms = float(np.mean([max(r["bytes_ms"], r["ops_ms"]) for r in rows]))
     kms = [r["device_ms"] for r in rows]
     q = [r["queued"] for r in rows]
-    log(f"[3] admission on {len(rows)} inputs kept from the main path "
-        f"([R={N_REPLICAS}, N={a[0].shape[1]}], queued rows per input "
+    log(f"[{phase}] admission on {len(rows)} inputs kept from {where} "
+        f"([R={a[0].shape[0]}, N={a[0].shape[1]}], queued rows per input "
         f"{min(q)}-{max(q)}, mean {np.mean(q):.1f}): kernel mean "
         f"{mean['ms']:.6f} ms per call, one after another; on the device "
         f"alone {mean['device_ms']:.6f} ms (min {min(kms):.6f}, median "
@@ -956,10 +1001,12 @@ class GmmTap:
 
 class Stopwatch:
     """Wraps a function: accumulates its wall time, synchronizing the card
-    before and after so the time is the call's own."""
+    before and after so the time is the call's own; given a ``keep`` list,
+    also appends each call's keywords and result to it."""
 
-    def __init__(self, torch, fn):
+    def __init__(self, torch, fn, keep=None):
         self.torch, self.fn, self.s, self.calls = torch, fn, 0.0, 0
+        self.keep = keep
 
     def __call__(self, *a, **k):
         self.torch.cuda.synchronize()
@@ -968,6 +1015,8 @@ class Stopwatch:
         self.torch.cuda.synchronize()
         self.s += time.perf_counter() - t0
         self.calls += 1
+        if self.keep is not None:
+            self.keep.append((k, out))
         return out
 
 
@@ -1687,18 +1736,415 @@ def phase_engine_oracle(torch, counts):
         f"{waves} waves")
 
 
-def both_paths(paths):
+# ------------------------------------------------------------ phase 14
+
+def fullstack_oracle_ensemble():
+    """Phase 14(b)'s host side (also ``tests/test_torch_cuda.py``'s and
+    ``tests/test_torch_engine_oracle.py``'s): ORACLE_R one-tenth-day
+    ground-truth workloads with whole-second times on the learning cluster
+    of FSO_LEARNING_CAP, with every stage on and the reference's parity
+    conditions (seasonal amplitude 0, pinned retrain durations,
+    ``time_quantum_s = 1``):
+
+    - replicas 0-2: a closed-loop controller (replica 1 with a cooldown),
+      a 4-model fleet under fast drift with a trigger, a probe, failures
+      with retries and FIFO / PRIORITY / SJF; replicas 0 and 1 a
+      reliability timeline (2 zones x 2 racks, one repair crew), replica 2
+      none (its ``INF`` padding row);
+    - replica FSO_BURST: the controller's and the probe's all-zero padding
+      rows, no reliability, no failures, and one model (padded to four)
+      whose drift crosses the zero threshold at every tick until its pool
+      of three is spent, while the compute cluster is drained
+      (``FSO_BURST_DRAIN``), so the three retrains redeploy in one wave
+      with gains ``FSO_BURST_GAINS``, whose f32 sum the order of the adds
+      changes.
+
+    Returns the stacked columns, capacities and policies, and each
+    replica's workload, compiled scenario, fleet, probe and reliability
+    (None where off) and the platform."""
+    import dataclasses
+    from repro_torch.core import batching, des
+    from repro_torch.core import model as M
+    from repro_torch.core.runtime import FleetSpec, TriggerSpec, fleet_tensor
+    from repro_torch.core.workload import (generate_empirical_workload,
+                                           whole_seconds)
+    from repro_torch.obs.probes import ProbeSpec, compile_probe
+    from repro_torch.ops.capacity import MaintenanceWindows, ReactiveController
+    from repro_torch.ops.failures import FailureModel
+    from repro_torch.ops.scenario import Scenario, compile_fleet
+    from repro_torch.reliability import (DomainOutageModel, ReliabilitySpec,
+                                         RepairSpec, TopologySpec,
+                                         compile_reliability)
+    H = ORACLE_HORIZON_S
+    plat = M.PlatformConfig().with_capacity("learning_cluster",
+                                            FSO_LEARNING_CAP)
+    pols = np.array([des.POLICY_FIFO, des.POLICY_PRIORITY, des.POLICY_SJF,
+                     des.POLICY_FIFO], np.int32)
+    rel_spec = ReliabilitySpec(
+        topology=TopologySpec(zones=2, racks_per_zone=2),
+        outages=DomainOutageModel(zone_mtbf_s=H / 2.0, rack_mtbf_s=H / 4.0,
+                                  mttr_s=H / 24.0),
+        repair=RepairSpec(crews=1), time_quantum_s=1.0)
+    wls, comps, fleets, rels = [], [], [], []
+    for i in range(ORACLE_R):
+        wl = whole_seconds(generate_empirical_workload(FSO_SEED + i, H),
+                           plat.datastore)
+        if i == FSO_BURST:
+            fl = np.array([[FSO_BURST_PERF0, 1e-6, 0.0, 0.05, 0.0,
+                            7 * 86400.0]], np.float32)
+            trig = TriggerSpec(drift_threshold=0.0, cooldown_s=0.0,
+                               obs_noise=0.0, interval_s=600.0,
+                               max_retrains=len(FSO_BURST_GAINS),
+                               retrain_durations=(1000.0, 50.0, 20.0))
+            scen = Scenario(capacity=MaintenanceWindows((FSO_BURST_DRAIN,)))
+        else:
+            fl = fleet_tensor(FleetSpec(n_models=4, drift_scale=200.0),
+                              FSO_SEED + i)
+            fl[:, 4] = 0.0                       # seasonal amplitude 0
+            trig = TriggerSpec(drift_threshold=0.03, cooldown_s=1800.0,
+                               obs_noise=0.005, interval_s=900.0,
+                               retrain_durations=(300.0, 60.0, 30.0))
+            scen = Scenario(
+                failures=FailureModel(p_fail_by_type=(0.2,) * 6),
+                controller=ReactiveController(
+                    high_watermark=0.3, step=0.5, max_scale=3.0,
+                    interval_s=600.0, cooldown_s=1200.0 if i == 1 else 0.0))
+        cf, wl = compile_fleet(FleetSpec(params=fl), trig, wl, plat, H,
+                               seed=FSO_SEED + i)
+        if i == FSO_BURST:
+            cf = dataclasses.replace(
+                cf, pool_gain=np.array(FSO_BURST_GAINS, np.float32))
+        rel = (compile_reliability(rel_spec, wl, plat, H, seed=FSO_SEED + i)
+               if i < 2 else None)
+        wls.append(wl)
+        fleets.append(cf)
+        rels.append(rel)
+        comps.append(scen.compile(wl, plat, H, seed=FSO_SEED + i,
+                                  policy=int(pols[i]), device="cpu"))
+    probe = compile_probe(ProbeSpec(interval_s=900.0), H)
+    probes = [probe] * (ORACLE_R - 1) + [None]
+    plats = [plat] * ORACLE_R
+    cols = batching.pad_workloads(wls, plats)
+    n_max = cols["n_max"]
+    cols.update(batching.stack_scenarios(
+        comps, n_max, H,
+        services=[w.service_time(p.datastore) for w, p in zip(wls, plats)]))
+    cols.update(batching.stack_fleets(fleets, n_max))
+    cols.update(batching.stack_probes(probes, fleets))
+    cols.update(batching.stack_reliability(rels))
+    caps = np.stack([p.capacities for p in plats]).astype(np.int32)
+    return cols, caps, pols, wls, comps, fleets, probes, rels, plat
+
+
+def fullstack_card_vs_cpu(torch, counts):
+    """``simulate_ensemble`` on the full-stack oracle ensemble, on the card
+    (kernel admission) and with ``device="cpu"``. Checks first that the
+    card run launched the admission kernel only, that the stages acted
+    (controller moves, reliability events, triggers and redeploys, probe
+    ticks on the probed replicas and none on the padded one) and that
+    FSO_BURST's three redeploys share one wave; then that every output key
+    is equal bit for bit. Returns the keys, the largest wave count and the
+    launches."""
+    from repro_torch.core import batching, des, vdes
+    cols, caps, pols = fullstack_oracle_ensemble()[:3]
+    torch.cuda.synchronize()
+    for k in counts:
+        k.launches = 0
+    card = vdes.simulate_ensemble(**batching.to_tensors(cols, "cuda"),
+                                  capacities=caps, policies=pols,
+                                  device="cuda")
+    torch.cuda.synchronize()
+    launched = {k.__name__: k.launches for k in counts}
+    if launched["fused_admission"] <= 0 or any(
+            n for name, n in launched.items() if name != "fused_admission"):
+        raise AssertionError(f"the card's engine launched {launched}")
+    cpu = vdes.simulate_ensemble(**batching.to_tensors(cols, "cpu"),
+                                 capacities=caps, policies=pols,
+                                 device="cpu")
+    if set(cpu) != set(FSO_KEYS) or set(card) != set(FSO_KEYS):
+        raise AssertionError(f"output keys {sorted(card)} / {sorted(cpu)}")
+    counts_of = fullstack_counts(cpu)
+    for i, c in enumerate(counts_of):
+        want_probe = 0 if i == FSO_BURST else cols["n_probe_slots"]
+        if c["probe_ticks"] != want_probe or c["redeploys"] < 1 or (
+                i != FSO_BURST and c["ctrl_actions"] < 1) or (
+                i < 2 and c["rel_events"] < 1):
+            raise AssertionError(f"replica {i}: the stages did not act: {c}")
+    acts = cpu["fleet_act"][FSO_BURST].numpy()[:int(cpu["fleet_n"][FSO_BURST])]
+    times = acts[acts[:, 1] == des.FLEET_ACT_REDEPLOY, 0]
+    if times.shape[0] != 3 or len(set(times.tolist())) != 1:
+        raise AssertionError(f"replica {FSO_BURST} redeployed at {times}")
+    for k in FSO_KEYS:
+        if not same_bits(card[k].cpu(), cpu[k]):
+            diff = card[k].cpu() != cpu[k]
+            raise AssertionError(f"the card's engine differs from the CPU path "
+                                 f"in {k}: {int(diff.sum())} entries")
+    return len(FSO_KEYS), int(cpu["waves"].max()), launched, counts_of
+
+
+def fullstack_counts(out):
+    """Per replica: controller moves, reliability events, triggers,
+    redeploys and probe ticks recorded by a full-stack run."""
+    rows = []
+    for i in range(out["waves"].shape[0]):
+        acts = out["fleet_act"][i].cpu().numpy()[:int(out["fleet_n"][i])]
+        kind = np.rint(acts[:, 1])
+        rows.append(dict(
+            ctrl_actions=int(out["ctrl_n"][i]), rel_events=int(out["rel_n"][i]),
+            triggers=int((kind == 0).sum()), redeploys=int((kind == 1).sum()),
+            probe_ticks=int(out["probe_n"][i])))
+    return rows
+
+
+def fullstack_spec(full: bool):
+    """Phase 14(a)'s spec: every stage on (``full``), or none."""
+    from repro_torch.core.experiment import ExperimentSpec
+    from repro_torch.core.runtime import FleetSpec, TriggerSpec
+    from repro_torch.obs.probes import ProbeSpec
+    from repro_torch.ops.capacity import ReactiveController
+    from repro_torch.reliability import (DomainOutageModel, ReliabilitySpec,
+                                         RepairSpec, SpotPoolSpec,
+                                         TopologySpec)
+    H = HORIZON_S
+    spec = ExperimentSpec(name="full-stack", horizon_s=H, seed=FS_SEED,
+                          n_replicas=N_REPLICAS)
+    if not full:
+        return spec
+    return ExperimentSpec(
+        name="full-stack", horizon_s=H, seed=FS_SEED, n_replicas=N_REPLICAS,
+        fleet=FleetSpec(n_models=6, drift_scale=60.0),
+        trigger=TriggerSpec(interval_s=3600.0, obs_noise=0.005,
+                            cooldown_s=4 * 3600.0, drift_threshold=0.06),
+        probe=ProbeSpec(interval_s=1800.0),
+        reliability=ReliabilitySpec(
+            topology=TopologySpec(zones=2, racks_per_zone=4),
+            outages=DomainOutageModel(zone_mtbf_s=H / 2.0,
+                                      rack_mtbf_s=H / 4.0, mttr_s=H / 24.0),
+            repair=RepairSpec(crews=2),
+            spot=SpotPoolSpec(frac=0.2, evict_mtbe_s=H / 3.0,
+                              reclaim_s=H / 48.0),
+            time_quantum_s=1.0),
+    ).with_(controller=ReactiveController(high_watermark=0.3, step=0.5,
+                                          max_scale=3.0, interval_s=3600.0))
+
+
+def check_fullstack_invariants(kw, out):
+    """Phase 3's invariants on a full-stack run, from the engine's own
+    inputs and outputs: no resource running more attempts at once than its
+    schedule's largest capacity plus the controller's largest move (outages
+    only take capacity away); every pipeline that entered the platform
+    (the exogenous ones and the activated retraining pipelines) done,
+    unless its current task waits on a resource left with no effective
+    capacity at the end (schedule + controller delta + reliability delta
+    <= 0: an outage still open at the horizon, whose repair falls after
+    it, under a controller that last scaled down, strands its queue, as in
+    the reference engines); and start >= ready, finish >= start on every
+    task that completed. Returns the pipelines that entered and the
+    stranded ones."""
+    from repro_torch.core.des import unpack_controller
+    host = {k: v.cpu().numpy() for k, v in kw.items() if hasattr(v, "cpu")}
+    res_of, n_tasks, arrival, cap_vals, pbase = (
+        host[k] for k in ("task_res", "n_tasks", "arrival", "cap_vals",
+                          "pool_base"))
+    need = np.maximum(host["attempts"], 1) if "attempts" in host \
+        else np.ones_like(res_of)
+    ctrl = unpack_controller(host["controllers"])
+    base = np.rint(ctrl[9]).astype(np.int64)
+    move = np.rint(ctrl[8]).astype(np.int64) - base
+    o = {k: v.cpu().numpy() for k, v in out.items()}
+    entered = stranded = 0
+    T = res_of.shape[2]
+    for i in range(res_of.shape[0]):
+        P = o["pool_arr"].shape[1]
+        live_row = np.isfinite(arrival[i]) & (arrival[i] < 1e30)
+        live_row[pbase[i]:pbase[i] + P] = ~np.isnan(o["pool_arr"][i])
+        entered += int(live_row.sum())
+        live = live_row[:, None] & (np.arange(T)[None, :]
+                                    < n_tasks[i][:, None])
+        complete = live & (o["attempts"][i] >= need[i])
+        s, f, r = (o[k][i][complete] for k in ("start", "finish", "ready"))
+        if np.isnan(s).any() or not ((s >= r).all() and (f >= s).all()):
+            raise AssertionError(f"replica {i}: a completed task never ran, "
+                                 "or start < ready, or finish < start")
+        cap_end = (cap_vals[i, -1] - base[i]
+                   + (np.rint(o["ctrl_act"][i, o["ctrl_n"][i] - 1, 1:])
+                      .astype(np.int64) if o["ctrl_n"][i] else base[i])
+                   + (np.rint(o["rel_act"][i, o["rel_n"][i] - 1, 1:])
+                      .astype(np.int64) if o["rel_n"][i] else 0))
+        for row in np.nonzero(live_row & ~o["done"][i])[0]:
+            cur = int(np.argmin(complete[row]))   # its first open task
+            r_cur = o["ready"][i, row, cur]
+            queued = not np.isnan(r_cur) and not (
+                o["start"][i, row, cur] >= r_cur)
+            if not queued or cap_end[res_of[i, row, cur]] > 0:
+                raise AssertionError(
+                    f"replica {i}: pipeline {row} is not done and its task "
+                    f"{cur} does not wait on a resource left with no "
+                    f"capacity (end capacity {cap_end.tolist()})")
+            stranded += 1
+        for res in range(cap_vals.shape[2]):
+            m = live & (res_of[i] == res)
+            st = o.get("att_start", o["start"][..., None])[i][m].ravel()
+            fi = o.get("att_finish", o["finish"][..., None])[i][m].ravel()
+            did = ~np.isnan(st)
+            t = np.concatenate([st[did], fi[did]])
+            d = np.concatenate([np.ones(did.sum()), -np.ones(did.sum())])
+            order = np.lexsort((d, t))          # a finish frees its slot first
+            peak = int(np.cumsum(d[order]).max()) if t.size else 0
+            cap = int(cap_vals[i, :, res].max()) + max(int(move[i, res]), 0)
+            if peak > cap:
+                raise AssertionError(f"replica {i} resource {res}: {peak} "
+                                     f"attempts ran at once, bound {cap}")
+    return entered, stranded
+
+
+def run_fullstack(torch, fused_admission, params, full):
+    """``run_experiment`` of phase 14(a)'s spec on the card, keeping every
+    ``KEEP_EVERY``-th admission input as phase 3 does; returns the result,
+    the engine call's keywords, outputs and wall, the total wall and the
+    kept admission inputs."""
+    from repro_torch.core import vdes
+    from repro_torch.core.experiment import run_experiment
+    calls = []
+    ens = Stopwatch(torch, vdes.simulate_ensemble, keep=calls)
+    tap = InputTap(fused_admission, KEEP_EVERY)
+    vdes.simulate_ensemble, vdes.fused_admission = ens, tap
+    try:
+        t0 = time.perf_counter()
+        res = run_experiment(fullstack_spec(full), params, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        vdes.simulate_ensemble, vdes.fused_admission = ens.fn, fused_admission
+    if ens.calls != 1:
+        raise AssertionError(f"run_experiment made {ens.calls} "
+                             "simulate_ensemble calls")
+    kw, out = calls[0]
+    return res, kw, out, ens.s, wall, tap.kept
+
+
+def fullstack_dense_twin(torch, kw, out, per):
+    """Re-runs ``FS_DENSE_N`` replicas of the full-stack run, those on which
+    the most stages acted, with the plain admission on the card (every
+    stage input is per replica and drawn before the loop, so a replica's
+    run does not depend on the others'); every output key must be equal
+    bit for bit. Returns the replicas and the re-run's wall."""
+    from repro_torch.core import vdes
+    acted = ("ctrl_actions", "rel_events", "triggers", "redeploys")
+    idx = sorted(range(len(per)), key=lambda i: (
+        -sum(per[i][k] > 0 for k in acted), -per[i]["redeploys"],
+        -per[i]["rel_events"], i))[:FS_DENSE_N]
+    sub = {k: v[idx] if torch.is_tensor(v) or isinstance(v, np.ndarray)
+           else v for k, v in kw.items()}
+    sub["admission_sort"] = "dense"
+    t0 = time.perf_counter()
+    ref = vdes.simulate_ensemble(**sub)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if set(ref) != set(out):
+        raise AssertionError(f"the plain-admission re-run returned "
+                             f"{sorted(ref)}, the full-stack run {sorted(out)}")
+    for k in ref:
+        if not same_bits(out[k][idx], ref[k]):
+            raise AssertionError(f"full-stack kernel run != plain-admission "
+                                 f"run on replicas {idx}: {k}")
+    return idx, len(ref), wall
+
+
+def phase_fullstack(torch, fused_admission, dense, counts):
+    """Phase 14: (a) the full stack at width, timed beside the same replicas
+    with no stage on; (b) the full-stack oracle ensemble, card against CPU.
+    Returns the full-stack run's admission launches and the kernel's
+    record on that run's inputs."""
+    t0 = time.perf_counter()
+    n_keys, max_waves, launched_b, per_b = fullstack_card_vs_cpu(torch, counts)
+    log(f"[14] the full-stack oracle ensemble ({ORACLE_R} replicas x "
+        f"{ORACLE_HORIZON_S / 86400:g} day, whole-second times, every stage, "
+        f"padding rows on replica {FSO_BURST}, three redeploys of one model "
+        f"in one wave) on the card (fused_admission launches "
+        f"{launched_b['fused_admission']}) and through the CPU path in "
+        f"{time.perf_counter() - t0:.2f} s; per replica " + " ".join(
+            f"{c['ctrl_actions']}/{c['rel_events']}/{c['triggers']}/"
+            f"{c['redeploys']}/{c['probe_ticks']}" for c in per_b))
+    log(f"fullstack_card_vs_cpu: identical, {n_keys} keys, {ORACLE_R} "
+        f"replicas, {max_waves} waves")
+    from repro_torch.core.fitting import SimulationParams
+    params = SimulationParams.load(str(ARTIFACT), device="cuda")
+    card = card_line()
+    runs = {}
+    for full in (True, False):
+        for k in counts:
+            k.launches = 0
+        res, kw, out, ens_wall, wall, kept = run_fullstack(
+            torch, fused_admission, params, full)
+        launched = {k.__name__: k.launches for k in counts}
+        if launched["fused_admission"] <= 0 or any(
+                n for name, n in launched.items()
+                if name != "fused_admission"):
+            raise AssertionError(f"the full-stack path launched {launched}")
+        waves = out["waves"].cpu().numpy()
+        runs[full] = (res, kw, out, ens_wall, wall, launched, waves, kept)
+    res, kw, out, ens_wall, wall, launched, waves, kept = runs[True]
+    entered, stranded = check_fullstack_invariants(kw, out)
+    n_ticks = int(kw["n_probe_slots"])
+    if not (out["probe_n"].cpu().numpy() == n_ticks).all() or bool(
+            out["probe_vals"][:, :, 0].isnan().any()):
+        raise AssertionError("the probe ticks do not cover the grid")
+    per = fullstack_counts(out)
+    for key in ("ctrl_actions", "rel_events", "triggers", "redeploys"):
+        if sum(c[key] for c in per) < 1:
+            raise AssertionError(f"the ensemble recorded no {key}")
+    log(f"[14] full stack (controller, fleet {res.experiment.fleet.name}, "
+        f"trigger {res.experiment.trigger.name}, probe every "
+        f"{res.experiment.probe.interval_s:g} s, reliability "
+        f"{res.experiment.reliability.name}), {N_REPLICAS} replicas x 1 day: "
+        f"invariants hold ({stranded} of {entered} pipelines stranded behind "
+        f"a resource left with no capacity at the end), every replica's probe "
+        f"ran its {n_ticks} ticks")
+    log("[14] per replica (controller moves / reliability events / triggers "
+        "/ redeploys): " + " ".join(
+            f"{c['ctrl_actions']}/{c['rel_events']}/{c['triggers']}/"
+            f"{c['redeploys']}" for c in per))
+    idx, n_dense_keys, dense_wall = fullstack_dense_twin(torch, kw, out, per)
+    log(f"[14] replicas {idx} re-run with the plain admission on the card "
+        f"({dense_wall:.3f} s): all {n_dense_keys} output keys bit-identical")
+    base = runs[False]
+    n_exo = int(sum(w for w in (np.isfinite(base[1]["arrival"].cpu().numpy())
+                                & (base[1]["arrival"].cpu().numpy() < 1e30)
+                                ).sum(1)))
+    for name, (r, _, o, ew, w, l, wv, _), n in (("every stage on", runs[True],
+                                               entered),
+                                              ("no stage on", base, n_exo)):
+        log(f"[14] {name}: run_experiment wall {w:.3f} s, simulate_ensemble "
+            f"{ew:.3f} s, waves max {int(wv.max())} (min {int(wv.min())}), "
+            f"{wv.max() / ew:.1f} waves/s, {n} pipelines, {n / ew:.1f} "
+            f"pipelines/s, fused_admission launches "
+            f"{l['fused_admission']} ({card})")
+    log(f"[14] the stages' cost: {1e3 * ens_wall / waves.max():.4f} ms per "
+        f"wave on, {1e3 * base[3] / base[6].max():.4f} ms per wave off")
+    rec = time_admission(torch, fused_admission, dense, kept, phase="14",
+                         where="the full-stack run")
+    n = launched["fused_admission"]
+    log(f"[14] fused_admission: {n} launches x {rec['ms']:.6f} ms = "
+        f"{100 * n * rec['ms'] / (ens_wall * 1e3):.2f} % of the full-stack "
+        f"simulate_ensemble's wall "
+        f"({100 * n * rec['device_ms'] / (ens_wall * 1e3):.2f} % on the "
+        "device alone)")
+    return n, rec
+
+
+def both_paths(paths, keys=("ms", "plain_ms", "bound_ms", "library_ms")):
     """One kernel's record over the main paths that launch it: launches
-    summed, and each time and bound the launch-weighted mean of the paths'
-    (so launches x (ms - bound_ms) is the sum over the paths), with each
-    path's own numbers under ``paths``."""
+    summed, and each time (``keys``) the launch-weighted mean of the
+    paths' (so launches x (ms - bound_ms) is the sum over the paths), with
+    each path's own numbers and largest difference under ``paths``."""
     n = sum(launches for _, launches, _ in paths)
     mean = {k: sum(launches * rec[k] for _, launches, rec in paths) / n
-            for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+            for k in keys}
     return dict(launches=n, **mean, bound_by=paths[0][2]["bound_by"],
                 paths=[dict(path=name, launches=launches,
-                            **{k: rec[k] for k in ("ms", "plain_ms",
-                                                   "bound_ms", "library_ms")})
+                            max_abs_err=rec["max_abs_err"],
+                            **{k: rec[k] for k in keys})
                        for name, launches, rec in paths])
 
 
@@ -1778,15 +2224,18 @@ def main() -> int:
     hserve_flash_err = phase_hybrid_serving(torch, flash_attention, counts)
     queue_launches, qrec = phase_queue_sweep(torch, queue_scan, counts)
     phase_engine_oracle(torch, counts)
+    fs_launches, fsrec = phase_fullstack(torch, fused_admission,
+                                         admission_mask_dense, counts)
 
     kernels = [dict(
         name="fused_admission", route="cuda",
         source="src/repro_torch/kernels/csrc/fused_admission.cu",
         replaces="src/repro/kernels/queue_scan.py:125",
-        launches=launches, max_abs_err=max(grid_err, rec["max_abs_err"]),
-        ms=rec["ms"], device_ms=rec["device_ms"], plain_ms=rec["plain_ms"],
-        bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
-        library_ms=rec["library_ms"]), dict(
+        max_abs_err=max(grid_err, rec["max_abs_err"], fsrec["max_abs_err"]),
+        **both_paths([("wave loop", launches, rec),
+                      ("full-stack wave loop", fs_launches, fsrec)],
+                     keys=("ms", "device_ms", "plain_ms", "bound_ms",
+                           "library_ms"))), dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:25",

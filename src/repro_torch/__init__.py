@@ -8,8 +8,11 @@ and never a module of ``repro``: what it needs of the reference's
 numpy-only modules it keeps as its own copy.
 
 Ported so far: the wave loop (:mod:`repro_torch.core.vdes`: select,
-completion/retry, capacity-schedule control, admission), its host side
-(workload generator, scenarios, padding/stacking, trace flattening and
+completion/retry, control with capacity schedules, reliability events and
+the closed-loop controller, admission, the model lifecycle's fleet stage
+and the probe stage), its host side (workload generator, scenarios,
+:mod:`repro_torch.reliability`, :mod:`repro_torch.obs.probes`,
+:mod:`repro_torch.core.runtime`, padding/stacking, trace flattening and
 summaries) and the admission kernel
 (:mod:`repro_torch.kernels.queue_scan`); the LM substrate's serving path
 for the dense plan (:mod:`repro_torch.models`, :mod:`repro_torch.configs`,
@@ -18,8 +21,9 @@ flash-attention kernel (:mod:`repro_torch.kernels.flash_attention`); the
 paper's fit -> synthesize -> simulate path (:mod:`repro_torch.core.stats`,
 ``gmm``, ``fitting``, ``synthesizer``, ``engines``, ``experiment`` and
 :mod:`repro_torch.launch.simulate`) and its GMM E-step kernel
-(:mod:`repro_torch.kernels.gmm_logpdf`). All three kernels are CUDA for
-``sm_90a``.
+(:mod:`repro_torch.kernels.gmm_logpdf`); the hybrid ``zamba2-1.2b`` and its
+SSD kernel (:mod:`repro_torch.kernels.mamba2_scan`), and the queue kernel
+(``queue_scan``). All five kernels are CUDA for ``sm_90a``.
 
 Entry points run on the card (``device=None`` means ``"cuda"``) and raise
 when there is none; the CPU is used only when the caller passes

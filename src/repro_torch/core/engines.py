@@ -10,17 +10,25 @@ operational scenario — becomes one rectangular
 :mod:`repro_torch.core.batching`. A ragged platform grid is padded with
 inert pools, as in the reference.
 
+Every stage of the reference's wave loop rides the same call: closed-loop
+controllers (``Scenario.controller``), the model lifecycle (``fleet`` +
+``trigger``), telemetry probes (``probe``) and reliability timelines
+(``reliability``) are stacked per entry, with inert padding rows for the
+entries that lack them, so a sweep over any of their axes is still one
+``simulate_ensemble`` call.
+
 Workloads are synthesized from fitted ``SimulationParams`` on the device
 (:mod:`repro_torch.core.synthesizer`) unless the spec pins one. Seeds follow
 the reference's conventions: a spec's replicas are drawn in order from one
 ``torch.Generator`` seeded ``spec.seed`` (where the reference splits
-``PRNGKey(seed)``), and replica ``r``'s scenario compiles with seed
-``spec.seed + 1000 r``. The scenario draws are numpy's, so on a pinned
-integer-time workload the summaries equal the reference engines' exactly.
+``PRNGKey(seed)``), and replica ``r``'s scenario, fleet and reliability
+compile with seed ``spec.seed + 1000 r``. Those draws are numpy's (except
+a fleet's retraining-pool durations when they are not pinned), so on a
+pinned integer-time workload the summaries equal the reference engines'
+exactly.
 
-The stages this port does not have yet are refused loudly: a fleet,
-probe, reliability, ``source`` or scenario controller on a spec raises
-``NotImplementedError``. Nothing is registered in the reference.
+A ``source`` (the streaming driver's input) is refused loudly: streaming is
+not ported yet. Nothing is registered in the reference.
 """
 from __future__ import annotations
 
@@ -37,24 +45,19 @@ from repro_torch.core.synthesizer import synthesize_workload
 from repro_torch.device import resolve_device
 
 ENGINE_NAME = "torch"
-# spec fields of engine stages that are not ported yet
-_UNPORTED_FIELDS = ("fleet", "probe", "reliability", "source")
 
 
 def check_ported(spec) -> None:
-    """Raise for a spec that needs a stage this port does not have."""
+    """Raise for a spec that needs what this port does not have: another
+    engine, or a streamed ``source``."""
     if spec.engine != ENGINE_NAME:
         raise ValueError(f"repro_torch has one engine, {ENGINE_NAME!r}; got "
                          f"engine={spec.engine!r}")
-    for f in _UNPORTED_FIELDS:
-        if getattr(spec, f, None) is not None:
-            raise NotImplementedError(
-                f"ExperimentSpec.{f}: that engine stage is not ported to "
-                "repro_torch yet; run it on the reference engines")
-    if getattr(spec.scenario, "controller", None) is not None:
+    if getattr(spec, "source", None) is not None:
         raise NotImplementedError(
-            "a scenario controller: the closed-loop control stage is not "
-            "ported to repro_torch yet")
+            "ExperimentSpec.source: the streaming driver is not ported to "
+            "repro_torch yet; pin the workload or run it on the reference "
+            "engines")
 
 
 # ---------------------------------------------------------------------------
@@ -87,10 +90,59 @@ def _workload_key(spec):
             dataclasses.astuple(spec.platform.datastore))
 
 
+def _fold_reliability(comp, rel_c, w, plat):
+    """Fold one replica's compiled reliability *task-level* effects into
+    its compiled scenario: presampled spot-eviction retries add to the
+    ``attempts`` tensor, and a CheckpointSpec scales every retry slot of
+    ``attempt_service`` by ``1 - ckpt_frac`` (in f32, as the reference).
+    Capacity-level events ride the separate reliability inputs. Returns
+    ``comp`` unchanged when the reliability has no task effects; a
+    scenario-less spec gets the inert placeholder scenario first."""
+    if rel_c is None:
+        return comp
+    ev, ck = rel_c.evict_attempts, rel_c.ckpt_frac
+    if ev is None and ck is None:
+        return comp
+    if comp is None:
+        from repro_torch.ops.capacity import static_schedule
+        from repro_torch.ops.scenario import CompiledScenario
+        comp = CompiledScenario(
+            schedule=static_schedule(plat.capacities),
+            attempts=np.ones(w.task_type.shape, np.int64),
+            backoff=vdes._NO_RETRY_BACKOFF)
+    att = np.asarray(comp.attempts, np.int64)
+    if ev is not None:
+        att = att + np.asarray(ev, np.int64)
+    asv = comp.attempt_service
+    if ck is not None:
+        A = int(max(int(att.max()),
+                    asv.shape[2] if asv is not None else 0))
+        if A > 1:
+            if asv is None:
+                base = np.asarray(w.service_time(plat.datastore),
+                                  np.float64)
+                asv = np.repeat(base[..., None], A, -1)
+            elif asv.shape[2] < A:
+                # the engine clips the attempt index at A-1: repeating the
+                # last slot preserves the entry's semantics exactly
+                asv = np.concatenate(
+                    [asv, np.repeat(asv[..., -1:], A - asv.shape[2], -1)],
+                    -1)
+            asv = np.asarray(asv, np.float64).copy()
+            asv[..., 1:] = (asv[..., 1:].astype(np.float32)
+                            * np.float32(1.0 - ck)).astype(np.float64)
+    return dataclasses.replace(comp, attempts=att, attempt_service=asv)
+
+
 def _spec_workloads(spec, params, device, cache=None):
-    """The spec's replica workloads and per-replica compiled scenarios
-    (None without a scenario). ``cache`` (a dict) shares synthesis across
-    grid points whose workload axes agree."""
+    """The spec's replica workloads, per-replica compiled scenarios and
+    compiled fleets, the spec's compiled probe (None without a
+    :class:`~repro_torch.obs.probes.ProbeSpec`; one compile covers every
+    replica) and per-replica compiled reliability timelines, in the
+    reference's order: a fleet extends each workload with its latent
+    retraining pool before reliability and the scenario compile, so their
+    draws cover the retraining pipelines too. ``cache`` (a dict) shares
+    synthesis across grid points whose workload axes agree."""
     if spec.workload is not None:
         wls = [spec.workload] * spec.n_replicas
     else:
@@ -107,29 +159,91 @@ def _spec_workloads(spec, params, device, cache=None):
                    for _ in range(spec.n_replicas)]
             if key is not None:
                 cache[key] = wls
+    fleets = None
+    if spec.fleet is not None:
+        from repro_torch.core.runtime import TriggerSpec
+        from repro_torch.ops.scenario import compile_fleet
+        trig = spec.trigger if spec.trigger is not None else TriggerSpec()
+        fleets, ext = [], []
+        for r, w in enumerate(wls):
+            cf, w2 = compile_fleet(spec.fleet, trig, w, spec.platform,
+                                   spec.horizon_s,
+                                   seed=spec.seed + 1000 * r, params=params)
+            fleets.append(cf)
+            ext.append(w2)
+        wls = ext
+    rels = None
+    if spec.reliability is not None:
+        from repro_torch.reliability import (check_no_double_apply,
+                                             compile_reliability)
+        check_no_double_apply(spec.reliability, spec.scenario)
+        rels = [compile_reliability(spec.reliability, w, spec.platform,
+                                    spec.horizon_s,
+                                    seed=spec.seed + 1000 * r)
+                for r, w in enumerate(wls)]
     compiled = None
     if spec.scenario is not None:
         compiled = [spec.scenario.compile(w, spec.platform, spec.horizon_s,
                                           seed=spec.seed + 1000 * r,
-                                          policy=spec.policy)
+                                          policy=spec.policy, device=device)
                     for r, w in enumerate(wls)]
-    return wls, compiled
+    if rels is not None:
+        compiled = [_fold_reliability(
+            compiled[r] if compiled is not None else None, rels[r], w,
+            spec.platform) for r, w in enumerate(wls)]
+        if all(c is None for c in compiled):
+            compiled = None
+    probe = None
+    if spec.probe is not None:
+        from repro_torch.obs.probes import compile_probe
+        probe = compile_probe(
+            spec.probe, spec.horizon_s,
+            n_models=fleets[0].n_models if fleets is not None else 0)
+    return wls, compiled, fleets, probe, rels
 
 
-def _summarize(spec, rec, compiled):
-    """Summary for one replica, with the scenario's cost/SLO accounting."""
-    return trace.summarize(
+def _summarize(spec, rec, compiled, tr, rel=None):
+    """Summary for one replica. Under closed-loop control or reliability
+    events, cost/utilization integrate the *realized* capacity schedule
+    (the engine-recorded timelines on ``tr``); the fleet columns fold in as
+    the ``lifecycle`` block and ``rel`` (the replica's compiled
+    reliability) as the ``availability`` block."""
+    from repro_torch.ops import accounting
+    realized = None
+    if compiled is not None:
+        realized = accounting.realized_schedule(tr, compiled)
+        if realized is compiled.schedule:
+            realized = None            # planned == realized
+    lifecycle = (accounting.lifecycle_summary(tr)
+                 if tr.fleet_perf is not None else None)
+    s = trace.summarize(
         rec, spec.platform.capacities, spec.horizon_s,
         schedule=compiled.schedule if compiled is not None else None,
         cost_rates=spec.platform.cost_rates if compiled is not None else None,
-        slo=spec.scenario.slo if spec.scenario is not None else None)
+        slo=spec.scenario.slo if spec.scenario is not None else None,
+        realized=realized, lifecycle=lifecycle)
+    if rel is not None:
+        s["availability"] = accounting.availability_summary(
+            rel, spec.platform, tr=tr)
+    return s
 
 
-def _single_result(spec, rec, summary, wall):
+def _probe_timeline(spec, tr):
+    """The result's telemetry view (None for unprobed runs)."""
+    if tr.probe_vals is None:
+        return None
+    from repro_torch.obs.probes import ProbeTimeline
+    return ProbeTimeline.from_trace(tr, spec.platform)
+
+
+def _single_result(spec, rec, summary, tr, wall):
     from repro_torch.core.experiment import ExperimentResult
+    from repro_torch.core.runtime import lifecycle_result
     summary["wall_s"] = wall
     summary["pipelines_per_s"] = summary["n_pipelines"] / max(wall, 1e-9)
-    return ExperimentResult(spec, summary, rec, wall)
+    return ExperimentResult(spec, summary, rec, wall,
+                            lifecycle=lifecycle_result(tr),
+                            timeline=_probe_timeline(spec, tr))
 
 
 def _aggregate_replicas(spec, rep_sums, recs, wall):
@@ -173,8 +287,10 @@ class TorchEngine:
     def run_sweep(self, specs: Sequence, params=None) -> List:
         """Lower the whole grid — every (point, replica) pair — into one
         ``vdes.simulate_ensemble`` call: capacities ride ``capacities
-        [B, nres]``, policies ``policies [B]``, scenarios the stacked
-        schedule/attempt tensors. Results come back in order."""
+        [B, nres]``, policies ``policies [B]``, scenarios and controllers
+        the stacked schedule/attempt/ControllerParams tensors, fleets,
+        probes and reliability timelines their stacked stage tensors.
+        Results come back in order."""
         for s in specs:
             check_ported(s)
         dev = self.device
@@ -190,20 +306,23 @@ class TorchEngine:
                 s, platform=_pad_platform(s.platform, max(nres)))
                 for s in specs]
 
-        entries = []    # (spec index, workload, compiled scenario)
+        entries = []   # (spec index, workload, compiled, fleet, probe, rel)
         wl_cache = {}   # distinct workloads synthesized once for the grid
         for g, spec in enumerate(exec_specs):
-            wls, compiled = _spec_workloads(spec, params, dev, cache=wl_cache)
-            entries += [(g, w, compiled[r] if compiled is not None else None)
+            wls, compiled, fleets, probe, rels = _spec_workloads(
+                spec, params, dev, cache=wl_cache)
+            entries += [(g, w, compiled[r] if compiled is not None else None,
+                         fleets[r] if fleets is not None else None, probe,
+                         rels[r] if rels is not None else None)
                         for r, w in enumerate(wls)]
 
-        plats = [exec_specs[g].platform for g, _, _ in entries]
-        cols = batching.pad_workloads([w for _, w, _ in entries], plats)
+        plats = [exec_specs[g].platform for g, *_ in entries]
+        cols = batching.pad_workloads([w for _, w, *_ in entries], plats)
         n_max = cols["n_max"]
         caps = np.stack([p.capacities for p in plats]).astype(np.int32)
-        pol = np.array([exec_specs[g].policy for g, _, _ in entries],
+        pol = np.array([exec_specs[g].policy for g, *_ in entries],
                        np.int32)
-        if any(c is not None for _, _, c in entries):
+        if any(c is not None for _, _, c, *_ in entries):
             from repro_torch.ops.capacity import static_schedule
             from repro_torch.ops.scenario import CompiledScenario
             comps = [c if c is not None else CompiledScenario(
@@ -211,12 +330,18 @@ class TorchEngine:
                             exec_specs[g].platform.capacities),
                         attempts=np.ones(w.task_type.shape, np.int64),
                         backoff=vdes._NO_RETRY_BACKOFF)
-                     for g, w, c in entries]
+                     for g, w, c, *_ in entries]
             services = [cols["service"][i][: w.n]
-                        for i, (_, w, _) in enumerate(entries)]
+                        for i, (_, w, *_) in enumerate(entries)]
             cols.update(batching.stack_scenarios(
                 comps, n_max, max(s.horizon_s for s in specs),
                 services=services))
+        # stage tensors: entries without a stage get its inert padding row
+        fleets = [f for _, _, _, f, _, _ in entries]
+        cols.update(batching.stack_fleets(fleets, n_max))
+        cols.update(batching.stack_probes([p for *_, p, _ in entries],
+                                          fleets))
+        cols.update(batching.stack_reliability([r for *_, r in entries]))
         out = vdes.simulate_ensemble(
             **batching.to_tensors(cols, dev), capacities=caps,
             policy=int(pol[0]),
@@ -227,19 +352,24 @@ class TorchEngine:
 
         results, i = [], 0
         for g, spec in enumerate(specs):
-            recs, sums = [], []
+            recs, sums, trs = [], [], []
             for r in range(spec.n_replicas):
-                _, wl, comp = entries[i + r]
+                _, wl, comp, fl, pr, rl = entries[i + r]
                 tr = batching.batch_trace(out, i + r, wl,
                                           spec.platform.capacities,
-                                          with_scenario=comp is not None)
+                                          with_scenario=comp is not None,
+                                          fleet=fl, probe=pr,
+                                          reliability=rl)
+                trs.append(tr)
                 recs.append(trace.flatten_trace(tr, wl))
                 # against the executed (possibly padded) platform, so the
                 # cost/schedule tensors line up; padded pools add zero
-                sums.append(_summarize(exec_specs[g], recs[-1], comp))
+                sums.append(_summarize(exec_specs[g], recs[-1], comp, tr,
+                                       rel=rl))
             i += spec.n_replicas
             if spec.n_replicas == 1:
-                results.append(_single_result(spec, recs[0], sums[0], wall))
+                results.append(_single_result(spec, recs[0], sums[0], trs[0],
+                                              wall))
             else:
                 results.append(_aggregate_replicas(spec, sums, recs, wall))
         return results

@@ -7,15 +7,18 @@ process").
 :class:`~repro_torch.core.model.PlatformConfig`, workload parameters, an
 admission policy, an operational
 :class:`~repro_torch.ops.scenario.Scenario`, and replication/seed control.
-It keeps the reference's fields; the ones whose engine stages are not
-ported yet (``fleet``, ``trigger``, ``probe``, ``reliability``,
-``source``) stay on the spec and are refused by the engine
-(:func:`repro_torch.core.engines.check_ported`). ``engine`` names the one
-engine the port has, ``"torch"``.
+It keeps the reference's fields: ``fleet`` + ``trigger`` (the model
+lifecycle, Fig 7), ``probe`` (in-loop telemetry) and ``reliability``
+(correlated outages, repair crews, spot eviction) run in the engine's wave
+loop; ``source`` (the streamed workload) stays on the spec and is refused by
+the engine (:func:`repro_torch.core.engines.check_ported`), as streaming is
+not ported yet. ``engine`` names the one engine the port has, ``"torch"``.
 
 :class:`Sweep` composes a spec with named axes (spec fields,
-``"capacity:<resource>"`` shorthands, scenarios, policies, seeds) into a
-Cartesian grid that runs as ONE batched ``simulate_ensemble`` call.
+``"capacity:<resource>"``, ``"trigger:*"``, ``"fleet:*"``, ``"probe:*"``
+and ``"reliability:*"`` shorthands, closed-loop ``"controller"`` gains,
+scenarios, policies, seeds) into a Cartesian grid that runs as ONE batched
+``simulate_ensemble`` call.
 """
 from __future__ import annotations
 
@@ -30,10 +33,10 @@ import numpy as np
 from repro_torch.core import des, trace
 from repro_torch.core import model as M
 from repro_torch.core.fitting import SimulationParams
+from repro_torch.core.runtime import FleetSpec, TriggerSpec
 from repro_torch.ops.scenario import Scenario
 
-# with_() prefixes of the reference whose stages are not ported yet
-_UNPORTED_AXES = ("trigger:", "fleet:", "probe:", "reliability:")
+_UNSET = object()   # sentinel: "controller" axis absent vs explicitly None
 
 
 @dataclasses.dataclass
@@ -41,7 +44,16 @@ class ExperimentSpec:
     """A declarative experiment over an arbitrary platform. ``workload``
     optionally pins a pre-materialized :class:`~repro_torch.core.model.
     Workload` (then no synthesis happens and ``interarrival_factor`` is
-    ignored) — the hook parity tests and trace replays use."""
+    ignored) — the hook parity tests and trace replays use.
+
+    ``fleet`` + ``trigger`` declare the run-time view (Fig 7): a fleet of
+    deployed models under drift and the trigger that retrains them, run in
+    the engine's fleet stage (``trigger`` defaults to ``TriggerSpec()`` when
+    a fleet is set; without a ``fleet`` it is ignored). ``probe`` (a
+    :class:`~repro_torch.obs.probes.ProbeSpec`) turns on in-loop telemetry,
+    surfaced as ``ExperimentResult.timeline``. ``reliability`` (a
+    :class:`~repro_torch.reliability.ReliabilitySpec`) compiles per replica
+    (seed + 1000 r) into the control stage's event timeline."""
 
     name: str
     platform: M.PlatformConfig = dataclasses.field(
@@ -54,31 +66,61 @@ class ExperimentSpec:
     engine: str = "torch"
     scenario: Optional[Scenario] = None
     workload: Optional[M.Workload] = None
-    # not ported yet: the engine refuses a spec that sets any of these
-    fleet: Optional[object] = None
-    trigger: Optional[object] = None
-    probe: Optional[object] = None
-    reliability: Optional[object] = None
+    fleet: Optional[FleetSpec] = None
+    trigger: Optional[TriggerSpec] = None
+    probe: Optional[object] = None   # repro_torch.obs.probes.ProbeSpec
+    reliability: Optional[object] = None   # reliability.ReliabilitySpec
+    # a streamed workload: not ported yet, the engine refuses it
     source: Optional[object] = None
 
     def with_(self, **kw) -> "ExperimentSpec":
-        """Functional update: plain field names, or
-        ``**{"capacity:<resource>": n}`` to resize one pool of the
-        platform. The reference's ``trigger:``/``fleet:``/``probe:``/
-        ``reliability:`` shorthands and ``controller`` raise: their stages
-        are not ported yet."""
+        """Functional update (``dataclasses.replace`` with axis shorthands):
+        plain field names, ``**{"capacity:<resource>": n}`` to resize one
+        pool of the platform, ``**{"trigger:<field>": v}`` /
+        ``**{"fleet:<field>": v}`` / ``**{"probe:<field>": v}`` /
+        ``**{"reliability:<field>": v}`` to update one field of the
+        lifecycle/telemetry/reliability specs (creating a default spec if
+        there is none), or ``controller=<ReactiveController>`` to set the
+        closed-loop controller on the spec's scenario (creating an
+        otherwise-empty scenario if there is none). ``controller`` is
+        applied after every other key, so combining it with a ``scenario``
+        axis composes the same way regardless of kwarg order."""
         out = self
+        ctrl = kw.pop("controller", _UNSET)
         for k, v in kw.items():
             if k.startswith("capacity:"):
                 out = dataclasses.replace(
                     out, platform=out.platform.with_capacity(
                         k.split(":", 1)[1], v))
-            elif k == "controller" or k.startswith(_UNPORTED_AXES):
-                raise NotImplementedError(
-                    f"with_({k}=...): that engine stage is not ported to "
-                    "repro_torch yet")
+            elif k.startswith("trigger:"):
+                trig = out.trigger if out.trigger is not None \
+                    else TriggerSpec()
+                out = dataclasses.replace(out, trigger=dataclasses.replace(
+                    trig, **{k.split(":", 1)[1]: v}))
+            elif k.startswith("fleet:"):
+                fl = out.fleet if out.fleet is not None else FleetSpec()
+                out = dataclasses.replace(out, fleet=dataclasses.replace(
+                    fl, **{k.split(":", 1)[1]: v}))
+            elif k.startswith("probe:"):
+                from repro_torch.obs.probes import ProbeSpec
+                pr = out.probe if out.probe is not None else ProbeSpec()
+                out = dataclasses.replace(out, probe=dataclasses.replace(
+                    pr, **{k.split(":", 1)[1]: v}))
+            elif k.startswith("reliability:"):
+                from repro_torch.reliability import ReliabilitySpec
+                rl = out.reliability if out.reliability is not None \
+                    else ReliabilitySpec()
+                out = dataclasses.replace(
+                    out, reliability=dataclasses.replace(
+                        rl, **{k.split(":", 1)[1]: v}))
             else:
                 out = dataclasses.replace(out, **{k: v})
+        if ctrl is not _UNSET and not (ctrl is None and out.scenario is None):
+            # (a None controller on a scenario-less spec stays pristine)
+            sc = out.scenario if out.scenario is not None \
+                else Scenario(name="controller")
+            out = dataclasses.replace(
+                out, scenario=dataclasses.replace(sc, controller=ctrl))
         return out
 
     def to_spec(self) -> "ExperimentSpec":
@@ -92,6 +134,13 @@ class ExperimentResult:
     records: trace.TaskRecords
     wall_s: float
     replica_summaries: Optional[List[Dict]] = None
+    # model-lifecycle view (runtime.LifecycleResult) of single-replica runs
+    # of specs with a FleetSpec; ensembles aggregate lifecycle scalars into
+    # the summary instead
+    lifecycle: Optional[object] = None
+    # in-loop telemetry view (obs.probes.ProbeTimeline) of single-replica
+    # runs of specs with a ProbeSpec
+    timeline: Optional[object] = None
 
     def save(self, directory: str) -> None:
         os.makedirs(directory, exist_ok=True)
@@ -137,9 +186,14 @@ class Sweep:
 
     ``axes`` maps axis names to value lists. An axis name is a spec field
     (``interarrival_factor``, ``policy``, ``scenario``, ``seed``,
-    ``platform``, ...) or the shorthand ``"capacity:<resource name>"``.
-    The whole grid (heterogeneous capacities, policies, scenarios and
-    workloads, times ``n_replicas`` replicas each) executes as a single
+    ``platform``, ...), a shorthand of :meth:`ExperimentSpec.with_`
+    (``"capacity:<resource name>"``, ``"trigger:<field>"``,
+    ``"fleet:<field>"``, ``"probe:<field>"``, ``"reliability:<field>"``) or
+    ``"controller"``, a list of
+    :class:`~repro_torch.ops.capacity.ReactiveController` gains (or None).
+    The whole grid (heterogeneous capacities, policies, scenarios,
+    controllers, lifecycle and reliability policies and workloads, times
+    ``n_replicas`` replicas each) executes as a single
     ``simulate_ensemble`` call; a ragged platform grid is padded with inert
     pools."""
 

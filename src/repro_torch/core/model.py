@@ -4,8 +4,8 @@ Numpy-only copy of :mod:`repro.core.model` for the PyTorch port. A workload
 of N pipelines with at most T tasks each is a set of ``[N]`` / ``[N, T]``
 arrays; the engine turns them into tensors on the device
 (:mod:`repro_torch.core.batching`). :class:`SimTrace` carries the columns
-the ported engine stages produce; the controller, reliability, fleet and
-probe columns of the reference arrive with those stages.
+every engine stage produces, the controller's, reliability's, fleet's and
+probe's included, and the shared action timeline that reads them.
 """
 from __future__ import annotations
 
@@ -206,9 +206,77 @@ class SimTrace:
     # under heavy retry instead of the duration*attempts approximation
     att_start: Optional[np.ndarray] = None
     att_finish: Optional[np.ndarray] = None
+    # realized capacity timeline under closed-loop control: ctrl_times [E]
+    # action times and ctrl_caps [E, R] the integer per-resource targets the
+    # controller set at those instants (engine-recorded, identical to the
+    # reference engines'). None when the run had no enabled controller;
+    # empty arrays when a controller ran but never acted.
+    # ops.accounting.realized_schedule splices this onto the planned
+    # schedule so provisioned cost/utilization integrate what the engine
+    # actually provisioned
+    ctrl_times: Optional[np.ndarray] = None
+    ctrl_caps: Optional[np.ndarray] = None
+    # reliability event timeline: rel_times [E] the fired outage / repair /
+    # eviction event times and rel_caps [E, R] the integer *cumulative*
+    # per-resource reliability capacity delta after each event
+    # (engine-recorded, identical to the reference engines'; <= 0 while
+    # domains are down). None when the run had no compiled reliability scenario; empty
+    # arrays when one was enabled but no event fired before the run
+    # drained. ops.accounting.realized_schedule splices this onto the
+    # planned schedule alongside the controller timeline.
+    rel_times: Optional[np.ndarray] = None
+    rel_caps: Optional[np.ndarray] = None
+    # model-lifecycle (fleet) stage outputs. fleet_perf/fleet_stale [E, M]:
+    # true per-model performance / staleness at each drift-evaluation tick
+    # (fleet_ticks [E]); fleet_times/fleet_kind/fleet_model [A]: the
+    # engine-recorded lifecycle action timeline (kind 0 = trigger fired and
+    # activated a retraining pipeline, 1 = retraining completed and
+    # redeployed the model). None when the run had no fleet.
+    # fleet_pool_base is the row index of the first (latent) retraining-pool
+    # pipeline in the extended workload — rows before it are exogenous.
+    fleet_perf: Optional[np.ndarray] = None
+    fleet_stale: Optional[np.ndarray] = None
+    fleet_ticks: Optional[np.ndarray] = None
+    fleet_times: Optional[np.ndarray] = None
+    fleet_kind: Optional[np.ndarray] = None
+    fleet_model: Optional[np.ndarray] = None
+    fleet_pool_base: Optional[int] = None
+    # in-loop telemetry probe outputs: probe_times [E] f64 the compile-time
+    # probe tick grid, probe_vals [E, K] f64 the engine-sampled channels
+    # (K = core.des.probe_channel_count(nres); see obs.probes for the
+    # channel layout and named-timeline view). Sampled in f32 as the
+    # reference engines sample them; NaN rows are ticks the run never
+    # reached. None when the run had no probe.
+    probe_times: Optional[np.ndarray] = None
+    probe_vals: Optional[np.ndarray] = None
     # engine wave-loop iteration count; the engines retire events in
     # identical waves, so tests assert *wave-for-wave* parity with this
     waves: Optional[int] = None
+
+    def action_timeline(self):
+        """The SHARED in-engine action timeline: every discrete action an
+        in-engine actor took, time-sorted. Reliability events appear as
+        ``("outage", t, cumulative_delta_vector)`` (any outage / repair /
+        eviction capacity move); controller capacity moves as
+        ``("scale", t, target_vector)``; model-lifecycle actions as
+        ``("trigger", t, model_id)`` / ``("redeploy", t, model_id)``. Ties
+        keep reliability events first, then controller actions (the order
+        the control stage applies them within a wave)."""
+        rows = []
+        if self.rel_times is not None:
+            for t, caps in zip(self.rel_times, self.rel_caps):
+                rows.append((float(t), -1, ("outage", float(t), caps)))
+        if self.ctrl_times is not None:
+            for t, caps in zip(self.ctrl_times, self.ctrl_caps):
+                rows.append((float(t), 0, ("scale", float(t), caps)))
+        if self.fleet_times is not None:
+            names = {0: "trigger", 1: "redeploy"}
+            for t, k, m in zip(self.fleet_times, self.fleet_kind,
+                               self.fleet_model):
+                rows.append((float(t), 1,
+                             (names[int(k)], float(t), int(m))))
+        rows.sort(key=lambda r: (r[0], r[1]))
+        return [r[2] for r in rows]
 
     @property
     def wait(self) -> np.ndarray:

@@ -230,7 +230,8 @@ def queue_length_timeline(rec: TaskRecords, nres: int, bin_s: float = 3600.0,
 
 def summarize(rec: TaskRecords, capacities: np.ndarray, horizon_s: float,
               schedule=None, cost_rates: Optional[np.ndarray] = None,
-              slo=None, deadlines: Optional[np.ndarray] = None) -> Dict:
+              slo=None, deadlines: Optional[np.ndarray] = None,
+              realized=None, lifecycle=None) -> Dict:
     """Dashboard summary. The optional operational-scenario kwargs fold in
     cost/SLO accounting: ``schedule`` (a :class:`repro_torch.ops.capacity.
     CapacitySchedule`) adds a ``utilization_vs_provisioned`` block computed
@@ -239,8 +240,21 @@ def summarize(rec: TaskRecords, capacities: np.ndarray, horizon_s: float,
     ``cost_rates`` ($/node-hour), dollar cost; ``slo`` (a
     :class:`repro_torch.ops.accounting.SLOConfig`) adds deadline-miss and
     wait-SLO metrics (``deadlines`` optionally per-pipeline, indexed by
-    pipeline id)."""
-    util = mean_utilization(rec, capacities, horizon_s)
+    pipeline id).
+
+    ``realized`` (a second schedule, normally from
+    :func:`repro_torch.ops.accounting.realized_schedule`) is the
+    engine-recorded capacity timeline under closed-loop control and
+    reliability events: when given, cost/utilization integrate *it* instead
+    of the planned ``schedule`` (the top-level ``utilization`` included), and
+    the planned figures come back alongside as ``planned_node_seconds`` /
+    ``planned_total_cost`` / ``realized_vs_planned_cost_delta``.
+
+    ``lifecycle`` (a dict from
+    :func:`repro_torch.ops.accounting.lifecycle_summary`) folds the
+    model-lifecycle block in, with ``mean_staleness`` / ``n_retrained`` /
+    ``n_triggered`` / ``staleness_integral_s`` mirrored at the top level."""
+    util = mean_utilization(rec, capacities, horizon_s, schedule=realized)
     out = {
         "n_tasks": int(rec.start.shape[0]),
         "n_pipelines": int(np.unique(rec.pipeline).shape[0]),
@@ -255,12 +269,18 @@ def summarize(rec: TaskRecords, capacities: np.ndarray, horizon_s: float,
         m = rec.task_type == t
         if m.any():
             out[f"wait_{M.TASK_TYPE_NAMES[t]}_s"] = float(np.nanmean(rec.wait[m]))
-    if schedule is not None or slo is not None:
+    if schedule is not None or slo is not None or realized is not None:
         from repro_torch.ops import accounting
         from repro_torch.ops.capacity import static_schedule
         sched = schedule if schedule is not None \
             else static_schedule(capacities)
         out.update(accounting.scenario_summary(
-            rec, sched, horizon_s, cost_rates=cost_rates, slo=slo,
-            deadlines=deadlines))
+            rec, realized if realized is not None else sched, horizon_s,
+            cost_rates=cost_rates, slo=slo, deadlines=deadlines,
+            planned=sched if realized is not None else None))
+    if lifecycle is not None:
+        out["lifecycle"] = dict(lifecycle)
+        for k in ("mean_staleness", "n_retrained", "n_triggered",
+                  "staleness_integral_s"):
+            out[k] = lifecycle[k]
     return out

@@ -2,43 +2,60 @@
 
 State is a struct-of-tensors over ``[R, N]`` (replicas x pipelines). Each
 loop iteration — a **wave** — advances every replica's clock to its next
-event time and retires *all* events at that instant, in four stages:
+event time and retires *all* events at that instant, in up to six stages:
 
   1. **event selection** (``_select_events``): the next-event time
-     ``t_star [R]`` is the minimum over pending task events and the next
-     scheduled capacity change;
+     ``t_star [R]`` is the minimum over pending task events, the next
+     scheduled capacity change, the next reliability event and the next
+     controller, fleet and probe ticks;
   2. **completion/retry** (``_completion_stage``): finishes release slots,
      successful attempts advance the pipeline, failed attempts re-enter the
      arrival path after a deterministic bounded exponential backoff
      ``min(base * mult**k, cap)``; arrivals and successor tasks enqueue;
   3. **control** (``_control_stage``): the pending piecewise-constant
      capacity change applies (a decrease never preempts: free goes
-     negative and admission stalls until jobs drain);
+     negative and admission stalls until jobs drain), then the pending
+     *reliability event* (a pre-sampled outage / repair / eviction capacity
+     delta, recorded into ``rel_act``), then the *closed-loop controller*
+     observes the live queue lengths and moves capacity (each integer-target
+     move recorded into ``ctrl_act``);
   4. **admission** (``_admission_stage``): one ranked admission round per
      resource, by the hand-written CUDA kernel
      :func:`repro_torch.kernels.queue_scan.fused_admission`
      (``admission_sort="kernel"``) or its plain version
-     (``admission_sort="dense"``).
+     (``admission_sort="dense"``);
+  5. **fleet** (``_fleet_stage``, optional): the model lifecycle (Fig 7).
+     Retraining pipelines that completed this wave redeploy their model; at
+     drift-evaluation ticks the ``[R, M]`` drift algebra runs, and triggers
+     crossing their threshold activate latent pipelines of a preallocated
+     retraining pool;
+  6. **probe** (``_probe_stage``, optional): at probe ticks the settled
+     post-wave state is sampled into an ``[R, E, K]`` f32 buffer.
 
-The reference's closed-loop controller, reliability, fleet and probe
-stages, its sort-based ``"fused"``/``"chained"`` rankings and its
-segment-restart hooks are not ported yet.
+A stage that is off costs nothing: it is gated in Python, so a run without
+controller, reliability, fleet or probe issues exactly the ops of the four
+stages. All-zero controller/trigger/probe rows and ``INF``-padded
+reliability rows are inert, as in the reference. The reference's sort-based
+``"fused"``/``"chained"`` rankings and its segment-restart hooks are not
+ported yet.
 
 **The replica axis.** The reference writes one replica and ``jax.vmap``s a
 ``lax.while_loop`` over it. The batched loop runs until every replica is
-finished, and a finished replica is frozen: its state, its wave counter
-included, stops changing. Here the replica axis is written out: each wave
-evaluates the loop condition per replica into an ``active [R]`` mask,
-computes the stages for all replicas, and commits each state field with
-``torch.where(active, new, old)``. The host reads the mask only every
+finished, and a finished replica is frozen: its state, its wave counter and
+tick grids included, stops changing. Here the replica axis is written out:
+each wave evaluates the loop condition per replica into an ``active [R]``
+mask, computes the stages for all replicas, and commits each state field
+with ``torch.where(active, new, old)``. The host reads the mask only every
 ``sync_every`` waves; the waves a finished batch runs past its end are
 inert, so the outputs do not depend on ``sync_every``.
 
 **Exactness.** Times are float32, as in the reference. Every product is
 rounded on its own (separate eager ops: no ``torch.compile``, no custom
 kernel for the stage arithmetic, which would contract ``a + b*c`` into an
-FMA), so on integer-time workloads the outputs equal the reference
-engines' bit for bit.
+FMA), reductions that feed f32 state are order-independent (min/max,
+integer counts, or a sum with at most one nonzero term), and the fleet's
+redeploy gains add in slot order, so on integer-time workloads the outputs
+equal the reference engines' bit for bit.
 """
 from __future__ import annotations
 
@@ -49,8 +66,16 @@ import numpy as np
 import torch
 
 from repro_torch.core import model as M
-from repro_torch.core.des import (CTRL_INF, POLICY_FIFO, POLICY_PRIORITY,
-                                  POLICY_SJF)
+from repro_torch.core.des import (CTRL_INF, CTRL_INTERVAL, FLEET_ACT_REDEPLOY,
+                                  FLEET_ACT_TRIGGER, POLICY_FIFO,
+                                  POLICY_PRIORITY, POLICY_SJF, PROBE_INTERVAL,
+                                  PROBE_N_MODELS, PROBE_T_END, PROBE_T_FIRST,
+                                  TRIG_COOLDOWN, TRIG_DELAY, TRIG_FIELDS,
+                                  TRIG_INTERVAL, TRIG_T_END, TRIG_T_FIRST,
+                                  TRIG_THRESHOLD, _tick_bound_walk,
+                                  probe_channel_count, unpack_controller)
+from repro_torch.core.metrics import (FLEET_PERF0, fleet_staleness,
+                                      performance_from_terms, seasonal_terms)
 from repro_torch.device import resolve_device
 from repro_torch.kernels.queue_scan import fused_admission
 from repro_torch.kernels.ref import admission_mask_dense
@@ -104,11 +129,18 @@ def simulate(vwl: VWorkload, capacities, policy: int = POLICY_FIFO,
              cap_times=None, cap_vals=None, backoff=None,
              attempt_service=None, policy_dyn=None,
              n_attempt_slots: Optional[int] = None,
-             fail_holds_frac=None, admission_sort: str = "kernel",
-             device=None) -> dict:
+             controller=None, fail_holds_frac=None,
+             admission_sort: str = "kernel",
+             n_ctrl_slots: Optional[int] = None,
+             fleet=None, trig=None, obs_noise=None, drift_inc=None,
+             pool_gain=None, pool_base=None, n_pool_eff=None,
+             probe=None, n_probe_slots: Optional[int] = None,
+             rel_times=None, rel_deltas=None,
+             n_rel_slots: Optional[int] = None, device=None) -> dict:
     """Run one replica: :func:`simulate_ensemble` with ``R = 1``. Returns
     start/finish/ready ``[N, T]`` (f32; NaN where a task does not exist or
-    never ran), attempts, done and the wave count.
+    never ran), attempts, done and the wave count, plus the buffers of the
+    stages that are on.
 
     ``cap_times [K]`` / ``cap_vals [K, nres]`` give a piecewise-constant
     capacity schedule (``cap_times[0]`` must be 0; ``capacities`` is
@@ -118,7 +150,11 @@ def simulate(vwl: VWorkload, capacities, policy: int = POLICY_FIFO,
     overrides ``policy``. With ``n_attempt_slots = A`` the per-attempt
     ``att_start``/``att_finish [N, T, A]`` are recorded too.
     ``fail_holds_frac`` makes a *failing* attempt hold its slot for only
-    that fraction of its service time."""
+    that fraction of its service time. ``controller [C]``, the fleet group
+    (``fleet [M, 6]``, ``trig``, ``obs_noise``/``drift_inc [E, M]``,
+    ``pool_gain [P]``, ``pool_base``, ``n_pool_eff``), ``probe`` and
+    ``rel_times [RV]`` / ``rel_deltas [RV, nres]`` are one replica's rows of
+    :func:`simulate_ensemble`'s stage inputs."""
 
     def one(x):
         return None if x is None else torch.as_tensor(x)[None]
@@ -129,59 +165,153 @@ def simulate(vwl: VWorkload, capacities, policy: int = POLICY_FIFO,
         attempts=one(vwl.attempts), cap_times=one(cap_times),
         cap_vals=one(cap_vals), backoff=one(backoff),
         policies=one(policy_dyn), attempt_service=one(attempt_service),
-        n_attempt_slots=n_attempt_slots,
+        n_attempt_slots=n_attempt_slots, controllers=one(controller),
         fail_holds_frac=one(fail_holds_frac), admission_sort=admission_sort,
-        device=device)
+        n_ctrl_slots=n_ctrl_slots, fleets=one(fleet), trig=one(trig),
+        obs_noise=one(obs_noise), drift_inc=one(drift_inc),
+        pool_gain=one(pool_gain), pool_base=one(pool_base),
+        n_pool_eff=one(n_pool_eff), probes=one(probe),
+        n_probe_slots=n_probe_slots, rel_times=one(rel_times),
+        rel_deltas=one(rel_deltas), n_rel_slots=n_rel_slots, device=device)
     return {k: v[0] for k, v in res.items()}
 
 
 def simulate_to_trace(wl: M.Workload, platform: Optional[M.PlatformConfig] = None,
                       policy: int = POLICY_FIFO, scenario=None,
+                      fleet=None, probe=None, reliability=None,
                       device=None) -> M.SimTrace:
     """Convenience: numpy Workload in, SimTrace out (single replica).
-    ``scenario`` is a :class:`repro_torch.ops.scenario.CompiledScenario`."""
+    ``scenario`` is a :class:`repro_torch.ops.scenario.CompiledScenario`;
+    ``fleet`` a :class:`repro_torch.ops.scenario.CompiledFleet` (``wl`` must
+    then be the extended workload carrying the latent retraining-pool rows);
+    ``probe`` a :class:`repro_torch.obs.probes.CompiledProbe`;
+    ``reliability`` a
+    :class:`repro_torch.reliability.compile.CompiledReliability`."""
+    from repro_torch.core.des import (ctrl_tick_bound, fleet_trace_columns,
+                                      unpack_ctrl_actions, unpack_rel_actions)
     platform = platform or M.PlatformConfig()
     att_start = att_finish = None
+    ctrl_times = ctrl_caps = None
 
     def host(x, dtype=np.float64):
         return x.cpu().numpy().astype(dtype)
 
+    fl = fleet
+    if fl is not None and float(np.asarray(fl.trig)[TRIG_INTERVAL]) <= 0.0:
+        fl = None
+    stage_kw = {}
+    if fl is not None:
+        stage_kw = dict(fleet=fl.fleet, trig=fl.trig, obs_noise=fl.obs_noise,
+                        drift_inc=fl.drift_inc, pool_gain=fl.pool_gain,
+                        pool_base=int(fl.pool_base))
+    pr = probe
+    if pr is not None and \
+            float(np.asarray(pr.header)[PROBE_INTERVAL]) <= 0.0:
+        pr = None
+    if pr is not None:
+        hdr = np.asarray(pr.header, np.float32).copy()
+        hdr[PROBE_N_MODELS] = np.float32(fl.n_models if fl is not None else 0)
+        stage_kw.update(probe=hdr, n_probe_slots=int(pr.n_ticks))
+    rel = reliability
+    if rel is not None and int(np.asarray(rel.times).shape[0]) == 0:
+        rel = None
+    if rel is not None:
+        stage_kw.update(rel_times=np.asarray(rel.times, np.float32),
+                        rel_deltas=np.asarray(rel.deltas, np.int32),
+                        n_rel_slots=int(np.asarray(rel.times).shape[0]))
     if scenario is not None:
         vwl = VWorkload.from_workload(wl, platform, attempts=scenario.attempts,
                                       device=device)
         att_svc = scenario.attempt_service
+        ctrl = scenario.controller
         frac = float(scenario.fail_holds_frac)
         slots = int(max(np.max(scenario.attempts), 1,
                         att_svc.shape[2] if att_svc is not None else 1))
         if slots == 1:   # no retries: single-attempt records already exact
             slots = None
+        n_ctrl = ctrl_tick_bound(ctrl) if ctrl is not None else 0
         res = simulate(vwl, platform.capacities, policy,
                        cap_times=scenario.cap_times,
                        cap_vals=scenario.cap_vals,
                        backoff=scenario.backoff, attempt_service=att_svc,
                        n_attempt_slots=slots,
+                       controller=None if ctrl is None
+                       else np.asarray(ctrl, np.float32),
                        fail_holds_frac=None if frac >= 1.0 else frac,
-                       device=device)
+                       n_ctrl_slots=n_ctrl if n_ctrl > 0 else None,
+                       device=device, **stage_kw)
         caps0 = np.asarray(scenario.cap_vals[0], np.int64)
         attempts = host(res["attempts"], np.int64)
         completed = host(res["done"], bool)
         if slots is not None:
             att_start = host(res["att_start"])
             att_finish = host(res["att_finish"])
+        if ctrl is not None and \
+                float(np.asarray(ctrl)[CTRL_INTERVAL]) > 0.0:
+            # enabled controller: realized timeline present (maybe empty)
+            nres = int(scenario.cap_vals.shape[1])
+            if n_ctrl > 0:
+                ctrl_times, ctrl_caps = unpack_ctrl_actions(
+                    host(res["ctrl_act"]), int(res["ctrl_n"]))
+            else:
+                ctrl_times = np.zeros(0, np.float64)
+                ctrl_caps = np.zeros((0, nres), np.int64)
     else:
         vwl = VWorkload.from_workload(wl, platform, device=device)
-        res = simulate(vwl, platform.capacities, policy, device=device)
+        res = simulate(vwl, platform.capacities, policy, device=device,
+                       **stage_kw)
         caps0 = platform.capacities
-        attempts = completed = None
+        attempts = None
+        completed = host(res["done"], bool) if fl is not None else None
+    arrival_out = np.asarray(wl.arrival, np.float64)
+    cols = {}
+    if fl is not None:
+        arrival_out, cols = fleet_trace_columns(
+            fl, arrival_out, host(res["pool_arr"]), host(res["fleet_act"]),
+            int(res["fleet_n"]), host(res["fleet_perf"]),
+            host(res["fleet_stale"]))
+    if pr is not None:
+        cols.update(probe_times=np.asarray(pr.times, np.float64),
+                    probe_vals=host(res["probe_vals"]))
+    if rel is not None:
+        rt, rc = unpack_rel_actions(host(res["rel_act"]), int(res["rel_n"]))
+        cols.update(rel_times=rt, rel_caps=rc)
     return M.SimTrace(
         start=host(res["start"]), finish=host(res["finish"]),
         ready=host(res["ready"]),
         n_tasks=wl.n_tasks.astype(np.int64),
         task_res=wl.task_res, task_type=wl.task_type,
-        arrival=np.asarray(wl.arrival, np.float64),
+        arrival=arrival_out,
         capacities=caps0, attempts=attempts, completed=completed,
         att_start=att_start, att_finish=att_finish,
-        waves=int(res["waves"]))
+        ctrl_times=ctrl_times, ctrl_caps=ctrl_caps,
+        waves=int(res["waves"]), **cols)
+
+
+def gain_order_bound(trig, n_pool: int) -> int:
+    """The most retraining-pool slots one model can hold in any replica of
+    a batch: the number of ordered steps the fleet stage takes to add a
+    wave's redeploy gains per model in slot order. A model fires at most
+    once per drift-evaluation tick, never within ``cooldown_s`` of its last
+    fire, and never beyond the pool (``n_pool``). The cooldown bound leaves
+    a relative margin of 1e-6 for the f32 rounding of the gap test.
+    ``trig`` is the ``[R, TRIG_FIELDS]`` header batch."""
+    trig = np.asarray(torch.as_tensor(trig).cpu(), np.float32).reshape(
+        -1, TRIG_FIELDS)
+    bound = 0
+    for row in trig:
+        interval = float(row[TRIG_INTERVAL])
+        if interval <= 0.0:
+            continue
+        first, end = float(row[TRIG_T_FIRST]), float(row[TRIG_T_END])
+        fires = min(_tick_bound_walk(interval, first, end,
+                                     what="trigger evaluation"), n_pool)
+        cooldown = float(row[TRIG_COOLDOWN])
+        if cooldown > 0.0:
+            fires = min(fires, int(np.floor(
+                max(end - first, 0.0) / (cooldown * (1.0 - 1e-6)))) + 1)
+        bound = max(bound, fires)
+    return bound
 
 
 def simulate_ensemble(arrival, n_tasks, task_res, service, priority,
@@ -189,7 +319,14 @@ def simulate_ensemble(arrival, n_tasks, task_res, service, priority,
                       attempts=None, cap_times=None, cap_vals=None,
                       backoff=None, policies=None, attempt_service=None,
                       n_attempt_slots: Optional[int] = None,
-                      fail_holds_frac=None, admission_sort: str = "kernel",
+                      controllers=None, fail_holds_frac=None,
+                      admission_sort: str = "kernel",
+                      n_ctrl_slots: Optional[int] = None,
+                      fleets=None, trig=None, obs_noise=None, drift_inc=None,
+                      pool_gain=None, pool_base=None, n_pool_eff=None,
+                      probes=None, n_probe_slots: Optional[int] = None,
+                      rel_times=None, rel_deltas=None,
+                      n_rel_slots: Optional[int] = None,
                       sync_every: int = 64, device=None) -> dict:
     """arrival: [R, N]; task_res/service: [R, N, T]; capacities: [R, nres].
 
@@ -203,6 +340,24 @@ def simulate_ensemble(arrival, n_tasks, task_res, service, priority,
     ``device`` (``None``: the card) in the engine's dtypes — see
     :func:`repro_torch.core.batching.to_tensors`.
 
+    Stage inputs, batched as the reference batches them:
+
+    - ``controllers [R, C]``: closed-loop ControllerParams rows (an all-zero
+      row disables the controller for that replica); ``n_ctrl_slots`` (the
+      largest ``ctrl_tick_bound`` in the batch) records each integer-target
+      move into ``ctrl_act [R, E, 1+nres]`` with counts ``ctrl_n [R]``;
+    - the model lifecycle: ``fleets [R, M, 6]``, ``trig [R, TRIG_FIELDS]``
+      (an interval <= 0 row disables the stage), ``obs_noise``/``drift_inc
+      [R, E, M]``, ``pool_gain [R, P]``, ``pool_base [R]``, ``n_pool_eff
+      [R]``; returns ``fleet_perf``/``fleet_stale [R, E, M]``, ``fleet_act
+      [R, 2P, 3]``, ``fleet_n``, ``pool_arr``/``pool_model [R, P]`` and
+      ``pool_next``;
+    - ``probes [R, PROBE_FIELDS]`` with ``n_probe_slots``: the telemetry
+      buffer ``probe_vals [R, E, K]`` and tick counts ``probe_n``;
+    - ``rel_times [R, RV]`` / ``rel_deltas [R, RV, nres]`` with
+      ``n_rel_slots`` (padding rows at ``INF`` never fire): the fired-event
+      buffer ``rel_act [R, RV, 1+nres]`` and counts ``rel_n``.
+
     ``admission_sort`` is ``"kernel"`` (the CUDA admission kernel; its
     plain version on CPU tensors) or ``"dense"`` (the plain version on any
     device — the on-card reference). ``sync_every`` is the number of waves
@@ -210,8 +365,8 @@ def simulate_ensemble(arrival, n_tasks, task_res, service, priority,
 
     Returns tensors on ``device``: ``start``/``finish``/``ready
     [R, N, T]`` f32, ``attempts [R, N, T]`` i32 (executed admissions),
-    ``done [R, N]`` bool, ``waves [R]`` i32, and with ``n_attempt_slots``
-    ``att_start``/``att_finish [R, N, T, A]``."""
+    ``done [R, N]`` bool, ``waves [R]`` i32, with ``n_attempt_slots``
+    ``att_start``/``att_finish [R, N, T, A]``, and the stage buffers above."""
     dev = resolve_device(device)
     if admission_sort not in ADMISSION_SORTS:
         raise ValueError(f"unknown admission_sort {admission_sort!r}; "
@@ -266,6 +421,38 @@ def simulate_ensemble(arrival, n_tasks, task_res, service, priority,
     def onehot(col):
         return col[..., None] == ar_T
 
+    def tick(t_cur, firing, interval, t_end):
+        """Advance a tick grid where it fired, exactly as the reference: a
+        tick past ``t_end``, or one that cannot advance past the f32 ulp,
+        exhausts the grid."""
+        t_nxt = t_cur + interval
+        return torch.where(
+            firing, torch.where((t_nxt > t_end) | (t_nxt <= t_cur), INF,
+                                t_nxt), t_cur)
+
+    def first_tick(enabled, t_first, t_end):
+        return torch.where(enabled & (t_first <= t_end), t_first, INF)
+
+    aranges = {}
+
+    def arange(n):
+        if n not in aranges:
+            aranges[n] = torch.arange(n, dtype=i32, device=dev)
+        return aranges[n]
+
+    def write_row(buf, idx, firing, row):
+        """``buf[r, idx[r]] = row[r]`` where ``firing[r]``, as a dense
+        one-hot write (the reference's ``where`` form)."""
+        hit = (arange(buf.shape[1]) == idx[:, None]) & firing[:, None]
+        return torch.where(hit[..., None], row[:, None, :], buf)
+
+    def onehot_rows(buf, idx, vals):
+        """``buf[r, idx[r, p]] = vals[r, p]`` for live indices (unique per
+        replica, values >= 0); ``idx == buf.shape[1]`` drops."""
+        m = idx[..., None] == arange(buf.shape[1])          # [R, P, A]
+        upd = torch.where(m[..., None], vals[:, :, None, :], -INF).amax(1)
+        return torch.where(m.any(1)[..., None], upd, buf)
+
     s = dict(
         phase=torch.full((R, N), _NOT_ARRIVED, dtype=i32, device=dev),
         task_idx=torch.zeros((R, N), dtype=i32, device=dev),
@@ -286,20 +473,130 @@ def simulate_ensemble(arrival, n_tasks, task_res, service, priority,
                               dtype=f32, device=dev)
         ar_A = torch.arange(n_attempt_slots, dtype=i32, device=dev)
 
+    base_keys = set(s)
+
+    def nan_buf(*shape):
+        return torch.full(shape, float("nan"), dtype=f32, device=dev)
+
+    has_ctrl = controllers is not None
+    rec_ctrl = has_ctrl and n_ctrl_slots is not None and n_ctrl_slots > 0
+    if has_ctrl:
+        (c_interval, c_cooldown, c_first, c_end, c_high, c_low, c_step,
+         c_min, c_max, c_base) = unpack_controller(t(controllers, f32))
+        c_enabled = c_interval > 0.0                          # [R]
+        base_i = torch.round(c_base).to(i32)                  # [R, nres]
+        s["ctrl_cap"] = c_base.clone()                        # continuous
+        s["ctrl_tgt"] = base_i.clone()                        # integer
+        s["t_eval"] = first_tick(c_enabled, c_first, c_end)
+        s["t_act"] = torch.full((R,), -INF, dtype=f32, device=dev)
+    if rec_ctrl:
+        s["ctrl_act"] = nan_buf(R, n_ctrl_slots, 1 + nres)
+        s["ctrl_n"] = torch.zeros((R,), dtype=i32, device=dev)
+
+    has_rel = rel_times is not None and n_rel_slots is not None \
+        and n_rel_slots > 0
+    if has_rel:
+        rel_t = t(rel_times, f32)                             # [R, RV]
+        rel_d = t(rel_deltas, i32)                            # [R, RV, nres]
+        RV = n_rel_slots
+        s["rel_idx"] = torch.zeros((R,), dtype=i32, device=dev)
+        s["rel_cum"] = torch.zeros((R, nres), dtype=i32, device=dev)
+        s["rel_act"] = nan_buf(R, RV, 1 + nres)
+        s["rel_n"] = torch.zeros((R,), dtype=i32, device=dev)
+
+    has_fleet = trig is not None
+    if has_fleet:
+        trig_t = t(trig, f32)
+        f_interval, f_cooldown, f_first, f_end, f_thr, f_delay = (
+            trig_t[:, i] for i in (TRIG_INTERVAL, TRIG_COOLDOWN, TRIG_T_FIRST,
+                                   TRIG_T_END, TRIG_THRESHOLD, TRIG_DELAY))
+        f_enabled = f_interval > 0.0
+        fleet_t = t(fleets, f32)                              # [R, M, 6]
+        M_ = fleet_t.shape[1]
+        obs_t = t(obs_noise, f32)                             # [R, E, M]
+        inc_t = t(drift_inc, f32)                             # [R, E, M]
+        gain_t = t(pool_gain, f32)                            # [R, P]
+        P = gain_t.shape[1]
+        E_f = obs_t.shape[1]
+        A_f = max(2 * P, 1)       # triggers + redeploys both bounded by P
+        pbase = t(pool_base, i32).reshape(R)
+        peff = (torch.full((R,), P, dtype=i32, device=dev)
+                if n_pool_eff is None else t(n_pool_eff, i32).reshape(R))
+        seasons = seasonal_terms(fleet_t, xp=torch)
+        n_gain_steps = max(gain_order_bound(trig_t, P), 1)
+        ar_G = torch.arange(n_gain_steps, dtype=i32, device=dev)
+        ar_P = torch.arange(P, dtype=i32, device=dev)
+        ar_M = torch.arange(M_, dtype=i32, device=dev)
+        s["fl_perf0"] = fleet_t[..., FLEET_PERF0].clone()
+        # the largest rank a done slot took within its model, checked
+        # against n_gain_steps after the loop (a rank at or above it would
+        # match no column of the ordered fold and lose its gain)
+        s["gain_rank"] = torch.full((R,), -1, dtype=i32, device=dev)
+        s["fl_dep"] = torch.zeros((R, M_), dtype=f32, device=dev)
+        s["fl_acc"] = torch.zeros((R, M_), dtype=f32, device=dev)
+        s["fl_dep_tick"] = torch.full((R, M_), -1, dtype=i32, device=dev)
+        s["fl_fire"] = torch.full((R, M_), -INF, dtype=f32, device=dev)
+        s["t_fleet"] = first_tick(f_enabled, f_first, f_end)
+        s["f_tick"] = torch.zeros((R,), dtype=i32, device=dev)
+        s["pool_model"] = torch.full((R, P), -1, dtype=i32, device=dev)
+        s["pool_next"] = torch.zeros((R,), dtype=i32, device=dev)
+        s["pool_arr"] = nan_buf(R, P)
+        s["redeployed"] = torch.zeros((R, P), dtype=torch.bool, device=dev)
+        s["fleet_perf"] = nan_buf(R, E_f, M_)
+        s["fleet_stale"] = nan_buf(R, E_f, M_)
+        s["fleet_act"] = nan_buf(R, A_f, 3)     # (time, kind, model id)
+        s["fleet_n"] = torch.zeros((R,), dtype=i32, device=dev)
+
+    has_probe = probes is not None and n_probe_slots is not None \
+        and n_probe_slots > 0
+    if has_probe:
+        probe_t = t(probes, f32)
+        p_interval = probe_t[:, PROBE_INTERVAL]
+        p_end = probe_t[:, PROBE_T_END]
+        p_models = torch.round(probe_t[:, PROBE_N_MODELS]).to(i32)
+        p_enabled = p_interval > 0.0
+        E_p = n_probe_slots
+        s["t_probe"] = first_tick(p_enabled, probe_t[:, PROBE_T_FIRST], p_end)
+        s["p_tick"] = torch.zeros((R,), dtype=i32, device=dev)
+        s["probe_vals"] = nan_buf(R, E_p, probe_channel_count(nres))
+        no_delta = torch.zeros((R, nres), dtype=i32, device=dev)
+        no_fleet = nan_buf(R)
+
     # ------------------------------------------------------------ stages
 
     def _select_events(s):
-        """Stage 1: the per-replica next-event time over task events and
-        the next scheduled capacity change."""
+        """Stage 1: the per-replica next-event time over task events, the
+        next scheduled capacity change, the next reliability event and the
+        controller, fleet and probe ticks."""
         ci = s["cap_idx"]
         t_cap = torch.where(
             ci < K, cap_times.gather(1, ci.clamp(0, K - 1).long()[:, None])[:, 0],
             INF)
-        return torch.minimum(s["t_next"].amin(1), t_cap), t_cap
+        t_star = torch.minimum(s["t_next"].amin(1), t_cap)
+        if has_rel:
+            ri = s["rel_idx"]
+            t_rel = torch.where(
+                ri < RV, rel_t.gather(1, ri.clamp(0, RV - 1).long()[:, None])[:, 0],
+                INF)
+            t_star = torch.minimum(t_star, t_rel)
+        if has_ctrl:
+            t_star = torch.minimum(t_star, s["t_eval"])
+        if has_fleet:
+            t_star = torch.minimum(t_star, s["t_fleet"])
+        if has_probe:
+            t_star = torch.minimum(t_star, s["t_probe"])
+        return t_star, t_cap
 
     def _running(s, t_star):
-        # exit when everything is done OR nothing can ever happen again
-        return (s["phase"] != _DONE).any(1) & (t_star < INF)
+        # exit when everything is done OR nothing can ever happen again;
+        # remaining fleet and probe ticks keep a replica alive (controller
+        # ticks and reliability events do not)
+        alive = (s["phase"] != _DONE).any(1)
+        if has_fleet:
+            alive = alive | (s["t_fleet"] < INF)
+        if has_probe:
+            alive = alive | (s["t_probe"] < INF)
+        return alive & (t_star < INF)
 
     def _completion_stage(s, ts):
         """Stage 2: finishes release slots; failed attempts re-enter the
@@ -333,15 +630,70 @@ def simulate_ensemble(arrival, n_tasks, task_res, service, priority,
             onehot(task_idx.clamp(0, T - 1)) & to_queue[..., None],
             ts[..., None], s["ready"])
 
-    def _control_stage(s, t_star, t_cap):
-        """Stage 3: the pending scheduled capacity change applies."""
+    def _control_stage(s, t_star, t_cap, t_st):
+        """Stage 3: the pending scheduled capacity change applies, then the
+        pending reliability event applies its capacity delta and is
+        recorded, then the closed-loop controller observes the live queue
+        lengths and moves capacity (the two at ``t_st``, see ``wave``)."""
         ci = s["cap_idx"]
         cap_changing = (t_cap == t_star) & (ci < K)
         hi = ci.clamp(0, K - 1).long()
         lo = (ci - 1).clamp(0, K - 1).long()
-        s["free"] = s["free"] + torch.where(
+        free = s["free"] + torch.where(
             cap_changing[:, None], cap_vals[rows, hi] - cap_vals[rows, lo], 0)
-        s["cap_idx"] = ci + cap_changing.to(i32)
+        cap_idx = ci + cap_changing.to(i32)
+        if has_rel:
+            # drain semantics, as a scheduled decrease; applied before the
+            # controller evaluates, so it sees post-outage capacity
+            ri = s["rel_idx"].clamp(0, RV - 1).long()
+            rel_firing = (s["rel_idx"] < RV) & (rel_t[rows, ri] == t_st)
+            drow = torch.where(rel_firing[:, None], rel_d[rows, ri], 0)
+            free = free + drow
+            rel_cum = s["rel_cum"] + drow
+            # record (t, cumulative delta); cumulative deltas can be
+            # negative, so a where-write, not onehot_rows
+            rrow = torch.cat([t_st[:, None], rel_cum.to(f32)], 1)
+            s["rel_act"] = write_row(s["rel_act"],
+                                     s["rel_n"].clamp(max=RV - 1),
+                                     rel_firing, rrow)
+            s["rel_n"] = torch.clamp(s["rel_n"] + rel_firing.to(i32), max=RV)
+            s["rel_cum"] = rel_cum
+            s["rel_idx"] = s["rel_idx"] + rel_firing.to(i32)
+        if has_ctrl:
+            firing = c_enabled & (s["t_eval"] == t_st)
+            queued = s["phase"] == _QUEUED
+            tcl = s["task_idx"].clamp(0, T - 1)
+            qlen = per_res(queued, take(task_res, tcl))
+            sched_now = cap_vals[rows, (cap_idx - 1).clamp(0, K - 1).long()]
+            cap_eff = sched_now + s["ctrl_tgt"] - base_i
+            if has_rel:
+                cap_eff = cap_eff + s["rel_cum"]
+            per_slot = qlen.to(f32) / cap_eff.clamp(min=1).to(f32)
+            can_act = firing & (t_st - s["t_act"] >= c_cooldown)
+            cap_f = s["ctrl_cap"]
+            new_cap = torch.where(
+                per_slot > c_high, cap_f * (1.0 + c_step),
+                torch.where(per_slot < c_low, cap_f * (1.0 - c_step), cap_f))
+            new_cap = torch.where(
+                can_act[:, None], torch.clamp(new_cap, min=c_min, max=c_max),
+                cap_f)
+            new_tgt = torch.round(new_cap).to(i32)
+            changed = can_act & (new_cap != cap_f).any(1)
+            if rec_ctrl:
+                # an integer-target move is a provisioning action: append
+                # (t, target) to the realized timeline
+                tgt_changed = can_act & (new_tgt != s["ctrl_tgt"]).any(1)
+                row = torch.cat([t_st[:, None], new_tgt.to(f32)], 1)
+                s["ctrl_act"] = write_row(
+                    s["ctrl_act"], s["ctrl_n"].clamp(max=n_ctrl_slots - 1),
+                    tgt_changed, row)
+                s["ctrl_n"] = torch.clamp(s["ctrl_n"] + tgt_changed.to(i32),
+                                          max=n_ctrl_slots)
+            free = free + (new_tgt - s["ctrl_tgt"])
+            s["ctrl_cap"], s["ctrl_tgt"] = new_cap, new_tgt
+            s["t_act"] = torch.where(changed, t_st, s["t_act"])
+            s["t_eval"] = tick(s["t_eval"], firing, c_interval, c_end)
+        s["free"], s["cap_idx"] = free, cap_idx
 
     def _admission_stage(s, ts):
         """Stage 4: one ranked admission round per resource, recording
@@ -390,6 +742,151 @@ def simulate_ensemble(arrival, n_tasks, task_res, service, priority,
             s["att_finish"] = torch.where(adm_slot, t_fin[..., None, None],
                                           s["att_finish"])
 
+    def _redeploy(s, ts):
+        """Retraining-pool pipelines that completed this wave redeploy
+        their model: drift state resets, the slot's presampled gain
+        applies, and the redeploy joins the action buffer."""
+        p_done = ((s["phase"].gather(1, pool_rows) == _DONE)
+                  & (s["pool_model"] >= 0) & ~s["redeployed"] & pool_live)
+        mdl = s["pool_model"].clamp(0, max(M_ - 1, 0))
+        own = p_done[..., None] & (mdl[..., None] == ar_M)     # [R, P, M]
+        hit = own.any(1)
+        # per-model f32 sum of the done slots' gains in slot order (the
+        # reference's order): column k of by_rank holds each model's k-th
+        # done slot's gain (a sum over slots with at most one nonzero term,
+        # exact in any reduction order), and the columns add in order
+        rank = own.to(i32).cumsum(1, dtype=i32) - 1
+        by_rank = torch.where(own[..., None] & (rank[..., None] == ar_G),
+                              gain_t[:, :, None, None], 0.0).sum(1)
+        gain_m = by_rank[..., 0]
+        for k in range(1, n_gain_steps):
+            gain_m = gain_m + by_rank[..., k]
+        s["gain_rank"] = torch.maximum(
+            s["gain_rank"], torch.where(own, rank, -1).amax((1, 2)))
+        s["fl_perf0"] = torch.where(
+            hit, torch.clamp(s["fl_perf0"] + gain_m, 0.4, 0.995),
+            s["fl_perf0"])
+        s["fl_dep"] = torch.where(hit, ts, s["fl_dep"])
+        s["fl_acc"] = torch.where(hit, 0.0, s["fl_acc"])
+        s["fl_dep_tick"] = torch.where(hit, s["f_tick"][:, None],
+                                       s["fl_dep_tick"])
+        s["redeployed"] = s["redeployed"] | p_done
+        rk = p_done.to(i32).cumsum(1, dtype=i32) - 1
+        idx = torch.where(p_done, s["fleet_n"][:, None] + rk, A_f)
+        vals = torch.stack([ts.expand(R, P), kind_redeploy,
+                            s["pool_model"].to(f32)], -1)
+        s["fleet_act"] = onehot_rows(s["fleet_act"], idx, vals)
+        s["fleet_n"] = s["fleet_n"] + p_done.sum(1, dtype=i32)
+
+    def _fleet_stage(s, t_star):
+        """Stage 5: the model lifecycle. Retraining-pool pipelines that
+        completed this wave redeploy their model (any wave, not just
+        ticks); at a drift-evaluation tick the [R, M] drift algebra runs,
+        the performance/staleness timelines record, and triggers whose
+        observed drift crosses the threshold (outside their cooldown)
+        activate latent pool pipelines. f32 arithmetic, op for op the
+        reference's. An empty pool (``max_retrains=0``) triggers nothing."""
+        ts = t_star[:, None]
+        if P:
+            _redeploy(s, ts)
+        # ---- drift-evaluation tick
+        firing = f_enabled & (s["t_fleet"] == t_star)
+        e = s["f_tick"].clamp(0, E_f - 1)
+        el = e.long()
+        dt = torch.clamp(ts - s["fl_dep"], min=0.0)
+        # drift accrues per COMPLETED interval: dep_tick gates the first
+        # accrual after a redeploy (its partial interval is dropped)
+        acc_new = torch.where(e[:, None] > s["fl_dep_tick"],
+                              s["fl_acc"] + inc_t[rows, el], s["fl_acc"])
+        perf = performance_from_terms(s["fl_perf0"], acc_new, dt, *seasons,
+                                      xp=torch)
+        stale = fleet_staleness(s["fl_perf0"], perf, xp=torch)
+        s["fleet_perf"] = write_row(s["fleet_perf"], e, firing, perf)
+        s["fleet_stale"] = write_row(s["fleet_stale"], e, firing, stale)
+        obs = perf + obs_t[rows, el]
+        drift = s["fl_perf0"] - obs
+        want = (firing[:, None] & (drift > f_thr[:, None])
+                & ((ts - s["fl_fire"]) >= f_cooldown[:, None]))
+        rank = want.to(i32).cumsum(1, dtype=i32) - 1
+        slot = s["pool_next"][:, None] + rank
+        fire = want & (slot < peff[:, None])   # injection budget exhausts
+        s["fl_fire"] = torch.where(fire, ts, s["fl_fire"])
+        arr_t = t_star + f_delay
+        # fired slots are unique per replica (pool_next + distinct ranks)
+        m_s = torch.where(fire, slot, P)[..., None] == ar_P    # [R, M, P]
+        hit_s = m_s.any(1)
+        s["pool_model"] = torch.where(
+            hit_s, torch.where(m_s, ar_M[:, None], -1).amax(1),
+            s["pool_model"])
+        s["pool_arr"] = torch.where(hit_s, arr_t[:, None], s["pool_arr"])
+        # activate the latent workload rows: pipeline pool_base + slot
+        # arrives at t_star + delay
+        if P:
+            hit_r = row_in_pool & hit_s.gather(1, row_slot)
+            s["t_next"] = torch.where(hit_r, arr_t[:, None], s["t_next"])
+        aidx = torch.where(fire, s["fleet_n"][:, None] + rank, A_f)
+        avals = torch.stack([ts.expand(R, M_), kind_trigger, model_ids], -1)
+        s["fleet_act"] = onehot_rows(s["fleet_act"], aidx, avals)
+        n_fire = fire.sum(1, dtype=i32)
+        s["fleet_n"] = s["fleet_n"] + n_fire
+        s["pool_next"] = s["pool_next"] + n_fire
+        s["fl_acc"] = torch.where(firing[:, None], acc_new, s["fl_acc"])
+        s["t_fleet"] = tick(s["t_fleet"], firing, f_interval, f_end)
+        s["f_tick"] = s["f_tick"] + firing.to(i32)
+
+    def _probe_stage(s, t_star):
+        """Stage 6: in-loop telemetry. Runs last in the wave, so it samples
+        the settled post-admission/post-fleet state; physics-invisible."""
+        firing = p_enabled & (s["t_probe"] == t_star)
+        queued = s["phase"] == _QUEUED
+        tcl = s["task_idx"].clamp(0, T - 1)
+        qlen = per_res(queued, take(task_res, tcl))
+        sched_now = cap_vals[rows, (s["cap_idx"] - 1).clamp(0, K - 1).long()]
+        delta = s["ctrl_tgt"] - base_i if has_ctrl else no_delta
+        rdelta = s["rel_cum"] if has_rel else no_delta
+        cap_eff = sched_now + delta + rdelta
+        busy = cap_eff - s["free"]                        # running jobs
+        if has_fleet:
+            # min/max over the entry's own n_models rows (order-independent)
+            valid_m = ar_M < p_models[:, None]
+            dtp = torch.clamp(t_star[:, None] - s["fl_dep"], min=0.0)
+            perf = performance_from_terms(s["fl_perf0"], s["fl_acc"], dtp,
+                                          *seasons, xp=torch)
+            stale = fleet_staleness(s["fl_perf0"], perf, xp=torch)
+            any_m = valid_m.any(1)
+            f_perf = torch.where(
+                any_m, torch.where(valid_m, perf, INF).amin(1), float("nan"))
+            f_stale = torch.where(
+                any_m, torch.where(valid_m, stale, -INF).amax(1),
+                float("nan"))
+        else:
+            f_perf = f_stale = no_fleet
+        live = ((s["phase"] == _QUEUED) | (s["phase"] == _RUNNING)).sum(
+            1, dtype=i32)
+        row = torch.cat([qlen.to(f32), busy.to(f32), cap_eff.to(f32),
+                         delta.to(f32), rdelta.to(f32), f_perf[:, None],
+                         f_stale[:, None], live.to(f32)[:, None]], 1)
+        s["probe_vals"] = write_row(s["probe_vals"],
+                                    s["p_tick"].clamp(0, E_p - 1), firing, row)
+        s["t_probe"] = tick(s["t_probe"], firing, p_interval, p_end)
+        s["p_tick"] = s["p_tick"] + firing.to(i32)
+
+    if has_fleet:
+        # loop invariants of the fleet stage: each slot's workload row, the
+        # live slots, each row's slot and the constant action columns
+        pool_rows = (pbase[:, None] + ar_P).clamp(0, N - 1).long()
+        pool_live = ar_P < peff[:, None]
+        off = torch.arange(N, dtype=i32, device=dev) - pbase[:, None]
+        row_in_pool = (off >= 0) & (off < P)
+        row_slot = off.clamp(0, max(P - 1, 0)).long()
+        kind_redeploy = torch.full((R, P), float(FLEET_ACT_REDEPLOY),
+                                   dtype=f32, device=dev)
+        kind_trigger = torch.full((R, M_), float(FLEET_ACT_TRIGGER),
+                                  dtype=f32, device=dev)
+        model_ids = ar_M.to(f32).expand(R, M_)
+
+    stage_keys = set(s) - base_keys
+
     # -------------------------------------------------------- wave loop
 
     def wave(s):
@@ -399,12 +896,24 @@ def simulate_ensemble(arrival, n_tasks, task_res, service, priority,
         active = _running(s, t_star)
         new = dict(s)
         ts = t_star[:, None]
+        t_st = t_star
+        if stage_keys:
+            # the stages of a stopped replica run at a NaN time: it equals
+            # no tick or event time, so nothing fires and they leave their
+            # own state as it was (no done pool slot waits for its redeploy
+            # after a wave), which therefore needs no commit below
+            t_st = torch.where(active, t_star, float("nan"))
         _completion_stage(new, ts)
-        _control_stage(new, t_star, t_cap)
+        _control_stage(new, t_star, t_cap, t_st)
         _admission_stage(new, ts)
+        if has_fleet:
+            _fleet_stage(new, t_st)
+        if has_probe:
+            _probe_stage(new, t_st)
         new["wave"] = s["wave"] + 1
-        return {k: torch.where(active.view((R,) + (1,) * (v.dim() - 1)),
-                               v, s[k]) for k, v in new.items()}
+        return {k: v if k in stage_keys else torch.where(
+                    active.view((R,) + (1,) * (v.dim() - 1)), v, s[k])
+                for k, v in new.items()}
 
     while True:
         for _ in range(int(sync_every)):
@@ -418,4 +927,23 @@ def simulate_ensemble(arrival, n_tasks, task_res, service, priority,
     if n_attempt_slots is not None:
         res["att_start"] = s["att_start"]
         res["att_finish"] = s["att_finish"]
+    if rec_ctrl:
+        res["ctrl_act"] = s["ctrl_act"]
+        res["ctrl_n"] = s["ctrl_n"]
+    if has_rel:
+        res["rel_act"] = s["rel_act"]
+        res["rel_n"] = s["rel_n"]
+    if has_fleet:
+        top = int(s["gain_rank"].max())
+        if top >= n_gain_steps:
+            raise RuntimeError(
+                f"a model redeployed {top + 1} retraining-pool slots in one "
+                f"wave, beyond gain_order_bound's {n_gain_steps}: their gains "
+                "were not all added")
+        for k in ("fleet_perf", "fleet_stale", "fleet_act", "fleet_n",
+                  "pool_arr", "pool_model", "pool_next"):
+            res[k] = s[k]
+    if has_probe:
+        res["probe_vals"] = s["probe_vals"]
+        res["probe_n"] = s["p_tick"]
     return res

@@ -1,14 +1,19 @@
 """Cost & SLO accounting for operational scenarios.
 
-Numpy copy of the planned-schedule half of :mod:`repro.ops.accounting` for
-the PyTorch port. Folds into :func:`repro_torch.core.trace.summarize` (via
-its ``schedule`` / ``cost_rates`` / ``slo`` kwargs): provisioned
-node-seconds and dollar cost from the capacity schedule, busy node-seconds
-(failed attempts included), utilization against *time-varying*
-provisioning, pipeline deadline-miss rate and per-task wait-SLO violations.
-The realized-schedule, lifecycle, availability and streaming blocks of the
-reference arrive with the controller, fleet, reliability and streaming
-slices.
+Numpy copy of :mod:`repro.ops.accounting` for the PyTorch port. Folds into
+:func:`repro_torch.core.trace.summarize` (via its ``schedule`` /
+``cost_rates`` / ``slo`` kwargs): provisioned node-seconds and dollar cost
+from the capacity schedule, busy node-seconds (failed attempts included),
+utilization against *time-varying* provisioning, pipeline deadline-miss rate
+and per-task wait-SLO violations.
+
+Under closed-loop control the *planned* schedule is not what the platform
+paid for: the engine records the controller's action timeline
+(``SimTrace.ctrl_times``/``ctrl_caps``) and the reliability events
+(``rel_times``/``rel_caps``), and :func:`realized_schedule` splices both onto
+the planned schedule. :func:`lifecycle_summary` and
+:func:`availability_summary` are the model-lifecycle and reliability blocks.
+The reference's streaming accumulator is not ported.
 """
 from __future__ import annotations
 
@@ -18,7 +23,8 @@ from typing import Dict, Optional
 import numpy as np
 
 from repro_torch.core import model as M
-from repro_torch.ops.capacity import CapacitySchedule
+from repro_torch.core.des import unpack_controller
+from repro_torch.ops.capacity import CapacitySchedule, normalize
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,6 +114,180 @@ def pipeline_spans(rec) -> Dict[str, np.ndarray]:
             "complete": complete, "makespan": complete - arrival}
 
 
+def realized_schedule(tr, compiled) -> CapacitySchedule:
+    """The capacity timeline the engines *actually* provisioned: the planned
+    schedule overlaid with the controller's recorded action timeline AND
+    the reliability stage's recorded outage/repair events.
+
+    ``tr`` is the :class:`~repro_torch.core.model.SimTrace` (its ``ctrl_times`` /
+    ``ctrl_caps`` columns are the engine-recorded controller actions, its
+    ``rel_times`` / ``rel_caps`` columns the engine-recorded reliability
+    events as *cumulative* per-resource deltas), ``compiled`` the
+    :class:`~repro_torch.ops.scenario.CompiledScenario` that produced it. Both
+    compose with the schedule as deltas (effective capacity = schedule(t) +
+    ctrl_target(t) - base + rel_cum(t), exactly the engines' control
+    stage), so the realized schedule is that sum clipped at 0. A zone
+    outage therefore shows up as a capacity *dip* whose recovery edge is
+    the repair crew's FIFO finish time — repair-delayed, not instantaneous.
+    With no controller and no fired reliability events the *planned
+    schedule object* is returned unchanged — existing summaries stay
+    bit-identical.
+    """
+    sched = compiled.schedule
+    ctrl = getattr(compiled, "controller", None)
+    times = getattr(tr, "ctrl_times", None)
+    has_ctrl = (ctrl is not None and times is not None
+                and times.shape[0] > 0)
+    rtimes = getattr(tr, "rel_times", None)
+    has_rel = rtimes is not None and rtimes.shape[0] > 0
+    if not has_ctrl and not has_rel:
+        return sched
+    cut_list = [sched.times]
+    if has_ctrl:
+        times = np.asarray(times, np.float64)
+        cut_list.append(times)
+    if has_rel:
+        rtimes = np.asarray(rtimes, np.float64)
+        cut_list.append(rtimes)
+    cuts = np.unique(np.concatenate(cut_list))
+    caps = sched.at(cuts).astype(np.int64)
+    if has_ctrl:
+        base = np.rint(np.asarray(unpack_controller(
+            np.asarray(ctrl, np.float64))[9])).astype(np.int64)
+        targets = np.asarray(tr.ctrl_caps, np.int64)
+        # controller target in effect at each cut: the last action at or
+        # before it, else the base (delta 0)
+        idx = np.searchsorted(times, cuts, side="right") - 1
+        tgt = np.where(idx[:, None] >= 0, targets[np.clip(idx, 0, None)],
+                       base[None, :])
+        caps = caps + tgt - base[None, :]
+    if has_rel:
+        rcum = np.asarray(tr.rel_caps, np.int64)
+        ridx = np.searchsorted(rtimes, cuts, side="right") - 1
+        caps = caps + np.where(ridx[:, None] >= 0,
+                               rcum[np.clip(ridx, 0, None)], 0)
+    return normalize(cuts, np.clip(caps, 0, None))
+
+
+def lifecycle_summary(tr) -> Dict:
+    """The model-lifecycle block :func:`repro_torch.core.trace.summarize` folds in
+    (via its ``lifecycle`` kwarg). All the shared aggregates (staleness
+    integral, trigger/redeploy counts, timelines) come from the ONE decoder
+    — :func:`repro_torch.core.runtime.lifecycle_result` — so the summary block
+    and ``ExperimentResult.lifecycle`` can never disagree; this adds only
+    the scalar accounting view. ``staleness_integral_s`` is the mean over
+    models of ``∫ staleness dt`` over the drift-evaluation tick grid (the
+    grid's last tick is within one interval of the horizon by
+    construction); ``retrain_node_seconds`` is the busy time of the
+    activated retraining pipelines — what the trigger policy *spent*. With
+    ``total_cost`` these span the cost-vs-staleness frontier a
+    trigger-policy sweep traces out."""
+    from repro_torch.core.runtime import lifecycle_result
+    lc = lifecycle_result(tr)
+    if lc is None:
+        raise ValueError(
+            "trace carries no fleet columns (the run had no FleetSpec); "
+            "lifecycle_summary needs a trace from a model-lifecycle run")
+    perf = lc.perf_timeline                       # [M, E]
+    recorded = ~np.isnan(perf).all(0)
+    last = int(np.nonzero(recorded)[0][-1]) if recorded.any() else -1
+    return {
+        "n_models": int(perf.shape[0]),
+        "n_triggered": lc.n_triggered,
+        "n_retrained": lc.n_retrained,
+        "mean_staleness": lc.mean_staleness,
+        "staleness_integral_s": lc.staleness_integral_s,
+        "final_mean_performance": float(np.nanmean(perf[:, last]))
+        if last >= 0 else float("nan"),
+        "n_exogenous": lc.n_exogenous,
+        "retrain_pool_size": int(tr.start.shape[0] - tr.fleet_pool_base),
+        "retrain_node_seconds": float(np.clip(
+            np.nan_to_num(tr.finish[tr.fleet_pool_base:], nan=0.0)
+            - np.nan_to_num(tr.start[tr.fleet_pool_base:], nan=0.0),
+            0.0, None).sum()),
+    }
+
+
+def availability_summary(rel, platform, tr=None) -> Dict:
+    """The reliability block :func:`repro_torch.core.engines._summarize` folds
+    into each replica's summary (``summary["availability"]``).
+
+    ``rel`` is the replica's
+    :class:`~repro_torch.reliability.CompiledReliability`. Downtime integrals
+    come from the compiled event timeline itself (``times`` +
+    ``cum_deltas`` — post-drain up events past the horizon contribute
+    nothing, matching the engines, which never run past the horizon's
+    drain); per-domain-kind node-seconds come from the host-side
+    :class:`~repro_torch.reliability.RelEvent` records (overlap-clamped node
+    counts). ``tr`` (the replica's SimTrace) adds eviction *resume*
+    accounting: evicted pipelines whose tasks still completed.
+
+    The spot-vs-on-demand cost split charges the nominal pools over the
+    horizon at the platform's cost rates, with the spot slice discounted —
+    the denominator a spot-fraction frontier trades against availability.
+    """
+    h = float(rel.horizon_s)
+    base = np.asarray(rel.base_caps, np.float64)
+    nres = base.shape[0]
+
+    # ∫ nodes-down dt per resource, truncated at the horizon
+    down_node_s = np.zeros(nres)
+    if rel.n_events:
+        ts = np.asarray(rel.times, np.float64)
+        cum = rel.cum_deltas().astype(np.float64)          # [RV, R], <= 0
+        dt = np.diff(np.concatenate([ts, [h]])).clip(0.0, None)
+        down_node_s = (np.maximum(-cum, 0.0) * dt[:, None]).sum(0)
+    denom = np.maximum(base * h, 1e-12)
+    avail = 1.0 - down_node_s / denom
+
+    by_kind: Dict = {}
+    for ev in rel.events:
+        d = by_kind.setdefault(ev.kind, {"n": 0, "node_seconds": 0.0})
+        d["n"] += 1
+        dur = max(0.0, min(ev.t_up, h) - min(ev.t_down, h))
+        d["node_seconds"] += float(ev.nodes.sum()) * dur
+
+    out: Dict = {
+        "availability": {_res_name(r): float(avail[r])
+                         for r in range(nres)},
+        "downtime_node_seconds": {_res_name(r): float(down_node_s[r])
+                                  for r in range(nres)},
+        "n_events": rel.n_events,
+        "by_kind": by_kind,
+        "repair": {
+            "n_repairs": int(rel.repair_waits.shape[0]),
+            "mean_wait_s": float(rel.repair_waits.mean())
+            if rel.repair_waits.size else 0.0,
+            "max_wait_s": float(rel.repair_waits.max())
+            if rel.repair_waits.size else 0.0,
+            "queue_depth_max": rel.repair_depth_max,
+            "n_stragglers": rel.n_straggler_repairs,
+        },
+    }
+    rates = np.asarray(platform.cost_rates, np.float64)[:nres]
+    spot = np.asarray(rel.spot_nodes, np.float64)
+    od = base - spot
+    spot_cost = float((spot * rates).sum() * h / 3600.0 * rel.discount)
+    out["cost_split"] = {
+        "on_demand_cost": float((od * rates).sum() * h / 3600.0),
+        "spot_cost": spot_cost,
+        "spot_discount": float(rel.discount),
+        "spot_savings": float((spot * rates).sum() * h / 3600.0
+                              * (1.0 - rel.discount)),
+    }
+    if rel.evict_attempts is not None:
+        ev = np.asarray(rel.evict_attempts, np.int64)
+        hit = ev.sum(1) > 0                      # pipelines with evictions
+        evb: Dict = {"evicted_tasks": int(ev.sum()),
+                     "evicted_pipelines": int(hit.sum())}
+        done = getattr(tr, "completed", None) if tr is not None else None
+        if done is not None:
+            done = np.asarray(done, bool)[: hit.shape[0]]
+            evb["resumed_pipelines"] = int((hit & done).sum())
+        out["eviction"] = evb
+    return out
+
+
 def slo_metrics(rec, slo: SLOConfig,
                 deadlines: Optional[np.ndarray] = None) -> Dict:
     """Deadline-miss and wait-SLO violation rates. ``deadlines`` optionally
@@ -143,9 +323,15 @@ def slo_metrics(rec, slo: SLOConfig,
 def scenario_summary(rec, schedule: CapacitySchedule, horizon_s: float,
                      cost_rates: Optional[np.ndarray] = None,
                      slo: Optional[SLOConfig] = None,
-                     deadlines: Optional[np.ndarray] = None) -> Dict:
-    """The cost/SLO block :func:`repro_torch.core.trace.summarize` folds in,
-    charged against the planned capacity ``schedule``."""
+                     deadlines: Optional[np.ndarray] = None,
+                     planned: Optional[CapacitySchedule] = None) -> Dict:
+    """The cost/SLO block :func:`repro_torch.core.trace.summarize` folds in.
+
+    ``schedule`` is the capacity timeline to charge for: under closed-loop
+    control the *realized* one (see :func:`realized_schedule`). Pass the
+    planning-time schedule as ``planned`` to additionally report
+    ``planned_node_seconds`` and (with ``cost_rates``) ``planned_total_cost``
+    plus the ``realized_vs_planned_cost_delta``."""
     nres = schedule.caps.shape[1]
     prov = schedule.provisioned_node_seconds(horizon_s)
     busy = busy_node_seconds(rec, nres, horizon_s)
@@ -164,6 +350,15 @@ def scenario_summary(rec, schedule: CapacitySchedule, horizon_s: float,
     }
     if cost_rates is not None:
         out.update(capacity_cost(schedule, horizon_s, cost_rates))
+    if planned is not None:
+        pprov = planned.provisioned_node_seconds(horizon_s)
+        out["planned_node_seconds"] = {_res_name(r): float(pprov[r])
+                                       for r in range(nres)}
+        if cost_rates is not None:
+            pcost = capacity_cost(planned, horizon_s, cost_rates)
+            out["planned_total_cost"] = pcost["total_cost"]
+            out["realized_vs_planned_cost_delta"] = float(
+                out["total_cost"] - pcost["total_cost"])
     if slo is not None:
         out.update(slo_metrics(rec, slo, deadlines))
     return out

@@ -8,11 +8,18 @@ per-resource capacity over time; the batched engine indexes it as a
   - :class:`StaticCapacity`        — the seed behavior (K = 1);
   - :class:`MaintenanceWindows`    — calendar windows that drain part of a pool;
   - :class:`ScheduledAutoscaler`   — predictive scaling along the hour-of-week
-    arrival profile (Fig 10).
+    arrival profile (Fig 10);
+  - :class:`ReactiveAutoscaler`    — queue-length-driven scaling planned from a
+    baseline simulation of the same workload (open-loop approximation of a
+    closed-loop autoscaler; iterate ``n_iters`` for a fixed point). The
+    port plans with its own engine, on the caller's device.
 
-The reference's ``ReactiveAutoscaler`` (planned from a baseline run) and
-``ReactiveController`` (closed loop, in the control stage) arrive with the
-controller slice of the port.
+:class:`ReactiveController` is the *closed-loop* counterpart: it does not
+produce a schedule at all. It compiles to a flat ``[C]`` ControllerParams
+tensor that the engine evaluates **inside** its wave loop, reacting to live
+queue lengths (capacity = schedule baseline + controller delta). Controller
+tensors batch per replica (``[R, C]``) through
+:func:`repro_torch.core.batching.stack_scenarios`.
 
 Node-outage injection (see :mod:`repro_torch.ops.failures`) composes onto
 any policy schedule via :func:`apply_capacity_deltas`.
@@ -23,6 +30,10 @@ import dataclasses
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
+
+from repro_torch.core.des import (CTRL_COOLDOWN, CTRL_FIELDS, CTRL_HEADER,
+                                  CTRL_INF, CTRL_INTERVAL, CTRL_T_END,
+                                  CTRL_T_FIRST)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,7 +129,8 @@ class StaticCapacity:
     """K = 1: the platform's configured capacities, unchanged over time."""
 
     def build(self, base_caps: np.ndarray, horizon_s: float, *,
-              workload=None, platform=None, policy: int = 0) -> CapacitySchedule:
+              workload=None, platform=None, policy: int = 0,
+              device=None) -> CapacitySchedule:
         return static_schedule(base_caps)
 
 
@@ -130,7 +142,8 @@ class MaintenanceWindows:
     windows: Tuple[Tuple[float, float, int, float], ...] = ()
 
     def build(self, base_caps: np.ndarray, horizon_s: float, *,
-              workload=None, platform=None, policy: int = 0) -> CapacitySchedule:
+              workload=None, platform=None, policy: int = 0,
+              device=None) -> CapacitySchedule:
         base_caps = np.asarray(base_caps, np.int64)
         deltas = []
         for t0, t1, r, frac in self.windows:
@@ -150,7 +163,8 @@ class ScheduledAutoscaler:
     interval_s: float = 3600.0
 
     def build(self, base_caps: np.ndarray, horizon_s: float, *,
-              workload=None, platform=None, policy: int = 0) -> CapacitySchedule:
+              workload=None, platform=None, policy: int = 0,
+              device=None) -> CapacitySchedule:
         from repro_torch.core.workload import hour_of_week_weights
         base_caps = np.asarray(base_caps, np.int64)
         w = hour_of_week_weights()
@@ -170,3 +184,167 @@ class ScheduledAutoscaler:
             caps[:, int(r)] = np.maximum(
                 np.rint(base_caps[int(r)] * scale[how]), 1.0)
         return normalize(times, caps)
+
+
+@dataclasses.dataclass(frozen=True)
+class ReactiveAutoscaler:
+    """Queue-length autoscaler planned from a baseline run of the workload:
+    intervals whose mean queue-per-slot exceeds ``high_watermark`` scale the
+    pool up by ``step``; below ``low_watermark`` scale down. ``n_iters > 1``
+    re-simulates under the planned schedule to approach the closed-loop
+    fixed point. The baseline runs are the port's own single-replica
+    :func:`repro_torch.core.vdes.simulate_to_trace` on ``device`` (``None``:
+    the card); on integer-time workloads the plan equals the reference's,
+    which plans with its numpy engine."""
+
+    high_watermark: float = 0.5    # waiting jobs per provisioned slot
+    low_watermark: float = 0.05
+    step: float = 0.25             # multiplicative scale step per interval
+    min_scale: float = 0.5
+    max_scale: float = 2.0
+    interval_s: float = 3600.0
+    resources: Optional[Tuple[int, ...]] = None
+    n_iters: int = 1
+
+    def build(self, base_caps: np.ndarray, horizon_s: float, *,
+              workload=None, platform=None, policy: int = 0,
+              device=None) -> CapacitySchedule:
+        if workload is None or platform is None:
+            raise ValueError(
+                "ReactiveAutoscaler needs the full-horizon workload and "
+                "platform to plan from a baseline simulation; pass them to "
+                "Scenario.compile")
+        from repro_torch.core import trace as trace_mod
+        from repro_torch.core import vdes
+        from repro_torch.ops.scenario import CompiledScenario
+
+        base_caps = np.asarray(base_caps, np.int64)
+        nres = base_caps.shape[0]
+        sched = static_schedule(base_caps)
+        for it in range(max(1, self.n_iters)):
+            compiled = None if it == 0 and sched.n_changes == 1 else \
+                CompiledScenario(schedule=sched,
+                                 attempts=np.ones(workload.task_type.shape,
+                                                  np.int64))
+            tr = vdes.simulate_to_trace(workload, platform, policy,
+                                        scenario=compiled, device=device)
+            rec = trace_mod.flatten_trace(tr, workload)
+            q = trace_mod.queue_length_timeline(
+                rec, nres, bin_s=self.interval_s, horizon_s=horizon_s)["qlen"]
+            sched = self._plan(base_caps, q)
+        return sched
+
+    def _plan(self, base_caps: np.ndarray, qlen: np.ndarray) -> CapacitySchedule:
+        nres, nbins = qlen.shape
+        which = set(range(nres)) if self.resources is None \
+            else set(int(r) for r in self.resources)
+        cap = base_caps.astype(np.float64).copy()
+        caps = np.zeros((nbins, nres))
+        for b in range(nbins):
+            for r in range(nres):
+                if r in which:
+                    per_slot = qlen[r, b] / max(cap[r], 1.0)
+                    if per_slot > self.high_watermark:
+                        cap[r] = min(cap[r] * (1.0 + self.step),
+                                     base_caps[r] * self.max_scale)
+                    elif per_slot < self.low_watermark:
+                        cap[r] = max(cap[r] * (1.0 - self.step),
+                                     base_caps[r] * self.min_scale)
+                    caps[b, r] = max(round(cap[r]), 1)
+                else:
+                    # uncontrolled pools keep their base capacity verbatim:
+                    # the >= 1 floor is a liveness guard for scaled pools
+                    # only and must not resurrect a zero-capacity pool
+                    caps[b, r] = base_caps[r]
+        times = np.arange(nbins) * self.interval_s
+        return normalize(times, caps)
+
+
+# ---------------------------------------------------------------------------
+# Closed-loop control: compiled to a flat tensor the engine evaluates inside
+# its wave loop (no schedule, no planning pass).
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ReactiveController:
+    """Closed-loop queue-reactive controller evaluated INSIDE the engine.
+
+    Every ``interval_s`` it observes the live queued-jobs-per-effective-slot
+    ratio of each resource and scales its continuous capacity state by
+    ``1 +- step`` when the ratio crosses ``high_watermark`` /
+    ``low_watermark``, clamped to ``[min_scale, max_scale] * base``. The
+    rounded integer target composes with the capacity schedule as a delta
+    (effective capacity = schedule(t) + target - base). Any movement of the
+    continuous state starts the ``cooldown_s`` window during which
+    evaluations are suppressed.
+
+    ``compile`` materializes the flat ``[C]`` ControllerParams tensor
+    (``C = CTRL_HEADER + CTRL_FIELDS * nres``; layout in
+    :mod:`repro_torch.core.des`). Evaluation ticks run from ``interval_s`` to
+    the compile horizon; the finite grid keeps the wave loop bounded even
+    when a scale-to-zero controller stalls the queue.
+    """
+
+    high_watermark: float = 0.5    # waiting jobs per effective slot
+    low_watermark: float = 0.05
+    step: float = 0.25             # multiplicative scale step per action
+    min_scale: float = 0.5
+    max_scale: float = 2.0
+    interval_s: float = 3600.0
+    cooldown_s: float = 0.0
+    resources: Optional[Tuple[int, ...]] = None   # None = control every pool
+
+    @property
+    def name(self) -> str:
+        """Label for sweep-axis point names: every field that can
+        distinguish two gain settings (defaults elided)."""
+        parts = [f"hw={self.high_watermark:g}", f"lw={self.low_watermark:g}",
+                 f"step={self.step:g}",
+                 f"sc={self.min_scale:g}-{self.max_scale:g}",
+                 f"iv={self.interval_s:g}"]
+        if self.cooldown_s:
+            parts.append(f"cd={self.cooldown_s:g}")
+        if self.resources is not None:
+            parts.append("res=" + "+".join(str(r) for r in self.resources))
+        return "ctrl(" + ",".join(parts) + ")"
+
+    def compile(self, base_caps: np.ndarray, horizon_s: float) -> np.ndarray:
+        """The ``[C]`` f32 ControllerParams tensor for ``base_caps``.
+        Uncontrolled resources get unreachable watermarks and a zero step,
+        so their delta stays 0 forever."""
+        if self.interval_s <= 0:
+            raise ValueError("ReactiveController.interval_s must be > 0")
+        # the engine advances the tick grid in f32; an interval below the
+        # clock ulp at the horizon could never advance
+        if np.float32(horizon_s) + np.float32(self.interval_s) \
+                <= np.float32(horizon_s):
+            raise ValueError(
+                f"interval_s={self.interval_s} is below the f32 clock ulp "
+                f"({np.spacing(np.float32(horizon_s))}) at horizon "
+                f"{horizon_s}; evaluation ticks could not advance")
+        base = np.asarray(base_caps, np.float64)
+        nres = base.shape[0]
+        out = np.zeros(CTRL_HEADER + CTRL_FIELDS * nres, np.float32)
+        out[CTRL_INTERVAL] = self.interval_s
+        out[CTRL_COOLDOWN] = self.cooldown_s
+        out[CTRL_T_FIRST] = self.interval_s   # first evaluation tick
+        out[CTRL_T_END] = horizon_s           # last evaluation tick
+        which = set(range(nres)) if self.resources is None \
+            else {int(r) for r in self.resources}
+        for r in range(nres):
+            o = CTRL_HEADER + CTRL_FIELDS * r
+            if r in which:
+                out[o:o + CTRL_FIELDS] = (
+                    self.high_watermark, self.low_watermark, self.step,
+                    base[r] * self.min_scale, base[r] * self.max_scale,
+                    base[r])
+            else:
+                out[o:o + CTRL_FIELDS] = (CTRL_INF, -CTRL_INF, 0.0,
+                                          base[r], base[r], base[r])
+        return out
+
+
+def disabled_controller(nres: int) -> np.ndarray:
+    """An all-zero ``[C]`` row: the engine treats interval <= 0 as 'no
+    controller', the inert padding row of a batch."""
+    return np.zeros(CTRL_HEADER + CTRL_FIELDS * int(nres), np.float32)

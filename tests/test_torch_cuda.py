@@ -3,8 +3,8 @@ engine through the kernel against the engine through the plain version,
 the serving path through the flash kernel against the plain path, the EM
 through the GMM kernel with no host sync per iteration, the hybrid's
 forward through the SSD kernel against its plain path, and the card's
-engine against the port's CPU path on ``chip_smoke.py`` phase 13's
-ensemble.
+engine against the port's CPU path on ``chip_smoke.py`` phase 13's and
+phase 14(b)'s ensembles (the latter with every stage of the wave loop).
 
 These tests need a CUDA device and ``nvcc`` and skip elsewhere. They
 import the port only (no JAX, no reference), so they also run where the
@@ -143,6 +143,47 @@ def test_engine_card_equals_cpu_oracle_chain():
     n_keys, waves, launched = _chip_smoke().engine_card_vs_cpu(torch, counts)
     assert n_keys == 8 and waves > 0
     assert launched["fused_admission"] > 0
+
+@pytest.mark.cuda
+def test_fullstack_card_equals_cpu_oracle_chain():
+    """``chip_smoke.py`` phase 14(b): every stage of the wave loop on
+    (controller, reliability, fleet, probe, with padding rows on one
+    replica), on the card and through the CPU path, equal bit for bit on
+    every output key after checking that the stages acted and that one
+    model's three redeploys share a wave.
+    ``tests/test_torch_engine_oracle.py`` holds that CPU path against the
+    reference's numpy engine."""
+    _need_card()
+    cs = _chip_smoke()
+    counts = (queue_scan.fused_admission, fa.flash_attention,
+              gl.gmm_logpdf, ms.mamba2_scan, queue_scan.queue_scan)
+    n_keys, waves, launched, per = cs.fullstack_card_vs_cpu(torch, counts)
+    assert n_keys == len(cs.FSO_KEYS) and waves > 0
+    assert launched["fused_admission"] > 0
+    assert per[cs.FSO_BURST]["redeploys"] == 3
+
+
+@pytest.mark.cuda
+def test_slot_order_gain_sum_on_card():
+    """The redeploy-burst replica alone on the card: its three same-model
+    gains, whose f32 sum depends on the order of the adds, give the CPU
+    path's performance timeline bit for bit (the CPU path adds them in slot
+    order, as the reference's numpy engine does)."""
+    _need_card()
+    cs = _chip_smoke()
+    cols, caps, pols = cs.fullstack_oracle_ensemble()[:3]
+    i = cs.FSO_BURST
+    one = {k: (v[i:i + 1] if isinstance(v, np.ndarray) else v)
+           for k, v in cols.items()}
+    run = {dev: vdes.simulate_ensemble(
+        **batching.to_tensors(one, dev), capacities=caps[i:i + 1],
+        policies=pols[i:i + 1], device=dev) for dev in ("cuda", "cpu")}
+    for k in ("fleet_perf", "fleet_stale", "fleet_act", "fleet_n",
+              "start", "finish", "waves"):
+        assert cs.same_bits(run["cuda"][k].cpu(), run["cpu"][k]), k
+    acts = run["cpu"]["fleet_act"][0][:int(run["cpu"]["fleet_n"][0])]
+    assert int((acts[:, 1] == des.FLEET_ACT_REDEPLOY).sum()) == 3
+
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,S,H,Hkv,D", [

@@ -1,5 +1,5 @@
-"""``chip_smoke.py`` phase 13's ensemble through the port's CPU path against
-the reference's numpy engine, on the CPU.
+"""``chip_smoke.py`` phase 13's and phase 14(b)'s ensembles through the
+port's CPU path against the reference's numpy engine, on the CPU.
 
 Phase 13 (and ``tests/test_torch_cuda.py``'s card test) holds the card's
 engine bit for bit against the port's CPU path on this ensemble; this test
@@ -8,7 +8,8 @@ by replica, so the card's answer is the oracle's. The ensemble: four
 one-tenth-day ground-truth workloads with whole-second times
 (``whole_seconds``), mixed policies, retries with backoff, a
 partial-progress replica, a resampled-attempt replica and drains below the
-busy count.
+busy count. Phase 14(b)'s adds every stage of the wave loop (controller,
+reliability, fleet, probe) under the reference's parity conditions.
 """
 import dataclasses
 import importlib.util
@@ -104,3 +105,59 @@ def test_oracle_ensemble_cpu_path_equals_numpy_engine(chip_smoke):
             assert int(out["waves"][i]) == tr.waves, f"replica {i} waves"
             unpadded += 1
     assert unpadded >= 1
+
+
+def test_fullstack_oracle_ensemble_cpu_path_equals_numpy_engine(chip_smoke):
+    """``chip_smoke.py`` phase 14(b)'s ensemble (every stage on: the
+    controller, reliability events, the fleet and the probe, with padding
+    rows on one replica and three same-model redeploys in one of its waves)
+    through the port's CPU path: each replica's task times, attempts,
+    completion, realized controller and reliability timelines, fleet
+    timelines and actions, pool activations and telemetry equal
+    ``des.simulate``'s exactly, and so do the wave counts of the replicas
+    that need no padding rows."""
+    cols, caps, pols, wls, comps, fleets, probes, rels, plat = \
+        chip_smoke.fullstack_oracle_ensemble()
+    out = vdes.simulate_ensemble(**batching.to_tensors(cols, "cpu"),
+                                 capacities=caps, policies=pols,
+                                 device="cpu")
+    assert set(out) == set(chip_smoke.FSO_KEYS)
+    counts = chip_smoke.fullstack_counts(out)
+    ref_plat = RM.PlatformConfig().with_capacity(
+        "learning_cluster", chip_smoke.FSO_LEARNING_CAP)
+    K = cols["cap_times"].shape[1]
+    horizon = chip_smoke.ORACLE_HORIZON_S
+    unpadded = 0
+    for i, wl in enumerate(wls):
+        c = comps[i]
+        rc = dataclasses.replace(_reference_scenario(c, K, horizon),
+                                 controller=c.controller)
+        rwl = RM.Workload(**{f.name: getattr(wl, f.name)
+                             for f in dataclasses.fields(wl)})
+        tr = ref_des.simulate(rwl, ref_plat, int(pols[i]), scenario=rc,
+                              fleet=fleets[i], probe=probes[i],
+                              reliability=rels[i])
+        got = batching.batch_trace(out, i, wl, plat.capacities,
+                                   fleet=fleets[i], probe=probes[i],
+                                   reliability=rels[i])
+        for k in ("start", "finish", "ready", "attempts", "completed",
+                  "arrival", "ctrl_times", "ctrl_caps", "rel_times",
+                  "rel_caps", "fleet_perf", "fleet_stale", "fleet_times",
+                  "fleet_kind", "fleet_model", "probe_vals"):
+            want = getattr(tr, k)
+            if want is None:
+                continue
+            np.testing.assert_array_equal(getattr(got, k), want,
+                                          err_msg=f"replica {i} {k}")
+        if wl.n == cols["n_max"]:
+            assert got.waves == tr.waves, f"replica {i} waves"
+            unpadded += 1
+        if i != chip_smoke.FSO_BURST:
+            assert counts[i]["ctrl_actions"] > 0
+    assert unpadded >= 1
+    assert counts[0]["rel_events"] > 0 and counts[1]["rel_events"] > 0
+    assert all(c["redeploys"] > 0 for c in counts)
+    burst = out["fleet_act"][chip_smoke.FSO_BURST].numpy()
+    burst = burst[:int(out["fleet_n"][chip_smoke.FSO_BURST])]
+    rede = burst[burst[:, 1] == 1, 0]
+    assert rede.shape[0] == 3 and len(set(rede.tolist())) == 1

@@ -7,7 +7,7 @@ numpy engine (``engine="numpy"``) **exactly**, every key but the two wall
 clock ones, at 1 and 4 replicas, with and without an operational scenario
 (failures with retries, a maintenance window, an SLO). The scenario draws
 are numpy's in both packages, seeded ``seed + 1000 r`` for replica ``r``.
-The stages the port does not have are refused. The CLI runs the whole
+A streamed ``source`` and another engine are refused. The CLI runs the whole
 fit -> synthesize -> simulate path on the CPU at a small size.
 """
 import dataclasses
@@ -177,7 +177,6 @@ def test_ragged_platform_grid_pads_onto_one_batch():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("fleet", object()), ("probe", object()), ("reliability", object()),
     ("source", object()), ("engine", "jax")])
 def test_unported_fields_raise(field, value):
     spec = experiment.ExperimentSpec(
@@ -187,17 +186,6 @@ def test_unported_fields_raise(field, value):
     err = ValueError if field == "engine" else NotImplementedError
     with pytest.raises(err, match=field):
         experiment.run_experiment(spec, device="cpu")
-
-
-@pytest.mark.parametrize("axis", ["controller", "trigger:cooldown_s",
-                                  "fleet:n_models", "probe:interval_s",
-                                  "reliability:seed"])
-def test_unported_axes_raise(axis):
-    spec = experiment.ExperimentSpec(name="x")
-    with pytest.raises(NotImplementedError):
-        spec.with_(**{axis: 1})
-    with pytest.raises(NotImplementedError):
-        Scenario(controller=object())
 
 
 def test_synthesized_ensemble_from_artifact():

@@ -169,15 +169,3 @@ def test_flatten_and_summarize(tmp_path):
     assert_tree_equal(trace.concat_records(parts).att_start,
                       rec_t.att_start[np.concatenate(
                           [np.nonzero(half)[0], np.nonzero(~half)[0]])])
-
-
-def test_unported_stages_are_rejected():
-    with pytest.raises(NotImplementedError):
-        scenario.Scenario(controller=object())
-    with pytest.raises(NotImplementedError):
-        batching.to_tensors({"controllers": np.zeros((1, 16))}, "cpu")
-    wl = workload.generate_empirical_workload(0, 3600.0)
-    comp = ref_scen.Scenario(controller=ref_cap.ReactiveController()).compile(
-        wl, RM.PlatformConfig(), 3600.0)
-    with pytest.raises(NotImplementedError):
-        batching.stack_scenarios([comp], wl.n, 3600.0)

@@ -1,11 +1,13 @@
 """The port stands alone: no JAX, no reference module, no silent CPU.
 
-An AST walk finds no ``jax`` and no ``repro`` import in ``src/repro_torch``,
+An AST walk finds no ``jax`` and no ``repro`` import in ``src/repro_torch``
+(its ``reliability/``, ``obs/`` and ``checkpoint/`` subpackages included),
 ``chip_smoke.py`` or ``tools/``; a fresh interpreter runs the port (the wave
-loop, the serving paths, the hybrid's forward, and the fit -> synthesize ->
-simulate path) without loading ``jax``; with no card the entry
-points raise unless the caller asks for the CPU; the arguments of stages
-and the model families that are not ported yet are refused.
+loop, the serving paths, the hybrid's forward, the fit -> synthesize ->
+simulate path and the full-stack experiment) without loading ``jax``; with
+no card the entry points raise unless the caller asks for the CPU; the
+segment-restart hooks and the model families that are not ported yet are
+refused.
 """
 import ast
 import os
@@ -46,6 +48,33 @@ def test_no_jax_or_reference_imports(path):
         top = name.split(".")[0]
         assert top != "jax" and top != "jaxlib", f"{path}: imports {name}"
         assert top != "repro", f"{path}: imports {name}"
+
+
+def test_walk_covers_every_subpackage():
+    packages = {p.parent.name for p in PORT_FILES}
+    assert {"reliability", "obs", "checkpoint", "core", "ops",
+            "kernels"} <= packages
+
+
+# a one-replica full-stack experiment on the CPU: a controller, a fleet
+# whose retrain durations come from the committed fit, a probe and a
+# reliability timeline with spot evictions
+FULL_STACK = (
+    "from repro_torch.core import experiment, fitting, workload\n"
+    "from repro_torch.core.runtime import FleetSpec, TriggerSpec\n"
+    "from repro_torch.obs.probes import ProbeSpec\n"
+    "from repro_torch.ops.capacity import ReactiveController\n"
+    "from repro_torch.reliability import ReliabilitySpec, SpotPoolSpec\n"
+    "H = 0.1 * 86400.0\n"
+    "spec = experiment.ExperimentSpec('fs', horizon_s=H, n_replicas=2,\n"
+    "    workload=workload.generate_empirical_workload(0, H),\n"
+    "    fleet=FleetSpec(n_models=3, drift_scale=300.0),\n"
+    "    trigger=TriggerSpec(interval_s=900.0, cooldown_s=1800.0,\n"
+    "                        drift_threshold=0.02),\n"
+    "    probe=ProbeSpec(interval_s=900.0),\n"
+    "    reliability=ReliabilitySpec(spot=SpotPoolSpec(frac=0.2,\n"
+    "        evict_mtbe_s=H / 3), time_quantum_s=1.0),\n"
+    ").with_(controller=ReactiveController(interval_s=900.0))\n")
 
 
 NO_REFERENCE = (
@@ -118,6 +147,32 @@ def test_cpu_fit_path_leaves_jax_unloaded():
         + NO_REFERENCE)
 
 
+def test_cpu_full_stack_run_leaves_jax_unloaded():
+    run_fresh(
+        "import sys\n" + FULL_STACK +
+        f"p = fitting.SimulationParams.load({str(ARTIFACT)!r}, 'cpu')\n"
+        "res = experiment.run_experiment(spec, p, device='cpu')\n"
+        "r = res.replica_summaries[0]\n"
+        "assert 'lifecycle' in r and 'availability' in r, sorted(r)\n"
+        "assert 'planned_total_cost' in r, sorted(r)\n" + NO_REFERENCE)
+
+
+def test_full_stack_without_card_raises_unless_cpu_is_asked_for(
+        monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ns = {}
+    exec(FULL_STACK, ns)
+    spec = ns["spec"]
+    params = fitting.SimulationParams.load(str(ARTIFACT), device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        experiment.run_experiment(spec, params)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        experiment.Sweep(spec, {"trigger:drift_threshold": [0.02]}).run(
+            params)
+    res = experiment.run_experiment(spec, params, device="cpu")
+    assert res.summary["n_replicas"] == 2
+
+
 def test_fit_path_without_card_raises_unless_cpu_is_asked_for(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     wl = workload.generate_empirical_workload(0, 1800.0)
@@ -187,8 +242,7 @@ def test_unported_arguments_are_refused():
     wl = workload.generate_empirical_workload(0, 1800.0)
     args = (wl.arrival[None], wl.n_tasks[None], wl.task_res[None],
             wl.exec_time[None], wl.priority[None], np.array([[4, 2]]))
-    for kw in ("controllers", "fleets", "probes", "rel_times", "resume",
-               "wave_budget", "time_budget", "return_state"):
+    for kw in ("resume", "wave_budget", "time_budget", "return_state"):
         with pytest.raises(TypeError):
             vdes.simulate_ensemble(*args, device="cpu", **{kw: None})
     with pytest.raises(ValueError):
