@@ -135,6 +135,25 @@ Phases (any failure exits non-zero, with no result line):
     three times in one wave) on the card and through the CPU path, every
     output key equal bit for bit; prints ``fullstack_card_vs_cpu:
     identical, ...`` on a line of its own.
+15. Segments, compaction and streaming: (a) phase 3's ensemble through
+    ``simulate_ensemble_compacted`` on the card (the wave loop in windowed
+    segments over the live rows), every output key equal to phase 3's bit
+    for bit; prints its wall, waves/s and pipelines/s beside phase 3's, the
+    segments, gathers, distinct shapes, working widths and the admission
+    launches, and on every ``KEEP_EVERY``-th admission input of the run
+    holds the kernel exactly against its plain version and times it at the
+    compacted widths. (b) One synthesized day (``SyntheticSource`` from the
+    committed ``artifacts/pipesim_params.npz``, blocks of 256, the default
+    platform) streamed by ``stream_simulate`` in 3 h windows with phase
+    14(a)'s stages but reliability (which streaming refuses) and failures
+    with retries, against ``oneshot_reference`` of the same stream:
+    ``parity_drift`` 0.0, the waves and the controller, fleet and probe
+    timelines equal; then its first 6 h with ``overlap`` on and off,
+    bit-identical; the kernel held and timed on the stream's kept
+    admission inputs. (c) Phase 13's replica 0 streamed from a pinned
+    source on the card and through the CPU path, records equal bit for
+    bit, and the card's stream equal to its one-shot run; prints
+    ``stream_card_vs_cpu: identical, ...`` on a line of its own.
 
 The last lines are the kernels' JSON record (a kernel launched on two
 main paths, as flash in the llama prefill and the hybrid forward, has its
@@ -259,6 +278,10 @@ FSO_BURST_DRAIN = (1000.0, 3000.0, 0, 0.0)   # compute to zero meanwhile
 FSO_BURST_GAINS = (0.008586719632148743, 0.018224574625492096,
                    0.004860853310674429)
 FSO_BURST_PERF0 = 0.88772327
+# phase 15(b): one synthesized day streamed in 3 h windows, blocks of 256
+STREAM_WINDOW_S = 3 * 3600.0
+STREAM_BLOCK = 256
+STREAM_TWIN_S = 6 * 3600.0     # the overlap on/off twin's horizon
 FSO_KEYS = ORACLE_KEYS + (
     "ctrl_act", "ctrl_n", "rel_act", "rel_n", "fleet_perf", "fleet_stale",
     "fleet_act", "fleet_n", "pool_arr", "pool_model", "pool_next",
@@ -478,8 +501,13 @@ def time_admission(torch, fused_admission, dense, kept, phase="3",
     bound_ms = float(np.mean([max(r["bytes_ms"], r["ops_ms"]) for r in rows]))
     kms = [r["device_ms"] for r in rows]
     q = [r["queued"] for r in rows]
+    shapes = sorted({tuple(a[0].shape) for a in kept}, key=np.prod)
+    shape = f"[R={shapes[0][0]}, N={shapes[0][1]}]"
+    if len(shapes) > 1:
+        shape = (f"{len(shapes)} shapes, {shape} to "
+                 f"[R={shapes[-1][0]}, N={shapes[-1][1]}]")
     log(f"[{phase}] admission on {len(rows)} inputs kept from {where} "
-        f"([R={a[0].shape[0]}, N={a[0].shape[1]}], queued rows per input "
+        f"({shape}, queued rows per input "
         f"{min(q)}-{max(q)}, mean {np.mean(q):.1f}): kernel mean "
         f"{mean['ms']:.6f} ms per call, one after another; on the device "
         f"alone {mean['device_ms']:.6f} ms (min {min(kms):.6f}, median "
@@ -2133,6 +2161,279 @@ def phase_fullstack(torch, fused_admission, dense, counts):
     return n, rec
 
 
+# ------------------------------------------------------------ phase 15
+
+class PinnedSource:
+    """A pinned workload served as arrival-ordered blocks of ``block``
+    rows (a ``TraceSource``)."""
+
+    def __init__(self, wl, block=STREAM_BLOCK, name="pinned"):
+        self.wl, self.block, self.name = wl, block, name
+
+    def blocks(self):
+        import dataclasses
+        from repro_torch.core import model as M
+        for lo in range(0, self.wl.n, self.block):
+            yield M.Workload(**{
+                f.name: (v[lo:lo + self.block] if isinstance(
+                    v := getattr(self.wl, f.name), np.ndarray) else v)
+                for f in dataclasses.fields(M.Workload)})
+
+
+def compacted_vs_uncompacted(torch, counts, cols, caps, pols, want=None):
+    """``simulate_ensemble_compacted`` on the card against the one call
+    (``want``, or run here), every output key bit for bit; checks that only
+    the admission kernel launched. Returns the output, the log, the wall,
+    the launches and the number of keys."""
+    from repro_torch.core import batching, compaction, vdes
+    t = batching.to_tensors(cols, "cuda")
+    if want is None:
+        want = vdes.simulate_ensemble(**t, capacities=caps, policies=pols,
+                                      device="cuda")
+    torch.cuda.synchronize()
+    for k in counts:
+        k.launches = 0
+    clog = compaction.CompactionLog()
+    t0 = time.perf_counter()
+    out = compaction.simulate_ensemble_compacted(
+        **t, capacities=caps, policies=pols, log=clog, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {k.__name__: k.launches for k in counts}
+    if launched["fused_admission"] <= 0 or any(
+            n for name, n in launched.items() if name != "fused_admission"):
+        raise AssertionError(f"the compacted run launched {launched}")
+    if set(out) != set(want):
+        raise AssertionError(f"compacted keys {sorted(out)}, one call's "
+                             f"{sorted(want)}")
+    for k in want:
+        if not same_bits(out[k], want[k]):
+            raise AssertionError(f"the compacted run differs from the one "
+                                 f"call in {k}: "
+                                 f"{int((out[k] != want[k]).sum())} entries")
+    return out, clog, wall, launched["fused_admission"], len(want)
+
+
+def phase_compaction(torch, fused_admission, dense, counts, inputs, ens,
+                     main_wall):
+    """15(a): phase 3's ensemble through the compaction driver on the card,
+    equal to phase 3's outputs bit for bit; the kernel held against its
+    plain version and timed on every ``KEEP_EVERY``-th admission input of
+    the run (the compacted widths)."""
+    from repro_torch.core import vdes
+    plats, wls, comps, pols, cols, caps = inputs
+    tap = InputTap(fused_admission, KEEP_EVERY)
+    vdes.fused_admission = tap
+    try:
+        out, clog, wall, launches, n_keys = compacted_vs_uncompacted(
+            torch, counts, cols, caps, pols, want=ens)
+    finally:
+        vdes.fused_admission = fused_admission
+    waves = int(out["waves"].max())
+    n_pipes = sum(w.n for w in wls)
+    widths = [w for _, w in clog.shapes[1:]]
+    card = card_line()
+    log(
+        f"[15] (a) compacted wave loop: all {n_keys} output keys equal to "
+        f"phase 3's bit for bit")
+    log(
+        f"[15] (a) compacted: wall {wall:.3f} s, {waves / wall:.1f} waves/s, "
+        f"{n_pipes / wall:.1f} pipelines/s; phase 3 in this call "
+        f"{main_wall:.3f} s, {waves / main_wall:.1f} waves/s, "
+        f"{n_pipes / main_wall:.1f} pipelines/s ({card})")
+    log(
+        f"[15] (a) n_segments {clog.n_segments}, n_compactions "
+        f"{clog.n_compactions}, distinct_shapes {clog.distinct_shapes}, "
+        f"working width mean {np.mean(widths):.1f} largest {max(widths)} of "
+        f"{cols['n_max']}, replicas mean "
+        f"{np.mean([r for r, _ in clog.shapes[1:]]):.1f}, live rows largest "
+        f"{max(clog.live_rows)}; fused_admission launches {launches}")
+    rec = time_admission(torch, fused_admission, dense, tap.kept, phase="15",
+                         where="the compacted run")
+    return launches, rec, wall
+
+
+def stream_kwargs(horizon_s):
+    """Phase 15(b)'s scenario: phase 14(a)'s stages without reliability
+    (which streaming refuses), plus failures with retries."""
+    from repro_torch.core.runtime import FleetSpec, TriggerSpec
+    from repro_torch.obs.probes import ProbeSpec
+    from repro_torch.ops.capacity import ReactiveController
+    from repro_torch.ops.failures import FailureModel
+    from repro_torch.ops.scenario import Scenario
+    return dict(
+        scenario=Scenario(name="stream", failures=FailureModel(),
+                          controller=ReactiveController(
+                              high_watermark=0.3, step=0.5, max_scale=3.0,
+                              interval_s=3600.0)),
+        fleet=FleetSpec(n_models=6, drift_scale=60.0),
+        trigger=TriggerSpec(interval_s=3600.0, obs_noise=0.005,
+                            cooldown_s=4 * 3600.0, drift_threshold=0.06),
+        probe=ProbeSpec(interval_s=1800.0), horizon_s=horizon_s,
+        window_s=STREAM_WINDOW_S, seed=FS_SEED)
+
+
+def same_stream(a, b):
+    """Two ``StreamResult``s equal bit for bit: records, waves, windows and
+    the controller, fleet and probe timelines where the run has them.
+    Returns the fields compared."""
+    import dataclasses
+    pairs = [(f"records.{f.name}", getattr(a.records, f.name),
+              getattr(b.records, f.name))
+             for f in dataclasses.fields(a.records)]
+    pairs += [(k, getattr(a, k), getattr(b, k))
+              for k in ("ctrl_times", "ctrl_caps", "probe_vals")]
+    pairs += [(f"fleet.{k}", v, (b.fleet_cols or {}).get(k))
+              for k, v in (a.fleet_cols or {}).items()]
+    for name, x, y in pairs:
+        if (x is None) != (y is None) or (x is not None and not np.array_equal(
+                x, y, equal_nan=x.dtype.kind == "f")):
+            raise AssertionError(f"the streams differ in {name}")
+    if (a.waves, a.n_windows) != (b.waves, b.n_windows):
+        raise AssertionError(f"waves/windows {a.waves}/{a.n_windows} vs "
+                             f"{b.waves}/{b.n_windows}")
+    return sum(x is not None for _, x, _ in pairs)
+
+
+def phase_stream(torch, fused_admission, dense, counts):
+    """15(b): a synthesized day streamed on the card with the full stack
+    but reliability, against the one-shot run of the same stream
+    (``parity_drift`` 0.0, the waves and every timeline equal); the first
+    6 h with ``overlap`` on and off, bit-identical; the kernel held and
+    timed on the stream's kept admission inputs."""
+    from repro_torch import stream
+    from repro_torch.core import vdes
+    from repro_torch.core.fitting import SimulationParams
+    params = SimulationParams.load(str(ARTIFACT), device="cuda")
+
+    def source(until):
+        return stream.SyntheticSource(params, seed=FS_SEED,
+                                      block_size=STREAM_BLOCK, until_s=until,
+                                      device="cuda")
+
+    kw = stream_kwargs(HORIZON_S)
+    tap = InputTap(fused_admission, KEEP_EVERY)
+    torch.cuda.synchronize()
+    for k in counts:
+        k.launches = 0
+    vdes.fused_admission = tap
+    try:
+        t0 = time.perf_counter()
+        sr = stream.stream_simulate(source(HORIZON_S), params=params,
+                                    device="cuda", **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        vdes.fused_admission = fused_admission
+    launched = {k.__name__: k.launches for k in counts}
+    if launched["fused_admission"] <= 0 or any(
+            n for name, n in launched.items() if name != "fused_admission"):
+        raise AssertionError(f"the streamed run launched {launched}")
+    t0 = time.perf_counter()
+    ref = stream.oneshot_reference(
+        source(HORIZON_S), params=params, device="cuda",
+        **{k: v for k, v in kw.items() if k != "window_s"})
+    torch.cuda.synchronize()
+    ref_wall = time.perf_counter() - t0
+    drift = stream.parity_drift(sr, ref)
+    if drift != 0.0:
+        raise AssertionError(f"stream parity_drift {drift}")
+    if sr.waves != int(ref["trace"].waves):
+        raise AssertionError(f"stream waves {sr.waves}, one-shot "
+                             f"{int(ref['trace'].waves)}")
+    for key in ("ctrl_times", "ctrl_caps", "probe_vals"):
+        if not np.array_equal(getattr(sr, key), ref[key], equal_nan=True):
+            raise AssertionError(f"stream {key} != one-shot")
+    for key, v in sr.fleet_cols.items():
+        if not np.array_equal(v, ref["fleet_cols"][key], equal_nan=True):
+            raise AssertionError(f"stream fleet {key} != one-shot")
+    kinds = sr.fleet_cols["fleet_kind"]
+    acted = dict(ctrl=len(sr.ctrl_times), retried=int(
+        (sr.records.attempts > 1).sum()), fleet_ticks=int(
+        (~np.isnan(sr.fleet_cols["fleet_perf"][:, 0])).sum()),
+        probe_ticks=int((~np.isnan(sr.probe_vals[:, 0])).sum()))
+    if min(acted.values()) < 1:
+        raise AssertionError(f"a stage of the stream never acted: {acted}")
+    acted.update(triggers=int((kinds == 0).sum()),
+                 redeploys=int((kinds == 1).sum()))
+    card = card_line()
+    n_rows = sr.n_pipelines + len(sr.fleet_cols["pool_arr"])
+    log(f"[15] (b) streamed day: parity_drift 0.0 against the one-shot run, "
+        f"{sr.waves} waves both, controller/fleet/probe timelines equal; "
+        f"stages acted {acted}")
+    log(f"[15] (b) streamed wall {wall:.3f} s ({sr.waves / wall:.1f} waves/s,"
+        f" {sr.n_pipelines / wall:.1f} pipelines/s), one-shot "
+        f"{ref_wall:.3f} s ({sr.waves / ref_wall:.1f} waves/s, "
+        f"{sr.n_pipelines / ref_wall:.1f} pipelines/s); {sr.n_windows} "
+        f"windows, {sr.n_blocks} blocks, ingest {sr.ingest_s:.3f} s; working "
+        f"rows at most {sr.peak_rows} of the stream's {n_rows} "
+        f"({sr.n_pipelines} pipelines + the retraining pool); "
+        f"fused_admission launches {launched['fused_admission']} ({card})")
+
+    kw6 = stream_kwargs(STREAM_TWIN_S)
+    t0 = time.perf_counter()
+    on = stream.stream_simulate(source(STREAM_TWIN_S), params=params,
+                                device="cuda", overlap=True, **kw6)
+    off = stream.stream_simulate(source(STREAM_TWIN_S), params=params,
+                                 device="cuda", overlap=False, **kw6)
+    n = same_stream(on, off)
+    log(f"[15] (b) the first {STREAM_TWIN_S / 3600:g} h with overlap on and "
+        f"off: bit-identical on {n} fields ({on.n_windows} windows, "
+        f"{on.waves} waves; walls {on.wall_s:.3f} / {off.wall_s:.3f} s; "
+        f"{time.perf_counter() - t0:.2f} s both)")
+    rec = time_admission(torch, fused_admission, dense, tap.kept, phase="15",
+                         where="the streamed run")
+    return launched["fused_admission"], rec, wall
+
+
+def stream_card_vs_cpu(torch, counts):
+    """15(c) (also ``tests/test_torch_cuda.py``'s): phase 13's replica 0
+    (whole-second times, retries, a drain below the busy count) streamed
+    from a pinned source in 8 windows on the card and with
+    ``device="cpu"``, records and timelines equal bit for bit; and the
+    card's stream against its one-shot run, drift 0.0. Returns the fields
+    compared, the waves and the launches."""
+    from repro_torch import stream
+    cols, caps, pols, wls, comps, plat = oracle_ensemble()
+    kw = dict(scenario=comps[0], policy=int(pols[0]),
+              horizon_s=ORACLE_HORIZON_S, window_s=ORACLE_HORIZON_S / 8,
+              min_rows=64)
+    torch.cuda.synchronize()
+    for k in counts:
+        k.launches = 0
+    card = stream.stream_simulate(PinnedSource(wls[0]), plat,
+                                  device="cuda", **kw)
+    torch.cuda.synchronize()
+    launched = {k.__name__: k.launches for k in counts}
+    if launched["fused_admission"] <= 0 or any(
+            n for name, n in launched.items() if name != "fused_admission"):
+        raise AssertionError(f"the card's stream launched {launched}")
+    cpu = stream.stream_simulate(PinnedSource(wls[0]), plat, device="cpu",
+                                 **kw)
+    n = same_stream(card, cpu)
+    if card.n_windows < 2:
+        raise AssertionError(f"{card.n_windows} windows")
+    if not (card.records.attempts > 1).any():
+        raise AssertionError("the pinned stream never retried")
+    one = stream.oneshot_reference(
+        PinnedSource(wls[0]), plat, device="cuda",
+        **{k: v for k, v in kw.items() if k not in ("window_s", "min_rows")})
+    if stream.parity_drift(card, one) != 0.0:
+        raise AssertionError("the card's stream differs from its one-shot "
+                             "run")
+    return n, card.waves, launched
+
+
+def phase_stream_oracle(torch, counts):
+    t0 = time.perf_counter()
+    n, waves, launched = stream_card_vs_cpu(torch, counts)
+    log(f"[15] (c) phase 13's replica 0 streamed from a pinned source in 8 "
+        f"windows on the card (fused_admission launches "
+        f"{launched['fused_admission']}) and through the CPU path in "
+        f"{time.perf_counter() - t0:.2f} s")
+    log(f"stream_card_vs_cpu: identical, {n} fields, {waves} waves")
+
+
 def both_paths(paths, keys=("ms", "plain_ms", "bound_ms", "library_ms")):
     """One kernel's record over the main paths that launch it: launches
     summed, and each time (``keys``) the launch-weighted mean of the
@@ -2226,14 +2527,25 @@ def main() -> int:
     phase_engine_oracle(torch, counts)
     fs_launches, fsrec = phase_fullstack(torch, fused_admission,
                                          admission_mask_dense, counts)
+    t15 = time.perf_counter()
+    ca_launches, carec, _ = phase_compaction(
+        torch, fused_admission, admission_mask_dense, counts, inputs, ens,
+        wall)
+    st_launches, strec, _ = phase_stream(torch, fused_admission,
+                                         admission_mask_dense, counts)
+    phase_stream_oracle(torch, counts)
+    log(f"[15] phase 15 in {time.perf_counter() - t15:.1f} s")
 
     kernels = [dict(
         name="fused_admission", route="cuda",
         source="src/repro_torch/kernels/csrc/fused_admission.cu",
         replaces="src/repro/kernels/queue_scan.py:125",
-        max_abs_err=max(grid_err, rec["max_abs_err"], fsrec["max_abs_err"]),
+        max_abs_err=max(grid_err, rec["max_abs_err"], fsrec["max_abs_err"],
+                        carec["max_abs_err"], strec["max_abs_err"]),
         **both_paths([("wave loop", launches, rec),
-                      ("full-stack wave loop", fs_launches, fsrec)],
+                      ("full-stack wave loop", fs_launches, fsrec),
+                      ("compacted wave loop", ca_launches, carec),
+                      ("streamed wave loop", st_launches, strec)],
                      keys=("ms", "device_ms", "plain_ms", "bound_ms",
                            "library_ms"))), dict(
         name="flash_attention", route="cuda",

@@ -1,37 +1,50 @@
-"""The port's engine: ``run(spec, params) -> ExperimentResult`` (mirrors
+"""The port's engines: ``run(spec, params) -> ExperimentResult`` (mirrors
 :mod:`repro.core.engines`).
 
-The reference ships several engines behind a registry; the port has one,
-:class:`TorchEngine`, the counterpart of the reference's batched
-``JaxEngine``. A replica ensemble, and a whole sweep grid — every (point,
-replica) pair with its capacities, admission policy and compiled
-operational scenario — becomes one rectangular
-:func:`repro_torch.core.vdes.simulate_ensemble` call on the device through
-:mod:`repro_torch.core.batching`. A ragged platform grid is padded with
-inert pools, as in the reference.
+Callers ask the registry (:func:`get_engine`) for an engine by name and
+call it. Three engines ship, the counterparts of the reference's batched
+ones:
 
-Every stage of the reference's wave loop rides the same call: closed-loop
+  - :class:`TorchEngine` (``"torch"``, the reference's ``JaxEngine``): a
+    replica ensemble, and a whole sweep grid — every (point, replica) pair
+    with its capacities, admission policy and compiled operational
+    scenario — becomes one rectangular
+    :func:`repro_torch.core.vdes.simulate_ensemble` call on the device
+    through :mod:`repro_torch.core.batching`. A ragged platform grid is
+    padded with inert pools, as in the reference.
+  - :class:`TorchCompactEngine` (``"torch-compact"``): the same engine with
+    :mod:`repro_torch.core.compaction` in place of the one call: the wave
+    loop runs in segments over the live rows. The same results bit for bit.
+  - :class:`TorchStreamEngine` (``"torch-stream"``): one replica streamed
+    from ``spec.source`` through :func:`repro_torch.stream.stream_simulate`
+    in arrival windows. The same results bit for bit as materializing the
+    source into ``"torch"``.
+
+Every stage of the reference's wave loop rides the batched call: closed-loop
 controllers (``Scenario.controller``), the model lifecycle (``fleet`` +
 ``trigger``), telemetry probes (``probe``) and reliability timelines
 (``reliability``) are stacked per entry, with inert padding rows for the
 entries that lack them, so a sweep over any of their axes is still one
-``simulate_ensemble`` call.
+``simulate_ensemble`` call. The compaction and streaming engines refuse
+reliability, as the reference's do.
 
 Workloads are synthesized from fitted ``SimulationParams`` on the device
-(:mod:`repro_torch.core.synthesizer`) unless the spec pins one. Seeds follow
-the reference's conventions: a spec's replicas are drawn in order from one
-``torch.Generator`` seeded ``spec.seed`` (where the reference splits
-``PRNGKey(seed)``), and replica ``r``'s scenario, fleet and reliability
-compile with seed ``spec.seed + 1000 r``. Those draws are numpy's (except
-a fleet's retraining-pool durations when they are not pinned), so on a
-pinned integer-time workload the summaries equal the reference engines'
-exactly.
+(:mod:`repro_torch.core.synthesizer`) unless the spec pins one or names a
+``source``, which ``"torch"`` and ``"torch-compact"`` materialize. Seeds
+follow the reference's conventions: a spec's replicas are drawn in order
+from one ``torch.Generator`` seeded ``spec.seed`` (where the reference
+splits ``PRNGKey(seed)``), and replica ``r``'s scenario, fleet and
+reliability compile with seed ``spec.seed + 1000 r``. Those draws are
+numpy's (except a fleet's retraining-pool durations when they are not
+pinned), so on a pinned integer-time workload the summaries equal the
+reference engines' exactly.
 
-A ``source`` (the streaming driver's input) is refused loudly: streaming is
-not ported yet. Nothing is registered in the reference.
+An engine runs on the card unless it was asked for another device
+(``get_engine(name, device)``); with no card it raises.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import time
 from typing import List, Sequence
@@ -44,20 +57,15 @@ from repro_torch.core import model as M
 from repro_torch.core.synthesizer import synthesize_workload
 from repro_torch.device import resolve_device
 
-ENGINE_NAME = "torch"
 
-
-def check_ported(spec) -> None:
-    """Raise for a spec that needs what this port does not have: another
-    engine, or a streamed ``source``."""
-    if spec.engine != ENGINE_NAME:
-        raise ValueError(f"repro_torch has one engine, {ENGINE_NAME!r}; got "
-                         f"engine={spec.engine!r}")
-    if getattr(spec, "source", None) is not None:
-        raise NotImplementedError(
-            "ExperimentSpec.source: the streaming driver is not ported to "
-            "repro_torch yet; pin the workload or run it on the reference "
-            "engines")
+def _check_source(spec) -> None:
+    """A spec's ``source`` must be a :class:`~repro_torch.stream.
+    TraceSource` (a re-iterable ``blocks()`` stream)."""
+    from repro_torch.stream.sources import TraceSource
+    if spec.source is not None and not isinstance(spec.source, TraceSource):
+        raise TypeError("ExperimentSpec.source must be a TraceSource (a "
+                        "name and a re-iterable blocks() stream), got "
+                        f"{type(spec.source).__name__}")
 
 
 # ---------------------------------------------------------------------------
@@ -143,8 +151,15 @@ def _spec_workloads(spec, params, device, cache=None):
     retraining pool before reliability and the scenario compile, so their
     draws cover the retraining pipelines too. ``cache`` (a dict) shares
     synthesis across grid points whose workload axes agree."""
+    _check_source(spec)
     if spec.workload is not None:
         wls = [spec.workload] * spec.n_replicas
+    elif spec.source is not None:
+        # the batched engines run a source as a pinned workload: the whole
+        # stream materialized once (re-iteration is deterministic, so this
+        # is what the stream engine consumes window by window)
+        from repro_torch.stream import materialize
+        wls = [materialize(spec.source)] * spec.n_replicas
     else:
         if params is None:
             raise ValueError("params required unless spec.workload is set")
@@ -272,13 +287,24 @@ def _aggregate_replicas(spec, rep_sums, recs, wall):
 # ---------------------------------------------------------------------------
 
 class TorchEngine:
-    """Batched engine on one device (``None``: the card); an ensemble or a
-    sweep grid is one ``simulate_ensemble`` call."""
+    """Batched engine on one device (``None``: the card, resolved when it
+    runs); an ensemble or a sweep grid is one ``simulate_ensemble``
+    call."""
 
-    name = ENGINE_NAME
+    name = "torch"
 
     def __init__(self, device=None):
-        self.device = resolve_device(device)
+        self._device = device
+
+    @property
+    def device(self) -> torch.device:
+        return resolve_device(self._device)
+
+    def _ensemble(self, **kwargs):
+        """The one batched call; :class:`TorchCompactEngine` puts the
+        segmented compaction driver here. Everything around it — padding,
+        stacking, result slicing — is shared."""
+        return vdes.simulate_ensemble(**kwargs)
 
     def run(self, spec, params=None):
         """Run one :class:`ExperimentSpec` -> :class:`ExperimentResult`."""
@@ -291,8 +317,6 @@ class TorchEngine:
         the stacked schedule/attempt/ControllerParams tensors, fleets,
         probes and reliability timelines their stacked stage tensors.
         Results come back in order."""
-        for s in specs:
-            check_ported(s)
         dev = self.device
         t0 = time.perf_counter()
         if params is not None and any(s.workload is None for s in specs):
@@ -342,7 +366,7 @@ class TorchEngine:
         cols.update(batching.stack_probes([p for *_, p, _ in entries],
                                           fleets))
         cols.update(batching.stack_reliability([r for *_, r in entries]))
-        out = vdes.simulate_ensemble(
+        out = self._ensemble(
             **batching.to_tensors(cols, dev), capacities=caps,
             policy=int(pol[0]),
             policies=None if bool((pol == pol[0]).all()) else pol,
@@ -373,3 +397,159 @@ class TorchEngine:
             else:
                 results.append(_aggregate_replicas(spec, sums, recs, wall))
         return results
+
+
+class TorchCompactEngine(TorchEngine):
+    """The batched engine with active-set compaction
+    (:mod:`repro_torch.core.compaction`): the wave loop runs in windowed
+    segments, finished replicas leave the batch axis, DONE pipelines are
+    gathered out of the working set and not-yet-arrived pipelines wait past
+    a per-segment time guard (power-of-two widths). Bit for bit
+    :class:`TorchEngine`'s results; only the wall differs. The admission
+    stage runs ``fused_admission`` on the card (``admission_sort=
+    "kernel"``)."""
+
+    name = "torch-compact"
+
+    def __init__(self, segment_waves: int = 256, drain_waves: int = 256,
+                 min_rows: int = 8, lookahead: int = 24,
+                 admission_sort: str = "kernel", device=None):
+        super().__init__(device)
+        self.segment_waves = segment_waves
+        self.drain_waves = drain_waves
+        self.min_rows = min_rows
+        self.lookahead = lookahead
+        self.admission_sort = admission_sort
+        self.last_log = None     # CompactionLog of the most recent sweep
+
+    def _ensemble(self, **kwargs):
+        from repro_torch.core.compaction import (CompactionLog,
+                                                 simulate_ensemble_compacted)
+        if "rel_times" in kwargs:
+            raise NotImplementedError(
+                "reliability event timelines are not supported by the "
+                "segmented compaction driver; run reliability specs on the "
+                "'torch' (one-call batched) engine")
+        kwargs.setdefault("admission_sort", self.admission_sort)
+        self.last_log = CompactionLog()
+        return simulate_ensemble_compacted(
+            segment_waves=self.segment_waves, drain_waves=self.drain_waves,
+            min_rows=self.min_rows, lookahead=self.lookahead,
+            log=self.last_log, **kwargs)
+
+    def run_sweep(self, specs: Sequence, params=None) -> List:
+        results = super().run_sweep(specs, params)
+        if self.last_log is not None:
+            for res in results:
+                res.summary["n_compactions"] = self.last_log.n_compactions
+                res.summary["compaction_segments"] = self.last_log.n_segments
+        return results
+
+
+class TorchStreamEngine:
+    """Streaming engine (``"torch-stream"``): consumes ``spec.source`` (a
+    :class:`~repro_torch.stream.TraceSource`) through
+    :func:`repro_torch.stream.stream_simulate`: the wave loop runs in
+    resumable arrival windows, retired pipelines leave the working set at
+    window boundaries, and ingestion (synthesis, failure draws, staging)
+    overlaps the device step. Bit for bit the results of materializing the
+    stream into ``"torch"``.
+
+    Specs without a ``source`` stream their own synthetic workload from
+    ``(params, seed, horizon)`` through a
+    :class:`~repro_torch.stream.SyntheticSource`. Its blockwise draws differ
+    from one-shot ``synthesize_workload``'s, so set an explicit ``source``
+    to compare engines. One replica only; reliability is refused."""
+
+    name = "torch-stream"
+
+    def __init__(self, window_s=None, overlap: bool = True,
+                 min_rows: int = 64, admission_sort: str = "kernel",
+                 device=None):
+        self._device = device
+        self.window_s = window_s
+        self.overlap = overlap
+        self.min_rows = min_rows
+        self.admission_sort = admission_sort
+        self.last_result = None       # StreamResult of the most recent run
+
+    @property
+    def device(self) -> torch.device:
+        return resolve_device(self._device)
+
+    def _source(self, spec, params):
+        _check_source(spec)
+        if spec.source is not None:
+            return spec.source
+        if spec.workload is not None:
+            raise ValueError(
+                "torch-stream streams a TraceSource; wrap the pinned "
+                "workload in a source (or use engine='torch' for pinned "
+                "workloads)")
+        if params is None:
+            raise ValueError("params required unless spec.source is set")
+        from repro_torch.stream import SyntheticSource
+        return SyntheticSource(params, platform=spec.platform,
+                               seed=spec.seed, until_s=spec.horizon_s,
+                               interarrival_factor=spec.interarrival_factor,
+                               device=self.device)
+
+    def run(self, spec, params=None):
+        if spec.n_replicas != 1:
+            raise ValueError(
+                "torch-stream is a single-replica engine (a stream has one "
+                "realization); use n_replicas=1 or the 'torch' engine")
+        if spec.reliability is not None:
+            raise ValueError(
+                "torch-stream does not support reliability specs (event "
+                "timelines span windows); use the 'torch' engine")
+        from repro_torch.core.experiment import ExperimentResult
+        from repro_torch.stream import stream_simulate
+        dev = self.device
+        if params is not None:
+            params = params.to(dev)
+        sr = stream_simulate(
+            self._source(spec, params), spec.platform, policy=spec.policy,
+            scenario=spec.scenario, fleet=spec.fleet, trigger=spec.trigger,
+            probe=spec.probe, horizon_s=spec.horizon_s,
+            window_s=self.window_s, seed=spec.seed, params=params,
+            overlap=self.overlap, min_rows=self.min_rows,
+            admission_sort=self.admission_sort, device=dev)
+        self.last_result = sr
+        summary = dict(sr.summary)
+        summary["pipelines_per_s"] = sr.n_pipelines / max(sr.wall_s, 1e-9)
+        return ExperimentResult(spec, summary, sr.records, sr.wall_s)
+
+    def run_sweep(self, specs: Sequence, params=None) -> List:
+        # streams are stateful and windowed: a grid runs one at a time
+        return [self.run(s, params) for s in specs]
+
+
+# ---------------------------------------------------------------------------
+# registry
+# ---------------------------------------------------------------------------
+
+_ENGINES = {}
+
+
+def register_engine(engine) -> None:
+    _ENGINES[engine.name] = engine
+
+
+def get_engine(name: str, device=None):
+    """The registered engine ``name``; with ``device``, a copy that runs
+    there (``None``: the card). An unknown name raises ``ValueError``."""
+    try:
+        eng = _ENGINES[name]
+    except KeyError:
+        raise ValueError(f"unknown engine {name!r}; registered: "
+                         f"{sorted(_ENGINES)}") from None
+    if device is not None:
+        eng = copy.copy(eng)
+        eng._device = device
+    return eng
+
+
+register_engine(TorchEngine())
+register_engine(TorchCompactEngine())
+register_engine(TorchStreamEngine())

@@ -10,15 +10,17 @@ admission policy, an operational
 It keeps the reference's fields: ``fleet`` + ``trigger`` (the model
 lifecycle, Fig 7), ``probe`` (in-loop telemetry) and ``reliability``
 (correlated outages, repair crews, spot eviction) run in the engine's wave
-loop; ``source`` (the streamed workload) stays on the spec and is refused by
-the engine (:func:`repro_torch.core.engines.check_ported`), as streaming is
-not ported yet. ``engine`` names the one engine the port has, ``"torch"``.
+loop; ``source`` (a :class:`~repro_torch.stream.TraceSource`) is streamed
+window by window by the ``"torch-stream"`` engine and materialized into a
+pinned workload by the others. ``engine`` names a registered engine
+(:func:`repro_torch.core.engines.get_engine`): ``"torch"``,
+``"torch-compact"`` or ``"torch-stream"``.
 
 :class:`Sweep` composes a spec with named axes (spec fields,
 ``"capacity:<resource>"``, ``"trigger:*"``, ``"fleet:*"``, ``"probe:*"``
 and ``"reliability:*"`` shorthands, closed-loop ``"controller"`` gains,
 scenarios, policies, seeds) into a Cartesian grid that runs as ONE batched
-``simulate_ensemble`` call.
+``simulate_ensemble`` call on the batched engines.
 """
 from __future__ import annotations
 
@@ -70,7 +72,9 @@ class ExperimentSpec:
     trigger: Optional[TriggerSpec] = None
     probe: Optional[object] = None   # repro_torch.obs.probes.ProbeSpec
     reliability: Optional[object] = None   # reliability.ReliabilitySpec
-    # a streamed workload: not ported yet, the engine refuses it
+    # a streamed workload (repro_torch.stream.TraceSource): the
+    # "torch-stream" engine consumes it window by window, the others
+    # materialize it into a pinned workload
     source: Optional[object] = None
 
     def with_(self, **kw) -> "ExperimentSpec":
@@ -148,6 +152,9 @@ class ExperimentResult:
         exp = self.experiment
         if getattr(exp, "workload", None) is not None:
             exp = dataclasses.replace(exp, workload=None)  # tensors -> npz
+        if getattr(exp, "source", None) is not None:
+            exp = dataclasses.replace(
+                exp, source=getattr(exp.source, "name", "source"))
         meta = {"experiment": dataclasses.asdict(exp),
                 "summary": self.summary, "wall_s": self.wall_s}
         with open(os.path.join(directory, "meta.json"), "w") as f:
@@ -165,9 +172,11 @@ def _json_default(x):
 
 def run_experiment(exp, params: Optional[SimulationParams] = None,
                    device=None) -> ExperimentResult:
-    """Run one experiment spec on ``device`` (``None``: the card)."""
-    from repro_torch.core.engines import TorchEngine
-    res = TorchEngine(device).run(exp.to_spec(), params)
+    """Run one experiment spec on its declared engine, on ``device``
+    (``None``: the card)."""
+    from repro_torch.core.engines import get_engine
+    spec = exp.to_spec()
+    res = get_engine(spec.engine, device).run(spec, params)
     res.experiment = exp            # hand back the caller's own object
     return res
 
@@ -214,5 +223,14 @@ class Sweep:
 
     def run(self, params: Optional[SimulationParams] = None,
             device=None) -> List[ExperimentResult]:
-        from repro_torch.core.engines import TorchEngine
-        return TorchEngine(device).run_sweep(self.points(), params)
+        from repro_torch.core.engines import get_engine
+        specs = self.points()
+        # an "engine" axis dispatches each point on its own engine (each
+        # still batches its own group); order is preserved
+        results: List[Optional[ExperimentResult]] = [None] * len(specs)
+        for name in dict.fromkeys(s.engine for s in specs):
+            idx = [i for i, s in enumerate(specs) if s.engine == name]
+            for i, r in zip(idx, get_engine(name, device).run_sweep(
+                    [specs[i] for i in idx], params)):
+                results[i] = r
+        return results

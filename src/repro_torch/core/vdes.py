@@ -36,8 +36,17 @@ A stage that is off costs nothing: it is gated in Python, so a run without
 controller, reliability, fleet or probe issues exactly the ops of the four
 stages. All-zero controller/trigger/probe rows and ``INF``-padded
 reliability rows are inert, as in the reference. The reference's sort-based
-``"fused"``/``"chained"`` rankings and its segment-restart hooks are not
-ported yet.
+``"fused"``/``"chained"`` rankings are not ported.
+
+**Segment-restart hooks** (for the compaction and streaming drivers,
+:mod:`repro_torch.core.compaction` and :mod:`repro_torch.stream`):
+``resume`` adopts a carry returned by an earlier ``return_state=True`` call
+(perhaps gathered or extended by a driver) in place of the fresh state;
+``wave_budget [R]`` and ``time_budget [R]`` stop a replica before a wave
+past its budget. Both budgets live on the device and join the per-replica
+``active`` mask, so they add no host read inside a segment. A wave
+boundary is a consistent cut: the carry is the loop's whole state, and a
+cut-and-resumed run equals one call bit for bit.
 
 **The replica axis.** The reference writes one replica and ``jax.vmap``s a
 ``lax.while_loop`` over it. The batched loop runs until every replica is
@@ -327,6 +336,8 @@ def simulate_ensemble(arrival, n_tasks, task_res, service, priority,
                       probes=None, n_probe_slots: Optional[int] = None,
                       rel_times=None, rel_deltas=None,
                       n_rel_slots: Optional[int] = None,
+                      resume=None, wave_budget=None, time_budget=None,
+                      return_state: bool = False,
                       sync_every: int = 64, device=None) -> dict:
     """arrival: [R, N]; task_res/service: [R, N, T]; capacities: [R, nres].
 
@@ -362,6 +373,17 @@ def simulate_ensemble(arrival, n_tasks, task_res, service, priority,
     plain version on CPU tensors) or ``"dense"`` (the plain version on any
     device — the on-card reference). ``sync_every`` is the number of waves
     between host reads of the loop condition.
+
+    Segment-restart hooks, per replica as in the reference: ``resume`` (the
+    ``state`` dict of an earlier ``return_state=True`` call, its rows
+    perhaps gathered by a driver: same keys and dtypes), ``wave_budget
+    [R]`` i32 (a replica stops once its wave counter reaches it),
+    ``time_budget [R]`` f32 (a replica stops before any wave whose
+    next-event time exceeds it) and ``return_state``, which adds the carry
+    as ``state``, the budget-free loop condition as ``running [R]`` and the
+    count of rows not DONE (padding included) as ``n_keep [R]``. With a
+    hook given, the loop condition is read before the first wave, so a
+    zero budget dispatches no wave.
 
     Returns tensors on ``device``: ``start``/``finish``/``ready
     [R, N, T]`` f32, ``attempts [R, N, T]`` i32 (executed admissions),
@@ -472,6 +494,9 @@ def simulate_ensemble(arrival, n_tasks, task_res, service, priority,
             s[k] = torch.full((R, N, T, n_attempt_slots), float("nan"),
                               dtype=f32, device=dev)
         ar_A = torch.arange(n_attempt_slots, dtype=i32, device=dev)
+    wb = None if wave_budget is None else t(wave_budget, i32).reshape(R)
+    tb = None if time_budget is None else t(time_budget, f32).reshape(R)
+    hooked = resume is not None or wb is not None or tb is not None
 
     base_keys = set(s)
 
@@ -597,6 +622,16 @@ def simulate_ensemble(arrival, n_tasks, task_res, service, priority,
         if has_probe:
             alive = alive | (s["t_probe"] < INF)
         return alive & (t_star < INF)
+
+    def _go(s, t_star):
+        """The loop condition under the budgets: a wave boundary is a
+        consistent cut, so a replica stopped here resumes bit for bit."""
+        go = _running(s, t_star)
+        if wb is not None:
+            go = go & (s["wave"] < wb)
+        if tb is not None:
+            go = go & (t_star <= tb)
+        return go
 
     def _completion_stage(s, ts):
         """Stage 2: finishes release slots; failed attempts re-enter the
@@ -742,12 +777,18 @@ def simulate_ensemble(arrival, n_tasks, task_res, service, priority,
             s["att_finish"] = torch.where(adm_slot, t_fin[..., None, None],
                                           s["att_finish"])
 
-    def _redeploy(s, ts):
+    def _redeploy(s, ts, active):
         """Retraining-pool pipelines that completed this wave redeploy
         their model: drift state resets, the slot's presampled gain
         applies, and the redeploy joins the action buffer."""
         p_done = ((s["phase"].gather(1, pool_rows) == _DONE)
                   & (s["pool_model"] >= 0) & ~s["redeployed"] & pool_live)
+        if hooked:
+            # a replica stopped by a budget, unlike one that finished, has
+            # events at its next time: the completion stage (its result
+            # dropped) may finish a pool row, whose redeploy must wait for
+            # the wave that commits it
+            p_done = p_done & active[:, None]
         mdl = s["pool_model"].clamp(0, max(M_ - 1, 0))
         own = p_done[..., None] & (mdl[..., None] == ar_M)     # [R, P, M]
         hit = own.any(1)
@@ -778,7 +819,7 @@ def simulate_ensemble(arrival, n_tasks, task_res, service, priority,
         s["fleet_act"] = onehot_rows(s["fleet_act"], idx, vals)
         s["fleet_n"] = s["fleet_n"] + p_done.sum(1, dtype=i32)
 
-    def _fleet_stage(s, t_star):
+    def _fleet_stage(s, t_star, active):
         """Stage 5: the model lifecycle. Retraining-pool pipelines that
         completed this wave redeploy their model (any wave, not just
         ticks); at a drift-evaluation tick the [R, M] drift algebra runs,
@@ -788,7 +829,7 @@ def simulate_ensemble(arrival, n_tasks, task_res, service, priority,
         reference's. An empty pool (``max_retrains=0``) triggers nothing."""
         ts = t_star[:, None]
         if P:
-            _redeploy(s, ts)
+            _redeploy(s, ts, active)
         # ---- drift-evaluation tick
         firing = f_enabled & (s["t_fleet"] == t_star)
         e = s["f_tick"].clamp(0, E_f - 1)
@@ -886,6 +927,11 @@ def simulate_ensemble(arrival, n_tasks, task_res, service, priority,
         model_ids = ar_M.to(f32).expand(R, M_)
 
     stage_keys = set(s) - base_keys
+    if resume is not None:
+        # segment restart: adopt the earlier carry as it is (a driver only
+        # gathers, pads or extends rows between segments: same keys, same
+        # dtypes)
+        s = {k: t(resume[k], v.dtype) for k, v in s.items()}
 
     # -------------------------------------------------------- wave loop
 
@@ -893,21 +939,23 @@ def simulate_ensemble(arrival, n_tasks, task_res, service, priority,
         """One wave for every replica, committed where the replica is still
         running (the vmap-of-while semantics); returns the new state."""
         t_star, t_cap = _select_events(s)
-        active = _running(s, t_star)
+        active = _go(s, t_star)
         new = dict(s)
         ts = t_star[:, None]
         t_st = t_star
         if stage_keys:
-            # the stages of a stopped replica run at a NaN time: it equals
-            # no tick or event time, so nothing fires and they leave their
-            # own state as it was (no done pool slot waits for its redeploy
-            # after a wave), which therefore needs no commit below
+            # the stages of a stopped replica (finished, or at its budget)
+            # run at a NaN time: it equals no tick or event time, so
+            # nothing fires and they leave their own state as it was (no
+            # done pool slot waits for its redeploy after a wave; a
+            # budget's stop masks the redeploy itself), which therefore
+            # needs no commit below
             t_st = torch.where(active, t_star, float("nan"))
         _completion_stage(new, ts)
         _control_stage(new, t_star, t_cap, t_st)
         _admission_stage(new, ts)
         if has_fleet:
-            _fleet_stage(new, t_st)
+            _fleet_stage(new, t_st, active)
         if has_probe:
             _probe_stage(new, t_st)
         new["wave"] = s["wave"] + 1
@@ -915,11 +963,17 @@ def simulate_ensemble(arrival, n_tasks, task_res, service, priority,
                     active.view((R,) + (1,) * (v.dim() - 1)), v, s[k])
                 for k, v in new.items()}
 
-    while True:
-        for _ in range(int(sync_every)):
-            s = wave(s)
-        if not bool(_running(s, _select_events(s)[0]).any()):
-            break
+    def going(s):
+        return bool(_go(s, _select_events(s)[0]).any())
+
+    # with a hook the condition is read first, as the reference's
+    # while_loop does; without one the loop issues the ops it always has
+    if not hooked or going(s):
+        while True:
+            for _ in range(int(sync_every)):
+                s = wave(s)
+            if not going(s):
+                break
 
     res = dict(start=s["start"], finish=s["finish"], ready=s["ready"],
                attempts=s["att_out"], done=s["phase"] == _DONE,
@@ -946,4 +1000,11 @@ def simulate_ensemble(arrival, n_tasks, task_res, service, priority,
     if has_probe:
         res["probe_vals"] = s["probe_vals"]
         res["probe_n"] = s["p_tick"]
+    if return_state:
+        res["state"] = s
+        # would the loop go on without the budgets?
+        res["running"] = _running(s, _select_events(s)[0])
+        # rows a driver must keep: padding rows count until their waves
+        # run, as dropping them early would change the wave counter
+        res["n_keep"] = (s["phase"] != _DONE).sum(1, dtype=i32)
     return res

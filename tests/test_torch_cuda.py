@@ -2,9 +2,11 @@
 engine through the kernel against the engine through the plain version,
 the serving path through the flash kernel against the plain path, the EM
 through the GMM kernel with no host sync per iteration, the hybrid's
-forward through the SSD kernel against its plain path, and the card's
+forward through the SSD kernel against its plain path, the card's
 engine against the port's CPU path on ``chip_smoke.py`` phase 13's and
-phase 14(b)'s ensembles (the latter with every stage of the wave loop).
+phase 14(b)'s ensembles (the latter with every stage of the wave loop), and
+the segment-restart hooks, the compaction driver and the streaming driver
+on the card against one call, the one-shot run and the CPU path.
 
 These tests need a CUDA device and ``nvcc`` and skip elsewhere. They
 import the port only (no JAX, no reference), so they also run where the
@@ -183,6 +185,63 @@ def test_slot_order_gain_sum_on_card():
         assert cs.same_bits(run["cuda"][k].cpu(), run["cpu"][k]), k
     acts = run["cpu"]["fleet_act"][0][:int(run["cpu"]["fleet_n"][0])]
     assert int((acts[:, 1] == des.FLEET_ACT_REDEPLOY).sum()) == 3
+
+
+def _counts():
+    return (queue_scan.fused_admission, fa.flash_attention, gl.gmm_logpdf,
+            ms.mamba2_scan, queue_scan.queue_scan)
+
+
+@pytest.mark.cuda
+def test_hooks_cut_and_resume_on_card():
+    """Phase 13's oracle ensemble on the card, cut every few waves
+    (replicas staggered) and resumed from the returned state: equal to
+    one call on every output key."""
+    _need_card()
+    cols, caps, pols = _chip_smoke().oracle_ensemble()[:3]
+    t = batching.to_tensors(cols, "cuda")
+
+    def run(**hooks):
+        return vdes.simulate_ensemble(**t, capacities=caps, policies=pols,
+                                      device="cuda", **hooks)
+
+    whole = run()
+    st = run(wave_budget=np.zeros(len(pols), np.int32),
+             return_state=True)["state"]
+    stagger = torch.arange(len(pols), dtype=torch.int32, device="cuda") + 50
+    while True:
+        got = run(resume=st, wave_budget=st["wave"] + stagger,
+                  return_state=True)
+        st = got["state"]
+        if not bool(got["running"].any()):
+            break
+    for k in whole:
+        assert _chip_smoke().same_bits(got[k], whole[k]), k
+
+
+@pytest.mark.cuda
+def test_compacted_equals_uncompacted_on_card():
+    """``simulate_ensemble_compacted`` on phase 13's oracle ensemble on the
+    card (kernel admission) equals the one call bit for bit; only the
+    admission kernel launched."""
+    _need_card()
+    cs = _chip_smoke()
+    cols, caps, pols = cs.oracle_ensemble()[:3]
+    out, log, _, launches, n_keys = cs.compacted_vs_uncompacted(
+        torch, _counts(), cols, caps, pols)
+    assert n_keys == 8 and launches > 0
+    assert log.n_compactions > 1 and log.distinct_shapes > 1
+
+
+@pytest.mark.cuda
+def test_stream_equals_oneshot_and_cpu_on_card():
+    """``chip_smoke.py`` phase 15(c): phase 13's replica 0 streamed from a
+    pinned source on the card equals its one-shot run (drift 0.0) and the
+    CPU path's stream bit for bit, which the CPU twins hold against the
+    reference."""
+    _need_card()
+    n, waves, launched = _chip_smoke().stream_card_vs_cpu(torch, _counts())
+    assert n > 10 and waves > 0 and launched["fused_admission"] > 0
 
 
 @pytest.mark.cuda

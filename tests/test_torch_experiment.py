@@ -7,8 +7,10 @@ numpy engine (``engine="numpy"``) **exactly**, every key but the two wall
 clock ones, at 1 and 4 replicas, with and without an operational scenario
 (failures with retries, a maintenance window, an SLO). The scenario draws
 are numpy's in both packages, seeded ``seed + 1000 r`` for replica ``r``.
-A streamed ``source`` and another engine are refused. The CLI runs the whole
-fit -> synthesize -> simulate path on the CPU at a small size.
+An unregistered engine and a ``source`` that is not a ``TraceSource`` are
+refused (streaming has its own twins, ``tests/test_torch_stream.py``). The
+CLI runs the whole fit -> synthesize -> simulate path on the CPU at a small
+size.
 """
 import dataclasses
 import json
@@ -179,11 +181,14 @@ def test_ragged_platform_grid_pads_onto_one_batch():
 @pytest.mark.parametrize("field,value", [
     ("source", object()), ("engine", "jax")])
 def test_unported_fields_raise(field, value):
+    """An engine the port does not register (the reference's ``"jax"``)
+    and a ``source`` that is not a ``TraceSource`` are refused, naming the
+    field."""
     spec = experiment.ExperimentSpec(
         name="x", horizon_s=HORIZON,
         workload=port_workload(ref_workload(1, n=10)))
     spec = dataclasses.replace(spec, **{field: value})
-    err = ValueError if field == "engine" else NotImplementedError
+    err = ValueError if field == "engine" else TypeError
     with pytest.raises(err, match=field):
         experiment.run_experiment(spec, device="cpu")
 

@@ -4,10 +4,10 @@ An AST walk finds no ``jax`` and no ``repro`` import in ``src/repro_torch``
 (its ``reliability/``, ``obs/`` and ``checkpoint/`` subpackages included),
 ``chip_smoke.py`` or ``tools/``; a fresh interpreter runs the port (the wave
 loop, the serving paths, the hybrid's forward, the fit -> synthesize ->
-simulate path and the full-stack experiment) without loading ``jax``; with
-no card the entry points raise unless the caller asks for the CPU; the
-segment-restart hooks and the model families that are not ported yet are
-refused.
+simulate path, the full-stack experiment and the compaction and streaming
+drivers) without loading ``jax``; with no card the entry points raise
+unless the caller asks for the CPU; the admission rankings and the model
+families that are not ported are refused.
 """
 import ast
 import os
@@ -157,6 +157,31 @@ def test_cpu_full_stack_run_leaves_jax_unloaded():
         "assert 'planned_total_cost' in r, sorted(r)\n" + NO_REFERENCE)
 
 
+def test_cpu_compaction_and_stream_leave_jax_unloaded():
+    run_fresh(
+        "import sys, tempfile, os\n"
+        "import numpy as np\n"
+        "from repro_torch.core import batching, compaction, fitting, workload\n"
+        "from repro_torch.core import model as M\n"
+        "from repro_torch.obs import spans\n"
+        "from repro_torch import stream\n"
+        "wl = workload.generate_empirical_workload(0, 1800.0)\n"
+        "cols = batching.pad_workloads([wl, wl], M.PlatformConfig())\n"
+        "cols.pop('n_max')\n"
+        "out = compaction.simulate_ensemble_compacted(**cols,\n"
+        "    capacities=np.array([[4, 2], [8, 4]]), device='cpu')\n"
+        "assert bool(out['done'].all()), out['done']\n"
+        f"p = fitting.SimulationParams.load({str(ARTIFACT)!r}, 'cpu')\n"
+        "src = stream.SyntheticSource(p, block_size=64, until_s=3600.0,\n"
+        "                             device='cpu')\n"
+        "sr = stream.stream_simulate(src, horizon_s=3600.0, device='cpu')\n"
+        "assert sr.n_windows >= 8 and sr.records.start.size, sr.summary\n"
+        "f = os.path.join(tempfile.mkdtemp(), 's.jsonl')\n"
+        "spans.write_spans_jsonl(spans.build_spans(sr.records), f)\n"
+        "assert stream.SpanSource(f).workload.n == sr.n_pipelines\n"
+        + NO_REFERENCE)
+
+
 def test_full_stack_without_card_raises_unless_cpu_is_asked_for(
         monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -205,6 +230,32 @@ def test_no_card_raises_unless_cpu_is_asked_for(monkeypatch):
     assert vdes.simulate_ensemble(*args, device="cpu")["done"].all()
 
 
+def test_drivers_without_card_raise_unless_cpu_is_asked_for(monkeypatch):
+    """The compaction and streaming drivers, the stream's synthetic source
+    and the ``"torch-compact"``/``"torch-stream"`` engines run on the card
+    or raise; none carries on on the CPU unasked."""
+    from repro_torch import stream
+    from repro_torch.core import compaction, engines
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    wl = workload.generate_empirical_workload(0, 1800.0)
+    args = (wl.arrival[None], wl.n_tasks[None], wl.task_res[None],
+            wl.exec_time[None], wl.priority[None], np.array([[4, 2]]))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        compaction.simulate_ensemble_compacted(*args)
+    params = fitting.SimulationParams.load(str(ARTIFACT), device="cpu")
+    src = stream.SyntheticSource(params, n_blocks=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        stream.stream_simulate(src, horizon_s=1800.0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        stream.oneshot_reference(src, horizon_s=1800.0)
+    spec = experiment.ExperimentSpec("x", horizon_s=1800.0, workload=wl)
+    for name in ("torch-compact", "torch-stream"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            engines.get_engine(name).run(spec.with_(engine=name), params)
+    assert compaction.simulate_ensemble_compacted(
+        *args, device="cpu")["done"].all()
+
+
 def test_serving_without_card_raises_unless_cpu_is_asked_for(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = configs.get_smoke_config("llama3.2-1b")
@@ -239,11 +290,18 @@ def test_unported_archs_are_refused():
 
 
 def test_unported_arguments_are_refused():
+    """The reference's sort-based rankings are not ported; the
+    segment-restart hooks are (``tests/test_torch_segments.py``), and a
+    ``resume`` that lacks a state key is refused."""
     wl = workload.generate_empirical_workload(0, 1800.0)
     args = (wl.arrival[None], wl.n_tasks[None], wl.task_res[None],
             wl.exec_time[None], wl.priority[None], np.array([[4, 2]]))
-    for kw in ("resume", "wave_budget", "time_budget", "return_state"):
-        with pytest.raises(TypeError):
-            vdes.simulate_ensemble(*args, device="cpu", **{kw: None})
-    with pytest.raises(ValueError):
-        vdes.simulate_ensemble(*args, device="cpu", admission_sort="fused")
+    for sort in ("fused", "chained", "pallas"):
+        with pytest.raises(ValueError):
+            vdes.simulate_ensemble(*args, device="cpu", admission_sort=sort)
+    with pytest.raises(KeyError):
+        vdes.simulate_ensemble(*args, device="cpu", resume={})
+    out = vdes.simulate_ensemble(*args, device="cpu", resume=None,
+                                 wave_budget=None, time_budget=None,
+                                 return_state=False)
+    assert "state" not in out and bool(out["done"].all())
