@@ -154,6 +154,34 @@ Phases (any failure exits non-zero, with no result line):
     source on the card and through the CPU path, records equal bit for
     bit, and the card's stream equal to its one-shot run; prints
     ``stream_card_vs_cpu: identical, ...`` on a line of its own.
+16. Training (no kernel: none has a backward, so training runs the plain
+    attention and SSD routes). (a) ``run_training`` of llama3.2-1b at full
+    width (bf16 parameters, f32 moments, remat per block) for 8 steps of
+    8 x 1,024 tokens, its final checkpoint (~12.4 GB) in a temporary
+    directory (it raises if the disk has less than twice that free), then
+    restored: every loss finite, the last below the first, no kernel
+    launched, the restored state equal to the in-memory one bit for bit;
+    ``attn_impl="flash"`` under autograd raises the kernel's guard. (b)
+    zamba2-1.2b at full width, 4 steps of 2 x 2,048 tokens through the
+    trainer, the same checks without a checkpoint;
+    ``ssm_impl="mamba_kernel"`` under autograd raises. Both print the
+    warm step time, tokens/s, model FLOP/s (6 N tokens), peak memory and
+    (a) the checkpoint's bytes and save/restore seconds, beside the card's
+    name and power limit. (c) The smoke llama (f32) with a fault at step 6
+    and checkpoints every 4 steps against an uninterrupted run, under
+    ``torch.use_deterministic_algorithms(True)``: final checkpoints and
+    states equal bit for bit. (d) Phase 14(a)'s reliability compiled with
+    a ``CheckpointSpec`` whose stride puts 2–4 outages inside 40 steps;
+    its ``injector`` drives 40 steps of the smoke llama: one restart per
+    fault step, the final state equal to an uninterrupted run's bit for
+    bit. (e) The smoke llama and zamba2 (f32, no TF32) from one CPU init
+    on the card and the CPU: step 1's gradients within 1e-5 (hybrid 5e-5)
+    of their norm, and the card's no farther from the same step's gradient
+    in f64 (on the CPU) than twice the CPU's f32 one is; 3 losses within
+    1e-4; and ``run_feedback_simulation``
+    of one pinned whole-second day on the card (the engine, then the
+    compaction driver) and on the CPU (the compaction driver), equal bit
+    for bit, the admission kernel launched on the card's run.
 
 The last lines are the kernels' JSON record (a kernel launched on two
 main paths, as flash in the llama prefill and the hybrid forward, has its
@@ -164,6 +192,7 @@ launches summed, its times launch-weighted, and each path's numbers under
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -171,6 +200,10 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
+
+# phase 16's crash-restart twins run cuBLAS deterministically, which needs
+# this set before the first cuBLAS call
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -282,6 +315,28 @@ FSO_BURST_PERF0 = 0.88772327
 STREAM_WINDOW_S = 3 * 3600.0
 STREAM_BLOCK = 256
 STREAM_TWIN_S = 6 * 3600.0     # the overlap on/off twin's horizon
+# phase 16: llama3.2-1b trains at full width for 8 steps of 8 x 1,024
+# tokens (its final checkpoint, ~12.4 GB, is the phase's longest part), the
+# hybrid for 4 steps of 2 x 2,048; crash-restart on the smoke llama; the
+# simulator's outages as the launcher's faults over 40 steps; the card
+# against the CPU on the smoke models (f32, no TF32) and one feedback day
+TRAIN_LLAMA = dict(steps=8, batch=8, seq=1024, lr=3e-4)
+TRAIN_HYBRID = dict(steps=4, batch=2, seq=2048, lr=3e-4)
+RESUME = dict(steps=12, ckpt_every=4, fault_at=(6,))
+INJECT_STEPS = 40
+TRAIN_TWIN_STEPS = 3
+# step 1's gradients, card against CPU, relative to their global norm: the
+# two sum in other orders. The smoke llama's f32 gradient lies ~4e-7 from
+# the same step in f64 (on the CPU), the smoke hybrid's ~4e-5 (its chunked
+# scan's backward): two f32 devices differ by up to about that much. So the
+# card must also be no farther from the f64 gradient than
+# TRAIN_GRAD_F64_FACTOR times the CPU's f32 one is. The losses of three
+# steps, after which Adam's sign-like first step may have moved a
+# rounding-level gradient's parameter by 2 lr on one device only
+TRAIN_GRAD_REL_TOL = {"llama3.2-1b": 1e-5, "zamba2-1.2b": 5e-5}
+TRAIN_GRAD_F64_FACTOR = 2.0
+TRAIN_LOSS_TOL = 1e-4
+FB_SEED = 5
 FSO_KEYS = ORACLE_KEYS + (
     "ctrl_act", "ctrl_n", "rel_act", "rel_n", "fleet_perf", "fleet_stale",
     "fleet_act", "fleet_n", "pool_arr", "pool_model", "pool_next",
@@ -1290,8 +1345,8 @@ def phase_hybrid_forward(torch, mamba2_scan, flash_attention, counts):
     """The full-sequence forward and loss of zamba2-1.2b at full width in
     bf16, through both kernels: a cold call, then a warm one timed."""
     from repro_torch import configs
-    from repro_torch.launch import serve
     from repro_torch.models import attention, ssm
+    from repro_torch.models.common import tree_leaves
     from repro_torch.models.transformer import get_model
     cfg = configs.get_config(HYB_ARCH, ssm_impl="mamba_kernel",
                              attn_impl="flash")
@@ -1300,7 +1355,7 @@ def phase_hybrid_forward(torch, mamba2_scan, flash_attention, counts):
     params = model.init(HYB_SEED, "cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    n_params = sum(p.numel() for p in serve.leaves(params))
+    n_params = sum(p.numel() for p in tree_leaves(params))
     batch = hybrid_batch(torch, cfg, HYB_B, HYB_S, HYB_SEED + 1)
     ssd_tap, attn_tap = CallTap(mamba2_scan), CallTap(flash_attention)
     ssm.mamba2_scan, attention.flash_attention = ssd_tap, attn_tap
@@ -2434,6 +2489,418 @@ def phase_stream_oracle(torch, counts):
     log(f"stream_card_vs_cpu: identical, {n} fields, {waves} waves")
 
 
+# ------------------------------------------------------------ phase 16
+
+def same_tree_bits(torch, a, b) -> bool:
+    """Two nested-dict trees of tensors equal bit for bit, leaf by leaf."""
+    from repro_torch.models.common import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    if len(la) != len(lb):
+        return False
+    for x, y in zip(la, lb):
+        if x.dtype != y.dtype or x.shape != y.shape:
+            return False
+        if x.is_floating_point():
+            bits = {2: torch.int16, 4: torch.int32, 8: torch.int64}[
+                x.element_size()]
+            x, y = x.view(bits), y.view(bits)
+        if not torch.equal(x.cpu(), y.cpu()):
+            return False
+    return True
+
+
+def train_stats(cfg, losses, secs, batch, seq, peak):
+    """The training metrics of one run: warm step time (the median over
+    the steps after the first, which holds the allocator's warm-up),
+    tokens/s, model FLOP/s from 6 N tokens and peak memory. Checks that
+    every loss is finite and the last below the first."""
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{cfg.name}: losses {losses}")
+    n = cfg.active_param_count()
+    warm = float(np.median(secs[1:]))
+    return dict(params=n, warm_step_s=warm, tokens_per_s=batch * seq / warm,
+                model_flops_s=6.0 * n * batch * seq / warm,
+                peak_gib=peak / 2 ** 30, first_step_s=secs[0],
+                losses=losses)
+
+
+def log_train(tag, arch, batch, seq, st, card):
+    log(f"[16] {tag} {arch}: {st['params'] / 1e9:.4f} B params, "
+        f"batch {batch} x {seq}; losses "
+        + " ".join(f"{x:.4f}" for x in st["losses"])
+        + f"; first step {st['first_step_s']:.3f} s, warm step "
+        f"{st['warm_step_s']:.4f} s, {st['tokens_per_s']:.0f} tokens/s, "
+        f"{st['model_flops_s'] / 1e12:.2f} model TFLOP/s (6 N tokens), "
+        f"peak memory {st['peak_gib']:.2f} GiB; card: {card}")
+
+
+def refuses_kernel_under_grad(torch, cfg, params, batch, kernel, plain):
+    """``loss_fn`` of ``cfg`` with trainable ``params`` raises the kernel's
+    guard (naming the plain route) before any launch."""
+    from repro_torch.models.transformer import get_model
+    before = kernel.launches
+    try:
+        get_model(cfg).loss_fn(params, batch)
+    except RuntimeError as e:
+        if "requires grad" not in str(e) or plain not in str(e):
+            raise
+    else:
+        raise AssertionError(f"{cfg.name}: {kernel.__name__} ran under "
+                             "autograd")
+    if kernel.launches != before:
+        raise AssertionError(f"{kernel.__name__} launched under autograd")
+
+
+def phase_train_llama(torch, counts, flash_attention, card):
+    """16(a): ``run_training`` of llama3.2-1b at full width (bf16
+    parameters, f32 moments, remat per block) for ``TRAIN_LLAMA`` steps on
+    the card, with its final checkpoint written to a temporary directory;
+    no kernel launched; the checkpoint, restored, equal to the launcher's
+    in-memory state bit for bit; then the flash route refused under
+    autograd."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from repro_torch import configs
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.launch.train import run_training
+    arch, kw = "llama3.2-1b", TRAIN_LLAMA
+    cfg = configs.get_config(arch)
+    need = cfg.param_count() * (2 + 4 + 4)     # bf16 params, f32 m and v
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
+        free = shutil.disk_usage(d).free
+        if free < 2 * need:
+            raise RuntimeError(
+                f"16(a) writes a {need / 1e9:.1f} GB checkpoint to {d}, "
+                f"which has {free / 1e9:.1f} GB free (needs twice that); "
+                "point TMPDIR at a larger disk")
+        before = [k.launches for k in counts]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = run_training(arch, smoke=False, ckpt_dir=d, ckpt_every=0,
+                           log_every=1, resume=False, **kw)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        if [k.launches for k in counts] != before:
+            raise AssertionError("training launched a kernel")
+        st = train_stats(cfg, [h["loss"] for h in out["history"]],
+                         [h["sec"] for h in out["history"]], kw["batch"],
+                         kw["seq"], peak)
+        mgr = CheckpointManager(d)
+        path = mgr.path(kw["steps"])
+        st["ckpt_bytes"] = os.path.getsize(path)
+        st["save_s"] = out["save_s"]
+        t0 = time.perf_counter()
+        back = mgr.restore(kw["steps"], out["state"])
+        torch.cuda.synchronize()
+        st["restore_s"] = time.perf_counter() - t0
+        if not same_tree_bits(torch, back, out["state"]):
+            raise AssertionError("16(a): the restored checkpoint differs "
+                                 "from the in-memory state")
+        del back
+    log_train("(a)", arch, kw["batch"], kw["seq"], st, card)
+    log(f"[16] (a) checkpoint: {st['ckpt_bytes'] / 1e9:.3f} GB, save "
+        f"{st['save_s']:.2f} s, restore {st['restore_s']:.2f} s, restored "
+        f"== in memory bit for bit; card: {card}")
+    batch = synth_batch(DataConfig(cfg.vocab_size, 1, 128), 0, "cuda")
+    refuses_kernel_under_grad(
+        torch, dataclasses.replace(cfg, attn_impl="flash"),
+        out["state"]["params"], batch, flash_attention, 'attn_impl="xla"')
+    log("[16] (a) attn_impl=\"flash\" under autograd: refused, no launch")
+    return st
+
+
+def phase_train_hybrid(torch, counts, mamba2_scan, card):
+    """16(b): zamba2-1.2b at full width for ``TRAIN_HYBRID`` steps through
+    the trainer (the plain ``ssd_chunked`` under autograd), no checkpoint;
+    no kernel launched; then ``ssm_impl="mamba_kernel"`` refused under
+    autograd."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.optim import adamw
+    from repro_torch.train import trainer
+    arch, kw = "zamba2-1.2b", TRAIN_HYBRID
+    cfg = configs.get_config(arch)
+    opt_cfg = adamw.AdamWConfig(lr=kw["lr"], total_steps=kw["steps"],
+                                warmup_steps=max(kw["steps"] // 20, 5))
+    dcfg = DataConfig(cfg.vocab_size, kw["batch"], kw["seq"])
+    before = [k.launches for k in counts]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = trainer.init_train_state(cfg, opt_cfg, 0, "cuda")
+    params, opt = state.params, state.opt_state
+    step = trainer.make_train_step(cfg, opt_cfg)
+    losses, secs = [], []
+    for s in range(kw["steps"]):
+        t0 = time.perf_counter()
+        params, opt, met = step(params, opt, synth_batch(dcfg, s, "cuda"))
+        losses.append(float(met["loss"]))
+        secs.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    if [k.launches for k in counts] != before:
+        raise AssertionError("training launched a kernel")
+    st = train_stats(cfg, losses, secs, kw["batch"], kw["seq"], peak)
+    log_train("(b)", arch, kw["batch"], kw["seq"], st, card)
+    batch = synth_batch(DataConfig(cfg.vocab_size, 1, 256), 0, "cuda")
+    refuses_kernel_under_grad(
+        torch, dataclasses.replace(cfg, ssm_impl="mamba_kernel"), params,
+        batch, mamba2_scan, 'ssm_impl="xla"')
+    log("[16] (b) ssm_impl=\"mamba_kernel\" under autograd: refused, no "
+        "launch")
+    return st
+
+
+def resume_twin(torch, steps, ckpt_every, fault_at=(), injector=None):
+    """Smoke llama (f32) on the card for ``steps`` steps with faults
+    (``fault_at`` or an ``injector``) against an uninterrupted run, both
+    under ``torch.use_deterministic_algorithms(True)`` (restored after):
+    each restart must resume from the checkpoint written last before its
+    fault, and the final checkpoints and states must be equal bit for bit.
+    Returns the two runs' restarts and the faulted run's restored steps."""
+    import tempfile
+    from repro_torch.launch.train import run_training
+    kw = dict(steps=steps, batch=4, seq=32, ckpt_every=ckpt_every,
+              log_every=steps)
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_resume_") as d:
+            a = run_training("llama3.2-1b", ckpt_dir=os.path.join(d, "a"),
+                             fault_at=fault_at, injector=injector, **kw)
+            b = run_training("llama3.2-1b", ckpt_dir=os.path.join(d, "b"),
+                             **kw)
+            za, zb = (dict(np.load(os.path.join(d, x,
+                                                f"ckpt_{steps:08d}.npz")))
+                      for x in "ab")
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    faults = sorted(fault_at if injector is None else
+                    (s for s in injector.fail_at if s < steps))
+    want = [f // ckpt_every * ckpt_every for f in faults]
+    if a["restored_from"] != want or b["restored_from"]:
+        raise AssertionError(f"faults at {faults} resumed from "
+                             f"{a['restored_from']}, not {want}")
+    if set(za) != set(zb) or any(not np.array_equal(za[k], zb[k])
+                                 for k in za):
+        raise AssertionError("the resumed run's final checkpoint differs")
+    if not same_tree_bits(torch, a["state"], b["state"]):
+        raise AssertionError("the resumed run's final state differs")
+    return a["restarts"], b["restarts"], a["restored_from"]
+
+
+def injected_faults():
+    """16(d): phase 14(a)'s reliability (``examples/reliability_frontier.
+    py``'s, scaled to one day) compiled on the default platform, with a
+    ``CheckpointSpec`` whose step stride puts three outage starts inside
+    ``INJECT_STEPS`` steps. Returns the injector and its steps."""
+    import dataclasses
+    from repro_torch.core import model as M
+    from repro_torch.reliability import CheckpointSpec, compile_reliability
+    rel = fullstack_spec(True).reliability
+    downs = sorted({ev.t_down for ev in compile_reliability(
+        rel, None, M.PlatformConfig(), HORIZON_S, seed=FS_SEED).events})
+    if len(downs) < 4:
+        raise AssertionError(f"the scenario has {len(downs)} outages")
+    stride = (downs[2] + downs[3]) / 2.0 / INJECT_STEPS
+    rel = dataclasses.replace(
+        rel, checkpoint=CheckpointSpec(fault_step_stride=stride))
+    compiled = compile_reliability(rel, None, M.PlatformConfig(), HORIZON_S,
+                                   seed=FS_SEED)
+    inj = rel.checkpoint.injector(compiled)
+    inside = sorted(s for s in inj.fail_at if s < INJECT_STEPS)
+    if not 2 <= len(inside) <= 4:
+        raise AssertionError(f"fault steps {sorted(inj.fail_at)}")
+    return inj, inside, stride, len(compiled.events)
+
+
+class f64_compute:
+    """Inside: ``Tensor.float()`` leaves an f64 tensor f64, so a model
+    whose parameters are f64 computes in f64 where it casts to f32 (the
+    norms, the scan, the logits). The witness of 16(e)'s gradients."""
+
+    def __init__(self, torch):
+        self.torch, self.cast = torch, torch.Tensor.float
+
+    def __enter__(self):
+        cast, f64 = self.cast, self.torch.float64
+        self.torch.Tensor.float = (
+            lambda t, *a, **k: t if t.dtype == f64 else cast(t, *a, **k))
+
+    def __exit__(self, *exc):
+        self.torch.Tensor.float = self.cast
+
+
+def train_card_vs_cpu(torch, arch):
+    """16(e): the smoke config (f32, no TF32) from one CPU init, on the
+    card and on the CPU: step 1's gradients within the arch's
+    ``TRAIN_GRAD_REL_TOL`` of their global norm, the card's no farther
+    from the CPU's f64 gradient than ``TRAIN_GRAD_F64_FACTOR`` times the
+    CPU's f32 one is, and ``TRAIN_TWIN_STEPS`` train steps' losses within
+    ``TRAIN_LOSS_TOL``. Returns the card-vs-CPU gradients' relative
+    error, the card's and the CPU's against f64, and the largest loss
+    difference."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.transformer import get_model
+    from repro_torch.optim import adamw
+    from repro_torch.train import trainer
+    cfg = configs.get_smoke_config(arch)
+    model = get_model(cfg)
+    opt_cfg = adamw.AdamWConfig(lr=3e-3, warmup_steps=2,
+                                total_steps=TRAIN_TWIN_STEPS)
+    dcfg = DataConfig(cfg.vocab_size, 8, 64)
+    cpu = model.init(0, "cpu")
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        params = trainer.trainable(tree_map(lambda p: p.to(dev), cpu))
+        g, _, _ = trainer._grad_fn(model, 1)(params, synth_batch(dcfg, 0, dev))
+        opt = adamw.init_opt_state(opt_cfg, params)
+        step = trainer.make_train_step(cfg, opt_cfg)
+        losses = []
+        for s in range(TRAIN_TWIN_STEPS):
+            params, opt, met = step(params, opt, synth_batch(dcfg, s, dev))
+            losses.append(float(met["loss"]))
+        runs[dev] = (tree_map(lambda t: t.cpu().double(), g), losses)
+    with f64_compute(torch):
+        g64, _, _ = trainer._grad_fn(model, 1)(
+            trainer.trainable(tree_map(lambda p: p.double(), cpu)),
+            synth_batch(dcfg, 0, "cpu"))
+    (gc, lc), (gp, lp) = runs["cuda"], runs["cpu"]
+
+    def rel(a, b):
+        return float(adamw.global_norm(tree_map(lambda x, y: x - y, a, b))
+                     / adamw.global_norm(b))
+
+    errs = rel(gc, gp), rel(gc, g64), rel(gp, g64)
+    dloss = max(abs(a - b) for a, b in zip(lc, lp))
+    if (not errs[0] < TRAIN_GRAD_REL_TOL[arch]
+            or not errs[1] <= TRAIN_GRAD_F64_FACTOR * errs[2]
+            or not dloss < TRAIN_LOSS_TOL):
+        raise AssertionError(
+            f"{arch}: card vs CPU gradients {errs[0]:.3e}, against f64 "
+            f"card {errs[1]:.3e} CPU {errs[2]:.3e}, losses {lc} / {lp}")
+    return (*errs, dloss)
+
+
+def feedback_card_vs_cpu(torch, counts):
+    """16(e): ``run_feedback_simulation`` of one pinned whole-second day
+    (the ground-truth generator, the default platform) with 6 models
+    drifting at seasonal amplitude 0 and pinned retrain durations (the
+    reference's parity conditions), on the card through the engine
+    (``"torch"``: the wave loop, admission by the kernel) and through the
+    compaction driver (``"torch-compact"``), and on the CPU through the
+    compaction driver (the whole-width CPU loop takes minutes for a day);
+    the three results equal bit for bit. Returns the pipelines, triggers,
+    the admission launches of the engine's run and the walls."""
+    import dataclasses
+    from repro_torch.core import metrics, runtime
+    from repro_torch.core import model as M
+    from repro_torch.core.workload import (generate_empirical_workload,
+                                           whole_seconds)
+    plat = M.PlatformConfig()
+    wl = whole_seconds(generate_empirical_workload(FB_SEED, HORIZON_S),
+                       plat.datastore)
+    fl = metrics.pack_fleet(runtime.make_model_fleet(
+        np.random.default_rng(FB_SEED), 6, drift_scale=60.0))
+    fl[:, metrics.FLEET_SEAS_AMP] = 0.0
+    kw = dict(window_s=3600.0, workload=wl,
+              fleet=runtime.FleetSpec(params=fl),
+              trigger=runtime.TriggerSpec(
+                  drift_threshold=0.06, cooldown_s=4 * 3600.0,
+                  obs_noise=0.005, interval_s=3600.0,
+                  retrain_durations=(1800.0, 300.0, 120.0)))
+    res, walls, launched = {}, {}, None
+    for tag, dev, engine in (("card", "cuda", "torch"),
+                             ("card-compact", "cuda", "torch-compact"),
+                             ("cpu-compact", "cpu", "torch-compact")):
+        for k in counts:
+            k.launches = 0
+        t0 = time.perf_counter()
+        res[tag] = runtime.run_feedback_simulation(
+            None, FB_SEED, HORIZON_S, engine=engine, device=dev, **kw)
+        walls[tag] = time.perf_counter() - t0
+        if tag == "card":
+            launched = {k.__name__: k.launches for k in counts}
+    if launched["fused_admission"] <= 0 or any(
+            n for name, n in launched.items() if name != "fused_admission"):
+        raise AssertionError(f"the feedback run launched {launched}")
+    want = res["cpu-compact"]
+    if want.n_triggered < 3:
+        raise AssertionError(f"{want.n_triggered} triggers")
+    for tag in ("card", "card-compact"):
+        got = res[tag]
+        same = (got.n_exogenous == want.n_exogenous
+                and got.n_triggered == want.n_triggered
+                and got.retrain_times == want.retrain_times
+                and np.array_equal(got.perf_timeline, want.perf_timeline))
+        for k, v in dataclasses.asdict(got.records).items():
+            w = getattr(want.records, k)
+            same = same and (v is None and w is None or
+                             np.array_equal(v, w, equal_nan=True))
+        if not same:
+            raise AssertionError(f"run_feedback_simulation: {tag} differs "
+                                 "from the CPU path")
+    return wl.n, want.n_triggered, launched["fused_admission"], walls
+
+
+def phase_training(torch, counts, flash_attention, mamba2_scan):
+    """Phase 16: training, checkpoints and crash-restart, the simulator's
+    fault schedule driving the launcher, and the card against the CPU."""
+    card = card_line()
+    t16 = time.perf_counter()
+    phase_train_llama(torch, counts, flash_attention, card)
+    torch.cuda.empty_cache()
+    phase_train_hybrid(torch, counts, mamba2_scan, card)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ra, rb, back = resume_twin(torch, **RESUME)
+    if (ra, rb) != (len(RESUME["fault_at"]), 0):
+        raise AssertionError(f"16(c) restarts {ra}, {rb}")
+    log(f"[16] (c) smoke llama, {RESUME['steps']} steps, checkpoints every "
+        f"{RESUME['ckpt_every']}, fault at {list(RESUME['fault_at'])}: "
+        f"resumed from step {back}, final "
+        f"checkpoint and state == the uninterrupted run's bit for bit "
+        f"(deterministic algorithms; {time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    inj, inside, stride, n_events = injected_faults()
+    ra, rb, back = resume_twin(torch, INJECT_STEPS, RESUME["ckpt_every"],
+                               injector=inj)
+    if (ra, rb) != (len(inside), 0):
+        raise AssertionError(f"16(d) restarts {ra}, {rb}, faults {inside}")
+    log(f"[16] (d) {n_events} compiled outages, fault_step_stride "
+        f"{stride:.3f} s: faults at steps {inside} of {INJECT_STEPS}, "
+        f"{ra} restarts, resumed from steps {back}, final state == the uninterrupted run's bit for bit "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for arch in ("llama3.2-1b", "zamba2-1.2b"):
+            rel, card64, cpu64, dloss = train_card_vs_cpu(torch, arch)
+            log(f"[16] (e) smoke {arch} card vs CPU: step 1's gradients "
+                f"{rel:.3e} of their norm (< {TRAIN_GRAD_REL_TOL[arch]:g}); "
+                f"against the f64 gradient card {card64:.3e}, CPU "
+                f"{cpu64:.3e} (card <= {TRAIN_GRAD_F64_FACTOR:g} x CPU); "
+                f"{TRAIN_TWIN_STEPS} losses within {dloss:.3e} "
+                f"(< {TRAIN_LOSS_TOL:g})")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    n, trig, adm, walls = feedback_card_vs_cpu(torch, counts)
+    log(f"[16] (e) run_feedback_simulation, one day of {n} pipelines, "
+        f"{trig} triggers: card (fused_admission {adm} launches, "
+        f"{walls['card']:.1f} s) == card compacted "
+        f"({walls['card-compact']:.1f} s) == CPU compacted "
+        f"({walls['cpu-compact']:.1f} s), bit for bit "
+        f"({time.perf_counter() - t0:.1f} s for (e))")
+    log(f"[16] phase 16 in {time.perf_counter() - t16:.1f} s; card: {card}")
+
+
 def both_paths(paths, keys=("ms", "plain_ms", "bound_ms", "library_ms")):
     """One kernel's record over the main paths that launch it: launches
     summed, and each time (``keys``) the launch-weighted mean of the
@@ -2535,6 +3002,7 @@ def main() -> int:
                                          admission_mask_dense, counts)
     phase_stream_oracle(torch, counts)
     log(f"[15] phase 15 in {time.perf_counter() - t15:.1f} s")
+    phase_training(torch, counts, flash_attention, mamba2_scan)
 
     kernels = [dict(
         name="fused_admission", route="cuda",

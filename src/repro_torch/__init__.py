@@ -23,7 +23,11 @@ paper's fit -> synthesize -> simulate path (:mod:`repro_torch.core.stats`,
 :mod:`repro_torch.launch.simulate`) and its GMM E-step kernel
 (:mod:`repro_torch.kernels.gmm_logpdf`); the hybrid ``zamba2-1.2b`` and its
 SSD kernel (:mod:`repro_torch.kernels.mamba2_scan`), and the queue kernel
-(``queue_scan``). All five kernels are CUDA for ``sm_90a``.
+(``queue_scan``); training (:mod:`repro_torch.optim`,
+:mod:`repro_torch.data`, :mod:`repro_torch.train`,
+:mod:`repro_torch.launch.train`, :mod:`repro_torch.checkpoint`) through
+the plain attention and SSD routes, the kernels having no backward. All
+five kernels are CUDA for ``sm_90a``.
 
 Entry points run on the card (``device=None`` means ``"cuda"``) and raise
 when there is none; the CPU is used only when the caller passes

@@ -1,3 +1,2 @@
-"""Checkpoint-side helpers of the PyTorch port (mirrors
-:mod:`repro.checkpoint`): only the straggler watchdog the reliability
-compiler streams repair times through is ported."""
+"""Checkpoints, the fault injector and the step-time watchdog of the
+PyTorch port (mirrors :mod:`repro.checkpoint`)."""

@@ -1,5 +1,12 @@
-"""Fleet drift algebra of the run-time view, Fig 7 (mirrors the fleet half
-of :mod:`repro.core.metrics`; the model-compression metrics are not ported).
+"""ML model metrics (paper §III-A, §V-A.2d Table I; mirrors
+:mod:`repro.core.metrics`): the Table I compression-effect model and the
+fleet drift algebra of the run-time view, Fig 7.
+
+The paper publishes measured pruning effects for GoogleNet / ResNet50 on
+Food101 and notes "the relative changes in model metrics could be described
+by a regression model": :func:`compression_effect` interpolates Table I
+exactly at its knots or fits that quadratic regression, and
+:func:`apply_compression` mutates model assets with it in compress tasks.
 
 A *fleet* of M deployed models is one ``[..., M, FLEET_FIELDS]`` tensor
 (columns below). The drift evaluation — performance at time t given the
@@ -15,10 +22,58 @@ the ``cos`` term is multiplied away, so parity is exact).
 from __future__ import annotations
 
 import dataclasses
+from typing import Literal
 
 import numpy as np
 
 from repro_torch.core.numerics import fma_free_msub, guarded_denominator
+
+# Table I (prune %, accuracy %, size MB, inference ms)
+PRUNE_LEVELS = np.array([0.0, 0.2, 0.4, 0.6, 0.8])
+TABLE1 = {
+    "googlenet": {
+        "accuracy": np.array([80.7, 80.9, 80.0, 77.7, 69.8]),
+        "size_mb": np.array([42.5, 28.7, 20.9, 14.6, 8.5]),
+        "inference_ms": np.array([128.0, 117.0, 100.0, 84.0, 71.0]),
+    },
+    "resnet50": {
+        "accuracy": np.array([81.3, 80.9, 80.8, 79.5, 69.8]),
+        "size_mb": np.array([91.1, 83.5, 65.2, 41.9, 8.5]),
+        "inference_ms": np.array([223.0, 200.0, 169.0, 141.0, 72.0]),
+    },
+}
+
+
+def compression_effect(prune: np.ndarray, arch: str = "resnet50",
+                       metric: str = "accuracy",
+                       mode: Literal["interp", "poly"] = "interp") -> np.ndarray:
+    """Relative multiplier on a model metric after pruning ``prune`` in [0,1].
+
+    ``interp`` reproduces Table I exactly at the knots; ``poly`` is the
+    quadratic regression the paper suggests.
+    """
+    tab = TABLE1[arch][metric]
+    rel = tab / tab[0]
+    prune = np.asarray(prune, np.float64)
+    if mode == "interp":
+        return np.interp(prune, PRUNE_LEVELS, rel)
+    coef = np.polyfit(PRUNE_LEVELS, rel, 2)
+    return np.polyval(coef, np.clip(prune, 0.0, 0.8))
+
+
+def apply_compression(perf: np.ndarray, size: np.ndarray, prune: np.ndarray,
+                      arch: str = "resnet50",
+                      rng: np.random.Generator | None = None):
+    """Mutate (performance, size) of model assets for a compress task; the
+    Gaussian jitter mirrors §V-A.2d. ``rng`` defaults to
+    ``np.random.default_rng(0)``, as in the reference, so the draws are
+    the reference's."""
+    rng = rng or np.random.default_rng(0)
+    f_acc = compression_effect(prune, arch, "accuracy")
+    f_sz = compression_effect(prune, arch, "size_mb")
+    jitter = rng.normal(1.0, 0.01, np.shape(prune))
+    return np.clip(perf * f_acc * jitter, 0.0, 1.0), size * f_sz
+
 
 (FLEET_PERF0, FLEET_GRAD_RATE, FLEET_JUMP_RATE, FLEET_JUMP_SCALE,
  FLEET_SEAS_AMP, FLEET_SEAS_PERIOD) = range(6)

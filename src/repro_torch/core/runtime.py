@@ -12,8 +12,10 @@ pipeline template) are ``ExperimentSpec`` fields, compiled by
 engine's fleet stage (:mod:`repro_torch.core.vdes`) runs inside its wave
 loop.
 
-The reference's legacy windowed co-simulation (``TriggerRule``,
-``run_feedback_simulation``) is not ported.
+The reference's legacy entry point stays as a thin wrapper over the spec
+API: :func:`run_feedback_simulation` (with the scalar :class:`TriggerRule`)
+builds the equivalent ``ExperimentSpec`` and runs it on the port's
+``"torch"`` engine, on the card unless the caller asks for the CPU.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ from repro_torch.core import des
 from repro_torch.core import model as M
 from repro_torch.core.gmm import categorical
 from repro_torch.core.metrics import FLEET_FIELDS, DeployedModel, pack_fleet
+from repro_torch.core.trace import TaskRecords
 
 
 # ---------------------------------------------------------------------------
@@ -93,6 +96,29 @@ class TriggerSpec:
         if self.obs_noise:
             parts.append(f"on={self.obs_noise:g}")
         return "trig(" + ",".join(parts) + ")"
+
+
+@dataclasses.dataclass
+class TriggerRule:
+    """Legacy scalar trigger (pre-spec API). Kept for back-compat: the
+    :func:`run_feedback_simulation` wrapper converts it to a
+    :class:`TriggerSpec` (``to_spec``)."""
+
+    drift_threshold: float = 0.08
+    cooldown_s: float = 12 * 3600.0
+    obs_noise: float = 0.01
+
+    def fires(self, m: DeployedModel, t: float, rng: np.random.Generator,
+              last_fire: float) -> bool:
+        obs_perf = m.performance(t) + rng.normal(0.0, self.obs_noise)
+        drift = m.perf0 - obs_perf
+        return drift > self.drift_threshold and (t - last_fire) >= self.cooldown_s
+
+    def to_spec(self, interval_s: float) -> TriggerSpec:
+        return TriggerSpec(drift_threshold=self.drift_threshold,
+                           cooldown_s=self.cooldown_s,
+                           obs_noise=self.obs_noise,
+                           interval_s=interval_s)
 
 
 # ---------------------------------------------------------------------------
@@ -310,4 +336,87 @@ def lifecycle_result(tr: M.SimTrace) -> Optional[LifecycleResult]:
         mean_staleness=float(np.nanmean(stale)) if stale.size else 0.0,
         staleness_integral_s=float(np.mean(integral)) if integral.size
         else 0.0,
+    )
+
+
+@dataclasses.dataclass
+class FeedbackResult:
+    """Back-compat result shape of :func:`run_feedback_simulation`."""
+
+    records: TaskRecords
+    n_exogenous: int
+    n_triggered: int
+    perf_timeline: np.ndarray      # [n_models, n_ticks] true performance
+    retrain_times: List[float]
+    lifecycle: Optional[LifecycleResult] = None
+
+
+# ---------------------------------------------------------------------------
+# Thin wrapper (the reference's old windowed co-simulation entry point)
+# ---------------------------------------------------------------------------
+
+def run_feedback_simulation(
+    params,
+    seed: int,
+    horizon_s: float,
+    n_models: int = 20,
+    window_s: float = 6 * 3600.0,
+    trigger=None,
+    platform: Optional[M.PlatformConfig] = None,
+    policy: int = des.POLICY_FIFO,
+    interarrival_factor: float = 1.0,
+    drift_scale: float = 1.0,
+    scenario=None,
+    engine: str = "torch",
+    fleet: Optional[FleetSpec] = None,
+    workload: Optional[M.Workload] = None,
+    device=None,
+) -> FeedbackResult:
+    """Fig 7 loop via the declarative spec API (thin wrapper).
+
+    Builds the spec the reference's wrapper builds (``window_s`` becomes
+    the drift-evaluation tick interval; ``trigger`` is a
+    :class:`TriggerSpec`, a legacy :class:`TriggerRule` or None), runs it
+    with :func:`repro_torch.core.experiment.run_experiment` on ``engine``
+    on ``device`` (``None``: the card) and reshapes the result. ``params``
+    are fitted :class:`~repro_torch.core.fitting.SimulationParams`.
+
+    Two differences from the reference: the default engine is the port's
+    ``"torch"`` (the reference's is its numpy engine), and ``workload``
+    pins the spec's workload (``ExperimentSpec.workload``), so that two
+    devices, whose generators draw different workloads, can run the same
+    one.
+    """
+    from repro_torch.core.experiment import ExperimentSpec, run_experiment
+    if trigger is None:
+        tspec = TriggerSpec(interval_s=window_s)
+    elif isinstance(trigger, TriggerSpec):
+        tspec = trigger
+    else:                               # legacy TriggerRule
+        tspec = trigger.to_spec(interval_s=window_s)
+    spec = ExperimentSpec(
+        name="feedback",
+        platform=platform or M.PlatformConfig(),
+        horizon_s=horizon_s,
+        interarrival_factor=interarrival_factor,
+        policy=policy,
+        seed=seed,
+        engine=engine,
+        scenario=scenario,
+        workload=workload,
+        fleet=fleet if fleet is not None
+        else FleetSpec(n_models=n_models, drift_scale=drift_scale),
+        trigger=tspec,
+    )
+    res = run_experiment(spec, params, device=device)
+    lc = res.lifecycle
+    if lc is None:
+        raise RuntimeError("engine returned no lifecycle data")
+    return FeedbackResult(
+        records=res.records,
+        n_exogenous=lc.n_exogenous,
+        n_triggered=lc.n_triggered,
+        perf_timeline=lc.perf_timeline,
+        retrain_times=[float(t) for t in lc.redeploy_times],
+        lifecycle=lc,
     )

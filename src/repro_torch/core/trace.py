@@ -2,8 +2,9 @@
 
 Numpy copy of :mod:`repro.core.trace` for the PyTorch port: flat per-task
 records from a :class:`~repro_torch.core.model.SimTrace` and the dashboard
-metrics (Fig 11) computed from them — utilization over time, queue
-lengths, task wait times — plus the cost/SLO summary.
+metrics (Fig 10/11) computed from them — utilization over time, queue
+lengths, task wait times, arrivals per hour of the week, network traffic —
+plus the cost/SLO summary.
 """
 from __future__ import annotations
 
@@ -226,6 +227,32 @@ def queue_length_timeline(rec: TaskRecords, nres: int, bin_s: float = 3600.0,
             overlap = np.clip(np.minimum(s, hi) - np.maximum(a, lo), 0.0, None)
             q[r, b] = overlap.sum() / bin_s
     return {"edges": edges, "qlen": q}
+
+
+def arrivals_per_hour(arrival_s: np.ndarray) -> np.ndarray:
+    """[7, 24] mean arrivals per hour-of-week slot (Fig 10)."""
+    hrs = (arrival_s // 3600.0).astype(np.int64)
+    how = hrs % 168
+    n_weeks = max(1.0, (arrival_s.max() - arrival_s.min()) / (168 * 3600.0))
+    counts = np.bincount(how, minlength=168).astype(np.float64) / n_weeks
+    return counts.reshape(7, 24)
+
+
+def network_traffic(rec: TaskRecords, bin_s: float = 3600.0,
+                    horizon_s: Optional[float] = None,
+                    tcp_overhead: float = 1.05) -> Dict[str, np.ndarray]:
+    """Bytes moved to/from the data store per bin (dashboard panel; the paper
+    notes its traffic figure 'includes TCP overhead')."""
+    horizon = horizon_s or float(np.nanmax(rec.finish)) + 1.0
+    nbins = int(np.ceil(horizon / bin_s))
+    edges = np.arange(nbins + 1) * bin_s
+    ran = ~np.isnan(rec.start)    # stranded tasks never transfer
+    b = np.clip((rec.start[ran] // bin_s).astype(np.int64), 0, nbins - 1)
+    rd = np.bincount(b, weights=rec.read_bytes[ran],
+                     minlength=nbins) * tcp_overhead
+    wr = np.bincount(b, weights=rec.write_bytes[ran],
+                     minlength=nbins) * tcp_overhead
+    return {"edges": edges, "read": rd, "write": wr}
 
 
 def summarize(rec: TaskRecords, capacities: np.ndarray, horizon_s: float,

@@ -6,6 +6,9 @@ launcher. It is compiled for ``sm_90a`` into a shared library under
 name carries a hash of the source and the flags, so an edited source is
 rebuilt and a built one is reused. Nothing here runs when a module is
 imported.
+
+:func:`refuse_grad` is the wrappers' guard against autograd: no kernel has
+a backward, as none of the JAX package's Pallas kernels has one.
 """
 from __future__ import annotations
 
@@ -16,6 +19,8 @@ import shutil
 import subprocess
 from pathlib import Path
 from typing import Dict
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
@@ -80,3 +85,20 @@ def load(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
             f.restype = ctypes.c_int
         _libs[name] = lib
     return lib
+
+
+def refuse_grad(kernel: str, plain: str, **tensors: torch.Tensor) -> None:
+    """Raises ``RuntimeError`` when autograd would record a launch of
+    ``kernel`` (grad mode on and one of ``tensors`` requiring grad). The
+    kernels write into fresh tensors through ``ctypes``, so autograd would
+    see a result with no ``grad_fn`` and no gradient would reach the
+    inputs; ``jax.grad`` through the reference's Pallas kernels raises
+    instead, and so does this. ``plain`` names the differentiable route."""
+    if not torch.is_grad_enabled():
+        return
+    for name, t in tensors.items():
+        if t.requires_grad:
+            raise RuntimeError(
+                f"{kernel}: {name} requires grad, and the kernel has no "
+                f"backward (nor has the JAX package's Pallas kernel); "
+                f"differentiate through the plain route, {plain}")

@@ -11,6 +11,10 @@ take head dims 64 and 128 and any ``H % Hkv == 0``, and read the
 ``[B, S, H, D]`` layout in place. On a CPU tensor it runs the plain
 version, :func:`repro_torch.kernels.ref.flash_attention_ref`. There is no
 fallback between the two: a CUDA tensor launches a kernel or raises.
+The kernels have no backward, as the reference's has none: on a CUDA
+tensor that requires grad (in grad mode) the wrapper raises and names the
+plain route, ``attn_impl="xla"``. The plain version on the CPU stays
+differentiable.
 """
 from __future__ import annotations
 
@@ -60,6 +64,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, got "
                          f"{q.device}")
+    _build.refuse_grad("flash_attention", 'attn_impl="xla"', q=q, k=k, v=v)
     B, S, H, D = q.shape
     if q.dtype not in KERNEL_DTYPES:
         raise TypeError(f"the kernel takes {KERNEL_DTYPES}, got {q.dtype}")

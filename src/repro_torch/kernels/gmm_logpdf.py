@@ -60,6 +60,8 @@ def gmm_logpdf(x: torch.Tensor, means: torch.Tensor, inv_chol: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"gmm_logpdf runs on cuda or cpu tensors, got "
                          f"{x.device}")
+    _build.refuse_grad("gmm_logpdf", "kernels.ref.gmm_logpdf_ref", x=x,
+                       means=means, inv_chol=inv_chol, log_w=log_w)
     N, D = x.shape
     K = means.shape[0]
     if K > MAX_COMPONENTS or D > MAX_DIM:

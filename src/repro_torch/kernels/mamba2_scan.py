@@ -15,7 +15,9 @@ cores. On a CPU tensor the wrapper runs the plain version,
 between any of them: a CUDA tensor launches its route's kernel or raises.
 
 The reference's kernel has no gradient (``jax.grad`` through it raises), so
-neither has this one: tensors that require grad are refused.
+neither has this one: in grad mode, tensors that require grad are refused
+on either device with a ``RuntimeError`` that names the plain route,
+``ssm_impl="xla"`` (``ssd_chunked``).
 """
 from __future__ import annotations
 
@@ -70,9 +72,8 @@ def _check(x, dt, A, Bm, Cm, chunk) -> int:
     for name, t in (("x", x), ("dt", dt), ("A", A), ("Bm", Bm), ("Cm", Cm)):
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-        if t.requires_grad:
-            raise ValueError(f"{name} requires grad: the scan has no "
-                             "backward (nor has the reference's kernel)")
+    _build.refuse_grad("mamba2_scan", 'ssm_impl="xla"', x=x, dt=dt, A=A,
+                       Bm=Bm, Cm=Cm)
     chunk = min(chunk, S)
     if chunk < 1 or S % chunk:
         raise ValueError(f"S={S} must be a multiple of the chunk {chunk}")

@@ -86,6 +86,8 @@ def queue_scan(ready: torch.Tensor, service: torch.Tensor, *,
     if ready.device.type != "cuda":
         raise ValueError(f"queue_scan runs on cuda or cpu tensors, got "
                          f"{ready.device}")
+    _build.refuse_grad("queue_scan", "kernels.ref.queue_scan_ref",
+                       ready=ready, service=service)
     R, N = ready.shape
     if capacity > MAX_CAPACITY:
         raise ValueError(f"the kernel takes capacity <= {MAX_CAPACITY}, got "
@@ -152,6 +154,8 @@ def fused_admission(res_q: torch.Tensor, pkey: torch.Tensor,
     if res_q.device.type != "cuda":
         raise ValueError(f"fused_admission runs on cuda or cpu tensors, "
                          f"got {res_q.device}")
+    _build.refuse_grad("fused_admission", "kernels.ref.admission_mask_dense",
+                       pkey=pkey)
     R, N = res_q.shape
     if R > _MAX_GRID_Y:
         raise ValueError(f"fused_admission takes at most {_MAX_GRID_Y} "

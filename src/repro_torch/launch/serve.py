@@ -21,6 +21,7 @@ import torch
 
 from repro_torch import configs as CN
 from repro_torch.device import resolve_device
+from repro_torch.models.common import tree_leaves
 from repro_torch.models.transformer import get_model
 from repro_torch.serving.engine import ServeConfig, ServingEngine
 
@@ -48,7 +49,7 @@ def run_serving(arch: str, *, batch: int, prompt_len: int, new_tokens: int,
         "arch": arch,
         "attn_impl": attn_impl,
         "device": str(dev),
-        "n_params": sum(p.numel() for p in leaves(params)),
+        "n_params": sum(p.numel() for p in tree_leaves(params)),
         "generated_shape": list(out.shape),
         "prefill_s": st["prefill_s"],
         "decode_tokens_per_s": (batch * (new_tokens - 1) / st["decode_s"]
@@ -66,15 +67,6 @@ def random_prompts(vocab_size: int, batch: int, prompt_len: int,
     device."""
     return torch.randint(0, vocab_size, (batch, prompt_len), generator=gen,
                          device=gen.device, dtype=torch.int32)
-
-
-def leaves(tree):
-    """The tensors of a nested parameter dict."""
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from leaves(v)
-    else:
-        yield tree
 
 
 def main():

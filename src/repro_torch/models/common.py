@@ -78,6 +78,46 @@ def stack_layers(gen: torch.Generator, n: int,
     return _stack([init_one(gen) for _ in range(n)])
 
 
+def tree_map(fn: Callable, tree, *rest):
+    """``fn`` over the leaves of nested dicts of one structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def tree_items(tree, prefix: Tuple = ()):
+    """``(path, leaf)`` pairs of a nested-dict tree, keys sorted at each
+    level: the order in which the reference's JAX tree functions see a
+    dict's leaves. ``path`` is the tuple of keys down to the leaf."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_items(tree[k], prefix + (k,))
+    else:
+        yield prefix, tree
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a nested-dict tree in :func:`tree_items`' order."""
+    return [leaf for _, leaf in tree_items(tree)]
+
+
+def tree_unflatten(tree, leaves):
+    """A tree of ``tree``'s structure whose leaves are ``leaves``, taken in
+    :func:`tree_leaves`' order."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            out = dict.fromkeys(t)      # the keys in ``tree``'s order
+            for k in sorted(t):
+                out[k] = build(t[k])
+            return out
+        return next(it)
+
+    return build(tree)
+
+
 def layer(params: Params, i: int) -> Params:
     """Block ``i`` of a stacked parameter tree, as views."""
     if isinstance(params, dict):

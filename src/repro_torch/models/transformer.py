@@ -3,8 +3,8 @@
 ``DecoderLM`` for the reference's dense plan ``[("dense", L, 0)]``:
 pre-norm residual blocks of GQA self-attention and a SwiGLU MLP, with the
 one stage's parameters stacked ``[L, ...]`` under ``"stage0"``, as in the
-reference. It serves (``prefill``, ``decode_step``) and runs a full forward
-(``_forward``, no loss).
+reference. It trains (``loss_fn``), serves (``prefill``, ``decode_step``)
+and runs a full forward (``_forward``).
 
 ``HybridSSM`` (zamba2): a Mamba-2 backbone with ONE shared attention block
 applied after every ``attn_every`` Mamba blocks, then the trailing Mamba
@@ -12,16 +12,25 @@ blocks. It runs the full-sequence forward and loss (``loss_fn``, through
 the ``mamba2_scan`` kernel under ``ssm_impl="mamba_kernel"``) and serves.
 
 A Python loop over the layers takes the place of the reference's
-``lax.scan``; ``remat`` and ``stream_unroll`` are kept as fields and mean
-nothing here. The MoE, MLA, VLM, xLSTM and encoder-decoder models are not
-ported yet: :func:`get_model` refuses them.
+``lax.scan``; ``stream_unroll`` is kept as a field and means nothing here.
+``remat="block"`` recomputes each block in the backward, as the
+reference's ``jax.checkpoint`` does: :func:`_maybe_remat` wraps a
+DecoderLM block, or a HybridSSM group of Mamba blocks and its shared
+attention, in ``torch.utils.checkpoint`` when autograd records. The
+kernels have no backward (``ModelConfig.attn_impl="flash"`` and
+``ssm_impl="mamba_kernel"`` raise under autograd on the card, as
+``jax.grad`` through the reference's kernels does), so training runs the
+plain routes, the reference's defaults. The MoE, MLA, VLM, xLSTM and
+encoder-decoder models are not ported yet: :func:`get_model` refuses them.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as A
@@ -29,7 +38,7 @@ from repro_torch.models import ssm as SSM
 from repro_torch.models.common import (Builder, cross_entropy_loss,
                                        init_swiglu, layer, lm_head_logits,
                                        padded_vocab, rms_norm, stack_layers,
-                                       swiglu)
+                                       swiglu, tree_leaves)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
@@ -102,6 +111,27 @@ class ModelConfig:
     @property
     def cdt(self):
         return DTYPES[self.compute_dtype]
+
+    def param_count(self) -> int:
+        """Total parameters (for MODEL_FLOPS and memory estimates), from a
+        shapes-only init on the meta device."""
+        params = get_model(self).init(0, device="meta")
+        return sum(t.numel() for t in tree_leaves(params))
+
+    def active_param_count(self) -> int:
+        """Active parameters per token: all of them, since the ported
+        families have no experts."""
+        return self.param_count()
+
+
+def _maybe_remat(fn, cfg: ModelConfig):
+    """``fn`` recomputed in the backward under ``remat="block"`` while
+    autograd records; ``fn`` itself otherwise. The blocks draw no random
+    numbers, so no RNG state is kept for the recompute."""
+    if cfg.remat != "block" or not torch.is_grad_enabled():
+        return fn
+    return functools.partial(checkpoint, fn, use_reentrant=False,
+                             preserve_rng_state=False)
 
 
 # ---------------------------------------------------------------------------
@@ -193,11 +223,27 @@ class DecoderLM:
         c = self.cfg
         x = params["embed"][tokens].to(c.cdt)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
+
+        def block(xx, i):
+            return _apply_attn_block(layer(params["stage0"], i), xx, c,
+                                     positions=positions)[0]
+
+        block = _maybe_remat(block, c)
         for i in range(c.n_layers):
-            x, _ = _apply_attn_block(layer(params["stage0"], i), x, c,
-                                     positions=positions)
+            x = block(x, i)
         x = rms_norm(x, params["ln_f"], c.norm_eps)
         return lm_head_logits(x, self._head(params), c.vocab_size)
+
+    def loss_fn(self, params, batch):
+        """Mean next-token cross entropy of ``batch["tokens"]`` against
+        ``batch["labels"]`` (both ``[B, S]``) plus ``moe_aux_coef`` times
+        the load-balance loss, which is 0 for the dense plan:
+        ``(total, {"ce_loss", "aux_loss"})``, as the reference returns."""
+        loss = cross_entropy_loss(self._forward(params, batch["tokens"]),
+                                  batch["labels"])
+        aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+        total = loss + self.cfg.moe_aux_coef * aux
+        return total, {"ce_loss": loss, "aux_loss": aux}
 
     # ---------------- caches
     def init_cache(self, batch_size: int, max_len: int,
@@ -295,17 +341,26 @@ class HybridSSM:
                   pos: int = 0):
         """``states``/``kv`` given: cached mode, both updated in place."""
         c = self.cfg
-        shared = params["shared_attn"]
         cached = states is not None
-        for i in range(self.n_super):
+
+        def group(xx, i):
+            """Super group ``i``: its Mamba blocks, then the shared
+            attention block."""
             sp = layer(params["supers"]["mamba"], i)
             for j in range(c.attn_every):
-                x = self._mamba(layer(sp, j), x,
-                                states["supers"]["mamba"] if cached else None,
-                                (i, j))
-            cache = (kv["shared"][0][i], kv["shared"][1][i]) if cached else None
-            x, _ = _apply_attn_block(shared, x, c, positions=positions,
-                                     cache=cache, cache_pos=pos)
+                xx = self._mamba(layer(sp, j), xx,
+                                 states["supers"]["mamba"] if cached
+                                 else None, (i, j))
+            cache = (kv["shared"][0][i], kv["shared"][1][i]) if cached \
+                else None
+            return _apply_attn_block(params["shared_attn"], xx, c,
+                                     positions=positions, cache=cache,
+                                     cache_pos=pos)[0]
+
+        if not cached:      # the caches are written in place: no recompute
+            group = _maybe_remat(group, c)
+        for i in range(self.n_super):
+            x = group(x, i)
         for j in range(self.n_tail):
             x = self._mamba(layer(params["tail"], j), x,
                             states["tail"] if cached else None, (j,))

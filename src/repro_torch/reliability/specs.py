@@ -141,10 +141,8 @@ class CheckpointSpec:
     two must not both be configured — see
     :func:`repro_torch.reliability.compile.check_no_double_apply`.
 
-    ``fault_step_stride`` is the reference's seconds of simulated time per
-    training step, kept so specs compare equal; the reference's
-    ``injector`` bridge to its training launcher is not ported (the port
-    has no launcher)."""
+    ``fault_step_stride`` is the seconds of simulated time per training
+    step of :meth:`injector`, the bridge to the training launcher."""
 
     ckpt_frac: float = 0.5
     fault_step_stride: float = 60.0   # seconds of sim time per training step
@@ -160,6 +158,17 @@ class CheckpointSpec:
     @property
     def name(self) -> str:
         return f"ckpt{int(round(self.ckpt_frac * 100))}"
+
+    def injector(self, compiled) -> "object":
+        """A :class:`repro_torch.checkpoint.manager.FaultInjector` whose
+        failure steps are the compiled reliability scenario's down-event
+        times quantized to training steps (``t // fault_step_stride``): the
+        simulator-to-launcher bridge for crash-restart runs
+        (:func:`repro_torch.launch.train.run_training`)."""
+        from repro_torch.checkpoint.manager import FaultInjector
+        steps = sorted({int(ev.t_down // self.fault_step_stride)
+                        for ev in compiled.events})
+        return FaultInjector(steps)
 
 
 @dataclasses.dataclass(frozen=True)

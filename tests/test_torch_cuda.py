@@ -6,7 +6,9 @@ forward through the SSD kernel against its plain path, the card's
 engine against the port's CPU path on ``chip_smoke.py`` phase 13's and
 phase 14(b)'s ensembles (the latter with every stage of the wave loop), and
 the segment-restart hooks, the compaction driver and the streaming driver
-on the card against one call, the one-shot run and the CPU path.
+on the card against one call, the one-shot run and the CPU path, every
+kernel refusing autograd, and a crash-restart training run resuming bit for
+bit.
 
 These tests need a CUDA device and ``nvcc`` and skip elsewhere. They
 import the port only (no JAX, no reference), so they also run where the
@@ -18,6 +20,7 @@ reference is not installed. On the card:
 module and so needs JAX.)
 """
 import importlib.util
+import os
 from pathlib import Path
 
 import numpy as np
@@ -35,6 +38,10 @@ from repro_torch.models.transformer import get_model
 from repro_torch.ops.capacity import MaintenanceWindows
 from repro_torch.ops.failures import FailureModel
 from repro_torch.ops.scenario import Scenario
+
+# the bit-for-bit training twin runs cuBLAS deterministically, which needs
+# this set before the process's first cuBLAS call
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 
 def _need_card():
@@ -493,7 +500,7 @@ def test_mamba2_kernel_refuses_what_it_cannot_take():
     with pytest.raises(ValueError, match="contiguous"):
         ms.mamba2_scan(x.transpose(2, 3).contiguous().transpose(2, 3), dt, A,
                        Bm, Cm, chunk=32)
-    with pytest.raises(ValueError, match="requires grad"):
+    with pytest.raises(RuntimeError, match="requires grad"):
         ms.mamba2_scan(x.requires_grad_(), dt, A, Bm, Cm, chunk=32)
 
 
@@ -647,3 +654,56 @@ def test_hybrid_kernel_matches_plain_on_card():
         assert ms.mamba2_scan.launches == before
         assert bool(torch.isfinite(logits).all())
     assert abs(float(loss["mamba_kernel"] - loss["xla"])) <= 1e-5
+
+
+def _grad_cases():
+    """Each kernel's call with one float input that requires grad: the
+    name of that input and the call."""
+    q = torch.randn(1, 128, 4, 64, device="cuda", dtype=torch.bfloat16)
+    x, dt, A, Bm, Cm = ssd_case(1, 128, 2, 64, 32, torch.bfloat16)
+    gx, mu, inv, lw = gmm_case(64, 3, 4)
+    r, s = random_jobs(0, 2, 64, 4)
+    res, pkey, wave, free = make_case(1, 2, 300, 2, 0.3, True)
+    return [
+        ("flash_attention", 'attn_impl="xla"', q,
+         lambda t: fa.flash_attention(t, q, q)),
+        ("mamba2_scan", 'ssm_impl="xla"', x,
+         lambda t: ms.mamba2_scan(t, dt, A, Bm, Cm, chunk=64)),
+        ("gmm_logpdf", "gmm_logpdf_ref", mu,
+         lambda t: gl.gmm_logpdf(gx, t, inv, lw)),
+        ("queue_scan", "queue_scan_ref", s,
+         lambda t: queue_scan.queue_scan(r, t, capacity=4)),
+        ("fused_admission", "admission_mask_dense", pkey,
+         lambda t: queue_scan.fused_admission(res, t, wave, free))]
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_autograd_on_card():
+    """No kernel has a backward (nor has the reference's): an input that
+    requires grad, in grad mode, raises before the launch and names the
+    plain route; under ``torch.no_grad()`` the kernel launches."""
+    _need_card()
+    kernels = {"flash_attention": fa.flash_attention,
+               "mamba2_scan": ms.mamba2_scan, "gmm_logpdf": gl.gmm_logpdf,
+               "queue_scan": queue_scan.queue_scan,
+               "fused_admission": queue_scan.fused_admission}
+    for name, plain, t, call in _grad_cases():
+        t = t.clone().requires_grad_()
+        before = kernels[name].launches
+        with pytest.raises(RuntimeError, match="requires grad") as e:
+            call(t)
+        assert plain in str(e.value) and kernels[name].launches == before
+        with torch.no_grad():
+            call(t)
+        torch.cuda.synchronize()
+        assert kernels[name].launches == before + 1, name
+
+
+@pytest.mark.cuda
+def test_training_resumes_bit_for_bit_on_card():
+    """``chip_smoke.py`` phase 16(c) at 4 steps: a fault at step 3 rolls
+    back to step 2's checkpoint; under deterministic algorithms the final
+    checkpoint and state equal the uninterrupted run's bit for bit."""
+    _need_card()
+    restarts = _chip_smoke().resume_twin(torch, 4, 2, fault_at=(3,))
+    assert restarts == (1, 0, [2])

@@ -1,11 +1,12 @@
 """The port stands alone: no JAX, no reference module, no silent CPU.
 
 An AST walk finds no ``jax`` and no ``repro`` import in ``src/repro_torch``
-(its ``reliability/``, ``obs/`` and ``checkpoint/`` subpackages included),
+(its ``reliability/``, ``obs/``, ``checkpoint/``, ``optim/``, ``data/`` and
+``train/`` subpackages included),
 ``chip_smoke.py`` or ``tools/``; a fresh interpreter runs the port (the wave
 loop, the serving paths, the hybrid's forward, the fit -> synthesize ->
-simulate path, the full-stack experiment and the compaction and streaming
-drivers) without loading ``jax``; with no card the entry points raise
+simulate path, the full-stack experiment, the compaction and streaming
+drivers and a crash-restart training run) without loading ``jax``; with no card the entry points raise
 unless the caller asks for the CPU; the admission rankings and the model
 families that are not ported are refused.
 """
@@ -53,7 +54,7 @@ def test_no_jax_or_reference_imports(path):
 def test_walk_covers_every_subpackage():
     packages = {p.parent.name for p in PORT_FILES}
     assert {"reliability", "obs", "checkpoint", "core", "ops",
-            "kernels"} <= packages
+            "kernels", "optim", "data", "train"} <= packages
 
 
 # a one-replica full-stack experiment on the CPU: a controller, a fleet
@@ -180,6 +181,41 @@ def test_cpu_compaction_and_stream_leave_jax_unloaded():
         "spans.write_spans_jsonl(spans.build_spans(sr.records), f)\n"
         "assert stream.SpanSource(f).workload.n == sr.n_pipelines\n"
         + NO_REFERENCE)
+
+
+def test_cpu_training_run_leaves_jax_unloaded():
+    run_fresh(
+        "import sys, tempfile\n"
+        "from repro_torch.launch.train import run_training\n"
+        "out = run_training('zamba2-1.2b', steps=3, batch=2, seq=16,\n"
+        "                   ckpt_every=2, fault_at=[2], device='cpu',\n"
+        "                   ckpt_dir=tempfile.mkdtemp())\n"
+        "assert out['restarts'] == 1 and out['final_step'] == 3, out\n"
+        + NO_REFERENCE)
+
+
+def test_training_and_feedback_without_card_raise_unless_cpu_is_asked_for(
+        monkeypatch, tmp_path):
+    from repro_torch.core.runtime import TriggerSpec, run_feedback_simulation
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.launch.train import run_training
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    kw = dict(steps=1, batch=2, seq=8, ckpt_every=0, ckpt_dir=str(tmp_path))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_training("llama3.2-1b", **kw)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        synth_batch(DataConfig(64, 2, 8), 0)
+    wl = workload.generate_empirical_workload(0, 1800.0)
+    fb = dict(n_models=2, workload=wl,
+              trigger=TriggerSpec(interval_s=600.0,
+                                  retrain_durations=(60.0, 60.0, 60.0)))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_feedback_simulation(None, 0, 1800.0, **fb)
+    assert run_training("llama3.2-1b", device="cpu", **kw)["final_step"] == 1
+    assert synth_batch(DataConfig(64, 2, 8), 0, "cpu")["tokens"].shape == \
+        (2, 8)
+    assert run_feedback_simulation(None, 0, 1800.0, device="cpu",
+                                   **fb).records.start.size
 
 
 def test_full_stack_without_card_raises_unless_cpu_is_asked_for(
