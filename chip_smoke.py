@@ -183,8 +183,31 @@ Phases (any failure exits non-zero, with no result line):
     compaction driver) and on the CPU (the compaction driver), equal bit
     for bit, the admission kernel launched on the card's run.
 
+17. The cost-model link, within ``COST_BUDGET_S``: (a) ``launch/dryrun.py``'s
+    writer counts the five ported archs x the four shapes on the meta
+    device (no card; ``DRYRUN_WORKERS`` processes, while (c) and (d) run)
+    into a temporary root: every dense ``long_500k`` a skip, the other 16
+    cells counted; each cell's FLOPs, bytes, dominant term and roofline
+    step on ``costmodel.H100``. (b) ``accelerator_workload_catalog`` of
+    those cells, its medians, and ``examples/accelerator_platform.py``'s
+    workload drawn from it (whole seconds) through ``run_experiment`` on
+    the ``"torch"`` engine at 2/4/8 pods, on the card (the admission
+    kernel launched) and the CPU, equal bit for bit; the queue waits. (c)
+    16(a)'s step counted on the meta device and priced on the H100 spec,
+    beside 16(a)'s measured warm step, and their ratio (a reading). (d)
+    ``run_serving`` of granite-3-8b, stablelm-3b (head dim 80, which the
+    flash kernel runs zero-padded to 128) and granite-20b at full width in
+    bf16 (random weights from seed 0, batch 2, 512-token prompts, 16 new
+    tokens) through the flash kernel, one launch per layer; layer 0's q/k/v
+    held against the plain version at the bf16 gates and, at head dim 80,
+    in f32 at 1e-5; each model freed before the next. (e)
+    ``obs.profile.profile_compile_execute`` and ``stage_attribution``
+    (base, + control, + fleet, + probe) on 14(a)'s spec for one replica
+    over ``PROFILE_HORIZON_S``, ``repeats=1``: each stage's us per wave.
+
 The last lines are the kernels' JSON record (a kernel launched on two
-main paths, as flash in the llama prefill and the hybrid forward, has its
+main paths, as flash in the llama prefill, the hybrid forward and the
+three dense configs' prefills, has its
 launches summed, its times launch-weighted, and each path's numbers under
 ``paths``), the card's name and power limit, and ``{"ok": true, "device":
 {...}}``.
@@ -337,6 +360,21 @@ TRAIN_GRAD_REL_TOL = {"llama3.2-1b": 1e-5, "zamba2-1.2b": 5e-5}
 TRAIN_GRAD_F64_FACTOR = 2.0
 TRAIN_LOSS_TOL = 1e-4
 FB_SEED = 5
+# phase 17, the cost-model link, within its own budget on the card: (a)
+# the five ported archs x the four shapes counted on the meta device by
+# DRYRUN_WORKERS processes while (c) and (d) run; (b) the catalog's
+# train_4k tasks (examples/accelerator_platform.py's 300 retraining jobs
+# of 2,000 steps over a week) through the engine at 2/4/8 pods; (c) the
+# roofline of 16(a)'s step; (d) the three remaining dense configs served at
+# full width through the flash kernel; (e) the profiler on 14(a)'s spec for
+# one replica, its horizon cut to about 1,000 waves
+COST_BUDGET_S = 180.0
+DRYRUN_WORKERS = 4
+CATALOG_JOBS, CATALOG_STEPS, CATALOG_DAYS = 300, 2000, 7
+CATALOG_PODS = (2, 4, 8)
+DENSE_SERVE = ("granite-3-8b", "stablelm-3b", "granite-20b")
+DENSE_B, DENSE_PROMPT, DENSE_NEW, DENSE_SEED = 2, 512, 16, 0
+PROFILE_HORIZON_S = 18000.0
 FSO_KEYS = ORACLE_KEYS + (
     "ctrl_act", "ctrl_n", "rel_act", "rel_n", "fleet_perf", "fleet_stale",
     "fleet_act", "fleet_n", "pool_arr", "pool_model", "pool_next",
@@ -2851,7 +2889,7 @@ def phase_training(torch, counts, flash_attention, mamba2_scan):
     fault schedule driving the launcher, and the card against the CPU."""
     card = card_line()
     t16 = time.perf_counter()
-    phase_train_llama(torch, counts, flash_attention, card)
+    llama = phase_train_llama(torch, counts, flash_attention, card)
     torch.cuda.empty_cache()
     phase_train_hybrid(torch, counts, mamba2_scan, card)
     torch.cuda.empty_cache()
@@ -2899,6 +2937,274 @@ def phase_training(torch, counts, flash_attention, mamba2_scan):
         f"({walls['cpu-compact']:.1f} s), bit for bit "
         f"({time.perf_counter() - t0:.1f} s for (e))")
     log(f"[16] phase 16 in {time.perf_counter() - t16:.1f} s; card: {card}")
+    return llama
+
+
+# ------------------------------------------------------------ phase 17
+
+def report_cells(cells, wall):
+    """17(a): the 20 records written, dense ``long_500k`` a skip and every
+    other cell counted; prints each cell's FLOPs, bytes, dominant term and
+    roofline step on the H100 spec."""
+    from repro_torch import configs
+    from repro_torch.core import costmodel
+    want = {(a, s) for a in configs.ARCHS for s in configs.SHAPES}
+    if set(cells) != want:
+        raise AssertionError(f"17(a) wrote {sorted(cells)}")
+    for (arch, shape), rec in sorted(cells.items()):
+        fam = configs.get_config(arch).family
+        skip = not configs.cell_supported(fam, shape)[0]
+        if rec["status"] != ("skip" if skip else "ok"):
+            raise AssertionError(f"17(a) {arch} x {shape}: {rec['status']} "
+                                 f"{rec.get('error', '')}")
+        if skip:
+            log(f"[17] (a) {arch} x {shape}: skip")
+            continue
+        t = costmodel.roofline_terms(rec)
+        log(f"[17] (a) {arch} x {shape}: ok, {rec['flops_per_device']:.4e} "
+            f"FLOP, {rec['bytes_accessed_per_device']:.4e} bytes, "
+            f"{t['dominant']}-bound, step {t['step_s']:.6g} s on H100 "
+            f"(compute {t['compute_s']:.6g} s, memory {t['memory_s']:.6g} "
+            f"s), counted in {rec['lower_s']:.1f} s")
+    n_ok = sum(r["status"] == "ok" for r in cells.values())
+    log(f"[17] (a) {len(cells)} cells ({n_ok} ok, {len(cells) - n_ok} skip) "
+        f"counted on the meta device by {DRYRUN_WORKERS} processes in "
+        f"{wall:.1f} s")
+
+
+def catalog_workload(cat, n=CATALOG_JOBS, n_steps=CATALOG_STEPS, seed=1):
+    """``examples/accelerator_platform.py``'s platform workload: ``n``
+    retraining tasks of the catalog's archs on the learning resource over
+    ``CATALOG_DAYS`` days, each duration drawn from its arch's
+    distribution, and every time rounded up to a whole second (so the
+    engine's f32 and the oracle's f64 agree). Returns the workload's
+    columns; ``cat`` maps arch -> Dist (on the CPU)."""
+    import torch
+    from repro_torch.core import model as M
+    archs = sorted(cat)
+    rng = np.random.default_rng(seed)
+    arrival = np.ceil(np.sort(rng.uniform(0, CATALOG_DAYS * 86400.0, n)))
+    pick = rng.integers(0, len(archs), n)
+    gen = torch.Generator().manual_seed(seed)
+    dur = np.ceil(np.array([float(cat[archs[p]].sample(gen, ()))
+                            for p in pick]))
+    return dict(
+        arrival=arrival, n_tasks=np.ones(n, np.int32),
+        task_type=np.full((n, 1), M.TRAIN, np.int32),
+        task_res=np.ones((n, 1), np.int32), exec_time=dur[:, None],
+        read_bytes=np.zeros((n, 1)), write_bytes=np.zeros((n, 1)),
+        framework=pick.astype(np.int32), priority=np.zeros(n, np.float32),
+        model_perf=np.zeros(n, np.float32),
+        model_size=np.zeros(n, np.float32),
+        model_clever=np.zeros(n, np.float32))
+
+
+def catalog_on_card(torch, counts, root):
+    """17(b): the catalog of (a)'s cells, its medians, and its workload
+    through ``run_experiment`` on the ``"torch"`` engine at each pod count,
+    on the card (the admission kernel launched, no other) and the CPU,
+    task times equal bit for bit; prints the queue waits."""
+    from repro_torch import configs
+    from repro_torch.core import costmodel, experiment
+    from repro_torch.core import model as M
+    cat = costmodel.accelerator_workload_catalog(n_steps=CATALOG_STEPS,
+                                                 root=root)
+    if sorted(cat) != sorted(configs.ARCHS):
+        raise AssertionError(f"17(b) catalog {sorted(cat)}")
+    log("[17] (b) catalog medians (" + f"{CATALOG_STEPS:,} train_4k steps on "
+        "H100's roofline): " + ", ".join(
+            f"{a} {np.exp(float(d.p0)) / 3600:.2f} h"
+            for a, d in sorted(cat.items())))
+    wl = M.Workload(**catalog_workload(cat))
+    for pods in CATALOG_PODS:
+        plat = M.PlatformConfig(resources=(M.ResourceConfig("compute", 1),
+                                           M.ResourceConfig("pods", pods)))
+        spec = experiment.ExperimentSpec(
+            f"catalog-{pods}", platform=plat,
+            horizon_s=CATALOG_DAYS * 86400.0, workload=wl)
+        torch.cuda.synchronize()
+        for k in counts:
+            k.launches = 0
+        t0 = time.perf_counter()
+        card = experiment.run_experiment(spec, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = {k.__name__: k.launches for k in counts}
+        if launched["fused_admission"] <= 0 or any(
+                n for name, n in launched.items()
+                if name != "fused_admission"):
+            raise AssertionError(f"17(b) launched {launched}")
+        cpu = experiment.run_experiment(spec, device="cpu")
+        for key in ("pipeline", "ready", "start", "finish"):
+            if not np.array_equal(getattr(card.records, key),
+                                  getattr(cpu.records, key)):
+                raise AssertionError(f"17(b) {pods} pods: {key} differs "
+                                     "between the card and the CPU")
+        wait = card.records.start - card.records.ready
+        if not (np.isfinite(card.records.finish).all() and (wait >= 0).all()
+                and wait.size == wl.n):
+            raise AssertionError(f"17(b) {pods} pods: a task never ran")
+        log(f"[17] (b) {pods} pods: mean queue wait {wait.mean() / 3600:.2f} "
+            f"h, p95 {np.percentile(wait, 95) / 3600:.2f} h ({wl.n} tasks; "
+            f"card {wall:.2f} s, fused_admission "
+            f"{launched['fused_admission']} launches) == CPU bit for bit")
+
+
+def roofline_vs_step(torch, st, card):
+    """17(c): 16(a)'s step (llama3.2-1b, ``TRAIN_LLAMA``'s batch x seq,
+    remat per block, f32 moments, one microbatch) counted on the meta
+    device and priced on the H100 spec, beside 16(a)'s measured warm step.
+    A reading, not a gate."""
+    from repro_torch import configs
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.core import costmodel
+    from repro_torch.launch import dryrun
+    cfg = configs.get_config("llama3.2-1b")
+    B, S = TRAIN_LLAMA["batch"], TRAIN_LLAMA["seq"]
+    step, _ = dryrun.cell_step(cfg, ShapeSpec("16a", "train", S, B))
+    c = dryrun.count(step)
+    n = cfg.param_count()
+    t = costmodel.roofline_terms(dict(
+        kind="train", seq_len=S, global_batch=B, n_devices=1, params=n,
+        active_params=n, flops_per_device=c["flops"],
+        bytes_accessed_per_device=c["bytes"], collectives={}))
+    warm = st["warm_step_s"]
+    log(f"[17] (c) llama3.2-1b {B} x {S} train step: {c['flops']:.4e} FLOP "
+        f"(6 N T {t['model_flops']:.4e}), {c['bytes']:.4e} bytes; roofline "
+        f"step {t['step_s']:.4f} s ({t['dominant']}-bound; compute "
+        f"{t['compute_s']:.4f} s, memory {t['memory_s']:.4f} s) against "
+        f"16(a)'s measured warm step {warm:.4f} s: measured / roofline "
+        f"{warm / t['step_s']:.3f}, measured / compute term "
+        f"{warm / t['compute_s']:.3f}; card: {card}")
+    return t
+
+
+def serve_dense(torch, counts, flash_attention, card):
+    """17(d): ``run_serving`` of each of ``DENSE_SERVE`` at full width in
+    bf16 through the flash kernel (one launch per layer of the prefill, no
+    other kernel); layer 0's kept q/k/v held against the plain version at
+    the bf16 gates (and, at a head dim the kernel takes padded, in f32 at
+    1e-5), the three timed. Returns each model's kernel record."""
+    import gc
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_attention_ref
+    from repro_torch.launch import serve
+    from repro_torch.models import attention
+    paths = []
+    for arch in DENSE_SERVE:
+        cfg = configs.get_config(arch)
+        tap = CallTap(flash_attention)
+        attention.flash_attention = tap
+        torch.cuda.synchronize()
+        for k in counts:
+            k.launches = 0
+        try:
+            out = serve.run_serving(arch, batch=DENSE_B,
+                                    prompt_len=DENSE_PROMPT,
+                                    new_tokens=DENSE_NEW, smoke=False,
+                                    attn_impl="flash", device="cuda",
+                                    seed=DENSE_SEED)
+        finally:
+            attention.flash_attention = flash_attention
+        launched = {k.__name__: k.launches for k in counts}
+        if launched["flash_attention"] != cfg.n_layers or any(
+                n for name, n in launched.items()
+                if name != "flash_attention"):
+            raise AssertionError(f"17(d) {arch} launched {launched}, not "
+                                 f"flash once per layer ({cfg.n_layers})")
+        if not (out["all_in_vocab"] and out["logits_finite"]
+                and out["generated_shape"] == [DENSE_B, DENSE_NEW]):
+            raise AssertionError(f"17(d) {arch}: {out}")
+        log(f"[17] (d) run_serving({arch}, batch={DENSE_B}, prompt_len="
+            f"{DENSE_PROMPT}, new_tokens={DENSE_NEW}, bf16, flash, head dim "
+            f"{cfg.hd}): {out['n_params']:,} parameters; time to first "
+            f"token {out['prefill_s']:.4f} s; decode "
+            f"{out['decode_tokens_per_s']:.1f} tokens/s; total "
+            f"{out['tokens_per_s']:.1f} tokens/s; flash_attention launches "
+            f"{launched['flash_attention']}; card: {card}")
+        where = f"on {arch}'s layer-0 prefill inputs"
+        rec = time_flash(torch, flash_attention, tap.kept, 17, where)
+        if fa.padded_head_dim(cfg.hd) != cfg.hd:
+            q, k, v = (t.float() for t in tap.kept)
+            err, _ = flash_errs(flash_attention(q, k, v),
+                                flash_attention_ref(q, k, v), where + " (f32)")
+            if not err <= FLASH_TOL["float32"]:
+                raise AssertionError(f"17(d) {arch} f32: {err}")
+            log(f"[17] (d) {arch} head dim {cfg.hd} (padded to "
+                f"{fa.padded_head_dim(cfg.hd)}) in f32: max |diff| to plain "
+                f"{err:.3g} (tol {FLASH_TOL['float32']:g})")
+            del q, k, v
+        paths.append((f"{arch} prefill", launched["flash_attention"], rec))
+        del tap, out
+        gc.collect()
+        torch.cuda.empty_cache()
+    return paths
+
+
+def profile_fullstack(torch, counts, card):
+    """17(e): ``profile_compile_execute`` and ``stage_attribution`` (base,
+    + control, + fleet, + probe) on 14(a)'s spec for one replica without
+    reliability (the profiler takes no reliability, as the reference's
+    does not), its horizon cut to ``PROFILE_HORIZON_S``, ``repeats=1``, on
+    the card; only the admission kernel launched."""
+    import dataclasses
+    from repro_torch.core import engines
+    from repro_torch.core.fitting import SimulationParams
+    from repro_torch.obs import profile
+    params = SimulationParams.load(str(ARTIFACT), device="cuda")
+    spec = dataclasses.replace(fullstack_spec(True), reliability=None,
+                               n_replicas=1, horizon_s=PROFILE_HORIZON_S)
+    wls, comps, fleets, probe, _ = engines._spec_workloads(spec, params,
+                                                           "cuda")
+    kw = dict(scenario=comps[0], fleet=fleets[0], probe=probe, repeats=1,
+              device="cuda")
+    for k in counts:
+        k.launches = 0
+    prof = profile.profile_compile_execute(wls[0], spec.platform, **kw)
+    stages = profile.stage_attribution(wls[0], spec.platform, **kw)
+    launched = {k.__name__: k.launches for k in counts}
+    if launched["fused_admission"] <= 0 or any(
+            n for name, n in launched.items() if name != "fused_admission"):
+        raise AssertionError(f"17(e) launched {launched}")
+    log(f"[17] (e) profile_compile_execute, 14(a)'s spec for one replica "
+        f"over {PROFILE_HORIZON_S / 3600:g} h (controller, fleet + trigger, "
+        f"probe): cold {prof['cold_s']:.4f} s, execute "
+        f"{prof['execute_s']:.4f} s, compile {prof['compile_s']:.4f} s, {prof['waves']} waves, "
+        f"{prof['waves_per_s']:.1f} waves/s; card: {card}")
+    log("[17] (e) stage_attribution, us per wave: " + ", ".join(
+        f"{name} {v['per_wave_us']:.1f} ({v['waves']} waves, "
+        f"{v['wall_s']:.4f} s)" for name, v in stages.items()))
+    return prof, stages
+
+
+def phase_cost_model(torch, counts, flash_attention, train_llama):
+    """Phase 17 within ``COST_BUDGET_S``: (a) counted in worker processes
+    while (c) and (d) run on the card, then (b) and (e). Returns (d)'s
+    flash records."""
+    import tempfile
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    card = card_line()
+    t17 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cells_") as root:
+        with ThreadPoolExecutor(1) as pool:
+            t0 = time.perf_counter()
+            cells = pool.submit(dryrun.write_cells, configs.ARCHS,
+                                list(configs.SHAPES), root=root,
+                                workers=DRYRUN_WORKERS, log=lambda *a: None)
+            roofline_vs_step(torch, train_llama, card)
+            paths = serve_dense(torch, counts, flash_attention, card)
+            cells = cells.result()
+            cells_wall = time.perf_counter() - t0
+        report_cells(cells, cells_wall)
+        catalog_on_card(torch, counts, root)
+    profile_fullstack(torch, counts, card)
+    wall = time.perf_counter() - t17
+    within = "within" if wall <= COST_BUDGET_S else "OVER"
+    log(f"[17] phase 17 in {wall:.1f} s ({within} its {COST_BUDGET_S:g} s "
+        f"budget); card: {card}")
+    return paths
 
 
 def both_paths(paths, keys=("ms", "plain_ms", "bound_ms", "library_ms")):
@@ -3002,7 +3308,11 @@ def main() -> int:
                                          admission_mask_dense, counts)
     phase_stream_oracle(torch, counts)
     log(f"[15] phase 15 in {time.perf_counter() - t15:.1f} s")
-    phase_training(torch, counts, flash_attention, mamba2_scan)
+    train_llama = phase_training(torch, counts, flash_attention,
+                                 mamba2_scan)
+    torch.cuda.empty_cache()
+    dense_paths = phase_cost_model(torch, counts, flash_attention,
+                                   train_llama)
 
     kernels = [dict(
         name="fused_admission", route="cuda",
@@ -3020,9 +3330,11 @@ def main() -> int:
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:25",
         max_abs_err=max(flash_grid_err, frec["max_abs_err"],
-                        hfrec["max_abs_err"], hserve_flash_err),
+                        hfrec["max_abs_err"], hserve_flash_err,
+                        *(rec["max_abs_err"] for _, _, rec in dense_paths)),
         **both_paths([("llama prefill", flash_launches, frec),
-                      ("hybrid forward", hyb["flash_launches"], hfrec)])),
+                      ("hybrid forward", hyb["flash_launches"], hfrec)]
+                     + dense_paths)),
         dict(
         name="gmm_logpdf", route="cuda",
         source="src/repro_torch/kernels/csrc/gmm_logpdf.cu",

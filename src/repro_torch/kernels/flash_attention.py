@@ -8,9 +8,16 @@ hand-written kernels of ``csrc/flash_attention.cu`` (built by
 on the tensor cores (wgmma, K and V fed by TMA), f32 on the CUDA cores (the
 tensor cores' only f32 path, TF32, cannot meet the f32 tolerance). Both
 take head dims 64 and 128 and any ``H % Hkv == 0``, and read the
-``[B, S, H, D]`` layout in place. On a CPU tensor it runs the plain
-version, :func:`repro_torch.kernels.ref.flash_attention_ref`. There is no
-fallback between the two: a CUDA tensor launches a kernel or raises.
+``[B, S, H, D]`` layout in place. Any other head dim that is a multiple of
+16 up to 128 (stablelm-3b's 80; the smoke configs' 16) runs padded: q, k
+and v are zero-padded along D to the next kernel head dim, the kernel
+scales by the true D's ``1/sqrt(D)``, and the output is cut back to D. Zero
+columns leave ``q k^T`` unchanged and give zero output columns, so the
+result is the unpadded attention's. Larger head dims, and ones that are
+not multiples of 16, are refused on the card. On a CPU tensor it runs the
+plain version, :func:`repro_torch.kernels.ref.flash_attention_ref`, through
+the same padding where the card would pad. There is no fallback between
+the two: a CUDA tensor launches a kernel or raises.
 The kernels have no backward, as the reference's has none: on a CUDA
 tensor that requires grad (in grad mode) the wrapper raises and names the
 plain route, ``attn_impl="xla"``. The plain version on the CPU stays
@@ -20,8 +27,10 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import flash_attention_ref
@@ -54,23 +63,42 @@ def _check(q, k, v) -> None:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
 
 
+def padded_head_dim(D: int) -> Optional[int]:
+    """The kernel head dim that runs head dim ``D``: ``D`` itself, the next
+    one up for a multiple of 16 below 128, else ``None``."""
+    if D % 16 or D > KERNEL_HEAD_DIMS[-1]:
+        return None
+    return min(d for d in KERNEL_HEAD_DIMS if d >= D)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """``q [B, S, H, D]``, ``k``/``v [B, S, Hkv, D]`` -> ``[B, S, H, D]`` in
     q's dtype. ``flash_attention.launches`` counts the kernel's launches."""
     _check(q, k, v)
-    if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, got "
                          f"{q.device}")
+    D = q.shape[3]
+    Dk = padded_head_dim(D)
+    if Dk is None and q.device.type == "cuda":
+        raise ValueError(f"the kernel takes head dims {KERNEL_HEAD_DIMS}, and "
+                         f"multiples of 16 below them zero-padded, got {D}")
+    if Dk is None or Dk == D:
+        return _attend(q, k, v, causal, D)
+    q, k, v = (F.pad(t, (0, Dk - D)) for t in (q, k, v))
+    return _attend(q, k, v, causal, D)[..., :D].contiguous()
+
+
+def _attend(q, k, v, causal: bool, head_dim: int) -> torch.Tensor:
+    """The plain version on the CPU; on the card the kernel, at a kernel
+    head dim, scaling the scores by ``1/sqrt(head_dim)``."""
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, head_dim=head_dim)
     _build.refuse_grad("flash_attention", 'attn_impl="xla"', q=q, k=k, v=v)
     B, S, H, D = q.shape
     if q.dtype not in KERNEL_DTYPES:
         raise TypeError(f"the kernel takes {KERNEL_DTYPES}, got {q.dtype}")
-    if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"the kernel takes head dims {KERNEL_HEAD_DIMS}, "
-                         f"got {D}")
     if H > _MAX_GRID_YZ or B > _MAX_GRID_YZ:
         raise ValueError(f"the kernel takes at most {_MAX_GRID_YZ} heads and "
                          f"batch rows, got H={H}, B={B}")
@@ -85,7 +113,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H,
             k.shape[2], D, int(q.dtype == torch.bfloat16), int(causal),
-            1.0 / math.sqrt(D), torch.cuda.current_stream().cuda_stream)
+            1.0 / math.sqrt(head_dim),
+            torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention: kernel launch failed with CUDA "
                            f"error {err}")

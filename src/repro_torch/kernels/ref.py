@@ -53,20 +53,24 @@ def admission_mask_dense(res_q: torch.Tensor, pkey: torch.Tensor,
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                        causal: bool = True) -> torch.Tensor:
+                        causal: bool = True,
+                        head_dim: int = None) -> torch.Tensor:
     """Grouped-query attention, ``[B, S, H, D]`` out in q's dtype
     (:func:`repro.kernels.ref.flash_attention_ref`).
 
     ``q [B, S, H, D]``, ``k``/``v [B, S, Hkv, D]`` with ``H % Hkv == 0``;
     query head ``h`` reads KV head ``h // (H // Hkv)``. Scores in f32 scaled
     by ``1/sqrt(D)``, ``-1e30`` above the diagonal when causal, softmax over
-    the keys, the product with v in f32, and one cast at the end."""
+    the keys, the product with v in f32, and one cast at the end.
+    ``head_dim`` replaces D in the scale (inputs zero-padded along D keep
+    their true head dim's scale)."""
     D = q.shape[3]
     rep = q.shape[2] // k.shape[2]
     if rep > 1:
         k = k.repeat_interleave(rep, dim=2)
         v = v.repeat_interleave(rep, dim=2)
-    scale = 1.0 / torch.sqrt(torch.tensor(D, dtype=torch.float32))
+    scale = 1.0 / torch.sqrt(torch.tensor(head_dim or D,
+                                          dtype=torch.float32))
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale.to(
         q.device)
     if causal:

@@ -1,5 +1,6 @@
 """Shared model components (mirrors :mod:`repro.models.common`): the
-parameter builder, RMS norm, RoPE, the SwiGLU MLP and the LM head.
+parameter builder, RMS norm, RoPE, the SwiGLU and gelu MLPs and the LM
+head.
 
 Parameters are nested dicts of tensors with the reference's layouts
 (stacked ``[L, ...]`` leaves for repeated blocks, ``wq [D, H, Dh]``, ...),
@@ -65,17 +66,23 @@ class Builder:
         return self.params
 
 
-def _stack(trees):
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
-
-
 def stack_layers(gen: torch.Generator, n: int,
                  init_one: Callable[[torch.Generator], Params]) -> Params:
     """``n`` blocks from ``init_one(gen)``, each leaf stacked along a new
-    leading layer axis."""
-    return _stack([init_one(gen) for _ in range(n)])
+    leading layer axis. Each block is drawn into its slot of the stacked
+    leaves and freed, so the build holds one block beyond the stack (a
+    list of blocks and their stack would need twice the model)."""
+    first = init_one(gen)
+    out = tree_map(lambda t: t.new_empty((n,) + tuple(t.shape)), first)
+
+    def put(i, block):
+        tree_map(lambda dst, src: dst[i].copy_(src), out, block)
+
+    put(0, first)
+    del first
+    for i in range(1, n):
+        put(i, init_one(gen))
+    return out
 
 
 def tree_map(fn: Callable, tree, *rest):
@@ -164,12 +171,34 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     return einsum("...f,fd->...d", F.silu(g) * u, w_down)
 
 
+def gelu_mlp(x: torch.Tensor, w_up: torch.Tensor, b_up: torch.Tensor,
+             w_down: torch.Tensor, b_down: torch.Tensor) -> torch.Tensor:
+    """The two-matrix MLP with biases (gpt_bigcode). ``jax.nn.gelu``, the
+    reference's, is the tanh approximation by default; torch's default is
+    the exact erf, hence ``approximate="tanh"``."""
+    h = F.gelu(einsum("...d,df->...f", x, w_up) + b_up, approximate="tanh")
+    return einsum("...f,fd->...d", h, w_down) + b_down
+
+
 def init_swiglu(gen: torch.Generator, d_model: int, d_ff: int, dtype,
                 device=None) -> Params:
     b = Builder(gen, dtype, device)
     b.dense("w_gate", (d_model, d_ff))
     b.dense("w_up", (d_model, d_ff))
     b.dense("w_down", (d_ff, d_model))
+    return b.done()
+
+
+def init_gelu_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype,
+                  device=None) -> Params:
+    """``w_up``, ``w_down`` drawn as the other matrices, the biases
+    ``b_up [d_ff]`` and ``b_down [d_model]`` zero, in the reference's key
+    order."""
+    b = Builder(gen, dtype, device)
+    b.dense("w_up", (d_model, d_ff))
+    b.dense("b_up", (d_ff,), zero=True)
+    b.dense("w_down", (d_ff, d_model))
+    b.dense("b_down", (d_model,), zero=True)
     return b.done()
 
 

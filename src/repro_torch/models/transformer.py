@@ -1,7 +1,8 @@
 """Model families of the port (mirrors :mod:`repro.models.transformer`).
 
 ``DecoderLM`` for the reference's dense plan ``[("dense", L, 0)]``:
-pre-norm residual blocks of GQA self-attention and a SwiGLU MLP, with the
+pre-norm residual blocks of GQA self-attention and an MLP (SwiGLU, or under
+``mlp_type="gelu"`` the two-matrix gelu MLP with biases), with the
 one stage's parameters stacked ``[L, ...]`` under ``"stage0"``, as in the
 reference. It trains (``loss_fn``), serves (``prefill``, ``decode_step``)
 and runs a full forward (``_forward``).
@@ -36,9 +37,10 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import ssm as SSM
 from repro_torch.models.common import (Builder, cross_entropy_loss,
-                                       init_swiglu, layer, lm_head_logits,
-                                       padded_vocab, rms_norm, stack_layers,
-                                       swiglu, tree_leaves)
+                                       gelu_mlp, init_gelu_mlp, init_swiglu,
+                                       layer, lm_head_logits, padded_vocab,
+                                       rms_norm, stack_layers, swiglu,
+                                       tree_leaves)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
@@ -135,7 +137,7 @@ def _maybe_remat(fn, cfg: ModelConfig):
 
 
 # ---------------------------------------------------------------------------
-# the block: GQA self-attention + SwiGLU
+# the block: GQA self-attention + SwiGLU or gelu MLP
 # ---------------------------------------------------------------------------
 
 def _init_attn_block(gen, cfg: ModelConfig, device) -> dict:
@@ -144,11 +146,14 @@ def _init_attn_block(gen, cfg: ModelConfig, device) -> dict:
     b.ones("ln2", (cfg.d_model,))
     b.sub("attn", A.init_gqa(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                              cfg.hd, cfg.pdt, device))
-    b.sub("ffn", init_swiglu(gen, cfg.d_model, cfg.d_ff, cfg.pdt, device))
+    init_mlp = init_gelu_mlp if cfg.mlp_type == "gelu" else init_swiglu
+    b.sub("ffn", init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.pdt, device))
     return b.done()
 
 
-def _apply_ffn(p: dict, x: torch.Tensor) -> torch.Tensor:
+def _apply_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    if cfg.mlp_type == "gelu":
+        return gelu_mlp(x, p["w_up"], p["b_up"], p["w_down"], p["b_down"])
     return swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
 
 
@@ -161,7 +166,7 @@ def _apply_attn_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
         q_chunk=cfg.attn_q_chunk)
     x = x + att
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + _apply_ffn(p["ffn"], h2), new_cache
+    return x + _apply_ffn(p["ffn"], h2, cfg), new_cache
 
 
 def _check_ported(cfg: ModelConfig, family: str) -> None:
@@ -172,9 +177,9 @@ def _check_ported(cfg: ModelConfig, family: str) -> None:
             f"{cfg.name}: the {cfg.family!r} family (moe/vlm plans, ssm and "
             "audio models) is not ported yet; the port has the dense plan "
             "and the hybrid")
-    if cfg.use_mla or cfg.mlp_type != "swiglu":
+    if cfg.use_mla:
         raise NotImplementedError(
-            f"{cfg.name}: MLA attention and the gelu MLP are not ported yet")
+            f"{cfg.name}: MLA attention is not ported yet")
     if family == "hybrid" and (cfg.attn_every < 1 or cfg.ssm_state < 1):
         raise ValueError(f"{cfg.name}: a hybrid config needs attn_every >= 1 "
                          f"and ssm_state >= 1, got {cfg.attn_every} and "

@@ -81,3 +81,42 @@ class ServingEngine:
         probs = torch.softmax(last / self.scfg.temperature, dim=-1)
         return torch.multinomial(probs, 1, generator=generator).to(
             torch.int32)
+
+
+def make_serve_step(cfg: ModelConfig, batch: int, max_len: int,
+                    device=None):
+    """The one-token decode step of the decode cells, ``serve_step(params,
+    tokens [batch, 1], cache, pos) -> (logits, cache)`` at ``pos <
+    max_len``, with ``cache`` from ``init_cache(batch, max_len)`` on
+    ``device`` (``None``: the card), written in place. On one card there
+    are no shardings to return: the step comes alone, where the reference
+    returns it with the cache's and the tokens' shardings."""
+    resolve_device(device)
+    model = get_model(cfg)
+
+    def serve_step(params, tokens, cache, pos: int):
+        if tuple(tokens.shape) != (batch, 1) or not 0 <= pos < max_len:
+            raise ValueError(f"serve_step takes [{batch}, 1] tokens at a "
+                             f"position below {max_len}, got "
+                             f"{list(tokens.shape)} at {pos}")
+        return model.decode_step(params, tokens, cache, pos)
+
+    return serve_step
+
+
+def make_prefill_step(cfg: ModelConfig, batch: int, seq: int, device=None):
+    """The prefill step of the prefill cells, ``prefill_step(params, tokens
+    [batch, <= seq]) -> (logits, cache)``, its cache of ``seq`` entries built
+    on the tokens' device (``device`` is checked as the other entry points
+    check it: ``None`` means the card). The step comes alone, without the
+    reference's cache shardings."""
+    resolve_device(device)
+    model = get_model(cfg)
+
+    def prefill_step(params, tokens):
+        if tokens.shape[0] != batch or tokens.shape[1] > seq:
+            raise ValueError(f"prefill_step takes {batch} rows of at most "
+                             f"{seq} tokens, got {list(tokens.shape)}")
+        return model.prefill(params, tokens, max_len=seq)
+
+    return prefill_step

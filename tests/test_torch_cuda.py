@@ -310,9 +310,10 @@ def test_flash_f32_stays_on_cuda_cores(D):
 def test_flash_kernel_refuses_what_it_cannot_take():
     """A CUDA tensor the kernel cannot take raises; nothing falls back."""
     _need_card()
-    q = torch.randn(1, 8, 2, 96, device="cuda")
-    with pytest.raises(ValueError, match="head dims"):
-        fa.flash_attention(q, q, q)
+    for D in (72, 144):     # not a multiple of 16; above 128
+        q = torch.randn(1, 8, 2, D, device="cuda")
+        with pytest.raises(ValueError, match="head dims"):
+            fa.flash_attention(q, q, q)
     q = torch.randn(1, 8, 2, 64, device="cuda", dtype=torch.float16)
     with pytest.raises(TypeError):
         fa.flash_attention(q, q, q)
@@ -707,3 +708,68 @@ def test_training_resumes_bit_for_bit_on_card():
     _need_card()
     restarts = _chip_smoke().resume_twin(torch, 4, 2, fault_at=(3,))
     assert restarts == (1, 0, [2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,H,Hkv", [(80, 32, 32), (80, 4, 1), (48, 4, 2),
+                                     (96, 8, 2)])
+def test_flash_padded_head_dim_matches_plain_on_card(D, H, Hkv, dtype):
+    """Head dims the kernel takes zero-padded (stablelm-3b's 80 among
+    them): one launch, within 1e-5 (f32) / 2e-2 and 1e-2 of each row's
+    norm (bf16) of the plain version at the true head dim."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(D + H)
+    q, k, v = (torch.randn(2, 512, h, D, generator=g, device="cuda").to(dtype)
+               for h in (H, Hkv, Hkv))
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    assert got.shape == q.shape and got.dtype == dtype
+    want = ref.flash_attention_ref(q, k, v)
+    diff = got.float() - want.float()
+    assert float(diff.abs().max()) <= (1e-5 if dtype == torch.float32
+                                       else 2e-2)
+    if dtype == torch.bfloat16:
+        row_rel = diff.norm(dim=-1) / want.float().norm(dim=-1)
+        assert float(row_rel.max()) <= 1e-2
+
+
+@pytest.mark.cuda
+def test_meta_count_equals_the_card_step_and_prices_on_h100():
+    """The dry-run's meta count of a train step (the smoke granite-20b:
+    the gelu MLP, MQA; remat per block, two microbatches) equals the same
+    step's count on the card, FLOPs and bytes: the card dispatches the
+    operations the meta run counts. Priced on the H100 spec."""
+    _need_card()
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.core import costmodel
+    from repro_torch.launch import dryrun
+    from repro_torch.optim import adamw
+    from repro_torch.train import trainer
+    cfg = configs.get_smoke_config("granite-20b", remat="block")
+    spec = ShapeSpec("t", "train", 128, 8)
+    step, _ = dryrun.cell_step(cfg, spec, microbatches=2)
+    meta = dryrun.count(step)
+    model = get_model(cfg)
+    params = trainer.trainable(model.init(0, "cuda"))
+    opt_cfg = adamw.AdamWConfig()
+    opt = adamw.init_opt_state(opt_cfg, params)
+    tok = torch.randint(0, cfg.vocab_size, (8, 128), device="cuda",
+                        dtype=torch.int32)
+    grads_of = trainer._grad_fn(model, 2)
+
+    def card_step():
+        grads, loss, _ = grads_of(params, {"tokens": tok, "labels": tok})
+        return adamw.apply_updates(opt_cfg, params, grads, opt)[:2] + (loss,)
+
+    card = dryrun.count(card_step)
+    assert card["flops"] == meta["flops"] > 0
+    assert card["bytes"] == meta["bytes"] > 0
+    rec = {"kind": "train", "seq_len": 128, "global_batch": 8,
+           "n_devices": 1, "flops_per_device": meta["flops"],
+           "bytes_accessed_per_device": meta["bytes"], "collectives": {}}
+    terms = costmodel.roofline_terms(rec)
+    assert terms["step_s"] == max(meta["flops"] / 989.4e12,
+                                  meta["bytes"] / 3.35e12)

@@ -6,7 +6,9 @@ An AST walk finds no ``jax`` and no ``repro`` import in ``src/repro_torch``
 ``chip_smoke.py`` or ``tools/``; a fresh interpreter runs the port (the wave
 loop, the serving paths, the hybrid's forward, the fit -> synthesize ->
 simulate path, the full-stack experiment, the compaction and streaming
-drivers and a crash-restart training run) without loading ``jax``; with no card the entry points raise
+drivers, a crash-restart training run, and the cost-model path: the
+one-card cell writer, the catalog, the profiler and a gelu-MLP model)
+without loading ``jax``; with no card the entry points raise
 unless the caller asks for the CPU; the admission rankings and the model
 families that are not ported are refused.
 """
@@ -54,7 +56,16 @@ def test_no_jax_or_reference_imports(path):
 def test_walk_covers_every_subpackage():
     packages = {p.parent.name for p in PORT_FILES}
     assert {"reliability", "obs", "checkpoint", "core", "ops",
-            "kernels", "optim", "data", "train"} <= packages
+            "kernels", "optim", "data", "train", "configs", "launch",
+            "serving"} <= packages
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"src/repro_torch/core/costmodel.py",
+            "src/repro_torch/obs/profile.py",
+            "src/repro_torch/launch/dryrun.py",
+            "src/repro_torch/configs/shapes.py",
+            "src/repro_torch/configs/granite_3_8b.py",
+            "src/repro_torch/configs/granite_20b.py",
+            "src/repro_torch/configs/stablelm_3b.py"} <= names
 
 
 # a one-replica full-stack experiment on the CPU: a controller, a fleet
@@ -194,6 +205,52 @@ def test_cpu_training_run_leaves_jax_unloaded():
         + NO_REFERENCE)
 
 
+def test_cpu_costmodel_path_leaves_jax_unloaded():
+    """The one-card cell writer (meta device), the catalog priced on the
+    H100 spec, the catalog-fed simulation, the profiler and the smoke
+    granite-20b's serving on the CPU, in a fresh interpreter."""
+    run_fresh(
+        "import sys, tempfile\n"
+        "import numpy as np, torch\n"
+        "from repro_torch.core import costmodel, experiment, workload\n"
+        "from repro_torch.core import model as M\n"
+        "from repro_torch.launch import dryrun\n"
+        "from repro_torch.launch.serve import run_serving\n"
+        "from repro_torch.obs import profile\n"
+        "root = tempfile.mkdtemp()\n"
+        "dryrun.main(['--arch', 'llama3.2-1b', '--shape', 'train_4k',\n"
+        "             '--root', root])\n"
+        "cat = costmodel.accelerator_workload_catalog(root=root)\n"
+        "assert list(cat) == ['llama3.2-1b'], cat\n"
+        "wl = workload.generate_empirical_workload(0, 1800.0)\n"
+        "p = profile.profile_compile_execute(wl, M.PlatformConfig(),\n"
+        "                                    repeats=1, device='cpu')\n"
+        "assert p['waves'] > 0, p\n"
+        "r = run_serving('granite-20b', batch=2, prompt_len=8, new_tokens=3,\n"
+        "                smoke=True, device='cpu')\n"
+        "assert r['all_in_vocab'] and r['logits_finite'], r\n"
+        + NO_REFERENCE)
+
+
+def test_profiler_without_card_raises_unless_cpu_is_asked_for(monkeypatch):
+    from repro_torch.core import model as M
+    from repro_torch.obs import profile
+    from repro_torch.serving.engine import make_prefill_step, make_serve_step
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    wl = workload.generate_empirical_workload(0, 1800.0)
+    for fn in (profile.profile_compile_execute, profile.stage_attribution):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            fn(wl, M.PlatformConfig(), repeats=1)
+    cfg = configs.get_smoke_config("llama3.2-1b")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_prefill_step(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_serve_step(cfg, 1, 8)
+    out = profile.stage_attribution(wl, M.PlatformConfig(), repeats=1,
+                                    device="cpu")
+    assert list(out) == ["select+completion+admission"]
+
+
 def test_training_and_feedback_without_card_raise_unless_cpu_is_asked_for(
         monkeypatch, tmp_path):
     from repro_torch.core.runtime import TriggerSpec, run_feedback_simulation
@@ -313,14 +370,17 @@ def test_serving_without_card_raises_unless_cpu_is_asked_for(monkeypatch):
     (dict(family="ssm"), NotImplementedError),
     (dict(family="audio"), NotImplementedError),
     (dict(use_mla=True), NotImplementedError),
-    (dict(mlp_type="gelu"), NotImplementedError)])
+    # the dense plan with experts is the reference's MoE plan (the gelu
+    # MLP, which this case refused before, is ported)
+    (dict(family="dense", n_experts=2), NotImplementedError)])
 def test_unported_models_are_refused(overrides, error):
     with pytest.raises(error):
         get_model(configs.get_smoke_config("llama3.2-1b", **overrides))
 
 
 def test_unported_archs_are_refused():
-    assert configs.ARCHS == ["llama3.2-1b", "zamba2-1.2b"]
+    assert configs.ARCHS == ["llama3.2-1b", "zamba2-1.2b", "granite-3-8b",
+                             "granite-20b", "stablelm-3b"]
     with pytest.raises(ValueError, match="unported"):
         configs.get_config("xlstm-125m")
 
