@@ -204,6 +204,19 @@ Phases (any failure exits non-zero, with no result line):
     ``obs.profile.profile_compile_execute`` and ``stage_attribution``
     (base, + control, + fleet, + probe) on 14(a)'s spec for one replica
     over ``PROFILE_HORIZON_S``, ``repeats=1``: each stage's us per wave.
+18. The parity auditor (``repro_torch.analysis``), within
+    ``AUDIT_BUDGET_S``: the AST pass; one wave of the smoke spec and of
+    14(a)'s full-stack call traced into an FX graph on the card (as run,
+    with the admission kernel launched inside the trace, and with the
+    plain admission) and on the CPU, each traced wave's operation counts
+    by kind printed; the FFMA / DFMA / HFMA2 counts in the SASS of the
+    five kernel libraries (``kernel-fma``: ``fused_admission`` and
+    ``queue_scan`` must have none; the float kernels' are printed); the
+    32-point smoke sweep's recompile checks on both (one call, one
+    signature, each row recorded alone runs one program, one library per
+    kernel). Fails on any finding neither pragma-suppressed nor in
+    ``analysis_baseline_torch.json``, and on card
+    findings that differ from the CPU's apart from the card-only rules.
 
 The last lines are the kernels' JSON record (a kernel launched on two
 main paths, as flash in the llama prefill, the hybrid forward and the
@@ -375,6 +388,13 @@ CATALOG_PODS = (2, 4, 8)
 DENSE_SERVE = ("granite-3-8b", "stablelm-3b", "granite-20b")
 DENSE_B, DENSE_PROMPT, DENSE_NEW, DENSE_SEED = 2, 512, 16, 0
 PROFILE_HORIZON_S = 18000.0
+# phase 18, the parity auditor, within its own budget: the AST pass; one
+# wave of the smoke spec and of 14(a)'s full-stack call traced on the card
+# (as run, the admission kernel launched inside the trace, and with the
+# plain admission) and on the CPU; the SASS FMA counts of the five
+# libraries (fused_admission and queue_scan must have none); the 32-point
+# smoke sweep's recompile checks on both
+AUDIT_BUDGET_S = 60.0
 FSO_KEYS = ORACLE_KEYS + (
     "ctrl_act", "ctrl_n", "rel_act", "rel_n", "fleet_perf", "fleet_stale",
     "fleet_act", "fleet_n", "pool_arr", "pool_model", "pool_next",
@@ -2175,8 +2195,8 @@ def fullstack_dense_twin(torch, kw, out, per):
 def phase_fullstack(torch, fused_admission, dense, counts):
     """Phase 14: (a) the full stack at width, timed beside the same replicas
     with no stage on; (b) the full-stack oracle ensemble, card against CPU.
-    Returns the full-stack run's admission launches and the kernel's
-    record on that run's inputs."""
+    Returns the full-stack run's admission launches, the kernel's record
+    on that run's inputs and the run's ``simulate_ensemble`` keywords."""
     t0 = time.perf_counter()
     n_keys, max_waves, launched_b, per_b = fullstack_card_vs_cpu(torch, counts)
     log(f"[14] the full-stack oracle ensemble ({ORACLE_R} replicas x "
@@ -2251,7 +2271,7 @@ def phase_fullstack(torch, fused_admission, dense, counts):
         f"simulate_ensemble's wall "
         f"({100 * n * rec['device_ms'] / (ens_wall * 1e3):.2f} % on the "
         "device alone)")
-    return n, rec
+    return n, rec, kw
 
 
 # ------------------------------------------------------------ phase 15
@@ -3207,6 +3227,74 @@ def phase_cost_model(torch, counts, flash_attention, train_llama):
     return paths
 
 
+# ------------------------------------------------------------ phase 18
+
+def phase_audit(torch, fs_kw):
+    """Phase 18: ``repro_torch.analysis``'s three passes on the card and on
+    the CPU. Fails on any finding neither suppressed by a pragma nor in
+    ``analysis_baseline_torch.json``, and on a card finding set that
+    differs from the CPU's apart from the card-only rules (``kernel-fma``,
+    ``kernel-opaque``). The traces launch the admission kernel; phases 3
+    and 14 have read their counts before."""
+    from repro_torch.analysis import findings as F
+    from repro_torch.analysis.__main__ import print_report
+    from repro_torch.analysis.ast_audit import audit_tree
+    from repro_torch.analysis.harness import (CapturedCall, capture_calls,
+                                              smoke_spec)
+    from repro_torch.analysis.jaxpr_audit import (CARD_ONLY_RULES,
+                                                  finding_keys,
+                                                  run_jaxpr_audit)
+    from repro_torch.analysis.recompile_audit import run_recompile_audit
+    from repro_torch.core.experiment import run_experiment
+    root = str(ROOT)
+    card = card_line()
+    t18 = time.perf_counter()
+    ast_fs = audit_tree(root)
+    cpu_kw = {k: v.cpu() if torch.is_tensor(v) else v
+              for k, v in fs_kw.items()}
+    cpu_kw["device"] = "cpu"
+    runs = {}
+    for dev, kw in (("cuda", fs_kw), ("cpu", cpu_kw)):
+        t0 = time.perf_counter()
+        with capture_calls() as smoke:
+            run_experiment(smoke_spec(engine="torch"), device=dev)
+        calls = [("smoke spec", smoke[0]),
+                 ("full-stack 14(a)", CapturedCall((), kw))]
+        traced = run_jaxpr_audit(
+            root, device=dev, calls=calls,
+            report=lambda what, value, dev=dev: print_report(
+                what, value, prefix=f"[18] {dev}: "))
+        t1 = time.perf_counter()
+        grid = run_recompile_audit(root, device=dev)
+        runs[dev] = F.unique(ast_fs + traced + grid)
+        log(f"[18] {dev}: trace pass {t1 - t0:.1f} s, recompile pass "
+            f"{time.perf_counter() - t1:.1f} s; {len(traced)} trace and "
+            f"{len(grid)} recompile findings")
+    active, suppressed = F.split_suppressed(runs["cuda"], root)
+    baseline = F.load_baseline(str(ROOT / "analysis_baseline_torch.json"))
+    new, accepted, _ = F.reconcile(active, baseline)
+    for f in runs["cuda"]:
+        state = ("pragma" if f in suppressed else
+                 "baselined" if f in accepted else "UNBASELINED")
+        log(f"[18] finding ({state}): {f.render()}")
+    if new:
+        raise AssertionError(f"{len(new)} unbaselined findings on the card: "
+                             + "; ".join(f.render() for f in new))
+    on_card, on_cpu = finding_keys(runs["cuda"]), finding_keys(runs["cpu"])
+    if on_card != on_cpu:
+        raise AssertionError(
+            f"the card's findings differ from the CPU's: card only "
+            f"{sorted(on_card - on_cpu)}, CPU only {sorted(on_cpu - on_card)}")
+    card_only = [f for f in runs["cuda"] if f.rule in CARD_ONLY_RULES]
+    wall = time.perf_counter() - t18
+    within = "within" if wall <= AUDIT_BUDGET_S else "OVER"
+    log(f"[18] the parity auditor: {len(runs['cuda'])} findings on the card "
+        f"({len(suppressed)} pragma-suppressed, {len(accepted)} baselined, "
+        f"0 unbaselined, {len(card_only)} card-only), the same set as the "
+        f"CPU's {len(runs['cpu'])}; phase 18 in {wall:.1f} s ({within} its "
+        f"{AUDIT_BUDGET_S:g} s budget); card: {card}")
+
+
 def both_paths(paths, keys=("ms", "plain_ms", "bound_ms", "library_ms")):
     """One kernel's record over the main paths that launch it: launches
     summed, and each time (``keys``) the launch-weighted mean of the
@@ -3298,8 +3386,8 @@ def main() -> int:
     hserve_flash_err = phase_hybrid_serving(torch, flash_attention, counts)
     queue_launches, qrec = phase_queue_sweep(torch, queue_scan, counts)
     phase_engine_oracle(torch, counts)
-    fs_launches, fsrec = phase_fullstack(torch, fused_admission,
-                                         admission_mask_dense, counts)
+    fs_launches, fsrec, fs_kw = phase_fullstack(
+        torch, fused_admission, admission_mask_dense, counts)
     t15 = time.perf_counter()
     ca_launches, carec, _ = phase_compaction(
         torch, fused_admission, admission_mask_dense, counts, inputs, ens,
@@ -3313,6 +3401,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     dense_paths = phase_cost_model(torch, counts, flash_attention,
                                    train_llama)
+    phase_audit(torch, fs_kw)
 
     kernels = [dict(
         name="fused_admission", route="cuda",

@@ -159,6 +159,8 @@ class DeployedModel:
 
     def performance(self, t: float) -> float:
         dt = max(t - self.deployed_at, 0.0)
+        # [0] picks the single result row, not a layout
+        # field.  # parity: allow(layout-index)
         return float(fleet_performance(
             np.float64(self.perf0), np.float64(self.last_jumps),
             np.float64(dt), self._row())[0])

@@ -69,7 +69,7 @@ equal the reference engines' bit for bit.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -389,14 +389,74 @@ def simulate_ensemble(arrival, n_tasks, task_res, service, priority,
     [R, N, T]`` f32, ``attempts [R, N, T]`` i32 (executed admissions),
     ``done [R, N]`` bool, ``waves [R]`` i32, with ``n_attempt_slots``
     ``att_start``/``att_finish [R, N, T, A]``, and the stage buffers above."""
+    if int(sync_every) < 1:
+        raise ValueError(f"sync_every must be >= 1, got {sync_every}")
+    prog = wave_program(
+        arrival, n_tasks, task_res, service, priority, capacities, policy,
+        attempts=attempts, cap_times=cap_times, cap_vals=cap_vals,
+        backoff=backoff, policies=policies, attempt_service=attempt_service,
+        n_attempt_slots=n_attempt_slots, controllers=controllers,
+        fail_holds_frac=fail_holds_frac, admission_sort=admission_sort,
+        n_ctrl_slots=n_ctrl_slots, fleets=fleets, trig=trig,
+        obs_noise=obs_noise, drift_inc=drift_inc, pool_gain=pool_gain,
+        pool_base=pool_base, n_pool_eff=n_pool_eff, probes=probes,
+        n_probe_slots=n_probe_slots, rel_times=rel_times,
+        rel_deltas=rel_deltas, n_rel_slots=n_rel_slots, resume=resume,
+        wave_budget=wave_budget, time_budget=time_budget, device=device)
+    s = prog.state
+    # with a hook the condition is read first, as the reference's
+    # while_loop does; without one the loop issues the ops it always has
+    if not prog.hooked or prog.going(s):
+        while True:
+            for _ in range(int(sync_every)):
+                s = prog.wave(s)
+            if not prog.going(s):
+                break
+    return prog.results(s, return_state)
+
+
+class WaveProgram(NamedTuple):
+    """:func:`simulate_ensemble`'s wave loop as data (:func:`wave_program`):
+    the initial ``state`` (a dict of tensors), ``wave(state) -> state``
+    (one wave for every replica, a pure function with no host read),
+    ``going(state) -> bool`` (the loop condition, one host read),
+    ``hooked`` (a segment-restart hook was given, so the condition is read
+    before the first wave) and ``results(state, return_state) -> dict``
+    (the outputs of :func:`simulate_ensemble`)."""
+
+    state: dict
+    wave: Callable[[dict], dict]
+    going: Callable[[dict], bool]
+    hooked: bool
+    results: Callable[[dict, bool], dict]
+
+
+def wave_program(arrival, n_tasks, task_res, service, priority,
+                 capacities, policy: int = POLICY_FIFO,
+                 attempts=None, cap_times=None, cap_vals=None,
+                 backoff=None, policies=None, attempt_service=None,
+                 n_attempt_slots: Optional[int] = None,
+                 controllers=None, fail_holds_frac=None,
+                 admission_sort: str = "kernel",
+                 n_ctrl_slots: Optional[int] = None,
+                 fleets=None, trig=None, obs_noise=None, drift_inc=None,
+                 pool_gain=None, pool_base=None, n_pool_eff=None,
+                 probes=None, n_probe_slots: Optional[int] = None,
+                 rel_times=None, rel_deltas=None,
+                 n_rel_slots: Optional[int] = None,
+                 resume=None, wave_budget=None, time_budget=None,
+                 device=None) -> WaveProgram:
+    """The set-up of :func:`simulate_ensemble` (its arguments but
+    ``return_state`` and ``sync_every``): the inputs carried to ``device``,
+    the initial state and the six stages, returned as a
+    :class:`WaveProgram`. ``wave`` is what a tracer or a graph capture
+    takes whole (``repro_torch.analysis.jaxpr_audit`` traces it)."""
     dev = resolve_device(device)
     if admission_sort not in ADMISSION_SORTS:
         raise ValueError(f"unknown admission_sort {admission_sort!r}; "
                          f"expected one of {ADMISSION_SORTS}")
     if (cap_times is None) != (cap_vals is None):
         raise ValueError("cap_times and cap_vals must be given together")
-    if int(sync_every) < 1:
-        raise ValueError(f"sync_every must be >= 1, got {sync_every}")
     f32, i32 = torch.float32, torch.int32
 
     def t(x, dt):
@@ -797,8 +857,10 @@ def simulate_ensemble(arrival, n_tasks, task_res, service, priority,
         # done slot's gain (a sum over slots with at most one nonzero term,
         # exact in any reduction order), and the columns add in order
         rank = own.to(i32).cumsum(1, dtype=i32) - 1
-        by_rank = torch.where(own[..., None] & (rank[..., None] == ar_G),
-                              gain_t[:, :, None, None], 0.0).sum(1)
+        kth = torch.where(own[..., None] & (rank[..., None] == ar_G),
+                          gain_t[:, :, None, None], 0.0)
+        # one nonzero term per sum, the proof above
+        by_rank = kth.sum(1)  # parity: allow(loop-reduce)
         gain_m = by_rank[..., 0]
         for k in range(1, n_gain_steps):
             gain_m = gain_m + by_rank[..., k]
@@ -902,6 +964,9 @@ def simulate_ensemble(arrival, n_tasks, task_res, service, priority,
                 float("nan"))
         else:
             f_perf = f_stale = no_fleet
+        # live-pipelines channel: queued + running pipelines. A bool-count
+        # i32 sum is order-independent and exact in f32.
+        # parity: allow(probe-reduce)
         live = ((s["phase"] == _QUEUED) | (s["phase"] == _RUNNING)).sum(
             1, dtype=i32)
         row = torch.cat([qlen.to(f32), busy.to(f32), cap_eff.to(f32),
@@ -966,45 +1031,39 @@ def simulate_ensemble(arrival, n_tasks, task_res, service, priority,
     def going(s):
         return bool(_go(s, _select_events(s)[0]).any())
 
-    # with a hook the condition is read first, as the reference's
-    # while_loop does; without one the loop issues the ops it always has
-    if not hooked or going(s):
-        while True:
-            for _ in range(int(sync_every)):
-                s = wave(s)
-            if not going(s):
-                break
+    def results(s, return_state):
+        res = dict(start=s["start"], finish=s["finish"], ready=s["ready"],
+                   attempts=s["att_out"], done=s["phase"] == _DONE,
+                   waves=s["wave"])
+        if n_attempt_slots is not None:
+            res["att_start"] = s["att_start"]
+            res["att_finish"] = s["att_finish"]
+        if rec_ctrl:
+            res["ctrl_act"] = s["ctrl_act"]
+            res["ctrl_n"] = s["ctrl_n"]
+        if has_rel:
+            res["rel_act"] = s["rel_act"]
+            res["rel_n"] = s["rel_n"]
+        if has_fleet:
+            top = int(s["gain_rank"].max())
+            if top >= n_gain_steps:
+                raise RuntimeError(
+                    f"a model redeployed {top + 1} retraining-pool slots in "
+                    f"one wave, beyond gain_order_bound's {n_gain_steps}: "
+                    "their gains were not all added")
+            for k in ("fleet_perf", "fleet_stale", "fleet_act", "fleet_n",
+                      "pool_arr", "pool_model", "pool_next"):
+                res[k] = s[k]
+        if has_probe:
+            res["probe_vals"] = s["probe_vals"]
+            res["probe_n"] = s["p_tick"]
+        if return_state:
+            res["state"] = s
+            # would the loop go on without the budgets?
+            res["running"] = _running(s, _select_events(s)[0])
+            # rows a driver must keep: padding rows count until their waves
+            # run, as dropping them early would change the wave counter
+            res["n_keep"] = (s["phase"] != _DONE).sum(1, dtype=i32)
+        return res
 
-    res = dict(start=s["start"], finish=s["finish"], ready=s["ready"],
-               attempts=s["att_out"], done=s["phase"] == _DONE,
-               waves=s["wave"])
-    if n_attempt_slots is not None:
-        res["att_start"] = s["att_start"]
-        res["att_finish"] = s["att_finish"]
-    if rec_ctrl:
-        res["ctrl_act"] = s["ctrl_act"]
-        res["ctrl_n"] = s["ctrl_n"]
-    if has_rel:
-        res["rel_act"] = s["rel_act"]
-        res["rel_n"] = s["rel_n"]
-    if has_fleet:
-        top = int(s["gain_rank"].max())
-        if top >= n_gain_steps:
-            raise RuntimeError(
-                f"a model redeployed {top + 1} retraining-pool slots in one "
-                f"wave, beyond gain_order_bound's {n_gain_steps}: their gains "
-                "were not all added")
-        for k in ("fleet_perf", "fleet_stale", "fleet_act", "fleet_n",
-                  "pool_arr", "pool_model", "pool_next"):
-            res[k] = s[k]
-    if has_probe:
-        res["probe_vals"] = s["probe_vals"]
-        res["probe_n"] = s["p_tick"]
-    if return_state:
-        res["state"] = s
-        # would the loop go on without the budgets?
-        res["running"] = _running(s, _select_events(s)[0])
-        # rows a driver must keep: padding rows count until their waves
-        # run, as dropping them early would change the wave counter
-        res["n_keep"] = (s["phase"] != _DONE).sum(1, dtype=i32)
-    return res
+    return WaveProgram(s, wave, going, hooked, results)

@@ -773,3 +773,40 @@ def test_meta_count_equals_the_card_step_and_prices_on_h100():
     terms = costmodel.roofline_terms(rec)
     assert terms["step_s"] == max(meta["flops"] / 989.4e12,
                                   meta["bytes"] / 3.35e12)
+
+
+@pytest.mark.cuda
+def test_engine_kernels_sass_has_no_fma():
+    """``fused_admission`` and ``queue_scan``, the engine kernels held bit
+    for bit, have no FFMA / DFMA / HFMA2 in any function of their SASS
+    (``kernel-fma``), and both libraries' SASS is readable."""
+    _need_card()
+    from repro_torch.analysis.jaxpr_audit import ENGINE_KERNELS, sass_audit
+    findings, counts, audited = sass_audit(ENGINE_KERNELS)
+    assert findings == [], [f.render() for f in findings]
+    assert audited == set(ENGINE_KERNELS)
+    for lib in ENGINE_KERNELS:
+        assert counts[lib], f"no kernel function in {lib}'s SASS"
+        assert all(n == 0 for c in counts[lib].values() for n in c.values())
+
+
+@pytest.mark.cuda
+def test_card_findings_equal_cpu_findings():
+    """The trace pass on the card (the admission kernel launched inside
+    the traced wave, its SASS audited, and the plain admission) finds what
+    it finds on the CPU, apart from the card-only rules, and nothing is
+    left unaudited; the 32-point grid is one call on the card and loads
+    one library per kernel."""
+    _need_card()
+    from repro_torch.analysis import findings as F
+    from repro_torch.analysis.jaxpr_audit import (finding_keys,
+                                                  run_jaxpr_audit)
+    from repro_torch.analysis.recompile_audit import run_recompile_audit
+    root = str(Path(__file__).resolve().parents[1])
+    on_card = run_jaxpr_audit(root, device="cuda")
+    on_cpu = run_jaxpr_audit(root, device="cpu")
+    assert finding_keys(on_card) == finding_keys(on_cpu)
+    assert not [f for f in on_card if f.rule == "kernel-opaque"]
+    active, _ = F.split_suppressed(on_card, root)
+    assert active == [], [f.render() for f in active]
+    assert run_recompile_audit(root, device="cuda", hash_rows=False) == []

@@ -9,6 +9,9 @@ in bf16 (both round the same f32 result to bf16, one ulp at |o| ~ 2 is
 2^-7). The ragged lengths the kernel takes and the Pallas kernel does not
 are held against the reference's oracle.
 """
+import importlib.util
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,6 +25,22 @@ from repro_torch.kernels import ref
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 
 
+def _tool(name):
+    """A script of ``tools/`` as a module."""
+    path = Path(__file__).resolve().parents[1] / "tools" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# the seeded inputs and the bf16 kernel's emulation, shared with
+# tools/flash_row_error.py, which reads the kernel on the same rows
+_rows = _tool("flash_row_error")
+make_qkv = _rows.make_qkv
+emulate_bf16_kernel = _rows.emulate_bf16_kernel
+
+
 @pytest.fixture(autouse=True, scope="module")
 def _one_cpu_thread():
     """The tensors here are small: torch's intra-op threads only contend
@@ -30,12 +49,6 @@ def _one_cpu_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
-
-
-def make_qkv(seed, B, S, H, Hkv, D):
-    rng = np.random.default_rng(seed)
-    return [rng.standard_normal(s).astype(np.float32)
-            for s in ((B, S, H, D), (B, S, Hkv, D), (B, S, Hkv, D))]
 
 
 def both(arrays, dtype):
@@ -103,48 +116,6 @@ def test_public_wrapper_matches_pallas_kernel_and_takes_no_tiles():
     np.testing.assert_allclose(as_f32(got), as_f32(want), atol=TOL["float32"])
     with pytest.raises(TypeError):
         tops.flash_attention(tq, tk, tv, block_q=64)
-
-
-def emulate_bf16_kernel(q, k, v, causal, block_k=128, fold=True):
-    """The arithmetic of the bf16 kernel in ``csrc/flash_attention.cu``,
-    in f32 on the CPU: scores of the bf16 inputs in f32, an online softmax
-    over 128-key tiles (the -1e30 mask and the running max on the unscaled
-    scores, exp2 of the scores scaled by ``log2(e) / sqrt(D)``), P split
-    into bf16 hi + lo and both products accumulated in f32, then
-    ``acc / max(l, 1e-20)`` rounded to bf16. ``fold``: the exponent as the
-    kernel computes it, one FMA ``fmaf(s, sl2, -m sl2)`` (the product
-    exact, one rounding); without it, ``s sl2`` is rounded before the
-    subtraction."""
-    B, S, H, D = q.shape
-    rep = H // k.shape[2]
-    qf = q.float().permute(0, 2, 1, 3)                            # [B,H,S,D]
-    kf = k.float().repeat_interleave(rep, 2).permute(0, 2, 1, 3)
-    vf = v.float().repeat_interleave(rep, 2).permute(0, 2, 1, 3)
-    sl2 = np.float32(1.0 / np.sqrt(D)) * np.float32(1.4426950408889634)
-    m = torch.full((B, H, S, 1), -1e30)
-    l = torch.zeros((B, H, S, 1))
-    acc = torch.zeros((B, H, S, D))
-    rows = torch.arange(S)[:, None]
-    for k0 in range(0, S, block_k):
-        keys = torch.arange(k0, min(S, k0 + block_k))[None, :]
-        x = qf @ kf[:, :, k0:k0 + block_k].transpose(2, 3)
-        if causal:
-            x = torch.where(keys > rows, torch.tensor(-1e30), x)
-        m_new = torch.maximum(m, x.amax(-1, keepdim=True))
-        alpha = torch.exp2((m - m_new) * sl2)
-        msl = m_new * sl2
-        if fold:
-            p = torch.exp2((x.double() * float(sl2) - msl.double()).float())
-        else:
-            p = torch.exp2(x * sl2 - msl)
-        hi = p.bfloat16().float()
-        lo = (p - hi).bfloat16().float()
-        vt = vf[:, :, k0:k0 + block_k]
-        acc = acc * alpha + hi @ vt + lo @ vt
-        l = l * alpha + p.sum(-1, keepdim=True)
-        m = m_new
-    out = acc / torch.clamp(l, min=1e-20)
-    return out.permute(0, 2, 1, 3).bfloat16()
 
 
 @pytest.mark.parametrize("B,S,H,Hkv,D", [

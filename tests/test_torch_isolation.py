@@ -1,13 +1,14 @@
 """The port stands alone: no JAX, no reference module, no silent CPU.
 
 An AST walk finds no ``jax`` and no ``repro`` import in ``src/repro_torch``
-(its ``reliability/``, ``obs/``, ``checkpoint/``, ``optim/``, ``data/`` and
-``train/`` subpackages included),
-``chip_smoke.py`` or ``tools/``; a fresh interpreter runs the port (the wave
-loop, the serving paths, the hybrid's forward, the fit -> synthesize ->
-simulate path, the full-stack experiment, the compaction and streaming
-drivers, a crash-restart training run, and the cost-model path: the
-one-card cell writer, the catalog, the profiler and a gelu-MLP model)
+(its ``reliability/``, ``obs/``, ``checkpoint/``, ``optim/``, ``data/``,
+``train/`` and ``analysis/`` subpackages included), ``chip_smoke.py`` or
+``tools/``; the auditor (``analysis/``) has a counterpart of every file of
+the reference's; a fresh interpreter runs the port (the wave loop, the
+serving paths, the hybrid's forward, the fit -> synthesize -> simulate
+path, the full-stack experiment, the compaction and streaming drivers, a
+crash-restart training run, the cost-model path: the one-card cell writer,
+the catalog, the profiler and a gelu-MLP model, and the parity auditor)
 without loading ``jax``; with no card the entry points raise
 unless the caller asks for the CPU; the admission rankings and the model
 families that are not ported are refused.
@@ -57,7 +58,7 @@ def test_walk_covers_every_subpackage():
     packages = {p.parent.name for p in PORT_FILES}
     assert {"reliability", "obs", "checkpoint", "core", "ops",
             "kernels", "optim", "data", "train", "configs", "launch",
-            "serving"} <= packages
+            "serving", "analysis"} <= packages
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     assert {"src/repro_torch/core/costmodel.py",
             "src/repro_torch/obs/profile.py",
@@ -66,6 +67,9 @@ def test_walk_covers_every_subpackage():
             "src/repro_torch/configs/granite_3_8b.py",
             "src/repro_torch/configs/granite_20b.py",
             "src/repro_torch/configs/stablelm_3b.py"} <= names
+    # the parity auditor: a counterpart of every reference file
+    ref = {p.name for p in (ROOT / "src" / "repro" / "analysis").glob("*.py")}
+    assert {f"src/repro_torch/analysis/{n}" for n in ref} <= names
 
 
 # a one-replica full-stack experiment on the CPU: a controller, a fleet
@@ -230,6 +234,41 @@ def test_cpu_costmodel_path_leaves_jax_unloaded():
         "                smoke=True, device='cpu')\n"
         "assert r['all_in_vocab'] and r['logits_finite'], r\n"
         + NO_REFERENCE)
+
+
+def test_cpu_analysis_run_leaves_jax_unloaded():
+    """The auditor's CLI on the CPU (the AST pass reads the reference's
+    sources as text, the trace pass runs the port's engine) in a fresh
+    interpreter."""
+    run_fresh(
+        "import sys, tempfile, os\n"
+        "from repro_torch.analysis.__main__ import main\n"
+        "out = os.path.join(tempfile.mkdtemp(), 'a.json')\n"
+        f"rc = main(['--root', {str(ROOT)!r}, '--device', 'cpu',\n"
+        "           '--passes', 'ast,jaxpr', '--json', out])\n"
+        "assert rc == 0, rc\n" + NO_REFERENCE)
+
+
+def test_analysis_without_card_raises_unless_cpu_is_asked_for(monkeypatch,
+                                                              tmp_path):
+    """The passes that run the engine run on the card or raise; the CLI
+    reports that as an analyzer error (exit 2); with the CPU asked for
+    they run. The AST pass runs no code and needs no device."""
+    from repro_torch.analysis.__main__ import main
+    from repro_torch.analysis.harness import smoke_spec
+    from repro_torch.analysis.jaxpr_audit import run_jaxpr_audit
+    from repro_torch.analysis.recompile_audit import run_recompile_audit
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_jaxpr_audit(str(ROOT))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_recompile_audit(str(ROOT))
+    out = str(tmp_path / "a.json")
+    assert main(["--root", str(ROOT), "--passes", "jaxpr",
+                 "--json", out]) == 2
+    assert main(["--root", str(ROOT), "--passes", "ast", "--json", out]) == 0
+    grid = experiment.Sweep(smoke_spec(), {"capacity:a": [3, 4]})
+    assert run_recompile_audit(str(ROOT), sweep=grid, device="cpu") == []
 
 
 def test_profiler_without_card_raises_unless_cpu_is_asked_for(monkeypatch):
