@@ -184,10 +184,11 @@ Phases (any failure exits non-zero, with no result line):
     for bit, the admission kernel launched on the card's run.
 
 17. The cost-model link, within ``COST_BUDGET_S``: (a) ``launch/dryrun.py``'s
-    writer counts the five ported archs x the four shapes on the meta
+    writer counts the seven ported archs x the four shapes on the meta
     device (no card; ``DRYRUN_WORKERS`` processes, while (c) and (d) run)
-    into a temporary root: every dense ``long_500k`` a skip, the other 16
-    cells counted; each cell's FLOPs, bytes, dominant term and roofline
+    into a temporary root: every dense and MoE ``long_500k`` a skip, the
+    other 22 cells counted (a train cell's one microbatch taken
+    ``TRAIN_MICROBATCHES`` times); each cell's FLOPs, bytes, dominant term and roofline
     step on ``costmodel.H100``. (b) ``accelerator_workload_catalog`` of
     those cells, its medians, and ``examples/accelerator_platform.py``'s
     workload drawn from it (whole seconds) through ``run_experiment`` on
@@ -217,6 +218,27 @@ Phases (any failure exits non-zero, with no result line):
     kernel). Fails on any finding neither pragma-suppressed nor in
     ``analysis_baseline_torch.json``, and on card
     findings that differ from the CPU's apart from the card-only rules.
+19. The MoE family with MLA, within ``MOE_BUDGET_S``: (a)
+    deepseek-v3-671b at full width and 4 layers (3 dense MLA layers, 1
+    MoE layer of 256 experts top-8 plus 1 shared; bf16, 15.1 B parameters)
+    served by ``ServingEngine`` on the plain attention, then again with
+    ``mla_absorbed=True``: TTFT, decode tokens/s, peak GiB after init and
+    after generation, and the prefill's MoE ``load_balance_loss`` and
+    ``dropped_fraction``; finite logits, tokens in the vocab, no kernel
+    launched, and ``attn_impl="flash"`` refused at ``get_model`` with a
+    ``ValueError``. (b) llama4-maverick-400b-a17b at full width and 2
+    layers (one super block: a dense layer, d_ff 16,384, then a MoE layer
+    of 128 experts top-1 plus 1 shared; GQA 40/8; 18.7 B) through the
+    flash kernel, which launches once per attention layer of the prefill
+    and nothing else; the same prints. (c) The flash kernel on (b)'s
+    layer-0 q/k/v (q ``[2, 512, 40, 128]``, kv 8 heads, bf16, causal)
+    against its plain version at the bf16 gates, timed beside SDPA and its
+    bound. (d) The smoke configs (deepseek with and without
+    ``mla_absorbed``, maverick under flash and the plain attention) from
+    one CPU init on the card and on the CPU in f32 (no TF32): prefill, 2
+    teacher-forced decode steps and ``loss_fn``; each MoE call's ``idx``,
+    ``rank`` and ``keep`` equal exactly, logits and losses within
+    ``MOE_TWIN_TOL``.
 
 The last lines are the kernels' JSON record (a kernel launched on two
 main paths, as flash in the llama prefill, the hybrid forward and the
@@ -374,7 +396,7 @@ TRAIN_GRAD_F64_FACTOR = 2.0
 TRAIN_LOSS_TOL = 1e-4
 FB_SEED = 5
 # phase 17, the cost-model link, within its own budget on the card: (a)
-# the five ported archs x the four shapes counted on the meta device by
+# the seven ported archs x the four shapes counted on the meta device by
 # DRYRUN_WORKERS processes while (c) and (d) run; (b) the catalog's
 # train_4k tasks (examples/accelerator_platform.py's 300 retraining jobs
 # of 2,000 steps over a week) through the engine at 2/4/8 pods; (c) the
@@ -395,6 +417,19 @@ PROFILE_HORIZON_S = 18000.0
 # libraries (fused_admission and queue_scan must have none); the 32-point
 # smoke sweep's recompile checks on both
 AUDIT_BUDGET_S = 60.0
+# phase 19, the MoE family on the card within its own budget: the two MoE
+# archs at full width in bf16, cut in depth only (deepseek-v3-671b to 3
+# dense MLA layers + 1 MoE layer, 15.1 B parameters; llama4-maverick to one
+# super block, a dense layer then a MoE layer, 18.7 B), random weights from
+# MOE_SEED, served by ServingEngine at batch MOE_B, MOE_PROMPT-token prompts
+# and MOE_NEW new tokens; then the smoke configs on the card against the
+# CPU in f32 (no TF32): prefill of MOE_TWIN_S tokens, 2 teacher-forced
+# decode steps and the loss, routing equal exactly, logits and loss within
+# MOE_TWIN_TOL (the two devices sum in other orders, ~1e-6 at |logit| ~ 5)
+MOE_BUDGET_S = 150.0
+MOE_LAYERS = {"deepseek-v3-671b": 4, "llama4-maverick-400b-a17b": 2}
+MOE_B, MOE_PROMPT, MOE_NEW, MOE_SEED = 2, 512, 16, 0
+MOE_TWIN_S, MOE_TWIN_TOL = 24, 1e-5
 FSO_KEYS = ORACLE_KEYS + (
     "ctrl_act", "ctrl_n", "rel_act", "rel_n", "fleet_perf", "fleet_stale",
     "fleet_act", "fleet_n", "pool_arr", "pool_model", "pool_next",
@@ -2963,9 +2998,10 @@ def phase_training(torch, counts, flash_attention, mamba2_scan):
 # ------------------------------------------------------------ phase 17
 
 def report_cells(cells, wall):
-    """17(a): the 20 records written, dense ``long_500k`` a skip and every
-    other cell counted; prints each cell's FLOPs, bytes, dominant term and
-    roofline step on the H100 spec."""
+    """17(a): the 28 records written, ``long_500k`` a skip for every
+    full-attention arch (dense and MoE) and every other cell counted;
+    prints each cell's FLOPs, bytes, dominant term and roofline step on
+    the H100 spec."""
     from repro_torch import configs
     from repro_torch.core import costmodel
     want = {(a, s) for a in configs.ARCHS for s in configs.SHAPES}
@@ -3295,6 +3331,218 @@ def phase_audit(torch, fs_kw):
         f"{AUDIT_BUDGET_S:g} s budget); card: {card}")
 
 
+# ------------------------------------------------------------ phase 19
+
+class MoeTap:
+    """Stands in for ``models.moe.apply_moe``: runs it and keeps the first
+    call's aux values (the prefill's first MoE layer)."""
+
+    def __init__(self, fn):
+        self.fn, self.aux = fn, None
+
+    def __call__(self, *args, **kw):
+        y, aux = self.fn(*args, **kw)
+        if self.aux is None:
+            self.aux = {k: v.detach().clone() for k, v in aux.items()}
+        return y, aux
+
+
+def serve_moe(torch, counts, flash_attention, card, arch, impl, variants):
+    """19(a)/(b): ``arch`` at full width and ``MOE_LAYERS[arch]`` layers in
+    bf16 from ``MOE_SEED``, served by ``ServingEngine`` under each of
+    ``variants`` (``(name, config overrides)``) on one parameter tree.
+    Each variant generates twice (2 tokens to warm up, then ``MOE_NEW``,
+    measured, with the launch counts read around it). Returns the
+    measured runs' flash launches and the kept layer-0 q/k/v of the last
+    run, after freeing the model."""
+    import dataclasses
+    import gc
+    from repro_torch import configs
+    from repro_torch.launch.serve import random_prompts
+    from repro_torch.models import attention, moe
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.transformer import get_model
+    from repro_torch.serving.engine import ServeConfig, ServingEngine
+    cfg = configs.get_config(arch, n_layers=MOE_LAYERS[arch], attn_impl=impl)
+    model = get_model(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(MOE_SEED, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_gib = torch.cuda.max_memory_allocated() / 2**30
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    log(f"[19] {arch}, {cfg.n_layers} layers at full width (plan "
+        f"{model.plan}), bf16: {n_params:,} parameters "
+        f"({n_params * 2 / 2**30:.2f} GiB) drawn in {init_s:.2f} s; peak "
+        f"{init_gib:.2f} GiB after init; card: {card}")
+    gen = torch.Generator(device="cuda").manual_seed(MOE_SEED + 1)
+    prompts = random_prompts(cfg.vocab_size, MOE_B, MOE_PROMPT, gen)
+    scfg = ServeConfig(batch=MOE_B, max_len=MOE_PROMPT + MOE_NEW + 1)
+    n_attn = cfg.n_layers if impl == "flash" else 0
+    launches, kept = [], None
+    for name, over in variants:
+        eng = ServingEngine(dataclasses.replace(cfg, **over), scfg,
+                            params=params, device="cuda")
+        eng.generate(prompts, 2)
+        tap, ftap = MoeTap(moe.apply_moe), CallTap(flash_attention)
+        moe.apply_moe, attention.flash_attention = tap, ftap
+        torch.cuda.synchronize()
+        for k in counts:
+            k.launches = 0
+        try:
+            out = eng.generate(prompts, MOE_NEW)
+        finally:
+            moe.apply_moe = tap.fn
+            attention.flash_attention = flash_attention
+        launched = {k.__name__: k.launches for k in counts}
+        st = eng.last_stats
+        if launched["flash_attention"] != n_attn or any(
+                n for kname, n in launched.items()
+                if kname != "flash_attention"):
+            raise AssertionError(f"19 {arch} {name}: launched {launched}, "
+                                 f"not flash {n_attn} times")
+        if not (st["logits_finite"] and out.shape == (MOE_B, MOE_NEW)
+                and (out >= 0).all() and (out < cfg.vocab_size).all()):
+            raise AssertionError(f"19 {arch} {name}: logits finite "
+                                 f"{st['logits_finite']}, tokens {out}")
+        aux = {k: float(v) for k, v in tap.aux.items()}
+        if not all(np.isfinite(v) for v in aux.values()):
+            raise AssertionError(f"19 {arch} {name}: aux {aux}")
+        log(f"[19] {arch} {name} (attn_impl={impl}), batch {MOE_B}, "
+            f"{MOE_PROMPT}-token prompts, {MOE_NEW} new tokens: time to "
+            f"first token {st['prefill_s']:.4f} s; decode "
+            f"{MOE_B * (MOE_NEW - 1) / st['decode_s']:.1f} tokens/s; peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB after "
+            f"generation; the prefill's MoE layer: load_balance_loss "
+            f"{aux['load_balance_loss']:.6f}, dropped_fraction "
+            f"{aux['dropped_fraction']:.6f}; flash_attention launches "
+            f"{launched['flash_attention']}; logits finite, tokens in the "
+            f"vocab; card: {card}")
+        launches.append(launched["flash_attention"])
+        kept = ftap.kept
+        del eng, out
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, kept
+
+
+def moe_card_vs_cpu(torch):
+    """19(d): the smoke MoE configs from one CPU init (f32), on the card
+    and on the CPU: prefill of ``MOE_TWIN_S`` tokens, 2 teacher-forced
+    decode steps and ``loss_fn``. Each MoE call's routing (``idx``,
+    ``rank``, ``keep``) equal exactly; logits and the loss, its cross
+    entropy and aux loss within ``MOE_TWIN_TOL``. Returns the largest
+    differences and the MoE calls compared."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models import moe
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.transformer import get_model
+    cases = (("deepseek-v3-671b", ({}, {"mla_absorbed": True})),
+             ("llama4-maverick-400b-a17b", ({"attn_impl": "flash"},
+                                            {"attn_impl": "xla"})))
+    route = moe.route
+    worst = {"logits": 0.0, "loss": 0.0}
+    n_calls = 0
+    for arch, variants in cases:
+        base = configs.get_smoke_config(arch)
+        cpu_params = get_model(base).init(MOE_SEED, "cpu")
+        card_params = tree_map(lambda t: t.to("cuda"), cpu_params)
+        toks = torch.from_numpy(np.random.default_rng(MOE_SEED).integers(
+            0, base.vocab_size, (2, MOE_TWIN_S + 3)).astype(np.int32))
+        S = MOE_TWIN_S
+        for over in variants:
+            m = get_model(dataclasses.replace(base, **over))
+            runs = {}
+            for dev, params in (("cuda", card_params), ("cpu", cpu_params)):
+                routes = []
+
+                def spy(*a, **kw):
+                    r = route(*a, **kw)
+                    routes.append({k: r[k].cpu() for k in ("idx", "rank",
+                                                           "keep")})
+                    return r
+
+                moe.route = spy
+                try:
+                    t = toks.to(dev)
+                    with torch.no_grad():
+                        logits, cache = m.prefill(params, t[:, :S], S + 2)
+                        out = [logits]
+                        for i in range(2):
+                            logits, cache = m.decode_step(
+                                params, t[:, S + i:S + i + 1], cache, S + i)
+                            out.append(logits)
+                        loss, met = m.loss_fn(params, {
+                            "tokens": t[:, :-1], "labels": t[:, 1:]})
+                finally:
+                    moe.route = route
+                runs[dev] = ([o.cpu() for o in out],
+                             [float(v) for v in (loss, met["ce_loss"],
+                                                 met["aux_loss"])], routes)
+            (lg, lc), (sg, sc), (rg, rc) = zip(runs["cuda"], runs["cpu"])
+            if len(rg) != len(rc) or not rg or any(
+                    not torch.equal(a[k], b[k])
+                    for a, b in zip(rg, rc) for k in a):
+                raise AssertionError(f"19(d) {arch} {over}: the card's "
+                                     "routing differs from the CPU's")
+            d_logits = max(float((a - b).abs().max()) for a, b in zip(lg, lc))
+            d_loss = max(abs(a - b) for a, b in zip(sg, sc))
+            if not (d_logits <= MOE_TWIN_TOL and d_loss <= MOE_TWIN_TOL):
+                raise AssertionError(f"19(d) {arch} {over}: logits "
+                                     f"{d_logits}, loss {d_loss}")
+            log(f"[19] (d) smoke {arch} {over or 'plain'}: {len(rg)} MoE "
+                f"calls routed equally on the card and the CPU; logits "
+                f"within {d_logits:.3g}, loss / ce / aux within {d_loss:.3g} "
+                f"(tol {MOE_TWIN_TOL:g}); loss {sg[0]:.6f}")
+            worst = {"logits": max(worst["logits"], d_logits),
+                     "loss": max(worst["loss"], d_loss)}
+            n_calls += len(rg)
+    return worst, n_calls
+
+
+def phase_moe(torch, counts, flash_attention):
+    """Phase 19 within ``MOE_BUDGET_S``. Returns (b)'s flash path for the
+    kernels' line."""
+    from repro_torch import configs
+    from repro_torch.models.transformer import get_model
+    card = card_line()
+    t19 = time.perf_counter()
+    ds = "deepseek-v3-671b"
+    try:
+        get_model(configs.get_config(ds, n_layers=MOE_LAYERS[ds],
+                                     attn_impl="flash"))
+    except ValueError as e:
+        log(f"[19] (a) {ds} under attn_impl='flash' refused: {e}")
+    else:
+        raise AssertionError(f"19(a) {ds}: MLA under flash was not refused")
+    serve_moe(torch, counts, flash_attention, card, ds, "xla",
+              (("plain MLA", {}), ("absorbed MLA", {"mla_absorbed": True})))
+    mv = "llama4-maverick-400b-a17b"
+    (launches,), kept = serve_moe(torch, counts, flash_attention, card, mv,
+                                  "flash", (("GQA 40/8", {}),))
+    rec = time_flash(torch, flash_attention, kept, 19,
+                     f"on {mv}'s layer-0 prefill inputs")
+    del kept
+    torch.cuda.empty_cache()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        worst, n_calls = moe_card_vs_cpu(torch)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    wall = time.perf_counter() - t19
+    within = "within" if wall <= MOE_BUDGET_S else "OVER"
+    log(f"[19] (d) card == CPU routing on {n_calls} MoE calls; logits within "
+        f"{worst['logits']:.3g}, losses within {worst['loss']:.3g}; phase 19 "
+        f"in {wall:.1f} s ({within} its {MOE_BUDGET_S:g} s budget); card: "
+        f"{card}")
+    return ("maverick prefill", launches, rec)
+
+
 def both_paths(paths, keys=("ms", "plain_ms", "bound_ms", "library_ms")):
     """One kernel's record over the main paths that launch it: launches
     summed, and each time (``keys``) the launch-weighted mean of the
@@ -3402,6 +3650,7 @@ def main() -> int:
     dense_paths = phase_cost_model(torch, counts, flash_attention,
                                    train_llama)
     phase_audit(torch, fs_kw)
+    moe_path = phase_moe(torch, counts, flash_attention)
 
     kernels = [dict(
         name="fused_admission", route="cuda",
@@ -3420,10 +3669,11 @@ def main() -> int:
         replaces="src/repro/kernels/flash_attention.py:25",
         max_abs_err=max(flash_grid_err, frec["max_abs_err"],
                         hfrec["max_abs_err"], hserve_flash_err,
-                        *(rec["max_abs_err"] for _, _, rec in dense_paths)),
+                        *(rec["max_abs_err"] for _, _, rec in dense_paths),
+                        moe_path[2]["max_abs_err"]),
         **both_paths([("llama prefill", flash_launches, frec),
                       ("hybrid forward", hyb["flash_launches"], hfrec)]
-                     + dense_paths)),
+                     + dense_paths + [moe_path])),
         dict(
         name="gmm_logpdf", route="cuda",
         source="src/repro_torch/kernels/csrc/gmm_logpdf.cu",

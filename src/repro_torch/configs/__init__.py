@@ -23,6 +23,8 @@ _MODULES = {
     "granite-3-8b": "repro_torch.configs.granite_3_8b",
     "granite-20b": "repro_torch.configs.granite_20b",
     "stablelm-3b": "repro_torch.configs.stablelm_3b",
+    "deepseek-v3-671b": "repro_torch.configs.deepseek_v3_671b",
+    "llama4-maverick-400b-a17b": "repro_torch.configs.llama4_maverick",
 }
 
 ARCHS = list(_MODULES)
@@ -52,8 +54,9 @@ def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> Dict:
     """Meta-tensor stand-ins for the step inputs of one cell.
 
     The decode cache is the port's own ``init_cache(B, S, device="meta")``:
-    the same leaves as the reference's (``{"stage0": (k, v)}``, and the
-    hybrid's conv/SSM states and shared K/V), which the port writes in
+    the same leaves as the reference's (``{"stage<i>": (k, v)}``, MLA's
+    latents, a super block's dict, and the hybrid's conv/SSM states and
+    shared K/V), which the port writes in
     place where the reference returns updated copies. ``pos`` is a Python
     int in the port's steps; its stand-in keeps the reference's 0-d int32.
     The vlm and audio inputs belong to families the port has not got."""

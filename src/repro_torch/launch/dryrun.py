@@ -9,8 +9,11 @@ and computes nothing, so no card is used (as the reference's compiles on
 fake devices use no TPU; this is not a CPU fallback: nothing is computed).
 The step is the port's own:
 
-- train: ``train.trainer._grad_fn`` with the reference's
-  ``TRAIN_MICROBATCHES``, then ``optim.adamw.apply_updates``;
+- train: ``train.trainer``'s microbatched gradient with the reference's
+  ``TRAIN_MICROBATCHES``, then ``optim.adamw.apply_updates``; one
+  microbatch is counted and taken ``TRAIN_MICROBATCHES`` times (each
+  dispatches the same operations on the same shapes: the same count as
+  the whole step's, in an eighth of the time for the MoE archs);
 - prefill: ``serving.engine.make_prefill_step``;
 - decode: ``serving.engine.make_serve_step`` at the cache's last position.
 
@@ -116,14 +119,21 @@ def _tree_bytes(tree) -> int:
 def count(step: Callable[[], object]) -> Dict:
     """FLOPs, bytes and wall of one call of ``step`` (on meta tensors in
     the dry-run; the count is the same on any device), and the bytes of
-    what it returns."""
+    what it returns. A step with ``parts``, ``((fn, times), ...)`` run in
+    order, is counted as its parts: each ``fn`` run once and its FLOPs
+    and bytes taken ``times`` times (a microbatch's gradient, which every
+    microbatch repeats on the same shapes), the output the last part's."""
+    parts = getattr(step, "parts", None) or ((step, 1),)
     t0 = time.perf_counter()
-    flop_mode = FlopCounterMode(display=False)
-    bytes_mode = ByteCounter()
-    with flop_mode, bytes_mode:
-        out = step()
-    return {"flops": float(flop_mode.get_total_flops()),
-            "bytes": float(bytes_mode.bytes),
+    flops = nbytes = 0
+    for fn, times in parts:
+        flop_mode = FlopCounterMode(display=False)
+        bytes_mode = ByteCounter()
+        with flop_mode, bytes_mode:
+            out = fn()
+        flops += times * flop_mode.get_total_flops()
+        nbytes += times * bytes_mode.bytes
+    return {"flops": float(flops), "bytes": float(nbytes),
             "output_bytes": _tree_bytes(out),
             "wall_s": time.perf_counter() - t0}
 
@@ -131,24 +141,48 @@ def count(step: Callable[[], object]) -> Dict:
 def cell_step(cfg: ModelConfig, spec: ShapeSpec, *, microbatches: int = 1,
               moment_dtype: str = "float32"):
     """``(step, argument bytes)``: the cell's step closed over meta
-    parameters and inputs (and, to train, the optimizer state)."""
+    parameters and inputs (and, to train, the optimizer state). A train
+    step of several microbatches also carries ``parts`` for
+    :func:`count`: the accumulators' start, one microbatch (taken
+    ``microbatches`` times), then the average and the update."""
     from repro_torch.serving.engine import make_prefill_step, make_serve_step
-    from repro_torch.train.trainer import _grad_fn, trainable
+    from repro_torch.train import trainer
     params, _ = CN.param_specs(cfg)
     ins = CN.input_specs(cfg, spec)
     B, S = spec.global_batch, spec.seq_len
     if spec.kind == "train":
-        params = trainable(params)
+        params = trainer.trainable(params)
         opt_cfg = adamw.AdamWConfig(moment_dtype=moment_dtype)
         opt_state = adamw.init_opt_state(opt_cfg, params)
-        grads_of = _grad_fn(get_model(cfg), microbatches)
+        model = get_model(cfg)
+        grads_of = trainer._grad_fn(model, microbatches)
 
-        def step():
-            grads, loss, _ = grads_of(params, ins["batch"])
+        def update(grads, loss):
             new_p, new_o, _ = adamw.apply_updates(opt_cfg, params, grads,
                                                   opt_state)
             return new_p, new_o, loss
 
+        def step():
+            grads, loss, _ = grads_of(params, ins["batch"])
+            return update(grads, loss)
+
+        if microbatches > 1:
+            start, micro, finish = trainer.microbatch_parts(
+                trainer._value_and_grad(model), microbatches)
+            acc = {}
+
+            def first():
+                acc["a"] = start(params)
+                return acc["a"]
+
+            def one():
+                acc["a"] = micro(acc["a"], params, ins["batch"], 0)
+                return acc["a"]
+
+            def last():
+                return update(*finish(acc["a"])[:2])
+
+            step.parts = ((first, 1), (one, microbatches), (last, 1))
         args = (params, opt_state, ins["batch"])
     elif spec.kind == "prefill":
         prefill_step = make_prefill_step(cfg, B, S, device="meta")

@@ -1,4 +1,5 @@
-"""Grouped-query self-attention (mirrors :mod:`repro.models.attention`).
+"""Grouped-query self-attention and MLA (mirrors
+:mod:`repro.models.attention`).
 
 Two modes share one softmax core:
   prefill  full sequence, causal (with or without a KV cache)
@@ -7,9 +8,11 @@ Two modes share one softmax core:
 ``impl="flash"`` routes the full-sequence causal path through the
 hand-written flash-attention kernel
 (:func:`repro_torch.kernels.flash_attention.flash_attention`); ``"xla"`` is
-the plain PyTorch path, named as in the reference. The reference's sharding
-constraints are the identity on one device and are dropped; its MLA and
-cross-attention are not ported yet.
+the plain PyTorch path, named as in the reference. The kernel takes one
+head dim for q, k and v, so MLA (q and k of ``d_nope + d_rope``, v of
+``d_v``) is refused under ``"flash"``, as the reference's kernel refuses
+it. The reference's sharding constraints are the identity on one device
+and are dropped; its cross-attention is not ported yet.
 """
 from __future__ import annotations
 
@@ -18,7 +21,8 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models.common import Builder, apply_rope, einsum
+from repro_torch.models.common import (Builder, apply_rope, einsum,
+                                       rms_norm)
 
 _NEG = -1e30
 
@@ -29,7 +33,8 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
          q_chunk: int = -1) -> torch.Tensor:
     """Grouped scaled-dot-product attention.
 
-    q: [B, Sq, H, Dh]; k, v: [B, Skv, Hkv, Dh] with H % Hkv == 0.
+    q, k: [B, Sq|Skv, H|Hkv, Dh]; v: [B, Skv, Hkv, Dv] with H % Hkv == 0;
+    the output is [B, Sq, H, Dv] (MLA's Dv differs from Dh).
     ``q_positions``: absolute positions of the queries (causal masking
     when Sq != Skv, e.g. decode). ``kv_valid_len``: [B] valid cache
     entries (decode).
@@ -37,6 +42,9 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     B, Sq, H, Dh = q.shape
     rep = H // k.shape[2]
     if impl == "flash" and Sq == k.shape[1] and causal and kv_valid_len is None:
+        if v.shape[-1] != Dh:
+            raise ValueError(f"the flash kernel takes one head dim for q, k "
+                             f"and v, got {Dh} and {v.shape[-1]}")
         # the kernel reads [B, S, H, D] in place: no copy unless a
         # projection returned a strided view
         return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
@@ -135,4 +143,91 @@ def apply_gqa(p: dict, x: torch.Tensor, *, positions: torch.Tensor,
             out = sdpa(q, ck, cv, causal=causal, q_positions=positions,
                        kv_valid_len=valid, impl=impl, q_chunk=q_chunk)
     y = einsum("bshk,hkd->bsd", out, p["wo"])
+    return y, cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V3: latent-compressed KV with decoupled RoPE)
+# ---------------------------------------------------------------------------
+
+def init_mla(gen: torch.Generator, d_model: int, n_heads: int, *,
+             q_rank: int = 1536, kv_rank: int = 512, d_nope: int = 128,
+             d_rope: int = 64, d_v: int = 128, dtype=torch.float32,
+             device=None) -> dict:
+    b = Builder(gen, dtype, device)
+    b.dense("wq_a", (d_model, q_rank))
+    b.ones("q_norm", (q_rank,))
+    b.dense("wq_b", (q_rank, n_heads, d_nope + d_rope))
+    b.dense("wkv_a", (d_model, kv_rank + d_rope))
+    b.ones("kv_norm", (kv_rank,))
+    b.dense("wkv_b", (kv_rank, n_heads, d_nope + d_v))
+    b.dense("wo", (n_heads, d_v, d_model))
+    return b.done()
+
+
+def apply_mla(p: dict, x: torch.Tensor, *, positions: torch.Tensor,
+              d_nope: int = 128, d_rope: int = 64, d_v: int = 128,
+              kv_rank: int = 512, rope_theta: float = 10000.0,
+              cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+              cache_pos: int = 0, absorbed: bool = False,
+              impl: str = "xla", q_chunk: int = -1):
+    """Multi-head Latent Attention. The cache holds ``(c_kv [B, Smax,
+    kv_rank], k_rope [B, Smax, d_rope])``, written in place at
+    ``cache_pos``. Returns (out, cache).
+
+    ``absorbed=False`` expands K/V from the latent at every step (the
+    paper's compute). ``absorbed=True`` folds ``wkv_b`` into the query and
+    output projections, so attention runs in the latent space and never
+    materialises K/V. The q and kv norms take ``rms_norm``'s default eps,
+    as the reference's do."""
+    B, S, _ = x.shape
+    H = p["wq_b"].shape[1]
+    q_lat = rms_norm(einsum("bsd,dr->bsr", x, p["wq_a"]), p["q_norm"])
+    q = einsum("bsr,rhk->bshk", q_lat, p["wq_b"])
+    q_nope, q_rope = q[..., :d_nope], q[..., d_nope:]
+    q_rope = apply_rope(q_rope, positions, rope_theta)
+
+    kv_a = einsum("bsd,dr->bsr", x, p["wkv_a"])
+    c_kv = rms_norm(kv_a[..., :kv_rank], p["kv_norm"])
+    k_rope_new = apply_rope(kv_a[..., kv_rank:][:, :, None, :], positions,
+                            rope_theta)[:, :, 0, :]
+
+    c_all, r_all, valid = c_kv, k_rope_new, None
+    if cache is not None:
+        cc, cr = cache
+        cc[:, cache_pos:cache_pos + S] = c_kv.to(cc.dtype)
+        cr[:, cache_pos:cache_pos + S] = k_rope_new.to(cr.dtype)
+        if S == 1:
+            # decode: attend the cache; prefill attends the fresh latents
+            c_all, r_all = cc, cr
+            valid = torch.full((B,), cache_pos + S, dtype=torch.int32,
+                               device=x.device)
+
+    if absorbed:
+        scale = float(1.0 / torch.sqrt(torch.tensor(d_nope + d_rope,
+                                                    dtype=torch.float32)))
+        kv_idx = torch.arange(c_all.shape[1], device=x.device)
+        wk_b = p["wkv_b"][..., :d_nope]                 # [r, H, d_nope]
+        wv_b = p["wkv_b"][..., d_nope:]                 # [r, H, d_v]
+        q_eff = einsum("bshk,rhk->bshr", q_nope, wk_b)
+        s_nope = einsum("bshr,btr->bhst", q_eff, c_all)
+        s_rope = einsum("bshk,btk->bhst", q_rope, r_all)
+        scores = (s_nope + s_rope).float() * scale
+        mask = positions[:, None] >= kv_idx[None, :]
+        scores = scores.masked_fill(~mask[None, None], _NEG)
+        if valid is not None:
+            ok = kv_idx[None, :] < valid[:, None]
+            scores = scores.masked_fill(~ok[:, None, None], _NEG)
+        probs = torch.softmax(scores, dim=-1).to(x.dtype)
+        ctx_lat = einsum("bhst,btr->bshr", probs, c_all)
+        out = einsum("bshr,rhv->bshv", ctx_lat, wv_b)
+    else:
+        kv = einsum("btr,rhk->bthk", c_all, p["wkv_b"])
+        k_nope, v = kv[..., :d_nope], kv[..., d_nope:]
+        k_full = torch.cat([k_nope, r_all[:, :, None, :].expand(
+            *r_all.shape[:2], H, d_rope).to(k_nope.dtype)], dim=-1)
+        q_full = torch.cat([q_nope, q_rope], dim=-1)
+        out = sdpa(q_full, k_full, v, causal=True, q_positions=positions,
+                   kv_valid_len=valid, impl=impl, q_chunk=q_chunk)
+    y = einsum("bshv,hvd->bsd", out, p["wo"])
     return y, cache

@@ -34,7 +34,9 @@ class Builder:
     ``dense`` draws ``normal * scale`` in f32 (``scale`` defaults to
     ``1/sqrt(fan_in)``, ``fan_in = shape[0]``) and casts to
     ``param_dtype``, so two builds from one seed in two dtypes hold the
-    same draws, rounded differently."""
+    same draws, rounded differently. ``by_slice=True`` draws the leaf one
+    ``shape[0]`` slice at a time into its ``param_dtype`` tensor, so the
+    f32 temporary is one slice (an expert's matrix) and not the leaf."""
 
     def __init__(self, gen: torch.Generator, param_dtype=torch.float32,
                  device=None):
@@ -44,15 +46,25 @@ class Builder:
         self.params: Params = {}
 
     def dense(self, name: str, shape: Tuple[int, ...],
-              scale: Optional[float] = None, zero: bool = False) -> None:
+              scale: Optional[float] = None, zero: bool = False,
+              by_slice: bool = False) -> None:
         if zero:
-            arr = torch.zeros(shape, dtype=self.param_dtype,
-                              device=self.device)
-        else:
-            fan_in = shape[0] if len(shape) >= 2 else shape[-1]
-            s = scale if scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
-            arr = (torch.randn(shape, generator=self.gen, dtype=torch.float32,
-                               device=self.device) * s).to(self.param_dtype)
+            self.params[name] = torch.zeros(shape, dtype=self.param_dtype,
+                                            device=self.device)
+            return
+        fan_in = shape[0] if len(shape) >= 2 else shape[-1]
+        s = scale if scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
+
+        def draw(sh):
+            return (torch.randn(sh, generator=self.gen, dtype=torch.float32,
+                                device=self.device) * s).to(self.param_dtype)
+
+        if not by_slice or self.device.type == "meta":
+            self.params[name] = draw(shape)
+            return
+        arr = torch.empty(shape, dtype=self.param_dtype, device=self.device)
+        for i in range(shape[0]):
+            arr[i] = draw(shape[1:])
         self.params[name] = arr
 
     def ones(self, name: str, shape: Tuple[int, ...]) -> None:
@@ -71,8 +83,12 @@ def stack_layers(gen: torch.Generator, n: int,
     """``n`` blocks from ``init_one(gen)``, each leaf stacked along a new
     leading layer axis. Each block is drawn into its slot of the stacked
     leaves and freed, so the build holds one block beyond the stack (a
-    list of blocks and their stack would need twice the model)."""
+    list of blocks and their stack would need twice the model). A stack of
+    one block is that block's leaves viewed with the new axis: no copy (a
+    stage of one MoE block may be half the card)."""
     first = init_one(gen)
+    if n == 1:
+        return tree_map(lambda t: t.unsqueeze(0), first)
     out = tree_map(lambda t: t.new_empty((n,) + tuple(t.shape)), first)
 
     def put(i, block):

@@ -1,0 +1,153 @@
+"""Mixture-of-Experts layer (mirrors :mod:`repro.models.moe`): top-k
+routing, capacity-bounded sort-based dispatch, shared experts (DeepSeek-V3 /
+Llama-4 style).
+
+Dispatch is the reference's sort formulation: each token is replicated k
+times, the copies are sorted by expert id, ranked within their expert by a
+cumulative-max segment trick, and scattered into an ``[E, C, D]`` buffer
+(copies ranked at or beyond the capacity C drop). The expert FFNs are
+batched ``[E, C, D] x [E, D, F]`` products.
+
+Where the two frameworks differ, the port keeps the reference's meaning:
+
+- top-k puts the lower expert first on tied scores, as ``jax.lax.top_k``
+  does (``torch.topk`` promises no order): the k come from a stable
+  descending sort;
+- the capacity is Python's ``round`` (half to even) of the reference's
+  float expression;
+- the reference's scatter drops the copies whose index is out of range
+  (``mode="drop"``) where torch would raise: they are written to a spare
+  row ``C`` of the buffer, which is then cut;
+- the reference's gather clamps an out-of-range index, then multiplies by
+  ``keep``: the index is clamped here too.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.common import Builder, einsum
+
+
+def init_moe(gen: torch.Generator, d_model: int, d_ff_expert: int,
+             n_experts: int, n_shared: int, d_ff_shared: int, dtype,
+             device=None) -> dict:
+    """The router ``[D, E]``, the experts' ``[E, D, F]`` / ``[E, F, D]``
+    SwiGLU matrices (drawn expert by expert: no whole-leaf f32 temporary)
+    and, with ``n_shared``, the shared experts' SwiGLU of width
+    ``n_shared * d_ff_shared``."""
+    b = Builder(gen, dtype, device)
+    b.dense("router", (d_model, n_experts))
+    b.dense("w_gate", (n_experts, d_model, d_ff_expert), by_slice=True)
+    b.dense("w_up", (n_experts, d_model, d_ff_expert), by_slice=True)
+    b.dense("w_down", (n_experts, d_ff_expert, d_model), by_slice=True)
+    if n_shared > 0:
+        b.dense("ws_gate", (d_model, n_shared * d_ff_shared))
+        b.dense("ws_up", (d_model, n_shared * d_ff_shared))
+        b.dense("ws_down", (n_shared * d_ff_shared, d_model))
+    return b.done()
+
+
+def _cummax(x: torch.Tensor) -> torch.Tensor:
+    return torch.cummax(x, dim=0).values
+
+
+def apply_moe(p: dict, x: torch.Tensor, *, top_k: int, n_experts: int,
+              capacity_factor: float = 1.25,
+              router_bias: Optional[torch.Tensor] = None,
+              token_chunks: int = 1):
+    """x: [B, S, D] -> ([B, S, D], aux dict of ``load_balance_loss`` and
+    ``dropped_fraction``, 0-d f32).
+
+    ``router_bias`` is DeepSeek-V3's aux-loss-free balancing bias, added to
+    the scores for selection only. ``token_chunks`` > 1 dispatches the
+    tokens in that many interleaved chunks (chunk i holds tokens i, i + c,
+    i + 2c, ...), when ``T % c == 0`` and each chunk holds at least
+    ``n_experts`` tokens; each chunk's capacity comes from its own token
+    count, and the aux values are the chunks' means."""
+    B, S, D = x.shape
+    T = B * S
+    kw = dict(top_k=top_k, n_experts=n_experts,
+              capacity_factor=capacity_factor, router_bias=router_bias)
+    if token_chunks > 1 and T % token_chunks == 0 \
+            and (T // token_chunks) >= n_experts:
+        xf = x.reshape(T // token_chunks, token_chunks, D).transpose(0, 1)
+        ys, auxs = zip(*(_moe_tokens(p, xc, **kw) for xc in xf))
+        y = torch.stack(ys).transpose(0, 1).reshape(B, S, D)
+        aux = {k: torch.stack([a[k] for a in auxs]).mean() for k in auxs[0]}
+        return y, aux
+    y, aux = _moe_tokens(p, x.reshape(T, D), **kw)
+    return y.reshape(B, S, D), aux
+
+
+def route(p: dict, xf: torch.Tensor, *, top_k: int, n_experts: int,
+          capacity_factor: float,
+          router_bias: Optional[torch.Tensor] = None) -> Dict[str, object]:
+    """The routing of tokens ``xf [T, D]``: ``probs [T, E]`` (f32),
+    ``idx [T, k]`` and the renormalised weights ``w [T, k]``; the sorted
+    dispatch ``order``, ``se`` (expert) and ``stok`` (token) of the T k
+    copies; each copy's ``rank`` within its expert, ``keep = rank < cap``
+    and the capacity ``cap``."""
+    T = xf.shape[0]
+    dev = xf.device
+    logits = einsum("td,de->te", xf.float(), p["router"].float())
+    probs = torch.softmax(logits, dim=-1)
+    sel = probs if router_bias is None else probs + router_bias[None, :]
+    idx = torch.sort(sel, dim=-1, descending=True,
+                     stable=True).indices[:, :top_k]           # [T, k]
+    w = probs.gather(-1, idx)
+    w = w / w.sum(-1, keepdim=True).clamp_min(1e-9)             # renormalise
+
+    e_flat = idx.reshape(T * top_k)
+    tok_of = torch.arange(T, device=dev).repeat_interleave(top_k)
+    order = torch.argsort(e_flat, stable=True)
+    se = e_flat[order]
+    pos = torch.arange(T * top_k, device=dev)
+    is_start = torch.ones_like(se, dtype=torch.bool)
+    is_start[1:] = se[1:] != se[:-1]
+    seg_start = _cummax(torch.where(is_start, pos, -1))
+    rank = pos - seg_start
+    cap = int(max(4, round(T * top_k / n_experts * capacity_factor)))
+    return dict(probs=probs, idx=idx, w=w, order=order, se=se,
+                stok=tok_of[order], rank=rank, keep=rank < cap, cap=cap)
+
+
+def _moe_tokens(p: dict, xf: torch.Tensor, *, top_k: int, n_experts: int,
+                capacity_factor: float,
+                router_bias) -> Tuple[torch.Tensor, dict]:
+    T, D = xf.shape
+    r = route(p, xf, top_k=top_k, n_experts=n_experts,
+              capacity_factor=capacity_factor, router_bias=router_bias)
+    se, rank, keep, cap = r["se"], r["rank"], r["keep"], r["cap"]
+
+    # ---- sort-based dispatch: the dropped copies land in the spare row
+    rank_c = torch.where(keep, rank, cap)
+    buf = xf.new_zeros((n_experts, cap + 1, D)).index_put(
+        (se, rank_c), xf[r["stok"]])[:, :cap]
+
+    # ---- batched expert SwiGLU
+    g = einsum("ecd,edf->ecf", buf, p["w_gate"])
+    u = einsum("ecd,edf->ecf", buf, p["w_up"])
+    out_e = einsum("ecf,efd->ecd", F.silu(g) * u, p["w_down"])
+
+    # ---- gather back (out-of-range ranks clamped, then zeroed by keep)
+    got = out_e[se, rank_c.clamp(max=cap - 1)] * keep[:, None].to(xf.dtype)
+    back = xf.new_zeros((T * top_k, D)).index_put((r["order"],),
+                                                  got.to(xf.dtype))
+    back = back.reshape(T, top_k, D)
+    y = einsum("tkd,tk->td", back, r["w"].to(xf.dtype))
+
+    # ---- shared experts (always on)
+    if "ws_gate" in p:
+        gs = einsum("td,df->tf", xf, p["ws_gate"])
+        us = einsum("td,df->tf", xf, p["ws_up"])
+        y = y + einsum("tf,fd->td", F.silu(gs) * us, p["ws_down"])
+
+    # ---- aux: Switch-style load-balance loss, and the dropped share
+    me = r["probs"].mean(dim=0)                                  # [E]
+    ce = F.one_hot(r["idx"][:, 0], n_experts).float().mean(dim=0)
+    aux = {"load_balance_loss": n_experts * (me * ce).sum(),
+           "dropped_fraction": 1.0 - keep.float().mean()}
+    return y, aux

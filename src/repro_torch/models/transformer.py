@@ -1,11 +1,25 @@
 """Model families of the port (mirrors :mod:`repro.models.transformer`).
 
-``DecoderLM`` for the reference's dense plan ``[("dense", L, 0)]``:
-pre-norm residual blocks of GQA self-attention and an MLP (SwiGLU, or under
-``mlp_type="gelu"`` the two-matrix gelu MLP with biases), with the
-one stage's parameters stacked ``[L, ...]`` under ``"stage0"``, as in the
-reference. It trains (``loss_fn``), serves (``prefill``, ``decode_step``)
-and runs a full forward (``_forward``).
+``DecoderLM`` runs the reference's dense and MoE layer plans: stages of
+pre-norm residual blocks, each stage's parameters stacked ``[n, ...]``
+under ``"stage<i>"``, as in the reference. A block is self-attention (GQA,
+or MLA under ``use_mla``) and an FFN: SwiGLU, under ``mlp_type="gelu"``
+the two-matrix gelu MLP with biases, or in a MoE block the routed experts
+of :mod:`repro_torch.models.moe`. The plans:
+
+  ``[("dense", L)]``                      no experts
+  ``[("dense", n_dense), ("moe", n)]``    every layer after the first
+                                          ``n_dense_layers`` is MoE
+  ``[..., ("moe_super", n, k - 1), ...]`` ``moe_interleave = k > 1``: each
+                                          super block is k - 1 dense
+                                          blocks (``"dense"``, stacked
+                                          ``[n, k - 1, ...]``) then one
+                                          MoE block (``"moe"``)
+
+It trains (``loss_fn``: cross entropy plus ``moe_aux_coef`` times the MoE
+layers' summed load-balance loss), serves (``prefill``, ``decode_step``)
+and runs a full forward (``_forward``, the logits; ``_forward_aux``, the
+logits and the summed aux loss).
 
 ``HybridSSM`` (zamba2): a Mamba-2 backbone with ONE shared attention block
 applied after every ``attn_every`` Mamba blocks, then the trailing Mamba
@@ -14,15 +28,19 @@ the ``mamba2_scan`` kernel under ``ssm_impl="mamba_kernel"``) and serves.
 
 A Python loop over the layers takes the place of the reference's
 ``lax.scan``; ``stream_unroll`` is kept as a field and means nothing here.
-``remat="block"`` recomputes each block in the backward, as the
-reference's ``jax.checkpoint`` does: :func:`_maybe_remat` wraps a
-DecoderLM block, or a HybridSSM group of Mamba blocks and its shared
-attention, in ``torch.utils.checkpoint`` when autograd records. The
-kernels have no backward (``ModelConfig.attn_impl="flash"`` and
-``ssm_impl="mamba_kernel"`` raise under autograd on the card, as
-``jax.grad`` through the reference's kernels does), so training runs the
-plain routes, the reference's defaults. The MoE, MLA, VLM, xLSTM and
-encoder-decoder models are not ported yet: :func:`get_model` refuses them.
+``remat="block"`` recomputes each step of a stage (a block, or a MoE super
+block) in the backward, as the reference's ``jax.checkpoint`` of its scan
+body does: :func:`_maybe_remat` wraps it, or a HybridSSM group of Mamba
+blocks and its shared attention, in ``torch.utils.checkpoint`` when
+autograd records. The kernels have no backward
+(``ModelConfig.attn_impl="flash"`` and ``ssm_impl="mamba_kernel"`` raise
+under autograd on the card, as ``jax.grad`` through the reference's
+kernels does), so training runs the plain routes, the reference's
+defaults. MLA is refused under ``attn_impl="flash"`` (the kernel takes one
+head dim for q, k and v; MLA's v is narrower), and so is MLA in a
+``moe_super`` plan, whose cache the reference builds but cannot index. The
+VLM, xLSTM and encoder-decoder models are not ported yet: :func:`get_model`
+refuses them.
 """
 from __future__ import annotations
 
@@ -35,6 +53,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as A
+from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.common import (Builder, cross_entropy_loss,
                                        gelu_mlp, init_gelu_mlp, init_swiglu,
@@ -121,9 +140,16 @@ class ModelConfig:
         return sum(t.numel() for t in tree_leaves(params))
 
     def active_param_count(self) -> int:
-        """Active parameters per token: all of them, since the ported
-        families have no experts."""
-        return self.param_count()
+        """Active parameters per token (MoE: the shared and the top_k
+        routed experts), by the reference's formula."""
+        total = self.param_count()
+        if self.n_experts == 0:
+            return total
+        per_expert = 3 * self.d_model * self.moe_d_ff
+        n_moe_layers = max((self.n_layers - self.n_dense_layers)
+                           // max(self.moe_interleave, 1), 1)
+        return total - n_moe_layers * (self.n_experts
+                                       - self.moe_top_k) * per_expert
 
 
 def _maybe_remat(fn, cfg: ModelConfig):
@@ -137,53 +163,110 @@ def _maybe_remat(fn, cfg: ModelConfig):
 
 
 # ---------------------------------------------------------------------------
-# the block: GQA self-attention + SwiGLU or gelu MLP
+# the block: GQA or MLA self-attention + SwiGLU, gelu MLP or MoE
 # ---------------------------------------------------------------------------
 
-def _init_attn_block(gen, cfg: ModelConfig, device) -> dict:
+def _init_attn_block(gen, cfg: ModelConfig, device,
+                     moe_ffn: bool = False) -> dict:
     b = Builder(gen, cfg.pdt, device)
     b.ones("ln1", (cfg.d_model,))
     b.ones("ln2", (cfg.d_model,))
-    b.sub("attn", A.init_gqa(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                             cfg.hd, cfg.pdt, device))
-    init_mlp = init_gelu_mlp if cfg.mlp_type == "gelu" else init_swiglu
-    b.sub("ffn", init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.pdt, device))
+    if cfg.use_mla:
+        b.sub("attn", A.init_mla(gen, cfg.d_model, cfg.n_heads,
+                                 q_rank=cfg.q_rank, kv_rank=cfg.kv_rank,
+                                 d_nope=cfg.d_nope, d_rope=cfg.d_rope,
+                                 d_v=cfg.d_v, dtype=cfg.pdt, device=device))
+    else:
+        b.sub("attn", A.init_gqa(gen, cfg.d_model, cfg.n_heads,
+                                 cfg.n_kv_heads, cfg.hd, cfg.pdt, device))
+    if moe_ffn:
+        b.sub("ffn", MOE.init_moe(gen, cfg.d_model, cfg.moe_d_ff,
+                                  cfg.n_experts, cfg.n_shared_experts,
+                                  cfg.moe_d_ff, cfg.pdt, device))
+    else:
+        init_mlp = init_gelu_mlp if cfg.mlp_type == "gelu" else init_swiglu
+        b.sub("ffn", init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.pdt, device))
     return b.done()
 
 
-def _apply_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _apply_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig,
+               moe_ffn: bool = False):
+    """``(y, aux)``: a MoE block's load-balance loss (0-d f32), else 0.0 (a
+    Python float, so the dense plan adds no operation for it)."""
+    if moe_ffn:
+        y, aux = MOE.apply_moe(p, x, top_k=cfg.moe_top_k,
+                               n_experts=cfg.n_experts,
+                               capacity_factor=cfg.capacity_factor,
+                               token_chunks=cfg.moe_token_chunks)
+        return y, aux["load_balance_loss"]
     if cfg.mlp_type == "gelu":
-        return gelu_mlp(x, p["w_up"], p["b_up"], p["w_down"], p["b_down"])
-    return swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
+        return gelu_mlp(x, p["w_up"], p["b_up"], p["w_down"],
+                        p["b_down"]), 0.0
+    return swiglu(x, p["w_gate"], p["w_up"], p["w_down"]), 0.0
 
 
 def _apply_attn_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
-                      positions, cache=None, cache_pos: int = 0):
+                      positions, cache=None, cache_pos: int = 0,
+                      moe_ffn: bool = False):
+    """``(x, cache, aux)``."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    att, new_cache = A.apply_gqa(
-        p["attn"], h, positions=positions, rope_theta=cfg.rope_theta,
-        cache=cache, cache_pos=cache_pos, impl=cfg.attn_impl,
-        q_chunk=cfg.attn_q_chunk)
+    if cfg.use_mla:
+        att, new_cache = A.apply_mla(
+            p["attn"], h, positions=positions, d_nope=cfg.d_nope,
+            d_rope=cfg.d_rope, d_v=cfg.d_v, kv_rank=cfg.kv_rank,
+            rope_theta=cfg.rope_theta, cache=cache, cache_pos=cache_pos,
+            absorbed=cfg.mla_absorbed, impl=cfg.attn_impl,
+            q_chunk=cfg.attn_q_chunk)
+    else:
+        att, new_cache = A.apply_gqa(
+            p["attn"], h, positions=positions, rope_theta=cfg.rope_theta,
+            cache=cache, cache_pos=cache_pos, impl=cfg.attn_impl,
+            q_chunk=cfg.attn_q_chunk)
     x = x + att
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + _apply_ffn(p["ffn"], h2, cfg), new_cache
+    f, aux = _apply_ffn(p["ffn"], h2, cfg, moe_ffn)
+    return x + f, new_cache, aux
+
+
+_DECODER_FAMILIES = ("dense", "moe")
 
 
 def _check_ported(cfg: ModelConfig, family: str) -> None:
-    """Refuses what the port has not got, and a hybrid config without its
-    SSM fields (the reference asserts ``attn_every > 0``)."""
-    if cfg.family != family or (family == "dense" and cfg.n_experts > 0):
+    """Refuses what the port has not got (``family``: ``"decoder"`` for
+    :class:`DecoderLM`, ``"hybrid"``), a hybrid config without its SSM
+    fields (the reference asserts ``attn_every > 0``), and the MLA
+    combinations the reference cannot run."""
+    if (cfg.family not in _DECODER_FAMILIES if family == "decoder"
+            else cfg.family != family):
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family (moe/vlm plans, ssm and "
-            "audio models) is not ported yet; the port has the dense plan "
-            "and the hybrid")
-    if cfg.use_mla:
-        raise NotImplementedError(
-            f"{cfg.name}: MLA attention is not ported yet")
-    if family == "hybrid" and (cfg.attn_every < 1 or cfg.ssm_state < 1):
-        raise ValueError(f"{cfg.name}: a hybrid config needs attn_every >= 1 "
-                         f"and ssm_state >= 1, got {cfg.attn_every} and "
-                         f"{cfg.ssm_state}")
+            f"{cfg.name}: the {cfg.family!r} family (the vlm plan, ssm and "
+            "audio models) is not ported yet; the port has the dense and "
+            "MoE plans and the hybrid")
+    if family == "hybrid":
+        if cfg.use_mla or cfg.n_experts > 0:
+            raise NotImplementedError(
+                f"{cfg.name}: the hybrid's shared block is GQA + MLP; MLA "
+                "and experts there are not ported")
+        if cfg.attn_every < 1 or cfg.ssm_state < 1:
+            raise ValueError(f"{cfg.name}: a hybrid config needs attn_every "
+                             f">= 1 and ssm_state >= 1, got {cfg.attn_every} "
+                             f"and {cfg.ssm_state}")
+        return
+    if not cfg.use_mla:
+        return
+    if cfg.n_experts > 0 and cfg.moe_interleave > 1:
+        raise ValueError(
+            f"{cfg.name}: MLA in a moe_super plan (moe_interleave="
+            f"{cfg.moe_interleave}) is refused: the reference builds one "
+            "latent cache per stage there, which its super block cannot "
+            "index")
+    d_qk = cfg.d_nope + cfg.d_rope
+    if cfg.attn_impl == "flash" and d_qk != cfg.d_v:
+        raise ValueError(
+            f"{cfg.name}: MLA under attn_impl='flash' is refused: the flash "
+            f"kernel takes one head dim for q, k and v, and MLA's q and k "
+            f"have d_nope + d_rope = {d_qk} where v has d_v = {cfg.d_v} (the "
+            "reference's kernel fails on it too); use attn_impl='xla'")
 
 
 def _generator(seed: int, dev: torch.device) -> torch.Generator:
@@ -193,19 +276,45 @@ def _generator(seed: int, dev: torch.device) -> torch.Generator:
         device="cpu" if dev.type == "meta" else dev).manual_seed(seed)
 
 
+def _at(cache, i):
+    """Entry ``i`` of a stacked cache (a tuple of tensors, or a dict of
+    them), as views; ``None`` stays ``None``."""
+    if cache is None:
+        return None
+    if isinstance(cache, dict):
+        return {k: _at(v, i) for k, v in cache.items()}
+    return tuple(t[i] for t in cache)
+
+
 # ---------------------------------------------------------------------------
-# DecoderLM: the dense plan
+# DecoderLM: the dense and MoE plans
 # ---------------------------------------------------------------------------
 
 class DecoderLM:
     def __init__(self, cfg: ModelConfig):
-        _check_ported(cfg, "dense")
-        self.cfg = cfg
+        _check_ported(cfg, "decoder")
+        self.cfg = c = cfg
+        # the plan: (kind, count, inner) stages, as the reference's
+        if c.n_experts > 0:
+            self.plan = []
+            if c.n_dense_layers:
+                self.plan.append(("dense", c.n_dense_layers, 0))
+            n_rest = c.n_layers - c.n_dense_layers
+            if c.moe_interleave > 1:
+                n_super = n_rest // c.moe_interleave
+                self.plan.append(("moe_super", n_super, c.moe_interleave - 1))
+                rem = n_rest - n_super * c.moe_interleave
+                if rem:
+                    self.plan.append(("dense", rem, 0))
+            else:
+                self.plan.append(("moe", n_rest, 0))
+        else:
+            self.plan = [("dense", c.n_layers, 0)]
 
     # ---------------- init
     def init(self, seed: int = 0, device=None) -> dict:
         """Random parameters from ``seed``, drawn on ``device`` (``None``:
-        the card, raising without one)."""
+        the card, raising without one; ``"meta"``: shapes only)."""
         c = self.cfg
         dev = resolve_device(device)
         gen = _generator(seed, dev)
@@ -214,52 +323,108 @@ class DecoderLM:
         b.ones("ln_f", (c.d_model,))
         if not c.tie_embeddings:
             b.dense("lm_head", (c.d_model, padded_vocab(c.vocab_size)))
-        b.sub("stage0", stack_layers(
-            gen, c.n_layers, lambda g: _init_attn_block(g, c, dev)))
+        for si, (kind, n, inner) in enumerate(self.plan):
+            if kind == "moe_super":
+                def init_one(g, inner=inner):
+                    return {"dense": stack_layers(
+                                g, inner, lambda gg: _init_attn_block(gg, c,
+                                                                      dev)),
+                            "moe": _init_attn_block(g, c, dev, moe_ffn=True)}
+            else:
+                def init_one(g, moe=kind == "moe"):
+                    return _init_attn_block(g, c, dev, moe_ffn=moe)
+            b.sub(f"stage{si}", stack_layers(gen, n, init_one))
         return b.done()
 
     def _head(self, params):
         return (params["embed"].T if self.cfg.tie_embeddings
                 else params["lm_head"])
 
+    def _step(self, kind: str, inner: int, p, x, positions, cache=None,
+              pos: int = 0):
+        """One step of a stage: a block, or a super block's ``inner`` dense
+        blocks then its MoE block; ``p`` and ``cache`` are the step's
+        entries. Returns ``(x, aux)``."""
+        c = self.cfg
+        if kind != "moe_super":
+            x, _, aux = _apply_attn_block(p, x, c, positions=positions,
+                                          cache=cache, cache_pos=pos,
+                                          moe_ffn=kind == "moe")
+            return x, aux
+        for j in range(inner):      # dense blocks: their aux is 0.0
+            x, _, _ = _apply_attn_block(
+                layer(p["dense"], j), x, c, positions=positions,
+                cache=None if cache is None else _at(cache["dense"], j),
+                cache_pos=pos)
+        x, _, aux = _apply_attn_block(
+            p["moe"], x, c, positions=positions,
+            cache=None if cache is None else cache["moe"], cache_pos=pos,
+            moe_ffn=True)
+        return x, aux
+
     # ---------------- forward (no cache)
-    def _forward(self, params, tokens: torch.Tensor) -> torch.Tensor:
-        """Logits [B, S, V_pad] of the full sequence."""
+    def _forward_aux(self, params, tokens: torch.Tensor):
+        """Logits [B, S, V_pad] of the full sequence, and the MoE blocks'
+        load-balance losses summed (0-d f32; the Python 0.0 for the dense
+        plan)."""
         c = self.cfg
         x = params["embed"][tokens].to(c.cdt)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
+        aux_total = 0.0
+        for si, (kind, n, inner) in enumerate(self.plan):
+            sp = params[f"stage{si}"]
 
-        def block(xx, i):
-            return _apply_attn_block(layer(params["stage0"], i), xx, c,
-                                     positions=positions)[0]
+            def step(xx, i, kind=kind, inner=inner, sp=sp):
+                return self._step(kind, inner, layer(sp, i), xx, positions)
 
-        block = _maybe_remat(block, c)
-        for i in range(c.n_layers):
-            x = block(x, i)
+            step = _maybe_remat(step, c)
+            for i in range(n):
+                x, aux = step(x, i)
+                aux_total = aux_total + aux
         x = rms_norm(x, params["ln_f"], c.norm_eps)
-        return lm_head_logits(x, self._head(params), c.vocab_size)
+        return lm_head_logits(x, self._head(params), c.vocab_size), aux_total
+
+    def _forward(self, params, tokens: torch.Tensor) -> torch.Tensor:
+        """Logits [B, S, V_pad] of the full sequence."""
+        return self._forward_aux(params, tokens)[0]
 
     def loss_fn(self, params, batch):
         """Mean next-token cross entropy of ``batch["tokens"]`` against
         ``batch["labels"]`` (both ``[B, S]``) plus ``moe_aux_coef`` times
-        the load-balance loss, which is 0 for the dense plan:
+        the summed load-balance loss (0 for the dense plan):
         ``(total, {"ce_loss", "aux_loss"})``, as the reference returns."""
-        loss = cross_entropy_loss(self._forward(params, batch["tokens"]),
-                                  batch["labels"])
-        aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+        logits, aux = self._forward_aux(params, batch["tokens"])
+        loss = cross_entropy_loss(logits, batch["labels"])
+        aux = torch.as_tensor(aux, dtype=torch.float32, device=loss.device)
         total = loss + self.cfg.moe_aux_coef * aux
         return total, {"ce_loss": loss, "aux_loss": aux}
 
     # ---------------- caches
     def init_cache(self, batch_size: int, max_len: int,
                    device=None) -> Dict[str, Any]:
-        """Zero K/V caches ``{"stage0": (k, v)}``, each
-        ``[L, B, max_len, Hkv, Dh]`` in the compute dtype."""
+        """Zero caches per stage in the compute dtype, as the reference's:
+        under MLA the latents ``(c_kv [n, B, max_len, kv_rank], k_rope [n,
+        B, max_len, d_rope])``; else K/V ``[n, B, max_len, Hkv, Dh]``, and
+        for a super block ``{"dense": (k, v) [n, inner, ...], "moe": (k, v)
+        [n, ...]}``."""
         c = self.cfg
-        shape = (c.n_layers, batch_size, max_len, c.n_kv_heads, c.hd)
         dev = resolve_device(device)
-        return {"stage0": tuple(torch.zeros(shape, dtype=c.cdt, device=dev)
-                                for _ in range(2))}
+
+        def mk(*lead, tail):
+            return tuple(torch.zeros(lead + (batch_size, max_len) + t,
+                                     dtype=c.cdt, device=dev) for t in tail)
+
+        kv = ((c.n_kv_heads, c.hd),) * 2
+        cache: Dict[str, Any] = {}
+        for si, (kind, n, inner) in enumerate(self.plan):
+            if c.use_mla:
+                cache[f"stage{si}"] = mk(n, tail=((c.kv_rank,), (c.d_rope,)))
+            elif kind == "moe_super":
+                cache[f"stage{si}"] = {"dense": mk(n, inner, tail=kv),
+                                       "moe": mk(n, tail=kv)}
+            else:
+                cache[f"stage{si}"] = mk(n, tail=kv)
+        return cache
 
     def _with_cache(self, params, tokens: torch.Tensor, cache, pos: int):
         """Shared prefill/decode path: runs tokens (S >= 1) at cache offset
@@ -268,11 +433,11 @@ class DecoderLM:
         c = self.cfg
         x = params["embed"][tokens].to(c.cdt)
         positions = pos + torch.arange(tokens.shape[1], device=tokens.device)
-        ck, cv = cache["stage0"]
-        for i in range(c.n_layers):
-            x, _ = _apply_attn_block(layer(params["stage0"], i), x, c,
-                                     positions=positions,
-                                     cache=(ck[i], cv[i]), cache_pos=pos)
+        for si, (kind, n, inner) in enumerate(self.plan):
+            sp, sc = params[f"stage{si}"], cache[f"stage{si}"]
+            for i in range(n):
+                x, _ = self._step(kind, inner, layer(sp, i), x, positions,
+                                  cache=_at(sc, i), pos=pos)
         x = rms_norm(x, params["ln_f"], c.norm_eps)
         logits = lm_head_logits(x[:, -1:], self._head(params), c.vocab_size)
         return logits, cache
@@ -435,7 +600,8 @@ class HybridSSM:
 
 def get_model(cfg: ModelConfig):
     """The model of ``cfg``; raises ``NotImplementedError`` for what the
-    port does not have yet."""
+    port does not have yet, and ``ValueError`` for what the reference
+    cannot run (MLA under ``attn_impl="flash"``, MLA in a super block)."""
     if cfg.family == "hybrid":
         return HybridSSM(cfg)
     return DecoderLM(cfg)

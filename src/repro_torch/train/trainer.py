@@ -43,8 +43,8 @@ def trainable(params):
     return tree_map(lambda p: p.detach().requires_grad_(), params)
 
 
-def _grad_fn(model, microbatches: int) -> Callable:
-    """``grads_of(params, batch) -> (grads, loss, metrics)``."""
+def _value_and_grad(model) -> Callable:
+    """``value_and_grad(params, batch) -> (grads, loss, metrics)``."""
     def value_and_grad(params, batch):
         with torch.enable_grad():
             loss, metrics = model.loss_fn(params, batch)
@@ -52,24 +52,51 @@ def _grad_fn(model, microbatches: int) -> Callable:
         return (tree_unflatten(params, grads), loss.detach(),
                 {k: v.detach() for k, v in metrics.items()})
 
-    if microbatches <= 1:
-        return value_and_grad
+    return value_and_grad
 
-    def grads_of(params, batch):
+
+def microbatch_parts(value_and_grad: Callable, microbatches: int):
+    """The microbatched gradient in three parts: ``start(params) -> acc``,
+    ``micro(acc, params, batch, j) -> acc`` (microbatch ``j``: rows ``j::
+    microbatches``, the reference's ``[B] -> [B//mb, mb] -> swapaxes``)
+    and ``finish(acc) -> (grads, loss, metrics)``. Every ``micro`` call
+    dispatches the same operations on the same shapes, so the dry-run
+    counts one and scales it (``launch/dryrun.py``)."""
+    def start(params):
         acc_g = tree_map(
             lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                   device=p.device), params)
         acc_l = torch.zeros((), dtype=torch.float32,
                             device=tree_leaves(params)[0].device)
-        for j in range(microbatches):
-            # the reference's [B] -> [B//mb, mb] -> swapaxes: rows j::mb
-            one = {k: v[j::microbatches] for k, v in batch.items()}
-            grads, loss, metrics = value_and_grad(params, one)
-            acc_g = tree_map(lambda a, g: a + g.float(), acc_g, grads)
-            acc_l = acc_l + loss
+        return acc_g, acc_l, None
+
+    def micro(acc, params, batch, j: int):
+        acc_g, acc_l, _ = acc
+        one = {k: v[j::microbatches] for k, v in batch.items()}
+        grads, loss, metrics = value_and_grad(params, one)
+        return (tree_map(lambda a, g: a + g.float(), acc_g, grads),
+                acc_l + loss, metrics)
+
+    def finish(acc):
+        acc_g, acc_l, metrics = acc
         inv = 1.0 / microbatches
-        return (tree_map(lambda g: g * inv, acc_g), acc_l * inv,
-                metrics)
+        return tree_map(lambda g: g * inv, acc_g), acc_l * inv, metrics
+
+    return start, micro, finish
+
+
+def _grad_fn(model, microbatches: int) -> Callable:
+    """``grads_of(params, batch) -> (grads, loss, metrics)``."""
+    value_and_grad = _value_and_grad(model)
+    if microbatches <= 1:
+        return value_and_grad
+    start, micro, finish = microbatch_parts(value_and_grad, microbatches)
+
+    def grads_of(params, batch):
+        acc = start(params)
+        for j in range(microbatches):
+            acc = micro(acc, params, batch, j)
+        return finish(acc)
 
     return grads_of
 

@@ -169,6 +169,24 @@ def test_meta_flop_count_equals_closed_form(arch):
         assert dryrun.count(step)["flops"] == train
 
 
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "deepseek-v3-671b",
+                                  "llama4-maverick-400b-a17b"])
+@pytest.mark.parametrize("microbatches", [2, 4])
+def test_scaled_microbatch_count_equals_the_whole_step(arch, microbatches):
+    """A train step of several microbatches is counted as its accumulator
+    start, one microbatch taken ``microbatches`` times, and the update:
+    the same FLOPs, bytes and output bytes as counting every microbatch
+    (remat per block; the MoE archs' capacity follows each microbatch's
+    token count)."""
+    cfg = CN.get_smoke_config(arch, remat="block")
+    step, _ = dryrun.cell_step(cfg, ShapeSpec("t", "train", 32, 8),
+                               microbatches=microbatches)
+    assert [times for _, times in step.parts] == [1, microbatches, 1]
+    scaled, whole = dryrun.count(step), dryrun.count(lambda: step())
+    for k in ("flops", "bytes", "output_bytes"):
+        assert scaled[k] == whole[k] > 0, k
+
+
 def test_meta_byte_count_of_one_mm():
     a = torch.empty((64, 48), dtype=torch.bfloat16, device="meta")
     b = torch.empty((48, 80), dtype=torch.bfloat16, device="meta")
@@ -240,7 +258,7 @@ SMOKE_FIELDS = ("n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff",
 
 @pytest.fixture(scope="module")
 def catalog_root(tmp_path_factory):
-    """train_4k cells of the five ported archs at their smoke widths (the
+    """train_4k cells of the ported archs at their smoke widths (the
     shape's full 256 x 4,096 tokens, counted on the meta device; zamba2
     keeps its full SSD chunk, 128)."""
     root = tmp_path_factory.mktemp("cells")

@@ -7,8 +7,9 @@ engine against the port's CPU path on ``chip_smoke.py`` phase 13's and
 phase 14(b)'s ensembles (the latter with every stage of the wave loop), and
 the segment-restart hooks, the compaction driver and the streaming driver
 on the card against one call, the one-shot run and the CPU path, every
-kernel refusing autograd, and a crash-restart training run resuming bit for
-bit.
+kernel refusing autograd, a crash-restart training run resuming bit for
+bit, and the smoke MoE configs' routing and logits on the card against the
+CPU.
 
 These tests need a CUDA device and ``nvcc`` and skip elsewhere. They
 import the port only (no JAX, no reference), so they also run where the
@@ -810,3 +811,44 @@ def test_card_findings_equal_cpu_findings():
     active, _ = F.split_suppressed(on_card, root)
     assert active == [], [f.render() for f in active]
     assert run_recompile_audit(root, device="cuda", hash_rows=False) == []
+
+
+@pytest.mark.cuda
+def test_moe_smoke_card_equals_cpu():
+    """``chip_smoke.py`` 19(d): the smoke deepseek-v3-671b (with and
+    without ``mla_absorbed``) and llama4-maverick (flash and plain) from
+    one CPU init, f32 without TF32: every MoE call's routing equal on the
+    card and the CPU, logits and losses within 1e-5."""
+    _need_card()
+    cs = _chip_smoke()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        worst, n_calls = cs.moe_card_vs_cpu(torch)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert n_calls == 40
+    assert worst["logits"] <= cs.MOE_TWIN_TOL
+    assert worst["loss"] <= cs.MOE_TWIN_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_at_maverick_heads_matches_plain_on_card(dtype):
+    """llama4-maverick's GQA, 40 query heads over 8 KV heads at head dim
+    128 (5 query heads per KV head), causal, one launch per call: within
+    the grid's tolerance of the plain version (bf16 also per row)."""
+    _need_card()
+    cs = _chip_smoke()
+    g = torch.Generator(device="cuda").manual_seed(40)
+    q = torch.randn((2, 512, 40, 128), generator=g, device="cuda",
+                    dtype=dtype)
+    k, v = (torch.randn((2, 512, 8, 128), generator=g, device="cuda",
+                        dtype=dtype) for _ in range(2))
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, causal=True)
+    assert fa.flash_attention.launches == before + 1
+    err, rel = cs.flash_errs(got, ref.flash_attention_ref(q, k, v,
+                                                          causal=True),
+                             "at maverick's heads")
+    assert err <= cs.FLASH_TOL[str(dtype)[6:]]

@@ -66,7 +66,10 @@ def test_walk_covers_every_subpackage():
             "src/repro_torch/configs/shapes.py",
             "src/repro_torch/configs/granite_3_8b.py",
             "src/repro_torch/configs/granite_20b.py",
-            "src/repro_torch/configs/stablelm_3b.py"} <= names
+            "src/repro_torch/configs/stablelm_3b.py",
+            "src/repro_torch/configs/deepseek_v3_671b.py",
+            "src/repro_torch/configs/llama4_maverick.py",
+            "src/repro_torch/models/moe.py"} <= names
     # the parity auditor: a counterpart of every reference file
     ref = {p.name for p in (ROOT / "src" / "repro" / "analysis").glob("*.py")}
     assert {f"src/repro_torch/analysis/{n}" for n in ref} <= names
@@ -148,6 +151,18 @@ def test_cpu_hybrid_run_leaves_jax_unloaded():
         "r = run_serving('zamba2-1.2b', batch=2, prompt_len=8, new_tokens=3,\n"
         "                smoke=True, device='cpu')\n"
         "assert r['all_in_vocab'] and r['logits_finite'], r\n" + NO_REFERENCE)
+
+
+def test_cpu_moe_run_leaves_jax_unloaded():
+    run_fresh(
+        "import sys\n"
+        "from repro_torch.launch.serve import run_serving\n"
+        "for arch, impl in (('deepseek-v3-671b', 'xla'),\n"
+        "                   ('llama4-maverick-400b-a17b', 'flash')):\n"
+        "    r = run_serving(arch, batch=2, prompt_len=8, new_tokens=3,\n"
+        "                    smoke=True, attn_impl=impl, device='cpu')\n"
+        "    assert r['all_in_vocab'] and r['logits_finite'], r\n"
+        + NO_REFERENCE)
 
 
 def test_cpu_fit_path_leaves_jax_unloaded():
@@ -402,16 +417,15 @@ def test_serving_without_card_raises_unless_cpu_is_asked_for(monkeypatch):
 
 
 @pytest.mark.parametrize("overrides,error", [
-    (dict(family="moe", n_experts=4), NotImplementedError),
     (dict(family="vlm", cross_every=2), NotImplementedError),
     # a hybrid without its SSM fields is malformed, not unported
     (dict(family="hybrid"), ValueError),
     (dict(family="ssm"), NotImplementedError),
     (dict(family="audio"), NotImplementedError),
-    (dict(use_mla=True), NotImplementedError),
-    # the dense plan with experts is the reference's MoE plan (the gelu
-    # MLP, which this case refused before, is ported)
-    (dict(family="dense", n_experts=2), NotImplementedError)])
+    # MLA in a moe_super plan: the reference builds a latent cache its
+    # super block cannot index
+    (dict(family="moe", n_experts=4, use_mla=True, moe_interleave=2),
+     ValueError)])
 def test_unported_models_are_refused(overrides, error):
     with pytest.raises(error):
         get_model(configs.get_smoke_config("llama3.2-1b", **overrides))
@@ -419,7 +433,8 @@ def test_unported_models_are_refused(overrides, error):
 
 def test_unported_archs_are_refused():
     assert configs.ARCHS == ["llama3.2-1b", "zamba2-1.2b", "granite-3-8b",
-                             "granite-20b", "stablelm-3b"]
+                             "granite-20b", "stablelm-3b",
+                             "deepseek-v3-671b", "llama4-maverick-400b-a17b"]
     with pytest.raises(ValueError, match="unported"):
         configs.get_config("xlstm-125m")
 
