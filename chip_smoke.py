@@ -184,10 +184,10 @@ Phases (any failure exits non-zero, with no result line):
     for bit, the admission kernel launched on the card's run.
 
 17. The cost-model link, within ``COST_BUDGET_S``: (a) ``launch/dryrun.py``'s
-    writer counts the seven ported archs x the four shapes on the meta
+    writer counts the nine ported archs x the four shapes on the meta
     device (no card; ``DRYRUN_WORKERS`` processes, while (c) and (d) run)
-    into a temporary root: every dense and MoE ``long_500k`` a skip, the
-    other 22 cells counted (a train cell's one microbatch taken
+    into a temporary root: every dense, MoE, VLM and audio ``long_500k`` a
+    skip, the other 28 cells counted (a train cell's one microbatch taken
     ``TRAIN_MICROBATCHES`` times); each cell's FLOPs, bytes, dominant term and roofline
     step on ``costmodel.H100``. (b) ``accelerator_workload_catalog`` of
     those cells, its medians, and ``examples/accelerator_platform.py``'s
@@ -239,10 +239,33 @@ Phases (any failure exits non-zero, with no result line):
     teacher-forced decode steps and ``loss_fn``; each MoE call's ``idx``,
     ``rank`` and ``keep`` equal exactly, logits and losses within
     ``MOE_TWIN_TOL``.
+20. The cross-attention families, within ``CROSS_BUDGET_S``: (a)
+    llama-3.2-vision-90b at full width (d_model 8,192, GQA 64/8 at head dim
+    128, d_ff 28,672, 1,601 patches of width 8,192) and 10 layers (two
+    super blocks of 4 self layers and 1 cross layer; bf16, 10.7 B
+    parameters), served by ``ServingEngine`` at batch ``CROSS_B``,
+    ``CROSS_PROMPT``-token prompts, a random bf16 ``ctx`` and ``CROSS_NEW``
+    new tokens through the flash kernel, which launches once per self layer
+    of the prefill (8) and nothing else: time to first token, decode
+    tokens/s, peak GiB after init and after generation; finite logits,
+    tokens in the vocab. (b) seamless-m4t-large-v2 at full width and depth
+    (24 encoder + 24 decoder layers, d_model 1,024, 16/16 heads at head dim
+    64; 2.0 B) on frames ``[CROSS_B, 4,096, 1,024]``: the same, flash once
+    per decoder self layer (24: the encoder's and the cross-attention's
+    non-causal attention take the plain path), and the encoder's share of
+    the time to first token. (c) The flash kernel on (a)'s and (b)'s
+    layer-0 q/k/v (q ``[2, 512, 64, 128]`` over 8 KV heads; ``[2, 512, 16,
+    64]`` over 16) against its plain version at the bf16 gates, timed
+    beside SDPA and its bound. (d) The smoke configs of both archs from
+    one CPU init on the card and on the CPU in f32 (no TF32), under flash
+    and the plain attention: prefill of ``CROSS_TWIN_S`` tokens with the
+    ``ctx`` or frames, 2 teacher-forced decode steps and ``loss_fn``,
+    logits and losses within ``CROSS_TWIN_TOL``.
 
 The last lines are the kernels' JSON record (a kernel launched on two
 main paths, as flash in the llama prefill, the hybrid forward and the
-three dense configs' prefills, has its
+three dense configs', maverick's, the VLM's and seamless' prefills, has
+its
 launches summed, its times launch-weighted, and each path's numbers under
 ``paths``), the card's name and power limit, and ``{"ok": true, "device":
 {...}}``.
@@ -396,7 +419,7 @@ TRAIN_GRAD_F64_FACTOR = 2.0
 TRAIN_LOSS_TOL = 1e-4
 FB_SEED = 5
 # phase 17, the cost-model link, within its own budget on the card: (a)
-# the seven ported archs x the four shapes counted on the meta device by
+# the nine ported archs x the four shapes counted on the meta device by
 # DRYRUN_WORKERS processes while (c) and (d) run; (b) the catalog's
 # train_4k tasks (examples/accelerator_platform.py's 300 retraining jobs
 # of 2,000 steps over a week) through the engine at 2/4/8 pods; (c) the
@@ -430,6 +453,18 @@ MOE_BUDGET_S = 150.0
 MOE_LAYERS = {"deepseek-v3-671b": 4, "llama4-maverick-400b-a17b": 2}
 MOE_B, MOE_PROMPT, MOE_NEW, MOE_SEED = 2, 512, 16, 0
 MOE_TWIN_S, MOE_TWIN_TOL = 24, 1e-5
+# phase 20, the cross-attention families on the card within its own budget:
+# llama-3.2-vision-90b at full width cut in depth only (10 layers: two
+# super blocks, 10.7 B parameters), seamless-m4t-large-v2 at full width and
+# depth, random weights from CROSS_SEED, served by ServingEngine at batch
+# CROSS_B, CROSS_PROMPT-token prompts and CROSS_NEW new tokens, with a
+# random bf16 ctx (the VLM's 1,601 patches, seamless' 4,096 frames); then
+# the smoke configs on the card against the CPU in f32 (no TF32), within
+# CROSS_TWIN_TOL (the two devices sum in other orders, ~1e-6 at |logit| ~ 5)
+CROSS_BUDGET_S = 120.0
+CROSS_LAYERS = {"llama-3.2-vision-90b": 10, "seamless-m4t-large-v2": None}
+CROSS_B, CROSS_PROMPT, CROSS_NEW, CROSS_SEED = 2, 512, 16, 0
+CROSS_TWIN_S, CROSS_TWIN_TOL = 24, 1e-5
 FSO_KEYS = ORACLE_KEYS + (
     "ctrl_act", "ctrl_n", "rel_act", "rel_n", "fleet_perf", "fleet_stale",
     "fleet_act", "fleet_n", "pool_arr", "pool_model", "pool_next",
@@ -2998,8 +3033,9 @@ def phase_training(torch, counts, flash_attention, mamba2_scan):
 # ------------------------------------------------------------ phase 17
 
 def report_cells(cells, wall):
-    """17(a): the 28 records written, ``long_500k`` a skip for every
-    full-attention arch (dense and MoE) and every other cell counted;
+    """17(a): the 36 records written, ``long_500k`` a skip for every
+    full-attention arch (dense, MoE, VLM and audio) and every other cell
+    counted;
     prints each cell's FLOPs, bytes, dominant term and roofline step on
     the H100 spec."""
     from repro_torch import configs
@@ -3543,6 +3579,190 @@ def phase_moe(torch, counts, flash_attention):
     return ("maverick prefill", launches, rec)
 
 
+# ------------------------------------------------------------ phase 20
+
+def serve_cross(torch, counts, flash_attention, card, arch):
+    """20(a)/(b): ``arch`` at full width (and ``CROSS_LAYERS[arch]`` layers)
+    in bf16 from ``CROSS_SEED``, served by ``ServingEngine`` through the
+    flash kernel with a random bf16 ``ctx``: 2 tokens to warm up, then
+    ``CROSS_NEW``, measured, with the launch counts read around it; the
+    encoder-decoder's encoder then timed alone on the same frames. Returns
+    the measured run's flash launches and the kept layer-0 q/k/v, after
+    freeing the model."""
+    import gc
+    from repro_torch import configs
+    from repro_torch.launch.serve import random_ctx, random_prompts
+    from repro_torch.models import attention
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.transformer import get_model
+    from repro_torch.serving.engine import ServeConfig, ServingEngine
+    depth = CROSS_LAYERS[arch]
+    cfg = configs.get_config(arch, attn_impl="flash",
+                             **({} if depth is None else {"n_layers": depth}))
+    model = get_model(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(CROSS_SEED, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_gib = torch.cuda.max_memory_allocated() / 2**30
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    vlm = cfg.family == "vlm"
+    shape = (f"plan {model.plan}" if vlm else
+             f"{cfg.n_enc_layers} encoder + {cfg.n_dec_layers} decoder layers")
+    log(f"[20] {arch} at full width ({shape}), {cfg.param_dtype}: "
+        f"{n_params:,} parameters ({n_params * 2 / 2**30:.2f} GiB in bf16) "
+        f"drawn in {init_s:.2f} s; peak "
+        f"{init_gib:.2f} GiB after init; card: {card}")
+    gen = torch.Generator(device="cuda").manual_seed(CROSS_SEED + 1)
+    prompts = random_prompts(cfg.vocab_size, CROSS_B, CROSS_PROMPT, gen)
+    ctx = random_ctx(cfg, CROSS_B, gen)
+    eng = ServingEngine(cfg, ServeConfig(batch=CROSS_B,
+                                         max_len=CROSS_PROMPT + CROSS_NEW + 1),
+                        params=params, device="cuda")
+    eng.generate(prompts, 2, ctx=ctx)
+    n_flash = (model.plan[0][1] * model.plan[0][2] if vlm
+               else cfg.n_dec_layers)
+    ftap = CallTap(flash_attention)
+    attention.flash_attention = ftap
+    torch.cuda.synchronize()
+    for k in counts:
+        k.launches = 0
+    try:
+        out = eng.generate(prompts, CROSS_NEW, ctx=ctx)
+    finally:
+        attention.flash_attention = flash_attention
+    launched = {k.__name__: k.launches for k in counts}
+    st = eng.last_stats
+    if launched["flash_attention"] != n_flash or any(
+            n for kname, n in launched.items() if kname != "flash_attention"):
+        raise AssertionError(f"20 {arch}: launched {launched}, not flash "
+                             f"{n_flash} times")
+    if not (st["logits_finite"] and out.shape == (CROSS_B, CROSS_NEW)
+            and (out >= 0).all() and (out < cfg.vocab_size).all()):
+        raise AssertionError(f"20 {arch}: logits finite "
+                             f"{st['logits_finite']}, tokens {out}")
+    enc = ""
+    if not vlm:
+        with torch.no_grad():
+            model.encode(params, ctx)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.encode(params, ctx)
+            torch.cuda.synchronize()
+        enc_s = time.perf_counter() - t0
+        enc = (f"; the encoder alone {enc_s:.4f} s, "
+               f"{100 * enc_s / st['prefill_s']:.1f} % of the time to first "
+               "token")
+    log(f"[20] {arch} (attn_impl=flash), batch {CROSS_B}, {CROSS_PROMPT}-token "
+        f"prompts, ctx {list(ctx.shape)} {str(ctx.dtype)[6:]}, {CROSS_NEW} new "
+        f"tokens: time to "
+        f"first token {st['prefill_s']:.4f} s; decode "
+        f"{CROSS_B * (CROSS_NEW - 1) / st['decode_s']:.1f} tokens/s; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB after "
+        f"generation; flash_attention launches per prefill "
+        f"{launched['flash_attention']}{enc}; logits finite, tokens in the "
+        f"vocab; card: {card}")
+    kept = ftap.kept
+    del eng, out, params, ctx, ftap
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launched["flash_attention"], kept
+
+
+def cross_card_vs_cpu(torch, archs=tuple(CROSS_LAYERS)):
+    """20(d): the smoke configs of ``archs`` from one CPU init (f32), on
+    the card and on the CPU, under flash and the plain attention: prefill
+    of ``CROSS_TWIN_S`` tokens with a seeded ``ctx`` (the VLM's patches,
+    the encoder-decoder's ``n_ctx`` frames), 2 teacher-forced decode steps
+    and ``loss_fn`` (frames of ``S // 4`` there, as ``input_specs`` has
+    them). Logits and the loss within ``CROSS_TWIN_TOL``. Returns the
+    largest differences and the runs compared."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.transformer import get_model
+    worst = {"logits": 0.0, "loss": 0.0}
+    n_runs = 0
+    for arch in archs:
+        base = configs.get_smoke_config(arch)
+        cpu_params = get_model(base).init(CROSS_SEED, "cpu")
+        card_params = tree_map(lambda t: t.to("cuda"), cpu_params)
+        rng = np.random.default_rng(CROSS_SEED)
+        S = CROSS_TWIN_S
+        toks = torch.from_numpy(rng.integers(
+            0, base.vocab_size, (2, S + 3)).astype(np.int32))
+        vlm = base.family == "vlm"
+        width = base.d_ctx if vlm else base.d_model
+        ctx = torch.from_numpy(rng.standard_normal(
+            (2, base.n_ctx, width)).astype(np.float32))
+        frames = torch.from_numpy(rng.standard_normal(
+            (2, (S + 2) // 4, width)).astype(np.float32))
+        for impl in ("flash", "xla"):
+            m = get_model(dataclasses.replace(base, attn_impl=impl))
+            runs = {}
+            for dev, params in (("cuda", card_params), ("cpu", cpu_params)):
+                t = toks.to(dev)
+                batch = {"tokens": t[:, :-1], "labels": t[:, 1:],
+                         "ctx" if vlm else "frames":
+                         (ctx if vlm else frames).to(dev)}
+                with torch.no_grad():
+                    logits, cache = m.prefill(params, t[:, :S], S + 2,
+                                              ctx=ctx.to(dev))
+                    out = [logits]
+                    for i in range(2):
+                        logits, cache = m.decode_step(
+                            params, t[:, S + i:S + i + 1], cache, S + i)
+                        out.append(logits)
+                    loss, _ = m.loss_fn(params, batch)
+                runs[dev] = ([o.cpu() for o in out], float(loss))
+            (lg, sg), (lc, sc) = runs["cuda"], runs["cpu"]
+            d_logits = max(float((a - b).abs().max()) for a, b in zip(lg, lc))
+            d_loss = abs(sg - sc)
+            if not (d_logits <= CROSS_TWIN_TOL and d_loss <= CROSS_TWIN_TOL):
+                raise AssertionError(f"20(d) {arch} {impl}: logits "
+                                     f"{d_logits}, loss {d_loss}")
+            log(f"[20] (d) smoke {arch} attn_impl={impl}, card vs CPU: "
+                f"prefill + 2 decode logits within {d_logits:.3g}, loss "
+                f"within {d_loss:.3g} (tol {CROSS_TWIN_TOL:g}); loss "
+                f"{sg:.6f}")
+            worst = {"logits": max(worst["logits"], d_logits),
+                     "loss": max(worst["loss"], d_loss)}
+            n_runs += 1
+    return worst, n_runs
+
+
+def phase_cross(torch, counts, flash_attention):
+    """Phase 20 within ``CROSS_BUDGET_S``. Returns (c)'s two flash paths
+    for the kernels' line."""
+    card = card_line()
+    t20 = time.perf_counter()
+    paths = []
+    for arch, name in (("llama-3.2-vision-90b", "vision prefill"),
+                       ("seamless-m4t-large-v2", "seamless prefill")):
+        launches, kept = serve_cross(torch, counts, flash_attention, card,
+                                     arch)
+        rec = time_flash(torch, flash_attention, kept, 20,
+                         f"on {arch}'s layer-0 prefill inputs")
+        paths.append((name, launches, rec))
+        del kept
+        torch.cuda.empty_cache()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        worst, n_runs = cross_card_vs_cpu(torch)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    wall = time.perf_counter() - t20
+    within = "within" if wall <= CROSS_BUDGET_S else "OVER"
+    log(f"[20] (d) card == CPU on {n_runs} smoke runs: logits within "
+        f"{worst['logits']:.3g}, losses within {worst['loss']:.3g}; phase 20 "
+        f"in {wall:.1f} s ({within} its {CROSS_BUDGET_S:g} s budget); card: "
+        f"{card}")
+    return paths
+
+
 def both_paths(paths, keys=("ms", "plain_ms", "bound_ms", "library_ms")):
     """One kernel's record over the main paths that launch it: launches
     summed, and each time (``keys``) the launch-weighted mean of the
@@ -3651,6 +3871,7 @@ def main() -> int:
                                    train_llama)
     phase_audit(torch, fs_kw)
     moe_path = phase_moe(torch, counts, flash_attention)
+    cross_paths = phase_cross(torch, counts, flash_attention)
 
     kernels = [dict(
         name="fused_admission", route="cuda",
@@ -3669,11 +3890,12 @@ def main() -> int:
         replaces="src/repro/kernels/flash_attention.py:25",
         max_abs_err=max(flash_grid_err, frec["max_abs_err"],
                         hfrec["max_abs_err"], hserve_flash_err,
-                        *(rec["max_abs_err"] for _, _, rec in dense_paths),
+                        *(rec["max_abs_err"]
+                          for _, _, rec in dense_paths + cross_paths),
                         moe_path[2]["max_abs_err"]),
         **both_paths([("llama prefill", flash_launches, frec),
                       ("hybrid forward", hyb["flash_launches"], hfrec)]
-                     + dense_paths + [moe_path])),
+                     + dense_paths + [moe_path] + cross_paths)),
         dict(
         name="gmm_logpdf", route="cuda",
         source="src/repro_torch/kernels/csrc/gmm_logpdf.cu",

@@ -25,6 +25,8 @@ _MODULES = {
     "stablelm-3b": "repro_torch.configs.stablelm_3b",
     "deepseek-v3-671b": "repro_torch.configs.deepseek_v3_671b",
     "llama4-maverick-400b-a17b": "repro_torch.configs.llama4_maverick",
+    "llama-3.2-vision-90b": "repro_torch.configs.llama3_2_vision_90b",
+    "seamless-m4t-large-v2": "repro_torch.configs.seamless_m4t_large",
 }
 
 ARCHS = list(_MODULES)
@@ -53,20 +55,32 @@ def _meta(shape, dtype) -> torch.Tensor:
 def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> Dict:
     """Meta-tensor stand-ins for the step inputs of one cell.
 
-    The decode cache is the port's own ``init_cache(B, S, device="meta")``:
-    the same leaves as the reference's (``{"stage<i>": (k, v)}``, MLA's
-    latents, a super block's dict, and the hybrid's conv/SSM states and
-    shared K/V), which the port writes in
+    A train batch of the VLM carries ``ctx [B, n_ctx, d_ctx]`` and of the
+    audio model ``frames [B, S // 4, d_model]``, a prefill ``ctx [B, n_ctx,
+    d_ctx | d_model]``, all in the compute dtype, as the reference's. The
+    decode cache is the port's own ``init_cache(B, S, device="meta")``: the
+    same leaves as the reference's (``{"stage<i>": (k, v)}``, MLA's
+    latents, a super block's dict, the hybrid's conv/SSM states and shared
+    K/V, the encoder-decoder's self and cross K/V), which the port writes in
     place where the reference returns updated copies. ``pos`` is a Python
-    int in the port's steps; its stand-in keeps the reference's 0-d int32.
-    The vlm and audio inputs belong to families the port has not got."""
+    int in the port's steps; its stand-in keeps the reference's 0-d
+    int32."""
     B, S = shape.global_batch, shape.seq_len
-    i32 = torch.int32
+    i32, cdt = torch.int32, cfg.cdt
     if shape.kind == "train":
-        return {"batch": {"tokens": _meta((B, S), i32),
-                          "labels": _meta((B, S), i32)}}
+        batch = {"tokens": _meta((B, S), i32), "labels": _meta((B, S), i32)}
+        if cfg.family == "vlm":
+            batch["ctx"] = _meta((B, cfg.n_ctx, cfg.d_ctx), cdt)
+        if cfg.family == "audio":
+            batch["frames"] = _meta((B, S // 4, cfg.d_model), cdt)
+        return {"batch": batch}
     if shape.kind == "prefill":
-        return {"tokens": _meta((B, S), i32)}
+        out = {"tokens": _meta((B, S), i32)}
+        if cfg.family == "vlm":
+            out["ctx"] = _meta((B, cfg.n_ctx, cfg.d_ctx), cdt)
+        if cfg.family == "audio":
+            out["ctx"] = _meta((B, cfg.n_ctx, cfg.d_model), cdt)
+        return out
     # decode: one new token against a cache holding S entries
     return {"tokens": _meta((B, 1), i32),
             "cache": get_model(cfg).init_cache(B, S, device="meta"),

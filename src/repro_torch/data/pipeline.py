@@ -9,8 +9,10 @@ tokens. The law is the reference's: a Zipf marginal by inverse CDF, a copy
 of the previous token with p = 0.3, and labels equal to the tokens rolled
 by -1. The draws themselves differ from the reference's threefry stream.
 
-Only the dense and hybrid families are ported, so a batch is tokens and
-labels (no ``ctx`` or ``frames``).
+A VLM batch also holds ``ctx [batch, n_ctx, d_ctx]`` (image patches) and an
+audio batch ``frames [batch, seq_len // 4, d_model]``, standard normal in
+bf16 as the reference's, drawn from the same step's generator after the
+tokens.
 """
 from __future__ import annotations
 
@@ -30,6 +32,10 @@ class DataConfig:
     batch: int
     seq_len: int
     seed: int = 0
+    n_ctx: int = 0
+    d_ctx: int = 0
+    family: str = "dense"
+    d_model: int = 0
 
 
 def step_generator(seed: int, step: int) -> torch.Generator:
@@ -43,7 +49,8 @@ def step_generator(seed: int, step: int) -> torch.Generator:
 def synth_batch(cfg: DataConfig, step: int,
                 device=None) -> Dict[str, torch.Tensor]:
     """A language-like ``[batch, seq_len]`` int32 token batch and its
-    next-token labels, on ``device`` (``None``: the card).
+    next-token labels (and a VLM's ``ctx`` or an audio model's ``frames``),
+    on ``device`` (``None``: the card).
 
     Tokens follow a Zipf-ish marginal with local repetition, so the loss
     curve is non-trivial (learnable bigram statistics)."""
@@ -58,7 +65,14 @@ def synth_batch(cfg: DataConfig, step: int,
     rep = torch.rand((B, S), generator=gen) < 0.3
     tokens = torch.where(rep, torch.roll(base, 1, dims=1), base)
     labels = torch.roll(tokens, -1, dims=1)
-    return {"tokens": tokens.to(dev), "labels": labels.to(dev)}
+    out = {"tokens": tokens, "labels": labels}
+    if cfg.family == "vlm" and cfg.n_ctx:
+        out["ctx"] = torch.randn((B, cfg.n_ctx, cfg.d_ctx),
+                                 generator=gen).to(torch.bfloat16)
+    if cfg.family == "audio":
+        out["frames"] = torch.randn((B, S // 4, cfg.d_model),
+                                    generator=gen).to(torch.bfloat16)
+    return {k: v.to(dev) for k, v in out.items()}
 
 
 def data_iterator(cfg: DataConfig, start_step: int = 0,

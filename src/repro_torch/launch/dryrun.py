@@ -14,7 +14,8 @@ The step is the port's own:
   microbatch is counted and taken ``TRAIN_MICROBATCHES`` times (each
   dispatches the same operations on the same shapes: the same count as
   the whole step's, in an eighth of the time for the MoE archs);
-- prefill: ``serving.engine.make_prefill_step``;
+- prefill: ``serving.engine.make_prefill_step`` (with the VLM's patches or
+  the encoder-decoder's frames as ``ctx``);
 - decode: ``serving.engine.make_serve_step`` at the cache's last position.
 
 What is counted, per step:
@@ -188,9 +189,9 @@ def cell_step(cfg: ModelConfig, spec: ShapeSpec, *, microbatches: int = 1,
         prefill_step = make_prefill_step(cfg, B, S, device="meta")
 
         def step():
-            return prefill_step(params, ins["tokens"])
+            return prefill_step(params, ins["tokens"], ins.get("ctx"))
 
-        args = (params, ins["tokens"])
+        args = (params, ins["tokens"], ins.get("ctx"))
     else:
         serve_step = make_serve_step(cfg, B, S, device="meta")
 

@@ -64,7 +64,9 @@ def run_training(arch: str, *, steps: int, batch: int, seq: int,
     cfg = CN.get_smoke_config(arch) if smoke else CN.get_config(arch)
     opt_cfg = adamw.AdamWConfig(lr=lr, total_steps=steps,
                                 warmup_steps=max(steps // 20, 5))
-    dcfg = DataConfig(vocab_size=cfg.vocab_size, batch=batch, seq_len=seq)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, batch=batch, seq_len=seq,
+                      family=cfg.family, n_ctx=cfg.n_ctx, d_ctx=cfg.d_ctx,
+                      d_model=cfg.d_model)
     step_fn = trainer.make_train_step(cfg, opt_cfg, mesh,
                                       microbatches=microbatches)
     mgr = CheckpointManager(ckpt_dir, keep_last=3)
@@ -99,6 +101,10 @@ def run_training(arch: str, *, steps: int, batch: int, seq: int,
             for step in range(start_step, steps):
                 t0 = time.perf_counter()
                 batch_data = synth_batch(dcfg, step, dev)
+                if "ctx" in batch_data:
+                    # the pipeline's bf16 patches, in the model's compute
+                    # dtype (the model takes no other; bf16 -> f32 is exact)
+                    batch_data["ctx"] = batch_data["ctx"].to(cfg.cdt)
                 injector.maybe_fail(step)
                 params, opt_state, metrics = step_fn(params, opt_state,
                                                      batch_data)

@@ -1,4 +1,4 @@
-"""Grouped-query self-attention and MLA (mirrors
+"""Grouped-query self-attention, MLA and cross-attention (mirrors
 :mod:`repro.models.attention`).
 
 Two modes share one softmax core:
@@ -11,8 +11,11 @@ hand-written flash-attention kernel
 the plain PyTorch path, named as in the reference. The kernel takes one
 head dim for q, k and v, so MLA (q and k of ``d_nope + d_rope``, v of
 ``d_v``) is refused under ``"flash"``, as the reference's kernel refuses
-it. The reference's sharding constraints are the identity on one device
-and are dropped; its cross-attention is not ported yet.
+it. Cross-attention (``causal=False``) and the encoder's non-causal
+self-attention take the plain path under either ``impl``, as in the
+reference, whose ``sdpa`` sends only causal ``Sq == Skv`` attention to its
+kernel. The reference's sharding constraints are the identity on one
+device and are dropped.
 """
 from __future__ import annotations
 
@@ -231,3 +234,37 @@ def apply_mla(p: dict, x: torch.Tensor, *, positions: torch.Tensor,
                    kv_valid_len=valid, impl=impl, q_chunk=q_chunk)
     y = einsum("bshv,hvd->bsd", out, p["wo"])
     return y, cache
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (VLM image layers, enc-dec decoder)
+# ---------------------------------------------------------------------------
+
+def init_cross(gen: torch.Generator, d_model: int, n_heads: int, n_kv: int,
+               head_dim: int, d_ctx: int, dtype, device=None) -> dict:
+    b = Builder(gen, dtype, device)
+    b.dense("wq", (d_model, n_heads, head_dim))
+    b.dense("wk", (d_ctx, n_kv, head_dim))
+    b.dense("wv", (d_ctx, n_kv, head_dim))
+    b.dense("wo", (n_heads, head_dim, d_model))
+    return b.done()
+
+
+def apply_cross(p: dict, x: torch.Tensor, ctx: Optional[torch.Tensor] = None,
+                *, kv_cache: Optional[Tuple[torch.Tensor,
+                                            torch.Tensor]] = None,
+                impl: str = "xla", q_chunk: int = -1):
+    """Cross-attention of ``x [B, S, D]`` over ``ctx [B, T, d_ctx]``: the
+    K/V ``[B, T, Hkv, Dh]`` are projected from ``ctx``, or taken from
+    ``kv_cache`` when one is passed (decode). Returns ``(y, (k, v))``; the
+    caller keeps ``(k, v)`` as the layer's cache. Non-causal, so the plain
+    path under either ``impl``."""
+    q = einsum("bsd,dhk->bshk", x, p["wq"])
+    if kv_cache is None:
+        k = einsum("btc,chk->bthk", ctx, p["wk"])
+        v = einsum("btc,chk->bthk", ctx, p["wv"])
+    else:
+        k, v = kv_cache
+    out = sdpa(q, k, v, causal=False, impl=impl, q_chunk=q_chunk)
+    y = einsum("bshk,hkd->bsd", out, p["wo"])
+    return y, (k, v)

@@ -1,11 +1,12 @@
 """Model families of the port (mirrors :mod:`repro.models.transformer`).
 
-``DecoderLM`` runs the reference's dense and MoE layer plans: stages of
-pre-norm residual blocks, each stage's parameters stacked ``[n, ...]``
+``DecoderLM`` runs the reference's dense, MoE and VLM layer plans: stages
+of pre-norm residual blocks, each stage's parameters stacked ``[n, ...]``
 under ``"stage<i>"``, as in the reference. A block is self-attention (GQA,
-or MLA under ``use_mla``) and an FFN: SwiGLU, under ``mlp_type="gelu"``
-the two-matrix gelu MLP with biases, or in a MoE block the routed experts
-of :mod:`repro_torch.models.moe`. The plans:
+or MLA under ``use_mla``), or in a VLM's cross block cross-attention over
+``ctx``, and an FFN: SwiGLU, under ``mlp_type="gelu"`` the two-matrix gelu
+MLP with biases, or in a MoE block the routed experts of
+:mod:`repro_torch.models.moe`. The plans:
 
   ``[("dense", L)]``                      no experts
   ``[("dense", n_dense), ("moe", n)]``    every layer after the first
@@ -15,11 +16,29 @@ of :mod:`repro_torch.models.moe`. The plans:
                                           blocks (``"dense"``, stacked
                                           ``[n, k - 1, ...]``) then one
                                           MoE block (``"moe"``)
+  ``[("vlm_super", n, k - 1), ...]``      ``family="vlm"``, ``cross_every =
+                                          k > 1``: each super block is k - 1
+                                          self blocks (``"selfs"``, stacked
+                                          ``[n, k - 1, ...]``) then one
+                                          cross block (``"cross"``); a
+                                          ``("dense", rem)`` stage follows
+                                          when k does not divide the layers
 
 It trains (``loss_fn``: cross entropy plus ``moe_aux_coef`` times the MoE
 layers' summed load-balance loss), serves (``prefill``, ``decode_step``)
 and runs a full forward (``_forward``, the logits; ``_forward_aux``, the
-logits and the summed aux loss).
+logits and the summed aux loss). The VLM takes its image patches as ``ctx
+[B, n_ctx, d_ctx]`` (the vision frontend is a stub, as in the reference) in
+the compute dtype only: another dtype raises ``TypeError``, where the
+reference promotes (an f32 ``ctx`` turns a bf16 model's residual to f32,
+which its layer scan then refuses). At prefill the cross blocks' K/V are
+projected from ``ctx`` and written into the cache in place; decode reads
+them from there.
+
+``EncDec`` (seamless-m4t): a non-causal encoder over precomputed frame
+embeddings (the audio frontend is a stub), and a decoder of self-attention,
+cross-attention over the encoder's output and SwiGLU. ``prefill`` takes the
+frames as ``ctx`` and raises ``ValueError`` without them.
 
 ``HybridSSM`` (zamba2): a Mamba-2 backbone with ONE shared attention block
 applied after every ``attn_every`` Mamba blocks, then the trailing Mamba
@@ -28,9 +47,10 @@ the ``mamba2_scan`` kernel under ``ssm_impl="mamba_kernel"``) and serves.
 
 A Python loop over the layers takes the place of the reference's
 ``lax.scan``; ``stream_unroll`` is kept as a field and means nothing here.
-``remat="block"`` recomputes each step of a stage (a block, or a MoE super
-block) in the backward, as the reference's ``jax.checkpoint`` of its scan
-body does: :func:`_maybe_remat` wraps it, or a HybridSSM group of Mamba
+``remat="block"`` recomputes each step of a stage (a block, a MoE or VLM
+super block, an encoder or decoder layer) in the backward, as the
+reference's ``jax.checkpoint`` of its scan body does: :func:`_maybe_remat`
+wraps it, or a HybridSSM group of Mamba
 blocks and its shared attention, in ``torch.utils.checkpoint`` when
 autograd records. The kernels have no backward
 (``ModelConfig.attn_impl="flash"`` and ``ssm_impl="mamba_kernel"`` raise
@@ -38,15 +58,14 @@ under autograd on the card, as ``jax.grad`` through the reference's
 kernels does), so training runs the plain routes, the reference's
 defaults. MLA is refused under ``attn_impl="flash"`` (the kernel takes one
 head dim for q, k and v; MLA's v is narrower), and so is MLA in a
-``moe_super`` plan, whose cache the reference builds but cannot index. The
-VLM, xLSTM and encoder-decoder models are not ported yet: :func:`get_model`
-refuses them.
+``moe_super`` or VLM plan, whose cache the reference builds but cannot
+index. The xLSTM model is not ported yet: :func:`get_model` refuses it.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -166,12 +185,16 @@ def _maybe_remat(fn, cfg: ModelConfig):
 # the block: GQA or MLA self-attention + SwiGLU, gelu MLP or MoE
 # ---------------------------------------------------------------------------
 
-def _init_attn_block(gen, cfg: ModelConfig, device,
-                     moe_ffn: bool = False) -> dict:
+def _init_attn_block(gen, cfg: ModelConfig, device, moe_ffn: bool = False,
+                     cross: bool = False) -> dict:
     b = Builder(gen, cfg.pdt, device)
     b.ones("ln1", (cfg.d_model,))
     b.ones("ln2", (cfg.d_model,))
-    if cfg.use_mla:
+    if cross:
+        b.sub("attn", A.init_cross(gen, cfg.d_model, cfg.n_heads,
+                                   cfg.n_kv_heads, cfg.hd,
+                                   cfg.d_ctx or cfg.d_model, cfg.pdt, device))
+    elif cfg.use_mla:
         b.sub("attn", A.init_mla(gen, cfg.d_model, cfg.n_heads,
                                  q_rank=cfg.q_rank, kv_rank=cfg.kv_rank,
                                  d_nope=cfg.d_nope, d_rope=cfg.d_rope,
@@ -207,10 +230,20 @@ def _apply_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig,
 
 def _apply_attn_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                       positions, cache=None, cache_pos: int = 0,
-                      moe_ffn: bool = False):
-    """``(x, cache, aux)``."""
+                      moe_ffn: bool = False, ctx=None, cross: bool = False):
+    """``(x, cache, aux)``. A cross block (``cross=True``) projects its K/V
+    from ``ctx`` and, given a ``cache``, writes them into it in place (a
+    prefill); with no ``ctx`` it reads them from ``cache`` (a decode)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    if cfg.use_mla:
+    if cross:
+        att, kv = A.apply_cross(p["attn"], h, ctx,
+                                kv_cache=cache if ctx is None else None,
+                                impl=cfg.attn_impl, q_chunk=cfg.attn_q_chunk)
+        if cache is not None and ctx is not None:
+            for dst, src in zip(cache, kv):
+                dst.copy_(src)
+        new_cache = kv if cache is None else cache
+    elif cfg.use_mla:
         att, new_cache = A.apply_mla(
             p["attn"], h, positions=positions, d_nope=cfg.d_nope,
             d_rope=cfg.d_rope, d_v=cfg.d_v, kv_rank=cfg.kv_rank,
@@ -228,20 +261,31 @@ def _apply_attn_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     return x + f, new_cache, aux
 
 
-_DECODER_FAMILIES = ("dense", "moe")
+_DECODER_FAMILIES = ("dense", "moe", "vlm")
 
 
 def _check_ported(cfg: ModelConfig, family: str) -> None:
     """Refuses what the port has not got (``family``: ``"decoder"`` for
-    :class:`DecoderLM`, ``"hybrid"``), a hybrid config without its SSM
-    fields (the reference asserts ``attn_every > 0``), and the MLA
+    :class:`DecoderLM`, ``"hybrid"``, ``"audio"``), a config without the
+    fields of its family (the reference asserts ``attn_every > 0``,
+    ``cross_every > 1``, ``n_enc_layers and n_dec_layers``), and the MLA
     combinations the reference cannot run."""
     if (cfg.family not in _DECODER_FAMILIES if family == "decoder"
             else cfg.family != family):
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family (the vlm plan, ssm and "
-            "audio models) is not ported yet; the port has the dense and "
-            "MoE plans and the hybrid")
+            f"{cfg.name}: the {cfg.family!r} family (the xLSTM model) is not "
+            "ported yet; the port has the dense, MoE and VLM plans, the "
+            "hybrid and the encoder-decoder")
+    if cfg.family == "vlm" and cfg.cross_every <= 1:
+        raise ValueError(f"{cfg.name}: a vlm config needs cross_every > 1 "
+                         f"(k - 1 self layers per cross layer), got "
+                         f"{cfg.cross_every}")
+    if family == "audio":
+        if cfg.n_enc_layers < 1 or cfg.n_dec_layers < 1:
+            raise ValueError(f"{cfg.name}: an encoder-decoder config needs "
+                             f"n_enc_layers >= 1 and n_dec_layers >= 1, got "
+                             f"{cfg.n_enc_layers} and {cfg.n_dec_layers}")
+        return
     if family == "hybrid":
         if cfg.use_mla or cfg.n_experts > 0:
             raise NotImplementedError(
@@ -254,12 +298,12 @@ def _check_ported(cfg: ModelConfig, family: str) -> None:
         return
     if not cfg.use_mla:
         return
-    if cfg.n_experts > 0 and cfg.moe_interleave > 1:
+    if cfg.family == "vlm" or (cfg.n_experts > 0 and cfg.moe_interleave > 1):
         raise ValueError(
-            f"{cfg.name}: MLA in a moe_super plan (moe_interleave="
-            f"{cfg.moe_interleave}) is refused: the reference builds one "
-            "latent cache per stage there, which its super block cannot "
-            "index")
+            f"{cfg.name}: MLA in a super block plan (family {cfg.family!r}, "
+            f"moe_interleave={cfg.moe_interleave}) is refused: the reference "
+            "builds one latent cache per stage there, which its super block "
+            "cannot index")
     d_qk = cfg.d_nope + cfg.d_rope
     if cfg.attn_impl == "flash" and d_qk != cfg.d_v:
         raise ValueError(
@@ -276,6 +320,15 @@ def _generator(seed: int, dev: torch.device) -> torch.Generator:
         device="cpu" if dev.type == "meta" else dev).manual_seed(seed)
 
 
+def _check_ctx(cfg: ModelConfig, ctx) -> None:
+    """A VLM's ``ctx`` is in the compute dtype: the reference promotes a
+    wider one, which turns the residual to f32 (its layer scan then fails,
+    and here the next self layers would leave flash's bf16 route)."""
+    if ctx is not None and ctx.dtype != cfg.cdt:
+        raise TypeError(f"{cfg.name}: ctx is {ctx.dtype}, the model computes "
+                        f"in {cfg.cdt}; pass ctx in {cfg.cdt}")
+
+
 def _at(cache, i):
     """Entry ``i`` of a stacked cache (a tuple of tensors, or a dict of
     them), as views; ``None`` stays ``None``."""
@@ -287,15 +340,24 @@ def _at(cache, i):
 
 
 # ---------------------------------------------------------------------------
-# DecoderLM: the dense and MoE plans
+# DecoderLM: the dense, MoE and VLM plans
 # ---------------------------------------------------------------------------
+
+# a super block's keys: its stacked self blocks, then its last block
+_SUPER_KEYS = {"moe_super": ("dense", "moe"), "vlm_super": ("selfs", "cross")}
 
 class DecoderLM:
     def __init__(self, cfg: ModelConfig):
         _check_ported(cfg, "decoder")
         self.cfg = c = cfg
         # the plan: (kind, count, inner) stages, as the reference's
-        if c.n_experts > 0:
+        if c.family == "vlm":
+            n_super = c.n_layers // c.cross_every
+            self.plan = [("vlm_super", n_super, c.cross_every - 1)]
+            rem = c.n_layers - n_super * c.cross_every
+            if rem:
+                self.plan.append(("dense", rem, 0))
+        elif c.n_experts > 0:
             self.plan = []
             if c.n_dense_layers:
                 self.plan.append(("dense", c.n_dense_layers, 0))
@@ -324,12 +386,17 @@ class DecoderLM:
         if not c.tie_embeddings:
             b.dense("lm_head", (c.d_model, padded_vocab(c.vocab_size)))
         for si, (kind, n, inner) in enumerate(self.plan):
-            if kind == "moe_super":
-                def init_one(g, inner=inner):
-                    return {"dense": stack_layers(
+            if kind in _SUPER_KEYS:
+                selfs, last = _SUPER_KEYS[kind]
+
+                def init_one(g, inner=inner, kind=kind, selfs=selfs,
+                             last=last):
+                    return {selfs: stack_layers(
                                 g, inner, lambda gg: _init_attn_block(gg, c,
                                                                       dev)),
-                            "moe": _init_attn_block(g, c, dev, moe_ffn=True)}
+                            last: _init_attn_block(
+                                g, c, dev, moe_ffn=kind == "moe_super",
+                                cross=kind == "vlm_super")}
             else:
                 def init_one(g, moe=kind == "moe"):
                     return _init_attn_block(g, c, dev, moe_ffn=moe)
@@ -341,33 +408,38 @@ class DecoderLM:
                 else params["lm_head"])
 
     def _step(self, kind: str, inner: int, p, x, positions, cache=None,
-              pos: int = 0):
-        """One step of a stage: a block, or a super block's ``inner`` dense
-        blocks then its MoE block; ``p`` and ``cache`` are the step's
-        entries. Returns ``(x, aux)``."""
+              pos: int = 0, ctx=None):
+        """One step of a stage: a block, or a super block's ``inner`` self
+        blocks then its MoE or cross block (over ``ctx``); ``p`` and
+        ``cache`` are the step's entries. Returns ``(x, aux)``."""
         c = self.cfg
-        if kind != "moe_super":
+        if kind not in _SUPER_KEYS:
             x, _, aux = _apply_attn_block(p, x, c, positions=positions,
                                           cache=cache, cache_pos=pos,
                                           moe_ffn=kind == "moe")
             return x, aux
-        for j in range(inner):      # dense blocks: their aux is 0.0
+        selfs, last = _SUPER_KEYS[kind]
+        for j in range(inner):      # self blocks: their aux is 0.0
             x, _, _ = _apply_attn_block(
-                layer(p["dense"], j), x, c, positions=positions,
-                cache=None if cache is None else _at(cache["dense"], j),
+                layer(p[selfs], j), x, c, positions=positions,
+                cache=None if cache is None else _at(cache[selfs], j),
                 cache_pos=pos)
         x, _, aux = _apply_attn_block(
-            p["moe"], x, c, positions=positions,
-            cache=None if cache is None else cache["moe"], cache_pos=pos,
-            moe_ffn=True)
+            p[last], x, c, positions=positions,
+            cache=None if cache is None else cache[last], cache_pos=pos,
+            moe_ffn=kind == "moe_super", ctx=ctx, cross=kind == "vlm_super")
         return x, aux
 
     # ---------------- forward (no cache)
-    def _forward_aux(self, params, tokens: torch.Tensor):
+    def _forward_aux(self, params, tokens: torch.Tensor, ctx=None):
         """Logits [B, S, V_pad] of the full sequence, and the MoE blocks'
         load-balance losses summed (0-d f32; the Python 0.0 for the dense
-        plan)."""
+        and VLM plans). A VLM attends ``ctx [B, n_ctx, d_ctx]``."""
         c = self.cfg
+        if c.family == "vlm":
+            if ctx is None:
+                raise ValueError(f"{c.name}: the vlm forward needs ctx")
+            _check_ctx(c, ctx)
         x = params["embed"][tokens].to(c.cdt)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
         aux_total = 0.0
@@ -375,7 +447,8 @@ class DecoderLM:
             sp = params[f"stage{si}"]
 
             def step(xx, i, kind=kind, inner=inner, sp=sp):
-                return self._step(kind, inner, layer(sp, i), xx, positions)
+                return self._step(kind, inner, layer(sp, i), xx, positions,
+                                  ctx=ctx)
 
             step = _maybe_remat(step, c)
             for i in range(n):
@@ -384,34 +457,39 @@ class DecoderLM:
         x = rms_norm(x, params["ln_f"], c.norm_eps)
         return lm_head_logits(x, self._head(params), c.vocab_size), aux_total
 
-    def _forward(self, params, tokens: torch.Tensor) -> torch.Tensor:
+    def _forward(self, params, tokens: torch.Tensor,
+                 ctx=None) -> torch.Tensor:
         """Logits [B, S, V_pad] of the full sequence."""
-        return self._forward_aux(params, tokens)[0]
+        return self._forward_aux(params, tokens, ctx)[0]
 
     def loss_fn(self, params, batch):
         """Mean next-token cross entropy of ``batch["tokens"]`` against
-        ``batch["labels"]`` (both ``[B, S]``) plus ``moe_aux_coef`` times
-        the summed load-balance loss (0 for the dense plan):
-        ``(total, {"ce_loss", "aux_loss"})``, as the reference returns."""
-        logits, aux = self._forward_aux(params, batch["tokens"])
+        ``batch["labels"]`` (both ``[B, S]``; a VLM's ``batch["ctx"]`` its
+        patches) plus ``moe_aux_coef`` times the summed load-balance loss (0
+        for the dense and VLM plans): ``(total, {"ce_loss", "aux_loss"})``,
+        as the reference returns."""
+        logits, aux = self._forward_aux(params, batch["tokens"],
+                                        batch.get("ctx"))
         loss = cross_entropy_loss(logits, batch["labels"])
         aux = torch.as_tensor(aux, dtype=torch.float32, device=loss.device)
         total = loss + self.cfg.moe_aux_coef * aux
         return total, {"ce_loss": loss, "aux_loss": aux}
 
     # ---------------- caches
-    def init_cache(self, batch_size: int, max_len: int,
-                   device=None) -> Dict[str, Any]:
+    def init_cache(self, batch_size: int, max_len: int, device=None,
+                   n_ctx: Optional[int] = None) -> Dict[str, Any]:
         """Zero caches per stage in the compute dtype, as the reference's:
         under MLA the latents ``(c_kv [n, B, max_len, kv_rank], k_rope [n,
-        B, max_len, d_rope])``; else K/V ``[n, B, max_len, Hkv, Dh]``, and
-        for a super block ``{"dense": (k, v) [n, inner, ...], "moe": (k, v)
-        [n, ...]}``."""
+        B, max_len, d_rope])``; else K/V ``[n, B, max_len, Hkv, Dh]``; for a
+        MoE super block ``{"dense": (k, v) [n, inner, ...], "moe": (k, v)
+        [n, ...]}``, for a VLM super block ``{"selfs": (k, v) [n, inner,
+        ...], "cross": (k, v) [n, B, n_ctx, Hkv, Dh]}`` (``n_ctx``: the
+        config's unless given)."""
         c = self.cfg
         dev = resolve_device(device)
 
-        def mk(*lead, tail):
-            return tuple(torch.zeros(lead + (batch_size, max_len) + t,
+        def mk(*lead, tail, length=max_len):
+            return tuple(torch.zeros(lead + (batch_size, length) + t,
                                      dtype=c.cdt, device=dev) for t in tail)
 
         kv = ((c.n_kv_heads, c.hd),) * 2
@@ -422,14 +500,20 @@ class DecoderLM:
             elif kind == "moe_super":
                 cache[f"stage{si}"] = {"dense": mk(n, inner, tail=kv),
                                        "moe": mk(n, tail=kv)}
+            elif kind == "vlm_super":
+                cache[f"stage{si}"] = {
+                    "selfs": mk(n, inner, tail=kv),
+                    "cross": mk(n, tail=kv, length=n_ctx or c.n_ctx)}
             else:
                 cache[f"stage{si}"] = mk(n, tail=kv)
         return cache
 
-    def _with_cache(self, params, tokens: torch.Tensor, cache, pos: int):
+    def _with_cache(self, params, tokens: torch.Tensor, cache, pos: int,
+                    ctx=None):
         """Shared prefill/decode path: runs tokens (S >= 1) at cache offset
-        ``pos``, writing the cache in place. Returns the last position's
-        logits [B, 1, V_pad] and the cache."""
+        ``pos``, writing the cache in place (a VLM's cross K/V from ``ctx``
+        when it is given, at prefill). Returns the last position's logits
+        [B, 1, V_pad] and the cache."""
         c = self.cfg
         x = params["embed"][tokens].to(c.cdt)
         positions = pos + torch.arange(tokens.shape[1], device=tokens.device)
@@ -437,14 +521,21 @@ class DecoderLM:
             sp, sc = params[f"stage{si}"], cache[f"stage{si}"]
             for i in range(n):
                 x, _ = self._step(kind, inner, layer(sp, i), x, positions,
-                                  cache=_at(sc, i), pos=pos)
+                                  cache=_at(sc, i), pos=pos, ctx=ctx)
         x = rms_norm(x, params["ln_f"], c.norm_eps)
         logits = lm_head_logits(x[:, -1:], self._head(params), c.vocab_size)
         return logits, cache
 
-    def prefill(self, params, tokens: torch.Tensor, max_len: int):
-        cache = self.init_cache(tokens.shape[0], max_len, tokens.device)
-        return self._with_cache(params, tokens, cache, 0)
+    def prefill(self, params, tokens: torch.Tensor, max_len: int, ctx=None):
+        """The prompt's last logits and the cache; a VLM's ``ctx [B, n_ctx,
+        d_ctx]`` fills the cross blocks' K/V (without it they attend the
+        zero cache, as the reference's do). Other plans ignore ``ctx``."""
+        if self.cfg.family != "vlm":
+            ctx = None
+        _check_ctx(self.cfg, ctx)
+        cache = self.init_cache(tokens.shape[0], max_len, tokens.device,
+                                n_ctx=None if ctx is None else ctx.shape[1])
+        return self._with_cache(params, tokens, cache, 0, ctx)
 
     def decode_step(self, params, tokens: torch.Tensor, cache, pos: int):
         return self._with_cache(params, tokens, cache, pos)
@@ -588,7 +679,8 @@ class HybridSSM:
         logits = lm_head_logits(x[:, -1:], params["lm_head"], c.vocab_size)
         return logits, cache
 
-    def prefill(self, params, tokens: torch.Tensor, max_len: int):
+    def prefill(self, params, tokens: torch.Tensor, max_len: int, ctx=None):
+        """``ctx`` is taken and ignored, as the reference's is."""
         cache = self.init_cache(tokens.shape[0], max_len, tokens.device)
         return self._with_cache(params, tokens, cache, 0)
 
@@ -597,11 +689,193 @@ class HybridSSM:
 
 
 # ---------------------------------------------------------------------------
+# EncDec (seamless-m4t): audio-frontend stub -> encoder; text decoder
+# ---------------------------------------------------------------------------
+
+class EncDec:
+    """``encoder.*`` stacked ``[n_enc_layers, ...]`` (``ln1``, ``ln2``,
+    ``attn`` GQA, ``ffn`` SwiGLU), ``decoder.*`` ``[n_dec_layers, ...]``
+    (``ln1``, ``ln2``, ``ln3``, ``self`` GQA, ``cross`` over the encoder's
+    output, ``ffn``), ``embed``, ``ln_enc``, ``ln_dec``, an untied
+    ``lm_head``: the reference's tree (``mlp_type`` and ``tie_embeddings``
+    are ignored there too)."""
+
+    def __init__(self, cfg: ModelConfig):
+        _check_ported(cfg, "audio")
+        self.cfg = cfg
+
+    # ---------------- init
+    def init(self, seed: int = 0, device=None) -> dict:
+        """Random parameters from ``seed``, drawn on ``device`` (``None``:
+        the card, raising without one; ``"meta"``: shapes only)."""
+        c = self.cfg
+        dev = resolve_device(device)
+        gen = _generator(seed, dev)
+        b = Builder(gen, c.pdt, dev)
+        b.dense("embed", (c.vocab_size, c.d_model), scale=0.02)
+        b.ones("ln_enc", (c.d_model,))
+        b.ones("ln_dec", (c.d_model,))
+        b.dense("lm_head", (c.d_model, padded_vocab(c.vocab_size)))
+
+        def gqa(g):
+            return A.init_gqa(g, c.d_model, c.n_heads, c.n_kv_heads, c.hd,
+                              c.pdt, dev)
+
+        def init_enc(g):
+            bb = Builder(g, c.pdt, dev)
+            bb.ones("ln1", (c.d_model,))
+            bb.ones("ln2", (c.d_model,))
+            bb.sub("attn", gqa(g))
+            bb.sub("ffn", init_swiglu(g, c.d_model, c.d_ff, c.pdt, dev))
+            return bb.done()
+
+        def init_dec(g):
+            bb = Builder(g, c.pdt, dev)
+            for name in ("ln1", "ln2", "ln3"):
+                bb.ones(name, (c.d_model,))
+            bb.sub("self", gqa(g))
+            bb.sub("cross", A.init_cross(g, c.d_model, c.n_heads,
+                                         c.n_kv_heads, c.hd, c.d_model,
+                                         c.pdt, dev))
+            bb.sub("ffn", init_swiglu(g, c.d_model, c.d_ff, c.pdt, dev))
+            return bb.done()
+
+        b.sub("encoder", stack_layers(gen, c.n_enc_layers, init_enc))
+        b.sub("decoder", stack_layers(gen, c.n_dec_layers, init_dec))
+        return b.done()
+
+    @staticmethod
+    def _ffn(p, x):
+        return swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
+
+    # ---------------- encoder
+    def encode(self, params, frames: torch.Tensor) -> torch.Tensor:
+        """``frames [B, S_enc, D]``, precomputed frontend embeddings (cast
+        to the compute dtype, as the reference does) -> the encoder's output
+        ``[B, S_enc, D]``: non-causal self-attention, the plain path under
+        either ``attn_impl``."""
+        c = self.cfg
+        x = frames.to(c.cdt)
+        positions = torch.arange(frames.shape[1], device=frames.device)
+
+        def body(xx, i):
+            lp = layer(params["encoder"], i)
+            h = rms_norm(xx, lp["ln1"], c.norm_eps)
+            att, _ = A.apply_gqa(lp["attn"], h, positions=positions,
+                                 rope_theta=c.rope_theta, causal=False,
+                                 impl=c.attn_impl, q_chunk=c.attn_q_chunk)
+            xx = xx + att
+            return xx + self._ffn(lp["ffn"], rms_norm(xx, lp["ln2"],
+                                                      c.norm_eps))
+
+        body = _maybe_remat(body, c)
+        for i in range(c.n_enc_layers):
+            x = body(x, i)
+        return rms_norm(x, params["ln_enc"], c.norm_eps)
+
+    # ---------------- decoder
+    def _decode(self, params, tokens: torch.Tensor, enc_out, *, cache=None,
+                pos: int = 0) -> torch.Tensor:
+        """The decoder's final-normed hidden states ``[B, S, D]``. With a
+        ``cache`` (``((k, v), (ck, cv))``, stacked per layer) the self K/V
+        are written at ``pos`` in place, and the cross K/V too when
+        ``enc_out`` is given (prefill); without ``enc_out`` they are read
+        from it (decode)."""
+        c = self.cfg
+        x = params["embed"][tokens].to(c.cdt)
+        positions = pos + torch.arange(tokens.shape[1], device=tokens.device)
+        cached = cache is not None
+        kw = dict(impl=c.attn_impl, q_chunk=c.attn_q_chunk)
+
+        def body(xx, i):
+            lp = layer(params["decoder"], i)
+            h = rms_norm(xx, lp["ln1"], c.norm_eps)
+            att, _ = A.apply_gqa(lp["self"], h, positions=positions,
+                                 rope_theta=c.rope_theta,
+                                 cache=_at(cache[0], i) if cached else None,
+                                 cache_pos=pos, **kw)
+            xx = xx + att
+            h2 = rms_norm(xx, lp["ln2"], c.norm_eps)
+            cross = _at(cache[1], i) if cached else None
+            xatt, kv = A.apply_cross(
+                lp["cross"], h2, enc_out,
+                kv_cache=cross if enc_out is None else None, **kw)
+            if cached and enc_out is not None:
+                for dst, src in zip(cross, kv):
+                    dst.copy_(src)
+            xx = xx + xatt
+            return xx + self._ffn(lp["ffn"], rms_norm(xx, lp["ln3"],
+                                                      c.norm_eps))
+
+        if not cached:      # the caches are written in place: no recompute
+            body = _maybe_remat(body, c)
+        for i in range(c.n_dec_layers):
+            x = body(x, i)
+        return rms_norm(x, params["ln_dec"], c.norm_eps)
+
+    def _forward(self, params, tokens: torch.Tensor,
+                 frames: torch.Tensor) -> torch.Tensor:
+        """Logits [B, S, V_pad] of the full target sequence."""
+        x = self._decode(params, tokens, self.encode(params, frames))
+        return lm_head_logits(x, params["lm_head"], self.cfg.vocab_size)
+
+    def loss_fn(self, params, batch):
+        """Mean next-token cross entropy of ``batch["tokens"]`` against
+        ``batch["labels"]`` given ``batch["frames"]``: ``(loss, {"ce_loss":
+        loss})``."""
+        loss = cross_entropy_loss(
+            self._forward(params, batch["tokens"], batch["frames"]),
+            batch["labels"])
+        return loss, {"ce_loss": loss}
+
+    # ---------------- caches
+    def init_cache(self, batch_size: int, max_len: int, device=None,
+                   n_ctx: Optional[int] = None):
+        """Zero caches in the compute dtype: the decoder's self K/V ``(k, v)
+        [L, B, max_len, Hkv, Dh]`` and cross K/V ``(ck, cv) [L, B, n_ctx,
+        Hkv, Dh]`` (``n_ctx``: the config's unless given)."""
+        c = self.cfg
+        dev = resolve_device(device)
+
+        def mk(length):
+            shape = (c.n_dec_layers, batch_size, length, c.n_kv_heads, c.hd)
+            return tuple(torch.zeros(shape, dtype=c.cdt, device=dev)
+                         for _ in range(2))
+
+        return mk(max_len), mk(n_ctx or c.n_ctx)
+
+    def _last_logits(self, params, x):
+        return lm_head_logits(x[:, -1:], params["lm_head"],
+                              self.cfg.vocab_size)
+
+    def prefill(self, params, tokens: torch.Tensor, max_len: int, ctx=None):
+        """``ctx``: the frames ``[B, S_enc, D]``, encoded once; the cross
+        cache holds their K/V. Returns the last position's logits [B, 1,
+        V_pad] and the cache."""
+        if ctx is None:
+            raise ValueError(f"{self.cfg.name}: the encoder-decoder's "
+                             "prefill needs the frames as ctx")
+        enc_out = self.encode(params, ctx)
+        cache = self.init_cache(tokens.shape[0], max_len, tokens.device,
+                                n_ctx=ctx.shape[1])
+        x = self._decode(params, tokens, enc_out, cache=cache, pos=0)
+        return self._last_logits(params, x), cache
+
+    def decode_step(self, params, tokens: torch.Tensor, cache, pos: int):
+        x = self._decode(params, tokens, None, cache=cache, pos=pos)
+        return self._last_logits(params, x), cache
+
+
+# ---------------------------------------------------------------------------
 
 def get_model(cfg: ModelConfig):
     """The model of ``cfg``; raises ``NotImplementedError`` for what the
     port does not have yet, and ``ValueError`` for what the reference
-    cannot run (MLA under ``attn_impl="flash"``, MLA in a super block)."""
+    cannot run (MLA under ``attn_impl="flash"``, MLA in a super block) or
+    asserts against (a hybrid, VLM or encoder-decoder config without its
+    family's fields)."""
     if cfg.family == "hybrid":
         return HybridSSM(cfg)
+    if cfg.family == "audio":
+        return EncDec(cfg)
     return DecoderLM(cfg)

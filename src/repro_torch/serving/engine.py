@@ -37,17 +37,22 @@ class ServingEngine:
         self.params = params
         self.last_stats: dict = {}
 
-    def prefill(self, tokens: torch.Tensor):
+    def prefill(self, tokens: torch.Tensor, ctx=None):
+        """``ctx``: the VLM's patches or the encoder-decoder's frames, moved
+        to the engine's device (other models ignore it)."""
+        if ctx is not None:
+            ctx = ctx.to(self.device)
         return self.model.prefill(self.params, tokens,
-                                  max_len=self.scfg.max_len)
+                                  max_len=self.scfg.max_len, ctx=ctx)
 
     def decode(self, tokens: torch.Tensor, cache, pos: int):
         return self.model.decode_step(self.params, tokens, cache, pos)
 
-    def generate(self, prompt_tokens: torch.Tensor, n_new: int,
+    def generate(self, prompt_tokens: torch.Tensor, n_new: int, ctx=None,
                  generator: Optional[torch.Generator] = None) -> np.ndarray:
         """Greedy (or, with a temperature and a ``generator``, sampled)
-        generation for a full batch: ``[B, n_new]`` int32 tokens.
+        generation for a full batch: ``[B, n_new]`` int32 tokens; ``ctx``
+        goes to the prefill.
 
         ``last_stats`` then holds ``prefill_s`` (prompt in to the first
         token on the host: the time to first token), ``decode_s`` (the
@@ -56,7 +61,7 @@ class ServingEngine:
         prompt_tokens = prompt_tokens.to(self.device)
         S = prompt_tokens.shape[1]
         t0 = time.perf_counter()
-        logits, cache = self.prefill(prompt_tokens)
+        logits, cache = self.prefill(prompt_tokens, ctx)
         finite = torch.isfinite(logits).all()
         tok = self._sample(logits, generator)
         first = tok.cpu()
@@ -106,17 +111,18 @@ def make_serve_step(cfg: ModelConfig, batch: int, max_len: int,
 
 def make_prefill_step(cfg: ModelConfig, batch: int, seq: int, device=None):
     """The prefill step of the prefill cells, ``prefill_step(params, tokens
-    [batch, <= seq]) -> (logits, cache)``, its cache of ``seq`` entries built
-    on the tokens' device (``device`` is checked as the other entry points
-    check it: ``None`` means the card). The step comes alone, without the
-    reference's cache shardings."""
+    [batch, <= seq], ctx=None) -> (logits, cache)``, its cache of ``seq``
+    entries built on the tokens' device (``device`` is checked as the other
+    entry points check it: ``None`` means the card); ``ctx`` is the VLM's
+    patches or the encoder-decoder's frames. The step comes alone, without
+    the reference's cache shardings."""
     resolve_device(device)
     model = get_model(cfg)
 
-    def prefill_step(params, tokens):
+    def prefill_step(params, tokens, ctx=None):
         if tokens.shape[0] != batch or tokens.shape[1] > seq:
             raise ValueError(f"prefill_step takes {batch} rows of at most "
                              f"{seq} tokens, got {list(tokens.shape)}")
-        return model.prefill(params, tokens, max_len=seq)
+        return model.prefill(params, tokens, max_len=seq, ctx=ctx)
 
     return prefill_step

@@ -253,7 +253,8 @@ def test_cli_writes_skip_and_tagged_cells(tmp_path):
 
 SMOKE_FIELDS = ("n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff",
                 "vocab_size", "head_dim", "ssm_state", "ssm_head_dim",
-                "attn_every")
+                "attn_every", "cross_every", "n_ctx", "d_ctx",
+                "n_enc_layers", "n_dec_layers")
 
 
 @pytest.fixture(scope="module")

@@ -852,3 +852,49 @@ def test_flash_at_maverick_heads_matches_plain_on_card(dtype):
                                                           causal=True),
                              "at maverick's heads")
     assert err <= cs.FLASH_TOL[str(dtype)[6:]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,Hkv,D", [(64, 8, 128), (16, 16, 64)],
+                         ids=["vision", "seamless"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_at_cross_family_heads_matches_plain_on_card(H, Hkv, D, dtype):
+    """The self-attention of llama-3.2-vision-90b (64 query heads over 8 KV
+    heads at head dim 128) and of seamless-m4t-large-v2's decoder (16 over
+    16, MHA, at head dim 64), q ``[2, 512, H, D]``, causal, one launch per
+    call: within the grid's tolerance of the plain version (bf16 also per
+    row)."""
+    _need_card()
+    cs = _chip_smoke()
+    g = torch.Generator(device="cuda").manual_seed(H)
+    q = torch.randn((2, 512, H, D), generator=g, device="cuda", dtype=dtype)
+    k, v = (torch.randn((2, 512, Hkv, D), generator=g, device="cuda",
+                        dtype=dtype) for _ in range(2))
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, causal=True)
+    assert fa.flash_attention.launches == before + 1
+    err, rel = cs.flash_errs(got, ref.flash_attention_ref(q, k, v,
+                                                          causal=True),
+                             f"at {H} over {Hkv} heads")
+    assert err <= cs.FLASH_TOL[str(dtype)[6:]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-90b",
+                                  "seamless-m4t-large-v2"])
+def test_cross_smoke_card_equals_cpu(arch):
+    """``chip_smoke.py`` 20(d) for one arch: the smoke config from one CPU
+    init, f32 without TF32, under flash and the plain attention: the
+    prefill with its ``ctx`` or frames, 2 decode steps and the loss on the
+    card within 1e-5 of the CPU's."""
+    _need_card()
+    cs = _chip_smoke()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        worst, n_runs = cs.cross_card_vs_cpu(torch, (arch,))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert n_runs == 2
+    assert worst["logits"] <= cs.CROSS_TWIN_TOL
+    assert worst["loss"] <= cs.CROSS_TWIN_TOL

@@ -266,7 +266,7 @@ def test_param_and_input_specs_equal_reference(arch):
 def test_shapes_equal_reference():
     assert CN.SHAPES == {k: CN.ShapeSpec(*v.__dict__.values())
                          for k, v in RCN.SHAPES.items()}
-    for fam in ("dense", "hybrid", "ssm", "moe"):
+    for fam in ("dense", "hybrid", "ssm", "moe", "vlm", "audio"):
         for name in CN.SHAPES:
             assert CN.cell_supported(fam, name) == RCN.cell_supported(fam,
                                                                       name)

@@ -417,11 +417,13 @@ def test_serving_without_card_raises_unless_cpu_is_asked_for(monkeypatch):
 
 
 @pytest.mark.parametrize("overrides,error", [
-    (dict(family="vlm", cross_every=2), NotImplementedError),
+    # a vlm config needs cross_every > 1, where the reference asserts
+    (dict(family="vlm", cross_every=1), ValueError),
     # a hybrid without its SSM fields is malformed, not unported
     (dict(family="hybrid"), ValueError),
     (dict(family="ssm"), NotImplementedError),
-    (dict(family="audio"), NotImplementedError),
+    # an encoder-decoder needs both stacks, where the reference asserts
+    (dict(family="audio", n_enc_layers=0, n_dec_layers=2), ValueError),
     # MLA in a moe_super plan: the reference builds a latent cache its
     # super block cannot index
     (dict(family="moe", n_experts=4, use_mla=True, moe_interleave=2),
@@ -434,7 +436,8 @@ def test_unported_models_are_refused(overrides, error):
 def test_unported_archs_are_refused():
     assert configs.ARCHS == ["llama3.2-1b", "zamba2-1.2b", "granite-3-8b",
                              "granite-20b", "stablelm-3b",
-                             "deepseek-v3-671b", "llama4-maverick-400b-a17b"]
+                             "deepseek-v3-671b", "llama4-maverick-400b-a17b",
+                             "llama-3.2-vision-90b", "seamless-m4t-large-v2"]
     with pytest.raises(ValueError, match="unported"):
         configs.get_config("xlstm-125m")
 
