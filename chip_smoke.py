@@ -184,11 +184,13 @@ Phases (any failure exits non-zero, with no result line):
     for bit, the admission kernel launched on the card's run.
 
 17. The cost-model link, within ``COST_BUDGET_S``: (a) ``launch/dryrun.py``'s
-    writer counts the nine ported archs x the four shapes on the meta
+    writer counts the ten archs x the four shapes on the meta
     device (no card; ``DRYRUN_WORKERS`` processes, while (c) and (d) run)
     into a temporary root: every dense, MoE, VLM and audio ``long_500k`` a
-    skip, the other 28 cells counted (a train cell's one microbatch taken
-    ``TRAIN_MICROBATCHES`` times); each cell's FLOPs, bytes, dominant term and roofline
+    skip, the other 32 cells counted (a train cell's one microbatch taken
+    ``TRAIN_MICROBATCHES`` times; the xLSTM's train and prefill cells
+    counted at two lengths and depths and extrapolated, ``counted_at``);
+    each cell's FLOPs, bytes, dominant term and roofline
     step on ``costmodel.H100``. (b) ``accelerator_workload_catalog`` of
     those cells, its medians, and ``examples/accelerator_platform.py``'s
     workload drawn from it (whole seconds) through ``run_experiment`` on
@@ -261,6 +263,39 @@ Phases (any failure exits non-zero, with no result line):
     and the plain attention: prefill of ``CROSS_TWIN_S`` tokens with the
     ``ctx`` or frames, 2 teacher-forced decode steps and ``loss_fn``,
     logits and losses within ``CROSS_TWIN_TOL``.
+21. The xLSTM family, the admission rankings and the compression, within
+    ``XLSTM_BUDGET_S`` (no kernel on the xLSTM's path: it has no attention
+    and no SSD). (a) xlstm-125m at full width and depth (12 layers: 6 super
+    blocks of an mLSTM and an sLSTM block, d_model 768, 4 heads of 192;
+    bf16, 116.3 M parameters) served by ``ServingEngine`` at batch
+    ``XLSTM_B``, ``XLSTM_PROMPT``-token prompts and ``XLSTM_NEW`` new
+    tokens: time to first token (the prefill runs the step recurrence over
+    every prompt token, as the reference's), decode tokens/s, peak GiB
+    after init and after generation; finite logits, tokens in the vocab,
+    no kernel launched. (b) It trains at full width through the trainer,
+    ``XLSTM_TRAIN``'s 3 steps of 2 x 1,024 tokens (the chunkwise mLSTM's 8
+    chunks of 128 with the state handed between them, the sLSTM's 1,024
+    steps, remat per super block), the sLSTM's recurrent matrices redrawn
+    at 1 / sqrt(hd) (with the reference's 1 / sqrt(H) the backward
+    overflows f32 within 256-512 tokens, in both packages): finite losses
+    and gradient norms, no kernel launched, the warm step, tokens/s and
+    peak GiB. (c) The smoke config from one CPU
+    init on the card and on the CPU in f32 (no TF32) at chunk 16 over 64
+    tokens: the chunkwise forward's logits and the loss within
+    ``XLSTM_TWIN_TOL``, step 1's gradients within it of their norm, and on
+    each device a 32-token prefill with 32 teacher-forced decode steps
+    within it of the chunkwise forward's logits. (d) The four admission
+    modes (``"kernel"``, ``"dense"``, ``"fused"``: one stable sort of a
+    packed int64 key; ``"chained"``: three stable argsorts) on ``RANK_R``
+    replicas of phase 3's workload over ``RANK_HORIZON_S``: all 8 output
+    keys equal bit for bit, the admission kernel launched under
+    ``"kernel"`` only, each mode's wall per wave printed (a reading). (e)
+    int8 and top-k (``COMP_RATIO``) compression with error feedback for
+    ``COMP_ROUNDS`` rounds on random bf16 leaves shaped like one
+    full-width llama3.2-1b layer: the int8 codes, ``g_hat``, the error and
+    the wire bytes card == CPU bit for bit; ``compressed_psum_pod`` over a
+    one-rank NCCL group (an in-process ``HashStore``) == ``group=None``
+    bit for bit.
 
 The last lines are the kernels' JSON record (a kernel launched on two
 main paths, as flash in the llama prefill, the hybrid forward and the
@@ -465,6 +500,26 @@ CROSS_BUDGET_S = 120.0
 CROSS_LAYERS = {"llama-3.2-vision-90b": 10, "seamless-m4t-large-v2": None}
 CROSS_B, CROSS_PROMPT, CROSS_NEW, CROSS_SEED = 2, 512, 16, 0
 CROSS_TWIN_S, CROSS_TWIN_TOL = 24, 1e-5
+# phase 21, the xLSTM family, the admission rankings and the compression on
+# the card within its own budget: xlstm-125m at full width and depth (bf16,
+# random weights from XLSTM_SEED) served by ServingEngine at batch
+# XLSTM_B, XLSTM_PROMPT-token prompts and XLSTM_NEW new tokens, then trained
+# for XLSTM_TRAIN's steps (S > 512: the chunkwise mLSTM runs 8 chunks of
+# 128); the smoke config on the card against the CPU in f32 (no TF32)
+# within XLSTM_TWIN_TOL (chunk XLSTM_TWIN_CHUNK over XLSTM_TWIN_S tokens);
+# the four admission modes on RANK_R replicas of phase 3's workload over
+# RANK_HORIZON_S; int8 and top-k compression with error feedback for
+# COMP_ROUNDS rounds on leaves shaped like one llama3.2-1b layer
+XLSTM_BUDGET_S = 90.0
+XLSTM_B, XLSTM_PROMPT, XLSTM_NEW, XLSTM_SEED = 8, 512, 32, 0
+XLSTM_TRAIN = dict(steps=3, batch=2, seq=1024, lr=3e-4)
+# the reference's init draws the sLSTM's recurrent matrices r [H, hd, hd] at
+# 1 / sqrt(H) (its fan-in is the leading axis): its backward overflows f32
+# within 256-512 tokens, in the reference as in the port (both checked on
+# the CPU), so 21(b) redraws them at 1 / sqrt(hd) by rescaling
+XLSTM_TWIN_S, XLSTM_TWIN_CHUNK, XLSTM_TWIN_TOL = 64, 16, 1e-5
+RANK_R, RANK_HORIZON_S = 4, 6 * 3600.0
+COMP_ROUNDS, COMP_RATIO, COMP_SEED = 3, 0.05, 7
 FSO_KEYS = ORACLE_KEYS + (
     "ctrl_act", "ctrl_n", "rel_act", "rel_n", "fleet_perf", "fleet_stale",
     "fleet_act", "fleet_n", "pool_arr", "pool_model", "pool_next",
@@ -531,6 +586,17 @@ def same_bits(a, b) -> bool:
     if a.dtype == torch.float32:
         a, b = a.view(torch.int32), b.view(torch.int32)
     return a.shape == b.shape and bool(torch.equal(a, b))
+
+
+def same_bytes(a, b) -> bool:
+    """Equal dtype, shape and bytes (any dtype, either device): -0.0 is not
+    0.0 here."""
+    import torch
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    a, b = a.detach().cpu().contiguous(), b.detach().cpu().contiguous()
+    return bool(torch.equal(a.view(-1).view(torch.uint8),
+                            b.view(-1).view(torch.uint8)))
 
 
 # ------------------------------------------------------------ phase 2
@@ -708,9 +774,10 @@ def time_admission(torch, fused_admission, dense, kept, phase="3",
 
 # ------------------------------------------------------------ phase 3
 
-def build_ensemble():
-    """The main path's inputs, on the host: R one-day workloads with their
-    compiled scenarios, padded and stacked."""
+def build_ensemble(n_replicas=N_REPLICAS, horizon_s=HORIZON_S):
+    """The main path's inputs, on the host: ``n_replicas`` workloads of
+    ``horizon_s`` (one day) with their compiled scenarios, padded and
+    stacked."""
     from repro_torch.core import batching, des
     from repro_torch.core import model as M
     from repro_torch.core.workload import generate_empirical_workload
@@ -722,20 +789,20 @@ def build_ensemble():
     maint = MaintenanceWindows(((6 * 3600.0, 10 * 3600.0, 1, 0.5),
                                 (14 * 3600.0, 16 * 3600.0, 0, 0.75)))
     plats, wls, comps, pols = [], [], [], []
-    for i in range(N_REPLICAS):
+    for i in range(n_replicas):
         plat = base.with_capacity("learning_cluster",
                                   LEARNING_CAPS[i % len(LEARNING_CAPS)])
         pol = (des.POLICY_FIFO, des.POLICY_PRIORITY, des.POLICY_SJF)[i % 3]
-        wl = generate_empirical_workload(i, HORIZON_S)
+        wl = generate_empirical_workload(i, horizon_s)
         scen = Scenario(capacity=maint if i % 2 else None,
                         failures=FailureModel(resample_service=i % 4 == 3))
         plats.append(plat)
         wls.append(wl)
         pols.append(pol)
-        comps.append(scen.compile(wl, plat, HORIZON_S, seed=i, policy=pol))
+        comps.append(scen.compile(wl, plat, horizon_s, seed=i, policy=pol))
     cols = batching.pad_workloads(wls, plats)
     cols.update(batching.stack_scenarios(
-        comps, cols["n_max"], HORIZON_S,
+        comps, cols["n_max"], horizon_s,
         services=[w.service_time(p.datastore) for w, p in zip(wls, plats)]))
     caps = np.stack([p.capacities for p in plats]).astype(np.int32)
     return plats, wls, comps, np.array(pols, np.int32), cols, caps
@@ -2637,12 +2704,13 @@ def same_tree_bits(torch, a, b) -> bool:
     return True
 
 
-def train_stats(cfg, losses, secs, batch, seq, peak):
+def train_stats(cfg, losses, secs, batch, seq, peak, decreasing=True):
     """The training metrics of one run: warm step time (the median over
     the steps after the first, which holds the allocator's warm-up),
     tokens/s, model FLOP/s from 6 N tokens and peak memory. Checks that
-    every loss is finite and the last below the first."""
-    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+    every loss is finite and (``decreasing``) the last below the first."""
+    if not all(np.isfinite(losses)) or (decreasing
+                                        and not losses[-1] < losses[0]):
         raise AssertionError(f"{cfg.name}: losses {losses}")
     n = cfg.active_param_count()
     warm = float(np.median(secs[1:]))
@@ -3033,11 +3101,11 @@ def phase_training(torch, counts, flash_attention, mamba2_scan):
 # ------------------------------------------------------------ phase 17
 
 def report_cells(cells, wall):
-    """17(a): the 36 records written, ``long_500k`` a skip for every
-    full-attention arch (dense, MoE, VLM and audio) and every other cell
-    counted;
-    prints each cell's FLOPs, bytes, dominant term and roofline step on
-    the H100 spec."""
+    """17(a): the 40 records written, ``long_500k`` a skip for every
+    full-attention arch (dense, MoE, VLM and audio: 8) and the other 32
+    cells counted, the xLSTM's train and prefill cells by their steps
+    (``counted_at``); prints each cell's FLOPs, bytes, dominant term and
+    roofline step on the H100 spec."""
     from repro_torch import configs
     from repro_torch.core import costmodel
     want = {(a, s) for a in configs.ARCHS for s in configs.SHAPES}
@@ -3052,13 +3120,20 @@ def report_cells(cells, wall):
         if skip:
             log(f"[17] (a) {arch} x {shape}: skip")
             continue
+        by_steps = fam == "ssm" and shape in ("train_4k", "prefill_32k")
+        if by_steps != ("counted_at" in rec):
+            raise AssertionError(f"17(a) {arch} x {shape}: counted_at "
+                                 f"{rec.get('counted_at')}")
         t = costmodel.roofline_terms(rec)
+        at = (f", counted at {rec['counted_at']}" if by_steps else "")
         log(f"[17] (a) {arch} x {shape}: ok, {rec['flops_per_device']:.4e} "
             f"FLOP, {rec['bytes_accessed_per_device']:.4e} bytes, "
             f"{t['dominant']}-bound, step {t['step_s']:.6g} s on H100 "
             f"(compute {t['compute_s']:.6g} s, memory {t['memory_s']:.6g} "
-            f"s), counted in {rec['lower_s']:.1f} s")
+            f"s), counted in {rec['lower_s']:.1f} s{at}")
     n_ok = sum(r["status"] == "ok" for r in cells.values())
+    if (len(cells), n_ok) != (40, 32):
+        raise AssertionError(f"17(a) {len(cells)} cells, {n_ok} counted")
     log(f"[17] (a) {len(cells)} cells ({n_ok} ok, {len(cells) - n_ok} skip) "
         f"counted on the meta device by {DRYRUN_WORKERS} processes in "
         f"{wall:.1f} s")
@@ -3763,6 +3838,315 @@ def phase_cross(torch, counts, flash_attention):
     return paths
 
 
+# ------------------------------------------------------------ phase 21
+
+def serve_xlstm(torch, counts, card):
+    """21(a): xlstm-125m at full width in bf16 from ``XLSTM_SEED``, served by
+    ``ServingEngine`` (16-token prompts for 2 tokens to warm up, then
+    ``XLSTM_PROMPT``-token prompts and ``XLSTM_NEW`` new tokens, measured):
+    no kernel launched (the model has no attention and no SSD); time to
+    first token, decode tokens/s, peak GiB after init and after
+    generation."""
+    import gc
+    from repro_torch import configs
+    from repro_torch.launch.serve import random_prompts
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.transformer import get_model
+    from repro_torch.serving.engine import ServeConfig, ServingEngine
+    cfg = configs.get_config("xlstm-125m")
+    model = get_model(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(XLSTM_SEED, "cuda")
+    torch.cuda.synchronize()
+    init_gib = torch.cuda.max_memory_allocated() / 2**30
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    gen = torch.Generator(device="cuda").manual_seed(XLSTM_SEED + 1)
+    prompts = random_prompts(cfg.vocab_size, XLSTM_B, XLSTM_PROMPT, gen)
+    eng = ServingEngine(cfg, ServeConfig(batch=XLSTM_B,
+                                         max_len=XLSTM_PROMPT + XLSTM_NEW + 1),
+                        params=params, device="cuda")
+    eng.generate(prompts[:, :16], 2)
+    torch.cuda.synchronize()
+    for k in counts:
+        k.launches = 0
+    out = eng.generate(prompts, XLSTM_NEW)
+    launched = {k.__name__: k.launches for k in counts}
+    st = eng.last_stats
+    if any(launched.values()):
+        raise AssertionError(f"21(a) serving launched {launched}")
+    if not (st["logits_finite"] and out.shape == (XLSTM_B, XLSTM_NEW)
+            and (out >= 0).all() and (out < cfg.vocab_size).all()):
+        raise AssertionError(f"21(a) logits finite {st['logits_finite']}, "
+                             f"tokens {out}")
+    log(f"[21] (a) xlstm-125m at full width ({model.n_super} super blocks of "
+        f"mLSTM + sLSTM, d_model {cfg.d_model}, {cfg.n_heads} heads), "
+        f"{cfg.param_dtype}: {n_params:,} parameters; batch {XLSTM_B}, "
+        f"{XLSTM_PROMPT}-token prompts, {XLSTM_NEW} new tokens: time to first "
+        f"token {st['prefill_s']:.4f} s (the step recurrence over every "
+        f"prompt token); decode "
+        f"{XLSTM_B * (XLSTM_NEW - 1) / st['decode_s']:.1f} tokens/s; peak "
+        f"{init_gib:.2f} GiB after init, "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB after "
+        f"generation; no kernel launched; logits finite, tokens in the vocab; "
+        f"card: {card}")
+    del eng, out, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_xlstm(torch, counts, card):
+    """21(b): xlstm-125m at full width through the trainer for
+    ``XLSTM_TRAIN``'s steps (bf16 parameters, f32 moments, remat per super
+    block; S > 512, so the chunkwise mLSTM runs S / 128 chunks), the
+    sLSTM's recurrent matrices rescaled to 1 / sqrt(hd): finite
+    losses and gradient norms, no kernel launched; warm step, tokens/s,
+    peak GiB."""
+    import gc
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.optim import adamw
+    from repro_torch.train import trainer
+    kw = XLSTM_TRAIN
+    cfg = configs.get_config("xlstm-125m")
+    opt_cfg = adamw.AdamWConfig(lr=kw["lr"], total_steps=kw["steps"],
+                                warmup_steps=max(kw["steps"] // 20, 5))
+    dcfg = DataConfig(cfg.vocab_size, kw["batch"], kw["seq"])
+    torch.cuda.synchronize()
+    for k in counts:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    state = trainer.init_train_state(cfg, opt_cfg, XLSTM_SEED, "cuda")
+    params, opt = state.params, state.opt_state
+    H, hd = cfg.n_heads, cfg.d_model // cfg.n_heads
+    with torch.no_grad():
+        for g in "ifzo":
+            params["supers"]["slstm"][f"r{g}"].mul_((H / hd) ** 0.5)
+    step = trainer.make_train_step(cfg, opt_cfg)
+    losses, secs, norms = [], [], []
+    for s in range(kw["steps"]):
+        t0 = time.perf_counter()
+        params, opt, met = step(params, opt, synth_batch(dcfg, s, "cuda"))
+        losses.append(float(met["loss"]))
+        norms.append(float(met["grad_norm"]))
+        secs.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    launched = {k.__name__: k.launches for k in counts}
+    if any(launched.values()):
+        raise AssertionError(f"21(b) training launched {launched}")
+    if not all(np.isfinite(norms)):
+        raise AssertionError(f"21(b) gradient norms {norms}")
+    st = train_stats(cfg, losses, secs, kw["batch"], kw["seq"], peak,
+                     decreasing=False)
+    log(f"[21] (b) xlstm-125m trained at full width: {st['params']:,} "
+        f"params, batch {kw['batch']} x {kw['seq']} ({kw['seq'] // 128} "
+        f"mLSTM chunks of 128), the sLSTM's r drawn at 1/sqrt({hd}) (the "
+        f"reference's 1/sqrt({H}) overflows the backward); losses "
+        + " ".join(f"{x:.4f}" for x in losses)
+        + " (finite), gradient norms "
+        + " ".join(f"{x:.4f}" for x in norms)
+        + f"; first step {st['first_step_s']:.3f} s, warm step "
+        f"{st['warm_step_s']:.4f} s, {st['tokens_per_s']:.0f} tokens/s, "
+        f"{st['model_flops_s'] / 1e12:.3f} model TFLOP/s (6 N tokens), peak "
+        f"memory {st['peak_gib']:.2f} GiB; no kernel launched; card: {card}")
+    del state, params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def xlstm_card_vs_cpu(torch):
+    """21(c): the smoke config (f32, no TF32, chunk ``XLSTM_TWIN_CHUNK``)
+    from one CPU init on the card and on the CPU: the chunkwise forward's
+    logits and the loss within ``XLSTM_TWIN_TOL``, step 1's gradients
+    within ``XLSTM_TWIN_TOL`` of their global norm; and on each device the
+    prefill of half the tokens then teacher-forced decode steps, each
+    step's logits within ``XLSTM_TWIN_TOL`` of the chunkwise forward's at
+    its position. Returns the largest differences."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.transformer import get_model
+    from repro_torch.optim import adamw
+    from repro_torch.train import trainer
+    cfg = configs.get_smoke_config("xlstm-125m",
+                                   attn_q_chunk=XLSTM_TWIN_CHUNK)
+    model = get_model(cfg)
+    S, half = XLSTM_TWIN_S, XLSTM_TWIN_S // 2
+    cpu = model.init(XLSTM_SEED, "cpu")
+    batch = synth_batch(DataConfig(cfg.vocab_size, 4, S), 0, "cpu")
+    runs = {}
+    worst_tf = 0.0
+    for dev in ("cuda", "cpu"):
+        params = tree_map(lambda p: p.to(dev), cpu)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        with torch.no_grad():
+            logits = model._forward(params, b["tokens"])
+            loss = float(model.loss_fn(params, b)[0])
+            last, cache = model.prefill(params, b["tokens"][:, :half], S)
+            tf = [(last[:, 0] - logits[:, half - 1]).abs().max()]
+            for i in range(half, S):
+                last, cache = model.decode_step(
+                    params, b["tokens"][:, i:i + 1], cache, i)
+                tf.append((last[:, 0] - logits[:, i]).abs().max())
+        d_tf = float(torch.stack(tf).max())
+        if not d_tf <= XLSTM_TWIN_TOL:
+            raise AssertionError(f"21(c) {dev}: teacher-forced decode vs the "
+                                 f"chunkwise forward {d_tf}")
+        worst_tf = max(worst_tf, d_tf)
+        g, _, _ = trainer._grad_fn(model, 1)(trainer.trainable(params), b)
+        runs[dev] = (logits.cpu(), loss, tree_map(lambda t: t.cpu(), g))
+    (lg, sg, gg), (lc, sc, gc_) = runs["cuda"], runs["cpu"]
+    d_logits = float((lg - lc).abs().max())
+    d_loss = abs(sg - sc)
+    d_grad = float(adamw.global_norm(tree_map(lambda a, b: a - b, gg, gc_))
+                   / adamw.global_norm(gc_))
+    if not (d_logits <= XLSTM_TWIN_TOL and d_loss <= XLSTM_TWIN_TOL
+            and d_grad <= XLSTM_TWIN_TOL):
+        raise AssertionError(f"21(c) card vs CPU: logits {d_logits}, loss "
+                             f"{d_loss}, gradients {d_grad}")
+    log(f"[21] (c) smoke xlstm-125m (f32, chunk {XLSTM_TWIN_CHUNK}, "
+        f"{S} tokens), card vs CPU: logits within {d_logits:.3g}, loss within "
+        f"{d_loss:.3g} (loss {sg:.6f}), step-1 gradients within {d_grad:.3g} "
+        f"of their norm; prefill of {half} tokens + {S - half} teacher-forced "
+        f"decode steps within {worst_tf:.3g} of the chunkwise forward on both "
+        f"devices (tol {XLSTM_TWIN_TOL:g})")
+    return dict(logits=d_logits, loss=d_loss, grads=d_grad, decode=worst_tf)
+
+
+def admission_modes(torch, fused_admission, card):
+    """21(d): ``RANK_R`` replicas of phase 3's workload over
+    ``RANK_HORIZON_S`` through the engine on the card under each admission
+    mode: every output key equal to the ``"kernel"`` run's bit for bit, the
+    admission kernel launched under ``"kernel"`` only; prints each mode's
+    wall per wave (a reading)."""
+    from repro_torch.core import batching, vdes
+    _, wls, comps, pols, cols, caps = build_ensemble(RANK_R, RANK_HORIZON_S)
+    t = batching.to_tensors(cols, "cuda")
+    outs, lines = {}, []
+    for mode in vdes.ADMISSION_SORTS:
+        torch.cuda.synchronize()
+        fused_admission.launches = 0
+        t0 = time.perf_counter()
+        out = vdes.simulate_ensemble(**t, capacities=caps, policies=pols,
+                                     admission_sort=mode, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if (fused_admission.launches > 0) != (mode == "kernel"):
+            raise AssertionError(f"21(d) {mode}: fused_admission launched "
+                                 f"{fused_admission.launches} times")
+        outs[mode] = out
+        waves = int(out["waves"].max())
+        lines.append(f"{mode} {wall:.3f} s / {waves} waves = "
+                     f"{1e3 * wall / waves:.3f} ms per wave")
+    want = outs["kernel"]
+    if set(want) != set(ORACLE_KEYS):
+        raise AssertionError(f"21(d) output keys {sorted(want)}")
+    for mode, out in outs.items():
+        for k in ORACLE_KEYS:
+            if not same_bits(out[k], want[k]):
+                raise AssertionError(f"21(d) {mode} != kernel: {k}")
+    check_invariants(want, wls, comps)
+    log(f"[21] (d) admission modes on {RANK_R} replicas x "
+        f"{RANK_HORIZON_S / 3600:g} h of phase 3's workload "
+        f"({sum(w.n for w in wls)} pipelines): all {len(ORACLE_KEYS)} output "
+        "keys equal bit for bit across " + "/".join(vdes.ADMISSION_SORTS)
+        + "; fused_admission launched under kernel only; wall per wave: "
+        + "; ".join(lines) + f"; card: {card}")
+
+
+def compression_card_vs_cpu(torch):
+    """21(e): int8 and top-k (``COMP_RATIO``) compression with error
+    feedback for ``COMP_ROUNDS`` rounds on random bf16 leaves shaped like
+    one full-width llama3.2-1b layer: the int8 codes, ``g_hat``, the new
+    error and the wire bytes equal on the card and the CPU bit for bit;
+    then ``compressed_psum_pod`` over a one-rank NCCL group (in-process
+    ``HashStore``) equal to ``group=None``'s bit for bit."""
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.models.common import layer, tree_leaves, tree_map
+    from repro_torch.models.transformer import get_model
+    from repro_torch.parallel import compression as C
+    cfg = configs.get_config("llama3.2-1b")
+    shapes = tree_map(lambda t: tuple(t.shape),
+                      layer(get_model(cfg).init(0, "meta")["stage0"], 0))
+    gen = torch.Generator().manual_seed(COMP_SEED)
+
+    def grads():
+        return tree_map(lambda sh: (torch.randn(sh, generator=gen) * 1e-3)
+                        .to(torch.bfloat16), shapes)
+
+    n_el = sum(int(np.prod(sh)) for sh in tree_leaves(shapes))
+    rounds = [grads() for _ in range(COMP_ROUNDS)]
+    wires = {}
+    for kind in ("int8", "topk"):
+        cc = C.CompressionConfig(kind=kind, topk_ratio=COMP_RATIO)
+        err = {dev: [e.to(dev) for e in tree_leaves(
+            C.init_error_state(cc, rounds[0]))] for dev in ("cuda", "cpu")}
+        wires[kind] = 0
+        for g in rounds:
+            res = {}
+            for dev in ("cuda", "cpu"):
+                out = []
+                for leaf, e in zip(tree_leaves(g), err[dev]):
+                    leaf = leaf.to(dev)
+                    q = (C.quantize_int8(leaf.float() + e.float())[0]
+                         if kind == "int8" else None)
+                    out.append((q, *C.compress_leaf(cc, leaf, e)))
+                res[dev] = out
+                err[dev] = [o[2] for o in out]
+            for (qg, hg, eg, wg), (qc, hc, ec, wc) in zip(res["cuda"],
+                                                          res["cpu"]):
+                if not (wg == wc and same_bytes(hg, hc)
+                        and same_bytes(eg, ec)
+                        and (qg is None or same_bytes(qg, qc))):
+                    raise AssertionError(f"21(e) {kind}: card != CPU")
+            wires[kind] += sum(o[3] for o in res["cpu"])
+    cc = C.CompressionConfig(kind="topk", topk_ratio=COMP_RATIO)
+    g = tree_map(lambda t: t.to("cuda"), rounds[0])
+    e0 = C.init_error_state(cc, g)
+    want = C.compressed_psum_pod(cc, g, e0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        got = C.compressed_psum_pod(cc, g, e0, group=dist.group.WORLD)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    for a, b in zip(tree_leaves(got[0]) + tree_leaves(got[1]),
+                    tree_leaves(want[0]) + tree_leaves(want[1])):
+        if not same_bytes(a, b):
+            raise AssertionError("21(e) one-rank NCCL group != group=None")
+    if got[2] != want[2]:
+        raise AssertionError(f"21(e) wire bytes {got[2]} != {want[2]}")
+    log(f"[21] (e) compression on {len(tree_leaves(shapes))} bf16 leaves "
+        f"shaped like one llama3.2-1b layer ({n_el:,} elements), "
+        f"{COMP_ROUNDS} rounds with error feedback: int8 codes, g_hat, error "
+        f"and wire bytes card == CPU bit for bit (int8 {wires['int8']:,} "
+        f"bytes, top-k {COMP_RATIO:g} {wires['topk']:,} bytes against "
+        f"{COMP_ROUNDS * 2 * n_el:,} in bf16); compressed_psum_pod over a "
+        "one-rank NCCL group == group=None bit for bit")
+
+
+def phase_xlstm(torch, counts, fused_admission):
+    """Phase 21 within ``XLSTM_BUDGET_S``."""
+    card = card_line()
+    t21 = time.perf_counter()
+    serve_xlstm(torch, counts, card)
+    train_xlstm(torch, counts, card)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        xlstm_card_vs_cpu(torch)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    admission_modes(torch, fused_admission, card)
+    compression_card_vs_cpu(torch)
+    wall = time.perf_counter() - t21
+    within = "within" if wall <= XLSTM_BUDGET_S else "OVER"
+    log(f"[21] phase 21 in {wall:.1f} s ({within} its {XLSTM_BUDGET_S:g} s "
+        f"budget); card: {card}")
+
+
 def both_paths(paths, keys=("ms", "plain_ms", "bound_ms", "library_ms")):
     """One kernel's record over the main paths that launch it: launches
     summed, and each time (``keys``) the launch-weighted mean of the
@@ -3872,6 +4256,7 @@ def main() -> int:
     phase_audit(torch, fs_kw)
     moe_path = phase_moe(torch, counts, flash_attention)
     cross_paths = phase_cross(torch, counts, flash_attention)
+    phase_xlstm(torch, counts, fused_admission)
 
     kernels = [dict(
         name="fused_admission", route="cuda",

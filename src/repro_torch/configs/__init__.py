@@ -1,5 +1,5 @@
 """Architecture registry of the port: ``--arch <id>`` -> ModelConfig + input
-specs (mirrors :mod:`repro.configs`, for the architectures ported so far).
+specs (mirrors :mod:`repro.configs`: its ten architectures).
 
 ``input_specs(cfg, shape)`` returns tensors on the ``meta`` device in place
 of the reference's ``jax.ShapeDtypeStruct`` stand-ins: shapes and dtypes of
@@ -27,6 +27,7 @@ _MODULES = {
     "llama4-maverick-400b-a17b": "repro_torch.configs.llama4_maverick",
     "llama-3.2-vision-90b": "repro_torch.configs.llama3_2_vision_90b",
     "seamless-m4t-large-v2": "repro_torch.configs.seamless_m4t_large",
+    "xlstm-125m": "repro_torch.configs.xlstm_125m",
 }
 
 ARCHS = list(_MODULES)
@@ -61,7 +62,8 @@ def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> Dict:
     decode cache is the port's own ``init_cache(B, S, device="meta")``: the
     same leaves as the reference's (``{"stage<i>": (k, v)}``, MLA's
     latents, a super block's dict, the hybrid's conv/SSM states and shared
-    K/V, the encoder-decoder's self and cross K/V), which the port writes in
+    K/V, the encoder-decoder's self and cross K/V, the xLSTM's recurrent
+    states), which the port writes in
     place where the reference returns updated copies. ``pos`` is a Python
     int in the port's steps; its stand-in keeps the reference's 0-d
     int32."""

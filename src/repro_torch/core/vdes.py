@@ -22,8 +22,13 @@ event time and retires *all* events at that instant, in up to six stages:
   4. **admission** (``_admission_stage``): one ranked admission round per
      resource, by the hand-written CUDA kernel
      :func:`repro_torch.kernels.queue_scan.fused_admission`
-     (``admission_sort="kernel"``) or its plain version
-     (``admission_sort="dense"``);
+     (``admission_sort="kernel"``), its plain version
+     (``admission_sort="dense"``), or the reference's sort-based rankings
+     (``"fused"``: one stable sort of a packed int64 key,
+     :func:`admission_order`; ``"chained"``: three stable argsorts,
+     :func:`admission_order_chained`) and the seat test over the sorted
+     resources (:func:`admission_mask_ranked`), all four bit for bit
+     equal;
   5. **fleet** (``_fleet_stage``, optional): the model lifecycle (Fig 7).
      Retraining pipelines that completed this wave redeploy their model; at
      drift-evaluation ticks the ``[R, M]`` drift algebra runs, and triggers
@@ -35,8 +40,7 @@ event time and retires *all* events at that instant, in up to six stages:
 A stage that is off costs nothing: it is gated in Python, so a run without
 controller, reliability, fleet or probe issues exactly the ops of the four
 stages. All-zero controller/trigger/probe rows and ``INF``-padded
-reliability rows are inert, as in the reference. The reference's sort-based
-``"fused"``/``"chained"`` rankings are not ported.
+reliability rows are inert, as in the reference.
 
 **Segment-restart hooks** (for the compaction and streaming drivers,
 :mod:`repro_torch.core.compaction` and :mod:`repro_torch.stream`):
@@ -69,6 +73,7 @@ equal the reference engines' bit for bit.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -96,7 +101,89 @@ _NOT_ARRIVED, _QUEUED, _RUNNING, _DONE = 0, 1, 2, 3
 
 _NO_RETRY_BACKOFF = (0.0, 2.0, 3600.0)
 
-ADMISSION_SORTS = ("kernel", "dense")
+ADMISSION_SORTS = ("kernel", "dense", "fused", "chained")
+PKEY_BITS = 32      # the fused key's policy-key field: f32's bits
+
+
+def fused_key_widths(n_res: int) -> tuple:
+    """``(resource bits, enq_wave bits)`` of the fused ranking's int64 key:
+    from the top, the resource (``0 .. n_res``, the sentinel included),
+    the policy key's ``PKEY_BITS`` and the enqueue wave in what is left of
+    63 bits. Raises ``ValueError``, naming the widths, where no bit is
+    left for the wave."""
+    rbits = int(n_res).bit_length()
+    wbits = 63 - PKEY_BITS - rbits
+    if wbits < 1:
+        raise ValueError(
+            f"the fused admission key does not fit 63 bits: {rbits} "
+            f"resource bits (n_res={n_res}) + {PKEY_BITS} pkey bits leave "
+            f"{wbits} for enq_wave; use admission_sort='chained'")
+    return rbits, wbits
+
+
+def _canonical_pkey(pkey: torch.Tensor) -> torch.Tensor:
+    """-0.0 as +0.0 and every NaN as the one quiet NaN, as JAX's sort
+    comparator canonicalizes float keys (a radix sort would order -0.0
+    before +0.0)."""
+    pkey = torch.where(pkey == 0, 0.0, pkey)
+    return torch.where(torch.isnan(pkey), float("nan"), pkey)
+
+
+def _ordered_bits(pkey: torch.Tensor) -> torch.Tensor:
+    """The order-preserving image of f32 ``pkey`` in ``[0, 2**32)`` (int64):
+    a negative float's bits inverted, a positive one's sign bit set."""
+    b = _canonical_pkey(pkey).view(torch.int32).to(torch.int64)
+    return torch.where(b < 0, ~b, b | (1 << 31))
+
+
+def admission_order(res_q: torch.Tensor, pkey: torch.Tensor,
+                    enq_wave: torch.Tensor, n_res: int) -> tuple:
+    """The fused ranking (:func:`repro.core.vdes.admission_order`, over the
+    rows of ``[R, N]`` keys): ONE stable ``torch.sort`` of the int64 key
+    packing ``(resource, pkey, enq_wave)`` (:func:`fused_key_widths`;
+    pipeline-id ties resolved by stability). ``res_q`` lies in ``[0,
+    n_res]`` and ``enq_wave`` in ``[0, 2**enq_wave_bits)``. Returns
+    ``(sorted resources [R, N] i64, permutation [R, N])``."""
+    wbits = fused_key_widths(n_res)[1]
+    key = ((res_q.to(torch.int64) << (PKEY_BITS + wbits))
+           | (_ordered_bits(pkey) << wbits) | enq_wave.to(torch.int64))
+    key_s, o = torch.sort(key, dim=1, stable=True)
+    return key_s >> (PKEY_BITS + wbits), o
+
+
+def admission_order_chained(res_q: torch.Tensor, pkey: torch.Tensor,
+                            enq_wave: torch.Tensor, n_res: int = 0) -> tuple:
+    """The chained ranking (:func:`repro.core.vdes.admission_order_chained`):
+    three stable argsorts, by ``enq_wave``, then the (canonical) ``pkey``,
+    then the resource. ``n_res`` is unused (the fused ranking's
+    signature)."""
+    o = torch.sort(enq_wave, dim=1, stable=True).indices
+    pk = _canonical_pkey(pkey).gather(1, o)
+    o = o.gather(1, torch.sort(pk, dim=1, stable=True).indices)
+    o = o.gather(1, torch.sort(res_q.gather(1, o), dim=1,
+                               stable=True).indices)
+    return res_q.gather(1, o), o
+
+
+def admission_mask_ranked(rank: Callable, res_q: torch.Tensor,
+                          pkey: torch.Tensor, enq_wave: torch.Tensor,
+                          free: torch.Tensor) -> torch.Tensor:
+    """The admitted ``[R, N]`` mask from a ranking ``rank``
+    (:func:`admission_order` or :func:`admission_order_chained`): a job's
+    seat is its position within its resource's segment of the sorted
+    order, and ``admitted = seat < free[res]`` (the sentinel resource has
+    no free slot), scattered back through the permutation. Comparisons, a
+    running max and integer differences only."""
+    R, N = res_q.shape
+    n_res = free.shape[1]
+    r_s, o = rank(res_q, pkey, enq_wave, n_res)
+    pos = torch.arange(N, dtype=torch.int64, device=res_q.device)
+    is_start = torch.ones_like(r_s, dtype=torch.bool)
+    is_start[:, 1:] = r_s[:, 1:] != r_s[:, :-1]
+    seg_start = torch.cummax(torch.where(is_start, pos, -1), dim=1).values
+    free_ext = torch.cat([free, free.new_zeros((R, 1))], dim=1)
+    admit_sorted = (pos - seg_start) < free_ext.gather(1, r_s.to(torch.int64))
+    return torch.zeros_like(admit_sorted).scatter(1, o, admit_sorted)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -370,8 +457,12 @@ def simulate_ensemble(arrival, n_tasks, task_res, service, priority,
       buffer ``rel_act [R, RV, 1+nres]`` and counts ``rel_n``.
 
     ``admission_sort`` is ``"kernel"`` (the CUDA admission kernel; its
-    plain version on CPU tensors) or ``"dense"`` (the plain version on any
-    device — the on-card reference). ``sync_every`` is the number of waves
+    plain version on CPU tensors), ``"dense"`` (the plain version on any
+    device — the on-card reference), ``"fused"`` (one stable sort of a
+    packed key per wave; refused where the key does not fit, and the run
+    raises ``RuntimeError`` if its wave counter outgrows the key's
+    ``enq_wave`` field) or ``"chained"`` (three stable argsorts); all
+    four give the same outputs bit for bit. ``sync_every`` is the number of waves
     between host reads of the loop condition.
 
     Segment-restart hooks, per replica as in the reference: ``resume`` (the
@@ -487,8 +578,14 @@ def wave_program(arrival, n_tasks, task_res, service, priority,
     rows = torch.arange(R, device=dev)
     ar_T = torch.arange(T, dtype=i32, device=dev)
     ar_res = torch.arange(nres, dtype=i32, device=dev)
-    admit = fused_admission if admission_sort == "kernel" \
-        else admission_mask_dense
+    admit = {"kernel": fused_admission, "dense": admission_mask_dense,
+             "fused": functools.partial(admission_mask_ranked,
+                                        admission_order),
+             "chained": functools.partial(admission_mask_ranked,
+                                          admission_order_chained),
+             }[admission_sort]
+    wave_bits = (fused_key_widths(nres)[1] if admission_sort == "fused"
+                 else None)
 
     def take(x, col):
         """``x[r, i, col[r, i]]``: the row's current task column."""
@@ -1044,6 +1141,11 @@ def wave_program(arrival, n_tasks, task_res, service, priority,
         if has_rel:
             res["rel_act"] = s["rel_act"]
             res["rel_n"] = s["rel_n"]
+        if wave_bits is not None and int(s["wave"].max()) >= 2 ** wave_bits:
+            raise RuntimeError(
+                f"the run reached wave {int(s['wave'].max())}, beyond the "
+                f"fused admission key's {wave_bits} enq_wave bits: its "
+                "rankings may be wrong; use admission_sort='chained'")
         if has_fleet:
             top = int(s["gain_rank"].max())
             if top >= n_gain_steps:

@@ -18,6 +18,20 @@ The step is the port's own:
   the encoder-decoder's frames as ``ctx``);
 - decode: ``serving.engine.make_serve_step`` at the cache's last position.
 
+The xLSTM's train and prefill cells are counted by their steps, without
+running them all: every token of its recurrences, and every chunk of the
+mLSTM's chunkwise form, dispatches the same operations on the same shapes,
+and everything else is linear in the sequence length, so a cell's FLOPs
+and bytes are affine in S once the chunk length is fixed, and affine in
+the number of super blocks. :func:`count_lengths` picks two lengths ``S1
+< S2`` (train: two and three chunks, the chunk pinned to the one the
+cell's S takes; prefill, which runs the step recurrence over every prompt
+token: 8 and 16 tokens) and two depths (one and two super blocks), and
+:func:`count_cell` extrapolates the four counts to the cell in integers;
+the record carries ``"counted_at"``. Counting ``train_4k`` whole would run
+4,096 sLSTM steps per block forward, again under remat and backward, at
+about 0.2 ms of Python per meta operation.
+
 What is counted, per step:
 
 - ``flops_per_device``: ``torch.utils.flop_counter.FlopCounterMode``, which
@@ -55,6 +69,7 @@ from __future__ import annotations
 
 import argparse
 import ast
+import dataclasses
 import json
 import multiprocessing
 import os
@@ -72,6 +87,7 @@ from repro_torch import configs as CN
 from repro_torch.configs.shapes import SHAPES, ShapeSpec, cell_supported
 from repro_torch.core.costmodel import ARTIFACT_ROOT, CELL_DIR, MESH
 from repro_torch.models.transformer import ModelConfig, get_model
+from repro_torch.models.xlstm import mlstm_chunk
 from repro_torch.optim import adamw
 
 # the reference's per-arch train settings (repro/launch/dryrun.py; its
@@ -118,12 +134,13 @@ def _tree_bytes(tree) -> int:
 
 
 def count(step: Callable[[], object]) -> Dict:
-    """FLOPs, bytes and wall of one call of ``step`` (on meta tensors in
-    the dry-run; the count is the same on any device), and the bytes of
-    what it returns. A step with ``parts``, ``((fn, times), ...)`` run in
-    order, is counted as its parts: each ``fn`` run once and its FLOPs
-    and bytes taken ``times`` times (a microbatch's gradient, which every
-    microbatch repeats on the same shapes), the output the last part's."""
+    """FLOPs and bytes (integers), and the wall of one call of ``step``
+    (on meta tensors in the dry-run; the count is the same on any device),
+    and the bytes of what it returns. A step with ``parts``, ``((fn,
+    times), ...)`` run in order, is counted as its parts: each ``fn`` run
+    once and its FLOPs and bytes taken ``times`` times (a microbatch's
+    gradient, which every microbatch repeats on the same shapes), the
+    output the last part's."""
     parts = getattr(step, "parts", None) or ((step, 1),)
     t0 = time.perf_counter()
     flops = nbytes = 0
@@ -134,7 +151,7 @@ def count(step: Callable[[], object]) -> Dict:
             out = fn()
         flops += times * flop_mode.get_total_flops()
         nbytes += times * bytes_mode.bytes
-    return {"flops": float(flops), "bytes": float(nbytes),
+    return {"flops": int(flops), "bytes": int(nbytes),
             "output_bytes": _tree_bytes(out),
             "wall_s": time.perf_counter() - t0}
 
@@ -202,14 +219,88 @@ def cell_step(cfg: ModelConfig, spec: ShapeSpec, *, microbatches: int = 1,
     return step, _tree_bytes(args)
 
 
+PREFILL_COUNT_LENGTHS = (8, 16)
+COUNT_LAYERS = (2, 4)       # one and two super blocks
+
+
+def count_lengths(cfg: ModelConfig, spec: ShapeSpec) -> Optional[tuple]:
+    """``(S1, S2, overrides, layers)``: the lengths at which an xLSTM train
+    or prefill cell is counted, the config overrides that keep its chunk,
+    and ``COUNT_LAYERS`` where the config is deeper (else ``None``: counted
+    at its own depth); ``None`` for a cell counted whole (every other
+    family, every decode cell, and a train cell whose chunk is its whole
+    sequence, whose in-chunk work is quadratic in S).
+
+    A train cell's lengths are two and three chunks: the first chunk and
+    the first token of each recurrence start from a state that needs no
+    gradient, and the last ones end in a state the loss does not read, so
+    only the chunks between are alike."""
+    S = spec.seq_len
+    if cfg.family != "ssm" or spec.kind == "decode":
+        return None
+    if spec.kind == "prefill":
+        S1, S2 = PREFILL_COUNT_LENGTHS
+        over = {}
+    else:
+        q = mlstm_chunk(S, cfg.attn_q_chunk)
+        S1, S2, over = 2 * q, 3 * q, {"attn_q_chunk": q}
+    if S <= S2 or (S - S1) % (S2 - S1):
+        return None
+    layers = COUNT_LAYERS if cfg.n_layers > COUNT_LAYERS[1] else None
+    return S1, S2, over, layers
+
+
+def count_cell(cfg: ModelConfig, spec: ShapeSpec, **kw) -> tuple:
+    """``(count, argument bytes, counted_at)`` of one cell's step: counted
+    whole (``counted_at`` None), or at :func:`count_lengths`' lengths (and
+    depths) and extrapolated to the cell's in integers. The count is affine
+    in S (each middle chunk and token alike) and in the number of super
+    blocks (each block alike, its parameters unbound once), so bilinear in
+    the two: four counts fix it. The output bytes are the deeper, longer
+    count's scaled in depth (the xLSTM's outputs do not grow with S); the
+    argument bytes are the true cell's. ``counted_at`` is ``[S1, S2]``, or
+    ``{"seq_len": [S1, S2], "n_layers": [L1, L2]}``."""
+    step, arg_bytes = cell_step(cfg, spec, **kw)
+    lengths = count_lengths(cfg, spec)
+    if lengths is None:
+        return count(step), arg_bytes, None
+    del step
+    S1, S2, over, layers = lengths
+    L1, L2 = layers or (cfg.n_layers, cfg.n_layers)
+
+    def at(S, L):
+        c = dataclasses.replace(cfg, n_layers=L, **over)
+        return count(cell_step(c, dataclasses.replace(spec, seq_len=S),
+                               **kw)[0])
+
+    f = {(S, L): at(S, L) for L in dict.fromkeys((L1, L2))
+         for S in (S1, S2)}
+    ks = (spec.seq_len - S1) // (S2 - S1)
+    kl = (cfg.n_layers - L1) // (L2 - L1) if layers else 0    # super blocks
+
+    def extrapolate(key):
+        f11, f21 = f[S1, L1][key], f[S2, L1][key]
+        f12, f22 = f[S1, L2][key], f[S2, L2][key]
+        return (f11 + ks * (f21 - f11) + kl * (f12 - f11)
+                + ks * kl * (f22 - f21 - f12 + f11))
+
+    c = {key: extrapolate(key) for key in ("flops", "bytes")}
+    out1, out2 = f[S2, L1]["output_bytes"], f[S2, L2]["output_bytes"]
+    c.update(output_bytes=out1 + kl * (out2 - out1),
+             wall_s=sum(x["wall_s"] for x in f.values()))
+    at_ = [S1, S2] if layers is None else {"seq_len": [S1, S2],
+                                           "n_layers": list(layers)}
+    return c, arg_bytes, at_
+
+
 def lower_cell(arch: str, shape_name: str,
                overrides: Optional[dict] = None) -> Dict:
     """One cell's record (the reference's ``lower_cell`` on one card)."""
     overrides = dict(overrides or {})
     mb_override = overrides.pop("microbatches", None)
     if overrides.pop("fsdp", False):
-        raise NotImplementedError("FSDP needs repro.parallel, which the port "
-                                  "has not got yet")
+        raise NotImplementedError("FSDP needs parallel/sharding.py, which "
+                                  "the port has not got yet")
     cfg = CN.get_config(arch, **overrides)
     spec = SHAPES[shape_name]
     ok, reason = cell_supported(cfg.family, shape_name)
@@ -231,17 +322,19 @@ def lower_cell(arch: str, shape_name: str,
         kw["moment_dtype"] = ("bfloat16" if arch in BF16_MOMENT_ARCHS
                               else "float32")
         rec["microbatches"] = kw["microbatches"]
-    step, arg_bytes = cell_step(cfg, spec, **kw)
-    c = count(step)
+    c, arg_bytes, counted_at = count_cell(cfg, spec, **kw)
+    if counted_at is not None:
+        rec["counted_at"] = counted_at
     rec.update({
         "status": "ok",
         "lower_s": c["wall_s"],
         "compile_s": 0.0,
         "memory": {"argument_size_in_bytes": arg_bytes,
                    "output_size_in_bytes": c["output_bytes"]},
-        "flops_per_device": c["flops"],
-        "bytes_accessed_per_device": c["bytes"],
-        "cost_raw": {"flops": c["flops"], "bytes accessed": c["bytes"]},
+        "flops_per_device": float(c["flops"]),
+        "bytes_accessed_per_device": float(c["bytes"]),
+        "cost_raw": {"flops": float(c["flops"]),
+                     "bytes accessed": float(c["bytes"])},
         "collectives": {},
     })
     return rec
@@ -300,6 +393,8 @@ def write_cells(archs: Iterable[str], shapes: Iterable[str], *,
             extra = (f" flops/dev={rec['flops_per_device']:.3e}"
                      f" bytes/dev={rec['bytes_accessed_per_device']:.3e}"
                      f" count={rec['lower_s']:.1f}s")
+            if "counted_at" in rec:
+                extra += f" counted_at={rec['counted_at']}"
         elif rec["status"] == "error":
             extra = " " + rec["error"][:200]
         log(f"[count] {arch} x {shape_name} ({MESH}) -> {rec['status']}"

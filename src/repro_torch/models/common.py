@@ -141,6 +141,13 @@ def tree_unflatten(tree, leaves):
     return build(tree)
 
 
+def unstack(params: Params, n: int) -> list:
+    """The ``n`` blocks of a stacked parameter tree, as views from one
+    ``unbind`` per leaf."""
+    parts = tree_map(lambda t: t.unbind(0), params)
+    return [tree_map(lambda u, i=i: u[i], parts) for i in range(n)]
+
+
 def layer(params: Params, i: int) -> Params:
     """Block ``i`` of a stacked parameter tree, as views."""
     if isinstance(params, dict):

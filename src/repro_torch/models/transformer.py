@@ -59,7 +59,14 @@ kernels does), so training runs the plain routes, the reference's
 defaults. MLA is refused under ``attn_impl="flash"`` (the kernel takes one
 head dim for q, k and v; MLA's v is narrower), and so is MLA in a
 ``moe_super`` or VLM plan, whose cache the reference builds but cannot
-index. The xLSTM model is not ported yet: :func:`get_model` refuses it.
+index.
+
+``XLSTM`` (xlstm-125m): ``n_layers // 2`` super blocks, each an mLSTM then
+an sLSTM block (:mod:`repro_torch.models.xlstm`) with pre-norm residuals.
+It has no attention and no kernel on its path: ``attn_impl`` and
+``ssm_impl`` mean nothing to it. Training runs the mLSTM's chunkwise form;
+the prefill passes the cache's states in, so it runs the step recurrence
+over every prompt token, as the reference's does.
 """
 from __future__ import annotations
 
@@ -74,11 +81,12 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
+from repro_torch.models import xlstm as XL
 from repro_torch.models.common import (Builder, cross_entropy_loss,
                                        gelu_mlp, init_gelu_mlp, init_swiglu,
                                        layer, lm_head_logits, padded_vocab,
                                        rms_norm, stack_layers, swiglu,
-                                       tree_leaves)
+                                       tree_leaves, unstack)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
@@ -265,17 +273,16 @@ _DECODER_FAMILIES = ("dense", "moe", "vlm")
 
 
 def _check_ported(cfg: ModelConfig, family: str) -> None:
-    """Refuses what the port has not got (``family``: ``"decoder"`` for
-    :class:`DecoderLM`, ``"hybrid"``, ``"audio"``), a config without the
-    fields of its family (the reference asserts ``attn_every > 0``,
+    """Refuses a config of another family than the model's (``family``:
+    ``"decoder"`` for :class:`DecoderLM`, ``"hybrid"``, ``"ssm"``,
+    ``"audio"``), what the port has not got, a config without the fields
+    of its family (the reference asserts ``attn_every > 0``,
     ``cross_every > 1``, ``n_enc_layers and n_dec_layers``), and the MLA
     combinations the reference cannot run."""
     if (cfg.family not in _DECODER_FAMILIES if family == "decoder"
             else cfg.family != family):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family (the xLSTM model) is not "
-            "ported yet; the port has the dense, MoE and VLM plans, the "
-            "hybrid and the encoder-decoder")
+        raise ValueError(f"{cfg.name}: a {cfg.family!r} config is not a "
+                         f"{family!r} model's")
     if cfg.family == "vlm" and cfg.cross_every <= 1:
         raise ValueError(f"{cfg.name}: a vlm config needs cross_every > 1 "
                          f"(k - 1 self layers per cross layer), got "
@@ -689,6 +696,137 @@ class HybridSSM:
 
 
 # ---------------------------------------------------------------------------
+# XLSTM
+# ---------------------------------------------------------------------------
+
+class XLSTM:
+    """``supers.*`` stacked ``[n_layers // 2, ...]``: ``mlstm``, ``slstm``,
+    ``ln1``, ``ln2``; ``embed``, ``ln_f`` and an untied ``lm_head`` (the
+    reference's tree; ``tie_embeddings`` is ignored there too)."""
+
+    def __init__(self, cfg: ModelConfig):
+        _check_ported(cfg, "ssm")
+        self.cfg = cfg
+        self.n_super = cfg.n_layers // 2     # mLSTM + sLSTM pairs
+
+    # ---------------- init
+    def init(self, seed: int = 0, device=None) -> dict:
+        """Random parameters from ``seed``, drawn on ``device`` (``None``:
+        the card, raising without one; ``"meta"``: shapes only)."""
+        c = self.cfg
+        dev = resolve_device(device)
+        gen = _generator(seed, dev)
+        b = Builder(gen, c.pdt, dev)
+        b.dense("embed", (c.vocab_size, c.d_model), scale=0.02)
+        b.ones("ln_f", (c.d_model,))
+        b.dense("lm_head", (c.d_model, padded_vocab(c.vocab_size)))
+
+        def init_super(g):
+            bb = Builder(g, c.pdt, dev)
+            bb.sub("mlstm", XL.init_mlstm(g, c.d_model, c.n_heads, c.pdt,
+                                          dev))
+            bb.sub("slstm", XL.init_slstm(g, c.d_model, c.n_heads, c.pdt,
+                                          dev))
+            bb.ones("ln1", (c.d_model,))
+            bb.ones("ln2", (c.d_model,))
+            return bb.done()
+
+        b.sub("supers", stack_layers(gen, self.n_super, init_super))
+        return b.done()
+
+    # ---------------- the backbone
+    def _backbone(self, params, x, states=None):
+        """``states`` given (cached mode): super block ``i`` starts from
+        ``states``' entry ``i`` and writes its new states there in place."""
+        c = self.cfg
+        cached = states is not None
+        # the blocks' parameters unbound once: each block's gradient then
+        # joins the stacked leaves in one stack, where a selected block's
+        # backward writes a zero tensor of the whole stack
+        blocks = unstack(params["supers"], self.n_super)
+
+        def body(xx, i):
+            lp = blocks[i]
+            st = layer(states, i) if cached else {"m": None, "s": None}
+            y, nm = XL.apply_mlstm(lp["mlstm"],
+                                   rms_norm(xx, lp["ln1"], c.norm_eps),
+                                   state=st["m"], q_chunk=c.attn_q_chunk)
+            xx = xx + y
+            y, ns = XL.apply_slstm(lp["slstm"],
+                                   rms_norm(xx, lp["ln2"], c.norm_eps),
+                                   state=st["s"])
+            if cached:
+                for kind, new in (("m", nm), ("s", ns)):
+                    for k, v in new.items():
+                        st[kind][k].copy_(v)
+            return xx + y
+
+        if not cached:      # the caches are written in place: no recompute
+            body = _maybe_remat(body, c)
+        for i in range(self.n_super):
+            x = body(x, i)
+        return x
+
+    def _forward(self, params, tokens: torch.Tensor) -> torch.Tensor:
+        """Logits [B, S, V_pad] of the full sequence (no cache: the
+        mLSTM's chunkwise form)."""
+        c = self.cfg
+        x = self._backbone(params, params["embed"][tokens].to(c.cdt))
+        x = rms_norm(x, params["ln_f"], c.norm_eps)
+        return lm_head_logits(x, params["lm_head"], c.vocab_size)
+
+    def loss_fn(self, params, batch):
+        """Mean next-token cross entropy of ``batch["tokens"]`` against
+        ``batch["labels"]`` (both ``[B, S]``): ``(loss, {"ce_loss": loss})``."""
+        loss = cross_entropy_loss(self._forward(params, batch["tokens"]),
+                                  batch["labels"])
+        return loss, {"ce_loss": loss}
+
+    # ---------------- caches
+    def init_cache(self, batch_size: int, max_len: int,
+                   device=None) -> Dict[str, Any]:
+        """The recurrent states, stacked ``[n_super, ...]``: the mLSTM's
+        ``C [.., B, H, hd, hd]`` and ``n [.., B, H, hd]`` zero in the
+        compute dtype and ``m [.., B, H]`` -1e30 in f32; the sLSTM's ``c``,
+        ``n``, ``h``, ``m`` ``[.., B, H, hd]`` f32 at its initial state.
+        ``max_len`` is unused: the state does not grow."""
+        c = self.cfg
+        dev = resolve_device(device)
+        H, hd, n = c.n_heads, c.d_model // c.n_heads, self.n_super
+
+        def full(shape, value, dtype=torch.float32):
+            return torch.full((n, batch_size) + shape, value, dtype=dtype,
+                              device=dev)
+
+        return {"m": {"C": full((H, hd, hd), 0.0, c.cdt),
+                      "n": full((H, hd), 0.0, c.cdt),
+                      "m": full((H,), -1e30)},
+                "s": {"c": full((H, hd), 0.0), "n": full((H, hd), 1e-6),
+                      "h": full((H, hd), 0.0), "m": full((H, hd), -1e30)}}
+
+    def _with_cache(self, params, tokens: torch.Tensor, cache):
+        """The step recurrence over ``tokens`` from the cache's states, which
+        it overwrites in place. Returns the last position's logits [B, 1,
+        V_pad] and the cache."""
+        c = self.cfg
+        x = params["embed"][tokens].to(c.cdt)
+        x = self._backbone(params, x, states=cache)
+        x = rms_norm(x[:, -1:], params["ln_f"], c.norm_eps)
+        logits = lm_head_logits(x, params["lm_head"], c.vocab_size)
+        return logits, cache
+
+    def prefill(self, params, tokens: torch.Tensor, max_len: int, ctx=None):
+        """``ctx`` and ``max_len`` are taken and ignored, as the reference's
+        are."""
+        cache = self.init_cache(tokens.shape[0], max_len, tokens.device)
+        return self._with_cache(params, tokens, cache)
+
+    def decode_step(self, params, tokens: torch.Tensor, cache, pos: int):
+        """``pos`` is unused: the state holds the position."""
+        return self._with_cache(params, tokens, cache)
+
+
+# ---------------------------------------------------------------------------
 # EncDec (seamless-m4t): audio-frontend stub -> encoder; text decoder
 # ---------------------------------------------------------------------------
 
@@ -870,12 +1008,17 @@ class EncDec:
 
 def get_model(cfg: ModelConfig):
     """The model of ``cfg``; raises ``NotImplementedError`` for what the
-    port does not have yet, and ``ValueError`` for what the reference
-    cannot run (MLA under ``attn_impl="flash"``, MLA in a super block) or
-    asserts against (a hybrid, VLM or encoder-decoder config without its
-    family's fields)."""
+    port does not have (MLA or experts in the hybrid's shared block), and
+    ``ValueError`` for an unknown family, for what the reference cannot
+    run (MLA under ``attn_impl="flash"``, MLA in a super block) or asserts
+    against (a hybrid, VLM or encoder-decoder config without its family's
+    fields)."""
+    if cfg.family in _DECODER_FAMILIES:
+        return DecoderLM(cfg)
     if cfg.family == "hybrid":
         return HybridSSM(cfg)
+    if cfg.family == "ssm":
+        return XLSTM(cfg)
     if cfg.family == "audio":
         return EncDec(cfg)
-    return DecoderLM(cfg)
+    raise ValueError(f"unknown family {cfg.family!r}")

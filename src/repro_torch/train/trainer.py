@@ -7,9 +7,11 @@ returns new trees, as the reference's does. Microbatches split the batch as
 the reference does (microbatch j holds rows j, j + mb, ...), accumulate the
 gradients in f32 and report the last microbatch's metrics.
 
-The reference's meshes, FSDP sharding and compressed pod-level reduction
-(``state_shardings``, ``make_compressed_train_step``) need ``parallel/``,
-which is not ported: a mesh or ``fsdp`` is refused.
+The reference's meshes, FSDP sharding and compressed multi-pod step
+(``state_shardings``, ``make_compressed_train_step``) need its
+``parallel/sharding.py`` and a mesh, which are not ported: a mesh or
+``fsdp`` is refused. The compression itself is
+(:mod:`repro_torch.parallel.compression`).
 """
 from __future__ import annotations
 
@@ -111,8 +113,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
     counterpart: the old trees are freed once the caller drops them."""
     if mesh is not None or fsdp:
         raise NotImplementedError(
-            "meshes and FSDP sharding need repro.parallel, which the port "
-            "has not got yet; the step runs on one device")
+            "meshes and FSDP sharding need parallel/sharding.py and "
+            "launch/mesh.py, which the port has not got yet; the step runs "
+            "on one device")
     grads_of = _grad_fn(get_model(cfg), microbatches)
 
     def step_fn(params, opt_state, batch):
@@ -130,7 +133,11 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
 def make_compressed_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
                                mesh, comp, *, fsdp: bool = False):
     """The reference's multi-pod step with a compressed pod-level
-    reduction: not ported (it needs ``parallel/``)."""
+    reduction: not ported. Its compression is
+    (:mod:`repro_torch.parallel.compression`); the mesh with a ``pod``
+    axis that it runs over is not."""
     raise NotImplementedError(
-        "the compressed multi-pod train step needs repro.parallel, which the "
-        "port has not got yet")
+        "the compressed multi-pod train step needs a mesh with a 'pod' axis "
+        "(parallel/sharding.py and launch/mesh.py), which the port has not "
+        "got yet; parallel.compression.compressed_psum_pod runs over a "
+        "torch.distributed group")

@@ -8,8 +8,9 @@ phase 14(b)'s ensembles (the latter with every stage of the wave loop), and
 the segment-restart hooks, the compaction driver and the streaming driver
 on the card against one call, the one-shot run and the CPU path, every
 kernel refusing autograd, a crash-restart training run resuming bit for
-bit, and the smoke MoE configs' routing and logits on the card against the
-CPU.
+bit, the smoke MoE, cross-attention and xLSTM configs on the card against
+the CPU, the sort-based admission rankings against the kernel, and the
+gradient compression on the card against the CPU.
 
 These tests need a CUDA device and ``nvcc`` and skip elsewhere. They
 import the port only (no JAX, no reference), so they also run where the
@@ -898,3 +899,59 @@ def test_cross_smoke_card_equals_cpu(arch):
     assert n_runs == 2
     assert worst["logits"] <= cs.CROSS_TWIN_TOL
     assert worst["loss"] <= cs.CROSS_TWIN_TOL
+
+
+@pytest.mark.cuda
+def test_xlstm_smoke_card_equals_cpu():
+    """``chip_smoke.py`` 21(c): the smoke xlstm-125m from one CPU init, f32
+    without TF32: the chunkwise forward's logits, the loss and step 1's
+    gradients on the card within 1e-5 of the CPU's, and on each device the
+    prefill then teacher-forced decode within 1e-5 of the forward."""
+    _need_card()
+    cs = _chip_smoke()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        worst = cs.xlstm_card_vs_cpu(torch)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert max(worst.values()) <= cs.XLSTM_TWIN_TOL
+
+
+@pytest.mark.cuda
+def test_admission_rankings_equal_kernel_on_card():
+    """The fused and chained rankings on the card: the same masks as the
+    admission kernel and the plain version, on tie-heavy keys with ±0.0
+    and ±inf; the fused ranking is one sort."""
+    _need_card()
+    res, pkey, wave, free = make_case(25, 4, 700, 3, 0.3, False)
+    pkey[:, ::7] = float("inf")
+    pkey[:, 3::11] = -float("inf")
+    want = ref.admission_mask_dense(res, pkey, wave, free)
+    assert torch.equal(queue_scan.fused_admission(res, pkey, wave, free),
+                       want)
+    for rank in (vdes.admission_order, vdes.admission_order_chained):
+        assert torch.equal(vdes.admission_mask_ranked(rank, res, pkey, wave,
+                                                      free), want)
+
+
+@pytest.mark.cuda
+def test_admission_modes_equal_on_card():
+    """``chip_smoke.py`` 21(d) at one hour: every mode's outputs equal the
+    kernel's bit for bit, the kernel launched under ``"kernel"`` only."""
+    _need_card()
+    cs = _chip_smoke()
+    horizon = cs.RANK_HORIZON_S
+    cs.RANK_HORIZON_S = 3600.0
+    try:
+        cs.admission_modes(torch, queue_scan.fused_admission, "card")
+    finally:
+        cs.RANK_HORIZON_S = horizon
+
+
+@pytest.mark.cuda
+def test_compression_card_equals_cpu():
+    """``chip_smoke.py`` 21(e): int8 and top-k compression card == CPU bit
+    for bit over three rounds, and the one-rank NCCL group == no group."""
+    _need_card()
+    _chip_smoke().compression_card_vs_cpu(torch)

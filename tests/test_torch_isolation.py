@@ -58,7 +58,7 @@ def test_walk_covers_every_subpackage():
     packages = {p.parent.name for p in PORT_FILES}
     assert {"reliability", "obs", "checkpoint", "core", "ops",
             "kernels", "optim", "data", "train", "configs", "launch",
-            "serving", "analysis"} <= packages
+            "serving", "analysis", "parallel"} <= packages
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     assert {"src/repro_torch/core/costmodel.py",
             "src/repro_torch/obs/profile.py",
@@ -69,7 +69,10 @@ def test_walk_covers_every_subpackage():
             "src/repro_torch/configs/stablelm_3b.py",
             "src/repro_torch/configs/deepseek_v3_671b.py",
             "src/repro_torch/configs/llama4_maverick.py",
-            "src/repro_torch/models/moe.py"} <= names
+            "src/repro_torch/models/moe.py",
+            "src/repro_torch/models/xlstm.py",
+            "src/repro_torch/configs/xlstm_125m.py",
+            "src/repro_torch/parallel/compression.py"} <= names
     # the parity auditor: a counterpart of every reference file
     ref = {p.name for p in (ROOT / "src" / "repro" / "analysis").glob("*.py")}
     assert {f"src/repro_torch/analysis/{n}" for n in ref} <= names
@@ -151,6 +154,27 @@ def test_cpu_hybrid_run_leaves_jax_unloaded():
         "r = run_serving('zamba2-1.2b', batch=2, prompt_len=8, new_tokens=3,\n"
         "                smoke=True, device='cpu')\n"
         "assert r['all_in_vocab'] and r['logits_finite'], r\n" + NO_REFERENCE)
+
+
+def test_cpu_xlstm_run_leaves_jax_unloaded():
+    run_fresh(
+        "import sys\n"
+        "import tempfile\n"
+        "import torch\n"
+        "from repro_torch.launch.serve import run_serving\n"
+        "from repro_torch.launch.train import run_training\n"
+        "from repro_torch.parallel import compression as C\n"
+        "r = run_serving('xlstm-125m', batch=2, prompt_len=8, new_tokens=3,\n"
+        "                smoke=True, device='cpu')\n"
+        "assert r['all_in_vocab'] and r['logits_finite'], r\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    t = run_training('xlstm-125m', steps=2, batch=2, seq=8,\n"
+        "                     log_every=1, ckpt_dir=d, device='cpu')\n"
+        "assert len(t['history']) == 2, t['history']\n"
+        "cfg = C.CompressionConfig(kind='int8')\n"
+        "g = {'w': torch.randn(8, 8)}\n"
+        "out = C.compressed_psum_pod(cfg, g, C.init_error_state(cfg, g))\n"
+        "assert out[2] == 68, out[2]\n" + NO_REFERENCE)
 
 
 def test_cpu_moe_run_leaves_jax_unloaded():
@@ -421,7 +445,11 @@ def test_serving_without_card_raises_unless_cpu_is_asked_for(monkeypatch):
     (dict(family="vlm", cross_every=1), ValueError),
     # a hybrid without its SSM fields is malformed, not unported
     (dict(family="hybrid"), ValueError),
-    (dict(family="ssm"), NotImplementedError),
+    # experts in the hybrid's shared block are not ported
+    (dict(family="hybrid", attn_every=2, ssm_state=16, n_experts=4),
+     NotImplementedError),
+    # a family neither package has
+    (dict(family="rnn"), ValueError),
     # an encoder-decoder needs both stacks, where the reference asserts
     (dict(family="audio", n_enc_layers=0, n_dec_layers=2), ValueError),
     # MLA in a moe_super plan: the reference builds a latent cache its
@@ -434,22 +462,29 @@ def test_unported_models_are_refused(overrides, error):
 
 
 def test_unported_archs_are_refused():
+    """Every arch of the reference's registry is ported (the port's order
+    differs: llama first); an unknown one is refused."""
+    from repro import configs as ref_configs
     assert configs.ARCHS == ["llama3.2-1b", "zamba2-1.2b", "granite-3-8b",
                              "granite-20b", "stablelm-3b",
                              "deepseek-v3-671b", "llama4-maverick-400b-a17b",
-                             "llama-3.2-vision-90b", "seamless-m4t-large-v2"]
+                             "llama-3.2-vision-90b", "seamless-m4t-large-v2",
+                             "xlstm-125m"]
+    assert sorted(configs.ARCHS) == sorted(ref_configs.ARCHS)
     with pytest.raises(ValueError, match="unported"):
-        configs.get_config("xlstm-125m")
+        configs.get_config("gpt-5")
 
 
 def test_unported_arguments_are_refused():
-    """The reference's sort-based rankings are not ported; the
-    segment-restart hooks are (``tests/test_torch_segments.py``), and a
-    ``resume`` that lacks a state key is refused."""
+    """Every admission ranking of the reference is ported but its Pallas
+    route (the port's is ``"kernel"``); the segment-restart hooks are
+    (``tests/test_torch_segments.py``), and a ``resume`` that lacks a
+    state key is refused."""
     wl = workload.generate_empirical_workload(0, 1800.0)
     args = (wl.arrival[None], wl.n_tasks[None], wl.task_res[None],
             wl.exec_time[None], wl.priority[None], np.array([[4, 2]]))
-    for sort in ("fused", "chained", "pallas"):
+    assert vdes.ADMISSION_SORTS == ("kernel", "dense", "fused", "chained")
+    for sort in ("pallas", "sorted"):
         with pytest.raises(ValueError):
             vdes.simulate_ensemble(*args, device="cpu", admission_sort=sort)
     with pytest.raises(KeyError):
