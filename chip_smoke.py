@@ -104,8 +104,9 @@ Phases (any failure exits non-zero, with no result line):
     for bit against the plain version.
 13. The card's engine against the CPU path, which the CPU twins hold bit
     for bit against the reference's numpy engine (so card == CPU ==
-    oracle): a 4-replica one-tenth-day ensemble with whole-second times,
-    mixed policies, retries with backoff, a partial-progress replica, a
+    oracle; phase 22 holds it against the port's own heap engine): a
+    4-replica one-tenth-day ensemble with whole-second times, mixed
+    policies, retries with backoff, a partial-progress replica, a
     resampled-attempt replica and drains below the busy count, through
     ``simulate_ensemble`` on the card and with ``device="cpu"``. Checks:
     every replica retried, then every output key equal bit for bit; prints
@@ -185,8 +186,10 @@ Phases (any failure exits non-zero, with no result line):
 
 17. The cost-model link, within ``COST_BUDGET_S``: (a) ``launch/dryrun.py``'s
     writer counts the ten archs x the four shapes on the meta
-    device (no card; ``DRYRUN_WORKERS`` processes, while (c) and (d) run)
-    into a temporary root: every dense, MoE, VLM and audio ``long_500k`` a
+    device (no card; ``DRYRUN_WORKERS`` processes, started at phase 16's
+    start where the host has ``DRYRUN_WORKERS + 2`` cores, otherwise at
+    phase 17's beside (c) and (d); the core count is printed) into a
+    temporary root: every dense, MoE, VLM and audio ``long_500k`` a
     skip, the other 32 cells counted (a train cell's one microbatch taken
     ``TRAIN_MICROBATCHES`` times; the xLSTM's train and prefill cells
     counted at two lengths and depths and extrapolated, ``counted_at``);
@@ -296,8 +299,26 @@ Phases (any failure exits non-zero, with no result line):
     the wire bytes card == CPU bit for bit; ``compressed_psum_pod`` over a
     one-rank NCCL group (an in-process ``HashStore``) == ``group=None``
     bit for bit.
+22. The numpy heap engine (``repro_torch.core.des.simulate``, on the
+    host), within ``HEAP_BUDGET_S``: (a) on phase 13's oracle ensemble,
+    each replica equal to the card's phase 13 run (taken through
+    ``batching.batch_trace``) bit for bit on the trace columns
+    ``HEAP_ORACLE_KEYS``, and the waves on the replicas without padding
+    rows; (b) the same on phase 14(b)'s full-stack oracle ensemble
+    (``HEAP_FSO_KEYS``: the controller, reliability, fleet and probe
+    timelines too). The CPU tests hold the heap engine bit for bit against
+    the reference's ``des.simulate``, so on the card's own machine the
+    card's answer is the oracle's; prints ``heap_vs_card: identical, ...``
+    on a line of its own. (c) Phase 3's 32 replica days through the heap
+    engine once, one after another (every pipeline finished), and
+    ``profile_numpy`` of replica 0: its wall, waves and pipelines/s
+    beside phase 3's and phase 4's walls from the same call, and replica
+    0's ``mean_wait_s`` from both engines (phase 3's times are not whole
+    seconds, so there the engines agree only statistically): a reading,
+    the serial yardstick of the batched engine.
 
-The last lines are the kernels' JSON record (a kernel launched on two
+Each phase's wall is printed on one ``[done]`` line. The last lines are
+the kernels' JSON record (a kernel launched on two
 main paths, as flash in the llama prefill, the hybrid forward and the
 three dense configs', maverick's, the VLM's and seamless' prefills, has
 its
@@ -520,6 +541,23 @@ XLSTM_TRAIN = dict(steps=3, batch=2, seq=1024, lr=3e-4)
 XLSTM_TWIN_S, XLSTM_TWIN_CHUNK, XLSTM_TWIN_TOL = 64, 16, 1e-5
 RANK_R, RANK_HORIZON_S = 4, 6 * 3600.0
 COMP_ROUNDS, COMP_RATIO, COMP_SEED = 3, 0.05, 7
+# phase 22, the heap engine on the card's machine, within its own budget:
+# the SimTrace columns held bit for bit against the card's phase 13 and
+# 14(b) runs (tests/test_torch_engine_oracle.py's), then phase 3's replica
+# days once, one after another on the host
+HEAP_BUDGET_S = 30.0
+HEAP_PROFILE_REPEATS = 3
+HEAP_ORACLE_KEYS = ("start", "finish", "ready", "attempts", "completed",
+                    "att_start", "att_finish")
+HEAP_FSO_KEYS = ("start", "finish", "ready", "attempts", "completed",
+                 "arrival", "ctrl_times", "ctrl_caps", "rel_times",
+                 "rel_caps", "fleet_perf", "fleet_stale", "fleet_times",
+                 "fleet_kind", "fleet_model", "probe_vals")
+# the columns compared: every key on each of the 4 replicas, less those a
+# replica's heap run does not record (no stage there): replica 2's
+# reliability pair, replica 3's controller pair, reliability pair and probe
+HEAP_ORACLE_COLUMNS = 4 * len(HEAP_ORACLE_KEYS)            # 28
+HEAP_FSO_COLUMNS = 4 * len(HEAP_FSO_KEYS) - 2 - 5          # 57
 FSO_KEYS = ORACLE_KEYS + (
     "ctrl_act", "ctrl_n", "rel_act", "rel_n", "fleet_perf", "fleet_stale",
     "fleet_act", "fleet_n", "pool_arr", "pool_model", "pool_next",
@@ -893,9 +931,19 @@ def phase_main_path(torch, fused_admission, inputs):
 
 # ------------------------------------------------------------ phase 4
 
-def phase_single(torch, fused_admission, inputs, ens):
-    from repro_torch.core import trace, vdes
+def single_summary(wl, plat, comp, tr):
+    """Phase 4's summary of one replica's trace: a schedule, an SLO and
+    cost rates."""
+    from repro_torch.core import trace
     from repro_torch.ops.accounting import SLOConfig
+    return trace.summarize(trace.flatten_trace(tr, wl), plat.capacities,
+                           HORIZON_S, schedule=comp.schedule,
+                           cost_rates=np.array([0.5, 3.0]), slo=SLOConfig())
+
+
+def phase_single(torch, fused_admission, inputs, ens):
+    """Phase 4; returns its wall and summary."""
+    from repro_torch.core import vdes
     plats, wls, comps, pols, cols, caps = inputs
     wl, plat, comp = wls[0], plats[0], comps[0]
     fused_admission.launches = 0
@@ -910,11 +958,7 @@ def phase_single(torch, fused_admission, inputs, ens):
         want = ens[k][0, :n].cpu().numpy().astype(np.float64)
         if not np.array_equal(getattr(tr, k), want, equal_nan=True):
             raise AssertionError(f"simulate_to_trace != ensemble replica 0: {k}")
-    rec = trace.flatten_trace(tr, wl)
-    summ = trace.summarize(rec, plat.capacities, HORIZON_S,
-                           schedule=comp.schedule,
-                           cost_rates=np.array([0.5, 3.0]),
-                           slo=SLOConfig())
+    summ = single_summary(wl, plat, comp, tr)
     for k in ("mean_wait_s", "p95_wait_s", "total_cost",
               "deadline_miss_rate"):
         if not np.isfinite(summ[k]):
@@ -928,6 +972,7 @@ def phase_single(torch, fused_admission, inputs, ens):
         f"{json.dumps(summ['utilization'])}, total_cost "
         f"{summ['total_cost']:.2f}, deadline_miss_rate "
         f"{summ['deadline_miss_rate']:.4f}")
+    return wall, summ
 
 
 # ------------------------------------------------------------ phase 1
@@ -1962,7 +2007,8 @@ def engine_card_vs_cpu(torch, counts):
     Checks first that every replica retried, that the drains pushed free
     slots below zero and that the card run launched the admission kernel
     only; then that every output key is equal bit for bit. Returns the
-    number of keys and the largest wave count."""
+    number of keys, the largest wave count, the launches and the card's
+    outputs."""
     from repro_torch.core import batching, vdes
     cols, caps, pols = oracle_ensemble()[:3]
     torch.cuda.synchronize()
@@ -1998,12 +2044,14 @@ def engine_card_vs_cpu(torch, counts):
             diff = card[k].cpu() != cpu[k]
             raise AssertionError(f"the card's engine differs from the CPU path "
                                  f"in {k}: {int(diff.sum())} entries")
-    return len(ORACLE_KEYS), int(cpu["waves"].max()), launched
+    return len(ORACLE_KEYS), int(cpu["waves"].max()), launched, card
 
 
 def phase_engine_oracle(torch, counts):
+    """Phase 13; returns the card's outputs, which phase 22 holds against
+    the heap engine."""
     t0 = time.perf_counter()
-    n_keys, waves, launched = engine_card_vs_cpu(torch, counts)
+    n_keys, waves, launched, card = engine_card_vs_cpu(torch, counts)
     log(f"[13] the oracle ensemble ({ORACLE_R} replicas x "
         f"{ORACLE_HORIZON_S / 86400:g} day, whole-second times; retries with "
         f"backoff, fail_holds_frac 0.5, resampled attempts, drains below the "
@@ -2012,6 +2060,7 @@ def phase_engine_oracle(torch, counts):
         f"{time.perf_counter() - t0:.2f} s")
     log(f"engine_card_vs_cpu: identical, {n_keys} keys, {ORACLE_R} replicas, "
         f"{waves} waves")
+    return card
 
 
 # ------------------------------------------------------------ phase 14
@@ -2121,8 +2170,8 @@ def fullstack_card_vs_cpu(torch, counts):
     (controller moves, reliability events, triggers and redeploys, probe
     ticks on the probed replicas and none on the padded one) and that
     FSO_BURST's three redeploys share one wave; then that every output key
-    is equal bit for bit. Returns the keys, the largest wave count and the
-    launches."""
+    is equal bit for bit. Returns the keys, the largest wave count, the
+    launches, the stages' counts and the card's outputs."""
     from repro_torch.core import batching, des, vdes
     cols, caps, pols = fullstack_oracle_ensemble()[:3]
     torch.cuda.synchronize()
@@ -2157,7 +2206,7 @@ def fullstack_card_vs_cpu(torch, counts):
             diff = card[k].cpu() != cpu[k]
             raise AssertionError(f"the card's engine differs from the CPU path "
                                  f"in {k}: {int(diff.sum())} entries")
-    return len(FSO_KEYS), int(cpu["waves"].max()), launched, counts_of
+    return len(FSO_KEYS), int(cpu["waves"].max()), launched, counts_of, card
 
 
 def fullstack_counts(out):
@@ -2333,9 +2382,11 @@ def phase_fullstack(torch, fused_admission, dense, counts):
     """Phase 14: (a) the full stack at width, timed beside the same replicas
     with no stage on; (b) the full-stack oracle ensemble, card against CPU.
     Returns the full-stack run's admission launches, the kernel's record
-    on that run's inputs and the run's ``simulate_ensemble`` keywords."""
+    on that run's inputs, the run's ``simulate_ensemble`` keywords and
+    (b)'s card outputs, which phase 22 holds against the heap engine."""
     t0 = time.perf_counter()
-    n_keys, max_waves, launched_b, per_b = fullstack_card_vs_cpu(torch, counts)
+    n_keys, max_waves, launched_b, per_b, fso_card = fullstack_card_vs_cpu(
+        torch, counts)
     log(f"[14] the full-stack oracle ensemble ({ORACLE_R} replicas x "
         f"{ORACLE_HORIZON_S / 86400:g} day, whole-second times, every stage, "
         f"padding rows on replica {FSO_BURST}, three redeploys of one model "
@@ -2408,7 +2459,7 @@ def phase_fullstack(torch, fused_admission, dense, counts):
         f"simulate_ensemble's wall "
         f"({100 * n * rec['device_ms'] / (ens_wall * 1e3):.2f} % on the "
         "device alone)")
-    return n, rec, kw
+    return n, rec, kw, fso_card
 
 
 # ------------------------------------------------------------ phase 15
@@ -2981,17 +3032,12 @@ def train_card_vs_cpu(torch, arch):
     return (*errs, dloss)
 
 
-def feedback_card_vs_cpu(torch, counts):
-    """16(e): ``run_feedback_simulation`` of one pinned whole-second day
+def feedback_run(engine, device):
+    """One ``run_feedback_simulation`` of 16(e)'s pinned whole-second day
     (the ground-truth generator, the default platform) with 6 models
     drifting at seasonal amplitude 0 and pinned retrain durations (the
-    reference's parity conditions), on the card through the engine
-    (``"torch"``: the wave loop, admission by the kernel) and through the
-    compaction driver (``"torch-compact"``), and on the CPU through the
-    compaction driver (the whole-width CPU loop takes minutes for a day);
-    the three results equal bit for bit. Returns the pipelines, triggers,
-    the admission launches of the engine's run and the walls."""
-    import dataclasses
+    reference's parity conditions). Returns the pipelines, the result and
+    its wall. Module-level, so a spawned process can run it."""
     from repro_torch.core import metrics, runtime
     from repro_torch.core import model as M
     from repro_torch.core.workload import (generate_empirical_workload,
@@ -3002,24 +3048,39 @@ def feedback_card_vs_cpu(torch, counts):
     fl = metrics.pack_fleet(runtime.make_model_fleet(
         np.random.default_rng(FB_SEED), 6, drift_scale=60.0))
     fl[:, metrics.FLEET_SEAS_AMP] = 0.0
-    kw = dict(window_s=3600.0, workload=wl,
-              fleet=runtime.FleetSpec(params=fl),
-              trigger=runtime.TriggerSpec(
-                  drift_threshold=0.06, cooldown_s=4 * 3600.0,
-                  obs_noise=0.005, interval_s=3600.0,
-                  retrain_durations=(1800.0, 300.0, 120.0)))
+    t0 = time.perf_counter()
+    res = runtime.run_feedback_simulation(
+        None, FB_SEED, HORIZON_S, engine=engine, device=device,
+        window_s=3600.0, workload=wl, fleet=runtime.FleetSpec(params=fl),
+        trigger=runtime.TriggerSpec(
+            drift_threshold=0.06, cooldown_s=4 * 3600.0, obs_noise=0.005,
+            interval_s=3600.0, retrain_durations=(1800.0, 300.0, 120.0)))
+    return wl.n, res, time.perf_counter() - t0
+
+
+def feedback_card_vs_cpu(torch, counts):
+    """16(e): :func:`feedback_run` on the card through the engine
+    (``"torch"``: the wave loop, admission by the kernel) and through the
+    compaction driver (``"torch-compact"``), and on the CPU through the
+    compaction driver (the whole-width CPU loop takes minutes for a day)
+    in a spawned process while the card runs; the three results equal bit
+    for bit. Returns the pipelines, triggers, the admission launches of
+    the engine's run and the walls."""
+    import dataclasses
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
     res, walls, launched = {}, {}, None
-    for tag, dev, engine in (("card", "cuda", "torch"),
-                             ("card-compact", "cuda", "torch-compact"),
-                             ("cpu-compact", "cpu", "torch-compact")):
-        for k in counts:
-            k.launches = 0
-        t0 = time.perf_counter()
-        res[tag] = runtime.run_feedback_simulation(
-            None, FB_SEED, HORIZON_S, engine=engine, device=dev, **kw)
-        walls[tag] = time.perf_counter() - t0
-        if tag == "card":
-            launched = {k.__name__: k.launches for k in counts}
+    with ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        cpu = pool.submit(feedback_run, "torch-compact", "cpu")
+        for tag, engine in (("card", "torch"),
+                            ("card-compact", "torch-compact")):
+            for k in counts:
+                k.launches = 0
+            n, res[tag], walls[tag] = feedback_run(engine, "cuda")
+            if tag == "card":
+                launched = {k.__name__: k.launches for k in counts}
+        n, res["cpu-compact"], walls["cpu-compact"] = cpu.result()
     if launched["fused_admission"] <= 0 or any(
             n for name, n in launched.items() if name != "fused_admission"):
         raise AssertionError(f"the feedback run launched {launched}")
@@ -3039,7 +3100,7 @@ def feedback_card_vs_cpu(torch, counts):
         if not same:
             raise AssertionError(f"run_feedback_simulation: {tag} differs "
                                  "from the CPU path")
-    return wl.n, want.n_triggered, launched["fused_admission"], walls
+    return n, want.n_triggered, launched["fused_admission"], walls
 
 
 def phase_training(torch, counts, flash_attention, mamba2_scan):
@@ -3092,7 +3153,8 @@ def phase_training(torch, counts, flash_attention, mamba2_scan):
         f"{trig} triggers: card (fused_admission {adm} launches, "
         f"{walls['card']:.1f} s) == card compacted "
         f"({walls['card-compact']:.1f} s) == CPU compacted "
-        f"({walls['cpu-compact']:.1f} s), bit for bit "
+        f"({walls['cpu-compact']:.1f} s, in a spawned process beside the "
+        f"card's runs), bit for bit "
         f"({time.perf_counter() - t0:.1f} s for (e))")
     log(f"[16] phase 16 in {time.perf_counter() - t16:.1f} s; card: {card}")
     return llama
@@ -3345,27 +3407,71 @@ def profile_fullstack(torch, counts, card):
     return prof, stages
 
 
-def phase_cost_model(torch, counts, flash_attention, train_llama):
+class CellCount:
+    """17(a)'s count: ``dryrun.write_cells`` of every arch x shape on the
+    meta device (no card) by ``DRYRUN_WORKERS`` spawned processes, into a
+    temporary root, from a thread that only waits on them. ``result``
+    returns the records and the count's own wall; ``close`` waits for the
+    count and removes the root."""
+
+    def __init__(self):
+        import tempfile
+        from repro_torch import configs
+        from repro_torch.launch import dryrun
+        self._dir = tempfile.TemporaryDirectory(prefix="chip_smoke_cells_")
+        self.root = self._dir.name
+        self._pool = ThreadPoolExecutor(1)
+        self._t0 = time.perf_counter()
+        self._future = self._pool.submit(
+            self._count, dryrun, configs.ARCHS, list(configs.SHAPES))
+
+    def _count(self, dryrun, archs, shapes):
+        cells = dryrun.write_cells(archs, shapes, root=self.root,
+                                   workers=DRYRUN_WORKERS,
+                                   log=lambda *a: None)
+        return cells, time.perf_counter() - self._t0
+
+    def result(self):
+        return self._future.result()
+
+    def close(self):
+        self._pool.shutdown(wait=True)
+        self._dir.cleanup()
+
+
+def early_cell_count():
+    """Starts 17(a)'s count at phase 16 where the host has a core for each
+    worker and two to spare (the card's host loop and the CPU twins);
+    otherwise phase 17 starts it beside (c) and (d). Returns the count, or
+    None."""
+    cores = os.cpu_count() or 1
+    early = cores >= DRYRUN_WORKERS + 2
+    log(f"[16] {cores} CPU cores: 17(a)'s count by {DRYRUN_WORKERS} "
+        + ("processes starts now, beside phase 16" if early else
+           f"processes waits for phase 17 (fewer than {DRYRUN_WORKERS + 2} "
+           "cores)"))
+    return CellCount() if early else None
+
+
+def phase_cost_model(torch, counts, flash_attention, train_llama,
+                     cells=None):
     """Phase 17 within ``COST_BUDGET_S``: (a) counted in worker processes
-    while (c) and (d) run on the card, then (b) and (e). Returns (d)'s
-    flash records."""
-    import tempfile
-    from repro_torch import configs
-    from repro_torch.launch import dryrun
+    (``cells``, started at phase 16; else started here) while (c) and (d)
+    run on the card, then (b) and (e). Returns (d)'s flash records."""
     card = card_line()
     t17 = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_cells_") as root:
-        with ThreadPoolExecutor(1) as pool:
-            t0 = time.perf_counter()
-            cells = pool.submit(dryrun.write_cells, configs.ARCHS,
-                                list(configs.SHAPES), root=root,
-                                workers=DRYRUN_WORKERS, log=lambda *a: None)
-            roofline_vs_step(torch, train_llama, card)
-            paths = serve_dense(torch, counts, flash_attention, card)
-            cells = cells.result()
-            cells_wall = time.perf_counter() - t0
-        report_cells(cells, cells_wall)
-        catalog_on_card(torch, counts, root)
+    own = cells is None
+    if own:
+        cells = CellCount()
+    try:
+        roofline_vs_step(torch, train_llama, card)
+        paths = serve_dense(torch, counts, flash_attention, card)
+        records, cells_wall = cells.result()
+        report_cells(records, cells_wall)
+        catalog_on_card(torch, counts, cells.root)
+    finally:
+        if own:
+            cells.close()
     profile_fullstack(torch, counts, card)
     wall = time.perf_counter() - t17
     within = "within" if wall <= COST_BUDGET_S else "OVER"
@@ -4147,6 +4253,145 @@ def phase_xlstm(torch, counts, fused_admission):
         f"budget); card: {card}")
 
 
+# ------------------------------------------------------------ phase 22
+
+def heap_trace(wl, plat, policy, comp, K, horizon_s, **stages):
+    """The heap engine (``des.simulate``) on one replica of a stacked
+    ensemble, its scenario's schedule padded to the batch's ``K`` change
+    points as the batch runs it (the padding change points fall past the
+    horizon, where each only adds a wave)."""
+    import dataclasses
+    from repro_torch.core import des
+    comp = dataclasses.replace(comp,
+                               schedule=comp.schedule.padded(K, horizon_s))
+    return des.simulate(wl, plat, int(policy), scenario=comp, **stages)
+
+
+def heap_vs_batched(out, ens, keys, columns, stages=False):
+    """22(a) and (b): each replica of a stacked oracle ensemble (``ens``, as
+    ``oracle_ensemble()`` or, with ``stages``, ``fullstack_oracle_ensemble()``
+    returns it) through the heap engine, against the batched engine's
+    outputs ``out`` (tensors on either device) taken through
+    ``batching.batch_trace``: every trace column of ``keys`` the heap engine
+    records equal bit for bit (NaN equal to NaN; the per-attempt records on
+    the heap engine's attempt slots), and the wave counts equal on the
+    replicas that need no padding rows (a padding row arrives at
+    ``PAD_ARRIVAL`` and runs waves the heap engine never sees). Exactly
+    ``columns`` columns must be compared. Returns those replicas, the
+    columns compared and the heap engine's wall."""
+    from repro_torch.core import batching
+    cols, wls, plat = ens[0], ens[3], ens[-1]
+    pols, comps = ens[2], ens[4]
+    none = [None] * len(wls)
+    fleets, probes, rels = ens[5:8] if stages else (none, none, none)
+    K = cols["cap_times"].shape[1]
+    unpadded = compared = 0
+    wall = 0.0
+    for i, wl in enumerate(wls):
+        st = dict(fleet=fleets[i], probe=probes[i], reliability=rels[i])
+        t0 = time.perf_counter()
+        want = heap_trace(wl, plat, pols[i], comps[i], K, ORACLE_HORIZON_S,
+                          **st)
+        wall += time.perf_counter() - t0
+        got = batching.batch_trace(out, i, wl, plat.capacities, **st)
+        for k in keys:
+            w, g = getattr(want, k), getattr(got, k)
+            if w is None:
+                continue
+            if k in ("att_start", "att_finish") and g is not None:
+                g = g[..., :w.shape[-1]]
+            if g is None or g.shape != w.shape or not np.array_equal(
+                    g, w, equal_nan=w.dtype.kind == "f"):
+                raise AssertionError(f"replica {i}: the heap engine differs "
+                                     f"from the batched engine in {k}")
+            compared += 1
+        if wl.n == cols["n_max"]:
+            if got.waves != want.waves:
+                raise AssertionError(f"replica {i}: {got.waves} waves "
+                                     f"batched, {want.waves} heap")
+            unpadded += 1
+    if not unpadded:
+        raise AssertionError("every replica has padding rows: no wave count "
+                             "was compared")
+    if compared != columns:
+        raise AssertionError(f"{compared} trace columns compared, "
+                             f"{columns} expected")
+    return unpadded, compared, wall
+
+
+def heap_yardstick(inputs, ens, main_wall, single_wall, single_summ, card):
+    """22(c): phase 3's replica days through the heap engine once, one
+    after another on the host; ``profile_numpy`` of replica 0; replica 0's
+    ``mean_wait_s`` beside phase 4's on the card. Readings, not a gate:
+    phase 3's times are not whole seconds, where the two engines (f64 on
+    the host, f32 on the card) agree only statistically. Fails if a
+    replica leaves a pipeline unfinished (phase 3's invariant)."""
+    from repro_torch.core import des
+    from repro_torch.obs.profile import profile_numpy
+    plats, wls, comps, pols = inputs[:4]
+    t0 = time.perf_counter()
+    trs = [des.simulate(w, p, int(pol), scenario=c)
+           for w, p, pol, c in zip(wls, plats, pols, comps)]
+    wall = time.perf_counter() - t0
+    for i, tr in enumerate(trs):
+        if not tr.completed.all():
+            raise AssertionError(f"replica {i}: the heap engine left "
+                                 f"{int((~tr.completed).sum())} pipelines "
+                                 "unfinished")
+    waves = np.array([tr.waves for tr in trs])
+    n_pipes = sum(w.n for w in wls)
+    prof = profile_numpy(wls[0], plats[0], int(pols[0]), scenario=comps[0],
+                         repeats=HEAP_PROFILE_REPEATS)
+    heap_wait = single_summary(wls[0], plats[0], comps[0],
+                               trs[0])["mean_wait_s"]
+    card_waves = ens["waves"].cpu().numpy()
+    log(f"[22] (c) the heap engine on phase 3's {len(wls)} replica days, "
+        f"one after another on the host: wall {wall:.3f} s, waves max "
+        f"{int(waves.max())} (sum {int(waves.sum())}), {n_pipes / wall:.1f} "
+        f"pipelines/s; phase 3's simulate_ensemble on the card in this call "
+        f"{main_wall:.3f} s (waves max {int(card_waves.max())}, sum "
+        f"{int(card_waves.sum())}, {n_pipes / main_wall:.1f} pipelines/s), "
+        f"{main_wall / wall:.2f}x the heap engine's wall; phase 4's "
+        f"simulate_to_trace of replica 0 {single_wall:.3f} s; card: {card}")
+    log(f"[22] (c) profile_numpy of replica 0 (repeats "
+        f"{HEAP_PROFILE_REPEATS}): wall {prof['wall_s']:.4f} s, "
+        f"{prof['waves']} waves, {prof['waves_per_s']:.1f} waves/s; "
+        f"replica 0's mean_wait_s: heap engine {heap_wait:.3f}, card "
+        f"(phase 4) {single_summ['mean_wait_s']:.3f}")
+    return wall
+
+
+def phase_heap_engine(inputs, ens, main_wall, single, oracle_card,
+                      fso_card):
+    """Phase 22 within ``HEAP_BUDGET_S``: the heap engine against the card's
+    phase 13 and 14(b) runs, then beside phase 3's wall."""
+    card = card_line()
+    t22 = time.perf_counter()
+    n_a, cols_a, heap_a = heap_vs_batched(oracle_card, oracle_ensemble(),
+                                          HEAP_ORACLE_KEYS,
+                                          HEAP_ORACLE_COLUMNS)
+    log(f"[22] (a) the heap engine on phase 13's oracle ensemble "
+        f"({ORACLE_R} replicas, {heap_a:.3f} s on the host) == the card's "
+        f"run bit for bit: {cols_a} trace columns; waves equal on {n_a} of "
+        f"{ORACLE_R} replicas (the others have padding rows)")
+    n_b, cols_b, heap_b = heap_vs_batched(
+        fso_card, fullstack_oracle_ensemble(), HEAP_FSO_KEYS,
+        HEAP_FSO_COLUMNS, stages=True)
+    log(f"[22] (b) the heap engine on phase 14(b)'s full-stack oracle "
+        f"ensemble ({ORACLE_R} replicas, every stage, {heap_b:.3f} s on the "
+        f"host) == the card's run bit for bit: {cols_b} trace columns "
+        f"(controller, reliability, fleet and probe timelines included); "
+        f"waves equal on {n_b} of {ORACLE_R} replicas (the others have "
+        "padding rows)")
+    log(f"heap_vs_card: identical, {cols_a + cols_b} columns, "
+        f"{2 * ORACLE_R} replicas")
+    heap_yardstick(inputs, ens, main_wall, *single, card)
+    wall = time.perf_counter() - t22
+    within = "within" if wall <= HEAP_BUDGET_S else "OVER"
+    log(f"[22] phase 22 in {wall:.1f} s ({within} its {HEAP_BUDGET_S:g} s "
+        f"budget); card: {card}")
+
+
 def both_paths(paths, keys=("ms", "plain_ms", "bound_ms", "library_ms")):
     """One kernel's record over the main paths that launch it: launches
     summed, and each time (``keys``) the launch-weighted mean of the
@@ -4162,6 +4407,19 @@ def both_paths(paths, keys=("ms", "plain_ms", "bound_ms", "library_ms")):
                        for name, launches, rec in paths])
 
 
+class PhaseClock:
+    """Each phase's wall, from the end of the phase before (``lap``)."""
+
+    def __init__(self):
+        self.laps = []
+        self._t = time.perf_counter()
+
+    def lap(self, name):
+        now = time.perf_counter()
+        self.laps.append((name, now - self._t))
+        self._t = now
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4175,6 +4433,7 @@ def main() -> int:
     from repro_torch.kernels.ref import admission_mask_dense
 
     t_start = time.perf_counter()
+    clock = PhaseClock()
     card = card_line()
     log(f"[1] python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
@@ -4184,8 +4443,10 @@ def main() -> int:
     inputs = build_ensemble()
     log(f"[1] workloads and scenarios built on the host in "
         f"{time.perf_counter() - t0:.2f} s")
+    clock.lap("1")
 
     grid_err = phase_kernels(torch, fused_admission, admission_mask_dense)
+    clock.lap("2")
     flash_attention.launches = 0
     ens, launches, wall, kept = phase_main_path(torch, fused_admission,
                                                 inputs)
@@ -4196,9 +4457,12 @@ def main() -> int:
         f"{100 * launches * rec['ms'] / (wall * 1e3):.2f} % of the "
         f"main path's wall ({100 * launches * rec['device_ms'] / (wall * 1e3):.2f}"
         " % on the device alone)")
-    phase_single(torch, fused_admission, inputs, ens)
+    clock.lap("3")
+    single = phase_single(torch, fused_admission, inputs, ens)
+    clock.lap("4")
 
     flash_grid_err = phase_flash_grid(torch, flash_attention)
+    clock.lap("5")
     fused_admission.launches = 0
     serve, flash_launches, kept_qkv = phase_serving(torch, flash_attention)
     if fused_admission.launches:
@@ -4209,16 +4473,20 @@ def main() -> int:
     log(f"[6] flash_attention: {flash_launches} launches x {frec['ms']:.6f} "
         f"ms = {100 * flash_launches * frec['ms'] / (serve['prefill_s'] * 1e3):.2f}"
         " % of the time to first token")
+    clock.lap("6")
 
     gmm_grid_err = phase_gmm_grid(torch, gmm_logpdf)
+    clock.lap("7")
     fit, kept_gmm = phase_fit_path(torch, gmm_logpdf, fused_admission,
                                    flash_attention)
     grec = time_gmm(torch, gmm_logpdf, kept_gmm)
     log(f"[8] gmm_logpdf: {fit['launches']} launches x {grec['ms']:.6f} ms "
         f"= {100 * fit['launches'] * grec['ms'] / (fit['em_s'] * 1e3):.2f} % "
         "of the EM's wall on the card")
+    clock.lap("8")
 
     ssd_grid_err = phase_ssd_grid(torch, mamba2_scan)
+    clock.lap("9")
     counts = (fused_admission, flash_attention, gmm_logpdf, mamba2_scan,
               queue_scan)
     hyb, kept_ssd, kept_hyb_attn = phase_hybrid_forward(torch, mamba2_scan,
@@ -4235,11 +4503,16 @@ def main() -> int:
         f"{hfrec['ms']:.6f} ms = "
         f"{100 * hyb['flash_launches'] * hfrec['ms'] / (hyb['wall_s'] * 1e3):.2f}"
         " % of the forward's wall")
+    clock.lap("10")
     hserve_flash_err = phase_hybrid_serving(torch, flash_attention, counts)
+    clock.lap("11")
     queue_launches, qrec = phase_queue_sweep(torch, queue_scan, counts)
-    phase_engine_oracle(torch, counts)
-    fs_launches, fsrec, fs_kw = phase_fullstack(
+    clock.lap("12")
+    oracle_card = phase_engine_oracle(torch, counts)
+    clock.lap("13")
+    fs_launches, fsrec, fs_kw, fso_card = phase_fullstack(
         torch, fused_admission, admission_mask_dense, counts)
+    clock.lap("14")
     t15 = time.perf_counter()
     ca_launches, carec, _ = phase_compaction(
         torch, fused_admission, admission_mask_dense, counts, inputs, ens,
@@ -4248,15 +4521,29 @@ def main() -> int:
                                          admission_mask_dense, counts)
     phase_stream_oracle(torch, counts)
     log(f"[15] phase 15 in {time.perf_counter() - t15:.1f} s")
-    train_llama = phase_training(torch, counts, flash_attention,
-                                 mamba2_scan)
-    torch.cuda.empty_cache()
-    dense_paths = phase_cost_model(torch, counts, flash_attention,
-                                   train_llama)
+    clock.lap("15")
+    cells = early_cell_count()
+    try:
+        train_llama = phase_training(torch, counts, flash_attention,
+                                     mamba2_scan)
+        torch.cuda.empty_cache()
+        clock.lap("16")
+        dense_paths = phase_cost_model(torch, counts, flash_attention,
+                                       train_llama, cells)
+    finally:
+        if cells is not None:
+            cells.close()
+    clock.lap("17")
     phase_audit(torch, fs_kw)
+    clock.lap("18")
     moe_path = phase_moe(torch, counts, flash_attention)
+    clock.lap("19")
     cross_paths = phase_cross(torch, counts, flash_attention)
+    clock.lap("20")
     phase_xlstm(torch, counts, fused_admission)
+    clock.lap("21")
+    phase_heap_engine(inputs, ens, wall, single, oracle_card, fso_card)
+    clock.lap("22")
 
     kernels = [dict(
         name="fused_admission", route="cuda",
@@ -4307,6 +4594,8 @@ def main() -> int:
     log("[done] launches x (ms - bound_ms) on each kernel's path: " + ", ".join(
         f"{k['name']} {k['launches'] * (k['ms'] - k['bound_ms']):.3f} ms"
         for k in kernels))
+    log("[done] phase walls: " + ", ".join(
+        f"{name} {secs:.1f} s" for name, secs in clock.laps))
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card_line())

@@ -14,7 +14,7 @@ Three passes over the port's simulator (see the README's port section):
   mixed Sweep grid and proves it is one engine call whose rows trace to
   one wave program;
 - :mod:`repro_torch.analysis.ast_audit` — pure-AST structure checks: every
-  wave stage has a marked numpy mirror in the reference's des.py, layout
+  wave stage has a marked numpy mirror in the port's des.py, layout
   constants have one source and the reference's values, plus the port's
   lint rules.
 

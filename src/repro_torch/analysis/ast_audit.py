@@ -9,9 +9,9 @@ not installed, and even when the engine under audit is broken):
 - **mirror-missing / mirror-stale** — every wave stage nested in the
   port's ``simulate_ensemble`` or its builder ``wave_program``
   (``_select_events`` and the ``_*_stage`` functions) must have a
-  ``# mirror: vdes.<stage>`` marker in the reference's ``des.py`` (the
-  numpy oracle both engines are held against), every marker must name a
-  port stage, and the port's stage set must equal the reference
+  ``# mirror: vdes.<stage>`` marker in the port's ``des.py`` (the numpy
+  heap engine the batched engine is held against), every marker must
+  name a port stage, and the port's stage set must equal the reference
   ``vdes.simulate``'s;
 - **layout-redef** — the layout constants (``CTRL_*``, ``TRIG_*``,
   ``PROBE_*``, ``FLEET_*``) are owned by ``repro_torch/core/des.py`` /
@@ -48,6 +48,7 @@ from repro_torch.analysis.findings import Finding, bad_pragma_findings
 
 # engine stage files: the f32 parity-mirrored arithmetic lives here
 ENGINE_FILES = (
+    "src/repro_torch/core/des.py",
     "src/repro_torch/core/vdes.py",
     "src/repro_torch/core/metrics.py",
     "src/repro_torch/obs/probes.py",
@@ -66,8 +67,9 @@ REF_LAYOUT_OWNERS = ("src/repro/core/des.py", "src/repro/core/metrics.py")
 
 VDES_FILE = "src/repro_torch/core/vdes.py"
 PROBES_FILE = "src/repro_torch/obs/probes.py"
-# the reference's numpy oracle (its mirror markers) and its batched engine
-DES_FILE = "src/repro/core/des.py"
+# the port's heap engine (its mirror markers) and the reference's batched
+# engine, whose stage set the port's is held against
+DES_FILE = "src/repro_torch/core/des.py"
 REF_VDES_FILE = "src/repro/core/vdes.py"
 
 # the functions whose nested stages make up the wave loop
@@ -145,7 +147,7 @@ def check_mirrors(vdes_tree: ast.AST, vdes_lines: Sequence[str],
                   des_lines: Sequence[str],
                   ref_vdes: Optional[Tuple[ast.AST, List[str]]] = None
                   ) -> List[Finding]:
-    """The port's stages against the reference's markers, and (when the
+    """The port's stages against its heap engine's markers, and (when the
     reference's ``vdes.py`` is there) against the reference's stages."""
     stages = stage_defs(vdes_tree)
     markers = mirror_markers(des_lines)
@@ -155,7 +157,7 @@ def check_mirrors(vdes_tree: ast.AST, vdes_lines: Sequence[str],
             out.append(Finding(
                 rule="mirror-missing", file=VDES_FILE, line=lineno,
                 message=(f"wave stage {name} has no "
-                         f"'# mirror: vdes.{name}' marker in the reference's "
+                         f"'# mirror: vdes.{name}' marker in the port's "
                          "des.py — the numpy mirror is missing or "
                          "unlabelled"),
                 snippet=_snippet(vdes_lines, lineno)))
@@ -505,16 +507,16 @@ def audit_tree(root: str) -> List[Finding]:
         if got is not None:
             parsed[rel] = got
     ref: Dict[str, Tuple[ast.AST, List[str]]] = {}
-    for rel in {DES_FILE, REF_VDES_FILE, *REF_LAYOUT_OWNERS}:
+    for rel in {REF_VDES_FILE, *REF_LAYOUT_OWNERS}:
         got = _parse(root, rel)
         if got is not None:
             ref[rel] = got
 
     findings: List[Finding] = []
 
-    if VDES_FILE in parsed and DES_FILE in ref:
+    if VDES_FILE in parsed and DES_FILE in parsed:
         vdes_tree, vdes_lines = parsed[VDES_FILE]
-        findings += check_mirrors(vdes_tree, vdes_lines, ref[DES_FILE][1],
+        findings += check_mirrors(vdes_tree, vdes_lines, parsed[DES_FILE][1],
                                   ref.get(REF_VDES_FILE))
 
     for rel in ENGINE_FILES:

@@ -92,9 +92,9 @@ RULES: Dict[str, str] = {
                      "(repro.core.des / repro.core.metrics, read as text)"),
     "mirror-missing": ("a wave stage of the port's simulate_ensemble has "
                        "no `# mirror: vdes.<stage>` marker in the "
-                       "reference's des.py, or a stage of the reference's "
+                       "port's des.py, or a stage of the reference's "
                        "vdes.simulate has no counterpart in the port"),
-    "mirror-stale": ("the reference's des.py carries a mirror marker for a "
+    "mirror-stale": ("the port's des.py carries a mirror marker for a "
                      "stage the port does not have, or the port has a "
                      "stage the reference's vdes.simulate lacks"),
     "hot-f64": ("torch.float64 / torch.double / .double() / np.float64 in "

@@ -39,25 +39,27 @@ def pad_workloads(wls: Sequence[M.Workload], platform,
                   n_max: Optional[int] = None) -> Dict[str, np.ndarray]:
     """Pack workloads into the positional ``[R, ...]`` columns of
     ``vdes.simulate_ensemble``: arrival / n_tasks / task_res / service /
-    priority, plus ``n_max``. All workloads must share ``max_tasks``.
-    ``platform`` is one :class:`PlatformConfig` or a per-entry sequence
-    (grid points may differ in datastore parameters)."""
-    T = {w.max_tasks for w in wls}
-    if len(T) != 1:
-        raise ValueError(f"workloads disagree on max_tasks: {sorted(T)}")
+    priority, plus ``n_max``. Workloads of fewer tasks than the batch's
+    largest ``max_tasks`` get empty task columns (resource 0, service 0)
+    that no pipeline reaches, its ``n_tasks`` ending it first;
+    :func:`batch_trace` cuts them off again. (The reference raises there,
+    and its batched engine falls back to the host.) ``platform`` is one
+    :class:`PlatformConfig` or a per-entry sequence (grid points may
+    differ in datastore parameters)."""
+    T = max(w.max_tasks for w in wls)
     n_max = n_max if n_max is not None else max(w.n for w in wls)
     plats = (list(platform) if isinstance(platform, (list, tuple))
              else [platform] * len(wls))
 
     def pad(w: M.Workload, plat: M.PlatformConfig):
-        p = n_max - w.n
+        p, q = n_max - w.n, T - w.max_tasks
         svc = w.service_time(plat.datastore)
         return (
             np.pad(w.arrival, (0, p),
                    constant_values=PAD_ARRIVAL).astype(np.float32),
             np.pad(w.n_tasks, (0, p), constant_values=1),
-            np.pad(w.task_res, ((0, p), (0, 0))),
-            np.pad(svc, ((0, p), (0, 0))).astype(np.float32),
+            np.pad(w.task_res, ((0, p), (0, q))),
+            np.pad(svc, ((0, p), (0, q))).astype(np.float32),
             np.pad(w.priority, (0, p)),
         )
 
@@ -80,7 +82,9 @@ def stack_scenarios(compiled, n_max: int, horizon_s: float,
     ``fail_holds_frac [R]`` when any entry shortens failing attempts).
 
     Schedules of different lengths are padded with no-op change points past
-    the horizon; workloads shorter than ``n_max`` pad their attempts with 1.
+    the horizon; workloads shorter than ``n_max``, or of fewer tasks than
+    the batch's largest, pad their attempts with 1 (and their resampled
+    services with 0), as :func:`pad_workloads` pads their task columns.
     When some entries carry an ``attempt_service [N, T, A]`` tensor and
     others don't, ``services`` must supply each entry's base ``[N, T]``
     service matrix so the missing ones broadcast to "every attempt re-runs
@@ -90,6 +94,7 @@ def stack_scenarios(compiled, n_max: int, horizon_s: float,
     no-scenario semantics.
     """
     K = max(c.cap_times.shape[0] for c in compiled)
+    T = max(np.shape(c.attempts)[1] for c in compiled)
     slot_widths = [c.attempt_service.shape[2] for c in compiled
                    if getattr(c, "attempt_service", None) is not None]
     A = max(slot_widths) if slot_widths else 0
@@ -100,7 +105,8 @@ def stack_scenarios(compiled, n_max: int, horizon_s: float,
         cvs.append(sched.caps)
         a = np.asarray(c.attempts, np.int64)
         n_pad = n_max - a.shape[0]
-        atts.append(np.pad(a, ((0, n_pad), (0, 0)), constant_values=1))
+        atts.append(np.pad(a, ((0, n_pad), (0, T - a.shape[1])),
+                           constant_values=1))
         bos.append(np.asarray(c.backoff, np.float64))
         if A:
             asv = getattr(c, "attempt_service", None)
@@ -118,7 +124,7 @@ def stack_scenarios(compiled, n_max: int, horizon_s: float,
                 asv = np.concatenate(
                     [asv, np.repeat(asv[..., -1:], A - asv.shape[2], -1)], -1)
             asvs.append(np.pad(np.asarray(asv, np.float64),
-                               ((0, n_pad), (0, 0), (0, 0))))
+                               ((0, n_pad), (0, T - asv.shape[1]), (0, 0))))
     out = dict(attempts=np.stack(atts).astype(np.int32),
                cap_times=np.stack(cts).astype(np.float32),
                cap_vals=np.stack(cvs).astype(np.int32),
@@ -314,7 +320,8 @@ def batch_trace(out: dict, idx: int, wl: M.Workload,
                 with_scenario: bool = True, fleet=None,
                 probe=None, reliability=None) -> M.SimTrace:
     """Slice entry ``idx`` of a ``simulate_ensemble`` result back into a
-    numpy :class:`SimTrace` for ``wl`` (dropping padded pipelines). With
+    numpy :class:`SimTrace` for ``wl`` (dropping padded pipelines and
+    task columns). With
     ``with_scenario=False`` the attempt/completion columns are omitted so
     the trace is indistinguishable from a plain single-replica run.
     ``fleet`` (the entry's :class:`~repro_torch.ops.scenario.CompiledFleet`)
@@ -332,7 +339,10 @@ def batch_trace(out: dict, idx: int, wl: M.Workload,
         return out[k][idx].cpu().numpy().astype(dtype)
 
     def sl(k, dtype=np.float64):
-        return host(k, dtype)[:n] if k in out else None
+        if k not in out:
+            return None
+        v = host(k, dtype)[:n]
+        return v[:, :wl.max_tasks] if v.ndim > 1 else v
 
     ctrl_times = ctrl_caps = None
     if with_scenario and "ctrl_act" in out:

@@ -2,16 +2,21 @@
 :mod:`repro.core.engines`).
 
 Callers ask the registry (:func:`get_engine`) for an engine by name and
-call it. Three engines ship, the counterparts of the reference's batched
-ones:
+call it. Four engines ship, the counterparts of the reference's:
 
+  - :class:`NumpyEngine` (``"numpy"``): the exact f64 heap engine
+    :func:`repro_torch.core.des.simulate` on the host; replicas and sweep
+    grids run one after another. It is the serial yardstick of the batched
+    engines.
   - :class:`TorchEngine` (``"torch"``, the reference's ``JaxEngine``): a
     replica ensemble, and a whole sweep grid — every (point, replica) pair
     with its capacities, admission policy and compiled operational
     scenario — becomes one rectangular
     :func:`repro_torch.core.vdes.simulate_ensemble` call on the device
     through :mod:`repro_torch.core.batching`. A ragged platform grid is
-    padded with inert pools, as in the reference.
+    padded with inert pools, as in the reference, and workloads of fewer
+    tasks with empty task columns (the reference falls back to its numpy
+    engine there; the port keeps such a grid on the device).
   - :class:`TorchCompactEngine` (``"torch-compact"``): the same engine with
     :mod:`repro_torch.core.compaction` in place of the one call: the wave
     loop runs in segments over the live rows. The same results bit for bit.
@@ -30,17 +35,20 @@ reliability, as the reference's do.
 
 Workloads are synthesized from fitted ``SimulationParams`` on the device
 (:mod:`repro_torch.core.synthesizer`) unless the spec pins one or names a
-``source``, which ``"torch"`` and ``"torch-compact"`` materialize. Seeds
+``source``, which every engine but ``"torch-stream"`` materializes. Seeds
 follow the reference's conventions: a spec's replicas are drawn in order
 from one ``torch.Generator`` seeded ``spec.seed`` (where the reference
 splits ``PRNGKey(seed)``), and replica ``r``'s scenario, fleet and
 reliability compile with seed ``spec.seed + 1000 r``. Those draws are
 numpy's (except a fleet's retraining-pool durations when they are not
 pinned), so on a pinned integer-time workload the summaries equal the
-reference engines' exactly.
+reference engines' exactly. The generator's streams differ between the
+CPU and the card, so ``"numpy"`` and ``"torch"`` simulate the same
+workloads only when given the same device.
 
 An engine runs on the card unless it was asked for another device
-(``get_engine(name, device)``); with no card it raises.
+(``get_engine(name, device)``); with no card it raises. ``"numpy"``
+synthesizes and compiles there and simulates on the host.
 """
 from __future__ import annotations
 
@@ -52,7 +60,7 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core import batching, trace, vdes
+from repro_torch.core import batching, des, trace, vdes
 from repro_torch.core import model as M
 from repro_torch.core.synthesizer import synthesize_workload
 from repro_torch.device import resolve_device
@@ -283,6 +291,61 @@ def _aggregate_replicas(spec, rep_sums, recs, wall):
 
 
 # ---------------------------------------------------------------------------
+# numpy: the exact serial engine
+# ---------------------------------------------------------------------------
+
+class NumpyEngine:
+    """The exact f64 heap engine (:func:`repro_torch.core.des.simulate`):
+    replicas and grids run one after another on the host. Workloads are
+    synthesized and compiled on the engine's device (``None``: the card,
+    resolved when it runs)."""
+
+    name = "numpy"
+
+    def __init__(self, device=None):
+        self._device = device
+
+    @property
+    def device(self) -> torch.device:
+        return resolve_device(self._device)
+
+    def run(self, spec, params=None):
+        """Run one :class:`ExperimentSpec` -> :class:`ExperimentResult`."""
+        return self.run_sweep([spec], params)[0]
+
+    def run_sweep(self, specs: Sequence, params=None) -> List:
+        """Run a grid one spec after another; one synthesis cache for the
+        whole grid, as the batched engines share it."""
+        dev = self.device
+        if params is not None and any(s.workload is None for s in specs):
+            params = params.to(dev)
+        cache = {}
+        return [self._run(s, params, dev, cache) for s in specs]
+
+    def _run(self, spec, params, dev, cache):
+        t0 = time.perf_counter()
+        wls, compiled, fleets, probe, rels = _spec_workloads(
+            spec, params, dev, cache=cache)
+        recs, sums, trs = [], [], []
+        for r, w in enumerate(wls):
+            comp = compiled[r] if compiled is not None else None
+            rel = rels[r] if rels is not None else None
+            tr = des.simulate(w, spec.platform, spec.policy, scenario=comp,
+                              fleet=fleets[r] if fleets is not None else None,
+                              probe=probe, reliability=rel)
+            # a single replica's wall stops at the engine, an ensemble's
+            # after its summaries, as in the reference
+            wall = time.perf_counter() - t0
+            trs.append(tr)
+            recs.append(trace.flatten_trace(tr, w))
+            sums.append(_summarize(spec, recs[-1], comp, tr, rel=rel))
+        if spec.n_replicas == 1:
+            return _single_result(spec, recs[0], sums[0], trs[0], wall)
+        return _aggregate_replicas(spec, sums, recs,
+                                   time.perf_counter() - t0)
+
+
+# ---------------------------------------------------------------------------
 # the engine: everything lowers to one simulate_ensemble call
 # ---------------------------------------------------------------------------
 
@@ -341,6 +404,7 @@ class TorchEngine:
                         for r, w in enumerate(wls)]
 
         plats = [exec_specs[g].platform for g, *_ in entries]
+        # workloads of fewer tasks get empty task columns: one batch
         cols = batching.pad_workloads([w for _, w, *_ in entries], plats)
         n_max = cols["n_max"]
         caps = np.stack([p.capacities for p in plats]).astype(np.int32)
@@ -429,7 +493,7 @@ class TorchCompactEngine(TorchEngine):
             raise NotImplementedError(
                 "reliability event timelines are not supported by the "
                 "segmented compaction driver; run reliability specs on the "
-                "'torch' (one-call batched) engine")
+                "'torch' (one-call batched) or 'numpy' engine")
         kwargs.setdefault("admission_sort", self.admission_sort)
         self.last_log = CompactionLog()
         return simulate_ensemble_compacted(
@@ -502,7 +566,7 @@ class TorchStreamEngine:
         if spec.reliability is not None:
             raise ValueError(
                 "torch-stream does not support reliability specs (event "
-                "timelines span windows); use the 'torch' engine")
+                "timelines span windows); use the 'torch' or 'numpy' engine")
         from repro_torch.core.experiment import ExperimentResult
         from repro_torch.stream import stream_simulate
         dev = self.device
@@ -550,6 +614,7 @@ def get_engine(name: str, device=None):
     return eng
 
 
+register_engine(NumpyEngine())
 register_engine(TorchEngine())
 register_engine(TorchCompactEngine())
 register_engine(TorchStreamEngine())

@@ -14,7 +14,7 @@ loop; ``source`` (a :class:`~repro_torch.stream.TraceSource`) is streamed
 window by window by the ``"torch-stream"`` engine and materialized into a
 pinned workload by the others. ``engine`` names a registered engine
 (:func:`repro_torch.core.engines.get_engine`): ``"torch"``,
-``"torch-compact"`` or ``"torch-stream"``.
+``"torch-compact"``, ``"torch-stream"`` or ``"numpy"``.
 
 :class:`Sweep` composes a spec with named axes (spec fields,
 ``"capacity:<resource>"``, ``"trigger:*"``, ``"fleet:*"``, ``"probe:*"``

@@ -9,8 +9,10 @@ and prints the analytics summary as JSON:
       --horizon-days 1 --learning-capacity 8 --policy sjf
 
 ``--device`` defaults to the card (``cpu`` runs everything on the CPU).
-The port has one engine, so the reference's ``--engine`` is gone.
-``--params-cache`` reads an ``.npz`` written by either package (the
+``--engine`` picks the batched ``torch`` engine (the default) or the
+``numpy`` heap engine, which simulates on the host while the fit and the
+synthesis still run on ``--device`` (the reference's default is
+``numpy``). ``--params-cache`` reads an ``.npz`` written by either package (the
 layouts are the same) and, when the file does not exist, writes the fit
 there; without it every run fits anew.
 """
@@ -36,6 +38,7 @@ def main(argv=None):
     ap.add_argument("--compute-capacity", type=int, default=48)
     ap.add_argument("--learning-capacity", type=int, default=32)
     ap.add_argument("--policy", default="fifo", choices=POLICY_NAMES)
+    ap.add_argument("--engine", default="torch", choices=["torch", "numpy"])
     ap.add_argument("--replicas", type=int, default=1)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--params-cache", default=None,
@@ -69,6 +72,7 @@ def main(argv=None):
         policy=POLICY_NAMES.index(args.policy),
         seed=args.seed,
         n_replicas=args.replicas,
+        engine=args.engine,
     )
     res = run_experiment(exp, params, device=args.device)
     print(json.dumps(res.summary, indent=2, default=float))

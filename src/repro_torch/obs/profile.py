@@ -1,10 +1,13 @@
 """Self-profiler: where does the *simulator's* wall time go? (mirrors
-:mod:`repro.obs.profile`, on the port's engine).
+:mod:`repro.obs.profile`, on the port's engines).
 
-  - :func:`profile_compile_execute`: the engine's cold-vs-warm wall split
-    (the cold first call includes the kernels' load and build and the
-    allocator's warm-up; warm calls run only), plus executed waves and
-    **waves/s**;
+  - :func:`profile_compile_execute`: the batched engine's cold-vs-warm
+    wall split (the cold first call includes the kernels' load and build
+    and the allocator's warm-up; warm calls run only), plus executed waves
+    and **waves/s**;
+  - :func:`profile_numpy`: the heap engine's wall and waves/s on the same
+    program, on the host (the serial baseline every batched speedup is
+    quoted against);
   - :func:`stage_attribution`: per-stage cost attribution across the wave
     loop's stages by *differential ablation*: the same workload runs with
     the optional stages toggled (base = select + completion + admission;
@@ -18,9 +21,7 @@ reference clears JAX's compilation caches first so that its cold call
 recompiles; PyTorch has no counterpart (a loaded kernel library stays
 loaded), so ``cold_s`` counts the build and load only in a process that
 has not run the engine yet, and ``compile_s`` is otherwise the allocator's
-and the first dispatch's warm-up. The reference's ``profile_numpy`` needs
-the numpy heap engine, which the port leaves to the reference, and is not
-ported.
+and the first dispatch's warm-up.
 """
 from __future__ import annotations
 
@@ -47,6 +48,21 @@ def _best_of(fn, repeats: int, dev: torch.device) -> float:
         _sync(dev)
         best = min(best, time.perf_counter() - t0)
     return best
+
+
+def profile_numpy(wl, platform, policy: int = des.POLICY_FIFO,
+                  scenario=None, fleet=None, probe=None,
+                  repeats: int = 3) -> Dict[str, float]:
+    """Wall + waves/s of the heap engine (:func:`repro_torch.core.des.
+    simulate`, on the host) on one program."""
+    tr = des.simulate(wl, platform, policy, scenario=scenario, fleet=fleet,
+                      probe=probe)
+    wall = _best_of(lambda: des.simulate(wl, platform, policy,
+                                         scenario=scenario, fleet=fleet,
+                                         probe=probe),
+                    repeats, torch.device("cpu"))
+    return {"wall_s": wall, "waves": int(tr.waves),
+            "waves_per_s": tr.waves / max(wall, 1e-12)}
 
 
 def profile_compile_execute(wl, platform, policy: int = des.POLICY_FIFO,

@@ -118,7 +118,7 @@ def test_mirror_port_stage_set_must_equal_the_references(tmp_path):
     fs = port_findings(tmp_path, {
         "src/repro/core/vdes.py": VDES_OK.replace("_fleet_stage",
                                                   "_probe_stage"),
-        "src/repro/core/des.py": DES_OK,
+        "src/repro_torch/core/des.py": DES_OK,
         "src/repro_torch/core/vdes.py": port_vdes})
     got = {(f.rule, f.file) for f in fs}
     assert got == {("mirror-missing", "src/repro/core/vdes.py"),

@@ -3,8 +3,9 @@ engine through the kernel against the engine through the plain version,
 the serving path through the flash kernel against the plain path, the EM
 through the GMM kernel with no host sync per iteration, the hybrid's
 forward through the SSD kernel against its plain path, the card's
-engine against the port's CPU path on ``chip_smoke.py`` phase 13's and
-phase 14(b)'s ensembles (the latter with every stage of the wave loop), and
+engine against the port's CPU path and its numpy heap engine on
+``chip_smoke.py`` phase 13's and phase 14(b)'s ensembles (the latter with
+every stage of the wave loop), and
 the segment-restart hooks, the compaction driver and the streaming driver
 on the card against one call, the one-shot run and the CPU path, every
 kernel refusing autograd, a crash-restart training run resuming bit for
@@ -151,7 +152,8 @@ def test_engine_card_equals_cpu_oracle_chain():
     _need_card()
     counts = (queue_scan.fused_admission, fa.flash_attention,
               gl.gmm_logpdf, ms.mamba2_scan, queue_scan.queue_scan)
-    n_keys, waves, launched = _chip_smoke().engine_card_vs_cpu(torch, counts)
+    n_keys, waves, launched, _ = _chip_smoke().engine_card_vs_cpu(
+        torch, counts)
     assert n_keys == 8 and waves > 0
     assert launched["fused_admission"] > 0
 
@@ -168,10 +170,103 @@ def test_fullstack_card_equals_cpu_oracle_chain():
     cs = _chip_smoke()
     counts = (queue_scan.fused_admission, fa.flash_attention,
               gl.gmm_logpdf, ms.mamba2_scan, queue_scan.queue_scan)
-    n_keys, waves, launched, per = cs.fullstack_card_vs_cpu(torch, counts)
+    n_keys, waves, launched, per, _ = cs.fullstack_card_vs_cpu(torch, counts)
     assert n_keys == len(cs.FSO_KEYS) and waves > 0
     assert launched["fused_admission"] > 0
     assert per[cs.FSO_BURST]["redeploys"] == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["oracle", "fullstack"])
+def test_heap_engine_equals_card_run(which):
+    """``chip_smoke.py`` phase 22(a) and (b): phase 13's and 14(b)'s
+    ensembles on the card (kernel admission) against the port's numpy heap
+    engine on the host, replica by replica: every trace column bit for bit,
+    the waves on the replicas without padding rows. With
+    ``tests/test_torch_des.py`` (heap engine == the reference's
+    ``des.simulate``) the card's answer is the oracle's."""
+    _need_card()
+    cs = _chip_smoke()
+    if which == "oracle":
+        ens, keys, stages, n = (cs.oracle_ensemble(), cs.HEAP_ORACLE_KEYS,
+                                False, cs.HEAP_ORACLE_COLUMNS)
+    else:
+        ens, keys, stages, n = (cs.fullstack_oracle_ensemble(),
+                                cs.HEAP_FSO_KEYS, True, cs.HEAP_FSO_COLUMNS)
+    cols, caps, pols = ens[:3]
+    queue_scan.fused_admission.launches = 0
+    out = vdes.simulate_ensemble(**batching.to_tensors(cols, "cuda"),
+                                 capacities=caps, policies=pols,
+                                 device="cuda")
+    assert queue_scan.fused_admission.launches > 0
+    unpadded, compared, _ = cs.heap_vs_batched(out, ens, keys, n,
+                                               stages=stages)
+    assert unpadded >= 1 and compared == {"oracle": 28, "fullstack": 57}[which]
+
+
+def _same_summary(got, want):
+    assert set(got) == set(want)
+    for k, w in want.items():
+        if k in ("wall_s", "pipelines_per_s"):
+            continue
+        if isinstance(w, dict):
+            _same_summary(got[k], w)
+        elif isinstance(w, float) and np.isnan(w):
+            assert np.isnan(got[k]), k
+        else:
+            assert got[k] == w, (k, got[k], w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_scenario", [False, True])
+def test_ragged_task_grid_stays_on_card(with_scenario):
+    """Phase 13's first two whole-second workloads, the second widened by
+    an empty task column, as a ``"torch"`` sweep on the card: one batched
+    call that launches the admission kernel, no warning and no host
+    engine, and each point's summary and records equal the heap
+    engine's."""
+    import dataclasses
+    import warnings
+    from repro_torch.core import engines, experiment
+    _need_card()
+    cs = _chip_smoke()
+    ens = cs.oracle_ensemble()
+    w0, w1 = ens[3][:2]
+    w1 = M.Workload(**{
+        f.name: (np.pad(getattr(w1, f.name), ((0, 0), (0, 1)),
+                        constant_values=-1 if f.name == "task_type" else 0)
+                 if getattr(w1, f.name).ndim == 2 else getattr(w1, f.name))
+        for f in dataclasses.fields(M.Workload)})
+    assert w0.max_tasks + 1 == w1.max_tasks
+    scen = Scenario(capacity=MaintenanceWindows(((3600.0, 5400.0, 1, 0.5),)),
+                    failures=FailureModel(
+                        p_fail_by_type=(0.3,) * M.N_TASK_TYPES))
+    specs = [experiment.ExperimentSpec(
+        name=f"r{i}", platform=ens[-1], horizon_s=cs.ORACLE_HORIZON_S,
+        workload=w, scenario=scen if with_scenario else None)
+        for i, w in enumerate((w0, w1))]
+    calls = []
+    orig = engines.vdes.simulate_ensemble
+
+    def counted(*a, **k):
+        calls.append(1)
+        return orig(*a, **k)
+
+    queue_scan.fused_admission.launches = 0
+    engines.vdes.simulate_ensemble = counted
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            got = engines.get_engine("torch", "cuda").run_sweep(specs)
+    finally:
+        engines.vdes.simulate_ensemble = orig
+    assert len(calls) == 1 and queue_scan.fused_admission.launches > 0
+    want = engines.get_engine("numpy", "cuda").run_sweep(specs)
+    for g, s in zip(got, want):
+        _same_summary(g.summary, s.summary)
+        for k in ("start", "finish"):
+            np.testing.assert_array_equal(getattr(g.records, k),
+                                          getattr(s.records, k))
 
 
 @pytest.mark.cuda

@@ -6,7 +6,8 @@ An AST walk finds no ``jax`` and no ``repro`` import in ``src/repro_torch``
 ``tools/``; the auditor (``analysis/``) has a counterpart of every file of
 the reference's; a fresh interpreter runs the port (the wave loop, the
 serving paths, the hybrid's forward, the fit -> synthesize -> simulate
-path, the full-stack experiment, the compaction and streaming drivers, a
+path, the full-stack experiment on the batched and the heap engine, the
+compaction and streaming drivers, a
 crash-restart training run, the cost-model path: the one-card cell writer,
 the catalog, the profiler and a gelu-MLP model, and the parity auditor)
 without loading ``jax``; with no card the entry points raise
@@ -210,6 +211,24 @@ def test_cpu_full_stack_run_leaves_jax_unloaded():
         "r = res.replica_summaries[0]\n"
         "assert 'lifecycle' in r and 'availability' in r, sorted(r)\n"
         "assert 'planned_total_cost' in r, sorted(r)\n" + NO_REFERENCE)
+
+
+def test_cpu_heap_engine_run_leaves_jax_unloaded():
+    """The full-stack experiment on the ``"numpy"`` heap engine and
+    ``profile_numpy``, in a fresh interpreter."""
+    run_fresh(
+        "import sys\n" + FULL_STACK +
+        "from repro_torch.core import model as M\n"
+        "from repro_torch.obs import profile\n"
+        f"p = fitting.SimulationParams.load({str(ARTIFACT)!r}, 'cpu')\n"
+        "import dataclasses\n"
+        "spec = dataclasses.replace(spec, engine='numpy')\n"
+        "res = experiment.run_experiment(spec, p, device='cpu')\n"
+        "r = res.replica_summaries[0]\n"
+        "assert 'lifecycle' in r and 'availability' in r, sorted(r)\n"
+        "pr = profile.profile_numpy(spec.workload, M.PlatformConfig(),\n"
+        "                           repeats=1)\n"
+        "assert pr['waves'] > 0, pr\n" + NO_REFERENCE)
 
 
 def test_cpu_compaction_and_stream_leave_jax_unloaded():
