@@ -116,16 +116,17 @@ Phases (any failure exits non-zero, with no result line):
     trigger, a probe every 30 min) with ``examples/reliability_frontier.py``'s
     reliability scaled to one day (2 zones x 4 racks, zone MTBF 12 h,
     rack MTBF 6 h, MTTR 1 h, 2 repair crews, a 20 % spot slice), 32
-    replicas of one day from the committed ``artifacts/pipesim_params.npz``.
+    replicas of ``FS_HORIZON_S`` (the first 6 h of a day; every stage acts
+    on every replica) from the committed ``artifacts/pipesim_params.npz``.
     Checks: one ``simulate_ensemble`` call, the admission kernel and no
     other launched, the stages acted (each replica's controller moves,
     reliability events, triggers and redeploys printed), every replica's
     probe ran its whole grid, and phase 3's invariants (every pipeline
     that entered done, start >= ready, finish >= start, no resource above
     its schedule's largest capacity plus the controller's largest move).
-    As in phase 3, every ``KEEP_EVERY``-th admission input of the run is
-    kept, and on those the kernel is held exactly against its plain
-    version and timed beside its bound; ``FS_DENSE_N`` replicas (those on
+    As in phase 3, every ``SHORT_KEEP_EVERY``-th admission input of the
+    run is kept, and on those the kernel is held exactly against its
+    plain version and timed beside its bound; ``FS_DENSE_N`` replicas (those on
     which the most stages acted) are re-run with the plain admission on
     the card, every output key equal bit for bit. The same replicas run
     with no stage on beside it; both print their wall, waves/s and
@@ -143,17 +144,19 @@ Phases (any failure exits non-zero, with no result line):
     segments, gathers, distinct shapes, working widths and the admission
     launches, and on every ``KEEP_EVERY``-th admission input of the run
     holds the kernel exactly against its plain version and times it at the
-    compacted widths. (b) One synthesized day (``SyntheticSource`` from the
-    committed ``artifacts/pipesim_params.npz``, blocks of 256, the default
-    platform) streamed by ``stream_simulate`` in 3 h windows with phase
-    14(a)'s stages but reliability (which streaming refuses) and failures
-    with retries, against ``oneshot_reference`` of the same stream:
+    compacted widths. (b) The first ``STREAM_HORIZON_S`` (6 h) of a
+    synthesized day (``SyntheticSource`` from the committed
+    ``artifacts/pipesim_params.npz``, blocks of 64, the default platform)
+    streamed by ``stream_simulate`` in 2 h windows with phase 14(a)'s
+    stages but reliability (which streaming refuses) and failures with
+    retries, against ``oneshot_reference`` of the same stream:
     ``parity_drift`` 0.0, the waves and the controller, fleet and probe
-    timelines equal; then its first 6 h with ``overlap`` on and off,
-    bit-identical; the kernel held and timed on the stream's kept
-    admission inputs. (c) Phase 13's replica 0 streamed from a pinned
-    source on the card and through the CPU path, records equal bit for
-    bit, and the card's stream equal to its one-shot run; prints
+    timelines equal; then streamed again with ``overlap`` off,
+    bit-identical to the first (``overlap`` on); the kernel held and timed
+    on the stream's kept admission inputs. (c) Phase 13's replica 0
+    streamed from a pinned source on the card and through the CPU path,
+    records equal bit for bit, and the card's stream equal to its
+    one-shot run; prints
     ``stream_card_vs_cpu: identical, ...`` on a line of its own.
 16. Training (no kernel: none has a backward, so training runs the plain
     attention and SSD routes). (a) ``run_training`` of llama3.2-1b at full
@@ -180,7 +183,8 @@ Phases (any failure exits non-zero, with no result line):
     of their norm, and the card's no farther from the same step's gradient
     in f64 (on the CPU) than twice the CPU's f32 one is; 3 losses within
     1e-4; and ``run_feedback_simulation``
-    of one pinned whole-second day on the card (the engine, then the
+    of ``FB_HORIZON_S`` (12 h) of one pinned whole-second day on the
+    card (the engine, then the
     compaction driver) and on the CPU (the compaction driver), equal bit
     for bit, the admission kernel launched on the card's run.
 
@@ -276,7 +280,7 @@ Phases (any failure exits non-zero, with no result line):
     every prompt token, as the reference's), decode tokens/s, peak GiB
     after init and after generation; finite logits, tokens in the vocab,
     no kernel launched. (b) It trains at full width through the trainer,
-    ``XLSTM_TRAIN``'s 3 steps of 2 x 1,024 tokens (the chunkwise mLSTM's 8
+    ``XLSTM_TRAIN``'s 2 steps of 2 x 1,024 tokens (the chunkwise mLSTM's 8
     chunks of 128 with the state handed between them, the sLSTM's 1,024
     steps, remat per super block), the sLSTM's recurrent matrices redrawn
     at 1 / sqrt(hd) (with the reference's 1 / sqrt(H) the backward
@@ -316,6 +320,25 @@ Phases (any failure exits non-zero, with no result line):
     0's ``mean_wait_s`` from both engines (phase 3's times are not whole
     seconds, so there the engines agree only statistically): a reading,
     the serial yardstick of the batched engine.
+23. The meshes, within ``MESH_BUDGET_S``, on a one-rank NCCL group (an
+    in-process ``HashStore`` rendezvous): (a) llama3.2-1b at full width
+    and depth trained by ``run_training`` on the debug mesh ``(1, 1)`` ("data" x
+    "model") with FSDP for ``MESH_TRAIN``'s 3 steps of 8 x 1,024 (the
+    state DTensors at rest, each parameter gathered, the gradients
+    all-reduced over 'data'), its parameters after each step equal bit
+    for bit to the meshless step's (run_training's loop without a mesh,
+    16(a)'s, from the same seed and batches), both under deterministic
+    algorithms; no kernel launched; the warm steps beside 16(a)'s and the
+    peak GiB above the baseline. (c) Its final checkpoint restored onto
+    the pod mesh ``(1, 1, 1)`` ("pod" x "data" x "model") with
+    ``state_shardings`` and onto no mesh, both equal to the in-memory
+    state bit for bit. (b) The compressed step (int8, error feedback) on
+    the pod mesh for ``MESH_COMP_STEPS`` steps at the same size: finite,
+    falling losses and ``wire_bytes_pod`` equal to the leaves' count. (d)
+    zamba2's smoke config with ``n_experts=4`` and with MLA from one CPU
+    init through the SSD and flash kernels on the card against the CPU
+    in f32, within phase 10's twin tolerances, and the MLA prefill
+    refused.
 
 Each phase's wall is printed on one ``[done]`` line. The last lines are
 the kernels' JSON record (a kernel launched on two
@@ -328,6 +351,7 @@ launches summed, its times launch-weighted, and each path's numbers under
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -350,6 +374,8 @@ N_REPLICAS = 32
 LEARNING_CAPS = (16, 24, 32, 48)
 DENSE_REPLICAS = (4, 9, 11, 14)     # every capacity, policy and scenario kind
 KEEP_EVERY = 500     # keep every 500th admission input of the main path
+# the 6 h runs of 14(a) and 15(b) launch about 1,400 times: keep about 24
+SHORT_KEEP_EVERY = 60
 # the kernel-vs-plain grid: replicas, rows, resources, sentinel shares
 CHECK_R, CHECK_N = (1, 32), (1, 127, 128, 2500, 17000)
 CHECK_NRES, CHECK_SENTINELS = (1, 2, 5), (0.0, 0.5, 0.9)
@@ -435,10 +461,14 @@ ORACLE_DRAINED = (0, 3)
 ORACLE_KEYS = ("start", "finish", "ready", "attempts", "done", "waves",
                "att_start", "att_finish")
 # the full stack at width: examples/observability.py's spec (controller,
-# fleet + trigger, probe) with 32 replicas of one day, plus
-# examples/reliability_frontier.py's reliability scaled to the day
+# fleet + trigger, probe) with 32 replicas, plus
+# examples/reliability_frontier.py's reliability scaled to one day
 FS_SEED = 3
 FS_DENSE_N = 2    # replicas re-run through the plain admission
+# 14(a)'s horizon: its wave loop (about 12,000 waves a day at 5-10 ms each,
+# host-bound) runs three times, so 6 h keeps the script near half its
+# limit; the stages keep their one-day rates
+FS_HORIZON_S = 6 * 3600.0
 # the full-stack oracle ensemble: whole-second one-tenth days, every stage
 FSO_SEED, FSO_LEARNING_CAP = 300, 8
 FSO_BURST = 3     # this replica's one model redeploys three times in a wave
@@ -448,10 +478,11 @@ FSO_BURST_DRAIN = (1000.0, 3000.0, 0, 0.0)   # compute to zero meanwhile
 FSO_BURST_GAINS = (0.008586719632148743, 0.018224574625492096,
                    0.004860853310674429)
 FSO_BURST_PERF0 = 0.88772327
-# phase 15(b): one synthesized day streamed in 3 h windows, blocks of 256
-STREAM_WINDOW_S = 3 * 3600.0
-STREAM_BLOCK = 256
-STREAM_TWIN_S = 6 * 3600.0     # the overlap on/off twin's horizon
+# phase 15(b): the first 6 h of a synthesized day (as 14(a)'s horizon)
+# streamed in 2 h windows, in blocks of 64, so that 6 h hold 4 blocks
+STREAM_HORIZON_S = 6 * 3600.0
+STREAM_WINDOW_S = 2 * 3600.0
+STREAM_BLOCK = 64
 # phase 16: llama3.2-1b trains at full width for 8 steps of 8 x 1,024
 # tokens (its final checkpoint, ~12.4 GB, is the phase's longest part), the
 # hybrid for 4 steps of 2 x 2,048; crash-restart on the smoke llama; the
@@ -462,6 +493,7 @@ TRAIN_HYBRID = dict(steps=4, batch=2, seq=2048, lr=3e-4)
 RESUME = dict(steps=12, ckpt_every=4, fault_at=(6,))
 INJECT_STEPS = 40
 TRAIN_TWIN_STEPS = 3
+FB_HORIZON_S = 12 * 3600.0     # 16(e)'s feedback run: 6 triggers
 # step 1's gradients, card against CPU, relative to their global norm: the
 # two sum in other orders. The smoke llama's f32 gradient lies ~4e-7 from
 # the same step in f64 (on the CPU), the smoke hybrid's ~4e-5 (its chunked
@@ -533,7 +565,7 @@ CROSS_TWIN_S, CROSS_TWIN_TOL = 24, 1e-5
 # COMP_ROUNDS rounds on leaves shaped like one llama3.2-1b layer
 XLSTM_BUDGET_S = 90.0
 XLSTM_B, XLSTM_PROMPT, XLSTM_NEW, XLSTM_SEED = 8, 512, 32, 0
-XLSTM_TRAIN = dict(steps=3, batch=2, seq=1024, lr=3e-4)
+XLSTM_TRAIN = dict(steps=2, batch=2, seq=1024, lr=3e-4)
 # the reference's init draws the sLSTM's recurrent matrices r [H, hd, hd] at
 # 1 / sqrt(H) (its fan-in is the leading axis): its backward overflows f32
 # within 256-512 tokens, in the reference as in the port (both checked on
@@ -558,6 +590,25 @@ HEAP_FSO_KEYS = ("start", "finish", "ready", "attempts", "completed",
 # reliability pair, replica 3's controller pair, reliability pair and probe
 HEAP_ORACLE_COLUMNS = 4 * len(HEAP_ORACLE_KEYS)            # 28
 HEAP_FSO_COLUMNS = 4 * len(HEAP_FSO_KEYS) - 2 - 5          # 57
+# phase 23, the meshes on a one-rank NCCL group, within its own budget:
+# (a) llama3.2-1b at full width and depth trained through run_training on
+# the debug mesh ((1, 1), "data" x "model") with FSDP for MESH_TRAIN's
+# steps, each step's parameters held bit for bit against the meshless
+# step's (16(a)'s run, under deterministic algorithms), then its final
+# checkpoint (c) restored onto the pod mesh ((1, 1, 1), "pod" x "data" x
+# "model") and onto no mesh; (b) the compressed step (int8, error
+# feedback) on the pod mesh for MESH_COMP_STEPS steps at the same size;
+# (d) the hybrid's smoke config with experts and with MLA (MESH_MLA's
+# dims: q and k head dim 16 = v's, so flash takes it) through the SSD and
+# flash kernels, card against CPU within phase 10's twin tolerances, over
+# MESH_HYB_S tokens
+MESH_BUDGET_S = 75.0
+NCCL_TIMEOUT_S = 300.0    # a one-rank collective that waits longer fails
+MESH_TRAIN = dict(steps=3, batch=8, seq=1024, lr=3e-4)
+MESH_COMP_STEPS = 2
+MESH_HYB_B, MESH_HYB_S, MESH_HYB_SEED = 2, 32, 0
+MESH_MLA = dict(use_mla=True, q_rank=32, kv_rank=16, d_nope=8, d_rope=8,
+                d_v=16)
 FSO_KEYS = ORACLE_KEYS + (
     "ctrl_act", "ctrl_n", "rel_act", "rel_n", "fleet_perf", "fleet_stale",
     "fleet_act", "fleet_n", "pool_arr", "pool_model", "pool_next",
@@ -2223,8 +2274,9 @@ def fullstack_counts(out):
     return rows
 
 
-def fullstack_spec(full: bool):
-    """Phase 14(a)'s spec: every stage on (``full``), or none."""
+def fullstack_spec(full: bool, horizon_s: float = FS_HORIZON_S):
+    """Phase 14(a)'s spec over ``horizon_s``: every stage on (``full``), or
+    none. The stages' rates are scaled to one day whatever the horizon."""
     from repro_torch.core.experiment import ExperimentSpec
     from repro_torch.core.runtime import FleetSpec, TriggerSpec
     from repro_torch.obs.probes import ProbeSpec
@@ -2233,12 +2285,13 @@ def fullstack_spec(full: bool):
                                          RepairSpec, SpotPoolSpec,
                                          TopologySpec)
     H = HORIZON_S
-    spec = ExperimentSpec(name="full-stack", horizon_s=H, seed=FS_SEED,
-                          n_replicas=N_REPLICAS)
+    spec = ExperimentSpec(name="full-stack", horizon_s=horizon_s,
+                          seed=FS_SEED, n_replicas=N_REPLICAS)
     if not full:
         return spec
     return ExperimentSpec(
-        name="full-stack", horizon_s=H, seed=FS_SEED, n_replicas=N_REPLICAS,
+        name="full-stack", horizon_s=horizon_s, seed=FS_SEED,
+        n_replicas=N_REPLICAS,
         fleet=FleetSpec(n_models=6, drift_scale=60.0),
         trigger=TriggerSpec(interval_s=3600.0, obs_noise=0.005,
                             cooldown_s=4 * 3600.0, drift_threshold=0.06),
@@ -2327,14 +2380,14 @@ def check_fullstack_invariants(kw, out):
 
 def run_fullstack(torch, fused_admission, params, full):
     """``run_experiment`` of phase 14(a)'s spec on the card, keeping every
-    ``KEEP_EVERY``-th admission input as phase 3 does; returns the result,
+    ``SHORT_KEEP_EVERY``-th admission input; returns the result,
     the engine call's keywords, outputs and wall, the total wall and the
     kept admission inputs."""
     from repro_torch.core import vdes
     from repro_torch.core.experiment import run_experiment
     calls = []
     ens = Stopwatch(torch, vdes.simulate_ensemble, keep=calls)
-    tap = InputTap(fused_admission, KEEP_EVERY)
+    tap = InputTap(fused_admission, SHORT_KEEP_EVERY)
     vdes.simulate_ensemble, vdes.fused_admission = ens, tap
     try:
         t0 = time.perf_counter()
@@ -2426,7 +2479,8 @@ def phase_fullstack(torch, fused_admission, dense, counts):
     log(f"[14] full stack (controller, fleet {res.experiment.fleet.name}, "
         f"trigger {res.experiment.trigger.name}, probe every "
         f"{res.experiment.probe.interval_s:g} s, reliability "
-        f"{res.experiment.reliability.name}), {N_REPLICAS} replicas x 1 day: "
+        f"{res.experiment.reliability.name}), {N_REPLICAS} replicas x "
+        f"{FS_HORIZON_S / 3600:g} h: "
         f"invariants hold ({stranded} of {entered} pipelines stranded behind "
         f"a resource left with no capacity at the end), every replica's probe "
         f"ran its {n_ticks} ticks")
@@ -2597,11 +2651,12 @@ def same_stream(a, b):
 
 
 def phase_stream(torch, fused_admission, dense, counts):
-    """15(b): a synthesized day streamed on the card with the full stack
-    but reliability, against the one-shot run of the same stream
-    (``parity_drift`` 0.0, the waves and every timeline equal); the first
-    6 h with ``overlap`` on and off, bit-identical; the kernel held and
-    timed on the stream's kept admission inputs."""
+    """15(b): ``STREAM_HORIZON_S`` of a synthesized day streamed on the card
+    with the full stack but reliability, against the one-shot run of the
+    same stream (``parity_drift`` 0.0, the waves and every timeline
+    equal), and again with ``overlap`` off, bit-identical to that run
+    (``overlap`` on); the kernel held and timed on the stream's kept
+    admission inputs."""
     from repro_torch import stream
     from repro_torch.core import vdes
     from repro_torch.core.fitting import SimulationParams
@@ -2612,16 +2667,16 @@ def phase_stream(torch, fused_admission, dense, counts):
                                       block_size=STREAM_BLOCK, until_s=until,
                                       device="cuda")
 
-    kw = stream_kwargs(HORIZON_S)
-    tap = InputTap(fused_admission, KEEP_EVERY)
+    kw = stream_kwargs(STREAM_HORIZON_S)
+    tap = InputTap(fused_admission, SHORT_KEEP_EVERY)
     torch.cuda.synchronize()
     for k in counts:
         k.launches = 0
     vdes.fused_admission = tap
     try:
         t0 = time.perf_counter()
-        sr = stream.stream_simulate(source(HORIZON_S), params=params,
-                                    device="cuda", **kw)
+        sr = stream.stream_simulate(source(STREAM_HORIZON_S), params=params,
+                                    device="cuda", overlap=True, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
@@ -2632,7 +2687,7 @@ def phase_stream(torch, fused_admission, dense, counts):
         raise AssertionError(f"the streamed run launched {launched}")
     t0 = time.perf_counter()
     ref = stream.oneshot_reference(
-        source(HORIZON_S), params=params, device="cuda",
+        source(STREAM_HORIZON_S), params=params, device="cuda",
         **{k: v for k, v in kw.items() if k != "window_s"})
     torch.cuda.synchronize()
     ref_wall = time.perf_counter() - t0
@@ -2659,7 +2714,9 @@ def phase_stream(torch, fused_admission, dense, counts):
                  redeploys=int((kinds == 1).sum()))
     card = card_line()
     n_rows = sr.n_pipelines + len(sr.fleet_cols["pool_arr"])
-    log(f"[15] (b) streamed day: parity_drift 0.0 against the one-shot run, "
+    log(f"[15] (b) streamed {STREAM_HORIZON_S / 3600:g} h in "
+        f"{STREAM_WINDOW_S / 3600:g} h windows: parity_drift 0.0 against the "
+        "one-shot run, "
         f"{sr.waves} waves both, controller/fleet/probe timelines equal; "
         f"stages acted {acted}")
     log(f"[15] (b) streamed wall {wall:.3f} s ({sr.waves / wall:.1f} waves/s,"
@@ -2671,17 +2728,12 @@ def phase_stream(torch, fused_admission, dense, counts):
         f"({sr.n_pipelines} pipelines + the retraining pool); "
         f"fused_admission launches {launched['fused_admission']} ({card})")
 
-    kw6 = stream_kwargs(STREAM_TWIN_S)
-    t0 = time.perf_counter()
-    on = stream.stream_simulate(source(STREAM_TWIN_S), params=params,
-                                device="cuda", overlap=True, **kw6)
-    off = stream.stream_simulate(source(STREAM_TWIN_S), params=params,
-                                 device="cuda", overlap=False, **kw6)
-    n = same_stream(on, off)
-    log(f"[15] (b) the first {STREAM_TWIN_S / 3600:g} h with overlap on and "
-        f"off: bit-identical on {n} fields ({on.n_windows} windows, "
-        f"{on.waves} waves; walls {on.wall_s:.3f} / {off.wall_s:.3f} s; "
-        f"{time.perf_counter() - t0:.2f} s both)")
+    off = stream.stream_simulate(source(STREAM_HORIZON_S), params=params,
+                                 device="cuda", overlap=False, **kw)
+    n = same_stream(sr, off)
+    log(f"[15] (b) the same stream with overlap off: bit-identical to "
+        f"overlap on on {n} fields ({off.n_windows} windows, {off.waves} "
+        f"waves; walls on {sr.wall_s:.3f} / off {off.wall_s:.3f} s)")
     rec = time_admission(torch, fused_admission, dense, tap.kept, phase="15",
                          where="the streamed run")
     return launched["fused_admission"], rec, wall
@@ -2945,7 +2997,7 @@ def injected_faults():
     import dataclasses
     from repro_torch.core import model as M
     from repro_torch.reliability import CheckpointSpec, compile_reliability
-    rel = fullstack_spec(True).reliability
+    rel = fullstack_spec(True, HORIZON_S).reliability
     downs = sorted({ev.t_down for ev in compile_reliability(
         rel, None, M.PlatformConfig(), HORIZON_S, seed=FS_SEED).events})
     if len(downs) < 4:
@@ -3043,14 +3095,14 @@ def feedback_run(engine, device):
     from repro_torch.core.workload import (generate_empirical_workload,
                                            whole_seconds)
     plat = M.PlatformConfig()
-    wl = whole_seconds(generate_empirical_workload(FB_SEED, HORIZON_S),
+    wl = whole_seconds(generate_empirical_workload(FB_SEED, FB_HORIZON_S),
                        plat.datastore)
     fl = metrics.pack_fleet(runtime.make_model_fleet(
         np.random.default_rng(FB_SEED), 6, drift_scale=60.0))
     fl[:, metrics.FLEET_SEAS_AMP] = 0.0
     t0 = time.perf_counter()
     res = runtime.run_feedback_simulation(
-        None, FB_SEED, HORIZON_S, engine=engine, device=device,
+        None, FB_SEED, FB_HORIZON_S, engine=engine, device=device,
         window_s=3600.0, workload=wl, fleet=runtime.FleetSpec(params=fl),
         trigger=runtime.TriggerSpec(
             drift_threshold=0.06, cooldown_s=4 * 3600.0, obs_noise=0.005,
@@ -3149,7 +3201,8 @@ def phase_training(torch, counts, flash_attention, mamba2_scan):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
     n, trig, adm, walls = feedback_card_vs_cpu(torch, counts)
-    log(f"[16] (e) run_feedback_simulation, one day of {n} pipelines, "
+    log(f"[16] (e) run_feedback_simulation, {FB_HORIZON_S / 3600:g} h of "
+        f"{n} pipelines, "
         f"{trig} triggers: card (fused_admission {adm} launches, "
         f"{walls['card']:.1f} s) == card compacted "
         f"({walls['card-compact']:.1f} s) == CPU compacted "
@@ -4211,13 +4264,9 @@ def compression_card_vs_cpu(torch):
     g = tree_map(lambda t: t.to("cuda"), rounds[0])
     e0 = C.init_error_state(cc, g)
     want = C.compressed_psum_pod(cc, g, e0)
-    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
-                            world_size=1, device_id=torch.device("cuda", 0))
-    try:
+    with one_rank_nccl(torch):
         got = C.compressed_psum_pod(cc, g, e0, group=dist.group.WORLD)
         torch.cuda.synchronize()
-    finally:
-        dist.destroy_process_group()
     for a, b in zip(tree_leaves(got[0]) + tree_leaves(got[1]),
                     tree_leaves(want[0]) + tree_leaves(want[1])):
         if not same_bytes(a, b):
@@ -4392,6 +4441,336 @@ def phase_heap_engine(inputs, ens, main_wall, single, oracle_card,
         f"budget); card: {card}")
 
 
+# ------------------------------------------------------------ phase 23
+
+@contextlib.contextmanager
+def one_rank_nccl(torch):
+    """A one-rank NCCL group on the card, its rendezvous an in-process
+    ``HashStore`` (no file, no socket), destroyed on leaving. A failed init
+    raises, and a collective that outlasts ``NCCL_TIMEOUT_S`` fails the
+    run: nothing falls back to the CPU."""
+    import datetime
+    import torch.distributed as dist
+    dist.init_process_group(
+        "nccl", store=dist.HashStore(), rank=0, world_size=1,
+        device_id=torch.device("cuda", 0),
+        timeout=datetime.timedelta(seconds=NCCL_TIMEOUT_S))
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def device_same_tree(torch, a, b) -> bool:
+    """Two trees equal byte for byte, compared on their device; DTensor
+    leaves by their whole value."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.models.common import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    if len(la) != len(lb):
+        return False
+    for x, y in zip(la, lb):
+        x, y = (t.full_tensor() if isinstance(t, DTensor) else t
+                for t in (x, y))
+        if x.dtype != y.dtype or x.shape != y.shape:
+            return False
+        if not torch.equal(x.detach().contiguous().view(-1).view(torch.uint8),
+                           y.detach().contiguous().view(-1).view(torch.uint8)):
+            return False
+    return True
+
+
+def pinned_bytes(torch, tree) -> list:
+    """Each leaf's bytes (a DTensor's whole value), in tree order, copied
+    into pinned host memory."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.models.common import tree_leaves
+    out = []
+    for t in tree_leaves(tree):
+        t = (t.full_tensor() if isinstance(t, DTensor) else t).detach()
+        t = t.contiguous().view(-1).view(torch.uint8)
+        out.append(torch.empty(t.shape, dtype=torch.uint8,
+                               pin_memory=True).copy_(t))
+    return out
+
+
+def mesh_train_twin(torch, arch, smoke, kw, ckpt_dir, counts=()):
+    """23(a): ``run_training`` on the debug mesh with FSDP (the state
+    DTensors at rest, every leaf gathered, this rank's rows of the batch,
+    the gradients averaged over 'data' by NCCL), each step's parameters
+    equal bit for bit to the meshless step's after the same step (the
+    loop ``run_training`` drives without a mesh, 16(a)'s, from the same
+    seed and batches), both under ``torch.use_deterministic_algorithms``;
+    no kernel launched, no restart. The parameters are compared as bytes
+    in pinned host memory: three full-width copies on the card beside the
+    meshed run's state, or their transients, leave the allocator too
+    fragmented for the step's 3.9 GiB logits. Returns
+    the run's output, its warm step, the meshless warm step and the peak
+    GiB above the baseline."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.train import run_training
+    from repro_torch.optim import adamw
+    from repro_torch.train import trainer
+    cfg = (configs.get_smoke_config(arch) if smoke
+           else configs.get_config(arch))
+    opt_cfg = adamw.AdamWConfig(lr=kw["lr"], total_steps=kw["steps"],
+                                warmup_steps=max(kw["steps"] // 20, 5))
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, batch=kw["batch"],
+                      seq_len=kw["seq"], family=cfg.family, n_ctx=cfg.n_ctx,
+                      d_ctx=cfg.d_ctx, d_model=cfg.d_model)
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        st = trainer.init_train_state(cfg, opt_cfg, 0, "cuda")
+        step = trainer.make_train_step(cfg, opt_cfg)
+        p, o, want, plain_secs = st.params, st.opt_state, [], []
+        del st
+        for s in range(kw["steps"]):
+            t0 = time.perf_counter()
+            p, o, m = step(p, o, synth_batch(dcfg, s, "cuda"))
+            float(m["loss"])
+            plain_secs.append(time.perf_counter() - t0)
+            want.append(pinned_bytes(torch, p))
+        del p, o, m
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        seen = []
+        before = [k.launches for k in counts]
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = run_training(
+            arch, smoke=smoke, ckpt_dir=ckpt_dir, ckpt_every=0,
+            log_every=1, resume=False, mesh=make_debug_mesh(), fsdp=True,
+            on_step=lambda s, state: seen.append(all(
+                torch.equal(a, b) for a, b in zip(
+                    pinned_bytes(torch, state["params"]), want[s]))), **kw)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    if out["restarts"] or seen != [True] * kw["steps"]:
+        raise AssertionError(f"23(a) meshed parameters == meshless after "
+                             f"each step: {seen}, {out['restarts']} "
+                             "restarts")
+    if [k.launches for k in counts] != before:
+        raise AssertionError("23(a) meshed training launched a kernel")
+    secs = [h["sec"] for h in out["history"]]
+    losses = [h["loss"] for h in out["history"]]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"23(a) losses {losses}")
+    return dict(cfg=cfg, out=out, losses=losses,
+                warm_step_s=float(np.median(secs[1:])),
+                plain_warm_step_s=float(np.median(plain_secs[1:])),
+                peak_gib=peak / 2 ** 30)
+
+
+def pod_mesh():
+    from repro_torch.launch.mesh import make_mesh
+    return make_mesh((1, 1, 1), ("pod", "data", "model"))
+
+
+def restore_twin(torch, cfg, ckpt_dir, step, state):
+    """23(c): the checkpoint of ``step`` (written from the meshed state)
+    restored onto the pod mesh with ``state_shardings`` and onto no mesh,
+    both equal to the in-memory state bit for bit, the first with the
+    shardings' placements. Returns both restores' seconds."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.models.common import tree_items
+    from repro_torch.train import trainer
+    sh = trainer.state_shardings(cfg, pod_mesh(), fsdp=True)
+    onto = {"params": sh["params"], "opt_state": sh["opt_state"]}
+    mgr = CheckpointManager(ckpt_dir)
+    secs = []
+    for shardings in (onto, None):
+        t0 = time.perf_counter()
+        back = mgr.restore(step, state, shardings)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        leaves = [t for _, t in tree_items(back)]
+        if shardings is None:
+            placed = not any(isinstance(t, DTensor) for t in leaves)
+        else:
+            placed = all(isinstance(t, DTensor) and list(t.placements)
+                         == s.placements and t.device_mesh.mesh_dim_names
+                         == ("pod", "data", "model")
+                         for t, (_, s) in zip(leaves, tree_items(shardings)))
+        if not (placed and device_same_tree(torch, back, state)):
+            raise AssertionError(f"23(c) restored onto "
+                                 f"{'no mesh' if shardings is None else 'the pod mesh'}"
+                                 " != the in-memory state")
+        del back, leaves
+    return secs
+
+
+def compressed_twin(torch, cfg, kw, steps):
+    """23(b): the compressed step (int8 with error feedback) on the pod
+    mesh with FSDP for ``steps`` steps of ``kw``'s batches: finite, falling
+    loss and ``wire_bytes_pod`` equal to the leaves' count (one byte per
+    entry and a 4-byte scale per leaf). Returns the losses, the wire bytes
+    and the warm step."""
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import compression as C
+    from repro_torch.train import trainer
+    mesh = pod_mesh()
+    comp = C.CompressionConfig(kind="int8")
+    opt_cfg = adamw.AdamWConfig(lr=kw["lr"], total_steps=steps,
+                                warmup_steps=max(steps // 20, 5))
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, batch=kw["batch"],
+                      seq_len=kw["seq"])
+    st = trainer.init_train_state(cfg, opt_cfg, 0, "cuda")
+    want_wire = sum(t.numel() + 4 for t in tree_leaves(st.params))
+    err = C.init_error_state(comp, st.params)
+    sh = trainer.state_shardings(cfg, mesh, fsdp=True)
+    placed = trainer.shard_state(
+        {"params": st.params, "opt_state": st.opt_state},
+        {"params": sh["params"], "opt_state": sh["opt_state"]})
+    del st
+    step = trainer.make_compressed_train_step(cfg, opt_cfg, mesh, comp,
+                                              fsdp=True)
+    p, o = placed["params"], placed["opt_state"]
+    del placed
+    losses, wires, secs = [], [], []
+    for s in range(steps):
+        t0 = time.perf_counter()
+        p, o, err, m = step(p, o, err, synth_batch(dcfg, s, "cuda"))
+        losses.append(float(m["loss"]))
+        secs.append(time.perf_counter() - t0)
+        wires.append(m["wire_bytes_pod"])
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"23(b) compressed losses {losses}")
+    if wires != [want_wire] * steps:
+        raise AssertionError(f"23(b) wire bytes {wires} != {want_wire}")
+    return losses, want_wire, secs
+
+
+def hybrid_variants_card_vs_cpu(torch):
+    """23(d): zamba2's smoke config with ``n_experts=4`` (the shared block
+    stays dense) and with MLA (``MESH_MLA``) from one CPU init, in f32
+    (no TF32): the forward through the SSD and flash kernels on the card
+    (one SSD launch per Mamba block, one flash launch per shared-block
+    application) against the CPU's plain path, logits within
+    ``HYB_TWIN_LOGIT_ATOL`` and the loss within ``HYB_TWIN_LOSS_ATOL``;
+    the experts' prefill likewise (flash once per application); the MLA
+    prefill refused with ``ValueError`` on both devices. Returns each
+    variant's (logit err, loss err)."""
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.mamba2_scan import mamba2_scan
+    from repro_torch.models.common import cross_entropy_loss, tree_map
+    from repro_torch.models.transformer import get_model
+    errs = {}
+    g = torch.Generator().manual_seed(MESH_HYB_SEED)
+    for name, over in (("n_experts=4", dict(n_experts=4)),
+                       ("use_mla", MESH_MLA)):
+        model = get_model(configs.get_smoke_config(
+            HYB_ARCH, ssm_impl="mamba_kernel", attn_impl="flash", **over))
+        c = model.cfg
+        params = model.init(MESH_HYB_SEED, "cpu")
+        card = tree_map(lambda t: t.cuda(), params)
+        toks = torch.randint(0, c.vocab_size, (MESH_HYB_B, MESH_HYB_S),
+                             generator=g)
+        labels = torch.roll(toks, -1, 1)
+        got = {}
+        for dev, p in (("cuda", card), ("cpu", params)):
+            before = (mamba2_scan.launches, flash_attention.launches)
+            with torch.inference_mode():
+                logits = model._forward(p, toks.to(dev))
+                loss = float(cross_entropy_loss(logits, labels.to(dev)))
+            n = (mamba2_scan.launches - before[0],
+                 flash_attention.launches - before[1])
+            want_n = (c.n_layers, model.n_super) if dev == "cuda" else (0, 0)
+            if n != want_n:
+                raise AssertionError(f"23(d) {name} on {dev}: launches "
+                                     f"(ssd, flash) {n}, not {want_n}")
+            got[dev] = (logits[..., :c.vocab_size].float().cpu(), loss)
+            try:
+                with torch.inference_mode():
+                    pl, _ = model.prefill(p, toks.to(dev), MESH_HYB_S + 4)
+            except ValueError as e:
+                if not c.use_mla or "dynamic_update_slice" not in str(e):
+                    raise
+                pl = None
+            else:
+                if c.use_mla:
+                    raise AssertionError("23(d) the MLA hybrid prefilled")
+            got[dev] += (None if pl is None else pl.float().cpu(),)
+        lerr = float((got["cuda"][0] - got["cpu"][0]).abs().max())
+        loss_err = abs(got["cuda"][1] - got["cpu"][1])
+        perr = (0.0 if c.use_mla else
+                float((got["cuda"][2] - got["cpu"][2]).abs().max()))
+        if not (lerr <= HYB_TWIN_LOGIT_ATOL and perr <= HYB_TWIN_LOGIT_ATOL
+                and loss_err <= HYB_TWIN_LOSS_ATOL):
+            raise AssertionError(f"23(d) {name}: card vs CPU logits "
+                                 f"{lerr}, prefill {perr}, loss {loss_err}")
+        errs[name] = (max(lerr, perr), loss_err)
+    return errs
+
+
+def phase_mesh(torch, counts, train_llama):
+    """Phase 23 within ``MESH_BUDGET_S``: the meshes, the sharded and
+    compressed training steps and restoring across meshes on a one-rank
+    NCCL group, then the hybrid's experts and MLA variants."""
+    import tempfile
+    card = card_line()
+    t23 = time.perf_counter()
+    arch, kw = "llama3.2-1b", MESH_TRAIN
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as d, \
+            one_rank_nccl(torch):
+        t0 = time.perf_counter()
+        st = mesh_train_twin(torch, arch, False, kw, d, counts)
+        log(f"[23] (a) {arch} at full width through run_training on the "
+            f"debug mesh (1, 1) with FSDP, NCCL: {kw['steps']} steps of "
+            f"{kw['batch']} x {kw['seq']}, losses "
+            + " ".join(f"{x:.4f}" for x in st["losses"])
+            + f"; parameters == the meshless step's bit for bit after each "
+            f"step (deterministic algorithms); no kernel launched; warm "
+            f"step {st['warm_step_s']:.4f} s meshed, "
+            f"{st['plain_warm_step_s']:.4f} s meshless in this phase, "
+            f"{train_llama['warm_step_s']:.4f} s in 16(a); peak "
+            f"{st['peak_gib']:.2f} GiB above the baseline; final "
+            f"checkpoint save {st['out']['save_s']:.2f} s "
+            f"({time.perf_counter() - t0:.1f} s); card: {card}")
+        t0 = time.perf_counter()
+        secs = restore_twin(torch, st["cfg"], d, kw["steps"],
+                            st["out"]["state"])
+        log(f"[23] (c) that checkpoint restored onto the pod mesh (1, 1, 1) "
+            f"with state_shardings in {secs[0]:.2f} s and onto no mesh in "
+            f"{secs[1]:.2f} s: both == the in-memory state bit for bit "
+            f"({time.perf_counter() - t0:.1f} s)")
+        cfg = st["cfg"]
+        del st
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        losses, wire, secs = compressed_twin(torch, cfg, kw, MESH_COMP_STEPS)
+        log(f"[23] (b) compressed step (int8, error feedback) on the pod mesh "
+            f"with FSDP, {MESH_COMP_STEPS} steps of {kw['batch']} x "
+            f"{kw['seq']}: losses " + " ".join(f"{x:.4f}" for x in losses)
+            + f", wire_bytes_pod {wire:,} per step (== the leaves' count), "
+            f"second step {secs[-1]:.4f} s ({time.perf_counter() - t0:.1f} s)")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        errs = hybrid_variants_card_vs_cpu(torch)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    log("[23] (d) smoke zamba2 card (SSD + flash kernels) vs CPU, f32: "
+        + "; ".join(f"{k}: logits {a:.3g}, loss {b:.3g}"
+                    for k, (a, b) in errs.items())
+        + f" (tol {HYB_TWIN_LOGIT_ATOL:g} / {HYB_TWIN_LOSS_ATOL:g}); the "
+        f"MLA prefill refused ({time.perf_counter() - t0:.1f} s)")
+    wall = time.perf_counter() - t23
+    within = "within" if wall <= MESH_BUDGET_S else "OVER"
+    log(f"[23] phase 23 in {wall:.1f} s ({within} its {MESH_BUDGET_S:g} s "
+        f"budget); card: {card}")
+
+
 def both_paths(paths, keys=("ms", "plain_ms", "bound_ms", "library_ms")):
     """One kernel's record over the main paths that launch it: launches
     summed, and each time (``keys``) the launch-weighted mean of the
@@ -4408,16 +4787,21 @@ def both_paths(paths, keys=("ms", "plain_ms", "bound_ms", "library_ms")):
 
 
 class PhaseClock:
-    """Each phase's wall, from the end of the phase before (``lap``)."""
+    """Each phase's wall, from the end of the phase before (``lap``). Each
+    lap is also written to standard error, so that a run stopped from
+    outside shows there how far it got and when."""
 
     def __init__(self):
         self.laps = []
-        self._t = time.perf_counter()
+        self._t0 = self._t = time.perf_counter()
 
     def lap(self, name):
         now = time.perf_counter()
         self.laps.append((name, now - self._t))
         self._t = now
+        print(f"chip_smoke: phase {name} done in {self.laps[-1][1]:.1f} s, "
+              f"{now - self._t0:.1f} s since the start", file=sys.stderr,
+              flush=True)
 
 
 def main() -> int:
@@ -4544,6 +4928,8 @@ def main() -> int:
     clock.lap("21")
     phase_heap_engine(inputs, ens, wall, single, oracle_card, fso_card)
     clock.lap("22")
+    phase_mesh(torch, counts, train_llama)
+    clock.lap("23")
 
     kernels = [dict(
         name="fused_admission", route="cuda",

@@ -90,7 +90,8 @@ def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> Dict:
 
 
 def param_specs(cfg: ModelConfig):
-    """``(meta parameter tree, None)``: shapes and dtypes, no memory. The
-    reference's second element, the logical sharding axes, has no meaning
-    on one card."""
-    return get_model(cfg).init(0, device="meta"), None
+    """``(meta parameter tree, logical axes tree)``: shapes and dtypes, no
+    memory, and the reference's axes tree (a tuple of logical axis names
+    per leaf), which :mod:`repro_torch.parallel.sharding` maps onto a
+    mesh."""
+    return get_model(cfg).init(0, device="meta", with_axes=True)

@@ -299,8 +299,8 @@ def lower_cell(arch: str, shape_name: str,
     overrides = dict(overrides or {})
     mb_override = overrides.pop("microbatches", None)
     if overrides.pop("fsdp", False):
-        raise NotImplementedError("FSDP needs parallel/sharding.py, which "
-                                  "the port has not got yet")
+        raise NotImplementedError("the one-card dry-run counts no FSDP "
+                                  "cell yet: it takes no mesh")
     cfg = CN.get_config(arch, **overrides)
     spec = SHAPES[shape_name]
     ok, reason = cell_supported(cfg.family, shape_name)

@@ -3,7 +3,8 @@ card.
 
 End-to-end driver: synthetic data pipeline -> train step -> checkpoint
 manager, with crash-restart (injected faults included), straggler
-monitoring, and restore onto the current device.
+monitoring, and restore onto the current device, or onto the mesh given
+(a checkpoint from any mesh restores onto it).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
       --steps 200 --batch 8 --seq 128 --fault-at 50 --ckpt-every 20
@@ -40,8 +41,9 @@ def run_training(arch: str, *, steps: int, batch: int, seq: int,
                  smoke: bool = True, ckpt_dir: str = DEFAULT_CKPT_DIR,
                  ckpt_every: int = 50, fault_at=(), lr: float = 3e-4,
                  log_every: int = 10, resume: bool = True, mesh=None,
-                 microbatches: int = 1, injector: FaultInjector = None,
-                 device=None) -> dict:
+                 fsdp: bool = False, microbatches: int = 1,
+                 injector: FaultInjector = None, device=None,
+                 on_step=None) -> dict:
     """Train ``arch`` for ``steps`` steps of ``batch`` x ``seq`` tokens on
     ``device`` (``None``: the card), checkpointing every ``ckpt_every``
     steps (0: only the final checkpoint) into ``ckpt_dir``.
@@ -57,7 +59,14 @@ def run_training(arch: str, *, steps: int, batch: int, seq: int,
     step of the checkpoint it resumed from, 0 where none was written yet),
     ``straggler_steps``, ``final_step``, the final ``state`` (``params``,
     ``opt_state``) and ``save_s``, the seconds of the final checkpoint's
-    write (``block=True``)."""
+    write (``block=True``).
+
+    On a ``mesh`` (every rank of its world calls with the same arguments;
+    ``device`` is the mesh's device type) the state is built whole from
+    the seed and placed by ``trainer.state_shardings(cfg, mesh, fsdp=)``,
+    each step runs this rank's rows of the global batch, checkpoints are
+    gathered and written by rank 0, and a restart restores onto the mesh.
+    ``on_step(step, state)``, if given, sees the state after each step."""
     if injector is not None and fault_at:
         raise ValueError("give fault_at or an injector, not both")
     dev = resolve_device(device)
@@ -67,8 +76,12 @@ def run_training(arch: str, *, steps: int, batch: int, seq: int,
     dcfg = DataConfig(vocab_size=cfg.vocab_size, batch=batch, seq_len=seq,
                       family=cfg.family, n_ctx=cfg.n_ctx, d_ctx=cfg.d_ctx,
                       d_model=cfg.d_model)
-    step_fn = trainer.make_train_step(cfg, opt_cfg, mesh,
+    step_fn = trainer.make_train_step(cfg, opt_cfg, mesh, fsdp=fsdp,
                                       microbatches=microbatches)
+    state_sh = None     # the placements of params and moments on the mesh
+    if mesh is not None:
+        sh = trainer.state_shardings(cfg, mesh, fsdp=fsdp)
+        state_sh = {"params": sh["params"], "opt_state": sh["opt_state"]}
     mgr = CheckpointManager(ckpt_dir, keep_last=3)
     injector = injector if injector is not None \
         else FaultInjector(list(fault_at))
@@ -86,13 +99,18 @@ def run_training(arch: str, *, steps: int, batch: int, seq: int,
             if params is None:
                 state = trainer.init_train_state(cfg, opt_cfg, 0, dev)
                 params, opt_state = state.params, state.opt_state
+                if state_sh is not None:
+                    placed = trainer.shard_state(
+                        {"params": params, "opt_state": opt_state}, state_sh)
+                    params, opt_state = placed["params"], placed["opt_state"]
                 mgr.wait()      # an async save in flight finishes first
                 latest = mgr.latest_step() if resume else None
                 if restarts:
                     restored_from.append(latest or 0)
                 if latest is not None:
                     state = mgr.restore(latest, {"params": params,
-                                                 "opt_state": opt_state})
+                                                 "opt_state": opt_state},
+                                        state_sh)
                     params = trainer.trainable(state["params"])
                     opt_state = state["opt_state"]
                     start_step = latest
@@ -110,6 +128,8 @@ def run_training(arch: str, *, steps: int, batch: int, seq: int,
                                                      batch_data)
                 loss = float(metrics["loss"])    # waits for the device
                 dt = time.perf_counter() - t0
+                if on_step is not None:
+                    on_step(step, {"params": params, "opt_state": opt_state})
                 slow = watchdog.record(step, dt)
                 if step % log_every == 0 or step == steps - 1:
                     history.append({"step": step, "loss": loss,

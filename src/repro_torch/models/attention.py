@@ -107,12 +107,12 @@ def _attn_core(q, k, v, qpos, causal, kv_valid_len, scale):
 # ---------------------------------------------------------------------------
 
 def init_gqa(gen: torch.Generator, d_model: int, n_heads: int, n_kv: int,
-             head_dim: int, dtype, device=None) -> dict:
+             head_dim: int, dtype, device=None) -> Tuple[dict, dict]:
     b = Builder(gen, dtype, device)
-    b.dense("wq", (d_model, n_heads, head_dim))
-    b.dense("wk", (d_model, n_kv, head_dim))
-    b.dense("wv", (d_model, n_kv, head_dim))
-    b.dense("wo", (n_heads, head_dim, d_model))
+    b.dense("wq", (d_model, n_heads, head_dim), ("embed", "heads", "head_dim"))
+    b.dense("wk", (d_model, n_kv, head_dim), ("embed", "kv_heads", "head_dim"))
+    b.dense("wv", (d_model, n_kv, head_dim), ("embed", "kv_heads", "head_dim"))
+    b.dense("wo", (n_heads, head_dim, d_model), ("heads", "head_dim", "embed"))
     return b.done()
 
 
@@ -156,15 +156,17 @@ def apply_gqa(p: dict, x: torch.Tensor, *, positions: torch.Tensor,
 def init_mla(gen: torch.Generator, d_model: int, n_heads: int, *,
              q_rank: int = 1536, kv_rank: int = 512, d_nope: int = 128,
              d_rope: int = 64, d_v: int = 128, dtype=torch.float32,
-             device=None) -> dict:
+             device=None) -> Tuple[dict, dict]:
     b = Builder(gen, dtype, device)
-    b.dense("wq_a", (d_model, q_rank))
-    b.ones("q_norm", (q_rank,))
-    b.dense("wq_b", (q_rank, n_heads, d_nope + d_rope))
-    b.dense("wkv_a", (d_model, kv_rank + d_rope))
-    b.ones("kv_norm", (kv_rank,))
-    b.dense("wkv_b", (kv_rank, n_heads, d_nope + d_v))
-    b.dense("wo", (n_heads, d_v, d_model))
+    b.dense("wq_a", (d_model, q_rank), ("embed", "latent"))
+    b.ones("q_norm", (q_rank,), ("latent",))
+    b.dense("wq_b", (q_rank, n_heads, d_nope + d_rope),
+            ("latent", "heads", "head_dim"))
+    b.dense("wkv_a", (d_model, kv_rank + d_rope), ("embed", "latent"))
+    b.ones("kv_norm", (kv_rank,), ("latent",))
+    b.dense("wkv_b", (kv_rank, n_heads, d_nope + d_v),
+            ("latent", "heads", "head_dim"))
+    b.dense("wo", (n_heads, d_v, d_model), ("heads", "head_dim", "embed"))
     return b.done()
 
 
@@ -241,12 +243,13 @@ def apply_mla(p: dict, x: torch.Tensor, *, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def init_cross(gen: torch.Generator, d_model: int, n_heads: int, n_kv: int,
-               head_dim: int, d_ctx: int, dtype, device=None) -> dict:
+               head_dim: int, d_ctx: int, dtype,
+               device=None) -> Tuple[dict, dict]:
     b = Builder(gen, dtype, device)
-    b.dense("wq", (d_model, n_heads, head_dim))
-    b.dense("wk", (d_ctx, n_kv, head_dim))
-    b.dense("wv", (d_ctx, n_kv, head_dim))
-    b.dense("wo", (n_heads, head_dim, d_model))
+    b.dense("wq", (d_model, n_heads, head_dim), ("embed", "heads", "head_dim"))
+    b.dense("wk", (d_ctx, n_kv, head_dim), ("embed", "kv_heads", "head_dim"))
+    b.dense("wv", (d_ctx, n_kv, head_dim), ("embed", "kv_heads", "head_dim"))
+    b.dense("wo", (n_heads, head_dim, d_model), ("heads", "head_dim", "embed"))
     return b.done()
 
 

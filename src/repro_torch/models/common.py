@@ -5,8 +5,16 @@ head.
 Parameters are nested dicts of tensors with the reference's layouts
 (stacked ``[L, ...]`` leaves for repeated blocks, ``wq [D, H, Dh]``, ...),
 so a reference parameter tree converts by copying
-(:mod:`repro_torch.models.weights`). The reference's logical sharding axes
-have no counterpart: the port runs on one card.
+(:mod:`repro_torch.models.weights`).
+
+Every ``init_*`` returns ``(params, axes)``, as the reference's does:
+``axes`` mirrors the parameter tree with a tuple of *logical* axis names
+per dimension, which :mod:`repro_torch.parallel.sharding` maps onto a
+mesh, so models never mention the mesh. The vocabulary is the
+reference's: ``"layers"`` (stacked blocks, never sharded), ``"embed"``
+(d_model; the FSDP axis), ``"heads"``, ``"kv_heads"``, ``"mlp"``,
+``"vocab"`` (tensor-parallel), ``"experts"`` (expert-parallel),
+``"head_dim"``, ``"state"``, ``"latent"`` (unsharded) and ``None``.
 
 Where the reference's ``einsum`` mixes dtypes, JAX promotes; ``torch``
 refuses, so :func:`einsum` promotes first.
@@ -20,6 +28,12 @@ import torch
 import torch.nn.functional as F
 
 Params = Dict[str, object]
+Axes = Dict[str, object]
+
+
+def is_axes_leaf(x) -> bool:
+    return isinstance(x, tuple) and all(
+        isinstance(e, (str, type(None))) for e in x)
 
 
 def einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -29,7 +43,8 @@ def einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 class Builder:
-    """Collects parameters, drawn from ``gen`` on ``device``, into a dict.
+    """Collects parameters, drawn from ``gen`` on ``device``, and their
+    logical axes into two dicts of one structure.
 
     ``dense`` draws ``normal * scale`` in f32 (``scale`` defaults to
     ``1/sqrt(fan_in)``, ``fan_in = shape[0]``) and casts to
@@ -44,10 +59,13 @@ class Builder:
         self.device = torch.device(device or gen.device)
         self.param_dtype = param_dtype
         self.params: Params = {}
+        self.axes: Axes = {}
 
     def dense(self, name: str, shape: Tuple[int, ...],
-              scale: Optional[float] = None, zero: bool = False,
-              by_slice: bool = False) -> None:
+              axes: Tuple[Optional[str], ...], scale: Optional[float] = None,
+              zero: bool = False, by_slice: bool = False) -> None:
+        assert len(shape) == len(axes), (name, shape, axes)
+        self.axes[name] = tuple(axes)
         if zero:
             self.params[name] = torch.zeros(shape, dtype=self.param_dtype,
                                             device=self.device)
@@ -67,28 +85,36 @@ class Builder:
             arr[i] = draw(shape[1:])
         self.params[name] = arr
 
-    def ones(self, name: str, shape: Tuple[int, ...]) -> None:
+    def ones(self, name: str, shape: Tuple[int, ...],
+             axes: Tuple[Optional[str], ...]) -> None:
+        assert len(shape) == len(axes), (name, shape, axes)
+        self.axes[name] = tuple(axes)
         self.params[name] = torch.ones(shape, dtype=self.param_dtype,
                                        device=self.device)
 
-    def sub(self, name: str, params: Params) -> None:
+    def sub(self, name: str, params: Params, axes: Axes) -> None:
         self.params[name] = params
+        self.axes[name] = axes
 
-    def done(self) -> Params:
-        return self.params
+    def done(self) -> Tuple[Params, Axes]:
+        return self.params, self.axes
 
 
 def stack_layers(gen: torch.Generator, n: int,
-                 init_one: Callable[[torch.Generator], Params]) -> Params:
-    """``n`` blocks from ``init_one(gen)``, each leaf stacked along a new
-    leading layer axis. Each block is drawn into its slot of the stacked
-    leaves and freed, so the build holds one block beyond the stack (a
-    list of blocks and their stack would need twice the model). A stack of
-    one block is that block's leaves viewed with the new axis: no copy (a
-    stage of one MoE block may be half the card)."""
-    first = init_one(gen)
+                 init_one: Callable[[torch.Generator], Tuple[Params, Axes]]
+                 ) -> Tuple[Params, Axes]:
+    """``n`` blocks from ``init_one(gen) -> (params, axes)``, each leaf
+    stacked along a new leading layer axis, whose logical name
+    ``"layers"`` is prepended to every axes leaf. Each block is drawn into
+    its slot of the stacked leaves and freed, so the build holds one block
+    beyond the stack (a list of blocks and their stack would need twice
+    the model). A stack of one block is that block's leaves viewed with
+    the new axis: no copy (a stage of one MoE block may be half the
+    card)."""
+    first, ax = init_one(gen)
+    axes = tree_map(lambda a: ("layers",) + a, ax)
     if n == 1:
-        return tree_map(lambda t: t.unsqueeze(0), first)
+        return tree_map(lambda t: t.unsqueeze(0), first), axes
     out = tree_map(lambda t: t.new_empty((n,) + tuple(t.shape)), first)
 
     def put(i, block):
@@ -97,8 +123,8 @@ def stack_layers(gen: torch.Generator, n: int,
     put(0, first)
     del first
     for i in range(1, n):
-        put(i, init_one(gen))
-    return out
+        put(i, init_one(gen)[0])
+    return out, axes
 
 
 def tree_map(fn: Callable, tree, *rest):
@@ -204,24 +230,24 @@ def gelu_mlp(x: torch.Tensor, w_up: torch.Tensor, b_up: torch.Tensor,
 
 
 def init_swiglu(gen: torch.Generator, d_model: int, d_ff: int, dtype,
-                device=None) -> Params:
+                device=None) -> Tuple[Params, Axes]:
     b = Builder(gen, dtype, device)
-    b.dense("w_gate", (d_model, d_ff))
-    b.dense("w_up", (d_model, d_ff))
-    b.dense("w_down", (d_ff, d_model))
+    b.dense("w_gate", (d_model, d_ff), ("embed", "mlp"))
+    b.dense("w_up", (d_model, d_ff), ("embed", "mlp"))
+    b.dense("w_down", (d_ff, d_model), ("mlp", "embed"))
     return b.done()
 
 
 def init_gelu_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype,
-                  device=None) -> Params:
+                  device=None) -> Tuple[Params, Axes]:
     """``w_up``, ``w_down`` drawn as the other matrices, the biases
     ``b_up [d_ff]`` and ``b_down [d_model]`` zero, in the reference's key
     order."""
     b = Builder(gen, dtype, device)
-    b.dense("w_up", (d_model, d_ff))
-    b.dense("b_up", (d_ff,), zero=True)
-    b.dense("w_down", (d_ff, d_model))
-    b.dense("b_down", (d_model,), zero=True)
+    b.dense("w_up", (d_model, d_ff), ("embed", "mlp"))
+    b.dense("b_up", (d_ff,), ("mlp",), zero=True)
+    b.dense("w_down", (d_ff, d_model), ("mlp", "embed"))
+    b.dense("b_down", (d_model,), ("embed",), zero=True)
     return b.done()
 
 

@@ -33,20 +33,23 @@ from repro_torch.models.common import Builder, einsum
 
 def init_moe(gen: torch.Generator, d_model: int, d_ff_expert: int,
              n_experts: int, n_shared: int, d_ff_shared: int, dtype,
-             device=None) -> dict:
+             device=None) -> Tuple[dict, dict]:
     """The router ``[D, E]``, the experts' ``[E, D, F]`` / ``[E, F, D]``
     SwiGLU matrices (drawn expert by expert: no whole-leaf f32 temporary)
     and, with ``n_shared``, the shared experts' SwiGLU of width
     ``n_shared * d_ff_shared``."""
     b = Builder(gen, dtype, device)
-    b.dense("router", (d_model, n_experts))
-    b.dense("w_gate", (n_experts, d_model, d_ff_expert), by_slice=True)
-    b.dense("w_up", (n_experts, d_model, d_ff_expert), by_slice=True)
-    b.dense("w_down", (n_experts, d_ff_expert, d_model), by_slice=True)
+    b.dense("router", (d_model, n_experts), ("embed", None))
+    b.dense("w_gate", (n_experts, d_model, d_ff_expert),
+            ("experts", "embed", "mlp"), by_slice=True)
+    b.dense("w_up", (n_experts, d_model, d_ff_expert),
+            ("experts", "embed", "mlp"), by_slice=True)
+    b.dense("w_down", (n_experts, d_ff_expert, d_model),
+            ("experts", "mlp", "embed"), by_slice=True)
     if n_shared > 0:
-        b.dense("ws_gate", (d_model, n_shared * d_ff_shared))
-        b.dense("ws_up", (d_model, n_shared * d_ff_shared))
-        b.dense("ws_down", (n_shared * d_ff_shared, d_model))
+        b.dense("ws_gate", (d_model, n_shared * d_ff_shared), ("embed", "mlp"))
+        b.dense("ws_up", (d_model, n_shared * d_ff_shared), ("embed", "mlp"))
+        b.dense("ws_down", (n_shared * d_ff_shared, d_model), ("mlp", "embed"))
     return b.done()
 
 

@@ -14,7 +14,7 @@ Decode is the O(1) recurrence:  h <- exp(dt*A) h + dt * B ⊗ x,  y = C·h + D x
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -25,20 +25,20 @@ from repro_torch.models.common import Builder, einsum, rms_norm
 
 def init_mamba2(gen: torch.Generator, d_model: int, d_state: int,
                 head_dim: int = 64, expand: int = 2, d_conv: int = 4,
-                dtype=torch.float32, device=None) -> dict:
+                dtype=torch.float32, device=None) -> Tuple[dict, dict]:
     d_inner = expand * d_model
     n_heads = d_inner // head_dim
     b = Builder(gen, dtype, device)
     # fused input projection: [z | x | B | C | dt]
     d_proj = 2 * d_inner + 2 * d_state + n_heads
-    b.dense("w_in", (d_model, d_proj))
-    b.dense("conv_w", (d_conv, d_inner + 2 * d_state))
-    b.dense("conv_b", (d_inner + 2 * d_state,), zero=True)
-    b.dense("a_log", (n_heads,), scale=1.0)
-    b.dense("dt_bias", (n_heads,), zero=True)
-    b.dense("d_skip", (n_heads,), scale=1.0)
-    b.ones("norm", (d_inner,))
-    b.dense("w_out", (d_inner, d_model))
+    b.dense("w_in", (d_model, d_proj), ("embed", "mlp"))
+    b.dense("conv_w", (d_conv, d_inner + 2 * d_state), (None, "mlp"))
+    b.dense("conv_b", (d_inner + 2 * d_state,), ("mlp",), zero=True)
+    b.dense("a_log", (n_heads,), ("heads",), scale=1.0)
+    b.dense("dt_bias", (n_heads,), ("heads",), zero=True)
+    b.dense("d_skip", (n_heads,), ("heads",), scale=1.0)
+    b.ones("norm", (d_inner,), ("mlp",))
+    b.dense("w_out", (d_inner, d_model), ("mlp", "embed"))
     return b.done()
 
 

@@ -44,6 +44,11 @@ frames as ``ctx`` and raises ``ValueError`` without them.
 applied after every ``attn_every`` Mamba blocks, then the trailing Mamba
 blocks. It runs the full-sequence forward and loss (``loss_fn``, through
 the ``mamba2_scan`` kernel under ``ssm_impl="mamba_kernel"``) and serves.
+Its shared block is dense whatever ``n_experts`` says, as the reference
+builds it (``moe_ffn=False``). Under ``use_mla`` the shared block is MLA:
+it trains, but ``prefill`` and ``decode_step`` raise ``ValueError``, since
+the reference writes MLA's latent into the GQA-shaped shared cache and
+fails there.
 
 A Python loop over the layers takes the place of the reference's
 ``lax.scan``; ``stream_unroll`` is kept as a field and means nothing here.
@@ -72,7 +77,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -194,29 +199,30 @@ def _maybe_remat(fn, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 def _init_attn_block(gen, cfg: ModelConfig, device, moe_ffn: bool = False,
-                     cross: bool = False) -> dict:
+                     cross: bool = False) -> Tuple[dict, dict]:
     b = Builder(gen, cfg.pdt, device)
-    b.ones("ln1", (cfg.d_model,))
-    b.ones("ln2", (cfg.d_model,))
+    b.ones("ln1", (cfg.d_model,), ("embed",))
+    b.ones("ln2", (cfg.d_model,), ("embed",))
     if cross:
-        b.sub("attn", A.init_cross(gen, cfg.d_model, cfg.n_heads,
-                                   cfg.n_kv_heads, cfg.hd,
-                                   cfg.d_ctx or cfg.d_model, cfg.pdt, device))
+        b.sub("attn", *A.init_cross(gen, cfg.d_model, cfg.n_heads,
+                                    cfg.n_kv_heads, cfg.hd,
+                                    cfg.d_ctx or cfg.d_model, cfg.pdt,
+                                    device))
     elif cfg.use_mla:
-        b.sub("attn", A.init_mla(gen, cfg.d_model, cfg.n_heads,
-                                 q_rank=cfg.q_rank, kv_rank=cfg.kv_rank,
-                                 d_nope=cfg.d_nope, d_rope=cfg.d_rope,
-                                 d_v=cfg.d_v, dtype=cfg.pdt, device=device))
+        b.sub("attn", *A.init_mla(gen, cfg.d_model, cfg.n_heads,
+                                  q_rank=cfg.q_rank, kv_rank=cfg.kv_rank,
+                                  d_nope=cfg.d_nope, d_rope=cfg.d_rope,
+                                  d_v=cfg.d_v, dtype=cfg.pdt, device=device))
     else:
-        b.sub("attn", A.init_gqa(gen, cfg.d_model, cfg.n_heads,
-                                 cfg.n_kv_heads, cfg.hd, cfg.pdt, device))
+        b.sub("attn", *A.init_gqa(gen, cfg.d_model, cfg.n_heads,
+                                  cfg.n_kv_heads, cfg.hd, cfg.pdt, device))
     if moe_ffn:
-        b.sub("ffn", MOE.init_moe(gen, cfg.d_model, cfg.moe_d_ff,
-                                  cfg.n_experts, cfg.n_shared_experts,
-                                  cfg.moe_d_ff, cfg.pdt, device))
+        b.sub("ffn", *MOE.init_moe(gen, cfg.d_model, cfg.moe_d_ff,
+                                   cfg.n_experts, cfg.n_shared_experts,
+                                   cfg.moe_d_ff, cfg.pdt, device))
     else:
         init_mlp = init_gelu_mlp if cfg.mlp_type == "gelu" else init_swiglu
-        b.sub("ffn", init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.pdt, device))
+        b.sub("ffn", *init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.pdt, device))
     return b.done()
 
 
@@ -275,7 +281,7 @@ _DECODER_FAMILIES = ("dense", "moe", "vlm")
 def _check_ported(cfg: ModelConfig, family: str) -> None:
     """Refuses a config of another family than the model's (``family``:
     ``"decoder"`` for :class:`DecoderLM`, ``"hybrid"``, ``"ssm"``,
-    ``"audio"``), what the port has not got, a config without the fields
+    ``"audio"``), a config without the fields
     of its family (the reference asserts ``attn_every > 0``,
     ``cross_every > 1``, ``n_enc_layers and n_dec_layers``), and the MLA
     combinations the reference cannot run."""
@@ -293,19 +299,14 @@ def _check_ported(cfg: ModelConfig, family: str) -> None:
                              f"n_enc_layers >= 1 and n_dec_layers >= 1, got "
                              f"{cfg.n_enc_layers} and {cfg.n_dec_layers}")
         return
-    if family == "hybrid":
-        if cfg.use_mla or cfg.n_experts > 0:
-            raise NotImplementedError(
-                f"{cfg.name}: the hybrid's shared block is GQA + MLP; MLA "
-                "and experts there are not ported")
-        if cfg.attn_every < 1 or cfg.ssm_state < 1:
-            raise ValueError(f"{cfg.name}: a hybrid config needs attn_every "
-                             f">= 1 and ssm_state >= 1, got {cfg.attn_every} "
-                             f"and {cfg.ssm_state}")
-        return
+    if family == "hybrid" and (cfg.attn_every < 1 or cfg.ssm_state < 1):
+        raise ValueError(f"{cfg.name}: a hybrid config needs attn_every "
+                         f">= 1 and ssm_state >= 1, got {cfg.attn_every} "
+                         f"and {cfg.ssm_state}")
     if not cfg.use_mla:
         return
-    if cfg.family == "vlm" or (cfg.n_experts > 0 and cfg.moe_interleave > 1):
+    if family != "hybrid" and (cfg.family == "vlm" or (
+            cfg.n_experts > 0 and cfg.moe_interleave > 1)):
         raise ValueError(
             f"{cfg.name}: MLA in a super block plan (family {cfg.family!r}, "
             f"moe_interleave={cfg.moe_interleave}) is refused: the reference "
@@ -318,6 +319,12 @@ def _check_ported(cfg: ModelConfig, family: str) -> None:
             f"kernel takes one head dim for q, k and v, and MLA's q and k "
             f"have d_nope + d_rope = {d_qk} where v has d_v = {cfg.d_v} (the "
             "reference's kernel fails on it too); use attn_impl='xla'")
+
+
+def _with_axes(built, with_axes: bool):
+    """A model's ``init`` result: ``(params, axes)`` with ``with_axes``,
+    else the parameters alone (the port's one-device signature)."""
+    return built if with_axes else built[0]
 
 
 def _generator(seed: int, dev: torch.device) -> torch.Generator:
@@ -381,34 +388,39 @@ class DecoderLM:
             self.plan = [("dense", c.n_layers, 0)]
 
     # ---------------- init
-    def init(self, seed: int = 0, device=None) -> dict:
+    def init(self, seed: int = 0, device=None, with_axes: bool = False):
         """Random parameters from ``seed``, drawn on ``device`` (``None``:
-        the card, raising without one; ``"meta"``: shapes only)."""
+        the card, raising without one; ``"meta"``: shapes only);
+        ``with_axes``: ``(params, axes)``, the logical axes tree beside
+        them, as the reference's ``init`` returns."""
         c = self.cfg
         dev = resolve_device(device)
         gen = _generator(seed, dev)
         b = Builder(gen, c.pdt, dev)
-        b.dense("embed", (c.vocab_size, c.d_model), scale=0.02)
-        b.ones("ln_f", (c.d_model,))
+        b.dense("embed", (c.vocab_size, c.d_model), ("vocab", "embed"),
+                scale=0.02)
+        b.ones("ln_f", (c.d_model,), ("embed",))
         if not c.tie_embeddings:
-            b.dense("lm_head", (c.d_model, padded_vocab(c.vocab_size)))
+            b.dense("lm_head", (c.d_model, padded_vocab(c.vocab_size)),
+                    ("embed", "vocab"))
         for si, (kind, n, inner) in enumerate(self.plan):
             if kind in _SUPER_KEYS:
                 selfs, last = _SUPER_KEYS[kind]
 
                 def init_one(g, inner=inner, kind=kind, selfs=selfs,
                              last=last):
-                    return {selfs: stack_layers(
-                                g, inner, lambda gg: _init_attn_block(gg, c,
-                                                                      dev)),
-                            last: _init_attn_block(
-                                g, c, dev, moe_ffn=kind == "moe_super",
-                                cross=kind == "vlm_super")}
+                    bb = Builder(g, c.pdt, dev)
+                    bb.sub(selfs, *stack_layers(
+                        g, inner, lambda gg: _init_attn_block(gg, c, dev)))
+                    bb.sub(last, *_init_attn_block(
+                        g, c, dev, moe_ffn=kind == "moe_super",
+                        cross=kind == "vlm_super"))
+                    return bb.done()
             else:
                 def init_one(g, moe=kind == "moe"):
                     return _init_attn_block(g, c, dev, moe_ffn=moe)
-            b.sub(f"stage{si}", stack_layers(gen, n, init_one))
-        return b.done()
+            b.sub(f"stage{si}", *stack_layers(gen, n, init_one))
+        return _with_axes(b.done(), with_axes)
 
     def _head(self, params):
         return (params["embed"].T if self.cfg.tie_embeddings
@@ -565,31 +577,40 @@ class HybridSSM:
         self.n_super = cfg.n_layers // cfg.attn_every
         self.n_tail = cfg.n_layers - self.n_super * cfg.attn_every
 
-    def _init_mamba(self, gen, dev) -> dict:
+    def _init_mamba(self, gen, dev) -> Tuple[dict, dict]:
         c = self.cfg
         return SSM.init_mamba2(gen, c.d_model, c.ssm_state, c.ssm_head_dim,
                                c.ssm_expand, c.d_conv, c.pdt, dev)
 
     # ---------------- init
-    def init(self, seed: int = 0, device=None) -> dict:
+    def init(self, seed: int = 0, device=None, with_axes: bool = False):
         """Random parameters from ``seed``, drawn on ``device`` (``None``:
-        the card, raising without one; ``"meta"``: shapes only)."""
+        the card, raising without one; ``"meta"``: shapes only);
+        ``with_axes``: ``(params, axes)``."""
         c = self.cfg
         dev = resolve_device(device)
         gen = _generator(seed, dev)
         b = Builder(gen, c.pdt, dev)
-        b.dense("embed", (c.vocab_size, c.d_model), scale=0.02)
-        b.ones("ln_f", (c.d_model,))
-        b.dense("lm_head", (c.d_model, padded_vocab(c.vocab_size)))
-        b.sub("supers", stack_layers(gen, self.n_super, lambda g: {
-            "mamba": stack_layers(g, c.attn_every,
-                                  lambda gg: self._init_mamba(gg, dev))}))
+        b.dense("embed", (c.vocab_size, c.d_model), ("vocab", "embed"),
+                scale=0.02)
+        b.ones("ln_f", (c.d_model,), ("embed",))
+        b.dense("lm_head", (c.d_model, padded_vocab(c.vocab_size)),
+                ("embed", "vocab"))
+
+        def init_super(g):
+            bb = Builder(g, c.pdt, dev)
+            bb.sub("mamba", *stack_layers(
+                g, c.attn_every, lambda gg: self._init_mamba(gg, dev)))
+            return bb.done()
+
+        b.sub("supers", *stack_layers(gen, self.n_super, init_super))
         if self.n_tail:
-            b.sub("tail", stack_layers(
+            b.sub("tail", *stack_layers(
                 gen, self.n_tail, lambda g: self._init_mamba(g, dev)))
-        # the SHARED attention block (one set of weights, applied n_super x)
-        b.sub("shared_attn", _init_attn_block(gen, c, dev))
-        return b.done()
+        # the SHARED attention block (one set of weights, applied n_super
+        # x), dense whatever n_experts says (the reference's moe_ffn=False)
+        b.sub("shared_attn", *_init_attn_block(gen, c, dev))
+        return _with_axes(b.done(), with_axes)
 
     # ---------------- the backbone
     def _mamba(self, p, x, states=None, idx=()):
@@ -676,8 +697,16 @@ class HybridSSM:
     def _with_cache(self, params, tokens: torch.Tensor, cache, pos: int):
         """Shared prefill/decode path at cache offset ``pos``, the caches
         updated in place. Returns the last position's logits [B, 1, V_pad]
-        and the cache."""
+        and the cache. Refused under ``use_mla``: the reference writes the
+        shared block's latent into its GQA-shaped K/V cache and fails."""
         c = self.cfg
+        if c.use_mla:
+            raise ValueError(
+                f"{c.name}: a hybrid with use_mla cannot prefill or decode: "
+                "its shared K/V cache is GQA-shaped [n_super, B, max_len, "
+                "n_kv_heads, head_dim], and the reference writes MLA's "
+                "latent cache into it and fails with a dynamic_update_slice "
+                "rank error; loss_fn and training run")
         x = params["embed"][tokens].to(c.cdt)
         positions = pos + torch.arange(tokens.shape[1], device=tokens.device)
         x = self._backbone(params, x, positions, states=cache["states"],
@@ -710,29 +739,32 @@ class XLSTM:
         self.n_super = cfg.n_layers // 2     # mLSTM + sLSTM pairs
 
     # ---------------- init
-    def init(self, seed: int = 0, device=None) -> dict:
+    def init(self, seed: int = 0, device=None, with_axes: bool = False):
         """Random parameters from ``seed``, drawn on ``device`` (``None``:
-        the card, raising without one; ``"meta"``: shapes only)."""
+        the card, raising without one; ``"meta"``: shapes only);
+        ``with_axes``: ``(params, axes)``."""
         c = self.cfg
         dev = resolve_device(device)
         gen = _generator(seed, dev)
         b = Builder(gen, c.pdt, dev)
-        b.dense("embed", (c.vocab_size, c.d_model), scale=0.02)
-        b.ones("ln_f", (c.d_model,))
-        b.dense("lm_head", (c.d_model, padded_vocab(c.vocab_size)))
+        b.dense("embed", (c.vocab_size, c.d_model), ("vocab", "embed"),
+                scale=0.02)
+        b.ones("ln_f", (c.d_model,), ("embed",))
+        b.dense("lm_head", (c.d_model, padded_vocab(c.vocab_size)),
+                ("embed", "vocab"))
 
         def init_super(g):
             bb = Builder(g, c.pdt, dev)
-            bb.sub("mlstm", XL.init_mlstm(g, c.d_model, c.n_heads, c.pdt,
-                                          dev))
-            bb.sub("slstm", XL.init_slstm(g, c.d_model, c.n_heads, c.pdt,
-                                          dev))
-            bb.ones("ln1", (c.d_model,))
-            bb.ones("ln2", (c.d_model,))
+            bb.sub("mlstm", *XL.init_mlstm(g, c.d_model, c.n_heads, c.pdt,
+                                           dev))
+            bb.sub("slstm", *XL.init_slstm(g, c.d_model, c.n_heads, c.pdt,
+                                           dev))
+            bb.ones("ln1", (c.d_model,), ("embed",))
+            bb.ones("ln2", (c.d_model,), ("embed",))
             return bb.done()
 
-        b.sub("supers", stack_layers(gen, self.n_super, init_super))
-        return b.done()
+        b.sub("supers", *stack_layers(gen, self.n_super, init_super))
+        return _with_axes(b.done(), with_axes)
 
     # ---------------- the backbone
     def _backbone(self, params, x, states=None):
@@ -843,17 +875,20 @@ class EncDec:
         self.cfg = cfg
 
     # ---------------- init
-    def init(self, seed: int = 0, device=None) -> dict:
+    def init(self, seed: int = 0, device=None, with_axes: bool = False):
         """Random parameters from ``seed``, drawn on ``device`` (``None``:
-        the card, raising without one; ``"meta"``: shapes only)."""
+        the card, raising without one; ``"meta"``: shapes only);
+        ``with_axes``: ``(params, axes)``."""
         c = self.cfg
         dev = resolve_device(device)
         gen = _generator(seed, dev)
         b = Builder(gen, c.pdt, dev)
-        b.dense("embed", (c.vocab_size, c.d_model), scale=0.02)
-        b.ones("ln_enc", (c.d_model,))
-        b.ones("ln_dec", (c.d_model,))
-        b.dense("lm_head", (c.d_model, padded_vocab(c.vocab_size)))
+        b.dense("embed", (c.vocab_size, c.d_model), ("vocab", "embed"),
+                scale=0.02)
+        b.ones("ln_enc", (c.d_model,), ("embed",))
+        b.ones("ln_dec", (c.d_model,), ("embed",))
+        b.dense("lm_head", (c.d_model, padded_vocab(c.vocab_size)),
+                ("embed", "vocab"))
 
         def gqa(g):
             return A.init_gqa(g, c.d_model, c.n_heads, c.n_kv_heads, c.hd,
@@ -861,26 +896,26 @@ class EncDec:
 
         def init_enc(g):
             bb = Builder(g, c.pdt, dev)
-            bb.ones("ln1", (c.d_model,))
-            bb.ones("ln2", (c.d_model,))
-            bb.sub("attn", gqa(g))
-            bb.sub("ffn", init_swiglu(g, c.d_model, c.d_ff, c.pdt, dev))
+            bb.ones("ln1", (c.d_model,), ("embed",))
+            bb.ones("ln2", (c.d_model,), ("embed",))
+            bb.sub("attn", *gqa(g))
+            bb.sub("ffn", *init_swiglu(g, c.d_model, c.d_ff, c.pdt, dev))
             return bb.done()
 
         def init_dec(g):
             bb = Builder(g, c.pdt, dev)
             for name in ("ln1", "ln2", "ln3"):
-                bb.ones(name, (c.d_model,))
-            bb.sub("self", gqa(g))
-            bb.sub("cross", A.init_cross(g, c.d_model, c.n_heads,
-                                         c.n_kv_heads, c.hd, c.d_model,
-                                         c.pdt, dev))
-            bb.sub("ffn", init_swiglu(g, c.d_model, c.d_ff, c.pdt, dev))
+                bb.ones(name, (c.d_model,), ("embed",))
+            bb.sub("self", *gqa(g))
+            bb.sub("cross", *A.init_cross(g, c.d_model, c.n_heads,
+                                          c.n_kv_heads, c.hd, c.d_model,
+                                          c.pdt, dev))
+            bb.sub("ffn", *init_swiglu(g, c.d_model, c.d_ff, c.pdt, dev))
             return bb.done()
 
-        b.sub("encoder", stack_layers(gen, c.n_enc_layers, init_enc))
-        b.sub("decoder", stack_layers(gen, c.n_dec_layers, init_dec))
-        return b.done()
+        b.sub("encoder", *stack_layers(gen, c.n_enc_layers, init_enc))
+        b.sub("decoder", *stack_layers(gen, c.n_dec_layers, init_dec))
+        return _with_axes(b.done(), with_axes)
 
     @staticmethod
     def _ffn(p, x):
@@ -1007,12 +1042,12 @@ class EncDec:
 # ---------------------------------------------------------------------------
 
 def get_model(cfg: ModelConfig):
-    """The model of ``cfg``; raises ``NotImplementedError`` for what the
-    port does not have (MLA or experts in the hybrid's shared block), and
-    ``ValueError`` for an unknown family, for what the reference cannot
-    run (MLA under ``attn_impl="flash"``, MLA in a super block) or asserts
-    against (a hybrid, VLM or encoder-decoder config without its family's
-    fields)."""
+    """The model of ``cfg``; raises ``ValueError`` for an unknown family,
+    for what the reference cannot run (MLA under ``attn_impl="flash"``,
+    MLA in a super block) or asserts against (a hybrid, VLM or
+    encoder-decoder config without its family's fields). The hybrid with
+    MLA is built and trains; its ``prefill`` and ``decode_step`` raise
+    ``ValueError``, as the reference fails in its prefill."""
     if cfg.family in _DECODER_FAMILIES:
         return DecoderLM(cfg)
     if cfg.family == "hybrid":

@@ -21,7 +21,7 @@ and ``m`` in f32; the sLSTM's state is f32 throughout.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -36,19 +36,19 @@ _NEG = -1e30     # the stabiliser's start: no token seen yet
 # ---------------------------------------------------------------------------
 
 def init_mlstm(gen: torch.Generator, d_model: int, n_heads: int, dtype,
-               device=None) -> dict:
+               device=None) -> Tuple[dict, dict]:
     hd = d_model // n_heads
     b = Builder(gen, dtype, device)
-    b.dense("wq", (d_model, n_heads, hd))
-    b.dense("wk", (d_model, n_heads, hd))
-    b.dense("wv", (d_model, n_heads, hd))
-    b.dense("wi", (d_model, n_heads))
-    b.dense("wf", (d_model, n_heads))
-    b.dense("bi", (n_heads,), zero=True)
-    b.dense("bf", (n_heads,), scale=1.0)
-    b.dense("wo_gate", (d_model, d_model))
-    b.dense("wo", (n_heads, hd, d_model))
-    b.ones("norm", (d_model,))
+    b.dense("wq", (d_model, n_heads, hd), ("embed", "heads", "head_dim"))
+    b.dense("wk", (d_model, n_heads, hd), ("embed", "heads", "head_dim"))
+    b.dense("wv", (d_model, n_heads, hd), ("embed", "heads", "head_dim"))
+    b.dense("wi", (d_model, n_heads), ("embed", "heads"))
+    b.dense("wf", (d_model, n_heads), ("embed", "heads"))
+    b.dense("bi", (n_heads,), ("heads",), zero=True)
+    b.dense("bf", (n_heads,), ("heads",), scale=1.0)
+    b.dense("wo_gate", (d_model, d_model), ("embed", "embed"))
+    b.dense("wo", (n_heads, hd, d_model), ("heads", "head_dim", "embed"))
+    b.ones("norm", (d_model,), ("embed",))
     return b.done()
 
 
@@ -181,15 +181,16 @@ _GATES = ("i", "f", "z", "o")
 
 
 def init_slstm(gen: torch.Generator, d_model: int, n_heads: int, dtype,
-               device=None) -> dict:
+               device=None) -> Tuple[dict, dict]:
     hd = d_model // n_heads
     b = Builder(gen, dtype, device)
     for g in _GATES:
-        b.dense(f"w{g}", (d_model, n_heads, hd))
-        b.dense(f"r{g}", (n_heads, hd, hd))
-        b.dense(f"b{g}", (n_heads, hd), zero=(g != "f"), scale=1.0)
-    b.ones("norm", (d_model,))
-    b.dense("w_out", (d_model, d_model))
+        b.dense(f"w{g}", (d_model, n_heads, hd), ("embed", "heads", "head_dim"))
+        b.dense(f"r{g}", (n_heads, hd, hd), ("heads", "head_dim", "head_dim"))
+        b.dense(f"b{g}", (n_heads, hd), ("heads", "head_dim"),
+                zero=(g != "f"), scale=1.0)
+    b.ones("norm", (d_model,), ("embed",))
+    b.dense("w_out", (d_model, d_model), ("embed", "embed"))
     return b.done()
 
 

@@ -64,11 +64,14 @@ def global_norm(tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def apply_updates(cfg: AdamWConfig, params, grads, opt_state):
+def apply_updates(cfg: AdamWConfig, params, grads, opt_state, gnorm=None):
     """One AdamW step. Returns ``(new_params, new_opt_state, metrics)``;
-    a new parameter requires grad where its old one did."""
+    a new parameter requires grad where its old one did. ``gnorm`` is the
+    norm the step clips by, ``global_norm(grads)`` unless given (a sharded
+    step updates its shards by the whole gradient's norm)."""
     step = opt_state["step"] + 1
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     lr = lr_at(cfg, step)
     b1, b2 = cfg.b1, cfg.b2

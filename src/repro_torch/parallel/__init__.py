@@ -1,3 +1,4 @@
-"""Parallelism helpers of the port (mirrors :mod:`repro.parallel`):
-gradient compression for the pod-level reduction. The reference's logical
-sharding rules and meshes (``sharding.py``) are not ported yet."""
+"""Parallelism helpers of the port (mirrors :mod:`repro.parallel`): the
+logical-axis sharding rules on a ``torch.distributed`` ``DeviceMesh``
+(:mod:`~repro_torch.parallel.sharding`) and gradient compression for the
+pod-level reduction (:mod:`~repro_torch.parallel.compression`)."""

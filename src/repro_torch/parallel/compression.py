@@ -94,6 +94,7 @@ def compressed_psum_pod(cfg: CompressionConfig, grads, err_state,
         g_hat, ne, wire = compress_leaf(cfg, g, e)
         wire_total += wire
         if group is not None:
+            g_hat = g_hat.contiguous()      # NCCL reduces contiguous tensors
             dist.all_reduce(g_hat, group=group)
         out.append(_div(g_hat, n))
         new_err.append(ne)

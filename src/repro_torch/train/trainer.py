@@ -1,4 +1,6 @@
-"""The training step on one device (mirrors :mod:`repro.train.trainer`).
+"""Training step builders (mirrors :mod:`repro.train.trainer`): the step
+on one device, the sharded step on a mesh (DP, FSDP) and the multi-pod
+step with a compressed pod-level reduction.
 
 A step is the gradient of the model's ``loss_fn`` (``torch.autograd.grad``
 in place of ``jax.value_and_grad``), then :func:`repro_torch.optim.adamw.
@@ -7,23 +9,40 @@ returns new trees, as the reference's does. Microbatches split the batch as
 the reference does (microbatch j holds rows j, j + mb, ...), accumulate the
 gradients in f32 and report the last microbatch's metrics.
 
-The reference's meshes, FSDP sharding and compressed multi-pod step
-(``state_shardings``, ``make_compressed_train_step``) need its
-``parallel/sharding.py`` and a mesh, which are not ported: a mesh or
-``fsdp`` is refused. The compression itself is
-(:mod:`repro_torch.parallel.compression`).
+On a mesh (a ``DeviceMesh``, :mod:`repro_torch.launch.mesh`) the state at
+rest is DTensors placed by :func:`state_shardings`: under FSDP each rank
+holds ``1/(data*model)`` of most leaves. The parameters are dict trees,
+not ``nn.Module``s, so the sharded step is the FSDP design in plain
+``torch.distributed``: (1) gather each parameter, (2) run the forward and
+backward on this rank's rows of the batch (sharded over the DP axes as
+:func:`~repro_torch.parallel.sharding.batch_shardings` says), (3) average
+the gradients over the DP axes, (4) clip by the whole gradient's norm, as
+``apply_updates`` does, and (5) update this rank's shards of the
+parameters and moments. Ranks that differ only on 'model' compute the
+same rows (the reference shards the model's matrices there; here they are
+gathered). On a mesh of one rank the step is the one-device step's, bit
+for bit. The compressed step averages each pod's gradient over its 'data'
+ranks, then runs it through
+:func:`~repro_torch.parallel.compression.compressed_psum_pod` over the
+mesh's 'pod' group.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+import math
+from typing import Any, Callable, Dict
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
+from repro_torch.configs import param_specs
 from repro_torch.models.common import (tree_leaves, tree_map,
                                        tree_unflatten)
 from repro_torch.models.transformer import ModelConfig, get_model
 from repro_torch.optim import adamw
+from repro_torch.parallel import compression as C
+from repro_torch.parallel import sharding as Sh
 
 
 @dataclasses.dataclass
@@ -103,41 +122,169 @@ def _grad_fn(model, microbatches: int) -> Callable:
     return grads_of
 
 
+def state_shardings(cfg: ModelConfig, mesh, *, fsdp: bool = False) -> Dict:
+    """:class:`~repro_torch.parallel.sharding.NamedSharding` trees for the
+    train state: parameters from the axes tree and the rules, the moments
+    following them, ``step`` replicated."""
+    shapes, axes = param_specs(cfg)
+    rules = Sh.make_rules(fsdp=fsdp, data_axes=Sh.dp_axes(mesh))
+    ps = Sh.param_shardings(axes, shapes, mesh, rules)
+    return {"params": ps,
+            "opt_state": {"m": ps, "v": ps, "step": Sh.replicated(mesh)},
+            "err_state": None}
+
+
+def shard_state(tree, shardings):
+    """``tree`` (the same full leaves on every rank) as DTensors placed by
+    ``shardings``, a tree of its structure: each rank keeps its blocks."""
+    return tree_map(Sh.distribute, tree, shardings)
+
+
+class _MeshStep:
+    """What a sharded step needs of its mesh: this rank's coordinate, the
+    DP axes' groups and sizes."""
+
+    def __init__(self, cfg, mesh, fsdp: bool):
+        self.mesh = mesh
+        self.shardings = state_shardings(cfg, mesh, fsdp=fsdp)
+        self.coord = tuple(mesh.get_coordinate())
+        self.dp = Sh.dp_axes(mesh)
+        self.sizes = Sh.mesh_shape(mesh).shape
+
+    def rows(self, batch, microbatches: int = 1):
+        """This rank's rows of each leaf of ``batch`` (the global batch,
+        on every rank), as ``batch_shardings`` places them."""
+        batch = {k: v.full_tensor() if isinstance(v, DTensor) else v
+                 for k, v in batch.items()}
+        sh = Sh.batch_shardings(batch, self.mesh)
+        out = {k: v[sh[k].block(tuple(v.shape), self.coord)]
+               for k, v in batch.items()}
+        for k, v in out.items():
+            if v.shape[0] % microbatches:
+                raise ValueError(
+                    f"{k}: this rank's {v.shape[0]} rows do not split into "
+                    f"{microbatches} microbatches")
+        return out
+
+    def mean(self, t: torch.Tensor, axes) -> torch.Tensor:
+        """``t`` summed over the mesh ``axes`` and divided by their size,
+        in place (a metric may share its storage with the loss: pass a
+        clone). NCCL reduces contiguous tensors only: a gradient that
+        autograd laid out otherwise is reduced in a contiguous copy and
+        copied back, so it keeps its layout (and the clip norm its order
+        of summation)."""
+        buf = t if t.is_contiguous() else t.contiguous()
+        for a in axes:
+            dist.all_reduce(buf, group=self.mesh.get_group(a))
+        buf.div_(math.prod(self.sizes[a] for a in axes))
+        return t if buf is t else t.copy_(buf)
+
+    def update(self, opt_cfg, params, opt_state, grads):
+        """This rank's shards of the parameters and moments updated by the
+        whole averaged ``grads`` (clipped by their norm), as DTensors."""
+        gnorm = adamw.global_norm(grads)
+        local = lambda t: t.to_local()
+        g_loc = tree_map(lambda g, s: g[s.block(tuple(g.shape), self.coord)],
+                         grads, self.shardings["params"])
+        new_p, new_opt, opt_m = adamw.apply_updates(
+            opt_cfg, tree_map(local, params), g_loc,
+            {"m": tree_map(local, opt_state["m"]),
+             "v": tree_map(local, opt_state["v"]),
+             "step": opt_state["step"].to_local()}, gnorm=gnorm)
+
+        def back(t, ref):
+            return DTensor.from_local(t, ref.device_mesh, ref.placements,
+                                      run_check=False, shape=ref.shape,
+                                      stride=ref.stride())
+
+        return (tree_map(back, new_p, params),
+                {"m": tree_map(back, new_opt["m"], opt_state["m"]),
+                 "v": tree_map(back, new_opt["v"], opt_state["v"]),
+                 "step": back(new_opt["step"], opt_state["step"])}, opt_m)
+
+
+def _gathered(params):
+    """Every parameter gathered whole, as a leaf that requires grad."""
+    return tree_map(lambda p: p.full_tensor().detach().requires_grad_(),
+                    params)
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
                     mesh=None, *, fsdp: bool = False,
                     microbatches: int = 1) -> Callable:
     """The train step ``step(params, opt_state, batch) -> (params,
-    opt_state, metrics)`` on the device of its inputs; ``metrics`` holds
-    the loss, the last microbatch's ``ce_loss`` (and ``aux_loss``), the
-    gradient norm and the learning rate. The reference's ``donate`` has no
+    opt_state, metrics)``; ``metrics`` holds the loss, the last
+    microbatch's ``ce_loss`` (and ``aux_loss``), the gradient norm and the
+    learning rate. With no ``mesh`` it runs on the device of its inputs;
+    on a ``mesh`` the state is DTensors placed by
+    ``state_shardings(cfg, mesh, fsdp=fsdp)`` (:func:`shard_state`) and
+    ``batch`` the global batch on every rank, and the loss and metrics are
+    the global batch's means. The reference's ``donate`` has no
     counterpart: the old trees are freed once the caller drops them."""
-    if mesh is not None or fsdp:
-        raise NotImplementedError(
-            "meshes and FSDP sharding need parallel/sharding.py and "
-            "launch/mesh.py, which the port has not got yet; the step runs "
-            "on one device")
     grads_of = _grad_fn(get_model(cfg), microbatches)
+    if mesh is None:
+        if fsdp:
+            raise ValueError("fsdp shards the state over a mesh's DP axes: "
+                             "pass a mesh")
 
-    def step_fn(params, opt_state, batch):
-        grads, loss, metrics = grads_of(params, batch)
-        new_params, new_opt, opt_m = adamw.apply_updates(
-            opt_cfg, params, grads, opt_state)
-        metrics = dict(metrics)
+        def step_fn(params, opt_state, batch):
+            grads, loss, metrics = grads_of(params, batch)
+            new_params, new_opt, opt_m = adamw.apply_updates(
+                opt_cfg, params, grads, opt_state)
+            metrics = dict(metrics)
+            metrics.update(opt_m)
+            metrics["loss"] = loss
+            return new_params, new_opt, metrics
+
+        return step_fn
+
+    ms = _MeshStep(cfg, mesh, fsdp)
+
+    def mesh_step(params, opt_state, batch):
+        grads, loss, metrics = grads_of(_gathered(params),
+                                        ms.rows(batch, microbatches))
+        for g in tree_leaves(grads):
+            ms.mean(g, ms.dp)
+        new_params, new_opt, opt_m = ms.update(opt_cfg, params, opt_state,
+                                               grads)
+        metrics = {k: ms.mean(v.clone(), ms.dp) for k, v in metrics.items()}
         metrics.update(opt_m)
-        metrics["loss"] = loss
+        metrics["loss"] = ms.mean(loss.clone(), ms.dp)
         return new_params, new_opt, metrics
 
-    return step_fn
+    return mesh_step
 
 
 def make_compressed_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
-                               mesh, comp, *, fsdp: bool = False):
-    """The reference's multi-pod step with a compressed pod-level
-    reduction: not ported. Its compression is
-    (:mod:`repro_torch.parallel.compression`); the mesh with a ``pod``
-    axis that it runs over is not."""
-    raise NotImplementedError(
-        "the compressed multi-pod train step needs a mesh with a 'pod' axis "
-        "(parallel/sharding.py and launch/mesh.py), which the port has not "
-        "got yet; parallel.compression.compressed_psum_pod runs over a "
-        "torch.distributed group")
+                               mesh, comp: C.CompressionConfig, *,
+                               fsdp: bool = False) -> Callable:
+    """The multi-pod step ``step(params, opt_state, err_state, batch) ->
+    (params, opt_state, err_state, metrics)`` on a mesh with a 'pod' axis
+    (the reference's assert): each pod's gradient, averaged over its
+    'data' ranks, is compressed with its error feedback (``err_state``:
+    ``compression.init_error_state`` of the full parameters, on every
+    rank) and averaged over the 'pod' group; the loss is the pods' mean,
+    and ``metrics["wire_bytes_pod"]`` the bytes one pod sends (a Python
+    int). The state is placed as :func:`make_train_step`'s."""
+    if mesh is None or "pod" not in Sh.mesh_shape(mesh).axis_names:
+        raise ValueError("the compressed step reduces over a 'pod' mesh "
+                         "axis: pass a mesh with one")
+    grads_of = _grad_fn(get_model(cfg), 1)
+    ms = _MeshStep(cfg, mesh, fsdp)
+    data = tuple(a for a in ms.dp if a != "pod")
+
+    def pod_step(params, opt_state, err_state, batch):
+        grads, loss, metrics = grads_of(_gathered(params), ms.rows(batch))
+        for g in tree_leaves(grads):
+            ms.mean(g, data)
+        grads, new_err, wire = C.compressed_psum_pod(
+            comp, grads, err_state, group=mesh.get_group("pod"))
+        new_params, new_opt, opt_m = ms.update(opt_cfg, params, opt_state,
+                                               grads)
+        metrics = {k: ms.mean(v.clone(), ms.dp) for k, v in metrics.items()}
+        metrics.update(opt_m)
+        metrics["loss"] = ms.mean(ms.mean(loss.clone(), data), ("pod",))
+        metrics["wire_bytes_pod"] = wire
+        return new_params, new_opt, new_err, metrics
+
+    return pod_step

@@ -92,6 +92,31 @@ def test_async_save_then_restore(tmp_path):
     assert_bits_equal(mgr.restore(5, st), want)
 
 
+def test_restore_reads_any_savez_archive_and_refuses_corruption(tmp_path):
+    """``restore`` reads the archive's stored members itself: one written
+    by ``np.savez`` directly (no ``__dtypes__``: the reference's format; a
+    Fortran-ordered leaf, a 0-d one) restores value for value, and a
+    member whose bytes changed fails its CRC-32."""
+    w = np.arange(12, dtype=np.float32).reshape(3, 4)
+    path = tmp_path / "ckpt_00000002.npz"
+    with open(path, "wb") as f:
+        np.savez(f, **{"p/w": np.asfortranarray(w), "p/s": np.int32(4),
+                       "p/v": np.arange(5, dtype=np.float64)})
+    mgr = CheckpointManager(str(tmp_path))
+    target = {"p": {"w": torch.zeros((3, 4)), "s": torch.tensor(0),
+                    "v": torch.zeros(5, dtype=torch.float64)}}
+    got = mgr.restore(2, target)
+    assert torch.equal(got["p"]["w"], torch.from_numpy(w))
+    assert got["p"]["s"].dtype == torch.int64 and int(got["p"]["s"]) == 4
+    assert torch.equal(got["p"]["v"], torch.arange(5, dtype=torch.float64))
+    raw = bytearray(path.read_bytes())
+    at = raw.rfind(np.arange(5, dtype=np.float64).tobytes())
+    raw[at + 9] ^= 0xFF
+    path.write_bytes(bytes(raw))
+    with pytest.raises(ValueError, match="corrupt"):
+        mgr.restore(2, target)
+
+
 def test_fault_injector_fires_once_per_step():
     for inj in (FaultInjector([3, 5]), RefFaultInjector([3, 5])):
         fired = []

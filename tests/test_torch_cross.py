@@ -147,12 +147,13 @@ def test_apply_cross_matches_reference(n_kv, use_cache):
 
 
 def test_init_cross_leaves_equal_reference_shapes():
-    want, _ = rattn.init_cross(jax.random.PRNGKey(0), 32, 4, 2, 8, 24,
-                               jnp.float32)
-    got = attention.init_cross(torch.Generator().manual_seed(0), 32, 4, 2, 8,
-                               24, torch.float32, "cpu")
+    want, want_axes = rattn.init_cross(jax.random.PRNGKey(0), 32, 4, 2, 8,
+                                       24, jnp.float32)
+    got, axes = attention.init_cross(torch.Generator().manual_seed(0), 32, 4,
+                                     2, 8, 24, torch.float32, "cpu")
     assert {k: tuple(v.shape) for k, v in got.items()} == \
         {k: v.shape for k, v in want.items()}
+    assert axes == want_axes
 
 
 @pytest.mark.parametrize("Sq,Skv,chunks", [(1, 1601, 1), (1, 4096, 1),

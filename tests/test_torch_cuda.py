@@ -10,8 +10,11 @@ the segment-restart hooks, the compaction driver and the streaming driver
 on the card against one call, the one-shot run and the CPU path, every
 kernel refusing autograd, a crash-restart training run resuming bit for
 bit, the smoke MoE, cross-attention and xLSTM configs on the card against
-the CPU, the sort-based admission rankings against the kernel, and the
-gradient compression on the card against the CPU.
+the CPU, the sort-based admission rankings against the kernel, the
+gradient compression on the card against the CPU, and the training step
+on a one-rank NCCL mesh against the meshless step (with restoring onto
+another mesh, the compressed pod step and the hybrid's experts and MLA
+variants).
 
 These tests need a CUDA device and ``nvcc`` and skip elsewhere. They
 import the port only (no JAX, no reference), so they also run where the
@@ -1050,3 +1053,49 @@ def test_compression_card_equals_cpu():
     for bit over three rounds, and the one-rank NCCL group == no group."""
     _need_card()
     _chip_smoke().compression_card_vs_cpu(torch)
+
+
+@pytest.mark.cuda
+def test_mesh_step_equals_meshless_and_restores_onto_pod_mesh(tmp_path):
+    """``chip_smoke.py`` 23(a) and (c) on the smoke llama: ``run_training``
+    on a one-rank NCCL ``(1, 1)`` mesh with FSDP equals the meshless step
+    bit for bit after each of 3 steps (deterministic algorithms), and its
+    checkpoint restores onto the ``(1, 1, 1)`` pod mesh and onto no mesh
+    bit for bit."""
+    _need_card()
+    cs = _chip_smoke()
+    kw = dict(steps=3, batch=4, seq=32, lr=3e-4)
+    with cs.one_rank_nccl(torch):
+        st = cs.mesh_train_twin(torch, "llama3.2-1b", True, kw,
+                                str(tmp_path))
+        assert st["out"]["final_step"] == 3
+        cs.restore_twin(torch, st["cfg"], str(tmp_path), 3,
+                        st["out"]["state"])
+
+
+@pytest.mark.cuda
+def test_compressed_step_on_card_pod_mesh():
+    """``chip_smoke.py`` 23(b) on the smoke llama: finite, falling losses
+    and the wire bytes of int8 compression, over the pod group."""
+    _need_card()
+    cs = _chip_smoke()
+    with cs.one_rank_nccl(torch):
+        losses, wire, _ = cs.compressed_twin(
+            torch, configs.get_smoke_config("llama3.2-1b"),
+            dict(batch=8, seq=32, lr=1e-2), 3)
+    assert len(losses) == 3 and wire > 0
+
+
+@pytest.mark.cuda
+def test_hybrid_experts_and_mla_card_equals_cpu():
+    """``chip_smoke.py`` 23(d): the hybrid's experts and MLA variants
+    through the SSD and flash kernels against the CPU, the MLA prefill
+    refused."""
+    _need_card()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        errs = _chip_smoke().hybrid_variants_card_vs_cpu(torch)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert sorted(errs) == ["n_experts=4", "use_mla"]

@@ -97,11 +97,12 @@ def test_gelu_mlp_matches_reference_and_is_the_tanh_form():
 
 
 def test_init_gelu_mlp_keys_shapes_and_zero_biases():
-    want = jcommon.init_gelu_mlp(jax.random.PRNGKey(0), 16, 40,
-                                 jnp.float32)[0]
-    got = common.init_gelu_mlp(torch.Generator().manual_seed(0), 16, 40,
-                               torch.float32, "cpu")
+    want, want_axes = jcommon.init_gelu_mlp(jax.random.PRNGKey(0), 16, 40,
+                                            jnp.float32)
+    got, axes = common.init_gelu_mlp(torch.Generator().manual_seed(0), 16,
+                                     40, torch.float32, "cpu")
     assert list(got) == list(want)
+    assert axes == want_axes
     for k in want:
         assert tuple(got[k].shape) == want[k].shape
     assert not got["b_up"].any() and not got["b_down"].any()
@@ -112,12 +113,15 @@ def test_stack_layers_draws_as_a_stack_of_blocks():
     """The stacked build holds the blocks that drawing them one by one and
     stacking gives, bit for bit."""
     def one(g):
-        return {"a": torch.randn((3, 2), generator=g),
-                "b": {"c": torch.randn(4, generator=g).to(torch.bfloat16)}}
+        return ({"a": torch.randn((3, 2), generator=g),
+                 "b": {"c": torch.randn(4, generator=g).to(torch.bfloat16)}},
+                {"a": ("embed", "mlp"), "b": {"c": ("heads",)}})
 
-    got = common.stack_layers(torch.Generator().manual_seed(7), 5, one)
+    got, axes = common.stack_layers(torch.Generator().manual_seed(7), 5, one)
+    assert axes == {"a": ("layers", "embed", "mlp"),
+                    "b": {"c": ("layers", "heads")}}
     g = torch.Generator().manual_seed(7)
-    blocks = [one(g) for _ in range(5)]
+    blocks = [one(g)[0] for _ in range(5)]
     assert torch.equal(got["a"], torch.stack([b["a"] for b in blocks]))
     assert torch.equal(got["b"]["c"],
                        torch.stack([b["b"]["c"] for b in blocks]))
@@ -252,7 +256,7 @@ def test_param_and_input_specs_equal_reference(arch):
     reference's. The port's specs live on the meta device."""
     rcfg, cfg = RCN.get_config(arch), CN.get_config(arch)
     pshapes, axes = CN.param_specs(cfg)
-    assert axes is None
+    assert axes == RCN.param_specs(rcfg)[1]
     assert list(_flat(pshapes)) == list(_flat(RCN.param_specs(rcfg)[0]))
     assert all(t.device.type == "meta" for t in common.tree_leaves(pshapes))
     for name, spec in CN.SHAPES.items():

@@ -181,3 +181,102 @@ def test_prefill_decode_matches_own_loss_path(ref_params):
     _, cache = tm.decode_step(tp, toks[:, S - 2:S - 1], cache, S - 2)
     l2, _ = tm.decode_step(tp, toks[:, S - 1:S], cache, S - 1)
     close(l2[:, 0], full[:, -1].numpy(), LOGIT_ATOL)
+
+
+# ------------------------------------------- experts and MLA in the hybrid
+
+MLA_DIMS = dict(q_rank=32, kv_rank=16, d_nope=8, d_rope=8, d_v=16)
+GRAD_TOL = 1e-4      # the hybrid's gradients, as in test_torch_train.py
+
+
+def ref_pair_params(**kw):
+    """(reference model, port model, the reference's weights of that
+    config as numpy)."""
+    jm, tm = pair(**kw)
+    params, _ = jm.init(jax.random.PRNGKey(0))
+    return jm, tm, jax.tree_util.tree_map(np.asarray, params)
+
+
+def test_experts_leave_the_shared_block_dense_as_the_reference():
+    """``n_experts=4``: the shared block is built dense (the reference's
+    ``moe_ffn=False``), and ``loss_fn``, ``prefill`` and two
+    ``decode_step`` calls equal the reference's."""
+    jm, tm, rp = ref_pair_params(n_experts=4)
+    assert sorted(rp["shared_attn"]["ffn"]) == ["w_down", "w_gate", "w_up"]
+    _, axes = tm.init(0, "cpu", with_axes=True)
+    assert axes == jm.init(jax.random.PRNGKey(0))[1]
+    jp = jax.tree_util.tree_map(jnp.asarray, rp)
+    tp = weights.from_reference(rp, device="cpu")
+    toks, labels = tokens(6), tokens(7)
+    want, _ = jm.loss_fn(jp, {"tokens": jnp.asarray(toks),
+                              "labels": jnp.asarray(labels)})
+    got, _ = tm.loss_fn(tp, {"tokens": torch.from_numpy(toks),
+                             "labels": torch.from_numpy(labels)})
+    close(got, want, LOSS_ATOL)
+    jl, jc = jm.prefill(jp, jnp.asarray(toks[:, :11]), max_len=16)
+    tl, tc = tm.prefill(tp, torch.from_numpy(toks[:, :11]), max_len=16)
+    close(tl, jl, LOGIT_ATOL)
+    for i in range(2):
+        tok = np.argmax(np.asarray(jl[:, -1]), -1)[:, None].astype(np.int32)
+        jl, jc = jm.decode_step(jp, jnp.asarray(tok), jc, jnp.int32(11 + i))
+        tl, tc = tm.decode_step(tp, torch.from_numpy(tok), tc, 11 + i)
+        close(tl, jl, LOGIT_ATOL)
+
+
+def test_mla_hybrid_trains_as_the_reference_and_refuses_prefill():
+    """``use_mla=True``: the loss, the gradients and one training step's
+    metrics equal the reference's (``_grad_fn`` + ``apply_updates`` under
+    ``jax.jit``); the prefill, which the reference cannot run (it writes
+    MLA's latent into the GQA-shaped shared cache), raises ``ValueError``
+    naming that failure."""
+    from repro.optim import adamw as ref_adamw
+    from repro.train import trainer as ref_trainer
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.optim import adamw
+    from repro_torch.train import trainer
+    jm, tm, rp = ref_pair_params(use_mla=True, **MLA_DIMS)
+    assert sorted(rp["shared_attn"]["attn"]) == [
+        "kv_norm", "q_norm", "wkv_a", "wkv_b", "wo", "wq_a", "wq_b"]
+    jp = jax.tree_util.tree_map(jnp.asarray, rp)
+    toks, labels = tokens(8), tokens(9)
+    jb = {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)}
+    tb = {"tokens": torch.from_numpy(toks), "labels": torch.from_numpy(labels)}
+    kw = dict(lr=3e-3, warmup_steps=2, total_steps=5)
+    rcfg, cfg = ref_adamw.AdamWConfig(**kw), adamw.AdamWConfig(**kw)
+    rgrads_of = ref_trainer._grad_fn(jm, 1)
+
+    @jax.jit
+    def rstep(p, o, b):
+        g, loss, met = rgrads_of(p, b)
+        p, o, om = ref_adamw.apply_updates(rcfg, p, g, o)
+        return g, p, dict(met, **om, loss=loss)
+
+    rgrads, rnew, rmet = rstep(jp, ref_adamw.init_opt_state(rcfg, jp), jb)
+    params = trainer.trainable(weights.from_reference(rp, device="cpu"))
+    grads, loss, _ = trainer._grad_fn(tm, 1)(params, tb)
+    close(loss, rmet["loss"], LOSS_ATOL)
+    want_g = weights.from_reference(
+        jax.tree_util.tree_map(np.asarray, rgrads), device="cpu")
+    diff = tree_map(lambda a, b: a - b, grads, want_g)
+    assert float(adamw.global_norm(diff) / adamw.global_norm(want_g)) \
+        < GRAD_TOL
+    step = trainer.make_train_step(tm.cfg, cfg)
+    new, _, met = step(params, adamw.init_opt_state(cfg, params), tb)
+    assert sorted(met) == sorted(rmet)
+    for k in met:
+        assert float(met[k]) == pytest.approx(float(rmet[k]), rel=GRAD_TOL,
+                                              abs=LOSS_ATOL), k
+    # AdamW's first step moves each parameter by at most lr (2 lr where a
+    # rounding-level gradient's sign flips between the two frameworks)
+    want_p = weights.from_reference(
+        jax.tree_util.tree_map(np.asarray, rnew), device="cpu")
+    for a, b in zip(tree_leaves(new), tree_leaves(want_p)):
+        assert float((a.detach() - b).abs().max()) <= 2 * kw["lr"] + 1e-6
+    with pytest.raises(ValueError, match="dynamic_update_slice"):
+        tm.prefill(tp := weights.from_reference(rp, device="cpu"),
+                   torch.from_numpy(toks), max_len=16)
+    with pytest.raises(ValueError, match="dynamic_update_slice"):
+        tm.decode_step(tp, torch.from_numpy(toks[:, :1]),
+                       tm.init_cache(B, 16, "cpu"), 0)
+    with pytest.raises(Exception):      # the reference's own failure
+        jm.prefill(jp, jnp.asarray(toks), max_len=16)

@@ -464,9 +464,10 @@ def test_serving_without_card_raises_unless_cpu_is_asked_for(monkeypatch):
     (dict(family="vlm", cross_every=1), ValueError),
     # a hybrid without its SSM fields is malformed, not unported
     (dict(family="hybrid"), ValueError),
-    # experts in the hybrid's shared block are not ported
-    (dict(family="hybrid", attn_every=2, ssm_state=16, n_experts=4),
-     NotImplementedError),
+    # MLA in the hybrid's shared block under flash: the kernel takes one
+    # head dim for q, k and v, MLA's v is narrower
+    (dict(family="hybrid", attn_every=2, ssm_state=16, use_mla=True,
+          attn_impl="flash"), ValueError),
     # a family neither package has
     (dict(family="rnn"), ValueError),
     # an encoder-decoder needs both stacks, where the reference asserts

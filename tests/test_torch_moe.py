@@ -165,11 +165,12 @@ def test_apply_moe_matches_reference(name, monkeypatch):
 
 
 def test_init_moe_leaves_equal_reference_shapes():
-    want, _ = rmoe.init_moe(jax.random.PRNGKey(0), D, 24, 8, 1, 24,
-                            jnp.float32)
-    got = moe.init_moe(torch.Generator().manual_seed(0), D, 24, 8, 1, 24,
-                       torch.float32, "cpu")
+    want, want_axes = rmoe.init_moe(jax.random.PRNGKey(0), D, 24, 8, 1, 24,
+                                    jnp.float32)
+    got, axes = moe.init_moe(torch.Generator().manual_seed(0), D, 24, 8, 1,
+                             24, torch.float32, "cpu")
     assert sorted(got) == sorted(want)
+    assert axes == want_axes
     for k in want:
         assert tuple(got[k].shape) == want[k].shape, k
 
@@ -180,11 +181,13 @@ def test_by_slice_draws_each_slice_as_its_own_leaf():
     one ``randn`` each would give, in order."""
     b = common.Builder(torch.Generator().manual_seed(3), torch.bfloat16,
                        "cpu")
-    b.dense("w", (4, 5, 3), by_slice=True)
+    b.dense("w", (4, 5, 3), ("experts", "embed", "mlp"), by_slice=True)
     g = torch.Generator().manual_seed(3)
     want = torch.stack([(torch.randn((5, 3), generator=g) * 0.5).to(
         torch.bfloat16) for _ in range(4)])
-    assert torch.equal(b.done()["w"], want)
+    params, axes = b.done()
+    assert torch.equal(params["w"], want)
+    assert axes == {"w": ("experts", "embed", "mlp")}
 
 
 def test_stack_of_one_block_is_a_view():
@@ -194,9 +197,10 @@ def test_stack_of_one_block_is_a_view():
 
     def one(g):
         block["a"] = torch.randn((3, 2), generator=g)
-        return dict(block)
+        return dict(block), {"a": ("embed", "mlp")}
 
-    got = common.stack_layers(torch.Generator().manual_seed(1), 1, one)
+    got, axes = common.stack_layers(torch.Generator().manual_seed(1), 1, one)
+    assert axes == {"a": ("layers", "embed", "mlp")}
     assert got["a"].shape == (1, 3, 2)
     assert got["a"].data_ptr() == block["a"].data_ptr()
     assert torch.equal(got["a"][0], block["a"])

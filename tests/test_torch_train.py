@@ -41,6 +41,7 @@ from repro_torch.models.common import tree_leaves, tree_map
 from repro_torch.models.transformer import get_model
 from repro_torch.models.weights import from_reference
 from repro_torch.optim import adamw
+from repro_torch.parallel.sharding import MeshShape
 from repro_torch.train import trainer
 
 ARCHS = ("llama3.2-1b", "zamba2-1.2b")
@@ -241,14 +242,17 @@ def test_microbatches_equal_one_pass():
 
 
 def test_unported_training_arguments_are_refused():
+    """FSDP needs a mesh to shard over, and the compressed step a mesh
+    with a ``pod`` axis (the reference asserts it)."""
     cfg = CN.get_smoke_config("llama3.2-1b")
     opt = adamw.AdamWConfig()
-    with pytest.raises(NotImplementedError, match="parallel"):
-        trainer.make_train_step(cfg, opt, mesh=object())
-    with pytest.raises(NotImplementedError, match="parallel"):
+    with pytest.raises(ValueError, match="mesh"):
         trainer.make_train_step(cfg, opt, fsdp=True)
-    with pytest.raises(NotImplementedError, match="parallel"):
-        trainer.make_compressed_train_step(cfg, opt, object(), object())
+    with pytest.raises(ValueError, match="pod"):
+        trainer.make_compressed_train_step(cfg, opt, None, object())
+    with pytest.raises(ValueError, match="pod"):
+        trainer.make_compressed_train_step(
+            cfg, opt, MeshShape(("data", "model"), (2, 2)), object())
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -1,0 +1,282 @@
+"""The ranks of ``tests/test_torch_mesh.py``: every multi-rank check of the
+port's meshes, run by each of a few ``gloo`` ranks spawned on the CPU.
+
+``main`` joins the group (``file://`` rendezvous, no network), runs each
+check in turn on every rank (they are collective: every rank runs them in
+the same order) and writes ``rank<r>.json`` with each check's result, or
+the traceback it raised. Imports torch and the port only.
+"""
+import datetime
+import json
+import math
+import os
+import tempfile
+import traceback
+
+import torch
+import torch.distributed as dist
+
+CFG_ARCH = "llama3.2-1b"
+B, S = 8, 16          # 8 rows: 2 per DP rank of a 2 x 2 mesh
+STEPS = 2
+
+
+def _rel(a, b) -> float:
+    """||a - b|| / ||b|| over two trees' leaves."""
+    from repro_torch.models.common import tree_leaves
+    num = sum(float(((x.double() - y.double()) ** 2).sum())
+              for x, y in zip(tree_leaves(a), tree_leaves(b)))
+    den = sum(float((y.double() ** 2).sum()) for y in tree_leaves(b))
+    return math.sqrt(num / den)
+
+
+def _full(tree):
+    from repro_torch.models.common import tree_map
+    return tree_map(lambda t: t.full_tensor(), tree)
+
+
+def _same(a, b) -> bool:
+    from repro_torch.models.common import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def _setup():
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.optim import adamw
+    cfg = configs.get_smoke_config(CFG_ARCH)
+    opt = adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    dcfg = DataConfig(cfg.vocab_size, B, S)
+    return cfg, opt, [synth_batch(dcfg, i, "cpu") for i in range(STEPS)]
+
+
+def check_blocks(meshes, cases):
+    """Each case's local block (``distribute(...).to_local()``) and
+    ``NamedSharding.block`` against the reference's
+    ``devices_indices_map`` at this rank's mesh coordinate."""
+    from repro_torch.parallel import sharding as Sh
+    out = []
+    for case in cases:
+        mesh = meshes[case["mesh"]]
+        shape = tuple(case["shape"])
+        spec = tuple(tuple(e) if isinstance(e, list) else e
+                     for e in case["spec"])
+        sh = Sh.NamedSharding(mesh, spec)
+        full = torch.arange(math.prod(shape), dtype=torch.float32).reshape(
+            shape)
+        coord = tuple(mesh.get_coordinate())
+        flat = 0
+        for c, n in zip(coord, Sh.mesh_shape(mesh).sizes):
+            flat = flat * n + c
+        want = tuple(slice(a, b) for a, b in case["blocks"][flat])
+        local = Sh.distribute(full, sh).to_local()
+        out.append({"name": case["name"], "coord": coord,
+                    "local": torch.equal(local, full[want]),
+                    "block": sh.block(shape, coord) == want})
+    return out
+
+
+def check_sharded_step(meshes, fsdp):
+    """Two steps on the 2 x 2 mesh against the one-device step on the
+    same batches: losses and parameters, and the share of the state this
+    rank holds."""
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.train import trainer
+    cfg, opt, batches = _setup()
+    mesh = meshes["2x2"]
+    st = trainer.init_train_state(cfg, opt, 0, "cpu")
+    sh = trainer.state_shardings(cfg, mesh, fsdp=fsdp)
+    placed = trainer.shard_state({"params": st.params,
+                                  "opt_state": st.opt_state},
+                                 {"params": sh["params"],
+                                  "opt_state": sh["opt_state"]})
+    held = sum(t.to_local().numel() for t in tree_leaves(placed["params"]))
+    total = sum(t.numel() for t in tree_leaves(st.params))
+    step = trainer.make_train_step(cfg, opt, mesh, fsdp=fsdp)
+    one = trainer.make_train_step(cfg, opt)
+    p, o = placed["params"], placed["opt_state"]
+    q, r = st.params, st.opt_state
+    losses, want = [], []
+    for batch in batches:
+        p, o, m = step(p, o, batch)
+        q, r, n = one(q, r, batch)
+        losses.append(float(m["loss"]))
+        want.append(float(n["loss"]))
+    return {"losses": losses, "want": want,
+            "params_rel": _rel(_full(p), q),
+            "moments_rel": _rel(_full(o["v"]), r["v"]),
+            "steps": int(o["step"].full_tensor()), "held": held / total}
+
+
+def check_compressed_step(meshes):
+    """The compressed step on the (2, 2, 1) pod mesh against its
+    emulation in this process: per pod the mean of its two 'data' ranks'
+    gradients, compressed with the pod's error, averaged over the pods,
+    then ``apply_updates``."""
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.models.transformer import get_model
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import compression as C
+    from repro_torch.train import trainer
+    cfg, opt, batches = _setup()
+    mesh = meshes["pod"]
+    comp = C.CompressionConfig(kind="int8")
+    st = trainer.init_train_state(cfg, opt, 0, "cpu")
+    sh = trainer.state_shardings(cfg, mesh, fsdp=True)
+    placed = trainer.shard_state({"params": st.params,
+                                  "opt_state": st.opt_state},
+                                 {"params": sh["params"],
+                                  "opt_state": sh["opt_state"]})
+    step = trainer.make_compressed_train_step(cfg, opt, mesh, comp,
+                                              fsdp=True)
+    vg = trainer._value_and_grad(get_model(cfg))
+    pod = mesh.get_coordinate()[0]
+    p, o = placed["params"], placed["opt_state"]
+    err = C.init_error_state(comp, st.params)
+    q, r = st.params, st.opt_state
+    errs = [C.init_error_state(comp, st.params) for _ in range(2)]
+    out = {"loss": [], "want_loss": [], "params_err": [], "err_err": [],
+           "wire": [], "want_wire": []}
+    for batch in batches:
+        p, o, err, m = step(p, o, err, batch)
+        quarter = [vg(trainer.trainable(q),
+                      {k: v[2 * i:2 * i + 2] for k, v in batch.items()})
+                   for i in range(4)]
+        pods, losses = [], []
+        for k in range(2):
+            (ga, la, _), (gb, lb, _) = quarter[2 * k], quarter[2 * k + 1]
+            g = tree_map(lambda a, b: (a + b) / 2, ga, gb)
+            g_hat, errs[k], wire = C.compressed_psum_pod(comp, g, errs[k])
+            pods.append(g_hat)
+            losses.append((la + lb) / 2)
+        avg = tree_map(lambda a, b: C._div(a + b, 2), *pods)
+        q, r, _ = adamw.apply_updates(opt, q, avg, r)
+        out["loss"].append(float(m["loss"]))
+        out["want_loss"].append(float((losses[0] + losses[1]) / 2))
+        out["params_err"].append(max(float((a - b).abs().max()) for a, b in
+                                     zip(tree_leaves(_full(p)),
+                                         tree_leaves(q))))
+        out["err_err"].append(max(float((a.float() - b.float()).abs().max())
+                                  for a, b in zip(tree_leaves(err),
+                                                  tree_leaves(errs[pod]))))
+        out["wire"].append(m["wire_bytes_pod"])
+        out["want_wire"].append(sum(t.numel() + 4
+                                    for t in tree_leaves(st.params)))
+    return out
+
+
+def check_checkpoint(meshes, ckpt_dir):
+    """A state saved from the (1, 4) mesh restored onto (2, 2) and onto no
+    mesh, bit for bit, with the target shardings' placements."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.models.common import tree_items
+    from repro_torch.train import trainer
+    cfg, opt, _ = _setup()
+    st = trainer.init_train_state(cfg, opt, 3, "cpu")
+    full = {"params": st.params, "opt_state": st.opt_state}
+
+    def shardings(mesh):
+        sh = trainer.state_shardings(cfg, mesh, fsdp=True)
+        return {"params": sh["params"], "opt_state": sh["opt_state"]}
+
+    saved = trainer.shard_state(full, shardings(meshes["1x4"]))
+    mgr = CheckpointManager(ckpt_dir)
+    mgr.save(5, saved)
+    onto = shardings(meshes["2x2"])
+    back = mgr.restore(5, saved, onto)
+    plain = mgr.restore(5, saved)
+    placements = all(
+        list(t.placements) == s.placements
+        for (_, t), (_, s) in zip(tree_items(back), tree_items(onto)))
+    return {"onto_mesh": _same(_full(back), full),
+            "placements": placements,
+            "onto_no_mesh": _same(plain, full),
+            "steps": mgr.all_steps()}
+
+
+def check_crash_restart(meshes, ckpt_dir):
+    """``run_training`` on the 2 x 2 mesh with FSDP and a fault at step 3
+    resumes from the step-2 checkpoint and ends bit for bit where the
+    uninterrupted meshed run does."""
+    from repro_torch.launch.train import run_training
+    kw = dict(steps=4, batch=B, seq=S, ckpt_every=2, log_every=4,
+              mesh=meshes["2x2"], fsdp=True, device="cpu")
+    a = run_training(CFG_ARCH, ckpt_dir=os.path.join(ckpt_dir, "a"),
+                     fault_at=(3,), **kw)
+    b = run_training(CFG_ARCH, ckpt_dir=os.path.join(ckpt_dir, "b"), **kw)
+    return {"restarts": [a["restarts"], b["restarts"]],
+            "restored_from": a["restored_from"],
+            "same": _same(_full(a["state"]["params"]),
+                          _full(b["state"]["params"]))}
+
+
+def check_meshes():
+    from repro_torch.launch import mesh as M
+    debug = M.make_debug_mesh(device="cpu")
+    try:
+        M.make_production_mesh(device="cpu")
+        production = "built"
+    except ValueError as e:
+        production = str(e)
+    return {"debug": [list(debug.mesh_dim_names), list(debug.shape)],
+            "production": production}
+
+
+def check_constraints(meshes):
+    """Under an installed mesh the helpers redistribute a DTensor to the
+    reference's spec and keep its values."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    from repro_torch.parallel import sharding as Sh
+    mesh = meshes["2x2"]
+    x = torch.arange(4 * 8 * 2 * 3, dtype=torch.float32).reshape(4, 8, 2, 3)
+    d = distribute_tensor(x, mesh, [Replicate(), Replicate()],
+                          src_data_rank=None)
+    with Sh.activation_mesh(mesh):
+        kv = Sh.constrain_kv_cache(d)
+        q = Sh.constrain_decode_q(d[:, :1])
+        sq = Sh.maybe_seq_shard_q(d[:, :, :1])     # 1 head: not divisible
+    return {"kv": [str(p) for p in kv.placements],
+            "q": [str(p) for p in q.placements],
+            "seq_q": [str(p) for p in sq.placements],
+            "values": torch.equal(kv.full_tensor(), x)
+            and torch.equal(sq.full_tensor(), x[:, :, :1])}
+
+
+def main(rank: int, world: int, init_file: str, out_dir: str, cases,
+         timeout_s: float) -> None:
+    torch.set_num_threads(1)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{init_file}", rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=timeout_s))
+    from repro_torch.launch.mesh import make_mesh
+    results = {}
+    try:
+        meshes = {"2x2": make_mesh((2, 2), ("data", "model"), "cpu"),
+                  "1x4": make_mesh((1, 4), ("data", "model"), "cpu"),
+                  "pod": make_mesh((2, 2, 1), ("pod", "data", "model"),
+                                   "cpu")}
+        tmp = [tempfile.mkdtemp(dir=out_dir) if rank == 0 else None]
+        dist.broadcast_object_list(tmp)
+        checks = [
+            ("blocks", lambda: check_blocks(meshes, cases)),
+            ("step_tp", lambda: check_sharded_step(meshes, False)),
+            ("step_fsdp", lambda: check_sharded_step(meshes, True)),
+            ("compressed", lambda: check_compressed_step(meshes)),
+            ("checkpoint", lambda: check_checkpoint(
+                meshes, os.path.join(tmp[0], "ckpt"))),
+            ("restart", lambda: check_crash_restart(
+                meshes, os.path.join(tmp[0], "train"))),
+            ("meshes", check_meshes),
+            ("constraints", lambda: check_constraints(meshes))]
+        for name, fn in checks:
+            try:
+                results[name] = fn()
+            except Exception:     # recorded per check; the test reports it
+                results[name] = {"error": traceback.format_exc()}
+                raise
+    finally:
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(results, f)
+        dist.destroy_process_group()
