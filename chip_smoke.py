@@ -339,6 +339,25 @@ Phases (any failure exits non-zero, with no result line):
     init through the SSD and flash kernels on the card against the CPU
     in f32, within phase 10's twin tolerances, and the MLA prefill
     refused.
+24. Serving on a mesh, within ``MESH_SERVE_BUDGET_S``: (a) on a one-rank
+    NCCL group, llama3.2-1b at full width in bf16 (phase 6's prompts, 4 x
+    1,024, 32 new tokens) through the ``ServingEngine`` on the (1, 1) mesh
+    ("data" x "model") and the meshless engine: greedy tokens and the
+    logits of the prefill and of each teacher-forced decode step equal bit
+    for bit (the size-1 axes split nothing), flash launched once per layer
+    in each prefill and no other kernel, each engine's time to first
+    token, decode tokens/s and peak GiB above the allocated baseline; the
+    flash kernel timed on the mesh prefill's layer-0 inputs; (b) one llama
+    layer's decode attention over a ``COMBINE_S``-entry bf16 cache at batch
+    ``COMBINE_B``, split into ``COMBINE_BLOCKS`` sequence blocks (the
+    production 'model' width) and combined on the card
+    (``attention.split_decode``), held against the unsplit decode within
+    ``FLASH_ROW_REL_TOL`` of each output row's norm, blocks with no valid
+    entry included, both timed; (c) llama's ``decode_32k`` cell counted as
+    rank 0 of the 16 x 16 production mesh in a spawned process of the fake
+    world (``dryrun.write_cells(..., mesh_name="single")``, while (a) and
+    (b) run): its per-device FLOPs, bytes and collective bytes, and its
+    cache block, 1/256 of the whole cache, checked.
 
 Each phase's wall is printed on one ``[done]`` line. The last lines are
 the kernels' JSON record (a kernel launched on two
@@ -609,6 +628,17 @@ MESH_COMP_STEPS = 2
 MESH_HYB_B, MESH_HYB_S, MESH_HYB_SEED = 2, 32, 0
 MESH_MLA = dict(use_mla=True, q_rank=32, kv_rank=16, d_nope=8, d_rope=8,
                 d_v=16)
+# phase 24, serving on a mesh, within its own budget: (a) phase 6's serving
+# run through the engine on the (1, 1) mesh and without one, bit for bit;
+# (b) one llama layer's decode attention (32 heads, 8 KV heads, head dim
+# 64) over a COMBINE_S-entry bf16 cache at batch COMBINE_B in
+# COMBINE_BLOCKS blocks, each row's valid entries COMBINE_VALID (the
+# second row's last block and all but the third row's first hold none);
+# (c) llama's decode_32k cell on the 16 x 16 mesh in the fake world
+MESH_SERVE_BUDGET_S = 40.0
+COMBINE_B, COMBINE_S, COMBINE_BLOCKS = 8, 32768, 16
+COMBINE_HEADS, COMBINE_KV_HEADS, COMBINE_D = 32, 8, 64
+COMBINE_VALID = (32768, 30000, 1, 2049, 16384, 32767, 4096, 20000)
 FSO_KEYS = ORACLE_KEYS + (
     "ctrl_act", "ctrl_n", "rel_act", "rel_n", "fleet_perf", "fleet_stale",
     "fleet_act", "fleet_n", "pool_arr", "pool_model", "pool_next",
@@ -4771,6 +4801,215 @@ def phase_mesh(torch, counts, train_llama):
         f"budget); card: {card}")
 
 
+# ------------------------------------------------------------ phase 24
+
+def mesh_serving_twin(torch, counts, flash_attention):
+    """24(a): phase 6's serving run through the engine on the (1, 1) mesh
+    and without a mesh, each run with every kernel count set to 0 just
+    before its generation and read just after; then the logits of the
+    prefill and of each decode step, teacher-forced on the generated
+    tokens. Returns each engine's numbers and the mesh prefill's layer-0
+    flash inputs."""
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import random_prompts
+    from repro_torch.models import attention
+    from repro_torch.models.transformer import get_model
+    from repro_torch.serving.engine import ServeConfig, ServingEngine
+    cfg = configs.get_config(SERVE_ARCH, attn_impl="flash")
+    params = get_model(cfg).init(SERVE_SEED, "cuda")
+    scfg = ServeConfig(batch=SERVE_B, max_len=SERVE_PROMPT + SERVE_NEW + 1)
+    gen = torch.Generator(device="cuda").manual_seed(SERVE_SEED + 1)
+    prompts = random_prompts(cfg.vocab_size, SERVE_B, SERVE_PROMPT, gen)
+    mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+    engines = {"mesh": ServingEngine(cfg, scfg, params=params,
+                                     device="cuda", mesh=mesh),
+               "meshless": ServingEngine(cfg, scfg, params=params,
+                                         device="cuda")}
+    for eng in engines.values():      # first-call costs, not counted
+        eng.generate(prompts, 2)
+    tap = CallTap(flash_attention)
+    out = {}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    attention.flash_attention = tap
+    try:
+        for name, eng in engines.items():
+            torch.cuda.reset_peak_memory_stats()
+            for c in counts:
+                c.launches = 0
+            tokens = eng.generate(prompts, SERVE_NEW)
+            launches = {c.__name__: c.launches for c in counts}
+            peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+            if name == "mesh":
+                kept = tap.kept
+            logits, cache = eng.prefill(prompts)
+            steps = [logits]
+            for i in range(SERVE_NEW - 1):
+                tok = torch.from_numpy(tokens[:, i:i + 1]).cuda()
+                logits, cache = eng.decode(tok, cache, SERVE_PROMPT + i)
+                steps.append(logits)
+            out[name] = dict(tokens=tokens, logits=torch.cat(steps, 1),
+                             launches=launches, peak_gib=peak,
+                             stats=dict(eng.last_stats))
+            del cache, steps
+    finally:
+        attention.flash_attention = flash_attention
+    for name, got in out.items():
+        others = {k: n for k, n in got["launches"].items()
+                  if k != flash_attention.__name__ and n}
+        if got["launches"][flash_attention.__name__] != cfg.n_layers \
+                or others:
+            raise AssertionError(f"24(a) {name}: launches {got['launches']}"
+                                 f", not flash once per layer "
+                                 f"({cfg.n_layers}) and nothing else")
+        if not got["stats"]["logits_finite"]:
+            raise AssertionError(f"24(a) {name}: a logit is not finite")
+    if not (np.array_equal(out["mesh"]["tokens"], out["meshless"]["tokens"])
+            and same_bytes(out["mesh"]["logits"], out["meshless"]["logits"])):
+        raise AssertionError("24(a) the engine on the (1, 1) mesh differs "
+                             "from the meshless engine")
+    return out, kept
+
+
+def combine_on_card(torch):
+    """24(b): the split decode against the unsplit one on the card;
+    returns the largest row-relative difference, the empty blocks and the
+    two times."""
+    import math
+    from repro_torch.models import attention as A
+    gen = torch.Generator(device="cuda").manual_seed(SERVE_SEED + 2)
+    B, S, D = COMBINE_B, COMBINE_S, COMBINE_D
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device="cuda",
+                           dtype=torch.bfloat16)
+
+    q = draw(B, 1, COMBINE_HEADS, D)
+    k, v = draw(B, S, COMBINE_KV_HEADS, D), draw(B, S, COMBINE_KV_HEADS, D)
+    valid = torch.tensor(COMBINE_VALID, dtype=torch.int32, device="cuda")
+    scale, rep = 1.0 / math.sqrt(D), COMBINE_HEADS // COMBINE_KV_HEADS
+
+    def unsplit():
+        return A._decode_core_grouped(q, k, v, valid, scale, rep)
+
+    def split():
+        return A.split_decode(q, k, v, valid, COMBINE_BLOCKS)
+
+    want, got = unsplit().float(), split().float()
+    rel = float(((got - want).norm(dim=-1) / want.norm(dim=-1)).max())
+    if not (bool(torch.isfinite(got).all()) and rel <= FLASH_ROW_REL_TOL):
+        raise AssertionError(f"24(b) the combined blocks differ from the "
+                             f"unsplit decode by {rel} of a row's norm")
+    n = S // COMBINE_BLOCKS
+    empty = sum(1 for x in COMBINE_VALID for i in range(COMBINE_BLOCKS)
+                if x <= i * n)
+    return dict(rel=rel, empty=empty, unsplit_ms=cuda_ms(unsplit, iters=20),
+                split_ms=cuda_ms(split, iters=20))
+
+
+def mesh_cell_in_fake_world(root):
+    """24(c): llama's decode_32k cell as rank 0 of the 16 x 16 mesh, in a
+    spawned process of the fake world."""
+    from repro_torch.launch import dryrun
+    recs = dryrun.write_cells([SERVE_ARCH], ["decode_32k"], root=root,
+                              force=True, mesh_name="single",
+                              log=lambda *a: None)
+    return recs[(SERVE_ARCH, "decode_32k")]
+
+
+def cache_block_bytes(rec):
+    """``(rank 0's cache bytes, the whole cache's)`` of the single decode
+    record: its argument bytes less rank 0's blocks of the parameters
+    (the reference's rules, no FSDP), its token rows and the position."""
+    import math
+    from repro_torch import configs
+    from repro_torch.models.common import tree_items
+    from repro_torch.parallel import sharding as Sh
+    cfg, spec = configs.get_config(SERVE_ARCH), configs.SHAPES["decode_32k"]
+    mesh = Sh.MeshShape(("data", "model"), (16, 16))
+    shapes, axes = configs.param_specs(cfg)
+    sh = dict(tree_items(Sh.param_shardings(axes, shapes, mesh)))
+    params = sum(math.prod(b.stop - b.start for b in sh[p].block(
+        tuple(t.shape), (0, 0))) * t.element_size()
+        for p, t in tree_items(shapes))
+    rows = spec.global_batch // 16 * 4
+    whole = 2 * cfg.n_layers * spec.global_batch * spec.seq_len \
+        * cfg.n_kv_heads * cfg.hd * 2
+    return rec["memory"]["argument_size_in_bytes"] - params - rows - 4, whole
+
+
+def phase_mesh_serving(torch, counts, flash_attention):
+    """Phase 24 within ``MESH_SERVE_BUDGET_S``: serving on a mesh. Returns
+    the flash kernel's launches on the mesh engine's generation (the main
+    path of serving on a mesh) and its record on that path."""
+    import tempfile
+    card = card_line()
+    t24 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cells_") as d, \
+            ThreadPoolExecutor(1) as pool:
+        cell = pool.submit(mesh_cell_in_fake_world, d)
+        t0 = time.perf_counter()
+        with one_rank_nccl(torch):
+            out, kept = mesh_serving_twin(torch, counts, flash_attention)
+        for name, got in out.items():
+            st = got["stats"]
+            where = "on the (1, 1) mesh" if name == "mesh" else "meshless"
+            log(f"[24] (a) {SERVE_ARCH} at full width, bf16, flash: "
+                f"ServingEngine {where}: "
+                f"time to first token {st['prefill_s']:.4f} s, decode "
+                f"{SERVE_B * (SERVE_NEW - 1) / st['decode_s']:.1f} tokens/s, "
+                f"peak {got['peak_gib']:.2f} GiB above the baseline, "
+                f"launches {got['launches']}")
+        log(f"[24] (a) {SERVE_B} x {SERVE_PROMPT} prompts, {SERVE_NEW} new "
+            f"tokens: tokens and the logits of the prefill and {SERVE_NEW - 1}"
+            f" decode steps equal bit for bit on the (1, 1) mesh and without "
+            f"one ({time.perf_counter() - t0:.1f} s); card: {card}")
+        launches = out["mesh"]["launches"][flash_attention.__name__]
+        frec = time_flash(torch, flash_attention, kept, 24,
+                          "on layer 0's inputs of the prefill on the (1, 1) "
+                          "mesh")
+        del out, kept
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        comb = combine_on_card(torch)
+        log(f"[24] (b) one llama layer's decode attention over a "
+            f"{COMBINE_S}-entry bf16 cache at batch {COMBINE_B} "
+            f"({COMBINE_HEADS} heads, {COMBINE_KV_HEADS} KV heads, head dim "
+            f"{COMBINE_D}) in {COMBINE_BLOCKS} blocks, {comb['empty']} of "
+            f"them with no valid entry, combined on the card: within "
+            f"{comb['rel']:.3g} of each output row's norm of the unsplit "
+            f"decode (tol {FLASH_ROW_REL_TOL:g}); unsplit "
+            f"{comb['unsplit_ms']:.4f} ms, split and combined "
+            f"{comb['split_ms']:.4f} ms ({time.perf_counter() - t0:.1f} s); "
+            f"card: {card}")
+        t0 = time.perf_counter()
+        rec = cell.result()
+    if rec.get("status") != "ok" or rec["n_devices"] != 256:
+        raise AssertionError(f"24(c) the single decode_32k record: {rec}")
+    cache, whole = cache_block_bytes(rec)
+    if cache * 256 != whole:
+        raise AssertionError(f"24(c) rank 0 holds {cache} cache bytes, not "
+                             f"1/256 of {whole}")
+    coll = sum(c["bytes"] for c in rec["collectives"].values())
+    log(f"[24] (c) {SERVE_ARCH} x decode_32k as rank 0 of the 16 x 16 mesh "
+        f"in the fake world (a spawned process): "
+        f"{rec['flops_per_device']:.4e} FLOPs, "
+        f"{rec['bytes_accessed_per_device']:.4e} bytes, "
+        f"{coll:.4e} collective bytes ("
+        + ", ".join(f"{k} {v['count']} x = {v['bytes']:.4e}"
+                    for k, v in rec["collectives"].items() if v["count"])
+        + f") per device; arguments "
+        f"{rec['memory']['argument_size_in_bytes']:.4e} bytes, of which the "
+        f"cache block {cache:,} == 1/256 of {whole:,}; counted in "
+        f"{rec['lower_s']:.1f} s (waited {time.perf_counter() - t0:.1f} s)")
+    wall = time.perf_counter() - t24
+    within = "within" if wall <= MESH_SERVE_BUDGET_S else "OVER"
+    log(f"[24] phase 24 in {wall:.1f} s ({within} its "
+        f"{MESH_SERVE_BUDGET_S:g} s budget); card: {card}")
+    return launches, frec
+
+
 def both_paths(paths, keys=("ms", "plain_ms", "bound_ms", "library_ms")):
     """One kernel's record over the main paths that launch it: launches
     summed, and each time (``keys``) the launch-weighted mean of the
@@ -4930,6 +5169,9 @@ def main() -> int:
     clock.lap("22")
     phase_mesh(torch, counts, train_llama)
     clock.lap("23")
+    mesh_launches, mesh_frec = phase_mesh_serving(torch, counts,
+                                                  flash_attention)
+    clock.lap("24")
 
     kernels = [dict(
         name="fused_admission", route="cuda",
@@ -4950,10 +5192,12 @@ def main() -> int:
                         hfrec["max_abs_err"], hserve_flash_err,
                         *(rec["max_abs_err"]
                           for _, _, rec in dense_paths + cross_paths),
-                        moe_path[2]["max_abs_err"]),
+                        moe_path[2]["max_abs_err"], mesh_frec["max_abs_err"]),
         **both_paths([("llama prefill", flash_launches, frec),
                       ("hybrid forward", hyb["flash_launches"], hfrec)]
-                     + dense_paths + [moe_path] + cross_paths)),
+                     + dense_paths + [moe_path] + cross_paths
+                     + [("llama prefill on the (1, 1) mesh", mesh_launches,
+                         mesh_frec)])),
         dict(
         name="gmm_logpdf", route="cuda",
         source="src/repro_torch/kernels/csrc/gmm_logpdf.cu",

@@ -1,6 +1,8 @@
-"""One-card dry-run: count every (architecture x input shape) cell's step on
-the meta device and write one record per cell (mirrors
-:mod:`repro.launch.dryrun`, for one H100).
+"""Dry-run: count every (architecture x input shape) cell's step on the
+meta device and write one record per cell (mirrors
+:mod:`repro.launch.dryrun`), on one H100 (``--mesh h100x1``, the default)
+or as rank 0 of the production meshes (``--mesh single``, 16 x 16 = 256
+ranks; ``--mesh multi``, 2 x 16 x 16 = 512).
 
 The reference AOT-compiles each cell on 256- and 512-chip meshes of fake
 CPU devices and reads XLA's ``cost_analysis``. Here the cell's step runs on
@@ -55,15 +57,47 @@ The record has the reference's keys, with ``n_devices`` 1, ``collectives``
 empty (one card), ``fsdp`` False, ``lower_s`` the meta run's wall and
 ``compile_s`` 0 (nothing is compiled). Cells that ``cell_supported``
 refuses (``long_500k`` for full-attention archs) are written as ``skip``
-records, as the reference writes them.
+records, as the reference writes them. ``fsdp`` (an override) on one card
+raises ``ValueError``: a one-device mesh has nothing to shard.
 
-Cells go to ``<root>/dryrun_torch/h100x1/`` (``root``: the repository's
+On ``single`` and ``multi`` a spawned worker joins a fake world of 256 or
+512 ranks (:func:`repro_torch.launch.mesh.fake_production_mesh`) and
+counts rank 0's step through the port's own mesh steps: the state placed
+by ``trainer.state_shardings`` and ``make_train_step(cfg, opt, mesh,
+fsdp=, microbatches=)``'s pieces, or the parameters placed by the
+reference's rules and ``serving.engine``'s ``make_prefill_step`` /
+``make_serve_step`` on the mesh. ``fsdp`` follows the reference's
+``FSDP_ARCHS`` (or the override). The FLOP and byte counters see an
+operation on a DTensor at its global shape, so only plain local tensors
+are computed on: the parameters are gathered whole (``full_tensor``) in a
+part of the count that tallies collectives only, then rank 0's rows run.
+What changes:
+
+- ``n_devices`` 256 / 512; ``memory.argument_size_in_bytes`` rank 0's
+  blocks of the parameters, the optimizer state and the batch rows, or of
+  the parameters, the token rows and the cache blocks;
+- ``collectives``: the reference's five categories (``all-gather``,
+  ``all-reduce``, ``reduce-scatter``, ``all-to-all``,
+  ``collective-permute``) as ``{bytes, count}``, by the reference's rule:
+  per collective the bytes of the largest tensor among its arguments and
+  results, c10d and functional collectives alike. They are kept out of
+  the FLOP and byte counts.
+
+The port has no tensor parallelism: ranks that differ only on 'model'
+compute the same rows, so a dense train or prefill cell's per-device FLOPs
+are the one-card cell's over the DP size. A MoE layer routes the global
+batch, as the reference's does: each rank's expert buffer holds
+``min(capacity, local tokens)`` rows, so its MoE cells count more.
+
+Cells go to ``<root>/dryrun_torch/<mesh>/`` (``root``: the repository's
 ``artifacts/``), a directory the reference never globs.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3.2-1b \\
       --shape train_4k
-  PYTHONPATH=src python -m repro_torch.launch.dryrun --all
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --workers 4
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh single \\
+      --workers 4
 """
 from __future__ import annotations
 
@@ -71,6 +105,7 @@ import argparse
 import ast
 import dataclasses
 import json
+import math
 import multiprocessing
 import os
 import time
@@ -79,6 +114,7 @@ from concurrent.futures import ProcessPoolExecutor
 from typing import Callable, Dict, Iterable, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves as pytree_leaves
 from torch.utils.flop_counter import FlopCounterMode
@@ -89,9 +125,14 @@ from repro_torch.core.costmodel import ARTIFACT_ROOT, CELL_DIR, MESH
 from repro_torch.models.transformer import ModelConfig, get_model
 from repro_torch.models.xlstm import mlstm_chunk
 from repro_torch.optim import adamw
+from repro_torch.parallel import sharding as Sh
 
-# the reference's per-arch train settings (repro/launch/dryrun.py; its
-# FSDP_ARCHS have no meaning on one card)
+# the meshes a cell is counted on, each with its ``multi_pod``: one card,
+# or rank 0 of the production meshes (the reference's --mesh names)
+MESHES = {MESH: None, "single": False, "multi": True}
+# the reference's per-arch train settings (repro/launch/dryrun.py)
+FSDP_ARCHS = {"deepseek-v3-671b", "llama4-maverick-400b-a17b",
+              "llama-3.2-vision-90b", "granite-20b"}
 BF16_MOMENT_ARCHS = {"deepseek-v3-671b", "llama4-maverick-400b-a17b"}
 TRAIN_MICROBATCHES = {
     "deepseek-v3-671b": 8, "llama4-maverick-400b-a17b": 8,
@@ -101,8 +142,66 @@ TRAIN_MICROBATCHES = {
 }
 
 
+COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+               "collective-permute")
+# c10d's and the functional collectives' operations, by category
+_CATEGORY = {
+    "allreduce_": "all-reduce", "allreduce_coalesced_": "all-reduce",
+    "all_reduce": "all-reduce", "all_reduce_coalesced": "all-reduce",
+    "allgather_": "all-gather", "_allgather_base_": "all-gather",
+    "allgather_into_tensor_coalesced_": "all-gather",
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "reduce_scatter_": "reduce-scatter",
+    "_reduce_scatter_base_": "reduce-scatter",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "alltoall_": "all-to-all", "alltoall_base_": "all-to-all",
+    "all_to_all_single": "all-to-all",
+    "send": "collective-permute", "recv_": "collective-permute",
+}
+
+
 def _nbytes(t) -> int:
+    """A tensor's bytes; a DTensor's, this rank's block's."""
+    if isinstance(t, DTensor):
+        t = t.to_local()
     return t.numel() * t.element_size() if isinstance(t, torch.Tensor) else 0
+
+
+def _is_comm(func) -> bool:
+    return func.namespace in ("c10d", "_c10d_functional")
+
+
+def empty_collectives() -> Dict:
+    return {c: {"bytes": 0, "count": 0} for c in COLLECTIVES}
+
+
+class CollectiveCounter(TorchDispatchMode):
+    """Tallies each collective by the reference's rule: per category, the
+    count and the bytes of the largest tensor among each call's arguments
+    and results. ``calls`` lists ``(category, bytes)`` in order."""
+
+    def __init__(self):
+        super().__init__()
+        self.calls = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        cat = _CATEGORY.get(func._schema.name.split("::")[-1]) \
+            if _is_comm(func) else None
+        if cat is not None:
+            self.calls.append((cat, max(
+                (_nbytes(t) for t in pytree_leaves((args, kwargs, out))),
+                default=0)))
+        return out
+
+    def tally(self) -> Dict:
+        out = empty_collectives()
+        for cat, nbytes in self.calls:
+            out[cat]["bytes"] += nbytes
+            out[cat]["count"] += 1
+        return out
 
 
 def _is_view(func) -> bool:
@@ -116,7 +215,7 @@ def _is_view(func) -> bool:
 
 class ByteCounter(TorchDispatchMode):
     """Sums the bytes of every tensor argument and result of each
-    operation that is not a view."""
+    operation that is not a view or a collective."""
 
     def __init__(self):
         super().__init__()
@@ -124,7 +223,7 @@ class ByteCounter(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
-        if not _is_view(func):
+        if not (_is_view(func) or _is_comm(func)):
             self.bytes += _tree_bytes((args, kwargs, out))
         return out
 
@@ -134,35 +233,51 @@ def _tree_bytes(tree) -> int:
 
 
 def count(step: Callable[[], object]) -> Dict:
-    """FLOPs and bytes (integers), and the wall of one call of ``step``
+    """FLOPs and bytes (integers), the collectives (a
+    :class:`CollectiveCounter` tally) and the wall of one call of ``step``
     (on meta tensors in the dry-run; the count is the same on any device),
     and the bytes of what it returns. A step with ``parts``, ``((fn,
     times), ...)`` run in order, is counted as its parts: each ``fn`` run
-    once and its FLOPs and bytes taken ``times`` times (a microbatch's
-    gradient, which every microbatch repeats on the same shapes), the
-    output the last part's."""
+    once and its counts taken ``times`` times (a microbatch's gradient,
+    which every microbatch repeats on the same shapes), the output the
+    last part's. A part ``(fn, times, "collectives")`` adds its
+    collectives only (the parameters' gathers)."""
     parts = getattr(step, "parts", None) or ((step, 1),)
     t0 = time.perf_counter()
     flops = nbytes = 0
-    for fn, times in parts:
-        flop_mode = FlopCounterMode(display=False)
-        bytes_mode = ByteCounter()
-        with flop_mode, bytes_mode:
-            out = fn()
-        flops += times * flop_mode.get_total_flops()
-        nbytes += times * bytes_mode.bytes
+    coll = empty_collectives()
+    for fn, times, *only in parts:
+        comm = CollectiveCounter()
+        if only:
+            with comm:
+                fn()
+        else:
+            flop_mode = FlopCounterMode(display=False)
+            bytes_mode = ByteCounter()
+            with flop_mode, bytes_mode, comm:
+                out = fn()
+            flops += times * flop_mode.get_total_flops()
+            nbytes += times * bytes_mode.bytes
+        for c, v in comm.tally().items():
+            coll[c]["bytes"] += times * v["bytes"]
+            coll[c]["count"] += times * v["count"]
     return {"flops": int(flops), "bytes": int(nbytes),
-            "output_bytes": _tree_bytes(out),
+            "output_bytes": _tree_bytes(out), "collectives": coll,
             "wall_s": time.perf_counter() - t0}
 
 
 def cell_step(cfg: ModelConfig, spec: ShapeSpec, *, microbatches: int = 1,
-              moment_dtype: str = "float32"):
+              moment_dtype: str = "float32", mesh=None, fsdp: bool = False):
     """``(step, argument bytes)``: the cell's step closed over meta
     parameters and inputs (and, to train, the optimizer state). A train
     step of several microbatches also carries ``parts`` for
     :func:`count`: the accumulators' start, one microbatch (taken
-    ``microbatches`` times), then the average and the update."""
+    ``microbatches`` times), then the average and the update. On a
+    ``mesh`` it is rank 0's step (:func:`mesh_cell_step`)."""
+    if mesh is not None:
+        return mesh_cell_step(cfg, spec, mesh, fsdp=fsdp,
+                              microbatches=microbatches,
+                              moment_dtype=moment_dtype)
     from repro_torch.serving.engine import make_prefill_step, make_serve_step
     from repro_torch.train import trainer
     params, _ = CN.param_specs(cfg)
@@ -217,6 +332,99 @@ def cell_step(cfg: ModelConfig, spec: ShapeSpec, *, microbatches: int = 1,
 
         args = (params, ins["tokens"], ins["cache"], ins["pos"])
     return step, _tree_bytes(args)
+
+
+def _local(tree):
+    """Each DTensor leaf's local block."""
+    return Sh._map(lambda t: t.to_local() if isinstance(t, DTensor) else t,
+                   tree)
+
+
+def mesh_cell_step(cfg: ModelConfig, spec: ShapeSpec, mesh, *,
+                   fsdp: bool, microbatches: int = 1,
+                   moment_dtype: str = "float32"):
+    """``(step, argument bytes)`` of rank 0 on ``mesh`` (a ``DeviceMesh``
+    of the fake world): the state, or the parameters, placed by the
+    reference's rules (``fsdp``) as DTensors of rank 0's blocks, and the
+    step in :func:`count`'s parts, the first of which gathers the
+    parameters and tallies collectives only. The argument bytes are rank
+    0's blocks and rows."""
+    from repro_torch.serving.engine import make_prefill_step, make_serve_step
+    from repro_torch.train import trainer
+    full, axes = CN.param_specs(cfg)
+    ins = CN.input_specs(cfg, spec)
+    B, S = spec.global_batch, spec.seq_len
+    coord = tuple(mesh.get_coordinate())
+    st: Dict = {}
+    if spec.kind == "train":
+        opt_cfg = adamw.AdamWConfig(moment_dtype=moment_dtype)
+        params = trainer.trainable(full)
+        sh = trainer.state_shardings(cfg, mesh, fsdp=fsdp)
+        placed = trainer.shard_state(
+            {"params": params,
+             "opt_state": adamw.init_opt_state(opt_cfg, params)},
+            {"params": sh["params"], "opt_state": sh["opt_state"]})
+        params, opt_state = placed["params"], placed["opt_state"]
+        pieces = trainer.make_train_step(
+            cfg, opt_cfg, mesh, fsdp=fsdp,
+            microbatches=microbatches).pieces
+        ms = pieces["mesh_step"]
+        rows = ms.rows(ins["batch"], microbatches)
+        group = ms.group(ins["batch"], ms.dp)
+        start, micro, average = trainer.microbatch_parts(
+            trainer._value_and_grad(get_model(cfg)), microbatches)
+
+        def gather():
+            st["full"] = pieces["gathered"](params)
+
+        def first():
+            st["a"] = start(st["full"])
+            return st["a"]
+
+        def one():
+            with Sh.token_group(group):
+                st["a"] = micro(st["a"], st["full"], rows, 0)
+            return st["a"]
+
+        def step():
+            return pieces["finish"](params, opt_state, *average(st["a"]))
+
+        step.parts = ((gather, 1, "collectives"), (first, 1),
+                      (one, microbatches), (step, 1))
+        return step, _tree_bytes(_local((params, opt_state, rows)))
+
+    rules = Sh.make_rules(fsdp=fsdp, data_axes=Sh.dp_axes(mesh))
+    params = trainer.shard_state(full, Sh.param_shardings(axes, full, mesh,
+                                                          rules))
+
+    def gather():
+        st["full"] = Sh.full_tensors(params)
+
+    def rows(t):
+        return t[Sh.batch_shardings({"t": t}, mesh)["t"].block(
+            tuple(t.shape), coord)]
+
+    if spec.kind == "prefill":
+        prefill_step, _ = make_prefill_step(cfg, B, S, device="meta",
+                                            mesh=mesh)
+
+        def step():
+            return prefill_step(st["full"], ins["tokens"], ins.get("ctx"))
+
+        args = (params, rows(ins["tokens"]),
+                None if ins.get("ctx") is None else rows(ins["ctx"]))
+    else:
+        serve_step, cache_sh, _ = make_serve_step(cfg, B, S, device="meta",
+                                                  mesh=mesh)
+        cache = Sh._map(lambda t, sh: t[sh.block(tuple(t.shape), coord)],
+                        ins["cache"], cache_sh)
+
+        def step():
+            return serve_step(st["full"], ins["tokens"], cache, S - 1)
+
+        args = (params, rows(ins["tokens"]), cache, ins["pos"])
+    step.parts = ((gather, 1, "collectives"), (step, 1))
+    return step, _tree_bytes(_local(args))
 
 
 PREFILL_COUNT_LENGTHS = (8, 16)
@@ -278,13 +486,17 @@ def count_cell(cfg: ModelConfig, spec: ShapeSpec, **kw) -> tuple:
     ks = (spec.seq_len - S1) // (S2 - S1)
     kl = (cfg.n_layers - L1) // (L2 - L1) if layers else 0    # super blocks
 
-    def extrapolate(key):
-        f11, f21 = f[S1, L1][key], f[S2, L1][key]
-        f12, f22 = f[S1, L2][key], f[S2, L2][key]
+    def extrapolate(get):
+        f11, f21 = get(f[S1, L1]), get(f[S2, L1])
+        f12, f22 = get(f[S1, L2]), get(f[S2, L2])
         return (f11 + ks * (f21 - f11) + kl * (f12 - f11)
                 + ks * kl * (f22 - f21 - f12 + f11))
 
-    c = {key: extrapolate(key) for key in ("flops", "bytes")}
+    c = {key: extrapolate(lambda x, key=key: x[key])
+         for key in ("flops", "bytes")}
+    c["collectives"] = {
+        cat: {k: extrapolate(lambda x, cat=cat, k=k: x["collectives"][cat][k])
+              for k in ("bytes", "count")} for cat in COLLECTIVES}
     out1, out2 = f[S2, L1]["output_bytes"], f[S2, L2]["output_bytes"]
     c.update(output_bytes=out1 + kl * (out2 - out1),
              wall_s=sum(x["wall_s"] for x in f.values()))
@@ -293,20 +505,50 @@ def count_cell(cfg: ModelConfig, spec: ShapeSpec, **kw) -> tuple:
     return c, arg_bytes, at_
 
 
+# the production mesh of this process's fake world, by its --mesh name
+# (set by :func:`join_mesh_world` in a spawned worker)
+_WORLD: Dict = {}
+
+
+def join_mesh_world(mesh_name: str) -> None:
+    """Join this process to the fake world of ``mesh_name`` ("single" or
+    "multi") and keep its production mesh: a spawned worker's
+    initializer. The group lives as long as the process."""
+    from repro_torch.launch.mesh import fake_production_mesh
+    _WORLD[mesh_name] = fake_production_mesh(multi_pod=MESHES[mesh_name])
+
+
 def lower_cell(arch: str, shape_name: str,
-               overrides: Optional[dict] = None) -> Dict:
-    """One cell's record (the reference's ``lower_cell`` on one card)."""
+               overrides: Optional[dict] = None,
+               mesh_name: str = MESH) -> Dict:
+    """One cell's record (the reference's ``lower_cell``): on one card, or
+    as rank 0 of the production mesh ``mesh_name`` ("single", "multi"),
+    in a process that :func:`join_mesh_world` joined to its fake world."""
     overrides = dict(overrides or {})
     mb_override = overrides.pop("microbatches", None)
-    if overrides.pop("fsdp", False):
-        raise NotImplementedError("the one-card dry-run counts no FSDP "
-                                  "cell yet: it takes no mesh")
+    fsdp_override = overrides.pop("fsdp", None)
+    if mesh_name not in MESHES:
+        raise ValueError(f"unknown mesh {mesh_name!r}; one of "
+                         f"{list(MESHES)}")
+    mesh = None
+    if MESHES[mesh_name] is None:
+        if fsdp_override:
+            raise ValueError("fsdp shards the state over a mesh's DP axes; "
+                             f"the {MESH} dry-run has one device: count "
+                             "FSDP cells on --mesh single or multi")
+    else:
+        mesh = _WORLD.get(mesh_name)
+        if mesh is None:
+            raise RuntimeError(f"the {mesh_name} cells are counted in a "
+                               "fake world: call join_mesh_world first in a "
+                               "process of its own (write_cells does)")
     cfg = CN.get_config(arch, **overrides)
     spec = SHAPES[shape_name]
     ok, reason = cell_supported(cfg.family, shape_name)
-    rec: Dict = {"arch": arch, "shape": shape_name, "mesh": MESH,
+    n_dev = 1 if mesh is None else math.prod(Sh.mesh_shape(mesh).sizes)
+    rec: Dict = {"arch": arch, "shape": shape_name, "mesh": mesh_name,
                  "kind": spec.kind, "seq_len": spec.seq_len,
-                 "global_batch": spec.global_batch, "n_devices": 1,
+                 "global_batch": spec.global_batch, "n_devices": n_dev,
                  "params": cfg.param_count(),
                  "active_params": cfg.active_param_count(),
                  "overrides": {k: str(v) for k, v in overrides.items()}}
@@ -314,8 +556,10 @@ def lower_cell(arch: str, shape_name: str,
         rec["status"] = "skip"
         rec["skip_reason"] = reason
         return rec
-    rec["fsdp"] = False
-    kw = {}
+    fsdp = mesh is not None and (arch in FSDP_ARCHS if fsdp_override is None
+                                 else bool(fsdp_override))
+    rec["fsdp"] = fsdp
+    kw = {} if mesh is None else {"mesh": mesh, "fsdp": fsdp}
     if spec.kind == "train":
         kw["microbatches"] = int(mb_override if mb_override is not None
                                  else TRAIN_MICROBATCHES.get(arch, 1))
@@ -335,7 +579,7 @@ def lower_cell(arch: str, shape_name: str,
         "bytes_accessed_per_device": float(c["bytes"]),
         "cost_raw": {"flops": float(c["flops"]),
                      "bytes accessed": float(c["bytes"])},
-        "collectives": {},
+        "collectives": {} if mesh is None else c["collectives"],
     })
     return rec
 
@@ -349,11 +593,11 @@ def cell_path(mesh_name: str, arch: str, shape_name: str,
 
 
 def _lower_or_error(arch: str, shape_name: str,
-                    overrides: Optional[dict]) -> Dict:
+                    overrides: Optional[dict], mesh_name: str = MESH) -> Dict:
     try:
-        return lower_cell(arch, shape_name, overrides)
+        return lower_cell(arch, shape_name, overrides, mesh_name)
     except Exception as e:
-        return {"arch": arch, "shape": shape_name, "mesh": MESH,
+        return {"arch": arch, "shape": shape_name, "mesh": mesh_name,
                 "status": "error", "error": f"{type(e).__name__}: {e}",
                 "traceback": traceback.format_exc()[-4000:]}
 
@@ -361,29 +605,37 @@ def _lower_or_error(arch: str, shape_name: str,
 def write_cells(archs: Iterable[str], shapes: Iterable[str], *,
                 root: Optional[str] = None, force: bool = False,
                 overrides: Optional[dict] = None, tag: Optional[str] = None,
-                workers: int = 1, log: Callable = print) -> Dict:
-    """Counts and writes each (arch, shape) cell not already written (all
-    with ``force``); a cell that raises is written as an ``error`` record.
-    ``workers > 1`` counts the cells in that many spawned processes (the
-    count is single-threaded Python dispatch), train cells first. Returns
+                workers: int = 1, log: Callable = print,
+                mesh_name: str = MESH) -> Dict:
+    """Counts and writes each (arch, shape) cell of ``mesh_name`` not
+    already written (all with ``force``); a cell that raises is written as
+    an ``error`` record. ``workers > 1`` counts the cells in that many
+    spawned processes (the count is single-threaded Python dispatch),
+    train cells first; the cells of ``single`` and ``multi`` are always
+    counted in spawned processes, each joined to its fake world. Returns
     ``{(arch, shape): record}`` of the cells written."""
     todo = []
     for arch in archs:
         for shape_name in shapes:
-            path = cell_path(MESH, arch, shape_name, root, tag)
+            path = cell_path(mesh_name, arch, shape_name, root, tag)
             if os.path.exists(path) and not force:
-                log(f"[skip-cached] {arch} x {shape_name} ({MESH})")
+                log(f"[skip-cached] {arch} x {shape_name} ({mesh_name})")
             else:
                 todo.append((arch, shape_name, path))
-    if workers > 1:
+    meshed = MESHES.get(mesh_name, None) is not None
+    if todo and (workers > 1 or meshed):
         todo.sort(key=lambda c: SHAPES[c[1]].kind != "train")
         ctx = multiprocessing.get_context("spawn")
-        with ProcessPoolExecutor(workers, mp_context=ctx) as ex:
-            futs = [ex.submit(_lower_or_error, a, sh, overrides)
+        init = dict(initializer=join_mesh_world,
+                    initargs=(mesh_name,)) if meshed else {}
+        with ProcessPoolExecutor(max(workers, 1), mp_context=ctx,
+                                 **init) as ex:
+            futs = [ex.submit(_lower_or_error, a, sh, overrides, mesh_name)
                     for a, sh, _ in todo]
             recs = [f.result() for f in futs]
     else:
-        recs = [_lower_or_error(a, sh, overrides) for a, sh, _ in todo]
+        recs = [_lower_or_error(a, sh, overrides, mesh_name)
+                for a, sh, _ in todo]
     out = {}
     for (arch, shape_name, path), rec in zip(todo, recs):
         with open(path, "w") as f:
@@ -397,7 +649,8 @@ def write_cells(archs: Iterable[str], shapes: Iterable[str], *,
                 extra += f" counted_at={rec['counted_at']}"
         elif rec["status"] == "error":
             extra = " " + rec["error"][:200]
-        log(f"[count] {arch} x {shape_name} ({MESH}) -> {rec['status']}"
+        log(f"[count] {arch} x {shape_name} ({mesh_name}) -> "
+            f"{rec['status']}"
             f"{extra}")
         out[(arch, shape_name)] = rec
     return out
@@ -407,6 +660,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None, choices=CN.ARCHS)
     ap.add_argument("--shape", default=None, choices=list(SHAPES))
+    ap.add_argument("--mesh", default=MESH, choices=list(MESHES),
+                    help="one card, or rank 0 of the 16 x 16 (single) or "
+                         "2 x 16 x 16 (multi) production mesh")
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--set", action="append", default=[],
@@ -429,7 +685,8 @@ def main(argv=None):
         except (ValueError, SyntaxError):
             overrides[k] = v
     write_cells(archs, shapes, root=args.root, force=args.force,
-                overrides=overrides, tag=args.tag, workers=args.workers)
+                overrides=overrides, tag=args.tag, workers=args.workers,
+                mesh_name=args.mesh)
 
 
 if __name__ == "__main__":

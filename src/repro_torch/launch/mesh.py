@@ -11,6 +11,14 @@ Every mesh spans the default process group's world, which the caller
 initialises (``torch.distributed.init_process_group`` with its own
 address, world size and rank); its device type is the caller's device's
 (``"cuda"`` unless ``device="cpu"``, under ``gloo``).
+
+:func:`fake_production_mesh` builds the production mesh in a fake world:
+this process joins a process-local group of 256 or 512 ranks as rank 0,
+on the ``"fake"`` backend that ``torch.testing._internal.distributed.
+fake_pg`` registers, whose collectives return at once and move nothing.
+It is for counting one rank's step on ``meta`` tensors (the dry-run's
+``--mesh single|multi``), never for computing. The group is the process's
+default group, so only a process of its own (a spawned worker) joins it.
 """
 from __future__ import annotations
 
@@ -80,3 +88,23 @@ def make_production_mesh(*, multi_pod: bool = False, shape_only: bool = False,
                          f"{math.prod(shape)} ranks; the world "
                          f"has {world} (shape_only=True gives its shape)")
     return make_mesh(shape, axes, device)
+
+
+def join_fake_world(world: int) -> None:
+    """Join a fake world of ``world`` ranks as rank 0 (module docstring);
+    raises if this process already has a default group."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("this process already has a default process "
+                           "group; join the fake world in a process of its "
+                           "own")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
+
+
+def fake_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
+    """The production mesh (:func:`make_production_mesh`, its device type
+    ``"cpu"``) of a fake world that this process joins for the rest of its
+    life, as rank 0 at coordinate ``(0, 0)`` or ``(0, 0, 0)``."""
+    join_fake_world(math.prod(PRODUCTION_SHAPES[multi_pod]))
+    return make_production_mesh(multi_pod=multi_pod, device="cpu")

@@ -14,8 +14,19 @@ head dim for q, k and v, so MLA (q and k of ``d_nope + d_rope``, v of
 it. Cross-attention (``causal=False``) and the encoder's non-causal
 self-attention take the plain path under either ``impl``, as in the
 reference, whose ``sdpa`` sends only causal ``Sq == Skv`` attention to its
-kernel. The reference's sharding constraints are the identity on one
-device and are dropped.
+kernel.
+
+The reference's sharding constraints are called at the reference's points
+(:mod:`repro_torch.parallel.sharding`: ``constrain_decode_q``,
+``maybe_seq_shard_q``, ``constrain_kv_cache``); they redistribute a DTensor
+under an installed mesh and leave a plain tensor as it is. The serving
+engine on a mesh runs each rank on plain tensors and installs a
+:class:`~repro_torch.parallel.sharding.CacheBlock`: the cache writes then
+keep only the new entries in this rank's sequence block, and decode
+attends over the block and combines the blocks' partial softmaxes across
+'model'. The prefill attends the fresh K/V (or latents), as in the
+reference, so the flash kernel stays on its path. With no block installed
+every path is the meshless one.
 """
 from __future__ import annotations
 
@@ -26,8 +37,12 @@ import torch
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.common import (Builder, apply_rope, einsum,
                                        rms_norm)
-
-_NEG = -1e30
+from repro_torch.parallel.sharding import NEG as _NEG
+from repro_torch.parallel.sharding import (block_softmax, combine_blocks,
+                                           constrain_decode_q,
+                                           constrain_kv_cache,
+                                           current_cache_block,
+                                           maybe_seq_shard_q)
 
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -44,7 +59,8 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """
     B, Sq, H, Dh = q.shape
     rep = H // k.shape[2]
-    if impl == "flash" and Sq == k.shape[1] and causal and kv_valid_len is None:
+    if impl == "flash" and Sq == k.shape[1] and causal \
+            and kv_valid_len is None:
         if v.shape[-1] != Dh:
             raise ValueError(f"the flash kernel takes one head dim for q, k "
                              f"and v, got {Dh} and {v.shape[-1]}")
@@ -58,6 +74,16 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             else torch.arange(Sq, device=q.device))
 
     if Sq == 1 and kv_valid_len is not None:
+        # decode against a sequence-sharded cache: each rank attends its
+        # block, and the partial softmaxes are combined across 'model'
+        q = constrain_decode_q(q)
+        k = constrain_kv_cache(k)
+        v = constrain_kv_cache(v)
+        blk = current_cache_block()
+        if blk is not None:
+            m, l, o = decode_partial(q, k, v, blk.local_valid(kv_valid_len),
+                                     scale, rep)
+            return _grouped_out(blk.combine(m, l, o), q)
         return _decode_core_grouped(q, k, v, kv_valid_len, scale, rep)
 
     if rep > 1:
@@ -69,6 +95,8 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         q_chunk = Sq if Sq <= 2048 else max(1024, Sq // 16)
     if q_chunk == 0 or Sq % q_chunk != 0:
         q_chunk = Sq
+    if Sq > 1:
+        q = maybe_seq_shard_q(q)
     outs = [_attn_core(q[:, i:i + q_chunk], k, v, qpos[i:i + q_chunk],
                        causal, kv_valid_len, scale)
             for i in range(0, Sq, q_chunk)]
@@ -89,6 +117,47 @@ def _decode_core_grouped(q, k, v, kv_valid_len, scale, rep):
     return out.reshape(B, 1, H, v.shape[-1])
 
 
+def decode_partial(q, k, v, valid, scale, rep):
+    """One block's partial of the grouped decode: ``(m, l, o)`` of
+    :func:`~repro_torch.parallel.sharding.block_softmax` over the block's
+    first ``valid [B]`` entries, ``o = p @ v`` in f32 ([B, Hkv, rep] and
+    [B, Hkv, rep, Dv]); q [B,1,H,D], k/v [B,S_block,Hkv,D]."""
+    B, _, H, Dh = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    qg = q.reshape(B, Hkv, rep, Dh)
+    scores = einsum("bgrd,bkgd->bgrk", qg, k).float() * scale
+    ok = torch.arange(Skv, device=q.device)[None, :] < valid[:, None]
+    m, l, p = block_softmax(scores, ok[:, None, None])
+    o = einsum("bgrk,bkgd->bgrd", p.to(q.dtype), v).float()
+    return m, l, o
+
+
+def _grouped_out(o, q):
+    """A combined grouped decode ``[B, Hkv, rep, Dv]`` as ``[B, 1, H, Dv]``
+    in q's dtype."""
+    B, _, H, _ = q.shape
+    return o.to(q.dtype).reshape(B, 1, H, o.shape[-1])
+
+
+def split_decode(q, k, v, kv_valid_len, n_blocks: int) -> torch.Tensor:
+    """The grouped decode of q [B,1,H,D] over k/v [B,S,Hkv,D] computed as
+    ``n_blocks`` equal sequence blocks (:func:`decode_partial` with each
+    block's ``clamp(valid - start, 0, S / n_blocks)``) joined by
+    :func:`~repro_torch.parallel.sharding.combine_blocks`, on one device:
+    what the ranks of a 'model' axis of ``n_blocks`` compute together."""
+    Dh, rep = q.shape[-1], q.shape[2] // k.shape[2]
+    scale = float(1.0 / torch.sqrt(torch.tensor(Dh, dtype=torch.float32)))
+    n = k.shape[1] // n_blocks
+    if n * n_blocks != k.shape[1]:
+        raise ValueError(f"{k.shape[1]} entries do not split into "
+                         f"{n_blocks} blocks")
+    parts = [decode_partial(q, k[:, i * n:(i + 1) * n],
+                            v[:, i * n:(i + 1) * n],
+                            (kv_valid_len - i * n).clamp(0, n), scale, rep)
+             for i in range(n_blocks)]
+    return _grouped_out(combine_blocks(parts), q)
+
+
 def _attn_core(q, k, v, qpos, causal, kv_valid_len, scale):
     scores = einsum("bqhd,bkhd->bhqk", q, k).float() * scale
     kv_idx = torch.arange(k.shape[1], device=q.device)
@@ -100,6 +169,16 @@ def _attn_core(q, k, v, qpos, causal, kv_valid_len, scale):
         scores = scores.masked_fill(~ok[:, None, None], _NEG)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     return einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def _write(dst, src, pos: int) -> None:
+    """``src [B, S, ...]`` into the cache ``dst`` at position ``pos``, in
+    place; under a cache block only the entries in this rank's block."""
+    blk = current_cache_block()
+    if blk is None:
+        dst[:, pos:pos + src.shape[1]] = src.to(dst.dtype)
+    else:
+        blk.write(dst, src, pos)
 
 
 # ---------------------------------------------------------------------------
@@ -135,8 +214,9 @@ def apply_gqa(p: dict, x: torch.Tensor, *, positions: torch.Tensor,
     else:
         ck, cv = cache
         S = x.shape[1]
-        ck[:, cache_pos:cache_pos + S] = k.to(ck.dtype)
-        cv[:, cache_pos:cache_pos + S] = v.to(cv.dtype)
+        _write(ck, k, cache_pos)
+        _write(cv, v, cache_pos)
+        ck, cv = constrain_kv_cache(ck), constrain_kv_cache(cv)
         if S > 1:
             # prefill (cache_pos == 0): attend the freshly computed K/V
             out = sdpa(q, k, v, causal=causal, impl=impl, q_chunk=q_chunk)
@@ -200,14 +280,16 @@ def apply_mla(p: dict, x: torch.Tensor, *, positions: torch.Tensor,
     c_all, r_all, valid = c_kv, k_rope_new, None
     if cache is not None:
         cc, cr = cache
-        cc[:, cache_pos:cache_pos + S] = c_kv.to(cc.dtype)
-        cr[:, cache_pos:cache_pos + S] = k_rope_new.to(cr.dtype)
+        _write(cc, c_kv, cache_pos)
+        _write(cr, k_rope_new, cache_pos)
+        cc, cr = constrain_kv_cache(cc), constrain_kv_cache(cr)
         if S == 1:
             # decode: attend the cache; prefill attends the fresh latents
             c_all, r_all = cc, cr
             valid = torch.full((B,), cache_pos + S, dtype=torch.int32,
                                device=x.device)
 
+    blk = current_cache_block() if valid is not None else None
     if absorbed:
         scale = float(1.0 / torch.sqrt(torch.tensor(d_nope + d_rope,
                                                     dtype=torch.float32)))
@@ -218,13 +300,23 @@ def apply_mla(p: dict, x: torch.Tensor, *, positions: torch.Tensor,
         s_nope = einsum("bshr,btr->bhst", q_eff, c_all)
         s_rope = einsum("bshk,btk->bhst", q_rope, r_all)
         scores = (s_nope + s_rope).float() * scale
-        mask = positions[:, None] >= kv_idx[None, :]
-        scores = scores.masked_fill(~mask[None, None], _NEG)
-        if valid is not None:
-            ok = kv_idx[None, :] < valid[:, None]
-            scores = scores.masked_fill(~ok[:, None, None], _NEG)
-        probs = torch.softmax(scores, dim=-1).to(x.dtype)
-        ctx_lat = einsum("bhst,btr->bshr", probs, c_all)
+        if blk is not None:
+            # decode over this rank's block of the latents (its entries
+            # sit at start + kv_idx, all at or before the query's
+            # position once below the block's valid count)
+            ok = kv_idx[None, :] < blk.local_valid(valid)[:, None]
+            m, l, pr = block_softmax(scores, ok[:, None, None])
+            ctx_part = einsum("bhst,btr->bhsr", pr.to(x.dtype), c_all)
+            ctx_lat = blk.combine(m, l, ctx_part.float()).to(
+                x.dtype).transpose(1, 2)
+        else:
+            mask = positions[:, None] >= kv_idx[None, :]
+            scores = scores.masked_fill(~mask[None, None], _NEG)
+            if valid is not None:
+                ok = kv_idx[None, :] < valid[:, None]
+                scores = scores.masked_fill(~ok[:, None, None], _NEG)
+            probs = torch.softmax(scores, dim=-1).to(x.dtype)
+            ctx_lat = einsum("bhst,btr->bshr", probs, c_all)
         out = einsum("bshr,rhv->bshv", ctx_lat, wv_b)
     else:
         kv = einsum("btr,rhk->bthk", c_all, p["wkv_b"])

@@ -20,6 +20,18 @@ Where the two frameworks differ, the port keeps the reference's meaning:
   row ``C`` of the buffer, which is then cut;
 - the reference's gather clamps an out-of-range index, then multiplies by
   ``keep``: the index is clamped here too.
+
+On a mesh the serving engine and the sharded train steps run each DP rank
+on its own rows and install a :class:`~repro_torch.parallel.sharding.
+TokenGroup`: the routing then stays the reference's over the group's
+batch (the global batch; a pod's under the compressed step). Each copy
+ranks after the copies of the same expert on the group's ranks before it
+(an all-gather of the per-expert counts), the capacity and the chunking
+are the group's batch's, and the rank's buffer holds ``min(capacity,
+local tokens)`` rows per expert, enough for every copy the routing keeps.
+In a train step the load-balance loss takes the group's first-choice
+shares (one more all-gather), so the ranks' mean loss and gradient are
+the batch's.
 """
 from __future__ import annotations
 
@@ -29,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import Builder, einsum
+from repro_torch.parallel.sharding import current_token_group
 
 
 def init_moe(gen: torch.Generator, d_model: int, d_ff_expert: int,
@@ -74,8 +87,13 @@ def apply_moe(p: dict, x: torch.Tensor, *, top_k: int, n_experts: int,
     T = B * S
     kw = dict(top_k=top_k, n_experts=n_experts,
               capacity_factor=capacity_factor, router_bias=router_bias)
-    if token_chunks > 1 and T % token_chunks == 0 \
-            and (T // token_chunks) >= n_experts:
+    grp = current_token_group()
+    Tg = T * (grp.count if grp is not None else 1)     # the global batch's
+    if token_chunks > 1 and Tg % token_chunks == 0 \
+            and (Tg // token_chunks) >= n_experts:
+        if T % token_chunks:
+            raise ValueError(f"{T} tokens on this rank do not split into "
+                             f"{token_chunks} routing chunks")
         xf = x.reshape(T // token_chunks, token_chunks, D).transpose(0, 1)
         ys, auxs = zip(*(_moe_tokens(p, xc, **kw) for xc in xf))
         y = torch.stack(ys).transpose(0, 1).reshape(B, S, D)
@@ -112,9 +130,22 @@ def route(p: dict, xf: torch.Tensor, *, top_k: int, n_experts: int,
     is_start[1:] = se[1:] != se[:-1]
     seg_start = _cummax(torch.where(is_start, pos, -1))
     rank = pos - seg_start
-    cap = int(max(4, round(T * top_k / n_experts * capacity_factor)))
+    slot, grp = rank, current_token_group()
+    if grp is None:
+        cap = int(max(4, round(T * top_k / n_experts * capacity_factor)))
+        rows = cap
+    else:
+        # rank after the earlier DP ranks' copies of the same expert, up to
+        # the global batch's capacity; the slot is the local rank
+        count = torch.zeros(n_experts, dtype=rank.dtype, device=dev)
+        count.scatter_add_(0, e_flat, torch.ones_like(count)[e_flat])
+        rank = rank + grp.before(count)[se]
+        cap = int(max(4, round(T * grp.count * top_k / n_experts
+                               * capacity_factor)))
+        rows = min(cap, T)
     return dict(probs=probs, idx=idx, w=w, order=order, se=se,
-                stok=tok_of[order], rank=rank, keep=rank < cap, cap=cap)
+                stok=tok_of[order], rank=rank, keep=rank < cap, cap=cap,
+                slot=slot, rows=rows)
 
 
 def _moe_tokens(p: dict, xf: torch.Tensor, *, top_k: int, n_experts: int,
@@ -123,12 +154,12 @@ def _moe_tokens(p: dict, xf: torch.Tensor, *, top_k: int, n_experts: int,
     T, D = xf.shape
     r = route(p, xf, top_k=top_k, n_experts=n_experts,
               capacity_factor=capacity_factor, router_bias=router_bias)
-    se, rank, keep, cap = r["se"], r["rank"], r["keep"], r["cap"]
+    se, keep, rows = r["se"], r["keep"], r["rows"]
 
     # ---- sort-based dispatch: the dropped copies land in the spare row
-    rank_c = torch.where(keep, rank, cap)
-    buf = xf.new_zeros((n_experts, cap + 1, D)).index_put(
-        (se, rank_c), xf[r["stok"]])[:, :cap]
+    rank_c = torch.where(keep, r["slot"], rows)
+    buf = xf.new_zeros((n_experts, rows + 1, D)).index_put(
+        (se, rank_c), xf[r["stok"]])[:, :rows]
 
     # ---- batched expert SwiGLU
     g = einsum("ecd,edf->ecf", buf, p["w_gate"])
@@ -136,7 +167,7 @@ def _moe_tokens(p: dict, xf: torch.Tensor, *, top_k: int, n_experts: int,
     out_e = einsum("ecf,efd->ecd", F.silu(g) * u, p["w_down"])
 
     # ---- gather back (out-of-range ranks clamped, then zeroed by keep)
-    got = out_e[se, rank_c.clamp(max=cap - 1)] * keep[:, None].to(xf.dtype)
+    got = out_e[se, rank_c.clamp(max=rows - 1)] * keep[:, None].to(xf.dtype)
     back = xf.new_zeros((T * top_k, D)).index_put((r["order"],),
                                                   got.to(xf.dtype))
     back = back.reshape(T, top_k, D)
@@ -151,6 +182,11 @@ def _moe_tokens(p: dict, xf: torch.Tensor, *, top_k: int, n_experts: int,
     # ---- aux: Switch-style load-balance loss, and the dropped share
     me = r["probs"].mean(dim=0)                                  # [E]
     ce = F.one_hot(r["idx"][:, 0], n_experts).float().mean(dim=0)
+    grp = current_token_group()
+    if grp is not None and grp.aux:
+        # the global batch's first-choice shares (no gradient): the ranks'
+        # mean loss is then the global batch's, and so is its gradient
+        ce = grp.mean(ce)
     aux = {"load_balance_loss": n_experts * (me * ce).sum(),
            "dropped_fraction": 1.0 - keep.float().mean()}
     return y, aux

@@ -34,9 +34,10 @@ import contextvars
 import dataclasses
 import math
 from collections.abc import Mapping
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate, Shard, \
     distribute_tensor
 
@@ -261,6 +262,23 @@ def replicated(mesh) -> NamedSharding:
     return NamedSharding(mesh, ())
 
 
+def full_tensors(tree):
+    """``tree`` with each DTensor leaf gathered whole (``full_tensor``);
+    plain leaves stay as they are."""
+    return _map(lambda t: t.full_tensor() if isinstance(t, DTensor) else t,
+                tree)
+
+
+def from_block(t: torch.Tensor, mesh, placements, shape) -> DTensor:
+    """This rank's block ``t`` of a contiguous ``shape`` tensor placed by
+    ``placements`` on ``mesh``, as a DTensor (no communication)."""
+    shape = tuple(shape)
+    return DTensor.from_local(t.contiguous(), mesh, placements,
+                              run_check=False, shape=shape,
+                              stride=torch.empty(shape,
+                                                 device="meta").stride())
+
+
 def distribute(tensor: torch.Tensor, sharding: NamedSharding) -> DTensor:
     """``tensor``, the same full value on every rank of ``sharding``'s
     mesh, as a DTensor with its placements: each rank keeps its own block,
@@ -298,10 +316,8 @@ class activation_mesh:
 
 
 def _constrain(x, mesh, spec: Tuple):
-    """A DTensor ``x`` redistributed to ``spec`` on ``mesh``; a plain
-    tensor is this rank's whole value and stays as it is."""
-    if not isinstance(x, DTensor):
-        return x
+    """The DTensor ``x`` redistributed to ``spec`` on ``mesh`` (the helpers
+    below return a plain tensor, this rank's whole value, as it is)."""
     return x.redistribute(mesh, placements_for(mesh, spec))
 
 
@@ -310,7 +326,7 @@ def constrain_decode_q(q):
     single-token q across 'model', so it contracts against the
     sequence-sharded KV cache locally. q: [B, 1, H, D]."""
     mesh = _ACT_MESH.get()
-    if mesh is None:
+    if mesh is None or not isinstance(q, DTensor):
         return q
     dp = dp_axes(mesh)
     dpn = math.prod(mesh_shape(mesh).shape[a] for a in dp)
@@ -323,7 +339,7 @@ def maybe_seq_shard_q(q):
     divide the 'model' axis (llama4's 40 heads on a 16-wide axis): shard
     the query sequence over 'model' instead. q: [B, Sq, H, D]."""
     mesh = _ACT_MESH.get()
-    if mesh is None:
+    if mesh is None or not isinstance(q, DTensor):
         return q
     sizes = mesh_shape(mesh).shape
     tp = sizes["model"]
@@ -340,7 +356,7 @@ def constrain_kv_cache(arr):
     """Constrain a cache tensor laid out [B, S, ...] (dims 0=batch,
     1=seq)."""
     mesh = _ACT_MESH.get()
-    if mesh is None or arr is None:
+    if mesh is None or not isinstance(arr, DTensor):
         return arr
     sizes = mesh_shape(mesh).shape
     dp = dp_axes(mesh)
@@ -351,3 +367,184 @@ def constrain_kv_cache(arr):
     if arr.ndim > 1 and arr.shape[1] % sizes["model"] == 0:
         spec[1] = "model"
     return _constrain(arr, mesh, tuple(spec))
+
+
+# ---------------------------------------------------------------------------
+# One rank's block of the sequence-sharded caches, and the combine of a
+# decode attention computed in blocks.
+#
+# The reference shards a decode cache's sequence over 'model' and lets XLA
+# turn the softmax over the sharded length into an all-reduce. Here each
+# rank holds positions [start, stop) of every sequence-sharded leaf as a
+# plain tensor: the serving engine installs a :class:`CacheBlock`, the
+# attention writes only the new entries that fall in the block, attends
+# over the block, and joins the blocks' partial softmaxes across 'model'
+# (:func:`combine_across`; :func:`combine_blocks` is the same over a list,
+# on one device). Without a block installed the attention is the meshless
+# one.
+# ---------------------------------------------------------------------------
+
+NEG = -1e30        # the attention's mask value (models/attention.py's)
+
+
+@dataclasses.dataclass(frozen=True)
+class CacheBlock:
+    """This rank's positions ``[start, stop)`` on the sequence dim of every
+    sequence-sharded cache leaf (the block that ``cache_shardings``'
+    'model' entry gives it), and the 'model' process group whose ranks
+    hold the other blocks of the same rows."""
+    start: int
+    stop: int
+    group: Any = None
+
+    def write(self, dst: torch.Tensor, src: torch.Tensor, pos: int) -> None:
+        """Write the new entries ``src [B, S, ...]``, at global positions
+        ``[pos, pos + S)``, into this rank's block ``dst [B, stop - start,
+        ...]``, in place: only those that fall in ``[start, stop)``."""
+        a = max(pos, self.start)
+        b = min(pos + src.shape[1], self.stop)
+        if a < b:
+            dst[:, a - self.start:b - self.start] = \
+                src[:, a - pos:b - pos].to(dst.dtype)
+
+    def local_valid(self, kv_valid_len: torch.Tensor) -> torch.Tensor:
+        """``[B]`` valid entries of this block, ``clamp(valid - start, 0,
+        stop - start)``, of ``kv_valid_len`` valid global entries."""
+        return (kv_valid_len - self.start).clamp(0, self.stop - self.start)
+
+    def combine(self, m, l, o) -> torch.Tensor:
+        """This rank's partial softmax joined with the other blocks' over
+        the 'model' group (:func:`combine_across`)."""
+        return combine_across(m, l, o, self.group)
+
+
+_CACHE_BLOCK: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_cache_block", default=None)
+
+
+class cache_block:
+    """Context manager installing a :class:`CacheBlock` (``None``: none)
+    for the attention's cache writes and decode."""
+
+    def __init__(self, block: Optional[CacheBlock]):
+        self.block = block
+
+    def __enter__(self):
+        self._tok = _CACHE_BLOCK.set(self.block)
+        return self
+
+    def __exit__(self, *a):
+        _CACHE_BLOCK.reset(self._tok)
+        return False
+
+
+def current_cache_block() -> Optional[CacheBlock]:
+    return _CACHE_BLOCK.get()
+
+
+def block_softmax(scores: torch.Tensor, ok: torch.Tensor):
+    """One block's partial softmax over its last dim: ``(m, l, p)`` with
+    ``m`` the largest valid score, ``p = exp(scores - m)`` (zero where
+    ``ok``, broadcast to ``scores``, is false) and ``l`` its sum. A block
+    with no valid entry gives ``m = NEG``, ``l = 0`` and ``p = 0``."""
+    s = scores.masked_fill(~ok, NEG)
+    m = s.amax(-1)
+    p = torch.exp(s - m[..., None]).masked_fill(~ok, 0.0)
+    return m, p.sum(-1), p
+
+
+def combine_blocks(parts: List[Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]]) -> torch.Tensor:
+    """The attention of blocks ``[(m, l, o), ...]`` (``m``, ``l`` of one
+    shape, ``o`` of it and a value dim; ``o = p @ v`` of the block's
+    :func:`block_softmax`), on one device: each block rescaled by ``exp(m
+    - max m)``, then ``sum o / sum l``. A block with no valid entry adds
+    zero."""
+    m = torch.stack([p[0] for p in parts]).amax(0)
+    l = o = 0
+    for mi, li, oi in parts:
+        w = torch.exp(mi - m)
+        l = l + li * w
+        o = o + oi * w[..., None]
+    return o / l[..., None]
+
+
+def combine_across(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor,
+                   group) -> torch.Tensor:
+    """:func:`combine_blocks` over the ranks of ``group``, each holding one
+    block: an all-reduce ``MAX`` of ``m``, the rescale by ``exp(m_local -
+    m)``, and one all-reduce ``SUM`` of ``l`` and ``o`` side by side."""
+    mg = m.contiguous().clone()
+    dist.all_reduce(mg, op=dist.ReduceOp.MAX, group=group)
+    w = torch.exp(m - mg)
+    lo = torch.cat([(l * w)[..., None], o * w[..., None]], dim=-1)
+    dist.all_reduce(lo, group=group)
+    return lo[..., 1:] / lo[..., :1]
+
+
+@dataclasses.dataclass(frozen=True)
+class TokenGroup:
+    """The DP ranks whose rows make one batch (the MoE routing's group):
+    this rank's ``index`` among ``count``, in row order, and the mesh and
+    placements (``Shard(0)`` on the group's DP axes) over which a per-rank
+    vector is gathered. ``aux``: the load-balance loss, which a train
+    step's loss reads, takes the group's expert shares (serving drops
+    it)."""
+    index: int
+    count: int
+    mesh: Any
+    placements: Any
+    aux: bool = False
+
+    def before(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of ``x`` over the ranks before this one."""
+        every = from_block(x[None], self.mesh, self.placements,
+                           (self.count,) + tuple(x.shape)).full_tensor()
+        return every[:self.index].sum(0)
+
+    def mean(self, x: torch.Tensor) -> torch.Tensor:
+        """The mean of ``x`` over the group's ranks."""
+        return from_block(x[None], self.mesh, self.placements,
+                          (self.count,) + tuple(x.shape)).full_tensor().mean(0)
+
+
+def token_group_of(mesh, coord, axes: Sequence[str], *,
+                   aux: bool = False) -> Optional[TokenGroup]:
+    """The :class:`TokenGroup` of the rank at ``coord`` over the DP
+    ``axes`` (their rows make one batch), ``None`` when they are one
+    rank."""
+    ms = mesh_shape(mesh)
+    sizes = ms.shape
+    count = math.prod(sizes[a] for a in axes)
+    if count == 1:
+        return None
+    index = 0
+    for a in axes:
+        index = index * sizes[a] + coord[ms.axis_names.index(a)]
+    return TokenGroup(index, count, mesh,
+                      [Shard(0) if n in axes else Replicate()
+                       for n in ms.axis_names], aux)
+
+
+_TOKEN_GROUP: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_token_group", default=None)
+
+
+class token_group:
+    """Context manager installing a :class:`TokenGroup` (``None``:
+    none)."""
+
+    def __init__(self, group: Optional[TokenGroup]):
+        self.group = group
+
+    def __enter__(self):
+        self._tok = _TOKEN_GROUP.set(self.group)
+        return self
+
+    def __exit__(self, *a):
+        _TOKEN_GROUP.reset(self._tok)
+        return False
+
+
+def current_token_group() -> Optional[TokenGroup]:
+    return _TOKEN_GROUP.get()

@@ -1,20 +1,46 @@
 """Serving engine: prefill and decode steps with a KV cache, and batched
-generation (mirrors :mod:`repro.serving.engine`, on one device).
+generation (mirrors :mod:`repro.serving.engine`), on one device or on a
+mesh.
 
 The reference jits the two steps and shards the caches over a mesh; here
-they run eagerly on one card, and the cache is updated in place.
+they run eagerly and the cache is updated in place. On a mesh (a
+``DeviceMesh``, :mod:`repro_torch.launch.mesh`) the caches are placed by
+the reference's ``cache_shardings``: batch over the DP axes, the sequence
+over 'model' (a leaf with no sequence dim, such as an SSM or xLSTM state
+or a cross-attention cache, takes 'model' on a head dim instead). Each
+rank holds only its block of each leaf (``NamedSharding.block``) and
+computes on plain local tensors, the design of the sharded training step
+(:mod:`repro_torch.train.trainer`):
+
+- the rank runs its DP rows of the batch; ranks that differ only on
+  'model' run the same rows (the reference runs tensor parallelism there);
+- a sequence-sharded leaf stays in its block: the attention writes the new
+  entries that fall in it and decode combines the blocks' partial
+  softmaxes across 'model'
+  (:class:`~repro_torch.parallel.sharding.CacheBlock`);
+- a leaf that 'model' shards on another dim is gathered whole over
+  'model' at the start of each step and cut back to its block after it
+  (those leaves do not grow with the sequence);
+- a MoE layer routes the global batch, as the reference's does
+  (:class:`~repro_torch.parallel.sharding.TokenGroup`).
+
+With a 'model' axis of size 1 nothing is split, and the path is the
+meshless one.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import Replicate
 
 from repro_torch.device import resolve_device
 from repro_torch.models.transformer import ModelConfig, get_model
+from repro_torch.parallel import sharding as Sh
 
 
 @dataclasses.dataclass
@@ -24,51 +50,263 @@ class ServeConfig:
     temperature: float = 0.0   # 0 -> greedy
 
 
+def _grown_dims(small, large) -> Optional[dict]:
+    """``{id(leaf of small): dim}``: the one dim in which each leaf of
+    ``small`` differs from its twin in ``large``, else no entry."""
+    out = {}
+
+    def one(a, b):
+        diff = [d for d, (x, y) in enumerate(zip(a.shape, b.shape)) if x != y]
+        if len(diff) == 1:
+            out[id(a)] = diff[0]
+        return a
+
+    Sh._map(one, small, large)
+    return out
+
+
+class MeshServe:
+    """What a serving step on a mesh needs: the cache's shardings at rest
+    (the reference's ``cache_shardings`` of ``init_cache(batch,
+    max_len)`` with ``head_candidates``) and the tokens' sharding; on a
+    ``DeviceMesh`` also this rank's coordinate, rows, the layout each leaf
+    is computed in and the :class:`~repro_torch.parallel.sharding.
+    CacheBlock`. A :class:`~repro_torch.parallel.sharding.MeshShape`
+    gives the shardings (a planner's layout) and no step."""
+
+    def __init__(self, model, mesh, batch: int, max_len: int,
+                 head_candidates):
+        self.model, self.mesh = model, mesh
+        self.batch, self.max_len = batch, max_len
+        self.meta = model.init_cache(batch, max_len, device="meta")
+        self.shardings = Sh.cache_shardings(
+            self.meta, mesh, batch=batch, seq=max_len,
+            head_candidates=head_candidates)
+        self.tokens = Sh.batch_shardings(
+            {"t": torch.empty((batch, 1), dtype=torch.int32,
+                              device="meta")}, mesh)["t"]
+        self._bound = False
+
+    def bind(self) -> "MeshServe":
+        """Reads this rank's place on the mesh (once)."""
+        if self._bound:
+            return self
+        if not hasattr(self.mesh, "get_coordinate"):
+            raise ValueError("a MeshShape gives the shardings; running a "
+                             "step needs a DeviceMesh")
+        mesh, B, L = self.mesh, self.batch, self.max_len
+        self.coord = tuple(mesh.get_coordinate())
+        sizes = Sh.mesh_shape(mesh).shape
+        dp = Sh.dp_axes(mesh)
+        tp = sizes["model"]
+        n_dp = int(np.prod([sizes[a] for a in dp]))
+        rows_split = B % n_dp == 0
+        blockwise = tp > 1 and L % tp == 0
+        self.row_block = self.tokens.block((B, 1), self.coord)[0]
+        self.group = (Sh.token_group_of(mesh, self.coord, dp)
+                      if rows_split else None)
+        if blockwise:
+            i = Sh.mesh_shape(mesh).axis_names.index("model")
+            n = L // tp
+            self.block = Sh.CacheBlock(self.coord[i] * n,
+                                       (self.coord[i] + 1) * n,
+                                       mesh.get_group("model"))
+        else:
+            self.block = None
+        # the batch and sequence dim of each leaf: those that grow with
+        # the batch and with max_len
+        bdim = _grown_dims(self.meta, self.model.init_cache(B + 1, L,
+                                                            device="meta"))
+        sdim = _grown_dims(self.meta, self.model.init_cache(B, L + 1,
+                                                            device="meta"))
+        dp_entry = dp if len(dp) > 1 else dp[0]
+        one = [n == 1 for n in Sh.mesh_shape(mesh).sizes]
+
+        def placements(spec):
+            # a block over a mesh dim of size 1 is the whole: Replicate
+            return [Replicate() if o else p for o, p in
+                    zip(one, Sh.NamedSharding(mesh, tuple(spec)).placements)]
+
+        def layout(leaf, sh):
+            spec = [None] * leaf.dim()
+            if rows_split and id(leaf) in bdim:
+                spec[bdim[id(leaf)]] = dp_entry
+            if blockwise and id(leaf) in sdim:
+                spec[sdim[id(leaf)]] = "model"
+            return tuple(leaf.shape), placements(sh.spec), placements(spec)
+
+        self.layout = Sh._map(layout, self.meta, self.shardings)
+        self._bound = True
+        return self
+
+    # ---------------- rows and leaves
+    def rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of ``x``, a global ``[batch, ...]`` tensor."""
+        return x[self.row_block]
+
+    def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """The global ``[batch, ...]`` tensor of every rank's rows ``x``,
+        gathered over the DP axes."""
+        return Sh.from_block(x, self.mesh, self.tokens.placements,
+                             (self.batch,) + tuple(x.shape[1:])).full_tensor()
+
+    def _move(self, t, shape, src, dst):
+        """``t``, this rank's local tensor of a ``shape`` leaf placed by
+        ``src``, as placed by ``dst``: itself where they agree, else a
+        tensor of its own (never a view into a whole leaf)."""
+        if src == dst:
+            return t
+        out = Sh.from_block(t, self.mesh, src, shape).redistribute(
+            self.mesh, dst).to_local()
+        return out.clone() if out._base is not None \
+            or not out.is_contiguous() else out
+
+    def to_compute(self, cache):
+        """Each cache block in the layout its step computes in: this rank's
+        rows and sequence block as they are; a leaf 'model' shards on
+        another dim gathered whole over 'model'."""
+        return Sh._map(lambda t, lay: self._move(t, lay[0], lay[1], lay[2]),
+                       cache, self.layout)
+
+    def to_rest(self, cache):
+        """The computed leaves cut back to this rank's blocks."""
+        return Sh._map(lambda t, lay: self._move(t, lay[0], lay[2], lay[1]),
+                       cache, self.layout)
+
+    def block_len(self) -> int:
+        """The length of this rank's sequence block of each cache leaf."""
+        return (self.block.stop - self.block.start if self.block is not None
+                else self.max_len)
+
+    @contextlib.contextmanager
+    def context(self):
+        """The reference's constraint points, this rank's cache block and
+        its DP ranks' token group."""
+        with Sh.activation_mesh(self.mesh), Sh.cache_block(self.block), \
+                Sh.token_group(self.group):
+            yield
+
+    # ---------------- the steps on this rank's rows
+    def prefill(self, params, tokens, ctx=None):
+        """``(logits, cache)`` of this rank's rows ``tokens`` (and
+        ``ctx``): the cache is built at its block's length (the model's
+        ``max_len`` is read only there), written through the block and cut
+        back to this rank's blocks. A ``ctx`` must hold the config's
+        ``n_ctx`` entries, which the shardings were built with."""
+        cfg = self.model.cfg
+        if ctx is not None and cfg.family in ("vlm", "audio") \
+                and ctx.shape[1] != cfg.n_ctx:
+            raise ValueError(f"{cfg.name}: on a mesh the cross cache is "
+                             f"sharded for n_ctx={cfg.n_ctx} entries; ctx "
+                             f"has {ctx.shape[1]}")
+        with self.context():
+            logits, cache = self.model.prefill(params, tokens,
+                                               max_len=self.block_len(),
+                                               ctx=ctx)
+        return logits, self.to_rest(cache)
+
+    def decode(self, params, tokens, cache, pos: int):
+        """``(logits, cache)`` of one token of this rank's rows at
+        ``pos``, on this rank's cache blocks."""
+        comp = self.to_compute(cache)
+        with self.context():
+            logits, comp = self.model.decode_step(params, tokens, comp, pos)
+        return logits, self.to_rest(comp)
+
+
+def engine_head_candidates(cfg: ModelConfig) -> tuple:
+    """The reference engine's head candidates: KV heads, heads and the SSM
+    heads."""
+    return (cfg.n_kv_heads, cfg.n_heads,
+            (cfg.ssm_expand * cfg.d_model) // max(cfg.ssm_head_dim, 1)
+            if cfg.ssm_head_dim else 0)
+
+
+def step_head_candidates(cfg: ModelConfig) -> tuple:
+    """The reference step factories' head candidates: KV heads and
+    heads."""
+    return (cfg.n_kv_heads, cfg.n_heads)
+
+
 class ServingEngine:
     """``params`` live on ``device`` (``None``: the card, raising without
-    one)."""
+    one). With a ``mesh`` (a ``DeviceMesh``; a ``MeshShape`` gives
+    ``cache_shardings`` only) ``prefill`` and ``decode`` take the global
+    batch on every rank and return this rank's rows' logits and its cache
+    blocks; ``generate`` returns the global tokens on every rank.
+    ``params`` are whole on every rank: DTensor leaves are gathered once,
+    here."""
 
     def __init__(self, cfg: ModelConfig, serve_cfg: ServeConfig, params=None,
-                 device=None):
+                 device=None, mesh=None):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.scfg = serve_cfg
         self.model = get_model(cfg)
-        self.params = params
+        self.mesh = mesh
+        self.params = None if params is None else Sh.full_tensors(params)
         self.last_stats: dict = {}
+        if mesh is not None:
+            self._mesh = MeshServe(self.model, mesh, serve_cfg.batch,
+                                   serve_cfg.max_len,
+                                   engine_head_candidates(cfg))
+            self.cache_shardings = self._mesh.shardings
+        else:
+            self._mesh = None
+            self.cache_shardings = None
+
+    def rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a global batch tensor (all of it without a
+        mesh)."""
+        return x if self._mesh is None else self._mesh.bind().rows(x)
 
     def prefill(self, tokens: torch.Tensor, ctx=None):
         """``ctx``: the VLM's patches or the encoder-decoder's frames, moved
         to the engine's device (other models ignore it)."""
         if ctx is not None:
-            ctx = ctx.to(self.device)
-        return self.model.prefill(self.params, tokens,
-                                  max_len=self.scfg.max_len, ctx=ctx)
+            ctx = self.rows(ctx.to(self.device))
+        return self._prefill_rows(self.rows(tokens), ctx)
 
     def decode(self, tokens: torch.Tensor, cache, pos: int):
-        return self.model.decode_step(self.params, tokens, cache, pos)
+        return self._decode_rows(self.rows(tokens), cache, pos)
+
+    def _prefill_rows(self, tokens, ctx):
+        if self._mesh is None:
+            return self.model.prefill(self.params, tokens,
+                                      max_len=self.scfg.max_len, ctx=ctx)
+        return self._mesh.bind().prefill(self.params, tokens, ctx)
+
+    def _decode_rows(self, tokens, cache, pos):
+        if self._mesh is None:
+            return self.model.decode_step(self.params, tokens, cache, pos)
+        return self._mesh.bind().decode(self.params, tokens, cache, pos)
 
     def generate(self, prompt_tokens: torch.Tensor, n_new: int, ctx=None,
                  generator: Optional[torch.Generator] = None) -> np.ndarray:
         """Greedy (or, with a temperature and a ``generator``, sampled)
         generation for a full batch: ``[B, n_new]`` int32 tokens; ``ctx``
-        goes to the prefill.
+        goes to the prefill. On a mesh every rank takes the global batch,
+        generates its DP rows and returns every row's tokens, gathered
+        over the DP axes.
 
         ``last_stats`` then holds ``prefill_s`` (prompt in to the first
         token on the host: the time to first token), ``decode_s`` (the
         remaining ``n_new - 1`` tokens, up to their arrival on the host)
-        and ``logits_finite`` (every sampled-from logit is finite)."""
-        prompt_tokens = prompt_tokens.to(self.device)
+        and ``logits_finite`` (every sampled-from logit is finite; on a
+        mesh, this rank's)."""
+        prompt_tokens = self.rows(prompt_tokens.to(self.device))
+        if ctx is not None:
+            ctx = self.rows(ctx.to(self.device))
         S = prompt_tokens.shape[1]
         t0 = time.perf_counter()
-        logits, cache = self.prefill(prompt_tokens, ctx)
+        logits, cache = self._prefill_rows(prompt_tokens, ctx)
         finite = torch.isfinite(logits).all()
         tok = self._sample(logits, generator)
         first = tok.cpu()
         t1 = time.perf_counter()
         outs = [tok]
         for i in range(1, n_new):
-            logits, cache = self.decode(tok, cache, S + i - 1)
+            logits, cache = self._decode_rows(tok, cache, S + i - 1)
             finite &= torch.isfinite(logits).all()
             tok = self._sample(logits, generator)
             outs.append(tok)
@@ -76,7 +314,10 @@ class ServingEngine:
         t2 = time.perf_counter()
         self.last_stats = dict(prefill_s=t1 - t0, decode_s=t2 - t1,
                                logits_finite=bool(finite))
-        return torch.cat([first, rest], dim=1).numpy()
+        out = torch.cat([first, rest], dim=1)
+        if self._mesh is not None:
+            out = self._mesh.gather_rows(torch.cat(outs, dim=1)).cpu()
+        return out.numpy()
 
     def _sample(self, logits: torch.Tensor,
                 generator: Optional[torch.Generator]) -> torch.Tensor:
@@ -89,40 +330,82 @@ class ServingEngine:
 
 
 def make_serve_step(cfg: ModelConfig, batch: int, max_len: int,
-                    device=None):
+                    device=None, mesh=None):
     """The one-token decode step of the decode cells, ``serve_step(params,
     tokens [batch, 1], cache, pos) -> (logits, cache)`` at ``pos <
     max_len``, with ``cache`` from ``init_cache(batch, max_len)`` on
-    ``device`` (``None``: the card), written in place. On one card there
-    are no shardings to return: the step comes alone, where the reference
-    returns it with the cache's and the tokens' shardings."""
+    ``device`` (``None``: the card), written in place. With no mesh the
+    step comes alone, where the reference returns it with the cache's and
+    the tokens' shardings.
+
+    With a ``mesh`` it returns the reference's triple ``(serve_step,
+    cache_sh, tok_sh)`` (head candidates: KV heads and heads, as the
+    reference's factory takes them). ``tokens`` is then the global batch
+    on every rank, ``cache`` this rank's blocks of ``cache_sh``, and
+    ``params`` whole tensors or DTensors, gathered in the step; it
+    returns this rank's rows' logits and cache blocks. A ``MeshShape``
+    gives the shardings; the step needs a ``DeviceMesh``."""
     resolve_device(device)
     model = get_model(cfg)
 
-    def serve_step(params, tokens, cache, pos: int):
+    def check(tokens, pos):
         if tuple(tokens.shape) != (batch, 1) or not 0 <= pos < max_len:
             raise ValueError(f"serve_step takes [{batch}, 1] tokens at a "
                              f"position below {max_len}, got "
                              f"{list(tokens.shape)} at {pos}")
-        return model.decode_step(params, tokens, cache, pos)
 
-    return serve_step
+    if mesh is None:
+        def serve_step(params, tokens, cache, pos: int):
+            check(tokens, pos)
+            return model.decode_step(params, tokens, cache, pos)
+
+        return serve_step
+
+    ms = MeshServe(model, mesh, batch, max_len, step_head_candidates(cfg))
+
+    def mesh_serve_step(params, tokens, cache, pos: int):
+        check(tokens, pos)
+        ms.bind()
+        return ms.decode(Sh.full_tensors(params), ms.rows(tokens), cache,
+                         pos)
+
+    mesh_serve_step.mesh_serve = ms
+    return mesh_serve_step, ms.shardings, ms.tokens
 
 
-def make_prefill_step(cfg: ModelConfig, batch: int, seq: int, device=None):
+def make_prefill_step(cfg: ModelConfig, batch: int, seq: int, device=None,
+                      mesh=None):
     """The prefill step of the prefill cells, ``prefill_step(params, tokens
     [batch, <= seq], ctx=None) -> (logits, cache)``, its cache of ``seq``
     entries built on the tokens' device (``device`` is checked as the other
     entry points check it: ``None`` means the card); ``ctx`` is the VLM's
-    patches or the encoder-decoder's frames. The step comes alone, without
-    the reference's cache shardings."""
+    patches or the encoder-decoder's frames. With no mesh the step comes
+    alone, without the reference's cache shardings; with a ``mesh`` it
+    returns ``(prefill_step, cache_sh)``, and the step takes the global
+    batch (and ``ctx``) on every rank and returns this rank's rows'
+    logits and cache blocks, as :func:`make_serve_step`'s."""
     resolve_device(device)
     model = get_model(cfg)
 
-    def prefill_step(params, tokens, ctx=None):
+    def check(tokens):
         if tokens.shape[0] != batch or tokens.shape[1] > seq:
             raise ValueError(f"prefill_step takes {batch} rows of at most "
                              f"{seq} tokens, got {list(tokens.shape)}")
-        return model.prefill(params, tokens, max_len=seq, ctx=ctx)
 
-    return prefill_step
+    if mesh is None:
+        def prefill_step(params, tokens, ctx=None):
+            check(tokens)
+            return model.prefill(params, tokens, max_len=seq, ctx=ctx)
+
+        return prefill_step
+
+    ms = MeshServe(model, mesh, batch, seq, step_head_candidates(cfg))
+
+    def mesh_prefill_step(params, tokens, ctx=None):
+        check(tokens)
+        ms.bind()
+        return ms.prefill(Sh.full_tensors(params), ms.rows(tokens),
+                          None if ctx is None else ms.rows(ctx))
+
+    mesh_prefill_step.mesh_serve = ms
+    return mesh_prefill_step, ms.shardings

@@ -20,9 +20,11 @@ the gradients over the DP axes, (4) clip by the whole gradient's norm, as
 ``apply_updates`` does, and (5) update this rank's shards of the
 parameters and moments. Ranks that differ only on 'model' compute the
 same rows (the reference shards the model's matrices there; here they are
-gathered). On a mesh of one rank the step is the one-device step's, bit
-for bit. The compressed step averages each pod's gradient over its 'data'
-ranks, then runs it through
+gathered). A MoE layer routes the global batch, as the reference's global
+program does (:class:`~repro_torch.parallel.sharding.TokenGroup`; the
+compressed step: each pod's batch). On a mesh of one rank the step is the
+one-device step's, bit for bit. The compressed step averages each pod's
+gradient over its 'data' ranks, then runs it through
 :func:`~repro_torch.parallel.compression.compressed_psum_pod` over the
 mesh's 'pod' group.
 """
@@ -166,6 +168,15 @@ class _MeshStep:
                     f"{microbatches} microbatches")
         return out
 
+    def group(self, batch, axes):
+        """The MoE routing group of this rank's rows of ``batch``: the
+        ranks of the DP ``axes`` whose rows make the batch the reference
+        routes (``None`` where every rank holds every row)."""
+        spec = Sh.batch_shardings({"t": batch["tokens"]}, self.mesh)["t"].spec
+        split = bool(spec) and spec[0] is not None
+        return Sh.token_group_of(self.mesh, self.coord, axes, aux=True) \
+            if split else None
+
     def mean(self, t: torch.Tensor, axes) -> torch.Tensor:
         """``t`` summed over the mesh ``axes`` and divided by their size,
         in place (a metric may share its storage with the loss: pass a
@@ -240,9 +251,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
 
     ms = _MeshStep(cfg, mesh, fsdp)
 
-    def mesh_step(params, opt_state, batch):
-        grads, loss, metrics = grads_of(_gathered(params),
-                                        ms.rows(batch, microbatches))
+    def finish(params, opt_state, grads, loss, metrics):
+        """Steps (3)-(5) of the module docstring, and the metrics' means."""
         for g in tree_leaves(grads):
             ms.mean(g, ms.dp)
         new_params, new_opt, opt_m = ms.update(opt_cfg, params, opt_state,
@@ -252,6 +262,15 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
         metrics["loss"] = ms.mean(loss.clone(), ms.dp)
         return new_params, new_opt, metrics
 
+    def mesh_step(params, opt_state, batch):
+        with Sh.token_group(ms.group(batch, ms.dp)):
+            grads, loss, metrics = grads_of(_gathered(params),
+                                            ms.rows(batch, microbatches))
+        return finish(params, opt_state, grads, loss, metrics)
+
+    # the step's pieces, for a count of one rank's step by its parts
+    # (launch/dryrun.py): the mesh, the gather and rows, and the finish
+    mesh_step.pieces = dict(mesh_step=ms, gathered=_gathered, finish=finish)
     return mesh_step
 
 
@@ -274,7 +293,9 @@ def make_compressed_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
     data = tuple(a for a in ms.dp if a != "pod")
 
     def pod_step(params, opt_state, err_state, batch):
-        grads, loss, metrics = grads_of(_gathered(params), ms.rows(batch))
+        with Sh.token_group(ms.group(batch, data)):
+            grads, loss, metrics = grads_of(_gathered(params),
+                                            ms.rows(batch))
         for g in tree_leaves(grads):
             ms.mean(g, data)
         grads, new_err, wire = C.compressed_psum_pod(

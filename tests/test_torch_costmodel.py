@@ -245,7 +245,7 @@ def test_cli_writes_skip_and_tagged_cells(tmp_path):
     assert rec["status"] == "ok" and rec["overrides"] == {"n_layers": "2"}
     assert costmodel.load_cell("h100x1", "stablelm-3b", "decode_32k", "two",
                                root=tmp_path) == rec
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="fsdp"):
         dryrun.lower_cell("granite-20b", "train_4k", {"fsdp": True})
 
 

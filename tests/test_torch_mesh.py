@@ -1,6 +1,7 @@
 """The port's meshes on four ``gloo`` ranks on the CPU: sharded placement
 against the reference's ``NamedSharding``, the sharded and compressed
-training steps, restoring across meshes and the crash-restart loop.
+training steps, restoring across meshes, the crash-restart loop and the
+serving engine on the 2 x 2 and 1 x 4 meshes.
 
 One group of 4 ranks, spawned once for the whole file
 (``tests/torch_mesh_ranks.py`` runs every check on every rank), joins
@@ -16,20 +17,33 @@ agree within 1e-6 relative and its parameters within 1e-5 of their norm.
 The compressed step is held against its emulation in one process, which
 runs the same operations on the same rows: within 1e-6. Checkpoints
 restore bit for bit.
+
+Serving: each family's smoke config in f32 with the reference's weights
+(``jax.random.PRNGKey(0)``, drawn in this process once the ranks are
+spawned, while they run the other checks, and pickled for them arch by
+arch). The reference's meshless ``ServingEngine`` runs here meanwhile. Greedy tokens are equal;
+each rank's rows' logits are within 1e-5 of each row's norm (the ranks
+sum the sequence blocks' softmaxes and route on their own rows in other
+orders than the one-device reference: about 1e-7 relative).
 """
+import dataclasses
 import json
 import multiprocessing as mp
 import os
+import pickle
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor, as_completed
 
+import numpy as np
 import pytest
 
 import torch_mesh_ranks as R
 
 WORLD = 4
-JOIN_TIMEOUT_S = 120.0
+JOIN_TIMEOUT_S = 180.0
+LOGIT_ROW_REL = 1e-5
 
 _REF_BLOCKS = r"""
 import json, sys
@@ -84,9 +98,77 @@ def block_cases():
     return cases
 
 
+def _dump(out, name, obj):
+    """Pickles ``obj`` for the ranks under ``R.serve_file(name)``, whole
+    before it appears."""
+    tmp = out / (R.serve_file(name) + ".tmp")
+    with open(tmp, "wb") as f:
+        pickle.dump(obj, f)
+    os.replace(tmp, out / R.serve_file(name))
+
+
+def reference_weights(arch):
+    """The reference's smoke weights of ``arch`` in f32, a numpy tree."""
+    import jax
+    from repro import configs as jconfigs
+    from repro.models.transformer import get_model as jget_model
+    model = jget_model(dataclasses.replace(jconfigs.get_smoke_config(arch),
+                                           **R.F32))
+    tree = jax.jit(lambda k: model.init(k)[0])(jax.random.PRNGKey(0))
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def write_serve_inputs(out):
+    """The prompts and the VLM's ``ctx`` (from seeds), then each serving
+    arch's reference weights (MLA's two cases share one; drawn in threads)
+    as each is drawn, pickled for the ranks; returns all of them."""
+    from repro import configs as jconfigs
+    rng = np.random.default_rng(3)
+    vlm = jconfigs.get_smoke_config("llama-3.2-vision-90b")
+    inputs = {"prompts": rng.integers(0, 128, (R.SERVE_B, R.SERVE_S))
+              .astype(np.int32),
+              "ctx": rng.standard_normal((R.SERVE_B, vlm.n_ctx, vlm.d_ctx))
+              .astype(np.float32)}
+    _dump(out, "inputs", inputs)
+    archs = list(dict.fromkeys(a for a, _ in R.SERVE_CASES.values()))
+    params = {}
+    with ThreadPoolExecutor(len(archs)) as ex:
+        futs = {ex.submit(reference_weights, a): a for a in archs}
+        for f in as_completed(futs):
+            params[futs[f]] = f.result()
+            _dump(out, futs[f], params[futs[f]])
+    return dict(inputs, params=params)
+
+
+def serve_reference(inputs):
+    """The reference's meshless engine on each case: greedy tokens, and the
+    last position's logits of the prefill and of each decode step."""
+    import jax.numpy as jnp
+    from repro import configs as jconfigs
+    from repro.serving.engine import ServeConfig, ServingEngine
+    out = {}
+    for name, (arch, over) in R.SERVE_CASES.items():
+        cfg = dataclasses.replace(jconfigs.get_smoke_config(arch), **over,
+                                  **R.F32)
+        eng = ServingEngine(cfg, ServeConfig(R.SERVE_B, R.SERVE_L),
+                            params=inputs["params"][arch])
+        ctx = jnp.asarray(inputs["ctx"]) if cfg.family == "vlm" else None
+        logits, cache = eng.prefill(jnp.asarray(inputs["prompts"]), ctx)
+        steps, toks = [], []
+        for i in range(R.SERVE_NEW):
+            steps.append(np.asarray(logits[:, -1], np.float64))
+            toks.append(np.argmax(steps[-1], -1).astype(np.int32))
+            if i < R.SERVE_NEW - 1:
+                logits, cache = eng.decode(jnp.asarray(toks[-1][:, None]),
+                                           cache, jnp.int32(R.SERVE_S + i))
+        out[name] = {"tokens": np.stack(toks, 1), "logits": steps}
+    return out
+
+
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
-    """Each rank's results, by rank."""
+    """Each rank's results, by rank, and under ``"reference"`` the
+    reference's serving outputs."""
     cases = block_cases()
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=4")
@@ -100,10 +182,12 @@ def ranks(tmp_path_factory):
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=R.main, args=(
         r, WORLD, str(out / "rendezvous"), str(out), cases,
-        JOIN_TIMEOUT_S - 30.0)) for r in range(WORLD)]
+        JOIN_TIMEOUT_S - 30.0, str(out))) for r in range(WORLD)]
+    deadline = time.monotonic() + JOIN_TIMEOUT_S
     for p in procs:
         p.start()
-    deadline = time.monotonic() + JOIN_TIMEOUT_S
+    # the ranks run the other checks meanwhile
+    reference = serve_reference(write_serve_inputs(out))
     for p in procs:
         p.join(max(deadline - time.monotonic(), 0.0))
     hung = [p for p in procs if p.is_alive()]
@@ -117,6 +201,7 @@ def ranks(tmp_path_factory):
     if hung:
         pytest.fail(f"{len(hung)} of {WORLD} ranks still ran after "
                     f"{JOIN_TIMEOUT_S:.0f} s; results {results}")
+    results["reference"] = reference
     return results
 
 
@@ -143,7 +228,7 @@ def test_local_blocks_equal_reference_devices_indices_map(ranks):
             assert c["local"] and c["block"], c
 
 
-@pytest.mark.parametrize("mode", ["tp", "fsdp"])
+@pytest.mark.parametrize("mode", ["tp", "fsdp", "moe"])
 def test_sharded_step_matches_one_device_step(ranks, mode):
     for got in result(ranks, f"step_{mode}"):
         assert got["steps"] == R.STEPS
@@ -195,3 +280,72 @@ def test_constraints_redistribute_a_dtensor(ranks):
         assert got["q"] == ["S(0)", "R"]
         assert got["seq_q"] == ["S(0)", "S(1)"]
         assert got["values"]
+
+
+SERVE_IDS = [f"{c}-{m}" for c in R.SERVE_CASES for m in R.SERVE_MESHES]
+MESH_SHAPES = {"2x2": ((2, 2), ("data", "model")),
+               "1x4": ((1, 4), ("data", "model"))}
+
+
+def serving(ranks, case_mesh):
+    """Every rank's serving result of one case on one mesh."""
+    return [got[case_mesh] for got in result(ranks, "serving")]
+
+
+@pytest.mark.parametrize("case_mesh", SERVE_IDS)
+def test_mesh_engine_equals_reference_engine(ranks, case_mesh):
+    """Greedy tokens equal to the reference's meshless engine on every
+    rank; each rank's rows' logits within 1e-5 of each row's norm."""
+    want = ranks["reference"][case_mesh.split("-")[0]]
+    for got in serving(ranks, case_mesh):
+        np.testing.assert_array_equal(np.asarray(got["tokens"]),
+                                      want["tokens"])
+        for step, (g, w) in enumerate(zip(got["logits"], want["logits"])):
+            w = w[got["rows"]]
+            rel = np.linalg.norm(np.asarray(g) - w, axis=-1) \
+                / np.linalg.norm(w, axis=-1)
+            assert rel.max() <= LOGIT_ROW_REL, (step, rel)
+
+
+def expected_decode_gathers(case, mesh_name):
+    """The all-gathers of one decode step by the engine's design: one per
+    cache leaf that the reference's shardings split over 'model' on a dim
+    other than its sequence (gathered whole for the step), none of a
+    sequence-sharded leaf; and on a mesh whose DP ranks split the batch,
+    one per MoE layer (its routing's per-expert counts)."""
+    from repro_torch import configs
+    from repro_torch.models.transformer import get_model
+    from repro_torch.parallel import sharding as Sh
+    from repro_torch.serving.engine import ServeConfig, ServingEngine
+    arch, over = R.SERVE_CASES[case]
+    sizes, names = MESH_SHAPES[mesh_name]
+    cfg = configs.get_smoke_config(arch, **over, **R.F32)
+    mesh = Sh.MeshShape(names, sizes)
+    eng = ServingEngine(cfg, ServeConfig(R.SERVE_B, R.SERVE_L),
+                        device="cpu", mesh=mesh)
+    seq = R.sequence_dims(cfg)
+    tp = mesh.shape["model"]
+    n = 0
+    for path, sh in R._leaves(eng.cache_shardings):
+        model_dims = [d for d, e in enumerate(sh.spec) if e == "model"]
+        if path in seq:
+            assert tp == 1 or model_dims == [seq[path]], (path, sh.spec)
+        elif model_dims and tp > 1:
+            n += 1
+    if sizes[0] > 1 and cfg.n_experts:
+        n += sum(k for kind, k, _ in get_model(cfg).plan if kind == "moe")
+    return n
+
+
+@pytest.mark.parametrize("case_mesh", SERVE_IDS)
+def test_mesh_engine_holds_blocks_and_gathers_no_sequence_leaf(ranks,
+                                                               case_mesh):
+    """Every rank's cache leaves have the shape ``NamedSharding.block``
+    gives, no rank holds a whole-sequence leaf, and one decode step's
+    all-gathers are those of the design: none of a sequence-sharded
+    leaf."""
+    case, mesh_name = case_mesh.split("-")
+    want = expected_decode_gathers(case, mesh_name)
+    for got in serving(ranks, case_mesh):
+        assert got["blocks"] and not got["whole_sequence_leaf"], got
+        assert got["decode_gathers"] == want, (got["decode_gathers"], want)

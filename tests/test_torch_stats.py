@@ -70,7 +70,44 @@ def test_dist_transform_on_reference_draws(fam, p):
         *(torch.tensor(v, dtype=torch.float32) for v in p),
         torch.from_numpy(u), torch.from_numpy(z)).numpy()
     scale = np.maximum(np.abs(want), np.float32(abs(p[1]))).astype(np.float32)
-    assert (np.abs(got - want) <= ULPS * np.spacing(scale)).all()
+    stray = ~(np.abs(got - want) <= ULPS * np.spacing(scale))
+    assert not stray.any(), stray_report(fam, p, u, z, want, got, stray)
+
+
+def stray_report(fam, p, u, z, want, got, stray) -> str:
+    """What a failure of the transform twin shows: the first stray indices
+    with their inputs and both results, which side strays from the f64
+    ``exp`` of the f32 argument (the lognormal's ``p0 + p1 z``, rounded
+    after the product and after the sum, and fused), the dtypes, and the
+    settings that could move a result by an ulp."""
+    idx = np.flatnonzero(stray)[:8]
+    lines = [f"{int(stray.sum())} of {stray.size} results outside {ULPS} "
+             f"ulps; first at {idx.tolist()}",
+             f"dtypes: u {u.dtype}, z {z.dtype}, want {want.dtype}, got "
+             f"{got.dtype}",
+             f"jax_enable_x64={jax.config.jax_enable_x64}, "
+             f"torch.get_default_dtype()={torch.get_default_dtype()}, "
+             f"torch.get_num_threads()={torch.get_num_threads()}"]
+    if fam == stats.LOGNORMAL:
+        z32, p0, p1 = z.astype(np.float32), np.float32(p[0]), np.float32(p[1])
+        args = {"rounded": (p0 + p1 * z32).astype(np.float32),
+                "fused": (np.float64(p0) + np.float64(p1)
+                          * z32.astype(np.float64)).astype(np.float32)}
+        for how, arg in args.items():
+            oracle = np.exp(arg.astype(np.float64))
+            ulp = np.spacing(np.abs(oracle).astype(np.float32)).astype(
+                np.float64)
+            off = {side: np.abs(x.astype(np.float64) - oracle) / ulp
+                   for side, x in (("port", got), ("reference", want))}
+            worse = "port" if off["port"][idx].max() > \
+                off["reference"][idx].max() else "reference"
+            lines.append(f"from the f64 exp of the {how} f32 argument, in "
+                         f"ulps: port {off['port'][idx].round(2).tolist()}, "
+                         f"reference {off['reference'][idx].round(2).tolist()}"
+                         f": the {worse} strays")
+    lines += [f"  [{i}] u={u[i]!r} z={z[i]!r} want={want[i]!r} "
+              f"got={got[i]!r}" for i in idx]
+    return "\n".join(lines)
 
 
 def test_sample_equals_reference_dist_sample_on_its_draws():

@@ -10,15 +10,43 @@ import datetime
 import json
 import math
 import os
+import pickle
 import tempfile
+import time
 import traceback
 
 import torch
 import torch.distributed as dist
 
 CFG_ARCH = "llama3.2-1b"
+# a MoE arch whose smoke routing drops copies at B x S tokens (8 experts,
+# top 2, routed in 8 chunks of 16 tokens with a capacity of 5 each)
+MOE_ARCH = "deepseek-v3-671b"
 B, S = 8, 16          # 8 rows: 2 per DP rank of a 2 x 2 mesh
 STEPS = 2
+
+# the serving engine on the meshes: each family at smoke size in f32, the
+# reference's weights (pickled by the parent) through the bridge. 6 rows
+# (3 per DP rank of 2 x 2; no smoke cache dim before the batch dim is 6,
+# so the reference's rule finds the batch dim), 8-token prompts, 4 new
+# tokens, caches of 16 entries (8 or 4 per 'model' rank)
+SERVE_CASES = {
+    "llama": ("llama3.2-1b", {}),
+    "mla": ("deepseek-v3-671b", {}),
+    "mla_absorbed": ("deepseek-v3-671b", {"mla_absorbed": True}),
+    "hybrid": ("zamba2-1.2b", {}),
+    "vlm": ("llama-3.2-vision-90b", {}),
+    "xlstm": ("xlstm-125m", {}),
+}
+SERVE_B, SERVE_S, SERVE_NEW, SERVE_L = 6, 8, 4, 16
+SERVE_MESHES = ("2x2", "1x4")
+F32 = {"param_dtype": "float32", "compute_dtype": "float32"}
+
+
+def serve_file(name: str) -> str:
+    """The pickle the parent writes for the serving check: the prompts
+    (``"inputs"``) or an arch's reference weights."""
+    return f"serve-{name}.pkl"
 
 
 def _rel(a, b) -> float:
@@ -42,11 +70,11 @@ def _same(a, b) -> bool:
         x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb))
 
 
-def _setup():
+def _setup(arch=CFG_ARCH):
     from repro_torch import configs
     from repro_torch.data.pipeline import DataConfig, synth_batch
     from repro_torch.optim import adamw
-    cfg = configs.get_smoke_config(CFG_ARCH)
+    cfg = configs.get_smoke_config(arch)
     opt = adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
     dcfg = DataConfig(cfg.vocab_size, B, S)
     return cfg, opt, [synth_batch(dcfg, i, "cpu") for i in range(STEPS)]
@@ -78,13 +106,13 @@ def check_blocks(meshes, cases):
     return out
 
 
-def check_sharded_step(meshes, fsdp):
+def check_sharded_step(meshes, fsdp, arch=CFG_ARCH):
     """Two steps on the 2 x 2 mesh against the one-device step on the
     same batches: losses and parameters, and the share of the state this
     rank holds."""
     from repro_torch.models.common import tree_leaves
     from repro_torch.train import trainer
-    cfg, opt, batches = _setup()
+    cfg, opt, batches = _setup(arch)
     mesh = meshes["2x2"]
     st = trainer.init_train_state(cfg, opt, 0, "cpu")
     sh = trainer.state_shardings(cfg, mesh, fsdp=fsdp)
@@ -244,8 +272,106 @@ def check_constraints(meshes):
             and torch.equal(sq.full_tensor(), x[:, :, :1])}
 
 
+def sequence_dims(cfg) -> dict:
+    """``{path: dim}`` of the cache leaves that grow with ``max_len``
+    (the self-attention K/V and latents), found by growing it by one."""
+    from repro_torch.models.common import tree_items
+    from repro_torch.models.transformer import get_model
+
+    def items(L):
+        cache = get_model(cfg).init_cache(SERVE_B, L, device="meta")
+        return dict(_leaves(cache))
+
+    a, b = items(SERVE_L), items(SERVE_L + 1)
+    return {p: next(d for d, (x, y) in enumerate(zip(t.shape, b[p].shape))
+                    if x != y)
+            for p, t in a.items() if t.shape != b[p].shape}
+
+
+def _leaves(tree, prefix=()):
+    """``(path, tensor)`` of a cache's nested dicts and tuples."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], prefix + (k,))
+    elif isinstance(tree, (tuple, list)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, prefix + (i,))
+    else:
+        yield prefix, tree
+
+
+def _load(serve_dir: str, name: str, deadline: float):
+    """The parent's pickle ``name``, once it has appeared."""
+    path = os.path.join(serve_dir, serve_file(name))
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{path} did not appear in time")
+        time.sleep(0.1)
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def check_serving(meshes, serve_dir, timeout_s):
+    """Each family's ``ServingEngine`` on the 2 x 2 and 1 x 4 meshes with
+    the reference's weights: the global greedy tokens, this rank's rows'
+    logits (prefill, then decode teacher-forced on those tokens), its
+    cache blocks' shapes against ``NamedSharding.block``, whether it holds
+    a whole-sequence leaf, and the all-gathers of one decode step
+    (``CommDebugMode``)."""
+    from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch import configs
+    from repro_torch.models import weights
+    from repro_torch.models.transformer import get_model
+    from repro_torch.serving.engine import ServeConfig, ServingEngine
+    deadline = time.monotonic() + timeout_s
+    inputs = _load(serve_dir, "inputs", deadline)
+    prompts = torch.from_numpy(inputs["prompts"])
+    out = {}
+    for name, (arch, over) in SERVE_CASES.items():
+        cfg = configs.get_smoke_config(arch, **over, **F32)
+        params = weights.from_reference(_load(serve_dir, arch, deadline),
+                                        "cpu")
+        ctx = (torch.from_numpy(inputs["ctx"]) if cfg.family == "vlm"
+               else None)
+        sdims = sequence_dims(cfg)
+        full = dict(_leaves(get_model(cfg).init_cache(SERVE_B, SERVE_L,
+                                                      device="meta")))
+        for mesh_name in SERVE_MESHES:
+            mesh = meshes[mesh_name]
+            coord = tuple(mesh.get_coordinate())
+            tp = mesh.shape[mesh.mesh_dim_names.index("model")]
+            eng = ServingEngine(cfg, ServeConfig(SERVE_B, SERVE_L),
+                                params=params, device="cpu", mesh=mesh)
+            tokens = eng.generate(prompts, SERVE_NEW, ctx=ctx)
+            logits, cache = eng.prefill(prompts, ctx)
+            sh = dict(_leaves(eng.cache_shardings))
+            blocks_ok, whole = True, False
+            for p, t in _leaves(cache):
+                want = tuple(s.stop - s.start for s in sh[p].block(
+                    tuple(full[p].shape), coord))
+                blocks_ok &= tuple(t.shape) == want
+                whole |= p in sdims and tp > 1 \
+                    and t.shape[sdims[p]] == SERVE_L
+            steps = [logits]
+            for i in range(SERVE_NEW - 1):
+                tok = torch.from_numpy(tokens[:, i:i + 1])
+                comm = CommDebugMode()
+                with comm:
+                    logits, cache = eng.decode(tok, cache, SERVE_S + i)
+                steps.append(logits)
+            gathers = sum(n for op, n in comm.get_comm_counts().items()
+                          if "gather" in str(op))
+            out[f"{name}-{mesh_name}"] = {
+                "tokens": tokens.tolist(),
+                "rows": eng.rows(torch.arange(SERVE_B)).tolist(),
+                "logits": [t[:, -1].double().tolist() for t in steps],
+                "blocks": blocks_ok, "whole_sequence_leaf": whole,
+                "decode_gathers": gathers}
+    return out
+
+
 def main(rank: int, world: int, init_file: str, out_dir: str, cases,
-         timeout_s: float) -> None:
+         timeout_s: float, serve_dir: str = "") -> None:
     torch.set_num_threads(1)
     dist.init_process_group(
         "gloo", init_method=f"file://{init_file}", rank=rank,
@@ -263,13 +389,17 @@ def main(rank: int, world: int, init_file: str, out_dir: str, cases,
             ("blocks", lambda: check_blocks(meshes, cases)),
             ("step_tp", lambda: check_sharded_step(meshes, False)),
             ("step_fsdp", lambda: check_sharded_step(meshes, True)),
+            ("step_moe", lambda: check_sharded_step(meshes, False,
+                                                    MOE_ARCH)),
             ("compressed", lambda: check_compressed_step(meshes)),
             ("checkpoint", lambda: check_checkpoint(
                 meshes, os.path.join(tmp[0], "ckpt"))),
             ("restart", lambda: check_crash_restart(
                 meshes, os.path.join(tmp[0], "train"))),
             ("meshes", check_meshes),
-            ("constraints", lambda: check_constraints(meshes))]
+            ("constraints", lambda: check_constraints(meshes)),
+            ("serving", lambda: check_serving(meshes, serve_dir,
+                                              timeout_s / 2))]
         for name, fn in checks:
             try:
                 results[name] = fn()
