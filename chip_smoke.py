@@ -358,6 +358,20 @@ Phases (any failure exits non-zero, with no result line):
     world (``dryrun.write_cells(..., mesh_name="single")``, while (a) and
     (b) run): its per-device FLOPs, bytes and collective bytes, and its
     cache block, 1/256 of the whole cache, checked.
+25. The ten examples of ``examples/torch``, within ``EXAMPLES_BUDGET_S``:
+    each example's ``main(device="cuda")`` in this process, one after
+    another, at the reference example's constants except the cuts in
+    ``EXAMPLE_CUTS`` (printed on each example's line; horizons and steps,
+    never a check). ``accelerator_platform`` reads its catalog from 17(a)'s
+    cells. Checks: every returned number finite, the fields the reference
+    example prints, ``replay_trace``'s windowed replay ``parity_drift``
+    0.0 and its exact replay's error 0.0, ``train_lm``'s last loss below
+    its first with one restart, and the kernels each example launched
+    (``fused_admission`` on the ``"torch"`` sweeps, in the reactive
+    autoscaler's planning runs and in the stream, ``gmm_logpdf`` in the
+    quickstart's fit; no other). Prints each
+    example's wall and its ``fused_admission`` and ``gmm_logpdf``
+    launches. These launches stay out of the kernels' JSON record.
 
 Each phase's wall is printed on one ``[done]`` line. The last lines are
 the kernels' JSON record (a kernel launched on two
@@ -639,6 +653,46 @@ MESH_SERVE_BUDGET_S = 40.0
 COMBINE_B, COMBINE_S, COMBINE_BLOCKS = 8, 32768, 16
 COMBINE_HEADS, COMBINE_KV_HEADS, COMBINE_D = 32, 8, 64
 COMBINE_VALID = (32768, 30000, 1, 2049, 16384, 32767, 4096, 20000)
+# phase 25: the ten examples of examples/torch, each main() in this
+# process on the card; EXAMPLE_CUTS are the keyword arguments that cut an
+# example below the reference example's constants (its main()'s defaults):
+# at those constants the ten took 154.0 s on an NVIDIA H100 80GB HBM3 at
+# 700 W, the model lifecycle's day alone 59.5 s, so the wave-loop horizons
+# and the training steps are cut
+EXAMPLES_BUDGET_S = 60.0
+EXAMPLES = ("quickstart", "capacity_planning", "scheduler_comparison",
+            "autoscaling_scenarios", "model_lifecycle", "observability",
+            "reliability_frontier", "replay_trace", "accelerator_platform",
+            "train_lm")
+EXAMPLE_CUTS = {"capacity_planning": {"horizon_s": 3 * 3600.0},
+                "autoscaling_scenarios": {"horizon_s": 4 * 3600.0},
+                "model_lifecycle": {"horizon_s": 4 * 3600.0},
+                "reliability_frontier": {"horizon_s": 3 * 3600.0},
+                "replay_trace": {"horizon_s": 1.5 * 3600.0},
+                "train_lm": {"steps": 100}}
+# the fields each example's return holds (those the reference prints), and
+# the examples whose main path launches each kernel (the rest launch none)
+EXAMPLE_ROW_FIELDS = {
+    "capacity_planning": ("capacity", "util", "mean_wait_s", "p95_wait_s",
+                          "ci95"),
+    "scheduler_comparison": ("policy", "mean_wait_s", "p95_wait_s",
+                             "stale_weighted_wait_s"),
+    "autoscaling_scenarios": ("scenario", "p95_wait_s", "deadline_miss_rate",
+                              "wait_slo_violation_rate", "total_cost",
+                              "util_provisioned"),
+    "reliability_frontier": ("spot_frac", "crews", "availability", "cost",
+                             "spot_savings", "max_repair_wait_s",
+                             "evicted_tasks"),
+}
+EXAMPLE_ROWS = {"capacity_planning": 5, "scheduler_comparison": 3,
+                "autoscaling_scenarios": 5, "reliability_frontier": 12}
+EXAMPLE_LAUNCHES = {
+    # the reactive autoscaler plans by re-simulating on the device
+    "fused_admission": ("capacity_planning", "autoscaling_scenarios",
+                        "model_lifecycle", "reliability_frontier",
+                        "replay_trace"),
+    "gmm_logpdf": ("quickstart",),
+}
 FSO_KEYS = ORACLE_KEYS + (
     "ctrl_act", "ctrl_n", "rel_act", "rel_n", "fleet_perf", "fleet_stale",
     "fleet_act", "fleet_n", "pool_arr", "pool_model", "pool_next",
@@ -3536,25 +3590,18 @@ def early_cell_count():
     return CellCount() if early else None
 
 
-def phase_cost_model(torch, counts, flash_attention, train_llama,
-                     cells=None):
+def phase_cost_model(torch, counts, flash_attention, train_llama, cells):
     """Phase 17 within ``COST_BUDGET_S``: (a) counted in worker processes
-    (``cells``, started at phase 16; else started here) while (c) and (d)
-    run on the card, then (b) and (e). Returns (d)'s flash records."""
+    (``cells``, started at phase 16 or just before this phase; the caller
+    closes it) while (c) and (d) run on the card, then (b) and (e).
+    Returns (d)'s flash records."""
     card = card_line()
     t17 = time.perf_counter()
-    own = cells is None
-    if own:
-        cells = CellCount()
-    try:
-        roofline_vs_step(torch, train_llama, card)
-        paths = serve_dense(torch, counts, flash_attention, card)
-        records, cells_wall = cells.result()
-        report_cells(records, cells_wall)
-        catalog_on_card(torch, counts, cells.root)
-    finally:
-        if own:
-            cells.close()
+    roofline_vs_step(torch, train_llama, card)
+    paths = serve_dense(torch, counts, flash_attention, card)
+    records, cells_wall = cells.result()
+    report_cells(records, cells_wall)
+    catalog_on_card(torch, counts, cells.root)
     profile_fullstack(torch, counts, card)
     wall = time.perf_counter() - t17
     within = "within" if wall <= COST_BUDGET_S else "OVER"
@@ -5010,6 +5057,127 @@ def phase_mesh_serving(torch, counts, flash_attention):
     return launches, frec
 
 
+# ------------------------------------------------------------ phase 25
+
+def load_example(name):
+    """``examples/torch/<name>.py`` as a module (its ``main`` not run)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"torch_example_{name}", ROOT / "examples" / "torch" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def all_finite(x) -> bool:
+    """Every number in a nest of dicts, lists and tuples is finite."""
+    if isinstance(x, dict):
+        return all(all_finite(v) for v in x.values())
+    if isinstance(x, (list, tuple)):
+        return all(all_finite(v) for v in x)
+    if isinstance(x, np.ndarray):
+        return x.dtype.kind not in "fc" or bool(np.isfinite(x).all())
+    if isinstance(x, (bool, str)) or x is None:
+        return True
+    return bool(np.isfinite(float(x)))
+
+
+def check_example(name, out, archs):
+    """The fields the reference example prints, and its own checks."""
+    if not all_finite(out):
+        raise AssertionError(f"25 {name}: a returned number is not finite")
+    if name in EXAMPLE_ROW_FIELDS:
+        if len(out) != EXAMPLE_ROWS[name] or any(
+                set(r) != set(EXAMPLE_ROW_FIELDS[name]) for r in out):
+            raise AssertionError(f"25 {name}: rows {out}")
+    elif name == "quickstart":
+        want = {"n_tasks", "n_pipelines", "mean_wait_s", "p50_wait_s",
+                "p95_wait_s", "p99_wait_s", "utilization"}
+        if not (want <= set(out["summary"])
+                and out["summary"]["n_pipelines"] > 0
+                and out["empirical_pipelines"] > 0):
+            raise AssertionError(f"25 {name}: {out}")
+    elif name == "model_lifecycle":
+        if (len(out["rows"]) != 8 or not out["frontier"]
+                or out["drill"] is None
+                or not sum(r["n_retrained"] for r in out["rows"])):
+            raise AssertionError(f"25 {name}: {out}")
+    elif name == "observability":
+        if not (out["ticks_sampled"] > 0 and out["rows"]
+                and {"run", "pipeline", "task"} <= set(out["span_kinds"])
+                and all(os.path.getsize(f) > 0 for f in out["files"])):
+            raise AssertionError(f"25 {name}: {out}")
+    elif name == "replay_trace":
+        if out["parity_drift"] != 0.0 or out["replay_max_err"] != 0.0 or \
+                out["recovered_pipelines"] != out["pipelines"]:
+            raise AssertionError(f"25 {name}: drift {out['parity_drift']}, "
+                                 f"replay error {out['replay_max_err']}")
+    elif name == "accelerator_platform":
+        if sorted(out["medians_s"]) != sorted(archs) or len(out["rows"]) != 3:
+            raise AssertionError(f"25 {name}: {sorted(out['medians_s'])}")
+    elif name == "train_lm":
+        if not (out["last_loss"] < out["first_loss"]
+                and out["restarts"] == 1):
+            raise AssertionError(f"25 {name}: {out}")
+
+
+def example_cuts(mod, kwargs) -> str:
+    """The keyword arguments that differ from ``main``'s defaults (the
+    reference example's constants), as ``name default -> value``."""
+    import inspect
+    params = inspect.signature(mod.main).parameters
+    return ", ".join(f"{k} {params[k].default:g} -> {v:g}"
+                     if isinstance(v, (int, float)) else f"{k} -> {v}"
+                     for k, v in kwargs.items()) or "none"
+
+
+def phase_examples(torch, counts, root, cuts=None):
+    """Phase 25 within ``EXAMPLES_BUDGET_S``: each example's ``main`` on the
+    card, one after another in this process, at the reference example's
+    constants unless ``cuts`` (default ``EXAMPLE_CUTS``) cuts them;
+    ``accelerator_platform`` reads the cells under ``root`` (17(a)'s).
+    Checks each return (finite numbers, the fields the reference prints,
+    its own checks) and the kernels each launched; prints each example's
+    wall and launches."""
+    import tempfile
+    from repro_torch import configs
+    cuts = EXAMPLE_CUTS if cuts is None else cuts
+    card = card_line()
+    t25 = time.perf_counter()
+    walls = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_examples_") as out_dir:
+        extra = {"observability": {"out_dir": out_dir},
+                 "replay_trace": {"out_dir": out_dir},
+                 "accelerator_platform": {"root": root}}
+        for name in EXAMPLES:
+            mod = load_example(name)
+            kw = dict(cuts.get(name, {}))
+            torch.cuda.synchronize()
+            for k in counts:
+                k.launches = 0
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(sys.stderr):
+                out = mod.main(device="cuda", **kw, **extra.get(name, {}))
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0
+            launched = {k.__name__: k.launches for k in counts}
+            for kname, n in launched.items():
+                want = name in EXAMPLE_LAUNCHES.get(kname, ())
+                if (n > 0) != want:
+                    raise AssertionError(f"25 {name}: {kname} launched {n} "
+                                         "times")
+            check_example(name, out, configs.ARCHS)
+            log(f"[25] {name}: {walls[name]:.2f} s, fused_admission "
+                f"{launched['fused_admission']} / gmm_logpdf "
+                f"{launched['gmm_logpdf']} launches; cut: "
+                f"{example_cuts(mod, kw)}; card: {card}")
+    wall = time.perf_counter() - t25
+    within = "within" if wall <= EXAMPLES_BUDGET_S else "OVER"
+    log(f"[25] phase 25: {len(walls)} examples in {wall:.1f} s ({within} its "
+        f"{EXAMPLES_BUDGET_S:g} s budget); card: {card}")
+    return walls
+
+
 def both_paths(paths, keys=("ms", "plain_ms", "bound_ms", "library_ms")):
     """One kernel's record over the main paths that launch it: launches
     summed, and each time (``keys``) the launch-weighted mean of the
@@ -5151,27 +5319,33 @@ def main() -> int:
                                      mamba2_scan)
         torch.cuda.empty_cache()
         clock.lap("16")
+        if cells is None:
+            cells = CellCount()
         dense_paths = phase_cost_model(torch, counts, flash_attention,
                                        train_llama, cells)
+        clock.lap("17")
+        phase_audit(torch, fs_kw)
+        clock.lap("18")
+        moe_path = phase_moe(torch, counts, flash_attention)
+        clock.lap("19")
+        cross_paths = phase_cross(torch, counts, flash_attention)
+        clock.lap("20")
+        phase_xlstm(torch, counts, fused_admission)
+        clock.lap("21")
+        phase_heap_engine(inputs, ens, wall, single, oracle_card, fso_card)
+        clock.lap("22")
+        phase_mesh(torch, counts, train_llama)
+        clock.lap("23")
+        mesh_launches, mesh_frec = phase_mesh_serving(torch, counts,
+                                                      flash_attention)
+        clock.lap("24")
+        # 17(a)'s cells stay until here: the accelerator-platform example
+        # reads its catalog from them
+        phase_examples(torch, counts, cells.root)
+        clock.lap("25")
     finally:
         if cells is not None:
             cells.close()
-    clock.lap("17")
-    phase_audit(torch, fs_kw)
-    clock.lap("18")
-    moe_path = phase_moe(torch, counts, flash_attention)
-    clock.lap("19")
-    cross_paths = phase_cross(torch, counts, flash_attention)
-    clock.lap("20")
-    phase_xlstm(torch, counts, fused_admission)
-    clock.lap("21")
-    phase_heap_engine(inputs, ens, wall, single, oracle_card, fso_card)
-    clock.lap("22")
-    phase_mesh(torch, counts, train_llama)
-    clock.lap("23")
-    mesh_launches, mesh_frec = phase_mesh_serving(torch, counts,
-                                                  flash_attention)
-    clock.lap("24")
 
     kernels = [dict(
         name="fused_admission", route="cuda",

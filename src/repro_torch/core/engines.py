@@ -55,7 +55,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import time
-from typing import List, Sequence
+from typing import List, Protocol, Sequence, runtime_checkable
 
 import numpy as np
 import torch
@@ -64,6 +64,22 @@ from repro_torch.core import batching, des, trace, vdes
 from repro_torch.core import model as M
 from repro_torch.core.synthesizer import synthesize_workload
 from repro_torch.device import resolve_device
+
+
+@runtime_checkable
+class Engine(Protocol):
+    """One dispatch point for every simulation backend (the reference's
+    protocol): each registered engine has these three members."""
+
+    name: str
+
+    def run(self, spec, params=None):
+        """Run one :class:`ExperimentSpec` -> :class:`ExperimentResult`."""
+        ...
+
+    def run_sweep(self, specs: Sequence, params=None) -> List:
+        """Run a grid of specs, one result per spec (order preserved)."""
+        ...
 
 
 def _check_source(spec) -> None:

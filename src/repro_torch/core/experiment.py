@@ -28,7 +28,7 @@ import dataclasses
 import itertools
 import json
 import os
-from typing import Dict, List, Mapping, Optional, Sequence
+from typing import TYPE_CHECKING, Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 
@@ -36,7 +36,9 @@ from repro_torch.core import des, trace
 from repro_torch.core import model as M
 from repro_torch.core.fitting import SimulationParams
 from repro_torch.core.runtime import FleetSpec, TriggerSpec
-from repro_torch.ops.scenario import Scenario
+
+if TYPE_CHECKING:
+    from repro_torch.ops.scenario import Scenario
 
 _UNSET = object()   # sentinel: "controller" axis absent vs explicitly None
 
@@ -120,7 +122,9 @@ class ExperimentSpec:
             else:
                 out = dataclasses.replace(out, **{k: v})
         if ctrl is not _UNSET and not (ctrl is None and out.scenario is None):
-            # (a None controller on a scenario-less spec stays pristine)
+            # (a None controller on a scenario-less spec stays pristine);
+            # imported here: repro_torch.ops imports this package
+            from repro_torch.ops.scenario import Scenario
             sc = out.scenario if out.scenario is not None \
                 else Scenario(name="controller")
             out = dataclasses.replace(
@@ -129,6 +133,11 @@ class ExperimentSpec:
 
     def to_spec(self) -> "ExperimentSpec":
         return self
+
+
+def as_spec(exp) -> "ExperimentSpec":
+    """Normalize anything exposing ``to_spec`` to an :class:`ExperimentSpec`."""
+    return exp.to_spec()
 
 
 @dataclasses.dataclass
@@ -175,7 +184,7 @@ def run_experiment(exp, params: Optional[SimulationParams] = None,
     """Run one experiment spec on its declared engine, on ``device``
     (``None``: the card)."""
     from repro_torch.core.engines import get_engine
-    spec = exp.to_spec()
+    spec = as_spec(exp)
     res = get_engine(spec.engine, device).run(spec, params)
     res.experiment = exp            # hand back the caller's own object
     return res
@@ -210,7 +219,7 @@ class Sweep:
     axes: Mapping[str, Sequence]
 
     def points(self) -> List[ExperimentSpec]:
-        base = self.base.to_spec()
+        base = as_spec(self.base)
         names = list(self.axes)
         pts = []
         for combo in itertools.product(*[self.axes[k] for k in names]):

@@ -232,7 +232,9 @@ def simulate(vwl: VWorkload, capacities, policy: int = POLICY_FIFO,
              pool_gain=None, pool_base=None, n_pool_eff=None,
              probe=None, n_probe_slots: Optional[int] = None,
              rel_times=None, rel_deltas=None,
-             n_rel_slots: Optional[int] = None, device=None) -> dict:
+             n_rel_slots: Optional[int] = None,
+             resume=None, wave_budget=None, time_budget=None,
+             return_state: bool = False, device=None) -> dict:
     """Run one replica: :func:`simulate_ensemble` with ``R = 1``. Returns
     start/finish/ready ``[N, T]`` (f32; NaN where a task does not exist or
     never ran), attempts, done and the wave count, plus the buffers of the
@@ -250,10 +252,20 @@ def simulate(vwl: VWorkload, capacities, policy: int = POLICY_FIFO,
     (``fleet [M, 6]``, ``trig``, ``obs_noise``/``drift_inc [E, M]``,
     ``pool_gain [P]``, ``pool_base``, ``n_pool_eff``), ``probe`` and
     ``rel_times [RV]`` / ``rel_deltas [RV, nres]`` are one replica's rows of
-    :func:`simulate_ensemble`'s stage inputs."""
+    :func:`simulate_ensemble`'s stage inputs.
+
+    Segment-restart hooks, as in the reference: ``resume`` (the ``state``
+    of an earlier ``return_state=True`` call), ``wave_budget`` (an int: stop
+    once the wave counter reaches it), ``time_budget`` (a float: stop
+    before any wave whose next-event time exceeds it) and ``return_state``
+    (adds ``state``, ``running`` and ``n_keep``). Stopping at a wave
+    boundary and resuming from the state is bit for bit the uncut run."""
 
     def one(x):
         return None if x is None else torch.as_tensor(x)[None]
+
+    if resume is not None:
+        resume = {k: v[None] for k, v in resume.items()}
 
     res = simulate_ensemble(
         one(vwl.arrival), one(vwl.n_tasks), one(vwl.task_res),
@@ -268,8 +280,13 @@ def simulate(vwl: VWorkload, capacities, policy: int = POLICY_FIFO,
         pool_gain=one(pool_gain), pool_base=one(pool_base),
         n_pool_eff=one(n_pool_eff), probes=one(probe),
         n_probe_slots=n_probe_slots, rel_times=one(rel_times),
-        rel_deltas=one(rel_deltas), n_rel_slots=n_rel_slots, device=device)
-    return {k: v[0] for k, v in res.items()}
+        rel_deltas=one(rel_deltas), n_rel_slots=n_rel_slots, resume=resume,
+        wave_budget=one(wave_budget), time_budget=one(time_budget),
+        return_state=return_state, device=device)
+    out = {k: v[0] for k, v in res.items() if k != "state"}
+    if return_state:
+        out["state"] = {k: v[0] for k, v in res["state"].items()}
+    return out
 
 
 def simulate_to_trace(wl: M.Workload, platform: Optional[M.PlatformConfig] = None,

@@ -1,6 +1,6 @@
 """Shared model components (mirrors :mod:`repro.models.common`): the
-parameter builder, RMS norm, RoPE, the SwiGLU and gelu MLPs and the LM
-head.
+parameter builder, RMS and layer norms, RoPE, the SwiGLU and gelu MLPs,
+the LM head and the cross-entropy loss.
 
 Parameters are nested dicts of tensors with the reference's layouts
 (stacked ``[L, ...]`` leaves for repeated blocks, ``wq [D, H, Dh]``, ...),
@@ -194,6 +194,16 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
     return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * gamma
 
 
+def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """Mean and (population) variance in f32, normalised, cast back to x's
+    dtype, then ``* gamma + beta``, as the reference does."""
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, keepdim=True, correction=0)
+    return ((x32 - mu) * torch.rsqrt(var + eps)).to(x.dtype) * gamma + beta
+
+
 def rope_freqs(head_dim: int, theta: float = 10000.0,
                device=None) -> torch.Tensor:
     return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
@@ -267,14 +277,19 @@ def lm_head_logits(x: torch.Tensor, head: torch.Tensor,
     return logits
 
 
-def cross_entropy_loss(logits: torch.Tensor,
-                       labels: torch.Tensor) -> torch.Tensor:
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean next-token cross entropy (:func:`repro.models.common.
-    cross_entropy_loss` without a mask): logits ``[B, S, V]`` cast to f32,
-    labels ``[B, S]``. The gold logit is gathered (the reference sums an
-    iota-compare mask, which gives the same value, to keep a vocab-sharded
-    tensor sharded)."""
+    cross_entropy_loss`): logits ``[B, S, V]`` cast to f32, labels
+    ``[B, S]``; with ``mask [B, S]`` the masked mean
+    ``sum(nll * mask) / max(sum(mask), 1)``. The gold logit is gathered (the
+    reference sums an iota-compare mask, which gives the same value, to
+    keep a vocab-sharded tensor sharded)."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, labels.long()[..., None])[..., 0]
-    return (logz - gold).mean()
+    nll = logz - gold
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / mask.sum().clamp(min=1.0)

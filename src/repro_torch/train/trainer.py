@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import torch
 import torch.distributed as dist
@@ -51,14 +51,20 @@ from repro_torch.parallel import sharding as Sh
 class TrainState:
     params: Any
     opt_state: Any
+    err_state: Any = None  # compression error feedback
 
 
 def init_train_state(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
-                     seed: int = 0, device=None) -> TrainState:
+                     seed: int = 0, device=None,
+                     comp: Optional[C.CompressionConfig] = None
+                     ) -> TrainState:
     """Random parameters from ``seed`` on ``device`` (``None``: the card),
-    each requiring grad, and zero moments."""
+    each requiring grad, and zero moments; with ``comp``, the zero error
+    feedback of :func:`~repro_torch.parallel.compression.init_error_state`
+    (``None`` when ``comp`` feeds nothing back)."""
     params = trainable(get_model(cfg).init(seed, device))
-    return TrainState(params, adamw.init_opt_state(opt_cfg, params))
+    err = C.init_error_state(comp, params) if comp is not None else None
+    return TrainState(params, adamw.init_opt_state(opt_cfg, params), err)
 
 
 def trainable(params):

@@ -33,8 +33,10 @@ from repro_torch.serving.engine import ServeConfig, ServingEngine
 
 ROOT = Path(__file__).resolve().parents[1]
 ARTIFACT = ROOT / "artifacts" / "pipesim_params.npz"
+EXAMPLE_FILES = sorted((ROOT / "examples" / "torch").glob("*.py"))
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py")) \
+    + EXAMPLE_FILES
 
 
 def _imports(path):
@@ -53,6 +55,7 @@ def test_no_jax_or_reference_imports(path):
         top = name.split(".")[0]
         assert top != "jax" and top != "jaxlib", f"{path}: imports {name}"
         assert top != "repro", f"{path}: imports {name}"
+        assert top != "benchmarks", f"{path}: imports {name}"
 
 
 def test_walk_covers_every_subpackage():
@@ -74,6 +77,9 @@ def test_walk_covers_every_subpackage():
             "src/repro_torch/models/xlstm.py",
             "src/repro_torch/configs/xlstm_125m.py",
             "src/repro_torch/parallel/compression.py"} <= names
+    # the examples: a port form of every reference example
+    ref = {p.name for p in (ROOT / "examples").glob("*.py")}
+    assert {f"examples/torch/{n}" for n in ref} <= names
     # the parity auditor: a counterpart of every reference file
     ref = {p.name for p in (ROOT / "src" / "repro" / "analysis").glob("*.py")}
     assert {f"src/repro_torch/analysis/{n}" for n in ref} <= names
@@ -113,6 +119,18 @@ def run_fresh(code):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().splitlines()[-1] == "ok"
+
+
+def test_package_surface_leaves_jax_unloaded():
+    """``repro_torch.core`` and ``repro_torch.ops`` export the reference's
+    front door without loading JAX, whichever is imported first."""
+    for first, second in (("core", "ops"), ("ops", "core")):
+        run_fresh(
+            "import sys\n"
+            f"import repro_torch.{first}, repro_torch.{second}\n"
+            "from repro_torch.core import ExperimentSpec, Sweep, Engine\n"
+            "from repro_torch.ops import Scenario, SLOConfig\n"
+            + NO_REFERENCE)
 
 
 def test_cpu_run_leaves_jax_unloaded():
@@ -513,3 +531,42 @@ def test_unported_arguments_are_refused():
                                  wave_budget=None, time_budget=None,
                                  return_state=False)
     assert "state" not in out and bool(out["done"].all())
+
+
+def _load_example(path):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"torch_example_{path.stem}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("path", [p for p in EXAMPLE_FILES
+                                  if not p.name.startswith("_")],
+                         ids=lambda p: p.stem)
+def test_example_without_card_raises_unless_cpu_is_asked_for(monkeypatch,
+                                                             path):
+    """An example's ``main()`` with no ``device`` runs on the card or
+    raises before any work; the CPU runs only when asked for
+    (``tests/test_torch_examples.py`` runs each with ``device="cpu"``)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _load_example(path).main()
+
+
+def test_example_command_line_without_card_fails_unless_cpu_is_asked_for(
+        tmp_path):
+    """From the command line: no card and no ``--device cpu`` is a failure
+    naming the flag; ``--device cpu`` runs."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    cmd = [sys.executable, str(ROOT / "examples" / "torch" / "train_lm.py"),
+           "--steps", "4", "--ckpt-dir", str(tmp_path)]
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode != 0 and "device='cpu'" in proc.stderr
+    proc = subprocess.run(cmd + ["--device", "cpu"], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert '"restarts": 1' in proc.stdout
