@@ -372,6 +372,29 @@ Phases (any failure exits non-zero, with no result line):
     quickstart's fit; no other). Prints each
     example's wall and its ``fused_admission`` and ``gmm_logpdf``
     launches. These launches stay out of the kernels' JSON record.
+26. Tensor and expert parallelism on the card, within ``TP_BUDGET_S``:
+    two spawned processes share the card over a ``gloo`` group on CUDA
+    tensors (NCCL refuses two ranks on one device), a (1, 2) mesh ("data"
+    x "model"). (a) llama3.2-1b at full width served 4 x 1,024 with 32 new
+    tokens through the ``ServingEngine`` on the mesh: in f32, fed the
+    meshless engine's greedy tokens (rank 0 runs it: both ranks hold every
+    row), it picks the same token at every step (so its own greedy run
+    gives the same tokens) and the logits of its prefill and of each
+    decode step are within ``TP_F32_ROW_REL`` of each row's norm of the
+    meshless engine's; in bf16 each rank's time to
+    first token, decode tokens/s, peak GiB above its baseline and kernel
+    launches (flash once per layer per prefill, on 16 query and 4 KV
+    heads, nothing else), and flash timed on rank 0's layer-0 inputs. (b)
+    One llama3.2-1b training step in f32 at 2 x 1,024 on the mesh: the
+    loss within ``TP_LOSS_REL`` of the meshless step's and each rank's
+    gradient blocks within ``TP_GRAD_REL`` of their norm. (c) EP: the
+    smoke deepseek-v3-671b and llama4-maverick configs in f32 served on
+    the mesh and meshless: each MoE call's routing equal exactly, greedy
+    tokens equal, logits within ``TP_EP_ROW_REL`` of each row's norm;
+    then llama4-maverick at phase 19's cut in bf16 (its blocks drawn
+    straight on each rank): time to first token, decode tokens/s and peak
+    GiB per rank, all finite. The collectives pass through the host: these
+    times are this harness's, not tensor parallelism's on NVLink.
 
 Each phase's wall is printed on one ``[done]`` line. The last lines are
 the kernels' JSON record (a kernel launched on two
@@ -653,6 +676,18 @@ MESH_SERVE_BUDGET_S = 40.0
 COMBINE_B, COMBINE_S, COMBINE_BLOCKS = 8, 32768, 16
 COMBINE_HEADS, COMBINE_KV_HEADS, COMBINE_D = 32, 8, 64
 COMBINE_VALID = (32768, 30000, 1, 2049, 16384, 32767, 4096, 20000)
+# phase 26, tensor and expert parallelism within its own budget: two
+# processes sharing the card over gloo on a (1, 2) mesh; llama served at
+# phase 6's size and trained one step at TP_TRAIN; the EP twins at
+# MOE_TWIN_S tokens, then maverick at phase 19's cut. f32 bounds: the
+# ranks sum the partial products in another order (about 1e-7 of a row)
+TP_BUDGET_S = 75.0
+TP_WORLD = 2
+TP_TIMEOUT_S = 240.0      # a rank still running then is killed: the phase fails
+TP_TRAIN = dict(batch=2, seq=1024)
+TP_F32_ROW_REL, TP_EP_ROW_REL = 1e-4, 1e-5
+TP_LOSS_REL, TP_GRAD_REL = 1e-6, 1e-5
+TP_EP_ARCHS = ("deepseek-v3-671b", "llama4-maverick-400b-a17b")
 # phase 25: the ten examples of examples/torch, each main() in this
 # process on the card; EXAMPLE_CUTS are the keyword arguments that cut an
 # example below the reference example's constants (its main()'s defaults):
@@ -5178,6 +5213,434 @@ def phase_examples(torch, counts, root, cuts=None):
     return walls
 
 
+# ------------------------------------------------------------ phase 26
+
+def row_rel(got, want) -> float:
+    """The largest ``||got - want|| / ||want||`` over the last dim's rows."""
+    got, want = got.double(), want.double()
+    return float(((got - want).norm(dim=-1) / want.norm(dim=-1)).max())
+
+
+def teacher_forced(torch, eng, prompts, tokens, prompt_len):
+    """The logits of ``eng``'s prefill of ``prompts`` and of each decode
+    step fed the generated ``tokens``, joined on the sequence dim."""
+    logits, cache = eng.prefill(prompts)
+    steps = [logits]
+    for i in range(tokens.shape[1] - 1):
+        tok = torch.from_numpy(tokens[:, i:i + 1]).cuda()
+        logits, cache = eng.decode(tok, cache, prompt_len + i)
+        steps.append(logits)
+    return torch.cat(steps, 1)
+
+
+def tp_serve_llama(torch, mesh, rank, counts, flash_attention):
+    """26(a) on this rank: llama3.2-1b in f32 on the mesh against the
+    meshless engine, then in bf16 its numbers and launches."""
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.launch.serve import random_prompts
+    from repro_torch.models import attention
+    from repro_torch.models.transformer import get_model
+    from repro_torch.serving.engine import ServeConfig, ServingEngine
+    # caches of a length the 'model' axis divides: the sequence splits
+    # (CacheBlock), so no cache leaf is redistributed as a DTensor (DTensor's
+    # functional collectives crash over gloo on CUDA tensors)
+    scfg = ServeConfig(batch=SERVE_B, max_len=SERVE_PROMPT + SERVE_NEW)
+    out = {}
+    f32 = configs.get_config(SERVE_ARCH, attn_impl="flash",
+                             param_dtype="float32", compute_dtype="float32")
+    params = get_model(f32).init(SERVE_SEED, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SERVE_SEED + 1)
+    prompts = random_prompts(f32.vocab_size, SERVE_B, SERVE_PROMPT, gen)
+    t0 = time.perf_counter()
+    # the meshless engine's greedy tokens and logits on rank 0 (both ranks
+    # hold every row), sent to rank 1; the mesh engine fed those tokens
+    # (teacher-forced) must pick the same token at every step, so its own
+    # greedy run gives the same tokens
+    tok = torch.empty((SERVE_B, SERVE_NEW), dtype=torch.int32,
+                      device="cuda")
+    if rank == 0:
+        eng = ServingEngine(f32, scfg, params=params, device="cuda")
+        tokens = eng.generate(prompts, SERVE_NEW)
+        want = teacher_forced(torch, eng, prompts, tokens, SERVE_PROMPT)
+        del eng
+        tok.copy_(torch.from_numpy(tokens))
+    dist.broadcast(tok, 0)
+    tokens = tok.cpu().numpy()
+    eng = ServingEngine(f32, scfg, params=params, device="cuda", mesh=mesh)
+    got = teacher_forced(torch, eng, prompts, tokens, SERVE_PROMPT)
+    del eng, params
+    torch.cuda.empty_cache()
+    if rank == 0:
+        out["f32_tokens_equal"] = bool(
+            (got.argmax(-1).cpu().numpy() == tokens).all())
+        out["f32_row_rel"] = row_rel(got, want)
+        if not (out["f32_tokens_equal"]
+                and out["f32_row_rel"] <= TP_F32_ROW_REL):
+            raise AssertionError(f"26(a) f32 on the mesh against meshless: "
+                                 f"{out}")
+        del want
+    del got
+    out["f32_s"] = time.perf_counter() - t0
+    cfg = configs.get_config(SERVE_ARCH, attn_impl="flash")
+    eng = ServingEngine(cfg, scfg, params=get_model(cfg).init(SERVE_SEED,
+                                                             "cuda"),
+                        device="cuda", mesh=mesh)
+    torch.cuda.empty_cache()
+    eng.generate(prompts, 2)
+    shapes = []
+    tap = CallTap(flash_attention)
+
+    def spy(q, k, v, **kw):
+        shapes.append((q.shape[2], k.shape[2]))
+        return tap(q, k, v, **kw)
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    attention.flash_attention = spy
+    try:
+        for c in counts:
+            c.launches = 0
+        tokens = eng.generate(prompts, SERVE_NEW)
+        launches = {c.__name__: c.launches for c in counts}
+    finally:
+        attention.flash_attention = flash_attention
+    st = eng.last_stats
+    out.update(launches=launches, heads=sorted(set(shapes)),
+               bf16_s=time.perf_counter() - t0,
+               ttft_s=st["prefill_s"],
+               decode_tps=SERVE_B * (SERVE_NEW - 1) / st["decode_s"],
+               peak_gib=(torch.cuda.max_memory_allocated() - base) / 2**30,
+               finite=st["logits_finite"], tokens_shape=list(tokens.shape))
+    want_heads = [(cfg.n_heads // TP_WORLD, cfg.n_kv_heads // TP_WORLD)]
+    others = {k: n for k, n in launches.items()
+              if k != flash_attention.__name__ and n}
+    if launches[flash_attention.__name__] != cfg.n_layers or others \
+            or out["heads"] != want_heads or not out["finite"]:
+        raise AssertionError(f"26(a) bf16 on the mesh, rank {rank}: {out}")
+    del eng
+    if rank == 0:
+        out["flash"] = time_flash(torch, flash_attention, tap.kept, 26,
+                                  "on layer 0's local heads of the prefill "
+                                  "on the (1, 2) mesh, rank 0")
+    # the other rank waits here, so that it does not share the card with
+    # the timing
+    dist.barrier()
+    del tap
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_train_llama(torch, mesh, rank):
+    """26(b) on this rank: one f32 llama3.2-1b step on the mesh (its loss)
+    and its gradient blocks against the meshless step's."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.models.transformer import get_model
+    from repro_torch.optim import adamw
+    from repro_torch.train import trainer
+    cfg = configs.get_config(SERVE_ARCH, param_dtype="float32",
+                             compute_dtype="float32")
+    opt = adamw.AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=10)
+    batch = synth_batch(DataConfig(cfg.vocab_size, TP_TRAIN["batch"],
+                                   TP_TRAIN["seq"]), 0, "cuda")
+    st = trainer.init_train_state(cfg, opt, SERVE_SEED, "cuda")
+    sh = trainer.state_shardings(cfg, mesh)
+    placed = trainer.shard_state(
+        {"params": st.params, "opt_state": st.opt_state},
+        {"params": sh["params"], "opt_state": sh["opt_state"]})
+    model = get_model(cfg)
+    grads_of = trainer._grad_fn(model, 1)
+    want_g, want_loss, _ = grads_of(st.params, batch)
+    del st
+    torch.cuda.empty_cache()
+    step = trainer.make_train_step(cfg, opt, mesh)
+    ms = step.pieces["mesh_step"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with ms.context(batch, ms.dp):
+        got_g, _, _ = grads_of(ms.local(placed["params"]), ms.rows(batch))
+    torch.cuda.synchronize()
+    grad_s = time.perf_counter() - t0
+    blocks = tree_map(ms.model_block, want_g, got_g, sh["params"])
+    num = sum(float((a.double() - b.double()).square().sum())
+              for a, b in zip(tree_leaves(got_g), tree_leaves(blocks)))
+    den = sum(float(b.double().square().sum()) for b in tree_leaves(blocks))
+    split = sum(ms.split(got_g, placed["params"]))
+    del want_g, got_g, blocks
+    torch.cuda.empty_cache()
+    _, _, metrics = step(placed["params"], placed["opt_state"], batch)
+    loss = float(metrics["loss"])
+    out = dict(loss=loss, want_loss=float(want_loss),
+               loss_rel=abs(loss - float(want_loss)) / abs(float(want_loss)),
+               grad_rel=(num / den) ** 0.5, split_leaves=split,
+               grad_s=grad_s, grad_norm=float(metrics["grad_norm"]))
+    if not (out["loss_rel"] <= TP_LOSS_REL and out["grad_rel"] <= TP_GRAD_REL
+            and split > 0):
+        raise AssertionError(f"26(b) rank {rank}: {out}")
+    del placed, metrics
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_random_params(torch, cfg, mesh, seed):
+    """Random parameters from ``seed`` drawn straight into this rank's
+    blocks, in the config's dtype, at the model builder's scales (ones for
+    the norms, zeros for the biases, 0.02 for the embedding, else
+    1/sqrt(fan in)): a leaf whose layer runs split is drawn as this rank's
+    'model' block (a stream of its own per rank), any other leaf the same
+    on both ranks. (The whole tree of maverick's cut does not fit on the
+    card twice.)"""
+    import math
+    from repro_torch.models.common import tree_items
+    from repro_torch.models.transformer import get_model
+    from repro_torch.parallel import sharding as Sh
+    model = get_model(cfg)
+    shapes, axes = model.init(0, device="meta", with_axes=True)
+    sh = dict(tree_items(Sh.param_shardings(axes, shapes, mesh)))
+    ax = dict(tree_items(axes))
+    mg = Sh.model_group_of(mesh)
+    out = {}
+    for i, (path, t) in enumerate(tree_items(shapes)):
+        shape = list(t.shape)
+        d = Sh.model_dim(sh[path].spec)
+        split = d is not None and model.model_parallel_leaf(path, mg.size)
+        if split:
+            shape[d] //= mg.size
+        name = path[-1]
+        if name.startswith("ln") or "norm" in name:
+            leaf = torch.ones(shape, dtype=cfg.pdt, device="cuda")
+        elif name.startswith("b_"):
+            leaf = torch.zeros(shape, dtype=cfg.pdt, device="cuda")
+        else:
+            gen = torch.Generator(device="cuda").manual_seed(
+                seed * 1_000_003 + 2 * i + (mg.index if split else 0)
+                * 1_000_000)
+            dims = [n for n, a in zip(t.shape, ax[path]) if a != "layers"]
+            scale = 0.02 if name == "embed" else 1.0 / math.sqrt(dims[0])
+            leaf = torch.randn(shape, generator=gen, dtype=cfg.pdt,
+                               device="cuda").mul_(scale)
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[name] = leaf
+    return out
+
+
+def tp_experts(torch, mesh, rank, counts, flash_attention):
+    """26(c) on this rank: the smoke MoE configs on the mesh against the
+    meshless engine (routing, tokens, logits), then maverick at phase
+    19's cut on the mesh."""
+    from repro_torch import configs
+    from repro_torch.launch.serve import random_prompts
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import get_model
+    from repro_torch.serving.engine import ServeConfig, ServingEngine
+    route = moe.route
+    out = {"twins": {}}
+    S = MOE_TWIN_S
+    for arch in TP_EP_ARCHS:
+        cfg = configs.get_smoke_config(arch)
+        params = get_model(cfg).init(MOE_SEED, "cuda")
+        gen = torch.Generator(device="cuda").manual_seed(MOE_SEED + 1)
+        prompts = random_prompts(cfg.vocab_size, MOE_B, S, gen)
+        scfg = ServeConfig(batch=MOE_B, max_len=S + MOE_NEW)
+        runs = {}
+        for name, m in (("mesh", mesh), ("meshless", None)):
+            routes = []
+
+            def spy(*a, **kw):
+                r = route(*a, **kw)
+                routes.append({k: r[k].cpu() for k in ("idx", "rank",
+                                                       "keep")})
+                return r
+
+            eng = ServingEngine(cfg, scfg, params=params, device="cuda",
+                                mesh=m)
+            moe.route = spy
+            try:
+                tokens = eng.generate(prompts, MOE_NEW)
+                logits = teacher_forced(torch, eng, prompts, tokens, S)
+            finally:
+                moe.route = route
+            runs[name] = (tokens, logits, routes)
+        (tm, lm, rm), (tw, lw, rw) = runs["mesh"], runs["meshless"]
+        got = dict(routes=len(rm), routing_equal=len(rm) == len(rw) > 0
+                   and all(torch.equal(a[k], b[k])
+                           for a, b in zip(rm, rw) for k in a),
+                   tokens_equal=bool(np.array_equal(tm, tw)),
+                   row_rel=row_rel(lm, lw))
+        if not (got["routing_equal"] and got["tokens_equal"]
+                and got["row_rel"] <= TP_EP_ROW_REL):
+            raise AssertionError(f"26(c) smoke {arch} rank {rank}: {got}")
+        out["twins"][arch] = got
+    arch = TP_EP_ARCHS[1]
+    cfg = configs.get_config(arch, n_layers=MOE_LAYERS[arch],
+                             attn_impl="flash")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = tp_random_params(torch, cfg, mesh, MOE_SEED)
+    gen = torch.Generator(device="cuda").manual_seed(MOE_SEED + 1)
+    prompts = random_prompts(cfg.vocab_size, MOE_B, MOE_PROMPT, gen)
+    eng = ServingEngine(cfg, ServeConfig(batch=MOE_B,
+                                         max_len=MOE_PROMPT + MOE_NEW),
+                        params=params, device="cuda", mesh=mesh)
+    del params
+    eng.generate(prompts, 2)
+    for c in counts:
+        c.launches = 0
+    tokens = eng.generate(prompts, MOE_NEW)
+    st = eng.last_stats
+    out["maverick"] = dict(
+        ttft_s=st["prefill_s"],
+        decode_tps=MOE_B * (MOE_NEW - 1) / st["decode_s"],
+        peak_gib=(torch.cuda.max_memory_allocated() - base) / 2**30,
+        finite=st["logits_finite"],
+        launches={c.__name__: c.launches for c in counts},
+        in_vocab=bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()))
+    m = out["maverick"]
+    if not (m["finite"] and m["in_vocab"] and np.isfinite(
+            [m["ttft_s"], m["decode_tps"], m["peak_gib"]]).all()
+            and m["launches"][flash_attention.__name__] == cfg.n_layers):
+        raise AssertionError(f"26(c) maverick rank {rank}: {m}")
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_rank(rank, init_file, out_dir):
+    """One rank of phase 26 (a spawned process): joins the gloo group
+    (``file://`` rendezvous), builds the (1, 2) mesh on the card, runs
+    (a)-(c) and writes ``rank<r>.json``: each part's numbers and wall, or
+    the traceback that stopped it."""
+    import datetime
+    import faulthandler
+    import traceback
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.gmm_logpdf import gmm_logpdf
+    from repro_torch.kernels.mamba2_scan import mamba2_scan
+    from repro_torch.kernels.queue_scan import fused_admission, queue_scan
+    from repro_torch.launch.mesh import make_mesh
+    counts = (fused_admission, flash_attention, gmm_logpdf, mamba2_scan,
+              queue_scan)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    faulthandler.enable()       # a crash shows its Python stack on stderr
+    result = {"walls": {}}
+    try:
+        dist.init_process_group(
+            "gloo", init_method=f"file://{init_file}", rank=rank,
+            world_size=TP_WORLD,
+            timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
+        mesh = make_mesh((1, TP_WORLD), ("data", "model"), "cuda")
+        for key, fn in (
+                ("a", lambda: tp_serve_llama(torch, mesh, rank, counts,
+                                             flash_attention)),
+                ("b", lambda: tp_train_llama(torch, mesh, rank)),
+                ("c", lambda: tp_experts(torch, mesh, rank, counts,
+                                         flash_attention))):
+            t0 = time.perf_counter()
+            result[key] = fn()
+            result["walls"][key] = time.perf_counter() - t0
+            print(f"chip_smoke: phase 26 rank {rank}: ({key}) done in "
+                  f"{result['walls'][key]:.1f} s", file=sys.stderr,
+                  flush=True)
+    except BaseException:
+        result["error"] = traceback.format_exc()
+    finally:
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(result, f)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def phase_tp(torch, flash_attention):
+    """Phase 26 within ``TP_BUDGET_S``: the two ranks in spawned
+    processes, joined under ``TP_TIMEOUT_S`` (a rank still running then is
+    killed and the phase fails). Returns rank 0's flash launches on (a)'s
+    bf16 generation and its record on that path."""
+    import multiprocessing
+    import tempfile
+    card = card_line()
+    t26 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as d:
+        procs = [ctx.Process(target=tp_rank, args=(
+            r, os.path.join(d, "rendezvous"), d)) for r in range(TP_WORLD)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + TP_TIMEOUT_S
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 0.0))
+        hung = [p for p in procs if p.is_alive()]
+        for p in hung:
+            p.kill()
+            p.join()
+        results = []
+        for r in range(TP_WORLD):
+            path = os.path.join(d, f"rank{r}.json")
+            results.append(json.load(open(path)) if os.path.exists(path)
+                           else {"error": f"rank {r} wrote no result"})
+    if hung:
+        raise AssertionError(f"26: {len(hung)} of {TP_WORLD} ranks still ran "
+                             f"after {TP_TIMEOUT_S:g} s: {results}")
+    bad = [f"rank {r} (exit {p.exitcode}):\n{res.get('error')}"
+           for r, (p, res) in enumerate(zip(procs, results))
+           if "error" in res or p.exitcode != 0]
+    if bad:
+        raise AssertionError("26 " + "\n".join(bad))
+    for r, res in enumerate(results):
+        a, b, c = res["a"], res["b"], res["c"]
+        f32 = (f"the meshless engine's greedy tokens picked at every step, "
+               f"logits within "
+               f"{a['f32_row_rel']:.3g} of each row's norm (tol "
+               f"{TP_F32_ROW_REL:g})" if r == 0 else "held on rank 0")
+        log(f"[26] (a) rank {r}: {SERVE_ARCH} at full width on the (1, "
+            f"{TP_WORLD}) mesh over gloo, {SERVE_B} x {SERVE_PROMPT} prompts, "
+            f"{SERVE_NEW} new tokens; f32 ({a['f32_s']:.1f} s): {f32}; bf16 "
+            f"({a['bf16_s']:.1f} s): time to first token "
+            f"{a['ttft_s']:.4f} s, decode {a['decode_tps']:.1f} tokens/s, "
+            f"peak {a['peak_gib']:.2f} GiB above the baseline, launches "
+            f"{a['launches']}, flash on (query, KV) heads {a['heads']} "
+            f"({res['walls']['a']:.1f} s)")
+        log(f"[26] (b) rank {r}: one f32 training step at "
+            f"{TP_TRAIN['batch']} x {TP_TRAIN['seq']}: loss {b['loss']:.6f} "
+            f"against the meshless {b['want_loss']:.6f} (relative "
+            f"{b['loss_rel']:.3g}, tol {TP_LOSS_REL:g}); its "
+            f"{b['split_leaves']} 'model'-split gradient blocks and the "
+            f"whole leaves within {b['grad_rel']:.3g} of their norm (tol "
+            f"{TP_GRAD_REL:g}); forward and backward {b['grad_s']:.3f} s; "
+            f"grad norm {b['grad_norm']:.4f} ({res['walls']['b']:.1f} s)")
+        twins = "; ".join(
+            f"smoke {k}: {v['routes']} MoE calls routed equally, tokens "
+            f"equal, logits within {v['row_rel']:.3g}"
+            for k, v in c["twins"].items())
+        mv = c["maverick"]
+        log(f"[26] (c) rank {r}: {twins} (tol {TP_EP_ROW_REL:g}); "
+            f"{TP_EP_ARCHS[1]} at {MOE_LAYERS[TP_EP_ARCHS[1]]} layers, bf16, "
+            f"{MOE_B} x {MOE_PROMPT}, {MOE_NEW} new, experts split over "
+            f"'model': time to first token {mv['ttft_s']:.4f} s, decode "
+            f"{mv['decode_tps']:.1f} tokens/s, peak {mv['peak_gib']:.2f} GiB "
+            f"above the baseline, launches {mv['launches']} "
+            f"({res['walls']['c']:.1f} s)")
+    log("[26] the collectives pass through the host (gloo on CUDA tensors, "
+        "two processes on one card): these times are this harness's, not "
+        "tensor parallelism's over NVLink")
+    wall = time.perf_counter() - t26
+    within = "within" if wall <= TP_BUDGET_S else "OVER"
+    log(f"[26] phase 26 in {wall:.1f} s ({within} its {TP_BUDGET_S:g} s "
+        f"budget); card: {card}")
+    a0 = results[0]["a"]
+    return a0["launches"][flash_attention.__name__], a0["flash"]
+
+
 def both_paths(paths, keys=("ms", "plain_ms", "bound_ms", "library_ms")):
     """One kernel's record over the main paths that launch it: launches
     summed, and each time (``keys``) the launch-weighted mean of the
@@ -5343,6 +5806,8 @@ def main() -> int:
         # reads its catalog from them
         phase_examples(torch, counts, cells.root)
         clock.lap("25")
+        tp_launches, tp_frec = phase_tp(torch, flash_attention)
+        clock.lap("26")
     finally:
         if cells is not None:
             cells.close()
@@ -5366,12 +5831,15 @@ def main() -> int:
                         hfrec["max_abs_err"], hserve_flash_err,
                         *(rec["max_abs_err"]
                           for _, _, rec in dense_paths + cross_paths),
-                        moe_path[2]["max_abs_err"], mesh_frec["max_abs_err"]),
+                        moe_path[2]["max_abs_err"], mesh_frec["max_abs_err"],
+                        tp_frec["max_abs_err"]),
         **both_paths([("llama prefill", flash_launches, frec),
                       ("hybrid forward", hyb["flash_launches"], hfrec)]
                      + dense_paths + [moe_path] + cross_paths
                      + [("llama prefill on the (1, 1) mesh", mesh_launches,
-                         mesh_frec)])),
+                         mesh_frec),
+                        ("llama prefill on the (1, 2) mesh, rank 0's heads",
+                         tp_launches, tp_frec)])),
         dict(
         name="gmm_logpdf", route="cuda",
         source="src/repro_torch/kernels/csrc/gmm_logpdf.cu",

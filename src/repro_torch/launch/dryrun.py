@@ -69,25 +69,33 @@ reference's rules and ``serving.engine``'s ``make_prefill_step`` /
 ``make_serve_step`` on the mesh. ``fsdp`` follows the reference's
 ``FSDP_ARCHS`` (or the override). The FLOP and byte counters see an
 operation on a DTensor at its global shape, so only plain local tensors
-are computed on: the parameters are gathered whole (``full_tensor``) in a
-part of the count that tallies collectives only, then rank 0's rows run.
-What changes:
+are computed on: the parameters become what rank 0 computes on
+(:func:`~repro_torch.parallel.sharding.local_params`: gathered over the
+DP axes, a leaf of a tensor- or expert-parallel layer kept in its 'model'
+block, any other gathered whole) in a part of the count that tallies
+collectives only, then rank 0's rows run. What changes:
 
 - ``n_devices`` 256 / 512; ``memory.argument_size_in_bytes`` rank 0's
   blocks of the parameters, the optimizer state and the batch rows, or of
   the parameters, the token rows and the cache blocks;
+- ``flops_per_device`` and ``bytes_accessed_per_device``: rank 0's share.
+  Its rows are the batch over the DP size; the GQA attention runs on its
+  heads (where 'model' divides them: not llama4's 40 on 16), the MLPs on
+  its mlp block, the head and loss on its vocabulary block and a MoE
+  layer on its experts, so these layers' FLOPs fall by the 'model' size
+  as well; MLA, the Mamba and xLSTM blocks, cross-attention and the
+  encoder run whole on the rank's rows. A MoE layer routes the global
+  batch, as the reference's does: each rank's expert buffer holds
+  ``min(capacity, local tokens)`` rows;
 - ``collectives``: the reference's five categories (``all-gather``,
   ``all-reduce``, ``reduce-scatter``, ``all-to-all``,
   ``collective-permute``) as ``{bytes, count}``, by the reference's rule:
   per collective the bytes of the largest tensor among its arguments and
-  results, c10d and functional collectives alike. They are kept out of
-  the FLOP and byte counts.
-
-The port has no tensor parallelism: ranks that differ only on 'model'
-compute the same rows, so a dense train or prefill cell's per-device FLOPs
-are the one-card cell's over the DP size. A MoE layer routes the global
-batch, as the reference's does: each rank's expert buffer holds
-``min(capacity, local tokens)`` rows, so its MoE cells count more.
+  results, c10d and functional collectives alike: the parameters' DP and
+  whole-leaf gathers, the layers' all-reduces over 'model' (forward, and
+  backward to train), the decode's query/key/value and logits gathers,
+  the sequence blocks' combine and the gradients' DP all-reduces. They are
+  kept out of the FLOP and byte counts.
 
 Cells go to ``<root>/dryrun_torch/<mesh>/`` (``root``: the repository's
 ``artifacts/``), a directory the reference never globs.
@@ -370,19 +378,18 @@ def mesh_cell_step(cfg: ModelConfig, spec: ShapeSpec, mesh, *,
             microbatches=microbatches).pieces
         ms = pieces["mesh_step"]
         rows = ms.rows(ins["batch"], microbatches)
-        group = ms.group(ins["batch"], ms.dp)
         start, micro, average = trainer.microbatch_parts(
             trainer._value_and_grad(get_model(cfg)), microbatches)
 
         def gather():
-            st["full"] = pieces["gathered"](params)
+            st["full"] = pieces["local"](params)
 
         def first():
             st["a"] = start(st["full"])
             return st["a"]
 
         def one():
-            with Sh.token_group(group):
+            with ms.context(ins["batch"], ms.dp):
                 st["a"] = micro(st["a"], st["full"], rows, 0)
             return st["a"]
 
@@ -398,7 +405,7 @@ def mesh_cell_step(cfg: ModelConfig, spec: ShapeSpec, mesh, *,
                                                           rules))
 
     def gather():
-        st["full"] = Sh.full_tensors(params)
+        st["full"] = serving.bind().local_params(params)
 
     def rows(t):
         return t[Sh.batch_shardings({"t": t}, mesh)["t"].block(
@@ -407,6 +414,7 @@ def mesh_cell_step(cfg: ModelConfig, spec: ShapeSpec, mesh, *,
     if spec.kind == "prefill":
         prefill_step, _ = make_prefill_step(cfg, B, S, device="meta",
                                             mesh=mesh)
+        serving = prefill_step.mesh_serve
 
         def step():
             return prefill_step(st["full"], ins["tokens"], ins.get("ctx"))
@@ -416,6 +424,7 @@ def mesh_cell_step(cfg: ModelConfig, spec: ShapeSpec, mesh, *,
     else:
         serve_step, cache_sh, _ = make_serve_step(cfg, B, S, device="meta",
                                                   mesh=mesh)
+        serving = serve_step.mesh_serve
         cache = Sh._map(lambda t, sh: t[sh.block(tuple(t.shape), coord)],
                         ins["cache"], cache_sh)
 

@@ -27,6 +27,14 @@ attends over the block and combines the blocks' partial softmaxes across
 'model'. The prefill attends the fresh K/V (or latents), as in the
 reference, so the flash kernel stays on its path. With no block installed
 every path is the meshless one.
+
+Tensor parallelism: given its global head counts, :func:`apply_gqa` runs
+its heads split over an installed 'model' group that divides them
+(:func:`_apply_gqa_split`): ``wq`` column-parallel, ``wo`` row-parallel,
+``wk``/``wv`` this rank's blocks or, where the KV heads do not split,
+whole (the query heads attend the KV heads they use). The prefill runs
+the flash kernel on the local heads; the cache keeps every head. MLA and
+cross-attention take their weights whole.
 """
 from __future__ import annotations
 
@@ -37,6 +45,7 @@ import torch
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.common import (Builder, apply_rope, einsum,
                                        rms_norm)
+from repro_torch.parallel import sharding as Sh
 from repro_torch.parallel.sharding import NEG as _NEG
 from repro_torch.parallel.sharding import (block_softmax, combine_blocks,
                                            constrain_decode_q,
@@ -198,11 +207,24 @@ def init_gqa(gen: torch.Generator, d_model: int, n_heads: int, n_kv: int,
 def apply_gqa(p: dict, x: torch.Tensor, *, positions: torch.Tensor,
               rope_theta: float = 10000.0, causal: bool = True,
               cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-              cache_pos: int = 0, impl: str = "xla", q_chunk: int = -1):
+              cache_pos: int = 0, impl: str = "xla", q_chunk: int = -1,
+              n_heads: Optional[int] = None,
+              n_kv_heads: Optional[int] = None):
     """x: [B, S, D]. If ``cache`` (k, v of [B, Smax, Hkv, Dh]) is given, the
     new K/V are written into it at ``cache_pos``, in place (the reference
     returns updated copies; writing in place keeps one cache on the card),
-    and decode attends the cache prefix. Returns (out, cache)."""
+    and decode attends the cache prefix. Returns (out, cache).
+
+    ``n_heads``, ``n_kv_heads``: the layer's global head counts. Where the
+    installed 'model' group splits ``n_heads``, the weights are this
+    rank's 'model' blocks and the heads run split
+    (:func:`_apply_gqa_split`); otherwise the layer runs whole."""
+    if n_heads is not None and Sh.splits(n_heads):
+        return _apply_gqa_split(p, x, positions=positions,
+                                rope_theta=rope_theta, causal=causal,
+                                cache=cache, cache_pos=cache_pos, impl=impl,
+                                q_chunk=q_chunk, n_heads=n_heads,
+                                n_kv_heads=n_kv_heads)
     q = einsum("bsd,dhk->bshk", x, p["wq"])
     k = einsum("bsd,dhk->bshk", x, p["wk"])
     v = einsum("bsd,dhk->bshk", x, p["wv"])
@@ -227,6 +249,75 @@ def apply_gqa(p: dict, x: torch.Tensor, *, positions: torch.Tensor,
                        kv_valid_len=valid, impl=impl, q_chunk=q_chunk)
     y = einsum("bshk,hkd->bsd", out, p["wo"])
     return y, cache
+
+
+def local_kv_heads(index: int, h_local: int, rep: int):
+    """The KV heads that query heads ``[index * h_local, (index + 1) *
+    h_local)`` use (query head ``h`` uses KV head ``h // rep``): a slice
+    and the local GQA ratio when each of them serves the same number of
+    consecutive local query heads, else a list of one KV head per query
+    head (ratio 1)."""
+    a = index * h_local
+    kv = [h // rep for h in range(a, a + h_local)]
+    lo, n = kv[0], kv[-1] - kv[0] + 1
+    r = h_local // n
+    if r * n == h_local and all(kv[j] == lo + j // r for j in range(h_local)):
+        return slice(lo, lo + n), r
+    return kv, 1
+
+
+def _apply_gqa_split(p, x, *, positions, rope_theta, causal, cache,
+                     cache_pos, impl, q_chunk, n_heads, n_kv_heads):
+    """:func:`apply_gqa` with the heads split over the installed 'model'
+    group. ``wq`` is column-parallel on this rank's ``n_heads / size``
+    query heads and ``wo`` row-parallel on them (the output summed over
+    the group). Where the group splits the KV heads too, ``wk``/``wv`` are
+    this rank's blocks, which its query heads use; else they are whole, the
+    K/V are projected whole (their gradient summed over the group) and the
+    query heads attend the KV heads they use (:func:`local_kv_heads`).
+
+    The prefill attends the local heads (the flash kernel on them); the
+    cache keeps every KV head, so the fresh K/V are all-gathered over the
+    group before the cache block is written. Decode all-gathers the new
+    token's query heads (the reference replicates q), attends every head
+    over this rank's cache block, combines the blocks across 'model', and
+    feeds this rank's heads of the output to ``wo``."""
+    mg = Sh.model_group()
+    h_loc = n_heads // mg.size
+    rep = n_heads // n_kv_heads
+    kv_split = mg.splits(n_kv_heads)
+    xm = Sh.to_model(x)
+    q = apply_rope(einsum("bsd,dhk->bshk", xm, p["wq"]), positions,
+                   rope_theta)
+    if kv_split:
+        k = einsum("bsd,dhk->bshk", xm, p["wk"])
+        v = einsum("bsd,dhk->bshk", xm, p["wv"])
+        k_att, v_att = apply_rope(k, positions, rope_theta), v
+    else:
+        k = apply_rope(Sh.to_model(einsum("bsd,dhk->bshk", x, p["wk"])),
+                       positions, rope_theta)
+        v = Sh.to_model(einsum("bsd,dhk->bshk", x, p["wv"]))
+        heads, _ = local_kv_heads(mg.index, h_loc, rep)
+        k_att, v_att = (k[:, :, heads], v[:, :, heads])
+    if cache is None or x.shape[1] > 1:
+        out = sdpa(q, k_att, v_att, causal=causal, impl=impl,
+                   q_chunk=q_chunk)
+    if cache is not None:
+        ck, cv = cache
+        if kv_split:
+            k_all, v_all = mg.all_gather(k_att, 2), mg.all_gather(v_att, 2)
+        else:
+            k_all, v_all = k, v
+        _write(ck, k_all, cache_pos)
+        _write(cv, v_all, cache_pos)
+        if x.shape[1] == 1:
+            valid = torch.full((x.shape[0],), cache_pos + 1,
+                               dtype=torch.int32, device=x.device)
+            out = sdpa(mg.all_gather(q, 2), ck, cv, causal=causal,
+                       q_positions=positions, kv_valid_len=valid, impl=impl,
+                       q_chunk=q_chunk)[:, :, mg.block(n_heads)]
+    y = einsum("bshk,hkd->bsd", out, p["wo"])
+    return Sh.from_model(y), cache
 
 
 # ---------------------------------------------------------------------------

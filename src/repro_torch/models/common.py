@@ -16,6 +16,14 @@ reference's: ``"layers"`` (stacked blocks, never sharded), ``"embed"``
 ``"vocab"`` (tensor-parallel), ``"experts"`` (expert-parallel),
 ``"head_dim"``, ``"state"``, ``"latent"`` (unsharded) and ``None``.
 
+A step on a mesh installs its 'model' group
+(:class:`~repro_torch.parallel.sharding.model_parallel`) and hands the
+layers this rank's 'model' blocks of those leaves: the MLPs (``parallel=``,
+column- then row-parallel), :func:`embed_lookup` and :func:`lm_head_logits`
+/ :func:`cross_entropy_loss` (vocab-parallel) then compute this rank's
+share and combine the shares over the group. With no group installed each
+is the meshless function.
+
 Where the reference's ``einsum`` mixes dtypes, JAX promotes; ``torch``
 refuses, so :func:`einsum` promotes first.
 """
@@ -25,15 +33,13 @@ import math
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+
+from repro_torch.parallel import sharding as Sh
 
 Params = Dict[str, object]
 Axes = Dict[str, object]
-
-
-def is_axes_leaf(x) -> bool:
-    return isinstance(x, tuple) and all(
-        isinstance(e, (str, type(None))) for e in x)
 
 
 def einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -224,19 +230,32 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
-           w_down: torch.Tensor) -> torch.Tensor:
+           w_down: torch.Tensor, *, parallel: bool = False) -> torch.Tensor:
+    """``parallel``: the weights are this rank's 'model' block of the mlp
+    dim (gate and up column-parallel, down row-parallel), so the output is
+    this rank's share, summed over the installed 'model' group
+    (:func:`~repro_torch.parallel.sharding.from_model`)."""
+    if parallel:
+        x = Sh.to_model(x)
     g = einsum("...d,df->...f", x, w_gate)
     u = einsum("...d,df->...f", x, w_up)
-    return einsum("...f,fd->...d", F.silu(g) * u, w_down)
+    y = einsum("...f,fd->...d", F.silu(g) * u, w_down)
+    return Sh.from_model(y) if parallel else y
 
 
 def gelu_mlp(x: torch.Tensor, w_up: torch.Tensor, b_up: torch.Tensor,
-             w_down: torch.Tensor, b_down: torch.Tensor) -> torch.Tensor:
+             w_down: torch.Tensor, b_down: torch.Tensor, *,
+             parallel: bool = False) -> torch.Tensor:
     """The two-matrix MLP with biases (gpt_bigcode). ``jax.nn.gelu``, the
     reference's, is the tanh approximation by default; torch's default is
-    the exact erf, hence ``approximate="tanh"``."""
+    the exact erf, hence ``approximate="tanh"``. ``parallel``: as
+    :func:`swiglu`'s (``b_up`` is the block of the mlp dim; ``b_down`` is
+    added once, after the sum)."""
+    if parallel:
+        x = Sh.to_model(x)
     h = F.gelu(einsum("...d,df->...f", x, w_up) + b_up, approximate="tanh")
-    return einsum("...f,fd->...d", h, w_down) + b_down
+    y = einsum("...f,fd->...d", h, w_down)
+    return (Sh.from_model(y) if parallel else y) + b_down
 
 
 def init_swiglu(gen: torch.Generator, d_model: int, d_ff: int, dtype,
@@ -267,27 +286,70 @@ def padded_vocab(v: int, tp: int = 16, align: int = 256) -> int:
     return v if v % tp == 0 else -(-v // align) * align
 
 
-def lm_head_logits(x: torch.Tensor, head: torch.Tensor,
-                   vocab_size: int) -> torch.Tensor:
+def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor,
+                 vocab_size: int) -> torch.Tensor:
+    """``embed[tokens]``. Where the installed 'model' group splits the
+    vocabulary, ``embed`` is this rank's block of rows: the ids outside it
+    give zero rows, and the rows are summed over the group
+    (vocab-parallel)."""
+    if not Sh.splits(vocab_size):
+        return embed[tokens]
+    blk = Sh.model_group().block(vocab_size)
+    local = tokens.long() - blk.start
+    ok = (local >= 0) & (local < blk.stop - blk.start)
+    rows = embed[local.clamp(0, blk.stop - blk.start - 1)]
+    return Sh.from_model(rows.masked_fill(~ok[..., None], 0))
+
+
+def lm_head_logits(x: torch.Tensor, head: torch.Tensor, vocab_size: int, *,
+                   parallel: bool = False) -> torch.Tensor:
     """x: [B, S, D] @ head [D, V_pad], padded columns set to -1e30 (so
-    softmax and argmax over the padded width are exact)."""
+    softmax and argmax over the padded width are exact). ``parallel``:
+    ``head`` is this rank's 'model' block of columns (column-parallel), and
+    the logits are that block's; the padded columns are found by their
+    global index, so ``padded_vocab`` keeps its meaning."""
+    if parallel:
+        x = Sh.to_model(x)
     logits = torch.einsum("bsd,dv->bsv", x, head.to(x.dtype))
+    if parallel:
+        w = head.shape[-1]
+        col = Sh.model_group().index * w + torch.arange(w,
+                                                        device=x.device)
+        return logits.masked_fill(col >= vocab_size, -1e30)
     if head.shape[-1] != vocab_size:
         logits[..., vocab_size:] = -1e30
     return logits
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
-                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       mask: Optional[torch.Tensor] = None, *,
+                       parallel: bool = False) -> torch.Tensor:
     """Mean next-token cross entropy (:func:`repro.models.common.
     cross_entropy_loss`): logits ``[B, S, V]`` cast to f32, labels
     ``[B, S]``; with ``mask [B, S]`` the masked mean
     ``sum(nll * mask) / max(sum(mask), 1)``. The gold logit is gathered (the
     reference sums an iota-compare mask, which gives the same value, to
-    keep a vocab-sharded tensor sharded)."""
+    keep a vocab-sharded tensor sharded).
+
+    ``parallel``: ``logits`` are this rank's block of the vocabulary
+    (:func:`lm_head_logits`'): the row max is all-reduced (``MAX``), then
+    the sum of exponentials and the gold logit (``SUM``) over the
+    installed 'model' group, so no rank forms ``[B, S, V]`` and the
+    gradient is exact."""
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    if parallel:
+        mg = Sh.model_group()
+        w = logits.shape[-1]
+        m = mg.all_reduce(logits.detach().amax(-1), dist.ReduceOp.MAX)
+        logz = torch.log(Sh.from_model(
+            torch.exp(logits - m[..., None]).sum(-1))) + m
+        local = labels.long() - mg.index * w
+        ok = (local >= 0) & (local < w)
+        gold = logits.gather(-1, local.clamp(0, w - 1)[..., None])[..., 0]
+        gold = Sh.from_model(gold.masked_fill(~ok, 0.0))
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, labels.long()[..., None])[..., 0]
     nll = logz - gold
     if mask is None:
         return nll.mean()

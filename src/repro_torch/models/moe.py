@@ -32,6 +32,15 @@ local tokens)`` rows per expert, enough for every copy the routing keeps.
 In a train step the load-balance loss takes the group's first-choice
 shares (one more all-gather), so the ranks' mean loss and gradient are
 the batch's.
+
+Expert parallelism: where an installed 'model' group divides the experts,
+the experts' matrices are this rank's ``n_experts / size`` experts. The
+router stays whole: every rank computes the same routing (the rows are
+the same on every 'model' rank), fills the buffers of its own experts
+only and scatters their weighted outputs; one all-reduce over 'model'
+sums the ranks' shares, with no all-to-all. The shared experts run
+column- then row-parallel on their mlp dim (``shared_parallel``). The aux
+values stay the whole layer's.
 """
 from __future__ import annotations
 
@@ -41,7 +50,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import Builder, einsum
-from repro_torch.parallel.sharding import current_token_group
+from repro_torch.parallel.sharding import (current_token_group, from_model,
+                                           model_group, splits, to_model)
 
 
 def init_moe(gen: torch.Generator, d_model: int, d_ff_expert: int,
@@ -73,7 +83,7 @@ def _cummax(x: torch.Tensor) -> torch.Tensor:
 def apply_moe(p: dict, x: torch.Tensor, *, top_k: int, n_experts: int,
               capacity_factor: float = 1.25,
               router_bias: Optional[torch.Tensor] = None,
-              token_chunks: int = 1):
+              token_chunks: int = 1, shared_parallel: bool = False):
     """x: [B, S, D] -> ([B, S, D], aux dict of ``load_balance_loss`` and
     ``dropped_fraction``, 0-d f32).
 
@@ -86,7 +96,8 @@ def apply_moe(p: dict, x: torch.Tensor, *, top_k: int, n_experts: int,
     B, S, D = x.shape
     T = B * S
     kw = dict(top_k=top_k, n_experts=n_experts,
-              capacity_factor=capacity_factor, router_bias=router_bias)
+              capacity_factor=capacity_factor, router_bias=router_bias,
+              shared_parallel=shared_parallel)
     grp = current_token_group()
     Tg = T * (grp.count if grp is not None else 1)     # the global batch's
     if token_chunks > 1 and Tg % token_chunks == 0 \
@@ -149,17 +160,28 @@ def route(p: dict, xf: torch.Tensor, *, top_k: int, n_experts: int,
 
 
 def _moe_tokens(p: dict, xf: torch.Tensor, *, top_k: int, n_experts: int,
-                capacity_factor: float,
-                router_bias) -> Tuple[torch.Tensor, dict]:
+                capacity_factor: float, router_bias,
+                shared_parallel: bool = False) -> Tuple[torch.Tensor, dict]:
     T, D = xf.shape
     r = route(p, xf, top_k=top_k, n_experts=n_experts,
               capacity_factor=capacity_factor, router_bias=router_bias)
     se, keep, rows = r["se"], r["keep"], r["rows"]
+    ep = splits(n_experts)
+    if ep:
+        # this rank's experts only: the other copies go to the spare row
+        # (the routing, computed whole on every rank, is the same on all)
+        n_loc = n_experts // model_group().size
+        e0 = model_group().index * n_loc
+        keep = keep & (se >= e0) & (se < e0 + n_loc)
+        se = (se - e0).clamp(0, n_loc - 1)
+        xe, w = to_model(xf), to_model(r["w"])
+    else:
+        n_loc, xe, w = n_experts, xf, r["w"]
 
     # ---- sort-based dispatch: the dropped copies land in the spare row
     rank_c = torch.where(keep, r["slot"], rows)
-    buf = xf.new_zeros((n_experts, rows + 1, D)).index_put(
-        (se, rank_c), xf[r["stok"]])[:, :rows]
+    buf = xf.new_zeros((n_loc, rows + 1, D)).index_put(
+        (se, rank_c), xe[r["stok"]])[:, :rows]
 
     # ---- batched expert SwiGLU
     g = einsum("ecd,edf->ecf", buf, p["w_gate"])
@@ -171,13 +193,23 @@ def _moe_tokens(p: dict, xf: torch.Tensor, *, top_k: int, n_experts: int,
     back = xf.new_zeros((T * top_k, D)).index_put((r["order"],),
                                                   got.to(xf.dtype))
     back = back.reshape(T, top_k, D)
-    y = einsum("tkd,tk->td", back, r["w"].to(xf.dtype))
+    y = einsum("tkd,tk->td", back, w.to(xf.dtype))
 
     # ---- shared experts (always on)
     if "ws_gate" in p:
-        gs = einsum("td,df->tf", xf, p["ws_gate"])
-        us = einsum("td,df->tf", xf, p["ws_up"])
-        y = y + einsum("tf,fd->td", F.silu(gs) * us, p["ws_down"])
+        xs = to_model(xf) if shared_parallel else xf
+        gs = einsum("td,df->tf", xs, p["ws_gate"])
+        us = einsum("td,df->tf", xs, p["ws_up"])
+        ys = einsum("tf,fd->td", F.silu(gs) * us, p["ws_down"])
+        # EP and TP: this rank's shares are summed over 'model'
+        if shared_parallel == ep:
+            y = y + ys
+        elif ep:
+            y, ep = from_model(y) + ys, False
+        else:
+            y = y + from_model(ys)
+    if ep:
+        y = from_model(y)
 
     # ---- aux: Switch-style load-balance loss, and the dropped share
     me = r["probs"].mean(dim=0)                                  # [E]
@@ -188,5 +220,5 @@ def _moe_tokens(p: dict, xf: torch.Tensor, *, top_k: int, n_experts: int,
         # mean loss is then the global batch's, and so is its gradient
         ce = grp.mean(ce)
     aux = {"load_balance_loss": n_experts * (me * ce).sum(),
-           "dropped_fraction": 1.0 - keep.float().mean()}
+           "dropped_fraction": 1.0 - r["keep"].float().mean()}
     return y, aux

@@ -75,6 +75,7 @@ over every prompt token, as the reference's does.
 """
 from __future__ import annotations
 
+import contextvars
 import dataclasses
 import functools
 from typing import Any, Dict, Optional, Tuple
@@ -88,10 +89,11 @@ from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models import xlstm as XL
 from repro_torch.models.common import (Builder, cross_entropy_loss,
-                                       gelu_mlp, init_gelu_mlp, init_swiglu,
-                                       layer, lm_head_logits, padded_vocab,
-                                       rms_norm, stack_layers, swiglu,
-                                       tree_leaves, unstack)
+                                       embed_lookup, gelu_mlp, init_gelu_mlp,
+                                       init_swiglu, layer, lm_head_logits,
+                                       padded_vocab, rms_norm, stack_layers,
+                                       swiglu, tree_leaves, unstack)
+from repro_torch.parallel import sharding as Sh
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
@@ -187,11 +189,42 @@ class ModelConfig:
 def _maybe_remat(fn, cfg: ModelConfig):
     """``fn`` recomputed in the backward under ``remat="block"`` while
     autograd records; ``fn`` itself otherwise. The blocks draw no random
-    numbers, so no RNG state is kept for the recompute."""
+    numbers, so no RNG state is kept for the recompute. Forward and
+    recompute run in the context of the call that made the wrapper, so the
+    recompute sees the same installed 'model' and token groups wherever
+    autograd runs it (the card's backward runs on a thread of its own)."""
     if cfg.remat != "block" or not torch.is_grad_enabled():
         return fn
-    return functools.partial(checkpoint, fn, use_reentrant=False,
-                             preserve_rng_state=False)
+    ctx = contextvars.copy_context()
+    return functools.partial(checkpoint, lambda *a: ctx.run(fn, *a),
+                             use_reentrant=False, preserve_rng_state=False)
+
+
+def head_width(cfg: ModelConfig) -> int:
+    """The LM head's global width: the vocabulary where a decoder ties the
+    head to the embedding, else ``padded_vocab`` of it (the hybrid, the
+    xLSTM and the encoder-decoder never tie, as in the reference)."""
+    if cfg.tie_embeddings and cfg.family in _DECODER_FAMILIES:
+        return cfg.vocab_size
+    return padded_vocab(cfg.vocab_size)
+
+
+def _embed(cfg: ModelConfig, params, tokens) -> torch.Tensor:
+    """The tokens' embeddings in the compute dtype (vocab-parallel where
+    the installed 'model' group splits the vocabulary)."""
+    return embed_lookup(params["embed"], tokens, cfg.vocab_size).to(cfg.cdt)
+
+
+def _logits(cfg: ModelConfig, x, head) -> torch.Tensor:
+    """The head's logits; this rank's block of the vocabulary where the
+    installed 'model' group splits the head."""
+    return lm_head_logits(x, head, cfg.vocab_size,
+                          parallel=Sh.splits(head_width(cfg)))
+
+
+def _loss(cfg: ModelConfig, logits, labels) -> torch.Tensor:
+    return cross_entropy_loss(logits, labels,
+                              parallel=Sh.splits(head_width(cfg)))
 
 
 # ---------------------------------------------------------------------------
@@ -231,15 +264,17 @@ def _apply_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig,
     """``(y, aux)``: a MoE block's load-balance loss (0-d f32), else 0.0 (a
     Python float, so the dense plan adds no operation for it)."""
     if moe_ffn:
-        y, aux = MOE.apply_moe(p, x, top_k=cfg.moe_top_k,
-                               n_experts=cfg.n_experts,
-                               capacity_factor=cfg.capacity_factor,
-                               token_chunks=cfg.moe_token_chunks)
+        y, aux = MOE.apply_moe(
+            p, x, top_k=cfg.moe_top_k, n_experts=cfg.n_experts,
+            capacity_factor=cfg.capacity_factor,
+            token_chunks=cfg.moe_token_chunks,
+            shared_parallel=Sh.splits(cfg.n_shared_experts * cfg.moe_d_ff))
         return y, aux["load_balance_loss"]
     if cfg.mlp_type == "gelu":
         return gelu_mlp(x, p["w_up"], p["b_up"], p["w_down"],
-                        p["b_down"]), 0.0
-    return swiglu(x, p["w_gate"], p["w_up"], p["w_down"]), 0.0
+                        p["b_down"], parallel=Sh.splits(cfg.d_ff)), 0.0
+    return swiglu(x, p["w_gate"], p["w_up"], p["w_down"],
+                  parallel=Sh.splits(cfg.d_ff)), 0.0
 
 
 def _apply_attn_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
@@ -268,7 +303,8 @@ def _apply_attn_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
         att, new_cache = A.apply_gqa(
             p["attn"], h, positions=positions, rope_theta=cfg.rope_theta,
             cache=cache, cache_pos=cache_pos, impl=cfg.attn_impl,
-            q_chunk=cfg.attn_q_chunk)
+            q_chunk=cfg.attn_q_chunk, n_heads=cfg.n_heads,
+            n_kv_heads=cfg.n_kv_heads)
     x = x + att
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
     f, aux = _apply_ffn(p["ffn"], h2, cfg, moe_ffn)
@@ -426,6 +462,21 @@ class DecoderLM:
         return (params["embed"].T if self.cfg.tie_embeddings
                 else params["lm_head"])
 
+    def model_parallel_leaf(self, path: Tuple[str, ...], size: int) -> bool:
+        """Whether the leaf at ``path`` (its keys) runs in its 'model' block
+        on a 'model' axis of ``size`` ranks: the vocabulary's, the GQA
+        attention's, the FFNs' and the shared experts' leaves, and the
+        routed experts' where ``size`` divides their count (EP); the MLA
+        and cross-attention leaves are gathered whole."""
+        c = self.cfg
+        if "attn" in path:
+            return not (c.use_mla or "cross" in path)
+        if path[-1] in ("w_gate", "w_up", "w_down"):
+            kind = self.plan[int(path[0][len("stage"):])][0]
+            if kind == "moe" or (kind == "moe_super" and path[1] == "moe"):
+                return c.n_experts % size == 0
+        return True
+
     def _step(self, kind: str, inner: int, p, x, positions, cache=None,
               pos: int = 0, ctx=None):
         """One step of a stage: a block, or a super block's ``inner`` self
@@ -459,7 +510,7 @@ class DecoderLM:
             if ctx is None:
                 raise ValueError(f"{c.name}: the vlm forward needs ctx")
             _check_ctx(c, ctx)
-        x = params["embed"][tokens].to(c.cdt)
+        x = _embed(c, params, tokens)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
         aux_total = 0.0
         for si, (kind, n, inner) in enumerate(self.plan):
@@ -474,7 +525,7 @@ class DecoderLM:
                 x, aux = step(x, i)
                 aux_total = aux_total + aux
         x = rms_norm(x, params["ln_f"], c.norm_eps)
-        return lm_head_logits(x, self._head(params), c.vocab_size), aux_total
+        return _logits(c, x, self._head(params)), aux_total
 
     def _forward(self, params, tokens: torch.Tensor,
                  ctx=None) -> torch.Tensor:
@@ -489,7 +540,7 @@ class DecoderLM:
         as the reference returns."""
         logits, aux = self._forward_aux(params, batch["tokens"],
                                         batch.get("ctx"))
-        loss = cross_entropy_loss(logits, batch["labels"])
+        loss = _loss(self.cfg, logits, batch["labels"])
         aux = torch.as_tensor(aux, dtype=torch.float32, device=loss.device)
         total = loss + self.cfg.moe_aux_coef * aux
         return total, {"ce_loss": loss, "aux_loss": aux}
@@ -534,7 +585,7 @@ class DecoderLM:
         when it is given, at prefill). Returns the last position's logits
         [B, 1, V_pad] and the cache."""
         c = self.cfg
-        x = params["embed"][tokens].to(c.cdt)
+        x = _embed(c, params, tokens)
         positions = pos + torch.arange(tokens.shape[1], device=tokens.device)
         for si, (kind, n, inner) in enumerate(self.plan):
             sp, sc = params[f"stage{si}"], cache[f"stage{si}"]
@@ -542,7 +593,7 @@ class DecoderLM:
                 x, _ = self._step(kind, inner, layer(sp, i), x, positions,
                                   cache=_at(sc, i), pos=pos, ctx=ctx)
         x = rms_norm(x, params["ln_f"], c.norm_eps)
-        logits = lm_head_logits(x[:, -1:], self._head(params), c.vocab_size)
+        logits = _logits(c, x[:, -1:], self._head(params))
         return logits, cache
 
     def prefill(self, params, tokens: torch.Tensor, max_len: int, ctx=None):
@@ -612,6 +663,14 @@ class HybridSSM:
         b.sub("shared_attn", *_init_attn_block(gen, c, dev))
         return _with_axes(b.done(), with_axes)
 
+    def model_parallel_leaf(self, path: Tuple[str, ...], size: int) -> bool:
+        """Whether the leaf at ``path`` runs in its 'model' block: the
+        vocabulary's and the shared block's (its attention unless it is
+        MLA); the Mamba blocks' leaves are gathered whole."""
+        if path[0] in ("supers", "tail"):
+            return False
+        return not (path[:2] == ("shared_attn", "attn") and self.cfg.use_mla)
+
     # ---------------- the backbone
     def _mamba(self, p, x, states=None, idx=()):
         """One Mamba block with its residual. In cached mode its state is
@@ -658,17 +717,17 @@ class HybridSSM:
     def _forward(self, params, tokens: torch.Tensor) -> torch.Tensor:
         """Logits [B, S, V_pad] of the full sequence (no cache)."""
         c = self.cfg
-        x = params["embed"][tokens].to(c.cdt)
+        x = _embed(c, params, tokens)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
         x = self._backbone(params, x, positions)
         x = rms_norm(x, params["ln_f"], c.norm_eps)
-        return lm_head_logits(x, params["lm_head"], c.vocab_size)
+        return _logits(c, x, params["lm_head"])
 
     def loss_fn(self, params, batch):
         """Mean next-token cross entropy of ``batch["tokens"]`` against
         ``batch["labels"]`` (both ``[B, S]``): ``(loss, {"ce_loss": loss})``."""
-        loss = cross_entropy_loss(self._forward(params, batch["tokens"]),
-                                  batch["labels"])
+        loss = _loss(self.cfg, self._forward(params, batch["tokens"]),
+                     batch["labels"])
         return loss, {"ce_loss": loss}
 
     # ---------------- caches
@@ -707,12 +766,12 @@ class HybridSSM:
                 "n_kv_heads, head_dim], and the reference writes MLA's "
                 "latent cache into it and fails with a dynamic_update_slice "
                 "rank error; loss_fn and training run")
-        x = params["embed"][tokens].to(c.cdt)
+        x = _embed(c, params, tokens)
         positions = pos + torch.arange(tokens.shape[1], device=tokens.device)
         x = self._backbone(params, x, positions, states=cache["states"],
                            kv=cache["kv"], pos=pos)
         x = rms_norm(x, params["ln_f"], c.norm_eps)
-        logits = lm_head_logits(x[:, -1:], params["lm_head"], c.vocab_size)
+        logits = _logits(c, x[:, -1:], params["lm_head"])
         return logits, cache
 
     def prefill(self, params, tokens: torch.Tensor, max_len: int, ctx=None):
@@ -766,6 +825,11 @@ class XLSTM:
         b.sub("supers", *stack_layers(gen, self.n_super, init_super))
         return _with_axes(b.done(), with_axes)
 
+    def model_parallel_leaf(self, path: Tuple[str, ...], size: int) -> bool:
+        """Whether the leaf at ``path`` runs in its 'model' block: the
+        vocabulary's; the mLSTM and sLSTM leaves are gathered whole."""
+        return path[0] != "supers"
+
     # ---------------- the backbone
     def _backbone(self, params, x, states=None):
         """``states`` given (cached mode): super block ``i`` starts from
@@ -803,15 +867,15 @@ class XLSTM:
         """Logits [B, S, V_pad] of the full sequence (no cache: the
         mLSTM's chunkwise form)."""
         c = self.cfg
-        x = self._backbone(params, params["embed"][tokens].to(c.cdt))
+        x = self._backbone(params, _embed(c, params, tokens))
         x = rms_norm(x, params["ln_f"], c.norm_eps)
-        return lm_head_logits(x, params["lm_head"], c.vocab_size)
+        return _logits(c, x, params["lm_head"])
 
     def loss_fn(self, params, batch):
         """Mean next-token cross entropy of ``batch["tokens"]`` against
         ``batch["labels"]`` (both ``[B, S]``): ``(loss, {"ce_loss": loss})``."""
-        loss = cross_entropy_loss(self._forward(params, batch["tokens"]),
-                                  batch["labels"])
+        loss = _loss(self.cfg, self._forward(params, batch["tokens"]),
+                     batch["labels"])
         return loss, {"ce_loss": loss}
 
     # ---------------- caches
@@ -841,10 +905,10 @@ class XLSTM:
         it overwrites in place. Returns the last position's logits [B, 1,
         V_pad] and the cache."""
         c = self.cfg
-        x = params["embed"][tokens].to(c.cdt)
+        x = _embed(c, params, tokens)
         x = self._backbone(params, x, states=cache)
         x = rms_norm(x[:, -1:], params["ln_f"], c.norm_eps)
-        logits = lm_head_logits(x, params["lm_head"], c.vocab_size)
+        logits = _logits(c, x, params["lm_head"])
         return logits, cache
 
     def prefill(self, params, tokens: torch.Tensor, max_len: int, ctx=None):
@@ -917,9 +981,16 @@ class EncDec:
         b.sub("decoder", *stack_layers(gen, c.n_dec_layers, init_dec))
         return _with_axes(b.done(), with_axes)
 
+    def model_parallel_leaf(self, path: Tuple[str, ...], size: int) -> bool:
+        """Whether the leaf at ``path`` runs in its 'model' block: the
+        vocabulary's and the decoder's self-attention and FFN leaves; the
+        encoder's and the cross-attention's are gathered whole."""
+        return path[0] != "encoder" and path[:2] != ("decoder", "cross")
+
     @staticmethod
-    def _ffn(p, x):
-        return swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
+    def _ffn(p, x, parallel: bool = False):
+        return swiglu(x, p["w_gate"], p["w_up"], p["w_down"],
+                      parallel=parallel)
 
     # ---------------- encoder
     def encode(self, params, frames: torch.Tensor) -> torch.Tensor:
@@ -955,7 +1026,7 @@ class EncDec:
         ``enc_out`` is given (prefill); without ``enc_out`` they are read
         from it (decode)."""
         c = self.cfg
-        x = params["embed"][tokens].to(c.cdt)
+        x = _embed(c, params, tokens)
         positions = pos + torch.arange(tokens.shape[1], device=tokens.device)
         cached = cache is not None
         kw = dict(impl=c.attn_impl, q_chunk=c.attn_q_chunk)
@@ -966,7 +1037,8 @@ class EncDec:
             att, _ = A.apply_gqa(lp["self"], h, positions=positions,
                                  rope_theta=c.rope_theta,
                                  cache=_at(cache[0], i) if cached else None,
-                                 cache_pos=pos, **kw)
+                                 cache_pos=pos, n_heads=c.n_heads,
+                                 n_kv_heads=c.n_kv_heads, **kw)
             xx = xx + att
             h2 = rms_norm(xx, lp["ln2"], c.norm_eps)
             cross = _at(cache[1], i) if cached else None
@@ -978,7 +1050,8 @@ class EncDec:
                     dst.copy_(src)
             xx = xx + xatt
             return xx + self._ffn(lp["ffn"], rms_norm(xx, lp["ln3"],
-                                                      c.norm_eps))
+                                                      c.norm_eps),
+                                  Sh.splits(c.d_ff))
 
         if not cached:      # the caches are written in place: no recompute
             body = _maybe_remat(body, c)
@@ -990,15 +1063,15 @@ class EncDec:
                  frames: torch.Tensor) -> torch.Tensor:
         """Logits [B, S, V_pad] of the full target sequence."""
         x = self._decode(params, tokens, self.encode(params, frames))
-        return lm_head_logits(x, params["lm_head"], self.cfg.vocab_size)
+        return _logits(self.cfg, x, params["lm_head"])
 
     def loss_fn(self, params, batch):
         """Mean next-token cross entropy of ``batch["tokens"]`` against
         ``batch["labels"]`` given ``batch["frames"]``: ``(loss, {"ce_loss":
         loss})``."""
-        loss = cross_entropy_loss(
-            self._forward(params, batch["tokens"], batch["frames"]),
-            batch["labels"])
+        loss = _loss(self.cfg,
+                     self._forward(params, batch["tokens"], batch["frames"]),
+                     batch["labels"])
         return loss, {"ce_loss": loss}
 
     # ---------------- caches
@@ -1018,8 +1091,7 @@ class EncDec:
         return mk(max_len), mk(n_ctx or c.n_ctx)
 
     def _last_logits(self, params, x):
-        return lm_head_logits(x[:, -1:], params["lm_head"],
-                              self.cfg.vocab_size)
+        return _logits(self.cfg, x[:, -1:], params["lm_head"])
 
     def prefill(self, params, tokens: torch.Tensor, max_len: int, ctx=None):
         """``ctx``: the frames ``[B, S_enc, D]``, encoded once; the cross

@@ -16,6 +16,7 @@ import dataclasses
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.models.common import tree_leaves, tree_map, tree_unflatten
 
@@ -34,10 +35,16 @@ def _div(a: torch.Tensor, b) -> torch.Tensor:
     return a / a.new_full((), b)
 
 
-def quantize_int8(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_int8(g: torch.Tensor, group=None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(q int8, scale)``: ``scale = max(max |g|, 1e-12) / 127`` (0-d, g's
-    dtype), ``q = clip(round(g / scale), -127, 127)``."""
-    scale = _div(torch.clamp_min(g.abs().amax(), 1e-12), 127.0)
+    dtype), ``q = clip(round(g / scale), -127, 127)``. With ``group`` (a
+    :class:`~repro_torch.parallel.sharding.ModelGroup`) ``g`` is one block
+    of a leaf split over it, and the max is the whole leaf's."""
+    amax = g.abs().amax()
+    if group is not None:
+        amax = group.all_reduce(amax, dist.ReduceOp.MAX)
+    scale = _div(torch.clamp_min(amax, 1e-12), 127.0)
     q = torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
     return q, scale
 
@@ -46,28 +53,38 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.to(torch.float32) * scale
 
 
-def topk_mask(g: torch.Tensor, ratio: float) -> torch.Tensor:
+def topk_mask(g: torch.Tensor, ratio: float, group=None) -> torch.Tensor:
     """1 where ``|g|`` is at least the k-th largest ``|g|`` (``k = max(1,
-    int(n * ratio))``; ties with it kept), else 0, in g's dtype."""
+    int(n * ratio))``; ties with it kept), else 0, in g's dtype. With
+    ``group``, as :func:`quantize_int8`'s: ``n`` and the k-th largest are
+    the whole leaf's, found among the blocks' own k largest (all-gathered:
+    they hold the leaf's k largest)."""
     flat = g.reshape(-1).abs()
-    k = max(1, int(flat.shape[0] * ratio))
-    thresh = torch.topk(flat, k).values[-1]
+    size = 1 if group is None else group.size
+    k = max(1, int(flat.shape[0] * size * ratio))
+    if group is None:
+        thresh = torch.topk(flat, k).values[-1]
+    else:
+        own = torch.topk(flat, min(k, flat.shape[0])).values
+        thresh = torch.topk(group.all_gather(own, 0), k).values[-1]
     return (g.abs() >= thresh).to(g.dtype)
 
 
 def compress_leaf(cfg: CompressionConfig, g: torch.Tensor,
-                  err: Optional[torch.Tensor]):
-    """``(g_hat in g's dtype, new error (f32) or None, wire bytes)``."""
+                  err: Optional[torch.Tensor], group=None):
+    """``(g_hat in g's dtype, new error (f32) or None, wire bytes)``; with
+    ``group``, ``g`` and ``err`` are one block of a leaf split over it,
+    compressed as the whole leaf is, and the wire bytes the whole leaf's."""
     g32 = g.to(torch.float32)
     if err is not None and cfg.error_feedback:
         g32 = g32 + err.to(torch.float32)
-    n = g.numel()
+    n = g.numel() * (1 if group is None else group.size)
     if cfg.kind == "int8":
-        q, s = quantize_int8(g32)
+        q, s = quantize_int8(g32, group)
         g_hat = dequantize_int8(q, s)
         wire = n * 1 + 4
     elif cfg.kind == "topk":
-        g_hat = g32 * topk_mask(g32, cfg.topk_ratio)
+        g_hat = g32 * topk_mask(g32, cfg.topk_ratio, group)
         wire = int(n * cfg.topk_ratio) * (4 + 4)     # value + index
     else:
         g_hat = g32
@@ -78,20 +95,24 @@ def compress_leaf(cfg: CompressionConfig, g: torch.Tensor,
 
 
 def compressed_psum_pod(cfg: CompressionConfig, grads, err_state,
-                        group=None):
+                        group=None, model_group=None, split=None):
     """Compress each leaf of ``grads`` (with its ``err_state`` leaf), sum
     the compressed leaves over ``group`` and average: ``(avg grads, new
     error tree or None, total wire bytes)``. ``group=None`` is a group of
     one (no collective, n = 1); otherwise ``torch.distributed`` must be
-    initialised and every rank of ``group`` calls with the same tree."""
-    import torch.distributed as dist
+    initialised and every rank of ``group`` calls with the same tree.
+    ``split`` (a bool per leaf, in ``tree_leaves`` order) marks the leaves
+    that are blocks of a leaf split over ``model_group``, compressed as
+    the whole leaf (:func:`compress_leaf`)."""
     n = 1 if group is None else dist.get_world_size(group)
     flat_g = tree_leaves(grads)
     flat_e = (tree_leaves(err_state) if err_state is not None
               else [None] * len(flat_g))
+    split = split or [False] * len(flat_g)
     out, new_err, wire_total = [], [], 0
-    for g, e in zip(flat_g, flat_e):
-        g_hat, ne, wire = compress_leaf(cfg, g, e)
+    for g, e, sp in zip(flat_g, flat_e, split):
+        g_hat, ne, wire = compress_leaf(cfg, g, e,
+                                        model_group if sp else None)
         wire_total += wire
         if group is not None:
             g_hat = g_hat.contiguous()      # NCCL reduces contiguous tensors

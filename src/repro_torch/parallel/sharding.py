@@ -41,7 +41,11 @@ import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate, Shard, \
     distribute_tensor
 
-from repro_torch.models.common import is_axes_leaf
+
+def is_axes_leaf(x) -> bool:
+    """A logical axes leaf: a tuple of axis names (or ``None``)."""
+    return isinstance(x, tuple) and all(
+        isinstance(e, (str, type(None))) for e in x)
 
 BASE_RULES: Dict[str, Optional[str]] = {
     "heads": "model",
@@ -548,3 +552,195 @@ class token_group:
 
 def current_token_group() -> Optional[TokenGroup]:
     return _TOKEN_GROUP.get()
+
+
+# ---------------------------------------------------------------------------
+# Tensor and expert parallelism on 'model'.
+#
+# The reference shards the heads, MLP, vocabulary and experts over 'model'
+# and lets GSPMD run each product on the device's shard. Here a leaf whose
+# spec puts 'model' on a dim stays in its 'model' block on its rank, at rest
+# and in every step (:func:`local_params`), and the layers combine the
+# ranks' shares through explicit collectives over the 'model' group, in
+# Megatron's form: :func:`to_model` before a column-parallel product
+# (identity forward, the gradient all-reduced backward) and
+# :func:`from_model` after a row-parallel one (all-reduced forward,
+# identity backward). The steps install this rank's :class:`ModelGroup`
+# (:class:`model_parallel`); the layers ask :func:`splits` whether the
+# reference's rule splits a dim of theirs. With none installed, or a
+# 'model' axis of one rank, every layer is the meshless one.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class ModelGroup:
+    """This rank's ``index`` among the ``size`` ranks of the 'model' axis,
+    and their process group. With ``group=None`` (a :class:`MeshShape`: a
+    planner's layout) the collectives move nothing and are counted in
+    ``calls``, ``(kind, bytes)`` each."""
+    index: int
+    size: int
+    group: Any = None
+    calls: list = dataclasses.field(default_factory=list)
+
+    def splits(self, n: int) -> bool:
+        """Whether the reference's rule splits a dim of ``n`` over 'model':
+        the axis has more than one rank and divides ``n``."""
+        return self.size > 1 and n % self.size == 0
+
+    def block(self, n: int) -> slice:
+        """This rank's block of a dim of ``n`` that 'model' splits."""
+        k = n // self.size
+        return slice(self.index * k, (self.index + 1) * k)
+
+    def all_reduce(self, x: torch.Tensor,
+                   op=dist.ReduceOp.SUM) -> torch.Tensor:
+        """``x`` reduced by ``op`` over the group, in a tensor of its own."""
+        out = x.contiguous().clone()
+        if self.group is None:
+            self.calls.append(("all-reduce", out.numel() * out.element_size()))
+        else:
+            dist.all_reduce(out, op=op, group=self.group)
+        return out
+
+    def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every rank's ``x`` joined along ``dim``, in rank order."""
+        dim = dim % x.dim()
+        src = x.movedim(dim, 0).contiguous()
+        out = src.new_empty((self.size * src.shape[0],) + src.shape[1:])
+        if self.group is None:
+            self.calls.append(("all-gather", out.numel() * out.element_size()))
+            out.copy_(src.repeat((self.size,) + (1,) * (src.dim() - 1)))
+        else:
+            dist.all_gather_into_tensor(out, src, group=self.group)
+        return out.movedim(0, dim).contiguous()
+
+
+def model_group_of(mesh, coord=None) -> Optional[ModelGroup]:
+    """The :class:`ModelGroup` of the rank at ``coord`` (a ``DeviceMesh``'s
+    own coordinate unless given; a :class:`MeshShape` needs it), ``None``
+    where the mesh has no 'model' axis of more than one rank."""
+    ms = mesh_shape(mesh)
+    size = ms.shape.get("model", 1)
+    if size == 1:
+        return None
+    if coord is None:
+        coord = tuple(mesh.get_coordinate())
+    group = mesh.get_group("model") if hasattr(mesh, "get_group") else None
+    return ModelGroup(coord[ms.axis_names.index("model")], size, group)
+
+
+_MODEL_GROUP: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_model_group", default=None)
+
+
+class model_parallel:
+    """Context manager installing a :class:`ModelGroup` (``None``: none, so
+    the layers inside run whole) for the layers' tensor and expert
+    parallelism."""
+
+    def __init__(self, group: Optional[ModelGroup]):
+        self.group = group
+
+    def __enter__(self):
+        self._tok = _MODEL_GROUP.set(self.group)
+        return self
+
+    def __exit__(self, *a):
+        _MODEL_GROUP.reset(self._tok)
+        return False
+
+
+def model_group() -> Optional[ModelGroup]:
+    return _MODEL_GROUP.get()
+
+
+def splits(n: int) -> bool:
+    """Whether the installed 'model' group splits a dim of ``n`` (False
+    with none installed)."""
+    mg = _MODEL_GROUP.get()
+    return mg is not None and mg.splits(n)
+
+
+class _ToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mg):
+        ctx.mg = mg
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mg.all_reduce(g), None
+
+
+class _FromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mg):
+        return mg.all_reduce(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def to_model(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (the same on every 'model' rank) entering a 'model'-parallel
+    product: itself forward, its gradient summed over the installed group
+    backward (each rank's share of the product gives a share of it)."""
+    mg = _MODEL_GROUP.get()
+    return x if mg is None else _ToModel.apply(x, mg)
+
+
+def from_model(x: torch.Tensor) -> torch.Tensor:
+    """This rank's share ``x`` of a 'model'-parallel product, summed over
+    the installed group (the gradient passes through unchanged: every rank
+    continues from the same sum)."""
+    mg = _MODEL_GROUP.get()
+    return x if mg is None else _FromModel.apply(x, mg)
+
+
+def _map_paths(fn, tree, prefix=()):
+    """``fn(path, leaf)`` over the leaves of nested dicts."""
+    if isinstance(tree, dict):
+        return {k: _map_paths(fn, v, prefix + (k,)) for k, v in tree.items()}
+    return fn(prefix, tree)
+
+
+def model_dim(spec: Tuple) -> Optional[int]:
+    """The tensor dim a spec splits over 'model', if any."""
+    return next((d for d, e in enumerate(spec) if e == "model"), None)
+
+
+def local_params(params, keep, *, shardings=None, shapes=None, group=None):
+    """The parameters as a step on a mesh computes on them, as plain
+    tensors. ``keep(path)``: whether the leaf at ``path`` (its keys) runs in
+    its 'model' block (a layer with tensor or expert parallelism) or whole.
+
+    A DTensor leaf is gathered over its DP/FSDP mesh dims and, unless
+    ``keep(path)``, over 'model' too (a layer outside the parallel ones:
+    one gather per leaf). A plain leaf is taken as it is unless it is the
+    whole leaf (its shape in ``shapes``, a tree of the model's meta
+    parameters), ``keep(path)`` and its sharding in ``shardings`` (a tree
+    of :class:`NamedSharding`) splits it over 'model': then it is cut to
+    this rank's block of ``group`` (:class:`ModelGroup`), a tensor of its
+    own."""
+    def one(path, t):
+        if isinstance(t, DTensor):
+            mesh = t.device_mesh
+            kept = keep(path)
+            pl = [p if (n == "model" and kept and p.is_shard())
+                  else Replicate()
+                  for n, p in zip(mesh.mesh_dim_names, t.placements)]
+            if list(t.placements) != pl:
+                t = t.redistribute(mesh, pl)
+            return t.to_local()
+        if group is None or shardings is None or not keep(path):
+            return t
+        sh, whole = shardings, shapes
+        for k in path:
+            sh, whole = sh[k], whole[k]
+        d = model_dim(sh.spec)
+        if d is None or tuple(t.shape) != tuple(whole.shape):
+            return t
+        return t[(slice(None),) * d + (group.block(t.shape[d]),)].clone()
+
+    return _map_paths(one, params)

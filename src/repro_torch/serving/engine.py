@@ -12,13 +12,21 @@ rank holds only its block of each leaf (``NamedSharding.block``) and
 computes on plain local tensors, the design of the sharded training step
 (:mod:`repro_torch.train.trainer`):
 
-- the rank runs its DP rows of the batch; ranks that differ only on
-  'model' run the same rows (the reference runs tensor parallelism there);
+- the rank runs its DP rows of the batch;
+- the parameters stay in their 'model' blocks where their layer runs
+  tensor or expert parallel (GQA attention on this rank's heads, the MLPs
+  on its mlp block, the vocabulary, the experts), and are gathered whole,
+  leaf by leaf, where it does not (MLA, the Mamba and xLSTM blocks,
+  cross-attention, the encoder;
+  :func:`~repro_torch.parallel.sharding.local_params`); the layers
+  combine their shares over 'model', and the logits' vocabulary blocks
+  are all-gathered for the sampling (the last position only);
 - a sequence-sharded leaf stays in its block: the attention writes the new
-  entries that fall in it and decode combines the blocks' partial
-  softmaxes across 'model'
+  entries that fall in it (the fresh K/V of every head, all-gathered over
+  'model' where the KV heads split) and decode attends every head over the
+  block and combines the blocks' partial softmaxes across 'model'
   (:class:`~repro_torch.parallel.sharding.CacheBlock`);
-- a leaf that 'model' shards on another dim is gathered whole over
+- a cache leaf that 'model' shards on another dim is gathered whole over
   'model' at the start of each step and cut back to its block after it
   (those leaves do not grow with the sequence);
 - a MoE layer routes the global batch, as the reference's does
@@ -39,7 +47,7 @@ import torch
 from torch.distributed.tensor import Replicate
 
 from repro_torch.device import resolve_device
-from repro_torch.models.transformer import ModelConfig, get_model
+from repro_torch.models.transformer import ModelConfig, get_model, head_width
 from repro_torch.parallel import sharding as Sh
 
 
@@ -136,8 +144,34 @@ class MeshServe:
             return tuple(leaf.shape), placements(sh.spec), placements(spec)
 
         self.layout = Sh._map(layout, self.meta, self.shardings)
+        self.mg = Sh.model_group_of(mesh, self.coord)
+        self.n_dp = n_dp
         self._bound = True
         return self
+
+    # ---------------- the parameters
+    def local_params(self, params):
+        """The parameters this rank computes on
+        (:func:`~repro_torch.parallel.sharding.local_params`): a
+        'model'-split leaf of a parallel layer in its 'model' block (a
+        whole one passed in is cut to it), any other leaf whole."""
+        model = self.model
+        size = Sh.mesh_shape(self.mesh).shape["model"]
+        if not hasattr(self, "_param_specs"):
+            shapes, axes = model.init(0, device="meta", with_axes=True)
+            self._param_specs = (
+                shapes, Sh.param_shardings(axes, shapes, self.mesh))
+        shapes, shardings = self._param_specs
+        return Sh.local_params(
+            params, lambda path: model.model_parallel_leaf(path, size),
+            shardings=shardings, shapes=shapes, group=self.mg)
+
+    def full_logits(self, logits: torch.Tensor) -> torch.Tensor:
+        """The logits of every vocabulary column: this rank's block
+        all-gathered over 'model' where the head runs split."""
+        if self.mg is None or not self.mg.splits(head_width(self.model.cfg)):
+            return logits
+        return self.mg.all_gather(logits, -1)
 
     # ---------------- rows and leaves
     def rows(self, x: torch.Tensor) -> torch.Tensor:
@@ -147,6 +181,8 @@ class MeshServe:
     def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
         """The global ``[batch, ...]`` tensor of every rank's rows ``x``,
         gathered over the DP axes."""
+        if self.n_dp == 1 or x.shape[0] == self.batch:
+            return x
         return Sh.from_block(x, self.mesh, self.tokens.placements,
                              (self.batch,) + tuple(x.shape[1:])).full_tensor()
 
@@ -180,10 +216,10 @@ class MeshServe:
 
     @contextlib.contextmanager
     def context(self):
-        """The reference's constraint points, this rank's cache block and
-        its DP ranks' token group."""
+        """The reference's constraint points, this rank's cache block, its
+        DP ranks' token group and its 'model' group."""
         with Sh.activation_mesh(self.mesh), Sh.cache_block(self.block), \
-                Sh.token_group(self.group):
+                Sh.token_group(self.group), Sh.model_parallel(self.mg):
             yield
 
     # ---------------- the steps on this rank's rows
@@ -203,7 +239,7 @@ class MeshServe:
             logits, cache = self.model.prefill(params, tokens,
                                                max_len=self.block_len(),
                                                ctx=ctx)
-        return logits, self.to_rest(cache)
+        return self.full_logits(logits), self.to_rest(cache)
 
     def decode(self, params, tokens, cache, pos: int):
         """``(logits, cache)`` of one token of this rank's rows at
@@ -211,7 +247,7 @@ class MeshServe:
         comp = self.to_compute(cache)
         with self.context():
             logits, comp = self.model.decode_step(params, tokens, comp, pos)
-        return logits, self.to_rest(comp)
+        return self.full_logits(logits), self.to_rest(comp)
 
 
 def engine_head_candidates(cfg: ModelConfig) -> tuple:
@@ -244,7 +280,6 @@ class ServingEngine:
         self.scfg = serve_cfg
         self.model = get_model(cfg)
         self.mesh = mesh
-        self.params = None if params is None else Sh.full_tensors(params)
         self.last_stats: dict = {}
         if mesh is not None:
             self._mesh = MeshServe(self.model, mesh, serve_cfg.batch,
@@ -254,6 +289,12 @@ class ServingEngine:
         else:
             self._mesh = None
             self.cache_shardings = None
+        if params is None or mesh is None \
+                or not hasattr(mesh, "get_coordinate"):
+            self.params = None if params is None \
+                else Sh.full_tensors(params)
+        else:
+            self.params = self._mesh.bind().local_params(params)
 
     def rows(self, x: torch.Tensor) -> torch.Tensor:
         """This rank's rows of a global batch tensor (all of it without a
@@ -342,7 +383,8 @@ def make_serve_step(cfg: ModelConfig, batch: int, max_len: int,
     cache_sh, tok_sh)`` (head candidates: KV heads and heads, as the
     reference's factory takes them). ``tokens`` is then the global batch
     on every rank, ``cache`` this rank's blocks of ``cache_sh``, and
-    ``params`` whole tensors or DTensors, gathered in the step; it
+    ``params`` whole tensors, DTensors or this rank's blocks, made in the
+    step into what this rank computes on (``MeshServe.local_params``); it
     returns this rank's rows' logits and cache blocks. A ``MeshShape``
     gives the shardings; the step needs a ``DeviceMesh``."""
     resolve_device(device)
@@ -366,7 +408,7 @@ def make_serve_step(cfg: ModelConfig, batch: int, max_len: int,
     def mesh_serve_step(params, tokens, cache, pos: int):
         check(tokens, pos)
         ms.bind()
-        return ms.decode(Sh.full_tensors(params), ms.rows(tokens), cache,
+        return ms.decode(ms.local_params(params), ms.rows(tokens), cache,
                          pos)
 
     mesh_serve_step.mesh_serve = ms
@@ -404,7 +446,7 @@ def make_prefill_step(cfg: ModelConfig, batch: int, seq: int, device=None,
     def mesh_prefill_step(params, tokens, ctx=None):
         check(tokens)
         ms.bind()
-        return ms.prefill(Sh.full_tensors(params), ms.rows(tokens),
+        return ms.prefill(ms.local_params(params), ms.rows(tokens),
                           None if ctx is None else ms.rows(ctx))
 
     mesh_prefill_step.mesh_serve = ms

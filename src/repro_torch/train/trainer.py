@@ -10,26 +10,38 @@ the reference does (microbatch j holds rows j, j + mb, ...), accumulate the
 gradients in f32 and report the last microbatch's metrics.
 
 On a mesh (a ``DeviceMesh``, :mod:`repro_torch.launch.mesh`) the state at
-rest is DTensors placed by :func:`state_shardings`: under FSDP each rank
-holds ``1/(data*model)`` of most leaves. The parameters are dict trees,
-not ``nn.Module``s, so the sharded step is the FSDP design in plain
-``torch.distributed``: (1) gather each parameter, (2) run the forward and
-backward on this rank's rows of the batch (sharded over the DP axes as
-:func:`~repro_torch.parallel.sharding.batch_shardings` says), (3) average
-the gradients over the DP axes, (4) clip by the whole gradient's norm, as
-``apply_updates`` does, and (5) update this rank's shards of the
-parameters and moments. Ranks that differ only on 'model' compute the
-same rows (the reference shards the model's matrices there; here they are
-gathered). A MoE layer routes the global batch, as the reference's global
-program does (:class:`~repro_torch.parallel.sharding.TokenGroup`; the
-compressed step: each pod's batch). On a mesh of one rank the step is the
-one-device step's, bit for bit. The compressed step averages each pod's
-gradient over its 'data' ranks, then runs it through
+rest is DTensors placed by :func:`state_shardings`: 'model' splits the
+heads, MLP, vocabulary and experts (the reference's rules), and under FSDP
+each rank holds ``1/(data*model)`` of most leaves. The parameters are dict
+trees, not ``nn.Module``s, so the sharded step is written in plain
+``torch.distributed``: (1) each parameter is gathered over the DP axes
+only: a leaf that 'model' splits stays in this rank's 'model' block where
+its layer runs tensor or expert parallel (GQA attention, the MLPs, the
+vocabulary, the routed and shared experts), and is gathered whole where it
+does not (MLA, the Mamba and xLSTM blocks, cross-attention, the encoder;
+:func:`~repro_torch.parallel.sharding.local_params`); (2) the forward and
+backward run on this rank's rows of the batch (sharded over the DP axes as
+:func:`~repro_torch.parallel.sharding.batch_shardings` says), each
+parallel layer computing its share and combining the shares over 'model'
+through explicit collectives (Megatron's ``to_model`` / ``from_model``);
+(3) the gradients are averaged over the DP axes, a 'model' block staying a
+block; (4) they are clipped by the whole gradient's norm (the blocks' sums
+of squares all-reduced over 'model', each element counted once), as
+``apply_updates`` does, and (5) this rank's shards of the parameters and
+moments are updated. A MoE layer routes the global batch, as the
+reference's global program does
+(:class:`~repro_torch.parallel.sharding.TokenGroup`; the compressed step:
+each pod's batch). On a mesh whose 'model' axis has one rank nothing is
+split, and on a mesh of one rank the step is the one-device step's, bit for
+bit. The compressed step averages each pod's gradient over its 'data'
+ranks, then runs it through
 :func:`~repro_torch.parallel.compression.compressed_psum_pod` over the
-mesh's 'pod' group.
+mesh's 'pod' group; a 'model' block is compressed as its whole leaf (the
+int8 scale and the top-k threshold come from the 'model' group).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Callable, Dict, Optional
@@ -150,7 +162,7 @@ def shard_state(tree, shardings):
 
 class _MeshStep:
     """What a sharded step needs of its mesh: this rank's coordinate, the
-    DP axes' groups and sizes."""
+    DP axes' groups and sizes, and its 'model' group."""
 
     def __init__(self, cfg, mesh, fsdp: bool):
         self.mesh = mesh
@@ -158,6 +170,26 @@ class _MeshStep:
         self.coord = tuple(mesh.get_coordinate())
         self.dp = Sh.dp_axes(mesh)
         self.sizes = Sh.mesh_shape(mesh).shape
+        self.mg = Sh.model_group_of(mesh, self.coord)
+        model = get_model(cfg)
+        size = self.sizes.get("model", 1)
+        self.keep = lambda path: model.model_parallel_leaf(path, size)
+
+    def local(self, params):
+        """The parameters the forward and backward run on, as leaves that
+        require grad: each gathered over the DP axes, a 'model'-split leaf
+        of a parallel layer kept in its 'model' block, any other gathered
+        whole (:func:`~repro_torch.parallel.sharding.local_params`)."""
+        return tree_map(lambda t: t.detach().requires_grad_(),
+                        Sh.local_params(params, self.keep))
+
+    def context(self, batch, axes):
+        """The step's groups: the MoE routing's over the DP ``axes`` and
+        this rank's 'model' group."""
+        stack = contextlib.ExitStack()
+        stack.enter_context(Sh.token_group(self.group(batch, axes)))
+        stack.enter_context(Sh.model_parallel(self.mg))
+        return stack
 
     def rows(self, batch, microbatches: int = 1):
         """This rank's rows of each leaf of ``batch`` (the global batch,
@@ -196,13 +228,52 @@ class _MeshStep:
         buf.div_(math.prod(self.sizes[a] for a in axes))
         return t if buf is t else t.copy_(buf)
 
+    def split(self, grads, params) -> list:
+        """Per leaf (in ``tree_leaves`` order), whether its gradient is a
+        'model' block: its shape is not the parameter's global one."""
+        return [tuple(g.shape) != tuple(p.shape) for g, p in
+                zip(tree_leaves(grads), tree_leaves(params))]
+
+    def global_norm(self, grads, params) -> torch.Tensor:
+        """The norm of the whole gradient, each element counted once: the
+        sums of squares of the 'model' blocks all-reduced over the 'model'
+        group (one call), added in the leaves' order to those of the
+        leaves every rank holds whole (``adamw.global_norm``'s order)."""
+        split = self.split(grads, params)
+        if not any(split):
+            return adamw.global_norm(grads)
+        sq = [torch.sum(torch.square(g.float())) for g in tree_leaves(grads)]
+        idx = [i for i, s in enumerate(split) if s]
+        summed = self.mg.all_reduce(torch.stack([sq[i] for i in idx]))
+        for j, i in enumerate(idx):
+            sq[i] = summed[j]
+        return torch.sqrt(sum(sq))
+
+    def model_block(self, t, like, sharding) -> torch.Tensor:
+        """``t`` cut to this rank's 'model' block of ``sharding`` where
+        ``like`` (a gradient) is such a block and ``t`` still whole."""
+        if tuple(t.shape) == tuple(like.shape):
+            return t
+        d = Sh.model_dim(sharding.spec)
+        return t[(slice(None),) * d + (self.mg.block(t.shape[d]),)]
+
+    def cut(self, g, sharding, param) -> torch.Tensor:
+        """This rank's block of the gradient ``g`` of ``param`` (whole over
+        the DP axes): the block of ``sharding``, less its 'model' entry
+        where ``g`` is already a 'model' block."""
+        spec = sharding.spec
+        if tuple(g.shape) != tuple(param.shape):
+            d = Sh.model_dim(spec)
+            spec = spec[:d] + (None,) + spec[d + 1:]
+        return g[Sh.NamedSharding(self.mesh, spec).block(tuple(g.shape),
+                                                          self.coord)]
+
     def update(self, opt_cfg, params, opt_state, grads):
         """This rank's shards of the parameters and moments updated by the
         whole averaged ``grads`` (clipped by their norm), as DTensors."""
-        gnorm = adamw.global_norm(grads)
+        gnorm = self.global_norm(grads, params)
         local = lambda t: t.to_local()
-        g_loc = tree_map(lambda g, s: g[s.block(tuple(g.shape), self.coord)],
-                         grads, self.shardings["params"])
+        g_loc = tree_map(self.cut, grads, self.shardings["params"], params)
         new_p, new_opt, opt_m = adamw.apply_updates(
             opt_cfg, tree_map(local, params), g_loc,
             {"m": tree_map(local, opt_state["m"]),
@@ -218,12 +289,6 @@ class _MeshStep:
                 {"m": tree_map(back, new_opt["m"], opt_state["m"]),
                  "v": tree_map(back, new_opt["v"], opt_state["v"]),
                  "step": back(new_opt["step"], opt_state["step"])}, opt_m)
-
-
-def _gathered(params):
-    """Every parameter gathered whole, as a leaf that requires grad."""
-    return tree_map(lambda p: p.full_tensor().detach().requires_grad_(),
-                    params)
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
@@ -269,14 +334,15 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
         return new_params, new_opt, metrics
 
     def mesh_step(params, opt_state, batch):
-        with Sh.token_group(ms.group(batch, ms.dp)):
-            grads, loss, metrics = grads_of(_gathered(params),
+        with ms.context(batch, ms.dp):
+            grads, loss, metrics = grads_of(ms.local(params),
                                             ms.rows(batch, microbatches))
         return finish(params, opt_state, grads, loss, metrics)
 
     # the step's pieces, for a count of one rank's step by its parts
-    # (launch/dryrun.py): the mesh, the gather and rows, and the finish
-    mesh_step.pieces = dict(mesh_step=ms, gathered=_gathered, finish=finish)
+    # (launch/dryrun.py): the mesh, the local parameters and rows, and the
+    # finish
+    mesh_step.pieces = dict(mesh_step=ms, local=ms.local, finish=finish)
     return mesh_step
 
 
@@ -290,7 +356,11 @@ def make_compressed_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
     ``compression.init_error_state`` of the full parameters, on every
     rank) and averaged over the 'pod' group; the loss is the pods' mean,
     and ``metrics["wire_bytes_pod"]`` the bytes one pod sends (a Python
-    int). The state is placed as :func:`make_train_step`'s."""
+    int). The state is placed as :func:`make_train_step`'s. On a 'model'
+    axis of several ranks an error leaf of a 'model'-split gradient holds
+    this rank's 'model' block (a whole leaf passed in is cut to it), and
+    that gradient is compressed as the whole leaf would be: its int8 scale
+    and top-k threshold come from the 'model' group."""
     if mesh is None or "pod" not in Sh.mesh_shape(mesh).axis_names:
         raise ValueError("the compressed step reduces over a 'pod' mesh "
                          "axis: pass a mesh with one")
@@ -299,13 +369,18 @@ def make_compressed_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
     data = tuple(a for a in ms.dp if a != "pod")
 
     def pod_step(params, opt_state, err_state, batch):
-        with Sh.token_group(ms.group(batch, data)):
-            grads, loss, metrics = grads_of(_gathered(params),
+        with ms.context(batch, data):
+            grads, loss, metrics = grads_of(ms.local(params),
                                             ms.rows(batch))
         for g in tree_leaves(grads):
             ms.mean(g, data)
+        split = ms.split(grads, params)
+        if err_state is not None and any(split):
+            err_state = tree_map(ms.model_block, err_state, grads,
+                                 ms.shardings["params"])
         grads, new_err, wire = C.compressed_psum_pod(
-            comp, grads, err_state, group=mesh.get_group("pod"))
+            comp, grads, err_state, group=mesh.get_group("pod"),
+            model_group=ms.mg, split=split)
         new_params, new_opt, opt_m = ms.update(opt_cfg, params, opt_state,
                                                grads)
         metrics = {k: ms.mean(v.clone(), ms.dp) for k, v in metrics.items()}

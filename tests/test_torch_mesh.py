@@ -1,7 +1,10 @@
 """The port's meshes on four ``gloo`` ranks on the CPU: sharded placement
 against the reference's ``NamedSharding``, the sharded and compressed
-training steps, restoring across meshes, the crash-restart loop and the
-serving engine on the 2 x 2 and 1 x 4 meshes.
+training steps, restoring across meshes, the crash-restart loop, the
+serving engine on the 2 x 2 and 1 x 4 meshes, and tensor and expert
+parallelism on 'model': each parallel layer against the whole layer, the
+shapes the step and the engine compute on, and the compressed step's
+'model' blocks.
 
 One group of 4 ranks, spawned once for the whole file
 (``tests/torch_mesh_ranks.py`` runs every check on every rank), joins
@@ -307,19 +310,42 @@ def test_mesh_engine_equals_reference_engine(ranks, case_mesh):
             assert rel.max() <= LOGIT_ROW_REL, (step, rel)
 
 
+def gqa_layers_per_token(cfg, model) -> int:
+    """The GQA self-attention layers one decode step runs: a decoder's
+    self blocks (none under MLA; a VLM's cross blocks are not GQA), the
+    hybrid's shared block once per super block, the encoder-decoder's
+    decoder layers, none in the xLSTM."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return 0 if cfg.use_mla else model.n_super
+    if cfg.family == "audio":
+        return cfg.n_dec_layers
+    if cfg.use_mla:
+        return 0
+    per = {"dense": lambda inner: 1, "moe": lambda inner: 1,
+           "moe_super": lambda inner: inner + 1,
+           "vlm_super": lambda inner: inner}
+    return sum(n * per[kind](inner) for kind, n, inner in model.plan)
+
+
 def expected_decode_gathers(case, mesh_name):
     """The all-gathers of one decode step by the engine's design: one per
     cache leaf that the reference's shardings split over 'model' on a dim
     other than its sequence (gathered whole for the step), none of a
-    sequence-sharded leaf; and on a mesh whose DP ranks split the batch,
-    one per MoE layer (its routing's per-expert counts)."""
+    sequence-sharded leaf; on a mesh whose DP ranks split the batch, one
+    per MoE layer (its routing's per-expert counts); with the heads split
+    over 'model', per GQA layer the new token's query heads and, where
+    the KV heads split too, its keys and values (the reference replicates
+    them); and the logits' vocabulary blocks where the head is split."""
     from repro_torch import configs
-    from repro_torch.models.transformer import get_model
+    from repro_torch.models.transformer import get_model, head_width
     from repro_torch.parallel import sharding as Sh
     from repro_torch.serving.engine import ServeConfig, ServingEngine
     arch, over = R.SERVE_CASES[case]
     sizes, names = MESH_SHAPES[mesh_name]
     cfg = configs.get_smoke_config(arch, **over, **R.F32)
+    model = get_model(cfg)
     mesh = Sh.MeshShape(names, sizes)
     eng = ServingEngine(cfg, ServeConfig(R.SERVE_B, R.SERVE_L),
                         device="cpu", mesh=mesh)
@@ -333,8 +359,12 @@ def expected_decode_gathers(case, mesh_name):
         elif model_dims and tp > 1:
             n += 1
     if sizes[0] > 1 and cfg.n_experts:
-        n += sum(k for kind, k, _ in get_model(cfg).plan if kind == "moe")
-    return n
+        n += sum(k for kind, k, _ in model.plan if kind == "moe")
+    split = lambda k: tp > 1 and k % tp == 0
+    if split(cfg.n_heads):
+        n += gqa_layers_per_token(cfg, model) * (
+            3 if split(cfg.n_kv_heads) else 1)
+    return n + split(head_width(cfg))
 
 
 @pytest.mark.parametrize("case_mesh", SERVE_IDS)
@@ -342,10 +372,85 @@ def test_mesh_engine_holds_blocks_and_gathers_no_sequence_leaf(ranks,
                                                                case_mesh):
     """Every rank's cache leaves have the shape ``NamedSharding.block``
     gives, no rank holds a whole-sequence leaf, and one decode step's
-    all-gathers are those of the design: none of a sequence-sharded
-    leaf."""
+    all-gathers are those of the design (:func:`expected_decode_gathers`):
+    none of a sequence-sharded leaf."""
     case, mesh_name = case_mesh.split("-")
     want = expected_decode_gathers(case, mesh_name)
     for got in serving(ranks, case_mesh):
         assert got["blocks"] and not got["whole_sequence_leaf"], got
         assert got["decode_gathers"] == want, (got["decode_gathers"], want)
+
+
+# ------------------------------------------------------------ TP and EP
+
+LAYER_REL = 1e-6
+LAYERS = {"gqa": ("prefill", "prefill_grads", "decode", "cache"),
+          "mlp": ("swiglu", "swiglu_grads", "gelu", "gelu_grads"),
+          "vocab": ("loss", "grads"),
+          "moe": ("out", "grads")}
+
+
+@pytest.mark.parametrize("mesh_name", R.SERVE_MESHES)
+@pytest.mark.parametrize("layer", list(LAYERS))
+def test_layer_twins_on_the_model_axis(ranks, layer, mesh_name):
+    """Each layer with its weights split over 'model' (this rank's blocks,
+    the shares combined over the group) against the whole layer on the
+    same inputs, in f32: outputs and gradients within 1e-6 relative (the
+    ranks sum the partial products in another order). On 1 x 4 the smoke
+    llama's 2 KV heads do not split and on 2 x 2 they do; the MoE's
+    routing (and so its aux values) is the whole layer's exactly."""
+    for got in result(ranks, "layers"):
+        twin = got[mesh_name][layer]
+        for key in LAYERS[layer]:
+            assert twin[key] <= LAYER_REL, (key, twin)
+        if layer == "gqa":
+            assert twin["kv_split"] == (mesh_name == "2x2")
+        if layer == "moe":
+            assert twin["aux"] and twin["dropped"] > 0, twin
+
+
+COMPUTE_CASES = [f"{a}-{m}" for a in (R.CFG_ARCH, R.MOE_ARCH)
+                 for m in R.SERVE_MESHES]
+
+
+@pytest.mark.parametrize("case", COMPUTE_CASES)
+def test_no_model_split_leaf_is_whole_on_a_rank(ranks, case):
+    """The shapes the sharded step and the serving engine compute on: a
+    leaf the reference's rules split over 'model' is this rank's block
+    wherever its layer runs split (the GQA, MLP, vocabulary and expert
+    leaves), and whole only in the layers outside them (MLA)."""
+    for got in result(ranks, "compute_shapes"):
+        for where in ("step", "engine"):
+            leaves = got[case][where]
+            assert any(x["split"] and x["kept"] for x in leaves)
+            for x in leaves:
+                if not x["split"]:
+                    assert x["shape"] == x["whole"], x
+                    continue
+                want = list(x["whole"])
+                if x["kept"]:
+                    want[x["dim"]] //= x["tp"]
+                else:
+                    assert "attn" in x["path"] and case.startswith(
+                        R.MOE_ARCH), x
+                assert x["shape"] == want, (where, x)
+
+
+@pytest.mark.parametrize("kind", ["int8", "topk"])
+def test_compressed_step_compresses_model_blocks_as_whole_leaves(ranks,
+                                                                 kind):
+    """On two pods with a 'model' axis of two ranks: the compression of
+    this rank's 'model' blocks (the whole leaves' int8 scale and top-k
+    threshold, from the group) equals the whole leaves' compression cut
+    to the blocks, bit for bit, with the whole leaves' wire bytes; the
+    compressed step with nothing compressed equals its emulation on whole
+    gradients over two steps within 1e-5 of the parameters' norm (the
+    sharded step's bound: the ranks sum the partial products in another
+    order); an int8 step keeps each error leaf in its gradient's 'model'
+    block."""
+    for got in result(ranks, "compressed_tp"):
+        unit = got["unit"][kind]
+        assert unit["grads"] and unit["err"] and unit["wire"], unit
+        assert unit["split"] > 0 and got["keep_all"]
+        assert max(got["none"]) < 1e-5, got["none"]
+        assert all(got["int8_err_blocks"])

@@ -218,20 +218,38 @@ def test_mesh_records_hold_the_exact_identities(cells, mesh_name, dp):
         assert r["status"] == "ok" and r["mesh"] == mesh_name, r
         assert r["n_devices"] == dp * 16 and r["fsdp"] is False
         assert sorted(r["collectives"]) == sorted(dryrun.COLLECTIVES)
-    # no TP: a train or prefill cell's FLOPs split over the DP ranks
-    for sh in ("train_4k", "prefill_32k"):
-        assert got[sh]["flops_per_device"] * dp == one[sh]["flops_per_device"]
-    # the train step gathers each leaf its shardings split, whole, once
+    # TP on 'model' (16 ranks): the smoke llama's MLP (d_ff 128) and
+    # vocabulary (128) split, its 4 / 2 heads do not, so the attention runs
+    # whole on each rank's rows and the MLP's and the head's FLOPs fall by
+    # 16 more: mesh = (one - X) / dp + X / (dp * 16), X their one-card
+    # FLOPs (per layer 6 T D F forward; to train, 3x that and the remat's
+    # gate and up again, and the head 3 x 2 T D V; the prefill's head reads
+    # the last position only)
     cfg = CN.get_config("llama3.2-1b", **over)
+    L, D, F, V = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size
+    x = {}
+    for sh in ("train_4k", "prefill_32k"):
+        B, S = CN.SHAPES[sh].global_batch, CN.SHAPES[sh].seq_len
+        T = B * S
+        x[sh] = (L * (18 * T * D * F + 4 * T * D * F) + 6 * T * D * V
+                 if sh == "train_4k" else L * 6 * T * D * F + 2 * B * D * V)
+        assert 16 * dp * got[sh]["flops_per_device"] == \
+            16 * one[sh]["flops_per_device"] - 15 * x[sh], sh
+    # the train step keeps each 'model'-split leaf in its block: its
+    # all-gathers carry only the split leaves of layers that run whole
+    # (none in llama; no FSDP, so nothing on 'data')
+    from repro_torch.models.transformer import get_model
     from repro_torch.train import trainer
     mesh = Sh.MeshShape(*reversed(MESHES["pod16x16" if dp == 16
                                          else "multipod2x16x16"]))
     shapes, _ = CN.param_specs(cfg)
     sh = dict(tree_items(trainer.state_shardings(cfg, mesh)["params"]))
-    split = sum(t.numel() * t.element_size() for p, t in tree_items(shapes)
-                if any(e is not None for e in sh[p].spec))
-    assert split > 0
-    assert got["train_4k"]["collectives"]["all-gather"]["bytes"] == split
+    keep = get_model(cfg).model_parallel_leaf
+    split = [(p, t) for p, t in tree_items(shapes)
+             if Sh.model_dim(sh[p].spec) is not None]
+    assert split and all(keep(p, 16) for p, _ in split)
+    assert got["train_4k"]["collectives"]["all-gather"]["bytes"] == sum(
+        t.numel() * t.element_size() for p, t in split if not keep(p, 16))
     # a decode cell holds 1 / (DP x 16) of the cache, its rows' tokens and
     # its blocks of the parameters
     spec = CN.SHAPES["decode_32k"]
@@ -253,3 +271,34 @@ def test_fsdp_on_one_card_and_mesh_cells_outside_the_world():
         dryrun.lower_cell("llama3.2-1b", "train_4k", mesh_name="single")
     with pytest.raises(ValueError, match="unknown mesh"):
         dryrun.lower_cell("llama3.2-1b", "train_4k", mesh_name="pod")
+
+
+def test_model_group_on_a_mesh_shape_counts_its_collectives():
+    """A planner's 'model' group (a ``MeshShape``: no process group) moves
+    nothing and counts each collective: a column- then row-parallel SwiGLU,
+    the vocab-parallel head and loss on meta tensors at rank 3 of a 16-wide
+    'model' axis run the all-reduces of the design (the MLP's sum, the
+    loss's row max, sum of exponentials and gold logit), and a gather
+    counts the whole result."""
+    from repro_torch.models import common
+    mesh = Sh.MeshShape(("data", "model"), (16, 16))
+    assert Sh.model_group_of(Sh.MeshShape(("data", "model"), (4, 1)),
+                             (0, 0)) is None
+    mg = Sh.model_group_of(mesh, (2, 3))
+    assert (mg.index, mg.size, mg.group) == (3, 16, None)
+    meta = lambda *s: torch.empty(s, device="meta")
+    B, S, D, F, V = 2, 8, 64, 128, 256
+    x = meta(B, S, D)
+    labels = torch.zeros((B, S), dtype=torch.long, device="meta")
+    with Sh.model_parallel(mg):
+        y = common.swiglu(x, meta(D, F // 16), meta(D, F // 16),
+                          meta(F // 16, D), parallel=True)
+        logits = common.lm_head_logits(y, meta(D, V // 16), V - 8,
+                                       parallel=True)
+        loss = common.cross_entropy_loss(logits, labels, parallel=True)
+        full = mg.all_gather(logits, -1)
+    assert loss.shape == () and full.shape == (B, S, V)
+    row = B * S * 4
+    assert mg.calls == [("all-reduce", B * S * D * 4), ("all-reduce", row),
+                        ("all-reduce", row), ("all-reduce", row),
+                        ("all-gather", B * S * V * 4)]

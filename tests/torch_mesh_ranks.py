@@ -370,6 +370,320 @@ def check_serving(meshes, serve_dir, timeout_s):
     return out
 
 
+
+# ------------------------------------------------------------ TP and EP
+
+LAYER_B, LAYER_S, LAYER_L = 3, 8, 16     # rows, prompt, cache entries
+LAYER_VOCAB = 120                        # pads to 256: masked columns
+
+
+def _draw(gen, *shape):
+    return torch.randn(shape, generator=gen) / math.sqrt(shape[0])
+
+
+def _rel_max(pairs) -> float:
+    """The largest ||got - want|| / ||want|| over ``(got, want)`` pairs."""
+    return max(float((g.double() - w.double()).norm() / w.double().norm())
+               for g, w in pairs)
+
+
+def _grads(out, leaves):
+    """The gradients of ``sum(out * fixed weights)`` with respect to
+    ``leaves`` (the weights drawn from a seed: the same on every rank)."""
+    w = torch.randn(out.shape, generator=torch.Generator().manual_seed(9))
+    return torch.autograd.grad((out * w).sum(), leaves)
+
+
+def _leafs(tree):
+    return {k: v.detach().clone().requires_grad_() for k, v in tree.items()}
+
+
+def twin_gqa(mg, gen):
+    """``apply_gqa`` with the heads split (and the smoke llama's 2 KV heads
+    split on 2 ranks, whole on 4) against the whole layer: the prefill's
+    output and gradients (x and this rank's blocks of the weights), then
+    one decode step over a sequence-split cache block."""
+    from repro_torch.models import attention as A
+    from repro_torch.parallel import sharding as Sh
+    D, H, Hkv, hd = 64, 4, 2, 16
+    p = _leafs({"wq": _draw(gen, D, H, hd), "wk": _draw(gen, D, Hkv, hd),
+                "wv": _draw(gen, D, Hkv, hd), "wo": _draw(gen, H, hd, D)})
+    x = torch.randn((LAYER_B, LAYER_S + 1, D), generator=gen)
+    xs = x[:, :LAYER_S].clone().requires_grad_()
+    kv = mg.block(Hkv) if mg.splits(Hkv) else slice(None)
+    loc = _leafs({"wq": p["wq"][:, mg.block(H)], "wk": p["wk"][:, kv],
+                  "wv": p["wv"][:, kv], "wo": p["wo"][mg.block(H)]})
+    pos = torch.arange(LAYER_S)
+    want, _ = A.apply_gqa(p, xs, positions=pos)
+    gw = _grads(want, [xs, p["wq"], p["wk"], p["wv"], p["wo"]])
+    xl = xs.detach().clone().requires_grad_()
+    with Sh.model_parallel(mg):
+        got, _ = A.apply_gqa(loc, xl, positions=pos, n_heads=H,
+                             n_kv_heads=Hkv)
+        gg = _grads(got, [xl, loc["wq"], loc["wk"], loc["wv"], loc["wo"]])
+    grads = _rel_max([(gg[0], gw[0]), (gg[1], gw[1][:, mg.block(H)]),
+                      (gg[2], gw[2][:, kv]), (gg[3], gw[3][:, kv]),
+                      (gg[4], gw[4][mg.block(H)])])
+    # decode: the prompt, then one token at position LAYER_S
+    cache = [torch.zeros((LAYER_B, LAYER_L, Hkv, hd)) for _ in range(2)]
+    n = LAYER_L // mg.size
+    blk = Sh.CacheBlock(mg.index * n, (mg.index + 1) * n, mg.group)
+    block = [torch.zeros((LAYER_B, n, Hkv, hd)) for _ in range(2)]
+    with torch.no_grad():
+        A.apply_gqa(p, x[:, :LAYER_S], positions=pos, cache=cache)
+        step = torch.tensor([LAYER_S])
+        want_d, _ = A.apply_gqa(p, x[:, LAYER_S:], positions=step,
+                                cache=cache, cache_pos=LAYER_S)
+        with Sh.model_parallel(mg), Sh.cache_block(blk):
+            A.apply_gqa(loc, x[:, :LAYER_S], positions=pos, cache=block,
+                        n_heads=H, n_kv_heads=Hkv)
+            got_d, _ = A.apply_gqa(loc, x[:, LAYER_S:], positions=step,
+                                   cache=block, cache_pos=LAYER_S,
+                                   n_heads=H, n_kv_heads=Hkv)
+    # the cache blocks (some hold no written entry): against the largest
+    # entry of the whole cache
+    cached = max(float((b - c[:, blk.start:blk.stop]).abs().max())
+                 / float(c.abs().max()) for b, c in zip(block, cache))
+    return {"prefill": _rel_max([(got, want)]), "prefill_grads": grads,
+            "decode": _rel_max([(got_d, want_d)]), "cache": cached,
+            "kv_split": mg.splits(Hkv)}
+
+
+def twin_mlps(mg, gen):
+    """SwiGLU and the gelu MLP column- then row-parallel on the mlp dim
+    against the whole MLP: outputs and gradients."""
+    from repro_torch.models import common
+    from repro_torch.parallel import sharding as Sh
+    D, Fd = 64, 128
+    b = mg.block(Fd)
+    x = torch.randn((LAYER_B, LAYER_S, D), generator=gen)
+    out = {}
+    for name, fn, p, cut in (
+            ("swiglu", common.swiglu,
+             {"w_gate": _draw(gen, D, Fd), "w_up": _draw(gen, D, Fd),
+              "w_down": _draw(gen, Fd, D)},
+             {"w_gate": (slice(None), b), "w_up": (slice(None), b),
+              "w_down": (b,)}),
+            ("gelu", common.gelu_mlp,
+             {"w_up": _draw(gen, D, Fd), "b_up": torch.randn(
+                 (Fd,), generator=gen), "w_down": _draw(gen, Fd, D),
+              "b_down": torch.randn((D,), generator=gen)},
+             {"w_up": (slice(None), b), "b_up": (b,), "w_down": (b,),
+              "b_down": (slice(None),)})):
+        p = _leafs(p)
+        loc = _leafs({k: v[cut[k]] for k, v in p.items()})
+        xw, xl = (x.clone().requires_grad_() for _ in range(2))
+        want = fn(xw, *p.values())
+        gw = _grads(want, [xw, *p.values()])
+        with Sh.model_parallel(mg):
+            got = fn(xl, *loc.values(), parallel=True)
+            gg = _grads(got, [xl, *loc.values()])
+        out[name] = _rel_max([(got, want)])
+        out[name + "_grads"] = _rel_max(
+            [(gg[0], gw[0])] + [(g, w[cut[k]]) for g, w, k in
+                                zip(gg[1:], gw[1:], p)])
+    return out
+
+
+def twin_vocab(mg, gen):
+    """The vocab-parallel embedding, head (its padded columns masked by
+    global index) and cross entropy against the whole ones: the loss and
+    its gradients with respect to the hidden states, the embedding and
+    the head."""
+    from repro_torch.models import common
+    from repro_torch.parallel import sharding as Sh
+    D, V = 64, LAYER_VOCAB
+    W = common.padded_vocab(V)
+    emb = torch.randn((V, D), generator=gen).requires_grad_()
+    head = _draw(gen, D, W).requires_grad_()
+    tok = torch.randint(0, V, (LAYER_B, LAYER_S), generator=gen)
+    lab = torch.randint(0, V, (LAYER_B, LAYER_S), generator=gen)
+    x = torch.randn((LAYER_B, LAYER_S, D), generator=gen)
+
+    def loss(e, h, parallel):
+        z = common.embed_lookup(e, tok, V) + x
+        logits = common.lm_head_logits(z, h, V, parallel=parallel)
+        return common.cross_entropy_loss(logits, lab, parallel=parallel)
+
+    want = loss(emb, head, False)
+    gw = torch.autograd.grad(want, [emb, head])
+    e_loc = emb[mg.block(V)].detach().clone().requires_grad_()
+    h_loc = head[:, mg.block(W)].detach().clone().requires_grad_()
+    with Sh.model_parallel(mg):
+        got = loss(e_loc, h_loc, True)
+        gg = torch.autograd.grad(got, [e_loc, h_loc])
+    return {"loss": abs(float(got) - float(want)) / abs(float(want)),
+            "grads": _rel_max([(gg[0], gw[0][mg.block(V)]),
+                               (gg[1], gw[1][:, mg.block(W)])])}
+
+
+def twin_moe(mg, gen):
+    """The smoke deepseek MoE layer (8 experts, top 2, one shared expert)
+    with its experts split over 'model' (EP) and the shared expert's mlp
+    dim (TP) against the whole layer: output, aux values exactly, and
+    the gradients."""
+    from repro_torch.models import moe
+    from repro_torch.parallel import sharding as Sh
+    D, E, Fd, k = 64, 8, 32, 2
+    p, _ = moe.init_moe(gen, D, Fd, E, 1, Fd, torch.float32, "cpu")
+    p = _leafs(p)
+    eb, fb = mg.block(E), mg.block(Fd)
+    cut = {"router": (slice(None),), "w_gate": (eb,), "w_up": (eb,),
+           "w_down": (eb,), "ws_gate": (slice(None), fb),
+           "ws_up": (slice(None), fb), "ws_down": (fb,)}
+    loc = _leafs({n: p[n][cut[n]] for n in p})
+    x = torch.randn((LAYER_B, LAYER_S, D), generator=gen)
+    xw, xl = (x.clone().requires_grad_() for _ in range(2))
+    kw = dict(top_k=k, n_experts=E, capacity_factor=1.0)
+    want, aw = moe.apply_moe(p, xw, **kw)
+    gw = _grads(want + aw["load_balance_loss"], [xw, *p.values()])
+    with Sh.model_parallel(mg):
+        got, ag = moe.apply_moe(loc, xl, shared_parallel=True, **kw)
+        gg = _grads(got + ag["load_balance_loss"], [xl, *loc.values()])
+    return {"out": _rel_max([(got, want)]),
+            "aux": all(torch.equal(ag[n], aw[n]) for n in aw),
+            "dropped": float(aw["dropped_fraction"]),
+            "grads": _rel_max([(gg[0], gw[0])] + [
+                (g, w[cut[n]]) for g, w, n in zip(gg[1:], gw[1:], p)])}
+
+
+def check_layers(meshes):
+    """Every layer twin on the 2 x 2 and 1 x 4 meshes' 'model' groups."""
+    from repro_torch.parallel import sharding as Sh
+    out = {}
+    for mesh_name in SERVE_MESHES:
+        mg = Sh.model_group_of(meshes[mesh_name])
+        gen = torch.Generator().manual_seed(7)
+        out[mesh_name] = {"gqa": twin_gqa(mg, gen),
+                          "mlp": twin_mlps(mg, gen),
+                          "vocab": twin_vocab(mg, gen),
+                          "moe": twin_moe(mg, gen)}
+    return out
+
+
+def _shapes(tree, shapes, shardings, keep, tp):
+    """Per leaf: whether its spec splits it over 'model', whether its layer
+    runs split (``keep``), and its shape on this rank beside the whole."""
+    from repro_torch.models.common import tree_items
+    from repro_torch.parallel import sharding as Sh
+    sh, whole = dict(tree_items(shardings)), dict(tree_items(shapes))
+    out = []
+    for path, t in tree_items(tree):
+        d = Sh.model_dim(sh[path].spec)
+        out.append({"path": "/".join(path), "split": d is not None,
+                    "kept": keep(path), "shape": list(t.shape),
+                    "whole": list(whole[path].shape), "dim": d, "tp": tp})
+    return out
+
+
+def check_compute_shapes(meshes):
+    """The shapes the sharded step and the serving engine compute on, for
+    the smoke llama (every layer parallel) and deepseek (MLA whole, EP),
+    on both meshes."""
+    from repro_torch import configs
+    from repro_torch.models.transformer import get_model
+    from repro_torch.parallel import sharding as Sh
+    from repro_torch.serving.engine import ServeConfig, ServingEngine
+    from repro_torch.train import trainer
+    out = {}
+    for arch in (CFG_ARCH, MOE_ARCH):
+        cfg, opt, _ = _setup(arch)
+        model = get_model(cfg)
+        shapes, axes = configs.param_specs(cfg)
+        st = trainer.init_train_state(cfg, opt, 0, "cpu")
+        for mesh_name in SERVE_MESHES:
+            mesh = meshes[mesh_name]
+            tp = Sh.mesh_shape(mesh).shape["model"]
+            keep = lambda path: model.model_parallel_leaf(path, tp)
+            sh = trainer.state_shardings(cfg, mesh)["params"]
+            placed = trainer.shard_state(st.params, sh)
+            step = trainer.make_train_step(cfg, opt, mesh)
+            local = step.pieces["local"](placed)
+            eng = ServingEngine(cfg, ServeConfig(SERVE_B, SERVE_L),
+                                params=st.params, device="cpu", mesh=mesh)
+            out[f"{arch}-{mesh_name}"] = {
+                "step": _shapes(local, shapes, sh, keep, tp),
+                "engine": _shapes(eng.params, shapes,
+                                  Sh.param_shardings(axes, shapes, mesh),
+                                  keep, tp)}
+    return out
+
+
+def check_compressed_model_blocks(meshes):
+    """On the (2, 1, 2) mesh (two pods, a 'model' axis of two ranks): (a)
+    ``compressed_psum_pod`` on this rank's 'model' blocks of a whole
+    gradient (and error) against the whole leaves' compression, int8 and
+    top-k, cut to the same blocks; (b) the compressed step (kind "none")
+    against its emulation on whole gradients; (c) one int8 step's error
+    leaves are 'model' blocks where the gradients are."""
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.models.transformer import get_model
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import compression as C
+    from repro_torch.parallel import sharding as Sh
+    from repro_torch.train import trainer
+    cfg, opt, batches = _setup()
+    mesh = meshes["podtp"]
+    mg = Sh.model_group_of(mesh)
+    vg = trainer._value_and_grad(get_model(cfg))
+    st = trainer.init_train_state(cfg, opt, 0, "cpu")
+    sh = trainer.state_shardings(cfg, mesh)
+    keep = get_model(cfg).model_parallel_leaf
+    g, _, _ = vg(trainer.trainable(st.params), batches[0])
+
+    def block(t, s, path=None):
+        d = Sh.model_dim(s.spec)
+        return t if d is None else t[(slice(None),) * d + (
+            mg.block(t.shape[d]),)]
+
+    blocks = tree_map(block, g, sh["params"])
+    split = [tuple(a.shape) != tuple(b.shape)
+             for a, b in zip(tree_leaves(blocks), tree_leaves(g))]
+    out = {"unit": {}}
+    for kind in ("int8", "topk"):
+        comp = C.CompressionConfig(kind=kind)
+        err = tree_map(lambda t: (t * 1e-3).to(torch.bfloat16), g)
+        want, werr, wwire = C.compressed_psum_pod(comp, g, err)
+        got, gerr, gwire = C.compressed_psum_pod(
+            comp, blocks, tree_map(block, err, sh["params"]),
+            model_group=mg, split=split)
+        out["unit"][kind] = {
+            "grads": _same(got, tree_map(block, want, sh["params"])),
+            "err": _same(gerr, tree_map(block, werr, sh["params"])),
+            "wire": gwire == wwire, "split": sum(split)}
+
+    def run(kind, steps):
+        comp = C.CompressionConfig(kind=kind)
+        placed = trainer.shard_state({"params": st.params,
+                                      "opt_state": st.opt_state},
+                                     {"params": sh["params"],
+                                      "opt_state": sh["opt_state"]})
+        step = trainer.make_compressed_train_step(cfg, opt, mesh, comp)
+        p, o = placed["params"], placed["opt_state"]
+        err = C.init_error_state(comp, st.params)
+        q, r = st.params, st.opt_state
+        params_err = []
+        for batch in batches[:steps]:
+            p, o, err, m = step(p, o, err, batch)
+            pods = [vg(trainer.trainable(q),
+                       {n: v[4 * k:4 * k + 4] for n, v in batch.items()})[0]
+                    for k in range(2)]
+            avg = tree_map(lambda a, b: C._div(a + b, 2), *pods)
+            q, r, _ = adamw.apply_updates(opt, q, avg, r)
+            params_err.append(_rel(_full(p), q))
+        return params_err, err, m
+
+    out["none"], _, _ = run("none", STEPS)
+    _, err, m = run("int8", 1)
+    out["int8_err_blocks"] = [list(e.shape) == list(b.shape) for e, b in
+                              zip(tree_leaves(err), tree_leaves(blocks))]
+    out["keep_all"] = all(keep(path, 2) for path, _ in
+                          __import__("repro_torch.models.common",
+                                     fromlist=["tree_items"])
+                          .tree_items(st.params))
+    return out
+
+
 def main(rank: int, world: int, init_file: str, out_dir: str, cases,
          timeout_s: float, serve_dir: str = "") -> None:
     torch.set_num_threads(1)
@@ -382,7 +696,9 @@ def main(rank: int, world: int, init_file: str, out_dir: str, cases,
         meshes = {"2x2": make_mesh((2, 2), ("data", "model"), "cpu"),
                   "1x4": make_mesh((1, 4), ("data", "model"), "cpu"),
                   "pod": make_mesh((2, 2, 1), ("pod", "data", "model"),
-                                   "cpu")}
+                                   "cpu"),
+                  "podtp": make_mesh((2, 1, 2), ("pod", "data", "model"),
+                                     "cpu")}
         tmp = [tempfile.mkdtemp(dir=out_dir) if rank == 0 else None]
         dist.broadcast_object_list(tmp)
         checks = [
@@ -398,11 +714,17 @@ def main(rank: int, world: int, init_file: str, out_dir: str, cases,
                 meshes, os.path.join(tmp[0], "train"))),
             ("meshes", check_meshes),
             ("constraints", lambda: check_constraints(meshes)),
+            ("layers", lambda: check_layers(meshes)),
+            ("compute_shapes", lambda: check_compute_shapes(meshes)),
+            ("compressed_tp", lambda: check_compressed_model_blocks(meshes)),
             ("serving", lambda: check_serving(meshes, serve_dir,
                                               timeout_s / 2))]
+        walls = results["walls"] = {}
         for name, fn in checks:
+            t0 = time.monotonic()
             try:
                 results[name] = fn()
+                walls[name] = time.monotonic() - t0
             except Exception:     # recorded per check; the test reports it
                 results[name] = {"error": traceback.format_exc()}
                 raise
