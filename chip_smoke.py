@@ -387,7 +387,8 @@ Phases (any failure exits non-zero, with no result line):
     heads, nothing else), and flash timed on rank 0's layer-0 inputs. (b)
     One llama3.2-1b training step in f32 at 2 x 1,024 on the mesh: the
     loss within ``TP_LOSS_REL`` of the meshless step's and each rank's
-    gradient blocks within ``TP_GRAD_REL`` of their norm. (c) EP: the
+    gradient blocks within ``TP_GRAD_REL`` of their norm, and each leaf
+    (or block) within ``TP_LEAF_REL`` of its own. (c) EP: the
     smoke deepseek-v3-671b and llama4-maverick configs in f32 served on
     the mesh and meshless: each MoE call's routing equal exactly, greedy
     tokens equal, logits within ``TP_EP_ROW_REL`` of each row's norm;
@@ -686,7 +687,7 @@ TP_WORLD = 2
 TP_TIMEOUT_S = 240.0      # a rank still running then is killed: the phase fails
 TP_TRAIN = dict(batch=2, seq=1024)
 TP_F32_ROW_REL, TP_EP_ROW_REL = 1e-4, 1e-5
-TP_LOSS_REL, TP_GRAD_REL = 1e-6, 1e-5
+TP_LOSS_REL, TP_GRAD_REL, TP_LEAF_REL = 1e-6, 1e-5, 1e-5
 TP_EP_ARCHS = ("deepseek-v3-671b", "llama4-maverick-400b-a17b")
 # phase 25: the ten examples of examples/torch, each main() in this
 # process on the card; EXAMPLE_CUTS are the keyword arguments that cut an
@@ -5335,10 +5336,12 @@ def tp_serve_llama(torch, mesh, rank, counts, flash_attention):
 
 def tp_train_llama(torch, mesh, rank):
     """26(b) on this rank: one f32 llama3.2-1b step on the mesh (its loss)
-    and its gradient blocks against the meshless step's."""
+    and its gradient blocks against the meshless step's, pooled and leaf
+    by leaf (each against the meshless leaf cut to its block: a small
+    leaf wrong by a factor would hide in the pooled norm)."""
     from repro_torch import configs
     from repro_torch.data.pipeline import DataConfig, synth_batch
-    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.models.common import tree_items, tree_leaves, tree_map
     from repro_torch.models.transformer import get_model
     from repro_torch.optim import adamw
     from repro_torch.train import trainer
@@ -5366,9 +5369,15 @@ def tp_train_llama(torch, mesh, rank):
     torch.cuda.synchronize()
     grad_s = time.perf_counter() - t0
     blocks = tree_map(ms.model_block, want_g, got_g, sh["params"])
-    num = sum(float((a.double() - b.double()).square().sum())
-              for a, b in zip(tree_leaves(got_g), tree_leaves(blocks)))
-    den = sum(float(b.double().square().sum()) for b in tree_leaves(blocks))
+    sums = {"/".join(path): (float((a.double() - b.double()).square().sum()),
+                             float(b.double().square().sum()))
+            for (path, a), b in zip(tree_items(got_g), tree_leaves(blocks))}
+    num = sum(n for n, _ in sums.values())
+    den = sum(d for _, d in sums.values())
+    leaf_rel = {k: (n / d) ** 0.5 if d > 0 else (0.0 if n == 0 else
+                                                  float("inf"))
+                for k, (n, d) in sums.items()}
+    worst = sorted(leaf_rel, key=leaf_rel.get, reverse=True)
     split = sum(ms.split(got_g, placed["params"]))
     del want_g, got_g, blocks
     torch.cuda.empty_cache()
@@ -5377,9 +5386,12 @@ def tp_train_llama(torch, mesh, rank):
     out = dict(loss=loss, want_loss=float(want_loss),
                loss_rel=abs(loss - float(want_loss)) / abs(float(want_loss)),
                grad_rel=(num / den) ** 0.5, split_leaves=split,
+               leaf_rel_max=leaf_rel[worst[0]], worst_leaf=worst[0],
+               worst_leaves={k: leaf_rel[k] for k in worst[:4]},
+               n_leaves=len(leaf_rel),
                grad_s=grad_s, grad_norm=float(metrics["grad_norm"]))
     if not (out["loss_rel"] <= TP_LOSS_REL and out["grad_rel"] <= TP_GRAD_REL
-            and split > 0):
+            and out["leaf_rel_max"] <= TP_LEAF_REL and split > 0):
         raise AssertionError(f"26(b) rank {rank}: {out}")
     del placed, metrics
     torch.cuda.empty_cache()
@@ -5396,7 +5408,7 @@ def tp_random_params(torch, cfg, mesh, seed):
     card twice.)"""
     import math
     from repro_torch.models.common import tree_items
-    from repro_torch.models.transformer import get_model
+    from repro_torch.models.transformer import get_model, model_parallel_leaf
     from repro_torch.parallel import sharding as Sh
     model = get_model(cfg)
     shapes, axes = model.init(0, device="meta", with_axes=True)
@@ -5407,7 +5419,7 @@ def tp_random_params(torch, cfg, mesh, seed):
     for i, (path, t) in enumerate(tree_items(shapes)):
         shape = list(t.shape)
         d = Sh.model_dim(sh[path].spec)
-        split = d is not None and model.model_parallel_leaf(path, mg.size)
+        split = d is not None and model_parallel_leaf(model, path, mg.size)
         if split:
             shape[d] //= mg.size
         name = path[-1]
@@ -5616,7 +5628,10 @@ def phase_tp(torch, flash_attention):
             f"{b['loss_rel']:.3g}, tol {TP_LOSS_REL:g}); its "
             f"{b['split_leaves']} 'model'-split gradient blocks and the "
             f"whole leaves within {b['grad_rel']:.3g} of their norm (tol "
-            f"{TP_GRAD_REL:g}); forward and backward {b['grad_s']:.3f} s; "
+            f"{TP_GRAD_REL:g}); leaf by leaf, each within its own norm, "
+            f"the worst of {b['n_leaves']} {b['worst_leaf']} at "
+            f"{b['leaf_rel_max']:.3g} (tol {TP_LEAF_REL:g}; the next "
+            f"{b['worst_leaves']}); forward and backward {b['grad_s']:.3f} s; "
             f"grad norm {b['grad_norm']:.4f} ({res['walls']['b']:.1f} s)")
         twins = "; ".join(
             f"smoke {k}: {v['routes']} MoE calls routed equally, tokens "

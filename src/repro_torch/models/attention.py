@@ -28,13 +28,13 @@ attends over the block and combines the blocks' partial softmaxes across
 reference, so the flash kernel stays on its path. With no block installed
 every path is the meshless one.
 
-Tensor parallelism: given its global head counts, :func:`apply_gqa` runs
-its heads split over an installed 'model' group that divides them
-(:func:`_apply_gqa_split`): ``wq`` column-parallel, ``wo`` row-parallel,
-``wk``/``wv`` this rank's blocks or, where the KV heads do not split,
-whole (the query heads attend the KV heads they use). The prefill runs
-the flash kernel on the local heads; the cache keeps every head. MLA and
-cross-attention take their weights whole.
+Tensor parallelism: where its leaves are this rank's 'model' blocks,
+:func:`apply_gqa` runs its heads split over the installed 'model' group:
+``wq`` column-parallel, ``wo`` row-parallel, ``wk``/``wv`` this rank's
+blocks or, where the KV heads do not split, whole (the query heads attend
+the KV heads they use). The prefill runs the flash kernel on the local
+heads; the cache keeps every head. MLA and cross-attention take their
+weights whole.
 """
 from __future__ import annotations
 
@@ -204,53 +204,6 @@ def init_gqa(gen: torch.Generator, d_model: int, n_heads: int, n_kv: int,
     return b.done()
 
 
-def apply_gqa(p: dict, x: torch.Tensor, *, positions: torch.Tensor,
-              rope_theta: float = 10000.0, causal: bool = True,
-              cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-              cache_pos: int = 0, impl: str = "xla", q_chunk: int = -1,
-              n_heads: Optional[int] = None,
-              n_kv_heads: Optional[int] = None):
-    """x: [B, S, D]. If ``cache`` (k, v of [B, Smax, Hkv, Dh]) is given, the
-    new K/V are written into it at ``cache_pos``, in place (the reference
-    returns updated copies; writing in place keeps one cache on the card),
-    and decode attends the cache prefix. Returns (out, cache).
-
-    ``n_heads``, ``n_kv_heads``: the layer's global head counts. Where the
-    installed 'model' group splits ``n_heads``, the weights are this
-    rank's 'model' blocks and the heads run split
-    (:func:`_apply_gqa_split`); otherwise the layer runs whole."""
-    if n_heads is not None and Sh.splits(n_heads):
-        return _apply_gqa_split(p, x, positions=positions,
-                                rope_theta=rope_theta, causal=causal,
-                                cache=cache, cache_pos=cache_pos, impl=impl,
-                                q_chunk=q_chunk, n_heads=n_heads,
-                                n_kv_heads=n_kv_heads)
-    q = einsum("bsd,dhk->bshk", x, p["wq"])
-    k = einsum("bsd,dhk->bshk", x, p["wk"])
-    v = einsum("bsd,dhk->bshk", x, p["wv"])
-    q = apply_rope(q, positions, rope_theta)
-    k = apply_rope(k, positions, rope_theta)
-
-    if cache is None:
-        out = sdpa(q, k, v, causal=causal, impl=impl, q_chunk=q_chunk)
-    else:
-        ck, cv = cache
-        S = x.shape[1]
-        _write(ck, k, cache_pos)
-        _write(cv, v, cache_pos)
-        ck, cv = constrain_kv_cache(ck), constrain_kv_cache(cv)
-        if S > 1:
-            # prefill (cache_pos == 0): attend the freshly computed K/V
-            out = sdpa(q, k, v, causal=causal, impl=impl, q_chunk=q_chunk)
-        else:
-            valid = torch.full((x.shape[0],), cache_pos + S,
-                               dtype=torch.int32, device=x.device)
-            out = sdpa(q, ck, cv, causal=causal, q_positions=positions,
-                       kv_valid_len=valid, impl=impl, q_chunk=q_chunk)
-    y = einsum("bshk,hkd->bsd", out, p["wo"])
-    return y, cache
-
-
 def local_kv_heads(index: int, h_local: int, rep: int):
     """The KV heads that query heads ``[index * h_local, (index + 1) *
     h_local)`` use (query head ``h`` uses KV head ``h // rep``): a slice
@@ -266,58 +219,74 @@ def local_kv_heads(index: int, h_local: int, rep: int):
     return kv, 1
 
 
-def _apply_gqa_split(p, x, *, positions, rope_theta, causal, cache,
-                     cache_pos, impl, q_chunk, n_heads, n_kv_heads):
-    """:func:`apply_gqa` with the heads split over the installed 'model'
-    group. ``wq`` is column-parallel on this rank's ``n_heads / size``
-    query heads and ``wo`` row-parallel on them (the output summed over
-    the group). Where the group splits the KV heads too, ``wk``/``wv`` are
-    this rank's blocks, which its query heads use; else they are whole, the
-    K/V are projected whole (their gradient summed over the group) and the
-    query heads attend the KV heads they use (:func:`local_kv_heads`).
+def apply_gqa(p: dict, x: torch.Tensor, *, positions: torch.Tensor,
+              rope_theta: float = 10000.0, causal: bool = True,
+              cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+              cache_pos: int = 0, impl: str = "xla", q_chunk: int = -1,
+              n_heads: Optional[int] = None,
+              n_kv_heads: Optional[int] = None):
+    """x: [B, S, D]. If ``cache`` (k, v of [B, Smax, Hkv, Dh]) is given, the
+    new K/V are written into it at ``cache_pos``, in place (the reference
+    returns updated copies; writing in place keeps one cache on the card),
+    and decode attends the cache prefix. Returns (out, cache).
 
-    The prefill attends the local heads (the flash kernel on them); the
-    cache keeps every KV head, so the fresh K/V are all-gathered over the
-    group before the cache block is written. Decode all-gathers the new
-    token's query heads (the reference replicates q), attends every head
-    over this rank's cache block, combines the blocks across 'model', and
-    feeds this rank's heads of the output to ``wo``."""
-    mg = Sh.model_group()
-    h_loc = n_heads // mg.size
-    rep = n_heads // n_kv_heads
-    kv_split = mg.splits(n_kv_heads)
-    xm = Sh.to_model(x)
+    ``n_heads``, ``n_kv_heads``: the layer's global head counts (default:
+    the weights'). Where ``wq`` holds this rank's 'model' block of the
+    query heads (:func:`~repro_torch.parallel.sharding.layer_group`), the
+    heads run split: ``wq`` column-parallel, ``wo`` row-parallel (the
+    output summed over the group). ``wk``/``wv`` are then this rank's
+    blocks, which its query heads use, or, where 'model' does not split
+    the KV heads, whole: the K/V are projected whole (their gradient
+    summed over the group) and the query heads attend the KV heads they
+    use (:func:`local_kv_heads`). The prefill attends the local heads (the
+    flash kernel on them); the cache keeps every KV head, so block K/V are
+    all-gathered over the group before the cache is written. Decode
+    all-gathers the new token's query heads (the reference replicates q),
+    attends every head over the cache (this rank's sequence block under a
+    :class:`~repro_torch.parallel.sharding.CacheBlock`, combined across
+    'model') and feeds this rank's heads of the output to ``wo``. With
+    whole weights the layer runs whole."""
+    h_loc, kv_loc = p["wq"].shape[1], p["wk"].shape[1]
+    mg = Sh.layer_group(h_loc, n_heads or h_loc)
+    kv_mg = Sh.layer_group(kv_loc, n_kv_heads or kv_loc)
+    xm = Sh.to_model(x, mg)
     q = apply_rope(einsum("bsd,dhk->bshk", xm, p["wq"]), positions,
                    rope_theta)
-    if kv_split:
-        k = einsum("bsd,dhk->bshk", xm, p["wk"])
-        v = einsum("bsd,dhk->bshk", xm, p["wv"])
-        k_att, v_att = apply_rope(k, positions, rope_theta), v
-    else:
-        k = apply_rope(Sh.to_model(einsum("bsd,dhk->bshk", x, p["wk"])),
-                       positions, rope_theta)
-        v = Sh.to_model(einsum("bsd,dhk->bshk", x, p["wv"]))
-        heads, _ = local_kv_heads(mg.index, h_loc, rep)
-        k_att, v_att = (k[:, :, heads], v[:, :, heads])
-    if cache is None or x.shape[1] > 1:
+    xkv = xm if kv_mg is not None else x
+    k = einsum("bsd,dhk->bshk", xkv, p["wk"])
+    v = einsum("bsd,dhk->bshk", xkv, p["wv"])
+    if kv_mg is None:
+        # whole K/V feeding this rank's query heads (none where the layer
+        # runs whole): their gradient is summed over the group
+        k, v = Sh.to_model(k, mg), Sh.to_model(v, mg)
+    k = apply_rope(k, positions, rope_theta)
+    k_att, v_att = k, v
+    if mg is not None and kv_mg is None:
+        heads, _ = local_kv_heads(mg.index, h_loc, h_loc * mg.size // kv_loc)
+        k_att, v_att = k[:, :, heads], v[:, :, heads]
+
+    S = x.shape[1]
+    if cache is None or S > 1:
+        # no cache, or a prefill (cache_pos == 0): attend the fresh K/V
         out = sdpa(q, k_att, v_att, causal=causal, impl=impl,
                    q_chunk=q_chunk)
     if cache is not None:
         ck, cv = cache
-        if kv_split:
-            k_all, v_all = mg.all_gather(k_att, 2), mg.all_gather(v_att, 2)
-        else:
-            k_all, v_all = k, v
-        _write(ck, k_all, cache_pos)
-        _write(cv, v_all, cache_pos)
-        if x.shape[1] == 1:
-            valid = torch.full((x.shape[0],), cache_pos + 1,
+        if kv_mg is not None:
+            k, v = kv_mg.all_gather(k, 2), kv_mg.all_gather(v, 2)
+        _write(ck, k, cache_pos)
+        _write(cv, v, cache_pos)
+        ck, cv = constrain_kv_cache(ck), constrain_kv_cache(cv)
+        if S == 1:
+            valid = torch.full((x.shape[0],), cache_pos + S,
                                dtype=torch.int32, device=x.device)
-            out = sdpa(mg.all_gather(q, 2), ck, cv, causal=causal,
-                       q_positions=positions, kv_valid_len=valid, impl=impl,
-                       q_chunk=q_chunk)[:, :, mg.block(n_heads)]
+            qa = q if mg is None else mg.all_gather(q, 2)
+            out = sdpa(qa, ck, cv, causal=causal, q_positions=positions,
+                       kv_valid_len=valid, impl=impl, q_chunk=q_chunk)
+            if mg is not None:
+                out = out[:, :, mg.block(h_loc * mg.size)]
     y = einsum("bshk,hkd->bsd", out, p["wo"])
-    return Sh.from_model(y), cache
+    return Sh.from_model(y, mg), cache
 
 
 # ---------------------------------------------------------------------------

@@ -18,11 +18,15 @@ reference's: ``"layers"`` (stacked blocks, never sharded), ``"embed"``
 
 A step on a mesh installs its 'model' group
 (:class:`~repro_torch.parallel.sharding.model_parallel`) and hands the
-layers this rank's 'model' blocks of those leaves: the MLPs (``parallel=``,
-column- then row-parallel), :func:`embed_lookup` and :func:`lm_head_logits`
-/ :func:`cross_entropy_loss` (vocab-parallel) then compute this rank's
-share and combine the shares over the group. With no group installed each
-is the meshless function.
+layers this rank's 'model' blocks of those leaves. Given the global width
+of the dim that 'model' splits (``d_ff``, ``vocab_size``, ``width``), each
+layer finds from its leaf whether it holds a block
+(:func:`~repro_torch.parallel.sharding.layer_group`): the MLPs then run
+column- then row-parallel, :func:`embed_lookup` and
+:func:`lm_head_logits` / :func:`cross_entropy_loss` vocab-parallel, each
+computing this rank's share and combining the shares over the group.
+Given whole leaves, or with no group installed, each is the meshless
+function.
 
 Where the reference's ``einsum`` mixes dtypes, JAX promotes; ``torch``
 refuses, so :func:`einsum` promotes first.
@@ -230,32 +234,34 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
-           w_down: torch.Tensor, *, parallel: bool = False) -> torch.Tensor:
-    """``parallel``: the weights are this rank's 'model' block of the mlp
-    dim (gate and up column-parallel, down row-parallel), so the output is
-    this rank's share, summed over the installed 'model' group
+           w_down: torch.Tensor, *, d_ff: Optional[int] = None
+           ) -> torch.Tensor:
+    """``d_ff``: the global mlp width (default: the weights'). Where the
+    weights hold this rank's 'model' block of it (gate and up
+    column-parallel, down row-parallel), the output is this rank's share,
+    summed over the installed 'model' group
     (:func:`~repro_torch.parallel.sharding.from_model`)."""
-    if parallel:
-        x = Sh.to_model(x)
+    mg = Sh.layer_group(w_up.shape[-1], d_ff or w_up.shape[-1])
+    x = Sh.to_model(x, mg)
     g = einsum("...d,df->...f", x, w_gate)
     u = einsum("...d,df->...f", x, w_up)
     y = einsum("...f,fd->...d", F.silu(g) * u, w_down)
-    return Sh.from_model(y) if parallel else y
+    return Sh.from_model(y, mg)
 
 
 def gelu_mlp(x: torch.Tensor, w_up: torch.Tensor, b_up: torch.Tensor,
              w_down: torch.Tensor, b_down: torch.Tensor, *,
-             parallel: bool = False) -> torch.Tensor:
+             d_ff: Optional[int] = None) -> torch.Tensor:
     """The two-matrix MLP with biases (gpt_bigcode). ``jax.nn.gelu``, the
     reference's, is the tanh approximation by default; torch's default is
-    the exact erf, hence ``approximate="tanh"``. ``parallel``: as
-    :func:`swiglu`'s (``b_up`` is the block of the mlp dim; ``b_down`` is
-    added once, after the sum)."""
-    if parallel:
-        x = Sh.to_model(x)
+    the exact erf, hence ``approximate="tanh"``. ``d_ff``: as
+    :func:`swiglu`'s (a block's ``b_up`` is the block of the mlp dim;
+    ``b_down`` is added once, after the sum)."""
+    mg = Sh.layer_group(w_up.shape[-1], d_ff or w_up.shape[-1])
+    x = Sh.to_model(x, mg)
     h = F.gelu(einsum("...d,df->...f", x, w_up) + b_up, approximate="tanh")
     y = einsum("...f,fd->...d", h, w_down)
-    return (Sh.from_model(y) if parallel else y) + b_down
+    return Sh.from_model(y, mg) + b_down
 
 
 def init_swiglu(gen: torch.Generator, d_model: int, d_ff: int, dtype,
@@ -288,33 +294,33 @@ def padded_vocab(v: int, tp: int = 16, align: int = 256) -> int:
 
 def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor,
                  vocab_size: int) -> torch.Tensor:
-    """``embed[tokens]``. Where the installed 'model' group splits the
-    vocabulary, ``embed`` is this rank's block of rows: the ids outside it
-    give zero rows, and the rows are summed over the group
-    (vocab-parallel)."""
-    if not Sh.splits(vocab_size):
+    """``embed[tokens]``. Where ``embed`` is this rank's 'model' block of
+    the ``vocab_size`` rows, the ids outside it give zero rows, and the
+    rows are summed over the installed group (vocab-parallel)."""
+    mg = Sh.layer_group(embed.shape[0], vocab_size)
+    if mg is None:
         return embed[tokens]
-    blk = Sh.model_group().block(vocab_size)
+    blk = mg.block(vocab_size)
     local = tokens.long() - blk.start
     ok = (local >= 0) & (local < blk.stop - blk.start)
     rows = embed[local.clamp(0, blk.stop - blk.start - 1)]
-    return Sh.from_model(rows.masked_fill(~ok[..., None], 0))
+    return Sh.from_model(rows.masked_fill(~ok[..., None], 0), mg)
 
 
 def lm_head_logits(x: torch.Tensor, head: torch.Tensor, vocab_size: int, *,
-                   parallel: bool = False) -> torch.Tensor:
+                   width: Optional[int] = None) -> torch.Tensor:
     """x: [B, S, D] @ head [D, V_pad], padded columns set to -1e30 (so
-    softmax and argmax over the padded width are exact). ``parallel``:
-    ``head`` is this rank's 'model' block of columns (column-parallel), and
-    the logits are that block's; the padded columns are found by their
-    global index, so ``padded_vocab`` keeps its meaning."""
-    if parallel:
-        x = Sh.to_model(x)
+    softmax and argmax over the padded width are exact). ``width``: the
+    head's global width (default: ``head``'s). Where ``head`` is this
+    rank's 'model' block of columns (column-parallel), the logits are that
+    block's; the padded columns are found by their global index, so
+    ``padded_vocab`` keeps its meaning."""
+    mg = Sh.layer_group(head.shape[-1], width or head.shape[-1])
+    x = Sh.to_model(x, mg)
     logits = torch.einsum("bsd,dv->bsv", x, head.to(x.dtype))
-    if parallel:
+    if mg is not None:
         w = head.shape[-1]
-        col = Sh.model_group().index * w + torch.arange(w,
-                                                        device=x.device)
+        col = mg.index * w + torch.arange(w, device=x.device)
         return logits.masked_fill(col >= vocab_size, -1e30)
     if head.shape[-1] != vocab_size:
         logits[..., vocab_size:] = -1e30
@@ -323,7 +329,7 @@ def lm_head_logits(x: torch.Tensor, head: torch.Tensor, vocab_size: int, *,
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        mask: Optional[torch.Tensor] = None, *,
-                       parallel: bool = False) -> torch.Tensor:
+                       width: Optional[int] = None) -> torch.Tensor:
     """Mean next-token cross entropy (:func:`repro.models.common.
     cross_entropy_loss`): logits ``[B, S, V]`` cast to f32, labels
     ``[B, S]``; with ``mask [B, S]`` the masked mean
@@ -331,22 +337,22 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     reference sums an iota-compare mask, which gives the same value, to
     keep a vocab-sharded tensor sharded).
 
-    ``parallel``: ``logits`` are this rank's block of the vocabulary
-    (:func:`lm_head_logits`'): the row max is all-reduced (``MAX``), then
-    the sum of exponentials and the gold logit (``SUM``) over the
-    installed 'model' group, so no rank forms ``[B, S, V]`` and the
-    gradient is exact."""
+    ``width``: the logits' global width (default: theirs). Where
+    ``logits`` are this rank's 'model' block of it (:func:`lm_head_logits`'),
+    the row max is all-reduced (``MAX``), then the sum of exponentials and
+    the gold logit (``SUM``) over the installed group, so no rank forms
+    ``[B, S, V]`` and the gradient is exact."""
     logits = logits.float()
-    if parallel:
-        mg = Sh.model_group()
-        w = logits.shape[-1]
+    w = logits.shape[-1]
+    mg = Sh.layer_group(w, width or w)
+    if mg is not None:
         m = mg.all_reduce(logits.detach().amax(-1), dist.ReduceOp.MAX)
         logz = torch.log(Sh.from_model(
-            torch.exp(logits - m[..., None]).sum(-1))) + m
+            torch.exp(logits - m[..., None]).sum(-1), mg)) + m
         local = labels.long() - mg.index * w
         ok = (local >= 0) & (local < w)
         gold = logits.gather(-1, local.clamp(0, w - 1)[..., None])[..., 0]
-        gold = Sh.from_model(gold.masked_fill(~ok, 0.0))
+        gold = Sh.from_model(gold.masked_fill(~ok, 0.0), mg)
     else:
         logz = torch.logsumexp(logits, dim=-1)
         gold = logits.gather(-1, labels.long()[..., None])[..., 0]

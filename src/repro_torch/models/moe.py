@@ -33,14 +33,15 @@ In a train step the load-balance loss takes the group's first-choice
 shares (one more all-gather), so the ranks' mean loss and gradient are
 the batch's.
 
-Expert parallelism: where an installed 'model' group divides the experts,
-the experts' matrices are this rank's ``n_experts / size`` experts. The
-router stays whole: every rank computes the same routing (the rows are
-the same on every 'model' rank), fills the buffers of its own experts
-only and scatters their weighted outputs; one all-reduce over 'model'
-sums the ranks' shares, with no all-to-all. The shared experts run
-column- then row-parallel on their mlp dim (``shared_parallel``). The aux
-values stay the whole layer's.
+Expert parallelism: where the experts' matrices hold this rank's 'model'
+block of the ``n_experts`` experts
+(:func:`~repro_torch.parallel.sharding.layer_group`), the router stays
+whole: every rank computes the same routing (the rows are the same on
+every 'model' rank), fills the buffers of its own experts only and
+scatters their weighted outputs; one all-reduce over 'model' sums the
+ranks' shares, with no all-to-all. Where the shared experts' matrices
+hold a block of their mlp width (``shared_width``), they run column- then
+row-parallel. The aux values stay the whole layer's.
 """
 from __future__ import annotations
 
@@ -51,7 +52,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.common import Builder, einsum
 from repro_torch.parallel.sharding import (current_token_group, from_model,
-                                           model_group, splits, to_model)
+                                           layer_group, to_model)
 
 
 def init_moe(gen: torch.Generator, d_model: int, d_ff_expert: int,
@@ -83,7 +84,7 @@ def _cummax(x: torch.Tensor) -> torch.Tensor:
 def apply_moe(p: dict, x: torch.Tensor, *, top_k: int, n_experts: int,
               capacity_factor: float = 1.25,
               router_bias: Optional[torch.Tensor] = None,
-              token_chunks: int = 1, shared_parallel: bool = False):
+              token_chunks: int = 1, shared_width: Optional[int] = None):
     """x: [B, S, D] -> ([B, S, D], aux dict of ``load_balance_loss`` and
     ``dropped_fraction``, 0-d f32).
 
@@ -92,12 +93,13 @@ def apply_moe(p: dict, x: torch.Tensor, *, top_k: int, n_experts: int,
     tokens in that many interleaved chunks (chunk i holds tokens i, i + c,
     i + 2c, ...), when ``T % c == 0`` and each chunk holds at least
     ``n_experts`` tokens; each chunk's capacity comes from its own token
-    count, and the aux values are the chunks' means."""
+    count, and the aux values are the chunks' means. ``shared_width``: the
+    shared experts' global mlp width (default: their matrices')."""
     B, S, D = x.shape
     T = B * S
     kw = dict(top_k=top_k, n_experts=n_experts,
               capacity_factor=capacity_factor, router_bias=router_bias,
-              shared_parallel=shared_parallel)
+              shared_width=shared_width)
     grp = current_token_group()
     Tg = T * (grp.count if grp is not None else 1)     # the global batch's
     if token_chunks > 1 and Tg % token_chunks == 0 \
@@ -161,22 +163,21 @@ def route(p: dict, xf: torch.Tensor, *, top_k: int, n_experts: int,
 
 def _moe_tokens(p: dict, xf: torch.Tensor, *, top_k: int, n_experts: int,
                 capacity_factor: float, router_bias,
-                shared_parallel: bool = False) -> Tuple[torch.Tensor, dict]:
+                shared_width: Optional[int] = None
+                ) -> Tuple[torch.Tensor, dict]:
     T, D = xf.shape
     r = route(p, xf, top_k=top_k, n_experts=n_experts,
               capacity_factor=capacity_factor, router_bias=router_bias)
     se, keep, rows = r["se"], r["keep"], r["rows"]
-    ep = splits(n_experts)
-    if ep:
+    n_loc = p["w_gate"].shape[0]
+    ep = layer_group(n_loc, n_experts)
+    xe, w = to_model(xf, ep), to_model(r["w"], ep)
+    if ep is not None:
         # this rank's experts only: the other copies go to the spare row
         # (the routing, computed whole on every rank, is the same on all)
-        n_loc = n_experts // model_group().size
-        e0 = model_group().index * n_loc
+        e0 = ep.index * n_loc
         keep = keep & (se >= e0) & (se < e0 + n_loc)
         se = (se - e0).clamp(0, n_loc - 1)
-        xe, w = to_model(xf), to_model(r["w"])
-    else:
-        n_loc, xe, w = n_experts, xf, r["w"]
 
     # ---- sort-based dispatch: the dropped copies land in the spare row
     rank_c = torch.where(keep, r["slot"], rows)
@@ -197,19 +198,21 @@ def _moe_tokens(p: dict, xf: torch.Tensor, *, top_k: int, n_experts: int,
 
     # ---- shared experts (always on)
     if "ws_gate" in p:
-        xs = to_model(xf) if shared_parallel else xf
+        f_loc = p["ws_gate"].shape[-1]
+        tp = layer_group(f_loc, shared_width or f_loc)
+        xs = to_model(xf, tp)
         gs = einsum("td,df->tf", xs, p["ws_gate"])
         us = einsum("td,df->tf", xs, p["ws_up"])
         ys = einsum("tf,fd->td", F.silu(gs) * us, p["ws_down"])
-        # EP and TP: this rank's shares are summed over 'model'
-        if shared_parallel == ep:
+        # EP and TP: this rank's shares are summed over 'model' (once,
+        # where both are shares)
+        if (tp is None) == (ep is None):
             y = y + ys
-        elif ep:
-            y, ep = from_model(y) + ys, False
+        elif ep is not None:
+            y, ep = from_model(y, ep) + ys, None
         else:
-            y = y + from_model(ys)
-    if ep:
-        y = from_model(y)
+            y = y + from_model(ys, tp)
+    y = from_model(y, ep)
 
     # ---- aux: Switch-style load-balance loss, and the dropped share
     me = r["probs"].mean(dim=0)                                  # [E]

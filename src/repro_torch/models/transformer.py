@@ -93,7 +93,6 @@ from repro_torch.models.common import (Builder, cross_entropy_loss,
                                        init_swiglu, layer, lm_head_logits,
                                        padded_vocab, rms_norm, stack_layers,
                                        swiglu, tree_leaves, unstack)
-from repro_torch.parallel import sharding as Sh
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
@@ -211,20 +210,18 @@ def head_width(cfg: ModelConfig) -> int:
 
 def _embed(cfg: ModelConfig, params, tokens) -> torch.Tensor:
     """The tokens' embeddings in the compute dtype (vocab-parallel where
-    the installed 'model' group splits the vocabulary)."""
+    ``embed`` is this rank's 'model' block)."""
     return embed_lookup(params["embed"], tokens, cfg.vocab_size).to(cfg.cdt)
 
 
 def _logits(cfg: ModelConfig, x, head) -> torch.Tensor:
-    """The head's logits; this rank's block of the vocabulary where the
-    installed 'model' group splits the head."""
-    return lm_head_logits(x, head, cfg.vocab_size,
-                          parallel=Sh.splits(head_width(cfg)))
+    """The head's logits; this rank's block of the vocabulary where
+    ``head`` is this rank's 'model' block."""
+    return lm_head_logits(x, head, cfg.vocab_size, width=head_width(cfg))
 
 
 def _loss(cfg: ModelConfig, logits, labels) -> torch.Tensor:
-    return cross_entropy_loss(logits, labels,
-                              parallel=Sh.splits(head_width(cfg)))
+    return cross_entropy_loss(logits, labels, width=head_width(cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -268,13 +265,12 @@ def _apply_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig,
             p, x, top_k=cfg.moe_top_k, n_experts=cfg.n_experts,
             capacity_factor=cfg.capacity_factor,
             token_chunks=cfg.moe_token_chunks,
-            shared_parallel=Sh.splits(cfg.n_shared_experts * cfg.moe_d_ff))
+            shared_width=cfg.n_shared_experts * cfg.moe_d_ff)
         return y, aux["load_balance_loss"]
     if cfg.mlp_type == "gelu":
         return gelu_mlp(x, p["w_up"], p["b_up"], p["w_down"],
-                        p["b_down"], parallel=Sh.splits(cfg.d_ff)), 0.0
-    return swiglu(x, p["w_gate"], p["w_up"], p["w_down"],
-                  parallel=Sh.splits(cfg.d_ff)), 0.0
+                        p["b_down"], d_ff=cfg.d_ff), 0.0
+    return swiglu(x, p["w_gate"], p["w_up"], p["w_down"], d_ff=cfg.d_ff), 0.0
 
 
 def _apply_attn_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
@@ -462,21 +458,6 @@ class DecoderLM:
         return (params["embed"].T if self.cfg.tie_embeddings
                 else params["lm_head"])
 
-    def model_parallel_leaf(self, path: Tuple[str, ...], size: int) -> bool:
-        """Whether the leaf at ``path`` (its keys) runs in its 'model' block
-        on a 'model' axis of ``size`` ranks: the vocabulary's, the GQA
-        attention's, the FFNs' and the shared experts' leaves, and the
-        routed experts' where ``size`` divides their count (EP); the MLA
-        and cross-attention leaves are gathered whole."""
-        c = self.cfg
-        if "attn" in path:
-            return not (c.use_mla or "cross" in path)
-        if path[-1] in ("w_gate", "w_up", "w_down"):
-            kind = self.plan[int(path[0][len("stage"):])][0]
-            if kind == "moe" or (kind == "moe_super" and path[1] == "moe"):
-                return c.n_experts % size == 0
-        return True
-
     def _step(self, kind: str, inner: int, p, x, positions, cache=None,
               pos: int = 0, ctx=None):
         """One step of a stage: a block, or a super block's ``inner`` self
@@ -663,14 +644,6 @@ class HybridSSM:
         b.sub("shared_attn", *_init_attn_block(gen, c, dev))
         return _with_axes(b.done(), with_axes)
 
-    def model_parallel_leaf(self, path: Tuple[str, ...], size: int) -> bool:
-        """Whether the leaf at ``path`` runs in its 'model' block: the
-        vocabulary's and the shared block's (its attention unless it is
-        MLA); the Mamba blocks' leaves are gathered whole."""
-        if path[0] in ("supers", "tail"):
-            return False
-        return not (path[:2] == ("shared_attn", "attn") and self.cfg.use_mla)
-
     # ---------------- the backbone
     def _mamba(self, p, x, states=None, idx=()):
         """One Mamba block with its residual. In cached mode its state is
@@ -825,11 +798,6 @@ class XLSTM:
         b.sub("supers", *stack_layers(gen, self.n_super, init_super))
         return _with_axes(b.done(), with_axes)
 
-    def model_parallel_leaf(self, path: Tuple[str, ...], size: int) -> bool:
-        """Whether the leaf at ``path`` runs in its 'model' block: the
-        vocabulary's; the mLSTM and sLSTM leaves are gathered whole."""
-        return path[0] != "supers"
-
     # ---------------- the backbone
     def _backbone(self, params, x, states=None):
         """``states`` given (cached mode): super block ``i`` starts from
@@ -981,16 +949,9 @@ class EncDec:
         b.sub("decoder", *stack_layers(gen, c.n_dec_layers, init_dec))
         return _with_axes(b.done(), with_axes)
 
-    def model_parallel_leaf(self, path: Tuple[str, ...], size: int) -> bool:
-        """Whether the leaf at ``path`` runs in its 'model' block: the
-        vocabulary's and the decoder's self-attention and FFN leaves; the
-        encoder's and the cross-attention's are gathered whole."""
-        return path[0] != "encoder" and path[:2] != ("decoder", "cross")
-
-    @staticmethod
-    def _ffn(p, x, parallel: bool = False):
+    def _ffn(self, p, x):
         return swiglu(x, p["w_gate"], p["w_up"], p["w_down"],
-                      parallel=parallel)
+                      d_ff=self.cfg.d_ff)
 
     # ---------------- encoder
     def encode(self, params, frames: torch.Tensor) -> torch.Tensor:
@@ -1007,7 +968,8 @@ class EncDec:
             h = rms_norm(xx, lp["ln1"], c.norm_eps)
             att, _ = A.apply_gqa(lp["attn"], h, positions=positions,
                                  rope_theta=c.rope_theta, causal=False,
-                                 impl=c.attn_impl, q_chunk=c.attn_q_chunk)
+                                 impl=c.attn_impl, q_chunk=c.attn_q_chunk,
+                                 n_heads=c.n_heads, n_kv_heads=c.n_kv_heads)
             xx = xx + att
             return xx + self._ffn(lp["ffn"], rms_norm(xx, lp["ln2"],
                                                       c.norm_eps))
@@ -1050,8 +1012,7 @@ class EncDec:
                     dst.copy_(src)
             xx = xx + xatt
             return xx + self._ffn(lp["ffn"], rms_norm(xx, lp["ln3"],
-                                                      c.norm_eps),
-                                  Sh.splits(c.d_ff))
+                                                      c.norm_eps))
 
         if not cached:      # the caches are written in place: no recompute
             body = _maybe_remat(body, c)
@@ -1129,3 +1090,47 @@ def get_model(cfg: ModelConfig):
     if cfg.family == "audio":
         return EncDec(cfg)
     raise ValueError(f"unknown family {cfg.family!r}")
+
+
+# ---------------------------------------------------------------------------
+# tensor and expert parallelism: the layers that run split over 'model'
+# ---------------------------------------------------------------------------
+
+_ATTN_LEAVES = ("wq", "wk", "wv", "wo")
+_FFN_LEAVES = ("w_gate", "w_up", "w_down", "b_up", "ws_gate", "ws_up",
+               "ws_down")
+
+
+def model_parallel_leaf(model, path: Tuple[str, ...], size: int) -> bool:
+    """Whether the leaf at ``path`` (its keys) of ``model``'s parameters
+    stays in its 'model' block on a 'model' axis of ``size`` ranks: the one
+    list of the layers that run split. They are the vocabulary (``embed``,
+    ``lm_head``), GQA self-attention, the dense MLPs and shared experts
+    (their mlp dim), and the routed experts where ``size`` divides their
+    count (EP). Any other leaf is gathered whole, and its layer, finding
+    its leaves whole, runs whole: MLA, the Mamba and xLSTM blocks,
+    cross-attention, the encoder, and any layer this list does not
+    name."""
+    c = model.cfg
+    if path in (("embed",), ("lm_head",)):
+        return True
+    if len(path) < 2 or "encoder" in path:
+        return False
+    layer, leaf = path[-2], path[-1]
+    if layer in ("attn", "self") and leaf in _ATTN_LEAVES:
+        return not (c.use_mla or path[-3:-1] == ("cross", "attn"))
+    if layer == "ffn" and leaf in _FFN_LEAVES:
+        if leaf in ("w_gate", "w_up", "w_down") and _moe_ffn(model, path):
+            return c.n_experts % size == 0
+        return True
+    return False
+
+
+def _moe_ffn(model, path: Tuple[str, ...]) -> bool:
+    """Whether ``path`` lies in a MoE block's FFN: a decoder's ``moe``
+    stage, or the ``moe`` block of its ``moe_super`` stage."""
+    plan = getattr(model, "plan", None)
+    if not plan or not path[0].startswith("stage"):
+        return False
+    kind = plan[int(path[0][len("stage"):])][0]
+    return kind == "moe" or (kind == "moe_super" and path[1] == "moe")

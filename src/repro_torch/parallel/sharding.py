@@ -560,15 +560,18 @@ def current_token_group() -> Optional[TokenGroup]:
 # The reference shards the heads, MLP, vocabulary and experts over 'model'
 # and lets GSPMD run each product on the device's shard. Here a leaf whose
 # spec puts 'model' on a dim stays in its 'model' block on its rank, at rest
-# and in every step (:func:`local_params`), and the layers combine the
-# ranks' shares through explicit collectives over the 'model' group, in
-# Megatron's form: :func:`to_model` before a column-parallel product
-# (identity forward, the gradient all-reduced backward) and
-# :func:`from_model` after a row-parallel one (all-reduced forward,
-# identity backward). The steps install this rank's :class:`ModelGroup`
-# (:class:`model_parallel`); the layers ask :func:`splits` whether the
-# reference's rule splits a dim of theirs. With none installed, or a
-# 'model' axis of one rank, every layer is the meshless one.
+# and in every step, where its layer runs split (:func:`local_params`, told
+# which by the one rule of :func:`repro_torch.models.transformer.
+# model_parallel_leaf`); every other leaf is gathered whole. The steps
+# install this rank's :class:`ModelGroup` (:class:`model_parallel`), and a
+# layer asks :func:`layer_group` whether its leaf is such a block: if so it
+# computes its share and combines the shares through explicit collectives
+# over the group, in Megatron's form: :func:`to_model` before a
+# column-parallel product (identity forward, the gradient all-reduced
+# backward) and :func:`from_model` after a row-parallel one (all-reduced
+# forward, identity backward); if its leaf is whole it runs whole. With no
+# group installed, or a 'model' axis of one rank, every layer is the
+# meshless one.
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass
@@ -650,15 +653,20 @@ class model_parallel:
         return False
 
 
-def model_group() -> Optional[ModelGroup]:
-    return _MODEL_GROUP.get()
-
-
-def splits(n: int) -> bool:
-    """Whether the installed 'model' group splits a dim of ``n`` (False
-    with none installed)."""
+def layer_group(local: int, n: int) -> Optional[ModelGroup]:
+    """The installed 'model' group where a layer's leaf holds ``local``
+    entries of a dim of ``n``, this rank's block of it (the layer then
+    computes its share); ``None`` where the leaf holds the whole dim (the
+    layer runs whole). Raises ``ValueError`` where it is neither."""
+    if local == n:
+        return None
     mg = _MODEL_GROUP.get()
-    return mg is not None and mg.splits(n)
+    if mg is None or not mg.splits(n) or local * mg.size != n:
+        size = None if mg is None else mg.size
+        raise ValueError(f"a leaf's dim of {local} is neither the whole "
+                         f"{n} nor this rank's 'model' block of it (the "
+                         f"installed group's size: {size})")
+    return mg
 
 
 class _ToModel(torch.autograd.Function):
@@ -682,19 +690,18 @@ class _FromModel(torch.autograd.Function):
         return g, None
 
 
-def to_model(x: torch.Tensor) -> torch.Tensor:
-    """``x`` (the same on every 'model' rank) entering a 'model'-parallel
-    product: itself forward, its gradient summed over the installed group
-    backward (each rank's share of the product gives a share of it)."""
-    mg = _MODEL_GROUP.get()
+def to_model(x: torch.Tensor, mg: Optional[ModelGroup]) -> torch.Tensor:
+    """``x`` (the same on every rank of ``mg``) entering a 'model'-parallel
+    product: itself forward, its gradient summed over ``mg`` backward (each
+    rank's share of the product gives a share of it); ``x`` itself where
+    ``mg`` is ``None``."""
     return x if mg is None else _ToModel.apply(x, mg)
 
 
-def from_model(x: torch.Tensor) -> torch.Tensor:
+def from_model(x: torch.Tensor, mg: Optional[ModelGroup]) -> torch.Tensor:
     """This rank's share ``x`` of a 'model'-parallel product, summed over
-    the installed group (the gradient passes through unchanged: every rank
-    continues from the same sum)."""
-    mg = _MODEL_GROUP.get()
+    ``mg`` (the gradient passes through unchanged: every rank continues
+    from the same sum); ``x`` itself where ``mg`` is ``None``."""
     return x if mg is None else _FromModel.apply(x, mg)
 
 

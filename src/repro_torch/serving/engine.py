@@ -47,7 +47,8 @@ import torch
 from torch.distributed.tensor import Replicate
 
 from repro_torch.device import resolve_device
-from repro_torch.models.transformer import ModelConfig, get_model, head_width
+from repro_torch.models.transformer import (ModelConfig, get_model,
+                                            head_width, model_parallel_leaf)
 from repro_torch.parallel import sharding as Sh
 
 
@@ -156,20 +157,20 @@ class MeshServe:
         'model'-split leaf of a parallel layer in its 'model' block (a
         whole one passed in is cut to it), any other leaf whole."""
         model = self.model
-        size = Sh.mesh_shape(self.mesh).shape["model"]
+        size = 1 if self.mg is None else self.mg.size
         if not hasattr(self, "_param_specs"):
             shapes, axes = model.init(0, device="meta", with_axes=True)
             self._param_specs = (
                 shapes, Sh.param_shardings(axes, shapes, self.mesh))
         shapes, shardings = self._param_specs
         return Sh.local_params(
-            params, lambda path: model.model_parallel_leaf(path, size),
+            params, lambda path: model_parallel_leaf(model, path, size),
             shardings=shardings, shapes=shapes, group=self.mg)
 
     def full_logits(self, logits: torch.Tensor) -> torch.Tensor:
         """The logits of every vocabulary column: this rank's block
         all-gathered over 'model' where the head runs split."""
-        if self.mg is None or not self.mg.splits(head_width(self.model.cfg)):
+        if self.mg is None or logits.shape[-1] == head_width(self.model.cfg):
             return logits
         return self.mg.all_gather(logits, -1)
 

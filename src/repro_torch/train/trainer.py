@@ -53,7 +53,8 @@ from torch.distributed.tensor import DTensor
 from repro_torch.configs import param_specs
 from repro_torch.models.common import (tree_leaves, tree_map,
                                        tree_unflatten)
-from repro_torch.models.transformer import ModelConfig, get_model
+from repro_torch.models.transformer import (ModelConfig, get_model,
+                                            model_parallel_leaf)
 from repro_torch.optim import adamw
 from repro_torch.parallel import compression as C
 from repro_torch.parallel import sharding as Sh
@@ -173,7 +174,7 @@ class _MeshStep:
         self.mg = Sh.model_group_of(mesh, self.coord)
         model = get_model(cfg)
         size = self.sizes.get("model", 1)
-        self.keep = lambda path: model.model_parallel_leaf(path, size)
+        self.keep = lambda path: model_parallel_leaf(model, path, size)
 
     def local(self, params):
         """The parameters the forward and backward run on, as leaves that

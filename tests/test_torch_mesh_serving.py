@@ -11,6 +11,7 @@ compare as the reference's ``PartitionSpec`` entries, exactly. The
 combine runs in f32 and is held to 1e-6 of the unsplit decode (it sums the
 blocks in another order: observed about 1e-7).
 """
+import functools
 import math
 from concurrent.futures import ThreadPoolExecutor
 
@@ -238,13 +239,13 @@ def test_mesh_records_hold_the_exact_identities(cells, mesh_name, dp):
     # the train step keeps each 'model'-split leaf in its block: its
     # all-gathers carry only the split leaves of layers that run whole
     # (none in llama; no FSDP, so nothing on 'data')
-    from repro_torch.models.transformer import get_model
+    from repro_torch.models.transformer import get_model, model_parallel_leaf
     from repro_torch.train import trainer
     mesh = Sh.MeshShape(*reversed(MESHES["pod16x16" if dp == 16
                                          else "multipod2x16x16"]))
     shapes, _ = CN.param_specs(cfg)
     sh = dict(tree_items(trainer.state_shardings(cfg, mesh)["params"]))
-    keep = get_model(cfg).model_parallel_leaf
+    keep = functools.partial(model_parallel_leaf, get_model(cfg))
     split = [(p, t) for p, t in tree_items(shapes)
              if Sh.model_dim(sh[p].spec) is not None]
     assert split and all(keep(p, 16) for p, _ in split)
@@ -292,13 +293,90 @@ def test_model_group_on_a_mesh_shape_counts_its_collectives():
     labels = torch.zeros((B, S), dtype=torch.long, device="meta")
     with Sh.model_parallel(mg):
         y = common.swiglu(x, meta(D, F // 16), meta(D, F // 16),
-                          meta(F // 16, D), parallel=True)
+                          meta(F // 16, D), d_ff=F)
         logits = common.lm_head_logits(y, meta(D, V // 16), V - 8,
-                                       parallel=True)
-        loss = common.cross_entropy_loss(logits, labels, parallel=True)
+                                       width=V)
+        loss = common.cross_entropy_loss(logits, labels, width=V)
         full = mg.all_gather(logits, -1)
     assert loss.shape == () and full.shape == (B, S, V)
     row = B * S * 4
     assert mg.calls == [("all-reduce", B * S * D * 4), ("all-reduce", row),
                         ("all-reduce", row), ("all-reduce", row),
                         ("all-gather", B * S * V * 4)]
+
+
+def test_layers_follow_their_leaves():
+    """A layer runs split exactly where its leaf holds this rank's 'model'
+    block: ``layer_group`` gives the installed group for a block, ``None``
+    for the whole dim (installed group or not) and raises for a dim that
+    is neither; a SwiGLU handed whole weights under an installed group
+    runs whole, with no collective, and one handed blocks sums them."""
+    from repro_torch.models import common
+    mg = Sh.model_group_of(Sh.MeshShape(("data", "model"), (1, 4)), (0, 1))
+    meta = lambda *s: torch.empty(s, device="meta")
+    assert Sh.layer_group(128, 128) is None
+    with pytest.raises(ValueError, match="neither"):
+        Sh.layer_group(32, 128)             # a block with no group
+    x = meta(2, 8, 64)
+    with Sh.model_parallel(mg):
+        assert Sh.layer_group(32, 128) is mg
+        assert Sh.layer_group(128, 128) is None
+        for local, n in ((64, 128), (3, 10)):
+            with pytest.raises(ValueError, match="neither"):
+                Sh.layer_group(local, n)
+        common.swiglu(x, meta(64, 128), meta(64, 128), meta(128, 64),
+                      d_ff=128)
+        assert mg.calls == []
+        common.swiglu(x, meta(64, 32), meta(64, 32), meta(32, 64), d_ff=128)
+        assert mg.calls == [("all-reduce", 2 * 8 * 64 * 4)]
+
+
+# per arch: leaves kept in their 'model' block, leaves gathered whole (on a
+# 'model' axis of 4 ranks), from the smoke configs' trees
+_RULE_CASES = {
+    "llama3.2-1b": (["embed", "stage0/attn/wq", "stage0/attn/wk",
+                     "stage0/ffn/w_up", "stage0/ffn/w_down"], []),
+    "deepseek-v3-671b": (["stage1/ffn/w_gate", "stage1/ffn/ws_up",
+                          "stage0/ffn/w_up"],
+                         ["stage0/attn/wq_b", "stage0/attn/wkv_b",
+                          "stage0/attn/wo"]),
+    "llama4-maverick-400b-a17b": (["stage0/moe/ffn/w_up",
+                                   "stage0/moe/attn/wq",
+                                   "stage0/dense/ffn/w_gate"], []),
+    "llama-3.2-vision-90b": (["stage0/selfs/attn/wq",
+                              "stage0/cross/ffn/w_up"],
+                             ["stage0/cross/attn/wq",
+                              "stage0/cross/attn/wk"]),
+    "seamless-m4t-large-v2": (["decoder/self/wq", "decoder/ffn/w_up"],
+                              ["decoder/cross/wq", "encoder/attn/wq",
+                               "encoder/ffn/w_up"]),
+    "zamba2-1.2b": (["shared_attn/attn/wq", "shared_attn/ffn/w_up"],
+                    ["supers/mamba/w_in", "tail/w_out"]),
+    "xlstm-125m": (["embed", "lm_head"],
+                   ["supers/mlstm/wq", "supers/slstm/wz"]),
+}
+
+
+@pytest.mark.parametrize("arch", sorted(_RULE_CASES))
+def test_model_parallel_leaf_is_one_rule_defaulting_to_whole(arch):
+    """``model_parallel_leaf``, the one list of the layers that run split:
+    the vocabulary, GQA self-attention, the MLPs and shared experts and
+    the routed experts where the axis divides their count stay in their
+    'model' block; MLA, cross-attention, the encoder, the Mamba and xLSTM
+    blocks and any leaf under a key the rule does not name are gathered
+    whole."""
+    from repro_torch.models.transformer import get_model, model_parallel_leaf
+    cfg = CN.get_smoke_config(arch)
+    model = get_model(cfg)
+    paths = {"/".join(p) for p, _ in tree_items(model.init(0,
+                                                           device="meta"))}
+    kept, whole = _RULE_CASES[arch]
+    assert set(kept + whole) <= paths
+    rule = lambda p, n=4: model_parallel_leaf(model, tuple(p.split("/")), n)
+    assert all(rule(p) for p in kept) and not any(rule(p) for p in whole)
+    assert not rule("stage0/unnamed/wq") and not rule("stage0/attn/w_new")
+    if cfg.n_experts:
+        experts = [p for p in kept if p.endswith(("ffn/w_gate", "ffn/w_up"))
+                   and ("moe" in p or "stage1" in p)]
+        # 8 and 4 experts on 3 ranks: not divided, so the experts are whole
+        assert experts and not any(rule(p, 3) for p in experts)

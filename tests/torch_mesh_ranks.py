@@ -7,6 +7,7 @@ the same order) and writes ``rank<r>.json`` with each check's result, or
 the traceback it raised. Imports torch and the port only.
 """
 import datetime
+import functools
 import json
 import math
 import os
@@ -476,7 +477,7 @@ def twin_mlps(mg, gen):
         want = fn(xw, *p.values())
         gw = _grads(want, [xw, *p.values()])
         with Sh.model_parallel(mg):
-            got = fn(xl, *loc.values(), parallel=True)
+            got = fn(xl, *loc.values(), d_ff=Fd)
             gg = _grads(got, [xl, *loc.values()])
         out[name] = _rel_max([(got, want)])
         out[name + "_grads"] = _rel_max(
@@ -500,17 +501,17 @@ def twin_vocab(mg, gen):
     lab = torch.randint(0, V, (LAYER_B, LAYER_S), generator=gen)
     x = torch.randn((LAYER_B, LAYER_S, D), generator=gen)
 
-    def loss(e, h, parallel):
+    def loss(e, h):
         z = common.embed_lookup(e, tok, V) + x
-        logits = common.lm_head_logits(z, h, V, parallel=parallel)
-        return common.cross_entropy_loss(logits, lab, parallel=parallel)
+        logits = common.lm_head_logits(z, h, V, width=W)
+        return common.cross_entropy_loss(logits, lab, width=W)
 
-    want = loss(emb, head, False)
+    want = loss(emb, head)
     gw = torch.autograd.grad(want, [emb, head])
     e_loc = emb[mg.block(V)].detach().clone().requires_grad_()
     h_loc = head[:, mg.block(W)].detach().clone().requires_grad_()
     with Sh.model_parallel(mg):
-        got = loss(e_loc, h_loc, True)
+        got = loss(e_loc, h_loc)
         gg = torch.autograd.grad(got, [e_loc, h_loc])
     return {"loss": abs(float(got) - float(want)) / abs(float(want)),
             "grads": _rel_max([(gg[0], gw[0][mg.block(V)]),
@@ -538,7 +539,7 @@ def twin_moe(mg, gen):
     want, aw = moe.apply_moe(p, xw, **kw)
     gw = _grads(want + aw["load_balance_loss"], [xw, *p.values()])
     with Sh.model_parallel(mg):
-        got, ag = moe.apply_moe(loc, xl, shared_parallel=True, **kw)
+        got, ag = moe.apply_moe(loc, xl, shared_width=Fd, **kw)
         gg = _grads(got + ag["load_balance_loss"], [xl, *loc.values()])
     return {"out": _rel_max([(got, want)]),
             "aux": all(torch.equal(ag[n], aw[n]) for n in aw),
@@ -581,7 +582,8 @@ def check_compute_shapes(meshes):
     the smoke llama (every layer parallel) and deepseek (MLA whole, EP),
     on both meshes."""
     from repro_torch import configs
-    from repro_torch.models.transformer import get_model
+    from repro_torch.models.transformer import (get_model,
+                                                model_parallel_leaf)
     from repro_torch.parallel import sharding as Sh
     from repro_torch.serving.engine import ServeConfig, ServingEngine
     from repro_torch.train import trainer
@@ -594,7 +596,7 @@ def check_compute_shapes(meshes):
         for mesh_name in SERVE_MESHES:
             mesh = meshes[mesh_name]
             tp = Sh.mesh_shape(mesh).shape["model"]
-            keep = lambda path: model.model_parallel_leaf(path, tp)
+            keep = lambda path: model_parallel_leaf(model, path, tp)
             sh = trainer.state_shardings(cfg, mesh)["params"]
             placed = trainer.shard_state(st.params, sh)
             step = trainer.make_train_step(cfg, opt, mesh)
@@ -617,7 +619,8 @@ def check_compressed_model_blocks(meshes):
     against its emulation on whole gradients; (c) one int8 step's error
     leaves are 'model' blocks where the gradients are."""
     from repro_torch.models.common import tree_leaves, tree_map
-    from repro_torch.models.transformer import get_model
+    from repro_torch.models.transformer import (get_model,
+                                                model_parallel_leaf)
     from repro_torch.optim import adamw
     from repro_torch.parallel import compression as C
     from repro_torch.parallel import sharding as Sh
@@ -628,7 +631,7 @@ def check_compressed_model_blocks(meshes):
     vg = trainer._value_and_grad(get_model(cfg))
     st = trainer.init_train_state(cfg, opt, 0, "cpu")
     sh = trainer.state_shardings(cfg, mesh)
-    keep = get_model(cfg).model_parallel_leaf
+    keep = functools.partial(model_parallel_leaf, get_model(cfg))
     g, _, _ = vg(trainer.trainable(st.params), batches[0])
 
     def block(t, s, path=None):
@@ -677,10 +680,12 @@ def check_compressed_model_blocks(meshes):
     _, err, m = run("int8", 1)
     out["int8_err_blocks"] = [list(e.shape) == list(b.shape) for e, b in
                               zip(tree_leaves(err), tree_leaves(blocks))]
-    out["keep_all"] = all(keep(path, 2) for path, _ in
-                          __import__("repro_torch.models.common",
-                                     fromlist=["tree_items"])
-                          .tree_items(st.params))
+    # every leaf that 'model' splits runs in its block (llama: all layers
+    # parallel)
+    specs = dict(__import__("repro_torch.models.common",
+                            fromlist=["tree_items"]).tree_items(sh["params"]))
+    out["keep_all"] = all(keep(path, 2) for path, s in specs.items()
+                          if Sh.model_dim(s.spec) is not None)
     return out
 
 
