@@ -78,7 +78,12 @@ Phases (any failure exits non-zero, with no result line):
     tensor-core route. Twin: the same
     model in f32 (no TF32) on 1 x 1,024 tokens through the kernel and
     through the plain chunked scan, logits within ``HYB_TWIN_LOGIT_ATOL``
-    and loss within ``HYB_TWIN_LOSS_ATOL``. On layer 0's inputs the SSD
+    and loss within ``HYB_TWIN_LOSS_ATOL``; then prefills of
+    ``HYB_SHORT_PROMPTS`` tokens under both routes: ``mamba2_scan``
+    launched 38 times where the kernel takes the prompt (``kernel_takes``)
+    and not at all where it does not (6 and 10 tokens: the chunk is the
+    prompt, not a multiple of 4), logits within ``HYB_TWIN_LOGIT_ATOL`` of
+    the plain route's. On layer 0's inputs the SSD
     kernel and its plain version are timed with CUDA events, beside the
     bound (no single PyTorch call computes the scan); on the first
     shared-attention inputs the flash kernel and
@@ -86,8 +91,9 @@ Phases (any failure exits non-zero, with no result line):
     and the three timed, beside the bound; each kernel's share of the warm
     forward is printed.
 11. Serving zamba2-1.2b at full width (batch 4, 1,024-token prompts, 32 new
-    tokens): the prefill runs the chunked scan from a zero state and the
-    flash kernel 6 times, decode the recurrence. Checks: tokens in the
+    tokens) under the config's ``ssm_impl="xla"``: the prefill runs the
+    plain chunked scan from a zero state and the flash kernel 6 times,
+    decode the recurrence. Checks: tokens in the
     vocab, finite logits, 6 flash launches and no SSD launch, and the
     flash kernel on the first shared-attention inputs of the prefill
     within ``FLASH_TOL`` and ``FLASH_ROW_REL_TOL`` of the plain version.
@@ -375,8 +381,9 @@ Phases (any failure exits non-zero, with no result line):
 26. Tensor and expert parallelism on the card, within ``TP_BUDGET_S``:
     two spawned processes share the card over a ``gloo`` group on CUDA
     tensors (NCCL refuses two ranks on one device), a (1, 2) mesh ("data"
-    x "model"). (a) llama3.2-1b at full width served 4 x 1,024 with 32 new
-    tokens through the ``ServingEngine`` on the mesh: in f32, fed the
+    x "model"). (a) llama3.2-1b at full width served 4 x 1,024 with
+    ``TP_NEW`` new tokens (``TP_F32_NEW`` in f32) through the
+    ``ServingEngine`` on the mesh: in f32, fed the
     meshless engine's greedy tokens (rank 0 runs it: both ranks hold every
     row), it picks the same token at every step (so its own greedy run
     gives the same tokens) and the logits of its prefill and of each
@@ -396,6 +403,31 @@ Phases (any failure exits non-zero, with no result line):
     straight on each rank): time to first token, decode tokens/s and peak
     GiB per rank, all finite. The collectives pass through the host: these
     times are this harness's, not tensor parallelism's on NVLink.
+27. Every layer split over 'model', within ``TP_LAYERS_BUDGET_S``: two
+    spawned processes of their own (``run_ranks``), as in phase 26, each
+    family at full width on the (1, 2) mesh, ``TPL_B`` x ``TPL_PROMPT``
+    prompts and ``TPL_NEW`` new tokens (zamba2 ``TPL_HYB_NEW``;
+    ``TPL_CASES``): deepseek-v3-671b
+    cut to 2 dense MLA layers, plain and absorbed; zamba2-1.2b with the
+    SSD and flash kernels (the prefill starts its Mamba blocks from no
+    state, so ``mamba2_scan`` runs on each rank's 32 of 64 heads, 38
+    launches per prefill, and flash on the shared block's 16 heads, 6);
+    seamless-m4t-large-v2 (the encoder, cross-attention and the decoder
+    split, its frames cut to 512; flash on the decoder's local heads, 24
+    per prefill; the encoder's share of the time to first token);
+    xlstm-125m (2 of 4 heads a rank). Each in f32 (``TPL_F32_NEW`` new
+    tokens) fed the meshless engine's greedy tokens (zamba2 cut to one
+    super block and a tail block; the xLSTM's sLSTM ``r`` rescaled to 1 /
+    sqrt(hd), as in 21(b), since at the reference's init the f32 model is
+    chaotic, ``tools/xlstm_sensitivity.py``): the same token at
+    every step and logits within ``TP_F32_ROW_REL`` of each row's norm;
+    then in bf16 (each rank's blocks drawn on the card) the time to first
+    token, decode tokens/s, peak GiB above the baseline and the launches,
+    every count set to 0 just before the generation and read just after.
+    Rank 0 holds ``mamba2_scan`` on its kept local-heads input against
+    the plain version and times it beside its bound, and flash likewise
+    on zamba2's and seamless' local heads; these paths join the kernels'
+    record.
 
 Each phase's wall is printed on one ``[done]`` line. The last lines are
 the kernels' JSON record (a kernel launched on two
@@ -504,6 +536,9 @@ HYB_CHUNK, HYB_N_SUPER = 128, 6      # the config's ssd_chunk; 38 // 6
 # state order moves the logits (|logits| ~ 1-10) by O(0.1)
 HYB_TWIN_B, HYB_TWIN_S = 1, 1024
 HYB_TWIN_LOGIT_ATOL, HYB_TWIN_LOSS_ATOL = 1e-3, 1e-4
+# its prefills of short prompts: the kernel refuses a chunk of 6 or 10 (the
+# prompt, shorter than the config's 128), so those take the plain scan
+HYB_SHORT_PROMPTS = (6, 8, 10, 16)
 # the capacity sweep: R stations of N jobs each, one launch per capacity
 QUEUE_R, QUEUE_N, QUEUE_CAPS = 4096, 4096, (1, 2, 7, 32, 64)
 QUEUE_LOADS = (0.5, 1.1)     # per-station utilisation, uniform in between
@@ -686,9 +721,42 @@ TP_BUDGET_S = 75.0
 TP_WORLD = 2
 TP_TIMEOUT_S = 240.0      # a rank still running then is killed: the phase fails
 TP_TRAIN = dict(batch=2, seq=1024)
+# 26(a) generates TP_NEW tokens in bf16 and TP_F32_NEW in f32 (phase 27's
+# twins too): every decode step sends some 80 collectives through the
+# host, 0.1-0.3 s a step
+TP_NEW, TP_F32_NEW = 16, 8
 TP_F32_ROW_REL, TP_EP_ROW_REL = 1e-4, 1e-5
 TP_LOSS_REL, TP_GRAD_REL, TP_LEAF_REL = 1e-6, 1e-5, 1e-5
 TP_EP_ARCHS = ("deepseek-v3-671b", "llama4-maverick-400b-a17b")
+# phase 27, every layer split over 'model', within its own budget: the two
+# processes of phase 26 on a (1, 2) mesh, each family at full width (depth
+# cut where TPL_LAYERS says), TPL_B x TPL_PROMPT prompts (the xLSTM's
+# TPL_XLSTM_PROMPT: its prefill steps through every token) and TPL_NEW new
+# (zamba2: TPL_HYB_NEW; TPL_F32_NEW in f32): in f32 the mesh engine fed the
+# meshless engine's greedy tokens must pick them and stay within
+# TP_F32_ROW_REL of its logits; in bf16 its numbers and launches. zamba2's
+# f32 twin is cut to one super block (one shared-attention application)
+# and a tail block. Every decode step sends its collectives through the
+# host (zamba2 some 200, 0.44 s a step), so the bf16 runs are short
+TP_LAYERS_BUDGET_S = 60.0
+TP_LAYERS_TIMEOUT_S = 240.0
+TPL_B, TPL_PROMPT, TPL_SEED = 2, 512, 0
+TPL_NEW, TPL_HYB_NEW, TPL_F32_NEW = 4, 16, 4
+TPL_XLSTM_PROMPT = 128
+# deepseek's 2 dense layers with no experts: its plan would otherwise end
+# in an empty MoE stage, whose init still draws one 14 GB (f32) block
+TPL_LAYERS = {"deepseek-v3-671b": dict(n_layers=2, n_dense_layers=2,
+                                       n_experts=0),
+              # the frames cut from 4,096: the encoder's 24 layers
+              # all-reduce [B, n_ctx, 1,024] twice each through the host
+              "seamless-m4t-large-v2": dict(n_ctx=512)}
+TPL_HYB_TWIN_LAYERS = 7
+TPL_CASES = (("mla", "deepseek-v3-671b", {}),
+             ("mla_absorbed", "deepseek-v3-671b", {"mla_absorbed": True}),
+             ("hybrid", HYB_ARCH, {"ssm_impl": "mamba_kernel",
+                                   "attn_impl": "flash"}),
+             ("seamless", "seamless-m4t-large-v2", {"attn_impl": "flash"}),
+             ("xlstm", "xlstm-125m", {}))
 # phase 25: the ten examples of examples/torch, each main() in this
 # process on the card; EXAMPLE_CUTS are the keyword arguments that cut an
 # example below the reference example's constants (its main()'s defaults):
@@ -1817,8 +1885,10 @@ def phase_hybrid_forward(torch, mamba2_scan, flash_attention, counts):
 
 def phase_hybrid_twin(torch, mamba2_scan):
     """The full-width model in f32 (no TF32), batch 1 x 1024: logits and
-    loss through the SSD kernel against the plain chunked scan."""
+    loss through the SSD kernel against the plain chunked scan; then the
+    prefills of ``HYB_SHORT_PROMPTS`` under both routes."""
     from repro_torch import configs
+    from repro_torch.kernels.mamba2_scan import kernel_takes
     from repro_torch.models.common import cross_entropy_loss
     from repro_torch.models.transformer import get_model
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1857,6 +1927,31 @@ def phase_hybrid_twin(torch, mamba2_scan):
         f"loss {loss['xla']:.6f} vs {loss['mamba_kernel']:.6f}, |diff| "
         f"{loss_err:.3g} (tol {HYB_TWIN_LOSS_ATOL}) in "
         f"{time.perf_counter() - t0:.2f} s")
+    short = []
+    for n in HYB_SHORT_PROMPTS:
+        toks = batch["tokens"][:, :n]
+        got = {}
+        for impl, m in models.items():
+            before = mamba2_scan.launches
+            with torch.inference_mode():
+                got[impl] = m.prefill(params, toks, max_len=n + 1)[0]
+            got[impl + "_launches"] = mamba2_scan.launches - before
+        c = models["mamba_kernel"].cfg
+        takes = kernel_takes(c.cdt, n, c.ssm_head_dim, c.ssm_state,
+                             c.ssd_chunk)
+        err = float((got["mamba_kernel"][..., :v] - got["xla"][..., :v])
+                    .abs().max())
+        want = (c.n_layers if takes else 0, 0)
+        if (got["mamba_kernel_launches"], got["xla_launches"]) != want \
+                or not err <= HYB_TWIN_LOGIT_ATOL:
+            raise AssertionError(
+                f"f32 prefill of {n} tokens: mamba2_scan launched "
+                f"{got['mamba_kernel_launches']} / {got['xla_launches']} "
+                f"times, not {want}; logits differ by {err}")
+        short.append(f"{n}: {want[0]} launches, max |diff| {err:.3g}")
+    log(f"[10] f32 prefills of short prompts under ssm_impl=mamba_kernel "
+        f"against xla (the kernel where kernel_takes says so, else the "
+        f"plain scan; tol {HYB_TWIN_LOGIT_ATOL}): " + "; ".join(short))
     del params, logits
     torch.cuda.empty_cache()
 
@@ -1899,16 +1994,16 @@ def cuda_core_ssd(torch, x, dt, A, Bm, Cm, chunk):
     return y, h
 
 
-def time_ssd(torch, mamba2_scan, kept):
-    """On layer 0's inputs of the bf16 forward: the kernel (its tensor-core
-    route) and the source's CUDA-core kernel against the plain version,
-    then the three timed with CUDA events, and the bound. No single
-    PyTorch call computes the SSD scan: no library yardstick."""
+def time_ssd(torch, mamba2_scan, kept, tag=10,
+             where="on layer 0's inputs of the forward"):
+    """On kept bf16 inputs of a path (layer 0's of the forward): the kernel
+    (its tensor-core route) and the source's CUDA-core kernel against the
+    plain version, then the three timed with CUDA events, and the bound.
+    No single PyTorch call computes the SSD scan: no library yardstick."""
     from repro_torch.kernels.ref import mamba2_scan_ref
     x, dt, A, Bm, Cm = kept
     chunk = HYB_CHUNK
     want = mamba2_scan_ref(x, dt, A, Bm, Cm, chunk=chunk)
-    where = "on layer 0's inputs of the forward"
     err = ssd_err(mamba2_scan(x, dt, A, Bm, Cm, chunk=chunk), want, where)
     core_err = ssd_err(cuda_core_ssd(torch, x, dt, A, Bm, Cm, chunk), want,
                        where + " (CUDA-core kernel)")
@@ -1920,8 +2015,7 @@ def time_ssd(torch, mamba2_scan, kept):
                        iters=3, warmup=1)
     bytes_ms, ops_ms = ssd_bound(x, Bm, chunk)
     bound_ms = max(bytes_ms, ops_ms)
-    log(f"[10] mamba2_scan on layer 0's inputs of the forward (x "
-        f"{list(x.shape)}, B/C {list(Bm.shape)}, {str(x.dtype)[6:]}, chunk "
+    log(f"[{tag}] mamba2_scan {where} (x {list(x.shape)}, B/C {list(Bm.shape)}, {str(x.dtype)[6:]}, chunk "
         f"{chunk}): kernel (tensor cores) {ms:.6f} ms, the CUDA-core kernel "
         f"on the same inputs {core_ms:.6f} ms, plain {plain_ms:.6f} ms, no "
         f"single PyTorch call computes it; bound {bound_ms:.6f} ms (bytes "
@@ -1935,9 +2029,10 @@ def time_ssd(torch, mamba2_scan, kept):
 # ------------------------------------------------------------ phase 11
 
 def phase_hybrid_serving(torch, flash_attention, counts):
-    """zamba2-1.2b served at full width in bf16: the prefill runs the
-    chunked scan from a zero state (as the reference) and the flash kernel
-    in the shared block's 6 applications; decode runs the recurrence. The
+    """zamba2-1.2b served at full width in bf16 under the config's
+    ``ssm_impl="xla"``: the prefill runs the plain chunked scan from a zero
+    state (as the reference) and the flash kernel in the shared block's 6
+    applications; decode runs the recurrence. The
     first flash call's inputs are then held against the plain version;
     returns the kernel's difference."""
     from repro_torch.launch import serve
@@ -1969,8 +2064,8 @@ def phase_hybrid_serving(torch, flash_attention, counts):
         f"{out['prefill_s']:.4f} s; decode {out['decode_tokens_per_s']:.1f} "
         f"tokens/s; total {out['tokens_per_s']:.1f} tokens/s (wall "
         f"{out['wall_s']:.4f} s); flash_attention launches "
-        f"{launched['flash_attention']}, mamba2_scan 0 (the prefill passes a "
-        "zero state); tokens in vocab, logits finite")
+        f"{launched['flash_attention']}, mamba2_scan 0 (ssm_impl=xla: the "
+        "plain scan); tokens in vocab, logits finite")
     q, k, _ = tap.kept
     err, rel, lib_err, _ = check_flash(torch, flash_attention, tap.kept,
                                        "on the first shared-attention "
@@ -4167,6 +4262,16 @@ def serve_xlstm(torch, counts, card):
     torch.cuda.empty_cache()
 
 
+def rescale_slstm_r(torch, params, cfg):
+    """The xLSTM's sLSTM recurrent matrices, drawn by the reference's init
+    at 1 / sqrt(H), rescaled in place to 1 / sqrt(hd) (``XLSTM_TRAIN``'s
+    note; ``tools/xlstm_sensitivity.py``)."""
+    H, hd = cfg.n_heads, cfg.d_model // cfg.n_heads
+    with torch.no_grad():
+        for g in "ifzo":
+            params["supers"]["slstm"][f"r{g}"].mul_((H / hd) ** 0.5)
+
+
 def train_xlstm(torch, counts, card):
     """21(b): xlstm-125m at full width through the trainer for
     ``XLSTM_TRAIN``'s steps (bf16 parameters, f32 moments, remat per super
@@ -4190,10 +4295,7 @@ def train_xlstm(torch, counts, card):
     torch.cuda.reset_peak_memory_stats()
     state = trainer.init_train_state(cfg, opt_cfg, XLSTM_SEED, "cuda")
     params, opt = state.params, state.opt_state
-    H, hd = cfg.n_heads, cfg.d_model // cfg.n_heads
-    with torch.no_grad():
-        for g in "ifzo":
-            params["supers"]["slstm"][f"r{g}"].mul_((H / hd) ** 0.5)
+    rescale_slstm_r(torch, params, cfg)
     step = trainer.make_train_step(cfg, opt_cfg)
     losses, secs, norms = [], [], []
     for s in range(kw["steps"]):
@@ -4212,8 +4314,9 @@ def train_xlstm(torch, counts, card):
                      decreasing=False)
     log(f"[21] (b) xlstm-125m trained at full width: {st['params']:,} "
         f"params, batch {kw['batch']} x {kw['seq']} ({kw['seq'] // 128} "
-        f"mLSTM chunks of 128), the sLSTM's r drawn at 1/sqrt({hd}) (the "
-        f"reference's 1/sqrt({H}) overflows the backward); losses "
+        f"mLSTM chunks of 128), the sLSTM's r drawn at 1/sqrt("
+        f"{cfg.d_model // cfg.n_heads}) (the reference's 1/sqrt("
+        f"{cfg.n_heads}) overflows the backward); losses "
         + " ".join(f"{x:.4f}" for x in losses)
         + " (finite), gradient norms "
         + " ".join(f"{x:.4f}" for x in norms)
@@ -5222,10 +5325,11 @@ def row_rel(got, want) -> float:
     return float(((got - want).norm(dim=-1) / want.norm(dim=-1)).max())
 
 
-def teacher_forced(torch, eng, prompts, tokens, prompt_len):
-    """The logits of ``eng``'s prefill of ``prompts`` and of each decode
-    step fed the generated ``tokens``, joined on the sequence dim."""
-    logits, cache = eng.prefill(prompts)
+def teacher_forced(torch, eng, prompts, tokens, prompt_len, ctx=None):
+    """The logits of ``eng``'s prefill of ``prompts`` (and ``ctx``) and of
+    each decode step fed the generated ``tokens``, joined on the sequence
+    dim."""
+    logits, cache = eng.prefill(prompts, ctx)
     steps = [logits]
     for i in range(tokens.shape[1] - 1):
         tok = torch.from_numpy(tokens[:, i:i + 1]).cuda()
@@ -5243,47 +5347,22 @@ def tp_serve_llama(torch, mesh, rank, counts, flash_attention):
     from repro_torch.models import attention
     from repro_torch.models.transformer import get_model
     from repro_torch.serving.engine import ServeConfig, ServingEngine
-    # caches of a length the 'model' axis divides: the sequence splits
-    # (CacheBlock), so no cache leaf is redistributed as a DTensor (DTensor's
-    # functional collectives crash over gloo on CUDA tensors)
-    scfg = ServeConfig(batch=SERVE_B, max_len=SERVE_PROMPT + SERVE_NEW)
-    out = {}
+    scfg = ServeConfig(batch=SERVE_B, max_len=SERVE_PROMPT + TP_NEW)
     f32 = configs.get_config(SERVE_ARCH, attn_impl="flash",
                              param_dtype="float32", compute_dtype="float32")
-    params = get_model(f32).init(SERVE_SEED, "cuda")
-    gen = torch.Generator(device="cuda").manual_seed(SERVE_SEED + 1)
-    prompts = random_prompts(f32.vocab_size, SERVE_B, SERVE_PROMPT, gen)
     t0 = time.perf_counter()
-    # the meshless engine's greedy tokens and logits on rank 0 (both ranks
-    # hold every row), sent to rank 1; the mesh engine fed those tokens
-    # (teacher-forced) must pick the same token at every step, so its own
-    # greedy run gives the same tokens
-    tok = torch.empty((SERVE_B, SERVE_NEW), dtype=torch.int32,
-                      device="cuda")
-    if rank == 0:
-        eng = ServingEngine(f32, scfg, params=params, device="cuda")
-        tokens = eng.generate(prompts, SERVE_NEW)
-        want = teacher_forced(torch, eng, prompts, tokens, SERVE_PROMPT)
-        del eng
-        tok.copy_(torch.from_numpy(tokens))
-    dist.broadcast(tok, 0)
-    tokens = tok.cpu().numpy()
-    eng = ServingEngine(f32, scfg, params=params, device="cuda", mesh=mesh)
-    got = teacher_forced(torch, eng, prompts, tokens, SERVE_PROMPT)
-    del eng, params
-    torch.cuda.empty_cache()
-    if rank == 0:
-        out["f32_tokens_equal"] = bool(
-            (got.argmax(-1).cpu().numpy() == tokens).all())
-        out["f32_row_rel"] = row_rel(got, want)
-        if not (out["f32_tokens_equal"]
-                and out["f32_row_rel"] <= TP_F32_ROW_REL):
-            raise AssertionError(f"26(a) f32 on the mesh against meshless: "
-                                 f"{out}")
-        del want
-    del got
+    twin = mesh_twin(torch, mesh, rank, f32, SERVE_B, SERVE_PROMPT,
+                     TP_F32_NEW, SERVE_SEED)
+    out = {f"f32_{k}": v for k, v in twin.items()}
+    if rank == 0 and not (twin["tokens_equal"]
+                          and twin["row_rel"] <= TP_F32_ROW_REL):
+        raise AssertionError(f"26(a) f32 on the mesh against meshless: "
+                             f"{out}")
     out["f32_s"] = time.perf_counter() - t0
     cfg = configs.get_config(SERVE_ARCH, attn_impl="flash")
+    prompts = random_prompts(cfg.vocab_size, SERVE_B, SERVE_PROMPT,
+                             torch.Generator(device="cuda").manual_seed(
+                                 SERVE_SEED + 1))
     eng = ServingEngine(cfg, scfg, params=get_model(cfg).init(SERVE_SEED,
                                                              "cuda"),
                         device="cuda", mesh=mesh)
@@ -5304,7 +5383,7 @@ def tp_serve_llama(torch, mesh, rank, counts, flash_attention):
     try:
         for c in counts:
             c.launches = 0
-        tokens = eng.generate(prompts, SERVE_NEW)
+        tokens = eng.generate(prompts, TP_NEW)
         launches = {c.__name__: c.launches for c in counts}
     finally:
         attention.flash_attention = flash_attention
@@ -5312,7 +5391,7 @@ def tp_serve_llama(torch, mesh, rank, counts, flash_attention):
     out.update(launches=launches, heads=sorted(set(shapes)),
                bf16_s=time.perf_counter() - t0,
                ttft_s=st["prefill_s"],
-               decode_tps=SERVE_B * (SERVE_NEW - 1) / st["decode_s"],
+               decode_tps=SERVE_B * (TP_NEW - 1) / st["decode_s"],
                peak_gib=(torch.cuda.max_memory_allocated() - base) / 2**30,
                finite=st["logits_finite"], tokens_shape=list(tokens.shape))
     want_heads = [(cfg.n_heads // TP_WORLD, cfg.n_kv_heads // TP_WORLD)]
@@ -5524,11 +5603,15 @@ def tp_experts(torch, mesh, rank, counts, flash_attention):
     return out
 
 
-def tp_rank(rank, init_file, out_dir):
-    """One rank of phase 26 (a spawned process): joins the gloo group
-    (``file://`` rendezvous), builds the (1, 2) mesh on the card, runs
-    (a)-(c) and writes ``rank<r>.json``: each part's numbers and wall, or
-    the traceback that stopped it."""
+def rank_main(rank, init_file, out_dir, tag, timeout_s, parts):
+    """One rank of a two-process phase (a spawned process): joins the gloo
+    group (``file://`` rendezvous), builds the (1, 2) mesh on the card,
+    runs each part ``(key, fn(torch, mesh, rank, counts))`` in turn and
+    writes ``rank<r>.json``: each part's numbers and wall, or the
+    traceback that stopped it, and when this function began
+    (``entry``, the host's clock) and the seconds it took to reach the
+    first part (``setup_s``: torch, the group, the mesh)."""
+    entry = time.time()
     import datetime
     import faulthandler
     import traceback
@@ -5543,23 +5626,19 @@ def tp_rank(rank, init_file, out_dir):
               queue_scan)
     torch.backends.cuda.matmul.allow_tf32 = False
     faulthandler.enable()       # a crash shows its Python stack on stderr
-    result = {"walls": {}}
+    result = {"walls": {}, "entry": entry}
     try:
         dist.init_process_group(
             "gloo", init_method=f"file://{init_file}", rank=rank,
             world_size=TP_WORLD,
-            timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
+            timeout=datetime.timedelta(seconds=timeout_s))
         mesh = make_mesh((1, TP_WORLD), ("data", "model"), "cuda")
-        for key, fn in (
-                ("a", lambda: tp_serve_llama(torch, mesh, rank, counts,
-                                             flash_attention)),
-                ("b", lambda: tp_train_llama(torch, mesh, rank)),
-                ("c", lambda: tp_experts(torch, mesh, rank, counts,
-                                         flash_attention))):
+        result["setup_s"] = time.time() - entry
+        for key, fn in parts:
             t0 = time.perf_counter()
-            result[key] = fn()
+            result[key] = fn(torch, mesh, rank, counts)
             result["walls"][key] = time.perf_counter() - t0
-            print(f"chip_smoke: phase 26 rank {rank}: ({key}) done in "
+            print(f"chip_smoke: phase {tag} rank {rank}: ({key}) done in "
                   f"{result['walls'][key]:.1f} s", file=sys.stderr,
                   flush=True)
     except BaseException:
@@ -5571,24 +5650,36 @@ def tp_rank(rank, init_file, out_dir):
             dist.destroy_process_group()
 
 
-def phase_tp(torch, flash_attention):
-    """Phase 26 within ``TP_BUDGET_S``: the two ranks in spawned
-    processes, joined under ``TP_TIMEOUT_S`` (a rank still running then is
-    killed and the phase fails). Returns rank 0's flash launches on (a)'s
-    bf16 generation and its record on that path."""
+def tp_rank(rank, init_file, out_dir):
+    """One rank of phase 26: (a)-(c)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    rank_main(rank, init_file, out_dir, "26", TP_TIMEOUT_S, (
+        ("a", lambda torch, mesh, r, counts: tp_serve_llama(
+            torch, mesh, r, counts, flash_attention)),
+        ("b", lambda torch, mesh, r, counts: tp_train_llama(torch, mesh, r)),
+        ("c", lambda torch, mesh, r, counts: tp_experts(
+            torch, mesh, r, counts, flash_attention))))
+
+
+def run_ranks(torch, target, timeout_s, tag):
+    """``target(rank, init_file, out_dir)`` in ``TP_WORLD`` spawned
+    processes, joined under ``timeout_s`` (a rank still running then is
+    killed and the phase fails): each rank's ``rank<r>.json``, with
+    ``spawn_s``, the seconds from the spawn to ``rank_main``'s start.
+    Raises on a rank that hung, exited other than 0 or recorded an
+    error."""
     import multiprocessing
     import tempfile
-    card = card_line()
-    t26 = time.perf_counter()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     ctx = multiprocessing.get_context("spawn")
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as d:
-        procs = [ctx.Process(target=tp_rank, args=(
+    with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{tag}_") as d:
+        procs = [ctx.Process(target=target, args=(
             r, os.path.join(d, "rendezvous"), d)) for r in range(TP_WORLD)]
+        spawned = time.time()
         for p in procs:
             p.start()
-        deadline = time.monotonic() + TP_TIMEOUT_S
+        deadline = time.monotonic() + timeout_s
         for p in procs:
             p.join(max(deadline - time.monotonic(), 0.0))
         hung = [p for p in procs if p.is_alive()]
@@ -5601,13 +5692,36 @@ def phase_tp(torch, flash_attention):
             results.append(json.load(open(path)) if os.path.exists(path)
                            else {"error": f"rank {r} wrote no result"})
     if hung:
-        raise AssertionError(f"26: {len(hung)} of {TP_WORLD} ranks still ran "
-                             f"after {TP_TIMEOUT_S:g} s: {results}")
+        raise AssertionError(f"{tag}: {len(hung)} of {TP_WORLD} ranks still "
+                             f"ran after {timeout_s:g} s: {results}")
     bad = [f"rank {r} (exit {p.exitcode}):\n{res.get('error')}"
            for r, (p, res) in enumerate(zip(procs, results))
            if "error" in res or p.exitcode != 0]
     if bad:
-        raise AssertionError("26 " + "\n".join(bad))
+        raise AssertionError(f"{tag} " + "\n".join(bad))
+    for res in results:
+        res["spawn_s"] = res["entry"] - spawned
+    return results
+
+
+def log_rank_setup(tag, results, wall):
+    """Where a two-process phase's wall went besides its parts: each
+    rank's spawn (to ``rank_main``'s start) and set-up (torch, the group,
+    the mesh), and its parts' sum."""
+    log(f"[{tag}] set-up: " + "; ".join(
+        f"rank {r} spawned in {res['spawn_s']:.1f} s, torch, group and "
+        f"mesh {res['setup_s']:.1f} s, parts {sum(res['walls'].values()):.1f}"
+        f" s" for r, res in enumerate(results)) + f" (the phase {wall:.1f} s)")
+
+
+def phase_tp(torch, flash_attention):
+    """Phase 26 within ``TP_BUDGET_S``: the two ranks in spawned
+    processes, joined under ``TP_TIMEOUT_S`` (a rank still running then is
+    killed and the phase fails). Returns rank 0's flash launches on (a)'s
+    bf16 generation and its record on that path."""
+    card = card_line()
+    t26 = time.perf_counter()
+    results = run_ranks(torch, tp_rank, TP_TIMEOUT_S, "26")
     for r, res in enumerate(results):
         a, b, c = res["a"], res["b"], res["c"]
         f32 = (f"the meshless engine's greedy tokens picked at every step, "
@@ -5616,7 +5730,8 @@ def phase_tp(torch, flash_attention):
                f"{TP_F32_ROW_REL:g})" if r == 0 else "held on rank 0")
         log(f"[26] (a) rank {r}: {SERVE_ARCH} at full width on the (1, "
             f"{TP_WORLD}) mesh over gloo, {SERVE_B} x {SERVE_PROMPT} prompts, "
-            f"{SERVE_NEW} new tokens; f32 ({a['f32_s']:.1f} s): {f32}; bf16 "
+            f"{TP_NEW} new tokens; f32 ({TP_F32_NEW} new, "
+            f"{a['f32_s']:.1f} s): {f32}; bf16 "
             f"({a['bf16_s']:.1f} s): time to first token "
             f"{a['ttft_s']:.4f} s, decode {a['decode_tps']:.1f} tokens/s, "
             f"peak {a['peak_gib']:.2f} GiB above the baseline, launches "
@@ -5649,11 +5764,249 @@ def phase_tp(torch, flash_attention):
         "two processes on one card): these times are this harness's, not "
         "tensor parallelism's over NVLink")
     wall = time.perf_counter() - t26
+    log_rank_setup("26", results, wall)
     within = "within" if wall <= TP_BUDGET_S else "OVER"
     log(f"[26] phase 26 in {wall:.1f} s ({within} its {TP_BUDGET_S:g} s "
         f"budget); card: {card}")
     a0 = results[0]["a"]
     return a0["launches"][flash_attention.__name__], a0["flash"]
+
+
+def mesh_inputs(torch, cfg, batch, prompt, seed):
+    """``batch`` prompts of ``prompt`` tokens and the ``ctx`` a family takes
+    (the VLM's patches, the encoder-decoder's frames), from ``seed + 1``."""
+    from repro_torch.launch.serve import random_ctx, random_prompts
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    prompts = random_prompts(cfg.vocab_size, batch, prompt, gen)
+    return prompts, random_ctx(cfg, batch, gen)
+
+
+def mesh_twin(torch, mesh, rank, cfg, batch, prompt, new, seed):
+    """The f32 twin of phases 26(a) and 27 on this rank: ``cfg``'s weights
+    from ``seed`` (the xLSTM's sLSTM ``r`` at 1 / sqrt(hd):
+    ``rescale_slstm_r``), the meshless engine's ``new`` greedy tokens and
+    its logits on rank 0 (both ranks hold every row), broadcast; the mesh
+    engine fed those tokens (teacher-forced) must pick the same token at
+    every step, so its own greedy run gives the same tokens. On rank 0:
+    ``tokens_equal`` and the largest ``row_rel`` of the logits over the
+    vocabulary's columns (a padded head's -1e30 would swamp the rows'
+    norms). The cache's length, ``prompt + new``, must be one the 'model'
+    axis divides (the sequence splits into ``CacheBlock``s)."""
+    import torch.distributed as dist
+    from repro_torch.models.transformer import get_model
+    from repro_torch.serving.engine import ServeConfig, ServingEngine
+    scfg = ServeConfig(batch=batch, max_len=prompt + new)
+    params = get_model(cfg).init(seed, "cuda")
+    if cfg.family == "ssm":
+        # with the reference's 1 / sqrt(H) the f32 model is chaotic: a
+        # 1e-7 nudge of its weights moves its logits 0.7 of a row's norm
+        # by 128 tokens, 1.6e-05 at 1 / sqrt(hd)
+        rescale_slstm_r(torch, params, cfg)
+    prompts, ctx = mesh_inputs(torch, cfg, batch, prompt, seed)
+    tok = torch.empty((batch, new), dtype=torch.int32, device="cuda")
+    if rank == 0:
+        eng = ServingEngine(cfg, scfg, params=params, device="cuda")
+        tokens = eng.generate(prompts, new, ctx=ctx)
+        want = teacher_forced(torch, eng, prompts, tokens, prompt, ctx)
+        del eng
+        tok.copy_(torch.from_numpy(tokens))
+    dist.broadcast(tok, 0)
+    tokens = tok.cpu().numpy()
+    eng = ServingEngine(cfg, scfg, params=params, device="cuda", mesh=mesh)
+    got = teacher_forced(torch, eng, prompts, tokens, prompt, ctx)
+    del eng, params
+    out = {}
+    if rank == 0:
+        v = cfg.vocab_size
+        out = dict(tokens_equal=bool((got.argmax(-1).cpu().numpy()
+                                      == tokens).all()),
+                   row_rel=row_rel(got[..., :v], want[..., :v]))
+        del want
+    del got
+    torch.cuda.empty_cache()
+    return out
+
+
+def tpl_serve(torch, mesh, rank, counts, cfg, prompt, taps):
+    """27's bf16 run of ``cfg`` on this rank: each rank's blocks drawn
+    straight on the card (``tp_random_params``), 2 tokens to warm up, then
+    ``TPL_NEW`` (the hybrid ``TPL_HYB_NEW``) with every kernel count set
+    to 0 just before and read just
+    after, through ``taps`` (``(module, name, CallTap)``: the kernel
+    wrappers the model calls, keeping layer 0's inputs); the time to first
+    token, decode tokens/s, peak GiB above the baseline and, for the
+    encoder-decoder, its encoder's share of the time to first token."""
+    from repro_torch.models.transformer import get_model
+    from repro_torch.serving.engine import ServeConfig, ServingEngine
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    new = TPL_HYB_NEW if cfg.family == "hybrid" else TPL_NEW
+    params = tp_random_params(torch, cfg, mesh, TPL_SEED)
+    prompts, ctx = mesh_inputs(torch, cfg, TPL_B, prompt, TPL_SEED)
+    eng = ServingEngine(cfg, ServeConfig(batch=TPL_B,
+                                         max_len=prompt + new),
+                        params=params, device="cuda", mesh=mesh)
+    del params
+    eng.generate(prompts, 2, ctx=ctx)
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in taps]
+    for mod, name, tap in taps:
+        setattr(mod, name, tap)
+    try:
+        for c in counts:
+            c.launches = 0
+        tokens = eng.generate(prompts, new, ctx=ctx)
+        launches = {c.__name__: c.launches for c in counts}
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    st = eng.last_stats
+    out = dict(ttft_s=st["prefill_s"],
+               new=new, decode_tps=TPL_B * (new - 1) / st["decode_s"],
+               peak_gib=(torch.cuda.max_memory_allocated() - base) / 2**30,
+               finite=st["logits_finite"], launches=launches,
+               in_vocab=bool(((tokens >= 0)
+                              & (tokens < cfg.vocab_size)).all()))
+    if cfg.family == "audio":
+        ms = eng._mesh.bind()
+        model = get_model(cfg)
+        # warm: the engine's prefills have just run the encoder on ctx
+        with torch.no_grad(), ms.context():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.encode(eng.params, ctx)
+            torch.cuda.synchronize()
+        out["encoder_s"] = time.perf_counter() - t0
+        out["encoder_share"] = out["encoder_s"] / out["ttft_s"]
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def tpl_case(torch, mesh, rank, counts, name, arch, over):
+    """27's case ``name``: ``arch`` with ``over`` at full width (depth cut by
+    ``TPL_LAYERS``), the f32 twin then the bf16 run, each checked; rank 0
+    also holds the kernels its layer-0 inputs reached against their plain
+    versions and times them (``mamba2_scan`` on its local heads, flash on
+    the shared attention's or the decoder's)."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.mamba2_scan import mamba2_scan
+    from repro_torch.models import attention, ssm
+    cfg = configs.get_config(arch, **TPL_LAYERS.get(arch, {}), **over)
+    prompt = TPL_XLSTM_PROMPT if cfg.family == "ssm" else TPL_PROMPT
+    f32 = dataclasses.replace(
+        cfg, param_dtype="float32", compute_dtype="float32",
+        **({"n_layers": TPL_HYB_TWIN_LAYERS} if cfg.family == "hybrid"
+           else {}))
+    t0 = time.perf_counter()
+    out = {"twin": mesh_twin(torch, mesh, rank, f32, TPL_B, prompt,
+                             TPL_F32_NEW, TPL_SEED)}
+    out["twin_s"] = time.perf_counter() - t0
+    if rank == 0 and not (out["twin"]["tokens_equal"]
+                          and out["twin"]["row_rel"] <= TP_F32_ROW_REL):
+        raise AssertionError(f"27 {name} f32 on the mesh against meshless: "
+                             f"{out['twin']}")
+    ftap, stap = CallTap(flash_attention), CallTap(mamba2_scan)
+    taps = [(attention, "flash_attention", ftap), (ssm, "mamba2_scan", stap)]
+    out.update(tpl_serve(torch, mesh, rank, counts, cfg, prompt, taps))
+    want = {c.__name__: 0 for c in counts}
+    if cfg.attn_impl == "flash":
+        want["flash_attention"] = (cfg.n_layers // cfg.attn_every
+                                   if cfg.family == "hybrid"
+                                   else cfg.n_dec_layers)
+    if cfg.ssm_impl == "mamba_kernel":
+        want["mamba2_scan"] = cfg.n_layers
+        out["ssd_x"] = list(stap.kept[0].shape)
+    if ftap.kept is not None:
+        out["flash_q"] = list(ftap.kept[0].shape)
+        out["flash_kv"] = list(ftap.kept[1].shape)
+    heads = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
+    if out["launches"] != want or not (out["finite"] and out["in_vocab"]) \
+            or ("ssd_x" in out and out["ssd_x"][2] != heads // TP_WORLD):
+        raise AssertionError(f"27 {name} bf16 on the mesh, rank {rank}: "
+                             f"{out}, launches wanted {want}")
+    if rank == 0:
+        where = f"on layer 0's local heads of {arch}'s prefill on the " \
+                f"(1, {TP_WORLD}) mesh, rank 0"
+        if stap.kept is not None:
+            out["ssd"] = time_ssd(torch, mamba2_scan, stap.kept, 27, where)
+        if ftap.kept is not None:
+            out["flash"] = time_flash(torch, flash_attention, ftap.kept, 27,
+                                      where)
+    # the other rank waits here, so that it does not share the card with
+    # the timing
+    dist.barrier()
+    del ftap, stap
+    torch.cuda.empty_cache()
+    return out
+
+
+def tpl_rank(rank, init_file, out_dir):
+    """One rank of phase 27: each of ``TPL_CASES``."""
+    rank_main(rank, init_file, out_dir, "27", TP_LAYERS_TIMEOUT_S, [
+        (name, lambda torch, mesh, r, counts, name=name, arch=arch,
+         over=over: tpl_case(torch, mesh, r, counts, name, arch, over))
+        for name, arch, over in TPL_CASES])
+
+
+def phase_tp_layers(torch):
+    """Phase 27 within ``TP_LAYERS_BUDGET_S``: the two ranks of
+    ``tpl_rank`` in spawned processes, joined under
+    ``TP_LAYERS_TIMEOUT_S``. Returns rank 0's kernel records on the paths
+    it timed: ``{"ssd": (launches, rec), "flash": [(path, launches,
+    rec), ...]}``."""
+    card = card_line()
+    t27 = time.perf_counter()
+    results = run_ranks(torch, tpl_rank, TP_LAYERS_TIMEOUT_S, "27")
+    for r, res in enumerate(results):
+        for name, arch, _ in TPL_CASES:
+            c = res[name]
+            twin = (f"f32 ({TPL_F32_NEW} new, {c['twin_s']:.1f} s) picks the "
+                    f"meshless engine's "
+                    f"greedy tokens, logits within "
+                    f"{c['twin']['row_rel']:.3g} of each row's norm (tol "
+                    f"{TP_F32_ROW_REL:g})" if r == 0 else "f32 held on "
+                    "rank 0")
+            extra = ""
+            if "ssd_x" in c:
+                extra += f", mamba2_scan on x {c['ssd_x']} (this rank's heads)"
+            if "flash_q" in c:
+                extra += (f", flash on q {c['flash_q']}, k/v "
+                          f"{c['flash_kv']}")
+            if "encoder_s" in c:
+                extra += (f", the encoder alone {c['encoder_s']:.4f} s, "
+                          f"{100 * c['encoder_share']:.1f} % of the time to "
+                          "first token")
+            prompt = TPL_XLSTM_PROMPT if arch == "xlstm-125m" else TPL_PROMPT
+            log(f"[27] {name} rank {r}: {arch} at full width"
+                f"{' (' + str(TPL_LAYERS[arch]) + ')' if arch in TPL_LAYERS else ''}"
+                f" on the (1, {TP_WORLD}) mesh over gloo, {TPL_B} x {prompt} "
+                f"prompts, {c['new']} new tokens; {twin}; bf16: time to first "
+                f"token {c['ttft_s']:.4f} s, decode {c['decode_tps']:.1f} "
+                f"tokens/s, peak {c['peak_gib']:.2f} GiB above the baseline, "
+                f"launches {c['launches']}{extra} ({res['walls'][name]:.1f} "
+                "s)")
+    log("[27] the collectives pass through the host (gloo on CUDA tensors, "
+        "two processes on one card): these times are this harness's, not "
+        "tensor parallelism's over NVLink")
+    wall = time.perf_counter() - t27
+    log_rank_setup("27", results, wall)
+    within = "within" if wall <= TP_LAYERS_BUDGET_S else "OVER"
+    log(f"[27] phase 27 in {wall:.1f} s ({within} its "
+        f"{TP_LAYERS_BUDGET_S:g} s budget); card: {card}")
+    r0 = results[0]
+    hyb, sea = r0["hybrid"], r0["seamless"]
+    return {"ssd": (hyb["launches"]["mamba2_scan"], hyb["ssd"]),
+            "flash": [
+                (f"{HYB_ARCH} shared attention on the (1, {TP_WORLD}) mesh, "
+                 "rank 0's heads", hyb["launches"]["flash_attention"],
+                 hyb["flash"]),
+                (f"seamless-m4t-large-v2 decoder self-attention on the (1, "
+                 f"{TP_WORLD}) mesh, rank 0's heads",
+                 sea["launches"]["flash_attention"], sea["flash"])]}
 
 
 def both_paths(paths, keys=("ms", "plain_ms", "bound_ms", "library_ms")):
@@ -5823,6 +6176,8 @@ def main() -> int:
         clock.lap("25")
         tp_launches, tp_frec = phase_tp(torch, flash_attention)
         clock.lap("26")
+        tpl = phase_tp_layers(torch)
+        clock.lap("27")
     finally:
         if cells is not None:
             cells.close()
@@ -5844,8 +6199,8 @@ def main() -> int:
         replaces="src/repro/kernels/flash_attention.py:25",
         max_abs_err=max(flash_grid_err, frec["max_abs_err"],
                         hfrec["max_abs_err"], hserve_flash_err,
-                        *(rec["max_abs_err"]
-                          for _, _, rec in dense_paths + cross_paths),
+                        *(rec["max_abs_err"] for _, _, rec in
+                          dense_paths + cross_paths + tpl["flash"]),
                         moe_path[2]["max_abs_err"], mesh_frec["max_abs_err"],
                         tp_frec["max_abs_err"]),
         **both_paths([("llama prefill", flash_launches, frec),
@@ -5854,7 +6209,7 @@ def main() -> int:
                      + [("llama prefill on the (1, 1) mesh", mesh_launches,
                          mesh_frec),
                         ("llama prefill on the (1, 2) mesh, rank 0's heads",
-                         tp_launches, tp_frec)])),
+                         tp_launches, tp_frec)] + tpl["flash"])),
         dict(
         name="gmm_logpdf", route="cuda",
         source="src/repro_torch/kernels/csrc/gmm_logpdf.cu",
@@ -5867,11 +6222,13 @@ def main() -> int:
         name="mamba2_scan", route="cuda",
         source="src/repro_torch/kernels/csrc/mamba2_scan.cu",
         replaces="src/repro/kernels/mamba2_scan.py:22",
-        launches=hyb["ssd_launches"],
-        max_abs_err=max(ssd_grid_err, srec["max_abs_err"]),
-        ms=srec["ms"], cuda_core_ms=srec["cuda_core_ms"],
-        plain_ms=srec["plain_ms"], bound_ms=srec["bound_ms"],
-        bound_by=srec["bound_by"], library_ms=None), dict(
+        max_abs_err=max(ssd_grid_err, srec["max_abs_err"],
+                        tpl["ssd"][1]["max_abs_err"]),
+        **both_paths([("hybrid forward", hyb["ssd_launches"], srec),
+                      (f"{HYB_ARCH} prefill on the (1, 2) mesh, rank 0's "
+                       "heads", *tpl["ssd"])],
+                     keys=("ms", "cuda_core_ms", "plain_ms", "bound_ms")),
+        library_ms=None), dict(
         name="queue_scan", route="cuda",
         source="src/repro_torch/kernels/csrc/queue_scan.cu",
         replaces="src/repro/kernels/queue_scan.py:65",

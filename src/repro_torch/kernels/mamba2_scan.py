@@ -51,6 +51,19 @@ def kernel_route(dtype: torch.dtype, P: int, N: int, chunk: int) -> str:
     return "cuda_cores"
 
 
+def kernel_takes(dtype: torch.dtype, S: int, P: int, N: int,
+                 chunk: int) -> bool:
+    """Whether the kernel takes inputs of ``dtype`` over ``S`` steps at head
+    dim ``P``, state size ``N`` and the scan chunk ``chunk`` (used as
+    ``min(chunk, S)``, which must divide S): what a CUDA call accepts, the
+    layout and alignment aside. A caller that can choose between the kernel
+    and the plain scan asks here."""
+    c = min(chunk, S)
+    return (dtype in KERNEL_DTYPES and c >= 1 and S % c == 0
+            and c % 4 == 0 and c <= MAX_CHUNK and P % 4 == 0
+            and P <= MAX_HEAD_DIM and N % 4 == 0 and N <= MAX_STATE)
+
+
 def _check(x, dt, A, Bm, Cm, chunk) -> int:
     """Validates shapes, types and devices; returns the chunk the scan uses
     (``min(chunk, S)``, as the reference)."""
@@ -102,8 +115,7 @@ def mamba2_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             raise TypeError(f"{name} is {t.dtype}, x is {x.dtype}")
     if A.dtype != torch.float32:
         raise TypeError(f"A must be float32, got {A.dtype}")
-    if not (P % 4 == 0 and P <= MAX_HEAD_DIM and N % 4 == 0
-            and N <= MAX_STATE and chunk % 4 == 0 and chunk <= MAX_CHUNK):
+    if not kernel_takes(x.dtype, S, P, N, chunk):
         raise ValueError(
             f"the kernel takes P and N that are multiples of 4 up to "
             f"{MAX_HEAD_DIM} and chunks that are multiples of 4 up to "

@@ -71,31 +71,34 @@ reference's rules and ``serving.engine``'s ``make_prefill_step`` /
 operation on a DTensor at its global shape, so only plain local tensors
 are computed on: the parameters become what rank 0 computes on
 (:func:`~repro_torch.parallel.sharding.local_params`: gathered over the
-DP axes, a leaf of a tensor- or expert-parallel layer kept in its 'model'
-block, any other gathered whole) in a part of the count that tallies
-collectives only, then rank 0's rows run. What changes:
+DP axes, a leaf the reference splits over 'model' kept in its 'model'
+block) in a part of the count that tallies collectives only, then rank
+0's rows run. What changes:
 
 - ``n_devices`` 256 / 512; ``memory.argument_size_in_bytes`` rank 0's
   blocks of the parameters, the optimizer state and the batch rows, or of
   the parameters, the token rows and the cache blocks;
 - ``flops_per_device`` and ``bytes_accessed_per_device``: rank 0's share.
-  Its rows are the batch over the DP size; the GQA attention runs on its
-  heads (where 'model' divides them: not llama4's 40 on 16), the MLPs on
-  its mlp block, the head and loss on its vocabulary block and a MoE
-  layer on its experts, so these layers' FLOPs fall by the 'model' size
-  as well; MLA, the Mamba and xLSTM blocks, cross-attention and the
-  encoder run whole on the rank's rows. A MoE layer routes the global
-  batch, as the reference's does: each rank's expert buffer holds
+  Its rows are the batch over the DP size, and every layer runs on its
+  'model' block wherever the reference's rules split its leaves (GQA,
+  MLA and cross-attention on its heads, the encoder, the MLPs on its mlp
+  block, the head and loss on its vocabulary block, a MoE layer on its
+  experts, the Mamba mixer and the xLSTM cells on their heads; not
+  llama4's 40 heads or the xLSTM's 4 on 16, which stay whole), so these
+  layers' FLOPs fall by the 'model' size as well. A MoE layer routes the
+  global batch, as the reference's does: each rank's expert buffer holds
   ``min(capacity, local tokens)`` rows;
 - ``collectives``: the reference's five categories (``all-gather``,
   ``all-reduce``, ``reduce-scatter``, ``all-to-all``,
   ``collective-permute``) as ``{bytes, count}``, by the reference's rule:
   per collective the bytes of the largest tensor among its arguments and
-  results, c10d and functional collectives alike: the parameters' DP and
-  whole-leaf gathers, the layers' all-reduces over 'model' (forward, and
-  backward to train), the decode's query/key/value and logits gathers,
-  the sequence blocks' combine and the gradients' DP all-reduces. They are
-  kept out of the FLOP and byte counts.
+  results, c10d and functional collectives alike: the parameters' DP
+  gathers, the layers' all-reduces over 'model' (forward, and backward to
+  train), the decode's query/key/value (MLA: query, and plain ``wkv_b``)
+  and logits gathers, the Mamba mixer's projection and conv-leaf
+  gathers, the sLSTM's heads' gather, the cache moves, the sequence
+  blocks' combine and the gradients' DP all-reduces. They are kept out of
+  the FLOP and byte counts.
 
 Cells go to ``<root>/dryrun_torch/<mesh>/`` (``root``: the repository's
 ``artifacts/``), a directory the reference never globs.

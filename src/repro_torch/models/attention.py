@@ -33,8 +33,11 @@ Tensor parallelism: where its leaves are this rank's 'model' blocks,
 ``wq`` column-parallel, ``wo`` row-parallel, ``wk``/``wv`` this rank's
 blocks or, where the KV heads do not split, whole (the query heads attend
 the KV heads they use). The prefill runs the flash kernel on the local
-heads; the cache keeps every head. MLA and cross-attention take their
-weights whole.
+heads; the cache keeps every head. :func:`apply_mla` splits its heads
+the same way (its latents have no head dim, so its cache is written whole
+and decode combines every head over the rank's sequence block), and
+:func:`apply_cross` as :func:`apply_gqa` with no mask, its cross cache
+kept as this rank's KV heads.
 """
 from __future__ import annotations
 
@@ -315,7 +318,8 @@ def apply_mla(p: dict, x: torch.Tensor, *, positions: torch.Tensor,
               kv_rank: int = 512, rope_theta: float = 10000.0,
               cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
               cache_pos: int = 0, absorbed: bool = False,
-              impl: str = "xla", q_chunk: int = -1):
+              impl: str = "xla", q_chunk: int = -1,
+              n_heads: Optional[int] = None):
     """Multi-head Latent Attention. The cache holds ``(c_kv [B, Smax,
     kv_rank], k_rope [B, Smax, d_rope])``, written in place at
     ``cache_pos``. Returns (out, cache).
@@ -324,11 +328,29 @@ def apply_mla(p: dict, x: torch.Tensor, *, positions: torch.Tensor,
     paper's compute). ``absorbed=True`` folds ``wkv_b`` into the query and
     output projections, so attention runs in the latent space and never
     materialises K/V. The q and kv norms take ``rms_norm``'s default eps,
-    as the reference's do."""
+    as the reference's do.
+
+    ``n_heads``: the global head count (default: the weights'). Where
+    ``wq_b`` holds this rank's 'model' block of the heads
+    (:func:`~repro_torch.parallel.sharding.layer_group`), so do ``wkv_b``
+    and ``wo``, and the heads run split: ``wq_a``, ``wkv_a`` and the norms
+    are whole, the latents ``q_lat``, ``c_kv`` and ``k_rope`` feed this
+    rank's heads (their gradient summed over the group) and ``wo`` is
+    row-parallel. The prefill attends this rank's heads (their K/V
+    expanded from the latents, or ``wkv_b``'s block folded in); the latent
+    cache has no head dim, so it is written whole (this rank's sequence
+    block under a :class:`~repro_torch.parallel.sharding.CacheBlock`).
+    Decode over a cache block, as :func:`apply_gqa`'s: the new token's
+    queries of every head are all-gathered (absorbed: ``q_nope`` folded
+    into the latent, with ``q_rope``; plain: ``q`` and, to expand every
+    head's K/V over the block, ``wkv_b``), every head attends this rank's
+    sequence block, the blocks' partial softmaxes are combined across
+    'model', and this rank's heads go on to ``wo``."""
     B, S, _ = x.shape
-    H = p["wq_b"].shape[1]
+    h_loc = p["wq_b"].shape[1]
+    mg = Sh.layer_group(h_loc, n_heads or h_loc)
     q_lat = rms_norm(einsum("bsd,dr->bsr", x, p["wq_a"]), p["q_norm"])
-    q = einsum("bsr,rhk->bshk", q_lat, p["wq_b"])
+    q = einsum("bsr,rhk->bshk", Sh.to_model(q_lat, mg), p["wq_b"])
     q_nope, q_rope = q[..., :d_nope], q[..., d_nope:]
     q_rope = apply_rope(q_rope, positions, rope_theta)
 
@@ -348,8 +370,12 @@ def apply_mla(p: dict, x: torch.Tensor, *, positions: torch.Tensor,
             c_all, r_all = cc, cr
             valid = torch.full((B,), cache_pos + S, dtype=torch.int32,
                                device=x.device)
+    # the latents feed this rank's heads: their gradient summed over 'model'
+    c_all, r_all = Sh.to_model(c_all, mg), Sh.to_model(r_all, mg)
 
     blk = current_cache_block() if valid is not None else None
+    # decode over a cache block on split heads: every head attends the block
+    spread = mg is not None and blk is not None
     if absorbed:
         scale = float(1.0 / torch.sqrt(torch.tensor(d_nope + d_rope,
                                                     dtype=torch.float32)))
@@ -357,6 +383,12 @@ def apply_mla(p: dict, x: torch.Tensor, *, positions: torch.Tensor,
         wk_b = p["wkv_b"][..., :d_nope]                 # [r, H, d_nope]
         wv_b = p["wkv_b"][..., d_nope:]                 # [r, H, d_v]
         q_eff = einsum("bshk,rhk->bshr", q_nope, wk_b)
+        if spread:
+            # q_rope is at most q_eff's width: the round trip is exact
+            qq = mg.all_gather(torch.cat([q_eff, q_rope.to(q_eff.dtype)],
+                                         dim=-1), 2)
+            r = q_eff.shape[-1]
+            q_eff, q_rope = qq[..., :r], qq[..., r:].to(q_rope.dtype)
         s_nope = einsum("bshr,btr->bhst", q_eff, c_all)
         s_rope = einsum("bshk,btk->bhst", q_rope, r_all)
         scores = (s_nope + s_rope).float() * scale
@@ -369,6 +401,8 @@ def apply_mla(p: dict, x: torch.Tensor, *, positions: torch.Tensor,
             ctx_part = einsum("bhst,btr->bhsr", pr.to(x.dtype), c_all)
             ctx_lat = blk.combine(m, l, ctx_part.float()).to(
                 x.dtype).transpose(1, 2)
+            if spread:
+                ctx_lat = ctx_lat[:, :, mg.block(h_loc * mg.size)]
         else:
             mask = positions[:, None] >= kv_idx[None, :]
             scores = scores.masked_fill(~mask[None, None], _NEG)
@@ -379,15 +413,22 @@ def apply_mla(p: dict, x: torch.Tensor, *, positions: torch.Tensor,
             ctx_lat = einsum("bhst,btr->bshr", probs, c_all)
         out = einsum("bshr,rhv->bshv", ctx_lat, wv_b)
     else:
-        kv = einsum("btr,rhk->bthk", c_all, p["wkv_b"])
+        wkv_b = p["wkv_b"]
+        q_full = torch.cat([q_nope, q_rope], dim=-1)
+        if spread:
+            wkv_b = mg.all_gather(wkv_b, 1)
+            q_full = mg.all_gather(q_full, 2)
+        kv = einsum("btr,rhk->bthk", c_all, wkv_b)
         k_nope, v = kv[..., :d_nope], kv[..., d_nope:]
+        H = kv.shape[2]
         k_full = torch.cat([k_nope, r_all[:, :, None, :].expand(
             *r_all.shape[:2], H, d_rope).to(k_nope.dtype)], dim=-1)
-        q_full = torch.cat([q_nope, q_rope], dim=-1)
         out = sdpa(q_full, k_full, v, causal=True, q_positions=positions,
                    kv_valid_len=valid, impl=impl, q_chunk=q_chunk)
+        if spread:
+            out = out[:, :, mg.block(H)]
     y = einsum("bshv,hvd->bsd", out, p["wo"])
-    return y, cache
+    return Sh.from_model(y, mg), cache
 
 
 # ---------------------------------------------------------------------------
@@ -408,18 +449,40 @@ def init_cross(gen: torch.Generator, d_model: int, n_heads: int, n_kv: int,
 def apply_cross(p: dict, x: torch.Tensor, ctx: Optional[torch.Tensor] = None,
                 *, kv_cache: Optional[Tuple[torch.Tensor,
                                             torch.Tensor]] = None,
-                impl: str = "xla", q_chunk: int = -1):
+                impl: str = "xla", q_chunk: int = -1,
+                n_heads: Optional[int] = None,
+                n_kv_heads: Optional[int] = None):
     """Cross-attention of ``x [B, S, D]`` over ``ctx [B, T, d_ctx]``: the
     K/V ``[B, T, Hkv, Dh]`` are projected from ``ctx``, or taken from
     ``kv_cache`` when one is passed (decode). Returns ``(y, (k, v))``; the
     caller keeps ``(k, v)`` as the layer's cache. Non-causal, so the plain
-    path under either ``impl``."""
-    q = einsum("bsd,dhk->bshk", x, p["wq"])
+    path under either ``impl``.
+
+    ``n_heads``, ``n_kv_heads``: the global head counts (default: the
+    weights'). Split as :func:`apply_gqa`, with no RoPE and no mask: where
+    ``wq`` holds this rank's 'model' block of the heads, ``wq`` is
+    column-parallel and ``wo`` row-parallel; ``wk``/``wv`` are this rank's
+    blocks of the KV heads or, where 'model' does not split them, whole
+    (the query heads attend the KV heads they use). The returned ``(k, v)``
+    are then this rank's KV heads (or every one), as the cache keeps them:
+    decode reads its own block and moves nothing."""
+    h_loc, kv_loc = p["wq"].shape[1], p["wk"].shape[1]
+    mg = Sh.layer_group(h_loc, n_heads or h_loc)
+    kv_mg = Sh.layer_group(kv_loc, n_kv_heads or kv_loc)
+    q = einsum("bsd,dhk->bshk", Sh.to_model(x, mg), p["wq"])
     if kv_cache is None:
-        k = einsum("btc,chk->bthk", ctx, p["wk"])
-        v = einsum("btc,chk->bthk", ctx, p["wv"])
+        c = Sh.to_model(ctx, kv_mg)
+        k = einsum("btc,chk->bthk", c, p["wk"])
+        v = einsum("btc,chk->bthk", c, p["wv"])
+        if kv_mg is None:
+            # whole K/V feeding this rank's query heads
+            k, v = Sh.to_model(k, mg), Sh.to_model(v, mg)
     else:
         k, v = kv_cache
-    out = sdpa(q, k, v, causal=False, impl=impl, q_chunk=q_chunk)
+    k_att, v_att = k, v
+    if mg is not None and kv_mg is None:
+        heads, _ = local_kv_heads(mg.index, h_loc, h_loc * mg.size // kv_loc)
+        k_att, v_att = k[:, :, heads], v[:, :, heads]
+    out = sdpa(q, k_att, v_att, causal=False, impl=impl, q_chunk=q_chunk)
     y = einsum("bshk,hkd->bsd", out, p["wo"])
-    return y, (k, v)
+    return Sh.from_model(y, mg), (k, v)

@@ -195,12 +195,21 @@ def layer(params: Params, i: int) -> Params:
 # ops
 # ---------------------------------------------------------------------------
 
-def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
-             eps: float = 1e-6) -> torch.Tensor:
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6, *,
+             mg: Optional["Sh.ModelGroup"] = None,
+             width: Optional[int] = None) -> torch.Tensor:
     """Normalised in f32 and cast back to x's dtype before the gamma
-    multiply, as the reference does."""
+    multiply, as the reference does. With a 'model' group ``mg``, ``x`` is
+    this rank's block of a last dim of ``width`` (a head-split layer's
+    output) and ``gamma`` that block's: the sum of squares is summed over
+    the group, forward and backward (each rank's block depends on every
+    rank's)."""
     x32 = x.float()
-    var = (x32 * x32).mean(dim=-1, keepdim=True)
+    if mg is None:
+        var = (x32 * x32).mean(dim=-1, keepdim=True)
+    else:
+        ss = (x32 * x32).sum(dim=-1, keepdim=True)
+        var = Sh.to_model(Sh.from_model(ss, mg), mg) / width
     return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * gamma
 
 

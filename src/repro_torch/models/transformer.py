@@ -84,6 +84,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels.mamba2_scan import kernel_takes
 from repro_torch.models import attention as A
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
@@ -92,7 +93,9 @@ from repro_torch.models.common import (Builder, cross_entropy_loss,
                                        embed_lookup, gelu_mlp, init_gelu_mlp,
                                        init_swiglu, layer, lm_head_logits,
                                        padded_vocab, rms_norm, stack_layers,
-                                       swiglu, tree_leaves, unstack)
+                                       swiglu, tree_items, tree_leaves,
+                                       unstack)
+from repro_torch.parallel import sharding as Sh
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
@@ -283,7 +286,9 @@ def _apply_attn_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     if cross:
         att, kv = A.apply_cross(p["attn"], h, ctx,
                                 kv_cache=cache if ctx is None else None,
-                                impl=cfg.attn_impl, q_chunk=cfg.attn_q_chunk)
+                                impl=cfg.attn_impl, q_chunk=cfg.attn_q_chunk,
+                                n_heads=cfg.n_heads,
+                                n_kv_heads=cfg.n_kv_heads)
         if cache is not None and ctx is not None:
             for dst, src in zip(cache, kv):
                 dst.copy_(src)
@@ -294,7 +299,7 @@ def _apply_attn_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
             d_rope=cfg.d_rope, d_v=cfg.d_v, kv_rank=cfg.kv_rank,
             rope_theta=cfg.rope_theta, cache=cache, cache_pos=cache_pos,
             absorbed=cfg.mla_absorbed, impl=cfg.attn_impl,
-            q_chunk=cfg.attn_q_chunk)
+            q_chunk=cfg.attn_q_chunk, n_heads=cfg.n_heads)
     else:
         att, new_cache = A.apply_gqa(
             p["attn"], h, positions=positions, rope_theta=cfg.rope_theta,
@@ -535,7 +540,9 @@ class DecoderLM:
         MoE super block ``{"dense": (k, v) [n, inner, ...], "moe": (k, v)
         [n, ...]}``, for a VLM super block ``{"selfs": (k, v) [n, inner,
         ...], "cross": (k, v) [n, B, n_ctx, Hkv, Dh]}`` (``n_ctx``: the
-        config's unless given)."""
+        config's unless given; under an installed 'model' group that splits
+        the KV heads, ``Hkv`` is this rank's share there,
+        :func:`~repro_torch.parallel.sharding.local_count`)."""
         c = self.cfg
         dev = resolve_device(device)
 
@@ -544,6 +551,7 @@ class DecoderLM:
                                      dtype=c.cdt, device=dev) for t in tail)
 
         kv = ((c.n_kv_heads, c.hd),) * 2
+        cross_kv = ((Sh.local_count(c.n_kv_heads), c.hd),) * 2
         cache: Dict[str, Any] = {}
         for si, (kind, n, inner) in enumerate(self.plan):
             if c.use_mla:
@@ -554,7 +562,7 @@ class DecoderLM:
             elif kind == "vlm_super":
                 cache[f"stage{si}"] = {
                     "selfs": mk(n, inner, tail=kv),
-                    "cross": mk(n, tail=kv, length=n_ctx or c.n_ctx)}
+                    "cross": mk(n, tail=cross_kv, length=n_ctx or c.n_ctx)}
             else:
                 cache[f"stage{si}"] = mk(n, tail=kv)
         return cache
@@ -608,6 +616,7 @@ class HybridSSM:
         self.cfg = cfg
         self.n_super = cfg.n_layers // cfg.attn_every
         self.n_tail = cfg.n_layers - self.n_super * cfg.attn_every
+        self.n_ssm_heads = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
 
     def _init_mamba(self, gen, dev) -> Tuple[dict, dict]:
         c = self.cfg
@@ -645,14 +654,17 @@ class HybridSSM:
         return _with_axes(b.done(), with_axes)
 
     # ---------------- the backbone
-    def _mamba(self, p, x, states=None, idx=()):
+    def _mamba(self, p, x, states=None, idx=(), fresh: bool = False):
         """One Mamba block with its residual. In cached mode its state is
-        ``states[k][idx]``, read and then overwritten in place."""
+        ``states[k][idx]``, read (as zero, not read, where ``fresh``: a
+        new cache's) and then overwritten in place."""
         c = self.cfg
-        st = None if states is None else {k: v[idx] for k, v in states.items()}
+        st = None if states is None else {
+            k: None if fresh else v[idx] for k, v in states.items()}
         y, ns = SSM.apply_mamba2(p, x, d_state=c.ssm_state,
                                  head_dim=c.ssm_head_dim, chunk=c.ssd_chunk,
-                                 state=st, impl=c.ssm_impl)
+                                 state=st, impl=c.ssm_impl,
+                                 n_heads=self.n_ssm_heads)
         if states is not None:
             for k, v in ns.items():
                 states[k][idx].copy_(v)
@@ -660,9 +672,17 @@ class HybridSSM:
 
     def _backbone(self, params, x, positions, *, states=None, kv=None,
                   pos: int = 0):
-        """``states``/``kv`` given: cached mode, both updated in place."""
+        """``states``/``kv`` given: cached mode, both updated in place. At
+        ``pos == 0`` (a prefill: the states are a new cache's zeros) a
+        prompt whose shapes the SSD kernel takes starts the Mamba blocks
+        from no state, so ``ssm_impl`` picks the route as for a full
+        sequence: under ``"mamba_kernel"`` the kernel, where the reference
+        reads its zero state and runs the plain scan (the same function).
+        Any other prompt reads the zeros, as the reference."""
         c = self.cfg
         cached = states is not None
+        fresh = cached and pos == 0 and kernel_takes(
+            c.cdt, x.shape[1], c.ssm_head_dim, c.ssm_state, c.ssd_chunk)
 
         def group(xx, i):
             """Super group ``i``: its Mamba blocks, then the shared
@@ -671,7 +691,7 @@ class HybridSSM:
             for j in range(c.attn_every):
                 xx = self._mamba(layer(sp, j), xx,
                                  states["supers"]["mamba"] if cached
-                                 else None, (i, j))
+                                 else None, (i, j), fresh)
             cache = (kv["shared"][0][i], kv["shared"][1][i]) if cached \
                 else None
             return _apply_attn_block(params["shared_attn"], xx, c,
@@ -684,7 +704,7 @@ class HybridSSM:
             x = group(x, i)
         for j in range(self.n_tail):
             x = self._mamba(layer(params["tail"], j), x,
-                            states["tail"] if cached else None, (j,))
+                            states["tail"] if cached else None, (j,), fresh)
         return x
 
     def _forward(self, params, tokens: torch.Tensor) -> torch.Tensor:
@@ -709,11 +729,14 @@ class HybridSSM:
         """Zero caches: per Mamba block a conv state ``[B, K-1, C]`` in the
         compute dtype and an SSM state ``[B, H, P, N]`` in f32, stacked as
         the parameters; the shared block's K/V ``[n_super, B, max_len, Hkv,
-        Dh]`` in the compute dtype."""
+        Dh]`` in the compute dtype. Under an installed 'model' group that
+        splits the SSM heads, ``H`` is this rank's share
+        (:func:`~repro_torch.parallel.sharding.local_count`); the conv state
+        stays whole."""
         c = self.cfg
         dev = resolve_device(device)
         d_inner = c.ssm_expand * c.d_model
-        H = d_inner // c.ssm_head_dim
+        H = Sh.local_count(self.n_ssm_heads)
         mk = lambda *s: torch.zeros(s, dtype=c.cdt, device=dev)
         mkf = lambda *s: torch.zeros(s, dtype=torch.float32, device=dev)
         mstate = lambda *n: {
@@ -814,11 +837,12 @@ class XLSTM:
             st = layer(states, i) if cached else {"m": None, "s": None}
             y, nm = XL.apply_mlstm(lp["mlstm"],
                                    rms_norm(xx, lp["ln1"], c.norm_eps),
-                                   state=st["m"], q_chunk=c.attn_q_chunk)
+                                   state=st["m"], q_chunk=c.attn_q_chunk,
+                                   n_heads=c.n_heads)
             xx = xx + y
             y, ns = XL.apply_slstm(lp["slstm"],
                                    rms_norm(xx, lp["ln2"], c.norm_eps),
-                                   state=st["s"])
+                                   state=st["s"], n_heads=c.n_heads)
             if cached:
                 for kind, new in (("m", nm), ("s", ns)):
                     for k, v in new.items():
@@ -853,10 +877,13 @@ class XLSTM:
         ``C [.., B, H, hd, hd]`` and ``n [.., B, H, hd]`` zero in the
         compute dtype and ``m [.., B, H]`` -1e30 in f32; the sLSTM's ``c``,
         ``n``, ``h``, ``m`` ``[.., B, H, hd]`` f32 at its initial state.
-        ``max_len`` is unused: the state does not grow."""
+        ``max_len`` is unused: the state does not grow. Under an installed
+        'model' group that splits the heads, ``H`` is this rank's share
+        (:func:`~repro_torch.parallel.sharding.local_count`)."""
         c = self.cfg
         dev = resolve_device(device)
-        H, hd, n = c.n_heads, c.d_model // c.n_heads, self.n_super
+        H, hd, n = (Sh.local_count(c.n_heads), c.d_model // c.n_heads,
+                    self.n_super)
 
         def full(shape, value, dtype=torch.float32):
             return torch.full((n, batch_size) + shape, value, dtype=dtype,
@@ -1006,7 +1033,8 @@ class EncDec:
             cross = _at(cache[1], i) if cached else None
             xatt, kv = A.apply_cross(
                 lp["cross"], h2, enc_out,
-                kv_cache=cross if enc_out is None else None, **kw)
+                kv_cache=cross if enc_out is None else None,
+                n_heads=c.n_heads, n_kv_heads=c.n_kv_heads, **kw)
             if cached and enc_out is not None:
                 for dst, src in zip(cross, kv):
                     dst.copy_(src)
@@ -1040,16 +1068,19 @@ class EncDec:
                    n_ctx: Optional[int] = None):
         """Zero caches in the compute dtype: the decoder's self K/V ``(k, v)
         [L, B, max_len, Hkv, Dh]`` and cross K/V ``(ck, cv) [L, B, n_ctx,
-        Hkv, Dh]`` (``n_ctx``: the config's unless given)."""
+        Hkv, Dh]`` (``n_ctx``: the config's unless given; under an
+        installed 'model' group that splits the KV heads the cross K/V hold
+        this rank's, :func:`~repro_torch.parallel.sharding.local_count`)."""
         c = self.cfg
         dev = resolve_device(device)
 
-        def mk(length):
-            shape = (c.n_dec_layers, batch_size, length, c.n_kv_heads, c.hd)
+        def mk(length, kv_heads):
+            shape = (c.n_dec_layers, batch_size, length, kv_heads, c.hd)
             return tuple(torch.zeros(shape, dtype=c.cdt, device=dev)
                          for _ in range(2))
 
-        return mk(max_len), mk(n_ctx or c.n_ctx)
+        return (mk(max_len, c.n_kv_heads),
+                mk(n_ctx or c.n_ctx, Sh.local_count(c.n_kv_heads)))
 
     def _last_logits(self, params, x):
         return _logits(self.cfg, x[:, -1:], params["lm_head"])
@@ -1093,44 +1124,33 @@ def get_model(cfg: ModelConfig):
 
 
 # ---------------------------------------------------------------------------
-# tensor and expert parallelism: the layers that run split over 'model'
+# tensor and expert parallelism: the leaves that stay in their 'model' block
 # ---------------------------------------------------------------------------
 
-_ATTN_LEAVES = ("wq", "wk", "wv", "wo")
-_FFN_LEAVES = ("w_gate", "w_up", "w_down", "b_up", "ws_gate", "ws_up",
-               "ws_down")
+@functools.lru_cache(maxsize=None)
+def _leaf_axes(cfg: ModelConfig) -> Dict[Tuple[str, ...], tuple]:
+    """``{path: (logical axes, shape)}`` of ``cfg``'s parameters (a meta
+    init)."""
+    shapes, axes = get_model(cfg).init(0, device="meta", with_axes=True)
+    return {p: (a, tuple(t.shape)) for (p, a), (_, t) in
+            zip(tree_items(axes), tree_items(shapes))}
 
 
 def model_parallel_leaf(model, path: Tuple[str, ...], size: int) -> bool:
     """Whether the leaf at ``path`` (its keys) of ``model``'s parameters
-    stays in its 'model' block on a 'model' axis of ``size`` ranks: the one
-    list of the layers that run split. They are the vocabulary (``embed``,
-    ``lm_head``), GQA self-attention, the dense MLPs and shared experts
-    (their mlp dim), and the routed experts where ``size`` divides their
-    count (EP). Any other leaf is gathered whole, and its layer, finding
-    its leaves whole, runs whole: MLA, the Mamba and xLSTM blocks,
-    cross-attention, the encoder, and any layer this list does not
-    name."""
-    c = model.cfg
-    if path in (("embed",), ("lm_head",)):
-        return True
-    if len(path) < 2 or "encoder" in path:
+    stays in its 'model' block on a 'model' axis of ``size`` ranks: exactly
+    where the reference's rules (``BASE_RULES``) split it over 'model',
+    since every layer then computes on its block. The one exception is a
+    routed expert's ``mlp`` dim, which the rules split where ``size`` does
+    not divide the experts: there the experts are gathered whole (the MoE
+    layer splits its experts, not their width). A path that names no leaf
+    is whole."""
+    leaves = _leaf_axes(model.cfg)
+    if tuple(path) not in leaves:
         return False
-    layer, leaf = path[-2], path[-1]
-    if layer in ("attn", "self") and leaf in _ATTN_LEAVES:
-        return not (c.use_mla or path[-3:-1] == ("cross", "attn"))
-    if layer == "ffn" and leaf in _FFN_LEAVES:
-        if leaf in ("w_gate", "w_up", "w_down") and _moe_ffn(model, path):
-            return c.n_experts % size == 0
-        return True
-    return False
-
-
-def _moe_ffn(model, path: Tuple[str, ...]) -> bool:
-    """Whether ``path`` lies in a MoE block's FFN: a decoder's ``moe``
-    stage, or the ``moe`` block of its ``moe_super`` stage."""
-    plan = getattr(model, "plan", None)
-    if not plan or not path[0].startswith("stage"):
-        return False
-    kind = plan[int(path[0][len("stage"):])][0]
-    return kind == "moe" or (kind == "moe_super" and path[1] == "moe")
+    names, shape = leaves[tuple(path)]
+    spec = Sh.spec_for_axes(names, shape, Sh.MeshShape(("model",), (size,)),
+                            Sh.make_rules())
+    d = Sh.model_dim(spec)
+    return d is not None and ("experts" not in names
+                              or names[d] == "experts")

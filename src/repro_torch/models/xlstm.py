@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import Builder, einsum, rms_norm
+from repro_torch.parallel import sharding as Sh
 
 _NEG = -1e30     # the stabiliser's start: no token seen yet
 
@@ -132,24 +133,36 @@ def _mlstm_steps(q, k, v, logi, logf, C, n, mm):
 
 
 def apply_mlstm(p: dict, x: torch.Tensor, state: Optional[dict] = None,
-                q_chunk: int = -1):
+                q_chunk: int = -1, n_heads: Optional[int] = None):
     """x: [B, S, D] -> (y, state); state: ``C [B, H, hd, hd]``, ``n [B, H,
     hd]`` in x's dtype (the chunkwise form's cast to it), ``m [B, H]`` f32.
     A full sequence with no state (``S > 1``) runs the chunkwise form at
-    :func:`mlstm_chunk`'s length; anything else the step recurrence."""
+    :func:`mlstm_chunk`'s length; anything else the step recurrence.
+
+    ``n_heads``: the global head count (default: the weights'). Where
+    ``wi`` holds this rank's 'model' block of the heads
+    (:func:`~repro_torch.parallel.sharding.layer_group`), the heads run
+    split: q/k/v and the gates column-parallel, the state this rank's
+    heads, the whole ``wo_gate`` and ``norm`` taken at this rank's columns
+    (their gradients summed over the group), the norm over ``d_model``
+    summing its squares over 'model', and ``wo`` row-parallel."""
     B, S, D = x.shape
-    H = p["wi"].shape[1]
+    h_loc = p["wi"].shape[1]
+    H = n_heads or h_loc
     hd = D // H
+    mg = Sh.layer_group(h_loc, H)
+    xm = Sh.to_model(x, mg)
     # the reference divides by a weakly typed scalar: √hd rounded to x's
     # dtype, here a 0-d tensor filled on x's device (no host-to-device
     # copy; CUDA would multiply by a Python scalar's reciprocal)
     scale = float(torch.tensor(math.sqrt(float(hd)),
                                dtype=torch.float32).to(x.dtype))
-    q = einsum("bsd,dhk->bshk", x, p["wq"]) / x.new_full((), scale)
-    k = einsum("bsd,dhk->bshk", x, p["wk"])
-    v = einsum("bsd,dhk->bshk", x, p["wv"])
-    logi = (einsum("bsd,dh->bsh", x, p["wi"]) + p["bi"]).float()
-    logf = F.logsigmoid((einsum("bsd,dh->bsh", x, p["wf"]) + p["bf"]).float())
+    q = einsum("bsd,dhk->bshk", xm, p["wq"]) / x.new_full((), scale)
+    k = einsum("bsd,dhk->bshk", xm, p["wk"])
+    v = einsum("bsd,dhk->bshk", xm, p["wv"])
+    logi = (einsum("bsd,dh->bsh", xm, p["wi"]) + p["bi"]).float()
+    logf = F.logsigmoid((einsum("bsd,dh->bsh", xm, p["wf"])
+                         + p["bf"]).float())
 
     if state is None and S > 1:
         h, (C, n, mm) = _mlstm_chunkwise(q, k, v, logi, logf, q_chunk)
@@ -157,20 +170,28 @@ def apply_mlstm(p: dict, x: torch.Tensor, state: Optional[dict] = None,
         new_state = {"C": C.to(x.dtype), "n": n.to(x.dtype), "m": mm}
     else:
         if state is None:
-            C = torch.zeros((B, H, hd, hd), dtype=x.dtype, device=x.device)
-            n = torch.zeros((B, H, hd), dtype=x.dtype, device=x.device)
-            mm = torch.full((B, H), _NEG, dtype=torch.float32,
+            C = torch.zeros((B, h_loc, hd, hd), dtype=x.dtype,
+                            device=x.device)
+            n = torch.zeros((B, h_loc, hd), dtype=x.dtype, device=x.device)
+            mm = torch.full((B, h_loc), _NEG, dtype=torch.float32,
                             device=x.device)
         else:
             C, n, mm = state["C"], state["n"], state["m"]
         h, (C, n, mm) = _mlstm_steps(q, k, v, logi, logf, C, n, mm)
         new_state = {"C": C, "n": n, "m": mm}
 
-    y = h.reshape(B, S, D)
-    og = torch.sigmoid(einsum("bsd,de->bse", x, p["wo_gate"]))
-    y = rms_norm(y * og, p["norm"])
-    out = einsum("bshk,hkd->bsd", y.reshape(B, S, H, hd), p["wo"])
-    return out, new_state
+    y = h.reshape(B, S, h_loc * hd)
+    if mg is None:
+        og = torch.sigmoid(einsum("bsd,de->bse", x, p["wo_gate"]))
+        y = rms_norm(y * og, p["norm"])
+    else:
+        cols = slice(mg.index * h_loc * hd, (mg.index + 1) * h_loc * hd)
+        og = torch.sigmoid(einsum("bsd,de->bse", xm, Sh.to_model(
+            p["wo_gate"], mg)[:, cols]))
+        y = rms_norm(y * og, Sh.to_model(p["norm"], mg)[cols], mg=mg,
+                     width=D)
+    out = einsum("bshk,hkd->bsd", y.reshape(B, S, h_loc, hd), p["wo"])
+    return Sh.from_model(out, mg), new_state
 
 
 # ---------------------------------------------------------------------------
@@ -200,25 +221,34 @@ def slstm_init_state(B: int, H: int, hd: int, device) -> dict:
     return {"c": z, "n": z + 1e-6, "h": z, "m": z + _NEG}
 
 
-def apply_slstm(p: dict, x: torch.Tensor, state: Optional[dict] = None):
+def apply_slstm(p: dict, x: torch.Tensor, state: Optional[dict] = None,
+                n_heads: Optional[int] = None):
     """The recurrence over every token. state: ``{"c", "n", "h", "m"}``,
     each ``[B, H, hd]`` f32. The four gates run side by side (``[.., 4
     hd]``, i f z o): one input projection, and per step one recurrent
     product (``r`` stacked ``[H, hd, 4 hd]``) and one add, each gate's
     columns the same dot products and sums as its own matrix's. The loop
     keeps its tensors head-major (``[H, B, ..]``), so the per-head product
-    is a plain ``bmm``."""
+    is a plain ``bmm``.
+
+    ``n_heads``: the global head count (default: the weights'). Where the
+    gates hold this rank's 'model' block of the heads, the recurrence runs
+    on those heads (its state their block) and their ``h`` is all-gathered
+    over 'model' before the whole ``norm`` and ``w_out``, which every rank
+    then runs alike."""
     B, S, D = x.shape
-    H = p["wi"].shape[1]
+    h_loc = p["wi"].shape[1]
+    H = n_heads or h_loc
     hd = D // H
+    mg = Sh.layer_group(h_loc, H)
     w = torch.cat([p[f"w{g}"] for g in _GATES], dim=-1)     # [D, H, 4hd]
     bias = torch.cat([p[f"b{g}"] for g in _GATES], dim=-1)  # [H, 4hd]
     # [S, H, B, 4hd], unbound into its steps (contiguous slices; the
     # backward stacks the steps' gradients once)
-    pre = (einsum("bsd,dhk->shbk", x, w) + bias[:, None, :]).contiguous() \
-        .unbind(0)
+    pre = (einsum("bsd,dhk->shbk", Sh.to_model(x, mg), w)
+           + bias[:, None, :]).contiguous().unbind(0)
     if state is None:
-        state = slstm_init_state(B, H, hd, x.device)
+        state = slstm_init_state(B, h_loc, hd, x.device)
     c, n, h, m = (state[k].transpose(0, 1) for k in ("c", "n", "h", "m"))
     # in the state's f32, as JAX promotes h @ r; cast once
     r = torch.cat([p[f"r{g}"] for g in _GATES], dim=-1).to(h.dtype)
@@ -237,9 +267,9 @@ def apply_slstm(p: dict, x: torch.Tensor, state: Optional[dict] = None):
         h = o * c / torch.clamp_min(n, 1e-6)
         m = m_new
         hs.append(h)
-    # [H, B, S, hd] -> [B, S, H, hd]
-    y = torch.stack(hs, dim=2).permute(1, 2, 0, 3).reshape(B, S, D) \
-        .to(x.dtype)
+    # [H, B, S, hd] -> [B, S, H, hd], every head's
+    y = Sh.gather_model(torch.stack(hs, dim=2).permute(1, 2, 0, 3), mg, 2) \
+        .reshape(B, S, D).to(x.dtype)
     y = rms_norm(y, p["norm"])
     out = einsum("bsd,de->bse", y, p["w_out"])
     return out, {k: v.transpose(0, 1) for k, v in

@@ -560,26 +560,30 @@ def current_token_group() -> Optional[TokenGroup]:
 # The reference shards the heads, MLP, vocabulary and experts over 'model'
 # and lets GSPMD run each product on the device's shard. Here a leaf whose
 # spec puts 'model' on a dim stays in its 'model' block on its rank, at rest
-# and in every step, where its layer runs split (:func:`local_params`, told
-# which by the one rule of :func:`repro_torch.models.transformer.
-# model_parallel_leaf`); every other leaf is gathered whole. The steps
+# and in every step (:func:`local_params`, told which by the one rule of
+# :func:`repro_torch.models.transformer.model_parallel_leaf`: every such
+# leaf but a routed expert's mlp dim), and every layer computes on its
+# blocks. The steps
 # install this rank's :class:`ModelGroup` (:class:`model_parallel`), and a
 # layer asks :func:`layer_group` whether its leaf is such a block: if so it
 # computes its share and combines the shares through explicit collectives
 # over the group, in Megatron's form: :func:`to_model` before a
 # column-parallel product (identity forward, the gradient all-reduced
-# backward) and :func:`from_model` after a row-parallel one (all-reduced
-# forward, identity backward); if its leaf is whole it runs whole. With no
-# group installed, or a 'model' axis of one rank, every layer is the
-# meshless one.
+# backward), :func:`from_model` after a row-parallel one (all-reduced
+# forward, identity backward) and :func:`gather_model` where a block is
+# joined whole (all-gathered forward, this rank's block backward); if its
+# leaf is whole it runs whole. With no group installed, or a 'model' axis
+# of one rank, every layer is the meshless one.
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass
-class ModelGroup:
-    """This rank's ``index`` among the ``size`` ranks of the 'model' axis,
-    and their process group. With ``group=None`` (a :class:`MeshShape`: a
-    planner's layout) the collectives move nothing and are counted in
-    ``calls``, ``(kind, bytes)`` each."""
+class AxisGroup:
+    """This rank's ``index`` among the ``size`` ranks of one mesh axis, and
+    their process group: the 'model' axis for the layers (:data:`ModelGroup`),
+    each axis for the serving engine's cache and row moves. With
+    ``group=None`` (a :class:`MeshShape`: a planner's layout) the
+    collectives move nothing and are counted in ``calls``, ``(kind,
+    bytes)`` each."""
     index: int
     size: int
     group: Any = None
@@ -616,6 +620,10 @@ class ModelGroup:
         else:
             dist.all_gather_into_tensor(out, src, group=self.group)
         return out.movedim(0, dim).contiguous()
+
+
+# the 'model' axis' group, the one the layers split over
+ModelGroup = AxisGroup
 
 
 def model_group_of(mesh, coord=None) -> Optional[ModelGroup]:
@@ -690,6 +698,38 @@ class _FromModel(torch.autograd.Function):
         return g, None
 
 
+class _GatherModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mg, dim):
+        ctx.mg, ctx.dim = mg, dim % x.dim()
+        return mg.all_gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        d = ctx.dim
+        return g[(slice(None),) * d + (ctx.mg.block(g.shape[d]),)], None, None
+
+
+def gather_model(x: torch.Tensor, mg: Optional[ModelGroup],
+                 dim: int) -> torch.Tensor:
+    """Every rank's block ``x`` of a dim that 'model' splits, joined whole
+    along ``dim`` in rank order (the same on every rank of ``mg``): an
+    all-gather forward, this rank's block of the gradient backward (every
+    rank continues from the same whole value, so each holds the whole
+    gradient; where a 'model'-parallel part follows, :func:`to_model` sums
+    it first); ``x`` itself where ``mg`` is ``None``."""
+    return x if mg is None else _GatherModel.apply(x, mg, dim)
+
+
+def local_count(n: int) -> int:
+    """The share of a layer's ``n`` heads that this rank computes on:
+    ``n / size`` where the installed 'model' group splits ``n`` (the
+    reference's rule puts the heads on 'model' there), else ``n``. The
+    caches of head-split layers are built at this count."""
+    mg = _MODEL_GROUP.get()
+    return n // mg.size if mg is not None and mg.splits(n) else n
+
+
 def to_model(x: torch.Tensor, mg: Optional[ModelGroup]) -> torch.Tensor:
     """``x`` (the same on every rank of ``mg``) entering a 'model'-parallel
     product: itself forward, its gradient summed over ``mg`` backward (each
@@ -720,12 +760,12 @@ def model_dim(spec: Tuple) -> Optional[int]:
 def local_params(params, keep, *, shardings=None, shapes=None, group=None):
     """The parameters as a step on a mesh computes on them, as plain
     tensors. ``keep(path)``: whether the leaf at ``path`` (its keys) runs in
-    its 'model' block (a layer with tensor or expert parallelism) or whole.
+    its 'model' block or whole (the model's rule).
 
     A DTensor leaf is gathered over its DP/FSDP mesh dims and, unless
-    ``keep(path)``, over 'model' too (a layer outside the parallel ones:
-    one gather per leaf). A plain leaf is taken as it is unless it is the
-    whole leaf (its shape in ``shapes``, a tree of the model's meta
+    ``keep(path)``, over 'model' too (one gather per leaf). A plain leaf is
+    taken as it is unless it is the whole leaf (its shape in ``shapes``, a
+    tree of the model's meta
     parameters), ``keep(path)`` and its sharding in ``shardings`` (a tree
     of :class:`NamedSharding`) splits it over 'model': then it is cut to
     this rank's block of ``group`` (:class:`ModelGroup`), a tensor of its

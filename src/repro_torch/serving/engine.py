@@ -13,22 +13,28 @@ computes on plain local tensors, the design of the sharded training step
 (:mod:`repro_torch.train.trainer`):
 
 - the rank runs its DP rows of the batch;
-- the parameters stay in their 'model' blocks where their layer runs
-  tensor or expert parallel (GQA attention on this rank's heads, the MLPs
-  on its mlp block, the vocabulary, the experts), and are gathered whole,
-  leaf by leaf, where it does not (MLA, the Mamba and xLSTM blocks,
-  cross-attention, the encoder;
+- every parameter the reference's rules split over 'model' stays in its
+  'model' block, and its layer computes on it (attention, MLA and
+  cross-attention on this rank's heads, the Mamba mixer and the xLSTM
+  cells on its heads, the MLPs on its mlp block, the vocabulary, the
+  experts; :func:`~repro_torch.models.transformer.model_parallel_leaf`,
   :func:`~repro_torch.parallel.sharding.local_params`); the layers
   combine their shares over 'model', and the logits' vocabulary blocks
   are all-gathered for the sampling (the last position only);
 - a sequence-sharded leaf stays in its block: the attention writes the new
   entries that fall in it (the fresh K/V of every head, all-gathered over
-  'model' where the KV heads split) and decode attends every head over the
-  block and combines the blocks' partial softmaxes across 'model'
-  (:class:`~repro_torch.parallel.sharding.CacheBlock`);
-- a cache leaf that 'model' shards on another dim is gathered whole over
-  'model' at the start of each step and cut back to its block after it
-  (those leaves do not grow with the sequence);
+  'model' where the KV heads split, or MLA's latents) and decode attends
+  every head over the block and combines the blocks' partial softmaxes
+  across 'model' (:class:`~repro_torch.parallel.sharding.CacheBlock`);
+- a head-split state (the Mamba and xLSTM states, a cross-attention
+  cache) is computed in the block 'model' gives it at rest, so it does not
+  move: the model builds those leaves at this rank's share of the heads
+  (:func:`~repro_torch.parallel.sharding.local_count`), and a leaf that the
+  reference's rule places otherwise (a dim that happens to match a head
+  count) is moved into that layout for the step and back after it;
+- the moves and the gathers of rows are c10d all-gathers
+  (``all_gather_into_tensor``) over a mesh dim's group, then slicing: no
+  DTensor collective is on the serving path;
 - a MoE layer routes the global batch, as the reference's does
   (:class:`~repro_torch.parallel.sharding.TokenGroup`).
 
@@ -61,7 +67,8 @@ class ServeConfig:
 
 def _grown_dims(small, large) -> Optional[dict]:
     """``{id(leaf of small): dim}``: the one dim in which each leaf of
-    ``small`` differs from its twin in ``large``, else no entry."""
+    ``small`` differs from its twin in ``large`` (grown or shrunk), else
+    no entry."""
     out = {}
 
     def one(a, b):
@@ -122,12 +129,17 @@ class MeshServe:
                                        mesh.get_group("model"))
         else:
             self.block = None
+        self.mg = Sh.model_group_of(mesh, self.coord)
         # the batch and sequence dim of each leaf: those that grow with
-        # the batch and with max_len
+        # the batch and with max_len; the head dim the layer splits: the
+        # one that shrinks under this rank's 'model' group
         bdim = _grown_dims(self.meta, self.model.init_cache(B + 1, L,
                                                             device="meta"))
         sdim = _grown_dims(self.meta, self.model.init_cache(B, L + 1,
                                                             device="meta"))
+        with Sh.model_parallel(self.mg):
+            heads = _grown_dims(self.meta, self.model.init_cache(
+                B, L, device="meta"))
         dp_entry = dp if len(dp) > 1 else dp[0]
         one = [n == 1 for n in Sh.mesh_shape(mesh).sizes]
 
@@ -142,10 +154,14 @@ class MeshServe:
                 spec[bdim[id(leaf)]] = dp_entry
             if blockwise and id(leaf) in sdim:
                 spec[sdim[id(leaf)]] = "model"
+            if id(leaf) in heads:
+                spec[heads[id(leaf)]] = "model"
             return tuple(leaf.shape), placements(sh.spec), placements(spec)
 
         self.layout = Sh._map(layout, self.meta, self.shardings)
-        self.mg = Sh.model_group_of(mesh, self.coord)
+        # each mesh dim's group, for the moves and the rows' gather
+        self.axes = [Sh.AxisGroup(self.coord[i], sizes[n], mesh.get_group(n))
+                     for i, n in enumerate(Sh.mesh_shape(mesh).axis_names)]
         self.n_dp = n_dp
         self._bound = True
         return self
@@ -153,9 +169,9 @@ class MeshServe:
     # ---------------- the parameters
     def local_params(self, params):
         """The parameters this rank computes on
-        (:func:`~repro_torch.parallel.sharding.local_params`): a
-        'model'-split leaf of a parallel layer in its 'model' block (a
-        whole one passed in is cut to it), any other leaf whole."""
+        (:func:`~repro_torch.parallel.sharding.local_params`): a leaf the
+        reference splits over 'model' in its 'model' block (a whole one
+        passed in is cut to it), any other leaf whole."""
         model = self.model
         size = 1 if self.mg is None else self.mg.size
         if not hasattr(self, "_param_specs"):
@@ -181,27 +197,49 @@ class MeshServe:
 
     def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
         """The global ``[batch, ...]`` tensor of every rank's rows ``x``,
-        gathered over the DP axes."""
+        all-gathered over the DP axes (the inner one first: the rows nest
+        in mesh order)."""
         if self.n_dp == 1 or x.shape[0] == self.batch:
             return x
-        return Sh.from_block(x, self.mesh, self.tokens.placements,
-                             (self.batch,) + tuple(x.shape[1:])).full_tensor()
+        for p, g in reversed(list(zip(self.tokens.placements, self.axes))):
+            if p.is_shard() and g.size > 1:
+                x = g.all_gather(x, 0)
+        return x
 
     def _move(self, t, shape, src, dst):
         """``t``, this rank's local tensor of a ``shape`` leaf placed by
         ``src``, as placed by ``dst``: itself where they agree, else a
-        tensor of its own (never a view into a whole leaf)."""
+        tensor of its own (never a view into a whole leaf). Each mesh dim
+        whose placement differs is undone by an all-gather over its group,
+        the inner one first, then the new placements are cut, the outer one
+        first (a tensor dim split over several mesh dims nests them in mesh
+        order; a move that would leave an inner one split under a changed
+        outer one raises ``ValueError``)."""
         if src == dst:
             return t
-        out = Sh.from_block(t, self.mesh, src, shape).redistribute(
-            self.mesh, dst).to_local()
-        return out.clone() if out._base is not None \
-            or not out.is_contiguous() else out
+        changed = [i for i, (a, b) in enumerate(zip(src, dst)) if a != b]
+        for pl, order, cut in ((src, reversed(changed), False),
+                               (dst, changed, True)):
+            for i in order:
+                if not pl[i].is_shard():
+                    continue
+                d = pl[i].dim
+                if any(j > i and j not in changed and pl[j] == pl[i]
+                       for j in range(len(pl))):
+                    raise ValueError(f"a leaf of {shape} placed {src} "
+                                     f"cannot move to {dst} dim by dim")
+                g = self.axes[i]
+                t = t[(slice(None),) * d + (g.block(t.shape[d]),)] if cut \
+                    else g.all_gather(t, d)
+        return t.clone() if t._base is not None or not t.is_contiguous() \
+            else t
 
     def to_compute(self, cache):
         """Each cache block in the layout its step computes in: this rank's
-        rows and sequence block as they are; a leaf 'model' shards on
-        another dim gathered whole over 'model'."""
+        rows, its sequence block and, where its layer splits the leaf's
+        heads, its block of those heads. A leaf the reference's sharding
+        places otherwise is moved there (:meth:`_move`: all-gathered over
+        each mesh dim whose placement differs, then cut)."""
         return Sh._map(lambda t, lay: self._move(t, lay[0], lay[1], lay[2]),
                        cache, self.layout)
 

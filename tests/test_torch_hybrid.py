@@ -183,6 +183,39 @@ def test_prefill_decode_matches_own_loss_path(ref_params):
     close(l2[:, 0], full[:, -1].numpy(), LOGIT_ATOL)
 
 
+@pytest.mark.parametrize("length", [6, 8, 13, 16])
+def test_prefill_takes_the_kernel_only_where_it_accepts_the_prompt(
+        ref_params, monkeypatch, length):
+    """Under ``ssm_impl="mamba_kernel"`` the prefill starts its Mamba blocks
+    from no state, and so reaches ``mamba2_scan``, exactly where the CUDA
+    kernel takes the prompt (``kernel_takes``: 8 and 16 tokens at the
+    smoke chunk of 8); 6 and 13 read the new cache's zeros and run the
+    plain scan. Either way the logits and the states are the plain route's
+    within 1e-4."""
+    from repro_torch.kernels.mamba2_scan import kernel_takes
+    from repro_torch.models import ssm
+    calls = []
+    real = ssm.mamba2_scan
+    monkeypatch.setattr(ssm, "mamba2_scan",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    _, tm = pair(ssm_impl="mamba_kernel")
+    _, plain = pair()
+    tp = weights.from_reference(ref_params, device="cpu")
+    toks = torch.from_numpy(tokens(6, length))
+    got, gc = tm.prefill(tp, toks, max_len=S + 2)
+    c = tm.cfg
+    takes = kernel_takes(c.cdt, length, c.ssm_head_dim, c.ssm_state,
+                         c.ssd_chunk)
+    assert takes == (length % 8 == 0)
+    assert len(calls) == (c.n_layers if takes else 0)
+    want, wc = plain.prefill(tp, toks, max_len=S + 2)
+    close(got, want.numpy(), LOGIT_ATOL)
+    for k in ("conv", "ssm"):
+        a = wc["states"]["supers"]["mamba"][k]
+        close(gc["states"]["supers"]["mamba"][k], a.numpy(),
+              LOGIT_ATOL + CACHE_RTOL * float(a.abs().max()))
+
+
 # ------------------------------------------- experts and MLA in the hybrid
 
 MLA_DIMS = dict(q_rank=32, kv_rank=16, d_nope=8, d_rope=8, d_v=16)

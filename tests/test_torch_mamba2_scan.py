@@ -196,3 +196,23 @@ def test_kernel_route(dtype, P, N, chunk, route):
     the tensor cores; f32, chunks other than 64 and 128, and P or N not a
     multiple of 16 take the CUDA cores."""
     assert ms.kernel_route(dtype, P, N, chunk) == route
+
+
+@pytest.mark.parametrize("dtype,S,P,N,chunk,takes", [
+    (torch.bfloat16, 512, 64, 64, 128, True),
+    (torch.float32, 8, 16, 16, 128, True),
+    (torch.bfloat16, 16, 16, 16, 8, True),
+    (torch.bfloat16, 6, 64, 64, 128, False),
+    (torch.bfloat16, 10, 64, 64, 128, False),
+    (torch.bfloat16, 13, 16, 16, 8, False),
+    (torch.bfloat16, 512, 64, 64, 256, False),
+    (torch.bfloat16, 512, 80, 64, 128, False),
+    (torch.bfloat16, 512, 64, 68, 128, False),
+    (torch.float16, 512, 64, 64, 128, False)])
+def test_kernel_takes(dtype, S, P, N, chunk, takes):
+    """The shapes and types the CUDA kernel accepts: a chunk of
+    ``min(chunk, S)`` that divides S, is a multiple of 4 and at most 128,
+    P and N multiples of 4 up to 64, f32 or bf16. A prompt shorter than
+    the chunk is its own chunk, so 6 or 10 tokens are refused and 8
+    taken."""
+    assert ms.kernel_takes(dtype, S, P, N, chunk) is takes

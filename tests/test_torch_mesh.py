@@ -122,16 +122,20 @@ def reference_weights(arch):
 
 
 def write_serve_inputs(out):
-    """The prompts and the VLM's ``ctx`` (from seeds), then each serving
+    """The prompts, the VLM's ``ctx`` and the encoder-decoder's frames
+    (from seeds), then each serving
     arch's reference weights (MLA's two cases share one; drawn in threads)
     as each is drawn, pickled for the ranks; returns all of them."""
     from repro import configs as jconfigs
     rng = np.random.default_rng(3)
     vlm = jconfigs.get_smoke_config("llama-3.2-vision-90b")
+    audio = jconfigs.get_smoke_config("seamless-m4t-large-v2")
     inputs = {"prompts": rng.integers(0, 128, (R.SERVE_B, R.SERVE_S))
               .astype(np.int32),
               "ctx": rng.standard_normal((R.SERVE_B, vlm.n_ctx, vlm.d_ctx))
-              .astype(np.float32)}
+              .astype(np.float32),
+              "frames": rng.standard_normal(
+                  (R.SERVE_B, audio.n_ctx, audio.d_model)).astype(np.float32)}
     _dump(out, "inputs", inputs)
     archs = list(dict.fromkeys(a for a, _ in R.SERVE_CASES.values()))
     params = {}
@@ -155,7 +159,8 @@ def serve_reference(inputs):
                                   **R.F32)
         eng = ServingEngine(cfg, ServeConfig(R.SERVE_B, R.SERVE_L),
                             params=inputs["params"][arch])
-        ctx = jnp.asarray(inputs["ctx"]) if cfg.family == "vlm" else None
+        ctx = (jnp.asarray(inputs[R.CTX_INPUT[cfg.family]])
+               if cfg.family in R.CTX_INPUT else None)
         logits, cache = eng.prefill(jnp.asarray(inputs["prompts"]), ctx)
         steps, toks = [], []
         for i in range(R.SERVE_NEW):
@@ -330,14 +335,24 @@ def gqa_layers_per_token(cfg, model) -> int:
 
 
 def expected_decode_gathers(case, mesh_name):
-    """The all-gathers of one decode step by the engine's design: one per
-    cache leaf that the reference's shardings split over 'model' on a dim
-    other than its sequence (gathered whole for the step), none of a
-    sequence-sharded leaf; on a mesh whose DP ranks split the batch, one
-    per MoE layer (its routing's per-expert counts); with the heads split
-    over 'model', per GQA layer the new token's query heads and, where
-    the KV heads split too, its keys and values (the reference replicates
-    them); and the logits' vocabulary blocks where the head is split."""
+    """The all-gathers of one decode step by the engine's design, every
+    layer on this rank's 'model' block: per cache leaf whose 'model' dim
+    at rest (the reference's shardings) is not the head dim its layer
+    computes split, one gather to move it for the step where it rests
+    split and one to move it back where the layer splits it (the smoke
+    hybrid's SSM state: the reference's rule takes its P = 16 for the
+    16-entry sequence), none of a sequence-sharded or head-split leaf (a
+    cross cache, a Mamba or xLSTM state); on a mesh whose DP ranks split the
+    batch, one per MoE layer (its routing's per-expert counts); with the
+    heads split over 'model', per GQA layer the new token's query heads
+    and, where the KV heads split too, its keys and values, per MLA layer
+    the query heads (absorbed: folded into the latent, with the RoPE part)
+    and, plain, ``wkv_b`` to expand every head's K/V over the block, and
+    per sLSTM layer its heads' output; per Mamba layer the projection's
+    column block and the two conv leaves (one call), where 'model' splits
+    them; and
+    the logits' vocabulary blocks where the head is split. A
+    cross-attention layer reads its own KV heads: nothing."""
     from repro_torch import configs
     from repro_torch.models.transformer import get_model, head_width
     from repro_torch.parallel import sharding as Sh
@@ -350,20 +365,38 @@ def expected_decode_gathers(case, mesh_name):
     eng = ServingEngine(cfg, ServeConfig(R.SERVE_B, R.SERVE_L),
                         device="cpu", mesh=mesh)
     seq = R.sequence_dims(cfg)
+    full = dict(R._leaves(model.init_cache(R.SERVE_B, R.SERVE_L,
+                                           device="meta")))
+    with Sh.model_parallel(Sh.model_group_of(mesh, (0,) * len(sizes))):
+        local = dict(R._leaves(model.init_cache(R.SERVE_B, R.SERVE_L,
+                                                device="meta")))
     tp = mesh.shape["model"]
     n = 0
     for path, sh in R._leaves(eng.cache_shardings):
         model_dims = [d for d, e in enumerate(sh.spec) if e == "model"]
+        heads = [d for d, (a, b) in enumerate(zip(full[path].shape,
+                                                  local[path].shape))
+                 if a != b]
         if path in seq:
             assert tp == 1 or model_dims == [seq[path]], (path, sh.spec)
-        elif model_dims and tp > 1:
-            n += 1
+        elif tp > 1 and model_dims != heads:
+            # gathered for the step where it rests split, and gathered
+            # back to rest where its layer computes on this rank's heads
+            n += bool(model_dims) + bool(heads)
     if sizes[0] > 1 and cfg.n_experts:
         n += sum(k for kind, k, _ in model.plan if kind == "moe")
     split = lambda k: tp > 1 and k % tp == 0
     if split(cfg.n_heads):
         n += gqa_layers_per_token(cfg, model) * (
             3 if split(cfg.n_kv_heads) else 1)
+        if cfg.use_mla and cfg.family != "hybrid":
+            n += cfg.n_layers * (1 if cfg.mla_absorbed else 2)
+        if cfg.family == "ssm":
+            n += model.n_super
+    if cfg.family == "hybrid":
+        d_inner, H = cfg.ssm_expand * cfg.d_model, model.n_ssm_heads
+        n += cfg.n_layers * (split(2 * d_inner + 2 * cfg.ssm_state + H)
+                             + split(d_inner + 2 * cfg.ssm_state))
     return n + split(head_width(cfg))
 
 
@@ -387,7 +420,15 @@ LAYER_REL = 1e-6
 LAYERS = {"gqa": ("prefill", "prefill_grads", "decode", "cache"),
           "mlp": ("swiglu", "swiglu_grads", "gelu", "gelu_grads"),
           "vocab": ("loss", "grads"),
-          "moe": ("out", "grads")}
+          "moe": ("out", "grads"),
+          "mla": ("prefill", "prefill_grads", "decode", "cache"),
+          "mla_absorbed": ("prefill", "prefill_grads", "decode", "cache"),
+          "cross": ("prefill", "prefill_grads", "decode", "cache"),
+          "encoder": ("out", "grads"),
+          "mamba": ("prefill", "prefill_grads", "long", "long_grads",
+                    "kernel_prefill", "decode", "state"),
+          "mlstm": ("prefill", "prefill_grads", "decode", "state"),
+          "slstm": ("prefill", "prefill_grads", "decode", "state")}
 
 
 @pytest.mark.parametrize("mesh_name", R.SERVE_MESHES)
@@ -395,44 +436,49 @@ LAYERS = {"gqa": ("prefill", "prefill_grads", "decode", "cache"),
 def test_layer_twins_on_the_model_axis(ranks, layer, mesh_name):
     """Each layer with its weights split over 'model' (this rank's blocks,
     the shares combined over the group) against the whole layer on the
-    same inputs, in f32: outputs and gradients within 1e-6 relative (the
-    ranks sum the partial products in another order). On 1 x 4 the smoke
-    llama's 2 KV heads do not split and on 2 x 2 they do; the MoE's
-    routing (and so its aux values) is the whole layer's exactly."""
+    same inputs, in f32: outputs, decode (and the cache blocks or states
+    it writes) and gradients within 1e-6 relative (the ranks sum the
+    partial products in another order). MLA, plain and absorbed, and the
+    cross-attention, the seamless encoder, the Mamba-2 mixer (its
+    full-sequence prefill through ``mamba2_scan`` on this rank's heads)
+    and the xLSTM cells are held like GQA; the new twins' gradients each
+    against its own norm, floored at a tenth of all the gradients' norm
+    (``R.GRAD_FLOOR``: a gate bias's gradient is a sum that all but
+    cancels). On 1 x 4 the 2 KV heads do not split and on 2 x 2 they do;
+    the MoE's routing (and so its aux values) is the whole layer's
+    exactly."""
     for got in result(ranks, "layers"):
         twin = got[mesh_name][layer]
         for key in LAYERS[layer]:
             assert twin[key] <= LAYER_REL, (key, twin)
-        if layer == "gqa":
+        if layer in ("gqa", "cross"):
             assert twin["kv_split"] == (mesh_name == "2x2")
+        if layer == "mamba":
+            assert twin["local_heads"] == 8 // MESH_SHAPES[mesh_name][0][1]
         if layer == "moe":
             assert twin["aux"] and twin["dropped"] > 0, twin
 
 
-COMPUTE_CASES = [f"{a}-{m}" for a in (R.CFG_ARCH, R.MOE_ARCH)
+COMPUTE_CASES = [f"{a}-{m}" for a in R.COMPUTE_ARCHS
                  for m in R.SERVE_MESHES]
 
 
 @pytest.mark.parametrize("case", COMPUTE_CASES)
 def test_no_model_split_leaf_is_whole_on_a_rank(ranks, case):
-    """The shapes the sharded step and the serving engine compute on: a
-    leaf the reference's rules split over 'model' is this rank's block
-    wherever its layer runs split (the GQA, MLP, vocabulary and expert
-    leaves), and whole only in the layers outside them (MLA)."""
+    """The shapes the sharded step and the serving engine compute on:
+    every leaf the reference's rules split over 'model' is this rank's
+    block (every layer runs split: GQA, MLA, cross-attention, the encoder,
+    the MLPs, the vocabulary, the experts, the Mamba mixer and the xLSTM
+    cells), every other leaf whole."""
     for got in result(ranks, "compute_shapes"):
         for where in ("step", "engine"):
             leaves = got[case][where]
-            assert any(x["split"] and x["kept"] for x in leaves)
+            assert any(x["split"] for x in leaves)
             for x in leaves:
-                if not x["split"]:
-                    assert x["shape"] == x["whole"], x
-                    continue
                 want = list(x["whole"])
-                if x["kept"]:
+                if x["split"]:
+                    assert x["kept"], (where, x)
                     want[x["dim"]] //= x["tp"]
-                else:
-                    assert "attn" in x["path"] and case.startswith(
-                        R.MOE_ARCH), x
                 assert x["shape"] == want, (where, x)
 
 

@@ -237,8 +237,8 @@ def test_mesh_records_hold_the_exact_identities(cells, mesh_name, dp):
         assert 16 * dp * got[sh]["flops_per_device"] == \
             16 * one[sh]["flops_per_device"] - 15 * x[sh], sh
     # the train step keeps each 'model'-split leaf in its block: its
-    # all-gathers carry only the split leaves of layers that run whole
-    # (none in llama; no FSDP, so nothing on 'data')
+    # all-gathers carry only split leaves the rule gathers whole (none in
+    # llama; no FSDP, so nothing on 'data')
     from repro_torch.models.transformer import get_model, model_parallel_leaf
     from repro_torch.train import trainer
     mesh = Sh.MeshShape(*reversed(MESHES["pod16x16" if dp == 16
@@ -331,40 +331,51 @@ def test_layers_follow_their_leaves():
         assert mg.calls == [("all-reduce", 2 * 8 * 64 * 4)]
 
 
-# per arch: leaves kept in their 'model' block, leaves gathered whole (on a
-# 'model' axis of 4 ranks), from the smoke configs' trees
+# per arch: leaves kept in their 'model' block, leaves whole (on a 'model'
+# axis of 4 ranks), from the smoke configs' trees
 _RULE_CASES = {
-    "llama3.2-1b": (["embed", "stage0/attn/wq", "stage0/attn/wk",
-                     "stage0/ffn/w_up", "stage0/ffn/w_down"], []),
+    # 2 KV heads on 4 ranks: the rules keep wk whole
+    "llama3.2-1b": (["embed", "stage0/attn/wq", "stage0/ffn/w_up",
+                     "stage0/ffn/w_down"],
+                    ["ln_f", "stage0/ln1", "stage0/attn/wk"]),
     "deepseek-v3-671b": (["stage1/ffn/w_gate", "stage1/ffn/ws_up",
-                          "stage0/ffn/w_up"],
-                         ["stage0/attn/wq_b", "stage0/attn/wkv_b",
-                          "stage0/attn/wo"]),
+                          "stage0/ffn/w_up", "stage0/attn/wq_b",
+                          "stage0/attn/wkv_b", "stage0/attn/wo"],
+                         ["stage0/attn/wq_a", "stage0/attn/wkv_a",
+                          "stage0/attn/q_norm", "stage1/ffn/router"]),
     "llama4-maverick-400b-a17b": (["stage0/moe/ffn/w_up",
                                    "stage0/moe/attn/wq",
                                    "stage0/dense/ffn/w_gate"], []),
     "llama-3.2-vision-90b": (["stage0/selfs/attn/wq",
-                              "stage0/cross/ffn/w_up"],
-                             ["stage0/cross/attn/wq",
-                              "stage0/cross/attn/wk"]),
-    "seamless-m4t-large-v2": (["decoder/self/wq", "decoder/ffn/w_up"],
-                              ["decoder/cross/wq", "encoder/attn/wq",
-                               "encoder/ffn/w_up"]),
-    "zamba2-1.2b": (["shared_attn/attn/wq", "shared_attn/ffn/w_up"],
-                    ["supers/mamba/w_in", "tail/w_out"]),
-    "xlstm-125m": (["embed", "lm_head"],
-                   ["supers/mlstm/wq", "supers/slstm/wz"]),
+                              "stage0/cross/ffn/w_up",
+                              "stage0/cross/attn/wq",
+                              "stage0/cross/attn/wo"],
+                             ["stage0/cross/ln1"]),
+    "seamless-m4t-large-v2": (["decoder/self/wq", "decoder/ffn/w_up",
+                               "decoder/cross/wq", "encoder/attn/wq",
+                               "encoder/ffn/w_up"],
+                              ["encoder/ln1", "ln_enc"]),
+    "zamba2-1.2b": (["shared_attn/attn/wq", "shared_attn/ffn/w_up",
+                     "supers/mamba/w_in", "supers/mamba/conv_w",
+                     "tail/a_log", "tail/norm", "tail/w_out"],
+                    ["ln_f"]),
+    "xlstm-125m": (["embed", "lm_head", "supers/mlstm/wq",
+                    "supers/mlstm/wo", "supers/slstm/wz",
+                    "supers/slstm/rz"],
+                   ["supers/mlstm/wo_gate", "supers/mlstm/norm",
+                    "supers/slstm/norm", "supers/slstm/w_out"]),
 }
 
 
 @pytest.mark.parametrize("arch", sorted(_RULE_CASES))
 def test_model_parallel_leaf_is_one_rule_defaulting_to_whole(arch):
-    """``model_parallel_leaf``, the one list of the layers that run split:
-    the vocabulary, GQA self-attention, the MLPs and shared experts and
-    the routed experts where the axis divides their count stay in their
-    'model' block; MLA, cross-attention, the encoder, the Mamba and xLSTM
-    blocks and any leaf under a key the rule does not name are gathered
-    whole."""
+    """``model_parallel_leaf``, the one rule: a leaf stays in its 'model'
+    block exactly where the reference's rules split it over 'model' (the
+    vocabulary, GQA, MLA and cross-attention heads, the encoder, the MLPs
+    and shared experts, the Mamba mixer, the xLSTM cells, the routed
+    experts where the axis divides their count); a leaf the rules keep
+    whole, a path that names no leaf, and a routed expert's mlp dim (split
+    by the rules where the axis does not divide the experts) are whole."""
     from repro_torch.models.transformer import get_model, model_parallel_leaf
     cfg = CN.get_smoke_config(arch)
     model = get_model(cfg)
@@ -378,5 +389,8 @@ def test_model_parallel_leaf_is_one_rule_defaulting_to_whole(arch):
     if cfg.n_experts:
         experts = [p for p in kept if p.endswith(("ffn/w_gate", "ffn/w_up"))
                    and ("moe" in p or "stage1" in p)]
-        # 8 and 4 experts on 3 ranks: not divided, so the experts are whole
-        assert experts and not any(rule(p, 3) for p in experts)
+        # 8 and 4 experts on 3 ranks: not divided, so the experts are
+        # whole; on 16 the rules split their mlp dim instead, and they
+        # stay whole
+        assert experts and not any(rule(p, 3) or rule(p, 16)
+                                   for p in experts)

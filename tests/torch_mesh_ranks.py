@@ -37,9 +37,13 @@ SERVE_CASES = {
     "mla_absorbed": ("deepseek-v3-671b", {"mla_absorbed": True}),
     "hybrid": ("zamba2-1.2b", {}),
     "vlm": ("llama-3.2-vision-90b", {}),
+    "seamless": ("seamless-m4t-large-v2", {}),
     "xlstm": ("xlstm-125m", {}),
 }
 SERVE_B, SERVE_S, SERVE_NEW, SERVE_L = 6, 8, 4, 16
+# the second input of a family that takes one: the VLM's patches, the
+# encoder-decoder's frames
+CTX_INPUT = {"vlm": "ctx", "audio": "frames"}
 SERVE_MESHES = ("2x2", "1x4")
 F32 = {"param_dtype": "float32", "compute_dtype": "float32"}
 
@@ -332,8 +336,8 @@ def check_serving(meshes, serve_dir, timeout_s):
         cfg = configs.get_smoke_config(arch, **over, **F32)
         params = weights.from_reference(_load(serve_dir, arch, deadline),
                                         "cpu")
-        ctx = (torch.from_numpy(inputs["ctx"]) if cfg.family == "vlm"
-               else None)
+        ctx = (torch.from_numpy(inputs[CTX_INPUT[cfg.family]])
+               if cfg.family in CTX_INPUT else None)
         sdims = sequence_dims(cfg)
         full = dict(_leaves(get_model(cfg).init_cache(SERVE_B, SERVE_L,
                                                       device="meta")))
@@ -376,6 +380,7 @@ def check_serving(meshes, serve_dir, timeout_s):
 
 LAYER_B, LAYER_S, LAYER_L = 3, 8, 16     # rows, prompt, cache entries
 LAYER_VOCAB = 120                        # pads to 256: masked columns
+GRAD_FLOOR = 0.1       # the new twins' gradients: see _twin
 
 
 def _draw(gen, *shape):
@@ -548,6 +553,271 @@ def twin_moe(mg, gen):
                 (g, w[cut[n]]) for g, w, n in zip(gg[1:], gw[1:], p)])}
 
 
+def _cut(t, axes, mg):
+    """The index of this rank's block of ``t`` where the reference's rules
+    split it over a 'model' axis of ``mg.size`` ranks, else the whole."""
+    from repro_torch.parallel import sharding as Sh
+    d = Sh.model_dim(Sh.spec_for_axes(axes, tuple(t.shape), Sh.MeshShape(
+        ("model",), (mg.size,)), Sh.make_rules()))
+    return (slice(None),) if d is None \
+        else (slice(None),) * d + (mg.block(t.shape[d]),)
+
+
+def _split(mg, params, axes):
+    """``(whole, local, cuts)``: the whole leaves and this rank's blocks of
+    them (:func:`_cut`), each a leaf that requires grad."""
+    from repro_torch.models.common import tree_map
+    cuts = tree_map(lambda t, a: _cut(t, a, mg), params, axes)
+    whole = tree_map(lambda t: t.detach().clone().requires_grad_(), params)
+    local = tree_map(lambda t, c: t.detach()[c].clone().requires_grad_(),
+                     params, cuts)
+    return whole, local, cuts
+
+
+def _twin(mg, params, axes, fwd, inputs):
+    """``fwd(p, *inputs)`` (a tensor) on the whole leaves and, under
+    ``mg``, on this rank's blocks: the output's and the gradients' largest
+    relative difference (the inputs', and each leaf's against the whole
+    leaf's gradient cut to its block), and ``(whole, local, cuts)``."""
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.parallel import sharding as Sh
+    whole, local, cuts = _split(mg, params, axes)
+    xw = [x.detach().clone().requires_grad_() for x in inputs]
+    xl = [x.detach().clone().requires_grad_() for x in inputs]
+    want = fwd(whole, *xw)
+    gw = _grads(want, xw + tree_leaves(whole))
+    with Sh.model_parallel(mg):
+        got = fwd(local, *xl)
+        gg = _grads(got, xl + tree_leaves(local))
+    n = len(inputs)
+    pairs = list(zip(gg[:n], gw[:n])) + [
+        (g, w[c]) for g, w, c in zip(gg[n:], gw[n:], tree_leaves(cuts))]
+    # each gradient against its own norm, floored at GRAD_FLOOR of all
+    # the gradients' norm: a gate bias's gradient sums per-token terms that
+    # all but cancel (the sLSTM's input gate exactly: a common shift of log
+    # i cancels in c / n), so its rounding is that of the terms, not of
+    # the sum
+    floor = GRAD_FLOOR * math.sqrt(sum(float(w.double().square().sum())
+                                       for _, w in pairs))
+    grads = max(float((g.double() - w.double()).norm())
+                / max(float(w.double().norm()), floor) for g, w in pairs)
+    return (_rel_max([(got.detach(), want.detach())]), grads,
+            (whole, local, cuts))
+
+
+def _no_grad(tree):
+    from repro_torch.models.common import tree_map
+    return tree_map(lambda t: t.detach(), tree)
+
+
+def twin_mla(mg, gen, absorbed):
+    """``apply_mla`` (plain or absorbed) with its heads split against the
+    whole layer: the prefill's output and gradients, then one decode step
+    over a sequence-split latent cache block (every head over the block,
+    combined across 'model') and the blocks written."""
+    from repro_torch.models import attention as A
+    from repro_torch.parallel import sharding as Sh
+    D, H = 64, 4
+    dims = dict(kv_rank=32, d_nope=16, d_rope=8, d_v=16)
+    params, axes = A.init_mla(gen, D, H, q_rank=48, dtype=torch.float32,
+                              **dims)
+    x = torch.randn((LAYER_B, LAYER_S + 1, D), generator=gen)
+    pos = torch.arange(LAYER_S)
+    kw = dict(absorbed=absorbed, **dims)
+
+    def fwd(p, xs):
+        return A.apply_mla(p, xs, positions=pos, n_heads=H, **kw)[0]
+
+    prefill, grads, (whole, local, _) = _twin(mg, params, axes, fwd,
+                                              [x[:, :LAYER_S]])
+    whole, local = _no_grad(whole), _no_grad(local)
+    shapes = ((LAYER_B, LAYER_L, dims["kv_rank"]),
+              (LAYER_B, LAYER_L, dims["d_rope"]))
+    cache = [torch.zeros(s) for s in shapes]
+    n = LAYER_L // mg.size
+    blk = Sh.CacheBlock(mg.index * n, (mg.index + 1) * n, mg.group)
+    block = [torch.zeros((LAYER_B, n, s[2])) for s in shapes]
+    step = torch.tensor([LAYER_S])
+    with torch.no_grad():
+        A.apply_mla(whole, x[:, :LAYER_S], positions=pos, cache=cache, **kw)
+        want, _ = A.apply_mla(whole, x[:, LAYER_S:], positions=step,
+                              cache=cache, cache_pos=LAYER_S, **kw)
+        with Sh.model_parallel(mg), Sh.cache_block(blk):
+            A.apply_mla(local, x[:, :LAYER_S], positions=pos, cache=block,
+                        n_heads=H, **kw)
+            got, _ = A.apply_mla(local, x[:, LAYER_S:], positions=step,
+                                 cache=block, cache_pos=LAYER_S, n_heads=H,
+                                 **kw)
+    cached = max(float((b - c[:, blk.start:blk.stop]).abs().max())
+                 / float(c.abs().max()) for b, c in zip(block, cache))
+    return {"prefill": prefill, "prefill_grads": grads,
+            "decode": _rel_max([(got, want)]), "cache": cached}
+
+
+def twin_cross(mg, gen):
+    """``apply_cross`` with its heads split (the 2 KV heads split on 2
+    ranks, whole on 4) against the whole layer: the output and the
+    gradients of x, ctx and the blocks, then a decode step from the K/V it
+    returned (this rank's KV heads, as the cache keeps them)."""
+    from repro_torch.models import attention as A
+    from repro_torch.parallel import sharding as Sh
+    D, H, Hkv, hd, Dc, T = 64, 4, 2, 16, 48, 6
+    params, axes = A.init_cross(gen, D, H, Hkv, hd, Dc, torch.float32)
+    x = torch.randn((LAYER_B, LAYER_S + 1, D), generator=gen)
+    ctx = torch.randn((LAYER_B, T, Dc), generator=gen)
+
+    def fwd(p, xs, c):
+        return A.apply_cross(p, xs, c, n_heads=H, n_kv_heads=Hkv)[0]
+
+    out, grads, (whole, local, cuts) = _twin(mg, params, axes, fwd,
+                                             [x[:, :LAYER_S], ctx])
+    whole, local = _no_grad(whole), _no_grad(local)
+    with torch.no_grad():
+        _, kv_w = A.apply_cross(whole, x[:, :LAYER_S], ctx)
+        want, _ = A.apply_cross(whole, x[:, LAYER_S:], kv_cache=kv_w)
+        with Sh.model_parallel(mg):
+            _, kv_l = A.apply_cross(local, x[:, :LAYER_S], ctx, n_heads=H,
+                                    n_kv_heads=Hkv)
+            got, _ = A.apply_cross(local, x[:, LAYER_S:], kv_cache=kv_l,
+                                   n_heads=H, n_kv_heads=Hkv)
+    kv = cuts["wk"][1] if mg.splits(Hkv) else slice(None)
+    return {"prefill": out, "prefill_grads": grads,
+            "decode": _rel_max([(got, want)]),
+            "cache": _rel_max([(a, b[:, :, kv]) for a, b in zip(kv_l, kv_w)]),
+            "kv_split": mg.splits(Hkv)}
+
+
+def twin_encoder(mg, gen):
+    """The smoke seamless encoder (non-causal GQA self-attention and
+    SwiGLU, two layers) on this rank's blocks of every leaf the
+    reference's rules split against the whole encoder: the output and the
+    gradients of the frames and of every leaf."""
+    from repro_torch import configs
+    from repro_torch.models.transformer import get_model
+    cfg = configs.get_smoke_config("seamless-m4t-large-v2", **F32)
+    model = get_model(cfg)
+    params, axes = model.init(5, device="cpu", with_axes=True)
+    frames = torch.randn((LAYER_B, LAYER_S, cfg.d_model), generator=gen)
+    keep = ("encoder", "ln_enc")
+    out, grads, _ = _twin(
+        mg, {k: params[k] for k in keep}, {k: axes[k] for k in keep},
+        lambda p, f: model.encode(p, f), [frames])
+    return {"out": out, "grads": grads}
+
+
+def twin_mamba(mg, gen):
+    """``apply_mamba2`` on this rank's heads (the fused projection's
+    column block gathered, the conv leaves gathered, the norm's squares
+    summed, ``w_out`` row-parallel) against the whole mixer: the
+    full-sequence output and gradients (the plain scan), again over more
+    tokens than ``d_model`` (``w_in``'s block gathered, this rank's
+    columns projected, the conv state made whole from the last tokens'
+    inputs) with its states, then a prefill
+    from no state through ``mamba2_scan`` on the local heads and one
+    decode step from its state: outputs, the SSM state's head block and
+    the whole conv state."""
+    from repro_torch.models import ssm
+    from repro_torch.parallel import sharding as Sh
+    D, N, P = 64, 16, 16
+    H = 2 * D // P
+    params, axes = ssm.init_mamba2(gen, D, N, P, 2, 4, torch.float32)
+    # non-zero conv biases and dt biases, so their gradients are
+    params = {k: v + 0.1 * torch.randn(v.shape, generator=gen)
+              if k in ("conv_b", "dt_bias") else v for k, v in params.items()}
+    x = torch.randn((LAYER_B, LAYER_S + 1, D), generator=gen)
+    kw = dict(d_state=N, head_dim=P, chunk=4, n_heads=H)
+
+    def fwd(p, xs):
+        return ssm.apply_mamba2(p, xs, **kw)[0]
+
+    out, grads, (whole, local, _) = _twin(mg, params, axes, fwd,
+                                          [x[:, :LAYER_S]])
+    # more tokens than d_model: w_in's block gathered, not the projection
+    xl = torch.randn((LAYER_B, 3 * LAYER_S, D), generator=gen)
+    long, long_grads, _ = _twin(mg, params, axes, fwd, [xl])
+    whole, local = _no_grad(whole), _no_grad(local)
+    fresh = {"conv": None, "ssm": None}
+    kw["impl"] = "mamba_kernel"
+    with torch.no_grad():
+        # the long prefill's states: this rank's heads, the whole conv
+        _, lw = ssm.apply_mamba2(whole, xl, state=fresh, **kw)
+        with Sh.model_parallel(mg):
+            _, ll = ssm.apply_mamba2(local, xl, state=fresh, **kw)
+        yw, sw = ssm.apply_mamba2(whole, x[:, :LAYER_S], state=fresh, **kw)
+        want, stw = ssm.apply_mamba2(whole, x[:, LAYER_S:], state=sw, **kw)
+        with Sh.model_parallel(mg):
+            yl, sl = ssm.apply_mamba2(local, x[:, :LAYER_S], state=fresh,
+                                      **kw)
+            got, stl = ssm.apply_mamba2(local, x[:, LAYER_S:], state=sl,
+                                        **kw)
+    hb = mg.block(H)
+    return {"prefill": out, "prefill_grads": grads, "long": long,
+            "long_grads": long_grads,
+            "kernel_prefill": _rel_max([(yl, yw)]),
+            "decode": _rel_max([(got, want)]),
+            "state": _rel_max([(stl["ssm"], stw["ssm"][:, hb]),
+                               (stl["conv"], stw["conv"]),
+                               (ll["ssm"], lw["ssm"][:, hb]),
+                               (ll["conv"], lw["conv"])]),
+            "local_heads": int(sl["ssm"].shape[1])}
+
+
+def twin_mlstm(mg, gen):
+    """``apply_mlstm`` on this rank's heads against the whole cell: the
+    chunkwise form's output and gradients, then one step from its state:
+    the output and the state's head blocks."""
+    from repro_torch.models import xlstm
+    from repro_torch.parallel import sharding as Sh
+    D, H = 64, 4
+    params, axes = xlstm.init_mlstm(gen, D, H, torch.float32)
+    x = torch.randn((LAYER_B, LAYER_S + 1, D), generator=gen)
+
+    def fwd(p, xs):
+        return xlstm.apply_mlstm(p, xs, q_chunk=4, n_heads=H)[0]
+
+    out, grads, (whole, local, _) = _twin(mg, params, axes, fwd,
+                                          [x[:, :LAYER_S]])
+    return {"prefill": out, "prefill_grads": grads,
+            **_state_step(mg, H, xlstm.apply_mlstm, _no_grad(whole),
+                          _no_grad(local), x)}
+
+
+def _state_step(mg, H, apply, whole, local, x):
+    """A recurrent cell's state after ``x[:, :LAYER_S]`` and one step
+    from it, whole and on this rank's heads: the step's output and the
+    new state's head blocks (dim 1 of each leaf)."""
+    from repro_torch.parallel import sharding as Sh
+    with torch.no_grad():
+        _, sw = apply(whole, x[:, :LAYER_S])
+        want, stw = apply(whole, x[:, LAYER_S:], sw)
+        with Sh.model_parallel(mg):
+            _, sl = apply(local, x[:, :LAYER_S], n_heads=H)
+            got, stl = apply(local, x[:, LAYER_S:], sl, n_heads=H)
+    hb = mg.block(H)
+    return {"decode": _rel_max([(got, want)]),
+            "state": max(float((stl[k] - stw[k][:, hb]).abs().max())
+                         / float(stw[k].abs().max()) for k in stw)}
+
+
+def twin_slstm(mg, gen):
+    """``apply_slstm`` on this rank's heads (their ``h`` gathered before
+    the whole norm and ``w_out``) against the whole cell: the output and
+    gradients, then one step from its state."""
+    from repro_torch.models import xlstm
+    D, H = 64, 4
+    params, axes = xlstm.init_slstm(gen, D, H, torch.float32)
+    x = torch.randn((LAYER_B, LAYER_S + 1, D), generator=gen)
+
+    def fwd(p, xs):
+        return xlstm.apply_slstm(p, xs, n_heads=H)[0]
+
+    out, grads, (whole, local, _) = _twin(mg, params, axes, fwd,
+                                          [x[:, :LAYER_S]])
+    return {"prefill": out, "prefill_grads": grads,
+            **_state_step(mg, H, xlstm.apply_slstm, _no_grad(whole),
+                          _no_grad(local), x)}
+
+
 def check_layers(meshes):
     """Every layer twin on the 2 x 2 and 1 x 4 meshes' 'model' groups."""
     from repro_torch.parallel import sharding as Sh
@@ -558,7 +828,14 @@ def check_layers(meshes):
         out[mesh_name] = {"gqa": twin_gqa(mg, gen),
                           "mlp": twin_mlps(mg, gen),
                           "vocab": twin_vocab(mg, gen),
-                          "moe": twin_moe(mg, gen)}
+                          "moe": twin_moe(mg, gen),
+                          "mla": twin_mla(mg, gen, False),
+                          "mla_absorbed": twin_mla(mg, gen, True),
+                          "cross": twin_cross(mg, gen),
+                          "encoder": twin_encoder(mg, gen),
+                          "mamba": twin_mamba(mg, gen),
+                          "mlstm": twin_mlstm(mg, gen),
+                          "slstm": twin_slstm(mg, gen)}
     return out
 
 
@@ -577,10 +854,15 @@ def _shapes(tree, shapes, shardings, keep, tp):
     return out
 
 
+COMPUTE_ARCHS = (CFG_ARCH, MOE_ARCH, "zamba2-1.2b", "seamless-m4t-large-v2",
+                 "xlstm-125m")
+
+
 def check_compute_shapes(meshes):
     """The shapes the sharded step and the serving engine compute on, for
-    the smoke llama (every layer parallel) and deepseek (MLA whole, EP),
-    on both meshes."""
+    the smoke llama, deepseek (MLA, EP), zamba2 (Mamba and the shared
+    block), seamless (the encoder, cross-attention) and the xLSTM, on both
+    meshes."""
     from repro_torch import configs
     from repro_torch.models.transformer import (get_model,
                                                 model_parallel_leaf)
@@ -588,7 +870,7 @@ def check_compute_shapes(meshes):
     from repro_torch.serving.engine import ServeConfig, ServingEngine
     from repro_torch.train import trainer
     out = {}
-    for arch in (CFG_ARCH, MOE_ARCH):
+    for arch in COMPUTE_ARCHS:
         cfg, opt, _ = _setup(arch)
         model = get_model(cfg)
         shapes, axes = configs.param_specs(cfg)
