@@ -429,6 +429,38 @@ Phases (any failure exits non-zero, with no result line):
     on zamba2's and seamless' local heads; these paths join the kernels'
     record.
 
+28. FSDP over 'data' and TP over 'model', within ``DP_TP_BUDGET_S``: four
+    spawned processes of their own (``run_ranks``) share the card over a
+    ``gloo`` group on CUDA tensors, a (2, 2) mesh ("data" x "model"), each
+    rank's parameters at rest its blocks over both axes, gathered over
+    'data' one block at a time where the model reads them (c10d; the
+    gradients reduce-scattered back). (a) llama3.2-1b at full width cut to
+    ``DP_TP_LAYERS`` layers, f32, one training step at
+    ``DP_TP_TRAIN`` (2 rows per DP rank) against the meshless step (each
+    rank in turn runs it on the whole state): the loss within
+    ``TP_LOSS_REL``, the grad norm and the pooled gradient blocks within
+    ``TP_GRAD_REL``, each leaf's gradient and updated parameter within
+    ``TP_LEAF_REL``; the GiB each rank holds allocated at rest after the
+    step, at most ``REST_SHARE_MAX`` of the whole state's; each rank's
+    peak GiB above its baseline, the DP
+    gathers (forward and backward) and reduce-scatters per step and the
+    most gathered bytes alive at once. (d) That state saved from the mesh
+    (c10d gathers; rank 0 writes on its thread while (b) and (c) run) and
+    read back onto the host after them, each rank's blocks bit for bit.
+    (b) llama3.2-1b served with its parameters placed by FSDP: f32 at
+    ``DP_TP_LAYERS`` layers fed the meshless engine's greedy tokens (as
+    26(a)), then bf16 at full width and depth, ``SERVE_B`` x
+    ``SERVE_PROMPT`` prompts, ``DP_TP_NEW`` new tokens: time to first
+    token, decode tokens/s, peak GiB per rank, the DP gathers, and flash
+    once per layer per prefill on each rank's 2 rows and 16 of 32 heads;
+    rank 0 holds flash on its layer-0 input against the plain version and
+    times it beside its bound and SDPA. (c) The smoke deepseek-v3 and
+    llama4-maverick configs served on the mesh, each DP rank routing its
+    rows through the c10d ``TokenGroup``: every MoE call's routing, the DP
+    ranks' copies joined in row order, equal to the meshless call's;
+    tokens equal; logits within ``TP_EP_ROW_REL``. Every gather and
+    decode step passes through the host: these times are the harness's.
+
 Each phase's wall is printed on one ``[done]`` line. The last lines are
 the kernels' JSON record (a kernel launched on two
 main paths, as flash in the llama prefill, the hybrid forward and the
@@ -738,6 +770,26 @@ TP_EP_ARCHS = ("deepseek-v3-671b", "llama4-maverick-400b-a17b")
 # f32 twin is cut to one super block (one shared-attention application)
 # and a tail block. Every decode step sends its collectives through the
 # host (zamba2 some 200, 0.44 s a step), so the bf16 runs are short
+# phase 28, FSDP over 'data' and TP over 'model' within its own budget:
+# four processes sharing the card over gloo on a (2, 2) mesh; llama3.2-1b
+# trained one f32 step at DP_TP_LAYERS layers on DP_TP_TRAIN (2 rows per DP
+# rank) against the meshless step, its state checkpointed, served with its
+# parameters placed by FSDP (bf16 at full depth, DP_TP_NEW new tokens;
+# every block is gathered over gloo at each decode step), and the smoke
+# MoE configs routed over the DP ranks
+DP_TP_BUDGET_S = 75.0
+DP_TP_SHAPE = (2, 2)
+DP_TP_WORLD = 4
+DP_TP_TIMEOUT_S = 300.0
+DP_TP_LAYERS = 4
+DP_TP_TRAIN = dict(batch=4, seq=1024)
+# the most of 28(a)'s whole state (parameters and moments) a rank may hold
+# allocated at rest after the step: its quarter and the batch
+REST_SHARE_MAX = 0.3
+# new tokens of (b) in bf16 and f32 ((c) keeps 26(c)'s MOE_NEW): each
+# decode step of (b) gathers every block over gloo through the host (1.4
+# GiB a step in bf16, 1.5-3 s)
+DP_TP_NEW, DP_TP_F32_NEW = 16, 5
 TP_LAYERS_BUDGET_S = 60.0
 TP_LAYERS_TIMEOUT_S = 240.0
 TPL_B, TPL_PROMPT, TPL_SEED = 2, 512, 0
@@ -5447,7 +5499,7 @@ def tp_train_llama(torch, mesh, rank):
         got_g, _, _ = grads_of(ms.local(placed["params"]), ms.rows(batch))
     torch.cuda.synchronize()
     grad_s = time.perf_counter() - t0
-    blocks = tree_map(ms.model_block, want_g, got_g, sh["params"])
+    blocks = tree_map(ms.block, want_g, sh["params"])
     sums = {"/".join(path): (float((a.double() - b.double()).square().sum()),
                              float(b.double().square().sum()))
             for (path, a), b in zip(tree_items(got_g), tree_leaves(blocks))}
@@ -5457,7 +5509,8 @@ def tp_train_llama(torch, mesh, rank):
                                                   float("inf"))
                 for k, (n, d) in sums.items()}
     worst = sorted(leaf_rel, key=leaf_rel.get, reverse=True)
-    split = sum(ms.split(got_g, placed["params"]))
+    split = sum(bool(ms.split_axes(t))
+                for t in tree_leaves(placed["params"]))
     del want_g, got_g, blocks
     torch.cuda.empty_cache()
     _, _, metrics = step(placed["params"], placed["opt_state"], batch)
@@ -5603,9 +5656,11 @@ def tp_experts(torch, mesh, rank, counts, flash_attention):
     return out
 
 
-def rank_main(rank, init_file, out_dir, tag, timeout_s, parts):
-    """One rank of a two-process phase (a spawned process): joins the gloo
-    group (``file://`` rendezvous), builds the (1, 2) mesh on the card,
+def rank_main(rank, init_file, out_dir, tag, timeout_s, parts,
+              shape=(1, TP_WORLD)):
+    """One rank of a multi-process phase (a spawned process): joins the
+    gloo group (``file://`` rendezvous), builds the ``shape`` ("data" x
+    "model") mesh on the card (the (1, 2) mesh unless given),
     runs each part ``(key, fn(torch, mesh, rank, counts))`` in turn and
     writes ``rank<r>.json``: each part's numbers and wall, or the
     traceback that stopped it, and when this function began
@@ -5630,9 +5685,9 @@ def rank_main(rank, init_file, out_dir, tag, timeout_s, parts):
     try:
         dist.init_process_group(
             "gloo", init_method=f"file://{init_file}", rank=rank,
-            world_size=TP_WORLD,
+            world_size=int(np.prod(shape)),
             timeout=datetime.timedelta(seconds=timeout_s))
-        mesh = make_mesh((1, TP_WORLD), ("data", "model"), "cuda")
+        mesh = make_mesh(shape, ("data", "model"), "cuda")
         result["setup_s"] = time.time() - entry
         for key, fn in parts:
             t0 = time.perf_counter()
@@ -5661,8 +5716,8 @@ def tp_rank(rank, init_file, out_dir):
             torch, mesh, r, counts, flash_attention))))
 
 
-def run_ranks(torch, target, timeout_s, tag):
-    """``target(rank, init_file, out_dir)`` in ``TP_WORLD`` spawned
+def run_ranks(torch, target, timeout_s, tag, world=TP_WORLD):
+    """``target(rank, init_file, out_dir)`` in ``world`` spawned
     processes, joined under ``timeout_s`` (a rank still running then is
     killed and the phase fails): each rank's ``rank<r>.json``, with
     ``spawn_s``, the seconds from the spawn to ``rank_main``'s start.
@@ -5675,7 +5730,7 @@ def run_ranks(torch, target, timeout_s, tag):
     ctx = multiprocessing.get_context("spawn")
     with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{tag}_") as d:
         procs = [ctx.Process(target=target, args=(
-            r, os.path.join(d, "rendezvous"), d)) for r in range(TP_WORLD)]
+            r, os.path.join(d, "rendezvous"), d)) for r in range(world)]
         spawned = time.time()
         for p in procs:
             p.start()
@@ -5687,12 +5742,12 @@ def run_ranks(torch, target, timeout_s, tag):
             p.kill()
             p.join()
         results = []
-        for r in range(TP_WORLD):
+        for r in range(world):
             path = os.path.join(d, f"rank{r}.json")
             results.append(json.load(open(path)) if os.path.exists(path)
                            else {"error": f"rank {r} wrote no result"})
     if hung:
-        raise AssertionError(f"{tag}: {len(hung)} of {TP_WORLD} ranks still "
+        raise AssertionError(f"{tag}: {len(hung)} of {world} ranks still "
                              f"ran after {timeout_s:g} s: {results}")
     bad = [f"rank {r} (exit {p.exitcode}):\n{res.get('error')}"
            for r, (p, res) in enumerate(zip(procs, results))
@@ -5781,15 +5836,17 @@ def mesh_inputs(torch, cfg, batch, prompt, seed):
     return prompts, random_ctx(cfg, batch, gen)
 
 
-def mesh_twin(torch, mesh, rank, cfg, batch, prompt, new, seed):
-    """The f32 twin of phases 26(a) and 27 on this rank: ``cfg``'s weights
-    from ``seed`` (the xLSTM's sLSTM ``r`` at 1 / sqrt(hd):
+def mesh_twin(torch, mesh, rank, cfg, batch, prompt, new, seed,
+              place=None):
+    """The f32 twin of phases 26(a), 27 and 28(b) on this rank: ``cfg``'s
+    weights from ``seed`` (the xLSTM's sLSTM ``r`` at 1 / sqrt(hd):
     ``rescale_slstm_r``), the meshless engine's ``new`` greedy tokens and
-    its logits on rank 0 (both ranks hold every row), broadcast; the mesh
-    engine fed those tokens (teacher-forced) must pick the same token at
+    its logits on rank 0, the tokens broadcast; the mesh engine (given
+    ``place(params)`` where ``place`` is given: DTensors placed on the
+    mesh) fed those tokens (teacher-forced) must pick the same token at
     every step, so its own greedy run gives the same tokens. On rank 0:
-    ``tokens_equal`` and the largest ``row_rel`` of the logits over the
-    vocabulary's columns (a padded head's -1e30 would swamp the rows'
+    ``tokens_equal`` and the largest ``row_rel`` of its rows' logits over
+    the vocabulary's columns (a padded head's -1e30 would swamp the rows'
     norms). The cache's length, ``prompt + new``, must be one the 'model'
     axis divides (the sequence splits into ``CacheBlock``s)."""
     import torch.distributed as dist
@@ -5812,15 +5869,17 @@ def mesh_twin(torch, mesh, rank, cfg, batch, prompt, new, seed):
         tok.copy_(torch.from_numpy(tokens))
     dist.broadcast(tok, 0)
     tokens = tok.cpu().numpy()
-    eng = ServingEngine(cfg, scfg, params=params, device="cuda", mesh=mesh)
+    eng = ServingEngine(cfg, scfg, params=params if place is None
+                        else place(params), device="cuda", mesh=mesh)
     got = teacher_forced(torch, eng, prompts, tokens, prompt, ctx)
+    rows = eng.rows(torch.arange(batch)).numpy()
     del eng, params
     out = {}
     if rank == 0:
         v = cfg.vocab_size
         out = dict(tokens_equal=bool((got.argmax(-1).cpu().numpy()
-                                      == tokens).all()),
-                   row_rel=row_rel(got[..., :v], want[..., :v]))
+                                      == tokens[rows]).all()),
+                   row_rel=row_rel(got[..., :v], want[rows][..., :v]))
         del want
     del got
     torch.cuda.empty_cache()
@@ -6009,6 +6068,457 @@ def phase_tp_layers(torch):
                  sea["launches"]["flash_attention"], sea["flash"])]}
 
 
+# ------------------------------------------------------------ phase 28
+
+def fsdp_place(torch, cfg, mesh):
+    """``place(params)``: whole parameters (the same on every rank) as
+    DTensors placed by the reference's FSDP rules on ``mesh`` (``embed``
+    on 'data'), each rank's blocks copied out of the whole leaves (so
+    these are freed once the caller drops them)."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.transformer import get_model
+    from repro_torch.parallel import sharding as Sh
+    shapes, axes = get_model(cfg).init(0, device="meta", with_axes=True)
+    sh = Sh.param_shardings(axes, shapes, mesh, Sh.make_rules(
+        fsdp=True, data_axes=Sh.dp_axes(mesh)))
+
+    def one(t, s):
+        d = Sh.distribute(t, s)
+        return DTensor.from_local(d.to_local().detach().clone(), mesh,
+                                  d.placements,
+                                  run_check=False, shape=d.shape,
+                                  stride=d.stride())
+
+    return lambda params: tree_map(one, params, sh)
+
+
+def dptp_train(torch, mesh, rank, out_dir, shared):
+    """28(a) on this rank: llama3.2-1b at full width, ``DP_TP_LAYERS``
+    layers, f32, its state placed by FSDP on the (2, 2) mesh; one step on
+    the global batch against the meshless step (each rank in turn runs it
+    on the whole state, and keeps its blocks of the gradient and of the
+    updated parameters): the loss, the pooled gradient, every leaf's
+    gradient and updated parameter; each rank's peak above its baseline,
+    the DP gather's counts and high-water mark. Then (d)'s save of the
+    updated state from the mesh (into ``out_dir``), whose read-back
+    (:func:`dptp_restore`) comes after (b) and (c): ``shared`` carries
+    what it needs."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.models.common import tree_items, tree_leaves, tree_map
+    from repro_torch.models.transformer import get_model
+    from repro_torch.optim import adamw
+    from repro_torch.train import trainer
+    cfg = configs.get_config(SERVE_ARCH, n_layers=DP_TP_LAYERS,
+                             param_dtype="float32", compute_dtype="float32")
+    opt = adamw.AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=10)
+    batch = synth_batch(DataConfig(cfg.vocab_size, DP_TP_TRAIN["batch"],
+                                   DP_TP_TRAIN["seq"]), 0, "cuda")
+    step = trainer.make_train_step(cfg, opt, mesh, fsdp=True)
+    ms, finish = step.pieces["mesh_step"], step.pieces["finish"]
+    sh = ms.shardings
+    laps, t0 = {}, time.perf_counter()
+    st = trainer.init_train_state(cfg, opt, SERVE_SEED, "cuda")
+    placed = trainer.shard_state(
+        {"params": st.params, "opt_state": st.opt_state},
+        {"params": sh["params"], "opt_state": sh["opt_state"]})
+    # the blocks copied out of the whole leaves (and off their autograd
+    # graph), so that these are freed below
+    placed = tree_map(lambda t: t.__class__.from_local(
+        t.to_local().detach().clone(), mesh, t.placements, run_check=False,
+        shape=t.shape, stride=t.stride()), placed)
+    laps["init_s"] = time.perf_counter() - t0
+    # the meshless step, one rank at a time on the card
+    want = {}
+    for turn in range(DP_TP_WORLD):
+        if rank == turn:
+            grads, loss, _ = trainer._grad_fn(get_model(cfg), 1)(st.params,
+                                                                batch)
+            new_p, new_opt, m = adamw.apply_updates(opt, st.params, grads,
+                                                    st.opt_state)
+            del new_opt
+            want = dict(loss=float(loss), grad_norm=float(m["grad_norm"]),
+                        grads=tree_map(ms.block, grads, sh["params"]),
+                        params=tree_map(ms.block, new_p, sh["params"]))
+            want["grads"] = tree_map(lambda t: t.clone(), want["grads"])
+            want["params"] = tree_map(lambda t: t.detach().clone(),
+                                      want["params"])
+            del grads, new_p, m
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    laps["meshless_s"] = time.perf_counter() - t0 - laps["init_s"]
+    del st
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    t0 = time.perf_counter()
+    ms.gather.reset()
+    with ms.context(batch, ms.dp):
+        grads, loss, metrics = trainer._grad_fn(get_model(cfg), 1)(
+            ms.local(placed["params"]), ms.rows(batch))
+    ms.gather.forget()
+    new_p, new_opt, metrics = finish(placed["params"], placed["opt_state"],
+                                     grads, loss, metrics)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    counts = ms.gather.counts()
+    sums = {}
+    for (path, g), w, p, q in zip(tree_items(grads),
+                                  tree_leaves(want["grads"]),
+                                  tree_leaves(new_p), tree_leaves(
+                                      want["params"])):
+        k = "/".join(path)
+        sums[k] = tuple(float(x) for x in (
+            (g.double() - w.double()).square().sum(),
+            w.double().square().sum(),
+            (p.to_local().double() - q.double()).square().sum(),
+            q.double().square().sum()))
+
+    def rel(n, d):
+        return (n / d) ** 0.5 if d > 0 else (0.0 if n == 0 else float("inf"))
+
+    leaf = {k: rel(v[0], v[1]) for k, v in sums.items()}
+    upd = {k: rel(v[2], v[3]) for k, v in sums.items()}
+    worst = max(leaf, key=leaf.get)
+    worst_p = max(upd, key=upd.get)
+    out = dict(loss=float(metrics["loss"]), want_loss=want["loss"],
+               grad_norm=float(metrics["grad_norm"]),
+               want_grad_norm=want["grad_norm"],
+               grad_rel=rel(sum(v[0] for v in sums.values()),
+                            sum(v[1] for v in sums.values())),
+               leaf_rel_max=leaf[worst], worst_leaf=worst,
+               param_rel_max=upd[worst_p], worst_param=worst_p,
+               n_leaves=len(leaf), step_s=step_s, peak_gib=peak, **laps,
+               base_gib=base / 2**30, gather=counts,
+               held=sum(t.to_local().numel() for t in tree_leaves(new_p))
+               / sum(t.numel() for t in tree_leaves(new_p)))
+    out["loss_rel"] = abs(out["loss"] - out["want_loss"]) / abs(
+        out["want_loss"])
+    out["grad_norm_rel"] = abs(out["grad_norm"] - out["want_grad_norm"]) \
+        / out["want_grad_norm"]
+    if not (out["loss_rel"] <= TP_LOSS_REL and out["grad_rel"] <= TP_GRAD_REL
+            and out["grad_norm_rel"] <= TP_GRAD_REL
+            and out["leaf_rel_max"] <= TP_LEAF_REL
+            and out["param_rel_max"] <= TP_LEAF_REL
+            and counts["gathers"] > 0 and counts["reduce_scatters"] > 0):
+        raise AssertionError(f"28(a) rank {rank}: {out}")
+    del grads, want, placed, metrics
+    torch.cuda.empty_cache()
+    # what the rank holds at rest after the step: its blocks of the updated
+    # parameters and moments (and the batch), against the whole state
+    whole = sum(t.numel() * t.element_size()
+                for t in tree_leaves({"p": new_p, "o": new_opt}))
+    out.update(rest_gib=torch.cuda.memory_allocated() / 2**30,
+               whole_gib=whole / 2**30)
+    if out["rest_gib"] > REST_SHARE_MAX * out["whole_gib"]:
+        raise AssertionError(f"28(a) rank {rank}: {out}")
+    # (d)'s save: the gathers now, rank 0's write on its thread while (b)
+    # and (c) run (dptp_restore waits for it)
+    t0 = time.perf_counter()
+    mgr = CheckpointManager(os.path.join(out_dir, "ckpt"))
+    state = {"params": new_p, "opt_state": new_opt}
+    mgr.save(1, state)
+    shared.update(mgr=mgr, save_s=time.perf_counter() - t0,
+                  blocks=tree_map(lambda t: t.to_local().cpu(), state),
+                  whole=tree_map(lambda t: torch.empty(
+                      t.shape, dtype=t.dtype, device="meta"), state),
+                  where={"params": sh["params"],
+                         "opt_state": sh["opt_state"]}, block=ms.block)
+    return out
+
+
+def dptp_restore(torch, rank, shared):
+    """28(d) on this rank: (a)'s state, saved from the (2, 2) mesh, read
+    back onto no mesh (the host) once its write has ended, this rank's
+    blocks bit for bit."""
+    from repro_torch.models.common import tree_leaves, tree_map
+    mgr = shared["mgr"]
+    t0 = time.perf_counter()
+    mgr.wait()
+    wait_s = time.perf_counter() - t0
+    back = mgr.restore(1, tree_map(lambda t: torch.empty(
+        t.shape, dtype=t.dtype, device="cpu"), shared["whole"]))
+    same = all(torch.equal(shared["block"](b, w), t) for b, t, w in zip(
+        tree_leaves(back), tree_leaves(shared["blocks"]),
+        tree_leaves(shared["where"])))
+    out = dict(same=same, save_s=shared["save_s"], wait_s=wait_s,
+               restore_s=time.perf_counter() - t0 - wait_s,
+               gib=sum(t.numel() * t.element_size()
+                       for t in tree_leaves(back)) / 2**30)
+    if not same:
+        raise AssertionError(f"28(d) rank {rank}: {out}")
+    shared.clear()
+    return out
+
+
+def dptp_serve(torch, mesh, rank, counts, flash_attention):
+    """28(b) on this rank: llama3.2-1b with its parameters placed by FSDP
+    on the (2, 2) mesh: in f32 at ``DP_TP_LAYERS`` layers fed the meshless
+    engine's greedy tokens (``mesh_twin``), then at full width and depth
+    in bf16 its numbers, its DP gathers and its launches (flash once per
+    layer per prefill, on this rank's 2 rows and 16 of 32 heads); rank 0
+    holds flash on its layer-0 input and times it."""
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.launch.serve import random_prompts
+    from repro_torch.models import attention
+    from repro_torch.models.transformer import get_model
+    from repro_torch.serving.engine import ServeConfig, ServingEngine
+    f32 = configs.get_config(SERVE_ARCH, n_layers=DP_TP_LAYERS,
+                             attn_impl="flash", param_dtype="float32",
+                             compute_dtype="float32")
+    t0 = time.perf_counter()
+    twin = mesh_twin(torch, mesh, rank, f32, SERVE_B, SERVE_PROMPT,
+                     DP_TP_F32_NEW, SERVE_SEED, fsdp_place(torch, f32, mesh))
+    out = {f"f32_{k}": v for k, v in twin.items()}
+    if rank == 0 and not (twin["tokens_equal"]
+                          and twin["row_rel"] <= TP_F32_ROW_REL):
+        raise AssertionError(f"28(b) f32 on the (2, 2) mesh against "
+                             f"meshless: {out}")
+    out["f32_s"] = time.perf_counter() - t0
+    cfg = configs.get_config(SERVE_ARCH, attn_impl="flash")
+    prompts = random_prompts(cfg.vocab_size, SERVE_B, SERVE_PROMPT,
+                             torch.Generator(device="cuda").manual_seed(
+                                 SERVE_SEED + 1))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = fsdp_place(torch, cfg, mesh)(get_model(cfg).init(SERVE_SEED,
+                                                               "cuda"))
+    torch.cuda.empty_cache()
+    eng = ServingEngine(cfg, ServeConfig(batch=SERVE_B,
+                                         max_len=SERVE_PROMPT + DP_TP_NEW),
+                        params=params, device="cuda", mesh=mesh)
+    del params
+    rest = torch.cuda.memory_allocated() - base
+    eng.generate(prompts, 1)
+    shapes = []
+    tap = CallTap(flash_attention)
+
+    def spy(q, k, v, **kw):
+        shapes.append((tuple(q.shape), tuple(k.shape)))
+        return tap(q, k, v, **kw)
+
+    gather = eng._mesh.gather
+    t0 = time.perf_counter()
+    attention.flash_attention = spy
+    try:
+        for c in counts:
+            c.launches = 0
+        gather.reset()
+        tokens = eng.generate(prompts, DP_TP_NEW)
+        launches = {c.__name__: c.launches for c in counts}
+    finally:
+        attention.flash_attention = flash_attention
+    st = eng.last_stats
+    out.update(launches=launches, shapes=sorted(set(shapes)),
+               bf16_s=time.perf_counter() - t0, ttft_s=st["prefill_s"],
+               decode_tps=SERVE_B * (DP_TP_NEW - 1) / st["decode_s"],
+               peak_gib=(torch.cuda.max_memory_allocated() - base) / 2**30,
+               rest_gib=rest / 2**30, gather=gather.counts(),
+               finite=st["logits_finite"], tokens_shape=list(tokens.shape))
+    rows = SERVE_B // DP_TP_SHAPE[0]
+    heads = (cfg.n_heads // DP_TP_SHAPE[1], cfg.n_kv_heads // DP_TP_SHAPE[1])
+    want = [((rows, SERVE_PROMPT, heads[0], cfg.hd),
+             (rows, SERVE_PROMPT, heads[1], cfg.hd))]
+    others = {k: n for k, n in launches.items()
+              if k != flash_attention.__name__ and n}
+    if launches[flash_attention.__name__] != cfg.n_layers or others \
+            or [tuple(map(tuple, x)) for x in out["shapes"]] != want \
+            or not out["finite"] or out["gather"]["gathers"] == 0:
+        raise AssertionError(f"28(b) bf16 on the (2, 2) mesh, rank {rank}: "
+                             f"{out}")
+    del eng
+    if rank == 0:
+        out["flash"] = time_flash(torch, flash_attention, tap.kept, 28,
+                                  "on layer 0's local rows and heads of the "
+                                  "prefill on the (2, 2) mesh, rank 0")
+    # the other ranks wait here, so that none shares the card with the
+    # timing
+    dist.barrier()
+    del tap
+    torch.cuda.empty_cache()
+    return out
+
+
+def routing_by_copy(r):
+    """One MoE call's routing in copy order (token-major, k copies each):
+    ``idx`` and each copy's rank within its expert and whether it is kept,
+    on the host."""
+    out = {"idx": r["idx"].reshape(-1).cpu()}
+    for key in ("rank", "keep"):
+        v = r[key].new_empty(r[key].shape)
+        v[r["order"]] = r[key]
+        out[key] = v.cpu()
+    return out
+
+
+def dptp_experts(torch, mesh, rank):
+    """28(c) on this rank: the smoke MoE configs served on the (2, 2) mesh
+    (each DP rank routes its rows through the c10d ``TokenGroup``) and
+    meshless: each MoE call's routing, the DP ranks' copies joined in row
+    order, equal to the meshless call's exactly; greedy tokens equal;
+    this rank's rows' logits within ``TP_EP_ROW_REL`` of each row's
+    norm."""
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.launch.serve import random_prompts
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import get_model
+    from repro_torch.serving.engine import ServeConfig, ServingEngine
+    route = moe.route
+    data = mesh.get_group("data")
+    out = {}
+    for arch in TP_EP_ARCHS:
+        cfg = configs.get_smoke_config(arch)
+        params = get_model(cfg).init(MOE_SEED, "cuda")
+        gen = torch.Generator(device="cuda").manual_seed(MOE_SEED + 1)
+        prompts = random_prompts(cfg.vocab_size, MOE_B, MOE_TWIN_S, gen)
+        scfg = ServeConfig(batch=MOE_B, max_len=MOE_TWIN_S + MOE_NEW)
+        runs = {}
+        for name, m in (("mesh", mesh), ("meshless", None)):
+            routes = []
+
+            def spy(*a, **kw):
+                r = route(*a, **kw)
+                routes.append(routing_by_copy(r))
+                return r
+
+            eng = ServingEngine(cfg, scfg, params=params, device="cuda",
+                                mesh=m)
+            moe.route = spy
+            try:
+                tokens = eng.generate(prompts, MOE_NEW)
+                logits = teacher_forced(torch, eng, prompts, tokens,
+                                        MOE_TWIN_S)
+            finally:
+                moe.route = route
+            runs[name] = (tokens, logits, routes,
+                          eng.rows(torch.arange(MOE_B)).numpy())
+        (tm, lm, rm, rows), (tw, lw, rw, _) = runs["mesh"], runs["meshless"]
+        joined = []
+        for call in rm:
+            every = [None] * DP_TP_SHAPE[0]
+            dist.all_gather_object(every, call, group=data)
+            joined.append({k: torch.cat([e[k] for e in every])
+                           for k in call})
+        got = dict(routes=len(rm),
+                   routing_equal=len(joined) == len(rw) > 0 and all(
+                       torch.equal(a[k], b[k])
+                       for a, b in zip(joined, rw) for k in a),
+                   tokens_equal=bool(np.array_equal(tm, tw)),
+                   row_rel=row_rel(lm, lw[rows]))
+        if not (got["routing_equal"] and got["tokens_equal"]
+                and got["row_rel"] <= TP_EP_ROW_REL):
+            raise AssertionError(f"28(c) smoke {arch} rank {rank}: {got}")
+        out[arch] = got
+        del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def dptp_rank(rank, init_file, out_dir):
+    """One rank of phase 28: (a) (and (d)'s save), (b), (c), then (d)'s
+    read-back, on the (2, 2) mesh."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    shared = {}
+    rank_main(rank, init_file, out_dir, "28", DP_TP_TIMEOUT_S, (
+        ("a", lambda torch, mesh, r, counts: dptp_train(torch, mesh, r,
+                                                        out_dir, shared)),
+        ("b", lambda torch, mesh, r, counts: dptp_serve(
+            torch, mesh, r, counts, flash_attention)),
+        ("c", lambda torch, mesh, r, counts: dptp_experts(torch, mesh, r)),
+        ("d", lambda torch, mesh, r, counts: dptp_restore(torch, r,
+                                                          shared))),
+        shape=DP_TP_SHAPE)
+
+
+def phase_dp_tp(torch, flash_attention):
+    """Phase 28 within ``DP_TP_BUDGET_S``: the four ranks of ``dptp_rank``
+    in spawned processes, joined under ``DP_TP_TIMEOUT_S``. Returns rank
+    0's flash launches on (b)'s bf16 generation and its record there."""
+    card = card_line()
+    t28 = time.perf_counter()
+    results = run_ranks(torch, dptp_rank, DP_TP_TIMEOUT_S, "28",
+                        world=DP_TP_WORLD)
+    mesh = f"{DP_TP_SHAPE} ('data' x 'model') mesh over gloo"
+    for r, res in enumerate(results):
+        a, b, c = res["a"], res["b"], res["c"]
+        g = a["gather"]
+        log(f"[28] (a) rank {r}: {SERVE_ARCH} at full width, "
+            f"{DP_TP_LAYERS} layers, f32, FSDP on the {mesh}, one step at "
+            f"{DP_TP_TRAIN['batch']} x {DP_TP_TRAIN['seq']} "
+            f"({a['step_s']:.3f} s): loss {a['loss']:.6f} against the "
+            f"meshless {a['want_loss']:.6f} (relative {a['loss_rel']:.3g}, "
+            f"tol {TP_LOSS_REL:g}); grad norm {a['grad_norm']:.6f} against "
+            f"{a['want_grad_norm']:.6f} ({a['grad_norm_rel']:.3g}); the "
+            f"gradient blocks pooled within {a['grad_rel']:.3g} (tol "
+            f"{TP_GRAD_REL:g}), leaf by leaf the worst of {a['n_leaves']} "
+            f"{a['worst_leaf']} at {a['leaf_rel_max']:.3g}, the updated "
+            f"parameters' worst {a['worst_param']} at "
+            f"{a['param_rel_max']:.3g} (tol {TP_LEAF_REL:g}); holds "
+            f"{100 * a['held']:.2f} % of the parameters and "
+            f"{a['rest_gib']:.3f} GiB at rest after the step (the whole "
+            f"state {a['whole_gib']:.3f} GiB; most {REST_SHARE_MAX:g} of "
+            f"it); peak "
+            f"{a['peak_gib']:.3f} GiB above its baseline of "
+            f"{a['base_gib']:.3f} GiB (the whole state drawn and placed in "
+            f"{a['init_s']:.1f} s, the meshless steps in turn "
+            f"{a['meshless_s']:.1f} s); DP gathers per step: forward "
+            f"{g['gathers']} ({g['gathered_bytes'] / 2**30:.3f} GiB), "
+            f"backward {g['regathers']} ({g['regathered_bytes'] / 2**30:.3f}"
+            f" GiB: the remat's recompute and the saved blocks), "
+            f"reduce-scatters {g['reduce_scatters']} "
+            f"({g['scattered_bytes'] / 2**30:.3f} GiB), the most gathered "
+            f"at once {g['high_bytes'] / 2**30:.4f} GiB")
+        k = res["d"]
+        log(f"[28] (d) rank {r}: (a)'s state ({k['gib']:.2f} GiB) saved "
+            f"from the mesh (the gathers and rank 0's host copy "
+            f"{k['save_s']:.2f} s in (a), {res['walls']['a']:.1f} s; its "
+            f"write ended {k['wait_s']:.2f} s after (c)) and read back onto "
+            f"the host in {k['restore_s']:.2f} s, this rank's blocks bit "
+            f"for bit ({res['walls']['d']:.1f} s)")
+        f32 = (f"the meshless engine's greedy tokens picked at every step, "
+               f"logits within {b['f32_row_rel']:.3g} of each row's norm "
+               f"(tol {TP_F32_ROW_REL:g})" if r == 0 else "held on rank 0")
+        gb = b["gather"]
+        log(f"[28] (b) rank {r}: {SERVE_ARCH} with its parameters placed by "
+            f"FSDP on the {mesh}, {SERVE_B} x {SERVE_PROMPT} prompts; f32 at "
+            f"{DP_TP_LAYERS} layers ({DP_TP_F32_NEW} new, {b['f32_s']:.1f} "
+            f"s): "
+            f"{f32}; bf16 at full depth, {DP_TP_NEW} new "
+            f"({b['bf16_s']:.1f} s): time to first token {b['ttft_s']:.4f} "
+            f"s, decode {b['decode_tps']:.2f} tokens/s, peak "
+            f"{b['peak_gib']:.3f} GiB above the baseline ({b['rest_gib']:.3f}"
+            f" GiB at rest), DP gathers {gb['gathers']} "
+            f"({gb['gathered_bytes'] / 2**30:.3f} GiB, the most at once "
+            f"{gb['high_bytes'] / 2**20:.1f} MiB), launches {b['launches']}, "
+            f"flash on (q, k/v) {b['shapes']} ({res['walls']['b']:.1f} s)")
+        log(f"[28] (c) rank {r}: " + "; ".join(
+            f"smoke {arch}: {v['routes']} MoE calls, the DP ranks' routing "
+            f"joined equal to the meshless, tokens equal, logits within "
+            f"{v['row_rel']:.3g}" for arch, v in c.items())
+            + f" (tol {TP_EP_ROW_REL:g}; {res['walls']['c']:.1f} s)")
+    log("[28] every gather and decode step passes through the host (gloo on "
+        "CUDA tensors, four processes on one card): these times are this "
+        "harness's, not FSDP's over NVLink")
+    wall = time.perf_counter() - t28
+    log_rank_setup("28", results, wall)
+    within = "within" if wall <= DP_TP_BUDGET_S else "OVER"
+    log(f"[28] phase 28 in {wall:.1f} s ({within} its {DP_TP_BUDGET_S:g} s "
+        f"budget); card: {card}")
+    b0 = results[0]["b"]
+    return b0["launches"][flash_attention.__name__], b0["flash"]
+
+
 def both_paths(paths, keys=("ms", "plain_ms", "bound_ms", "library_ms")):
     """One kernel's record over the main paths that launch it: launches
     summed, and each time (``keys``) the launch-weighted mean of the
@@ -6178,6 +6688,8 @@ def main() -> int:
         clock.lap("26")
         tpl = phase_tp_layers(torch)
         clock.lap("27")
+        dptp_launches, dptp_frec = phase_dp_tp(torch, flash_attention)
+        clock.lap("28")
     finally:
         if cells is not None:
             cells.close()
@@ -6202,14 +6714,16 @@ def main() -> int:
                         *(rec["max_abs_err"] for _, _, rec in
                           dense_paths + cross_paths + tpl["flash"]),
                         moe_path[2]["max_abs_err"], mesh_frec["max_abs_err"],
-                        tp_frec["max_abs_err"]),
+                        tp_frec["max_abs_err"], dptp_frec["max_abs_err"]),
         **both_paths([("llama prefill", flash_launches, frec),
                       ("hybrid forward", hyb["flash_launches"], hfrec)]
                      + dense_paths + [moe_path] + cross_paths
                      + [("llama prefill on the (1, 1) mesh", mesh_launches,
                          mesh_frec),
                         ("llama prefill on the (1, 2) mesh, rank 0's heads",
-                         tp_launches, tp_frec)] + tpl["flash"])),
+                         tp_launches, tp_frec)] + tpl["flash"]
+                     + [("llama prefill on the (2, 2) mesh with FSDP, rank "
+                         "0's rows and heads", dptp_launches, dptp_frec)])),
         dict(
         name="gmm_logpdf", route="cuda",
         source="src/repro_torch/kernels/csrc/gmm_logpdf.cu",

@@ -11,8 +11,10 @@ torch dtype) records every leaf's dtype, so a restore is bit for bit.
 Leaves are copied to the host on save and placed on the target's device
 on restore, so a checkpoint written on the card restores onto the CPU and
 back. A sharded tree (DTensor leaves, :mod:`repro_torch.train.trainer` on
-a mesh) is saved whole: every rank gathers each leaf (a collective, so
-every rank calls ``save``), rank 0 alone writes, and the others wait for
+a mesh) is saved whole: every rank gathers each leaf (c10d all-gathers
+over the mesh dims that shard it, the inner first:
+:func:`~repro_torch.parallel.sharding.gather_whole`; collectives, so every
+rank calls ``save``), rank 0 alone writes, and the others wait for
 its write at their next ``wait`` (which ``save`` and ``restore`` call
 first). ``restore`` places each leaf with the given shardings on any mesh
 (or on none), so a checkpoint written on one mesh restores onto another
@@ -138,7 +140,8 @@ class CheckpointManager:
         updating the tree), then writes ``.tmp`` and renames it into place
         on a thread, or here with ``block``; the oldest checkpoints beyond
         ``keep_last`` are removed after the write. DTensor leaves are
-        gathered whole first, on every rank; only rank 0 writes."""
+        gathered whole first, on every rank, one at a time; only rank 0
+        writes."""
         sharded = any(isinstance(leaf, DTensor)
                       for _, leaf in tree_items(state_tree))
         writer = not sharded or dist.get_rank() == 0
@@ -147,7 +150,7 @@ class CheckpointManager:
         for path, leaf in tree_items(state_tree):
             name = "/".join(map(str, path))
             if isinstance(leaf, DTensor):
-                leaf = leaf.full_tensor()
+                leaf = Sh.gather_whole(leaf)
             if writer:
                 flat[name] = _to_host(leaf)
             dtypes[name] = str(leaf.dtype).removeprefix("torch.")

@@ -69,11 +69,12 @@ reference's rules and ``serving.engine``'s ``make_prefill_step`` /
 ``make_serve_step`` on the mesh. ``fsdp`` follows the reference's
 ``FSDP_ARCHS`` (or the override). The FLOP and byte counters see an
 operation on a DTensor at its global shape, so only plain local tensors
-are computed on: the parameters become what rank 0 computes on
-(:func:`~repro_torch.parallel.sharding.local_params`: gathered over the
-DP axes, a leaf the reference splits over 'model' kept in its 'model'
-block) in a part of the count that tallies collectives only, then rank
-0's rows run. What changes:
+are computed on: the parameters become rank 0's blocks
+(:func:`~repro_torch.parallel.sharding.local_params`, no communication)
+in a part of the count that tallies collectives only, then rank 0's rows
+run, the step's :class:`~repro_torch.parallel.sharding.DPGather`
+gathering each block the DP axes split where the model reads it (one
+step of a stage at a time). What changes:
 
 - ``n_devices`` 256 / 512; ``memory.argument_size_in_bytes`` rank 0's
   blocks of the parameters, the optimizer state and the batch rows, or of
@@ -92,13 +93,21 @@ block) in a part of the count that tallies collectives only, then rank
   ``all-reduce``, ``reduce-scatter``, ``all-to-all``,
   ``collective-permute``) as ``{bytes, count}``, by the reference's rule:
   per collective the bytes of the largest tensor among its arguments and
-  results, c10d and functional collectives alike: the parameters' DP
-  gathers, the layers' all-reduces over 'model' (forward, and backward to
-  train), the decode's query/key/value (MLA: query, and plain ``wkv_b``)
-  and logits gathers, the Mamba mixer's projection and conv-leaf
-  gathers, the sLSTM's heads' gather, the cache moves, the sequence
-  blocks' combine and the gradients' DP all-reduces. They are kept out of
-  the FLOP and byte counts.
+  results, c10d and functional collectives alike: under FSDP the
+  parameters' per-block DP gathers (in every train microbatch, prefill
+  and decode step), and to train the backward's re-gathers and the
+  gradients' reduce-scatters; the layers' all-reduces over 'model'
+  (forward, and backward to train), the query's sequence split's
+  all-gathers (where 'model' does not divide the heads: llama4's 40 on
+  16), the decode's query/key/value (MLA: query, and plain ``wkv_b``) and
+  logits gathers, the Mamba mixer's projection and conv-leaf gathers, the
+  sLSTM's heads' gather, the cache moves, the sequence blocks' combine and
+  the gradients' DP all-reduces. They are kept out of the FLOP and byte
+  counts;
+- ``dp_gather``: the step's DP gathers alone (``DPGather.counts``:
+  ``gathers``, ``regathers``, ``reduce_scatters`` and their bytes, a train
+  cell's taken ``microbatches`` times; ``high_bytes``, the most gathered
+  bytes alive at once, is one microbatch's), all zero without FSDP.
 
 Cells go to ``<root>/dryrun_torch/<mesh>/`` (``root``: the repository's
 ``artifacts/``), a directory the reference never globs.
@@ -252,8 +261,13 @@ def count(step: Callable[[], object]) -> Dict:
     once and its counts taken ``times`` times (a microbatch's gradient,
     which every microbatch repeats on the same shapes), the output the
     last part's. A part ``(fn, times, "collectives")`` adds its
-    collectives only (the parameters' gathers)."""
+    collectives only (the parameters' gathers). A step with ``dp_gather``,
+    ``(DPGather, times)``, adds that gather's counts, taken ``times``
+    times (``"dp_gather"``)."""
     parts = getattr(step, "parts", None) or ((step, 1),)
+    gather, dp_times = getattr(step, "dp_gather", (None, 1))
+    if gather is not None:
+        gather.reset()
     t0 = time.perf_counter()
     flops = nbytes = 0
     coll = empty_collectives()
@@ -272,9 +286,13 @@ def count(step: Callable[[], object]) -> Dict:
         for c, v in comm.tally().items():
             coll[c]["bytes"] += times * v["bytes"]
             coll[c]["count"] += times * v["count"]
-    return {"flops": int(flops), "bytes": int(nbytes),
-            "output_bytes": _tree_bytes(out), "collectives": coll,
-            "wall_s": time.perf_counter() - t0}
+    out = {"flops": int(flops), "bytes": int(nbytes),
+           "output_bytes": _tree_bytes(out), "collectives": coll,
+           "wall_s": time.perf_counter() - t0}
+    if gather is not None:
+        out["dp_gather"] = {k: v if k == "high_bytes" else v * dp_times
+                            for k, v in gather.counts().items()}
+    return out
 
 
 def cell_step(cfg: ModelConfig, spec: ShapeSpec, *, microbatches: int = 1,
@@ -356,10 +374,11 @@ def mesh_cell_step(cfg: ModelConfig, spec: ShapeSpec, mesh, *,
                    moment_dtype: str = "float32"):
     """``(step, argument bytes)`` of rank 0 on ``mesh`` (a ``DeviceMesh``
     of the fake world): the state, or the parameters, placed by the
-    reference's rules (``fsdp``) as DTensors of rank 0's blocks, and the
-    step in :func:`count`'s parts, the first of which gathers the
-    parameters and tallies collectives only. The argument bytes are rank
-    0's blocks and rows."""
+    reference's rules (``fsdp``) as DTensors of rank 0's blocks; a train
+    step in :func:`count`'s parts, the first of which takes rank 0's
+    blocks (``pieces["local"]``, which moves nothing) and tallies
+    collectives only; a serving step takes the DTensors. The argument
+    bytes are rank 0's blocks and rows."""
     from repro_torch.serving.engine import make_prefill_step, make_serve_step
     from repro_torch.train import trainer
     full, axes = CN.param_specs(cfg)
@@ -401,14 +420,12 @@ def mesh_cell_step(cfg: ModelConfig, spec: ShapeSpec, mesh, *,
 
         step.parts = ((gather, 1, "collectives"), (first, 1),
                       (one, microbatches), (step, 1))
+        step.dp_gather = (ms.gather, microbatches)
         return step, _tree_bytes(_local((params, opt_state, rows)))
 
     rules = Sh.make_rules(fsdp=fsdp, data_axes=Sh.dp_axes(mesh))
     params = trainer.shard_state(full, Sh.param_shardings(axes, full, mesh,
                                                           rules))
-
-    def gather():
-        st["full"] = serving.bind().local_params(params)
 
     def rows(t):
         return t[Sh.batch_shardings({"t": t}, mesh)["t"].block(
@@ -420,7 +437,7 @@ def mesh_cell_step(cfg: ModelConfig, spec: ShapeSpec, mesh, *,
         serving = prefill_step.mesh_serve
 
         def step():
-            return prefill_step(st["full"], ins["tokens"], ins.get("ctx"))
+            return prefill_step(params, ins["tokens"], ins.get("ctx"))
 
         args = (params, rows(ins["tokens"]),
                 None if ins.get("ctx") is None else rows(ins["ctx"]))
@@ -432,10 +449,10 @@ def mesh_cell_step(cfg: ModelConfig, spec: ShapeSpec, mesh, *,
                         ins["cache"], cache_sh)
 
         def step():
-            return serve_step(st["full"], ins["tokens"], cache, S - 1)
+            return serve_step(params, ins["tokens"], cache, S - 1)
 
         args = (params, rows(ins["tokens"]), cache, ins["pos"])
-    step.parts = ((gather, 1, "collectives"), (step, 1))
+    step.dp_gather = (serving.bind().gather, 1)
     return step, _tree_bytes(_local(args))
 
 
@@ -593,6 +610,8 @@ def lower_cell(arch: str, shape_name: str,
                      "bytes accessed": float(c["bytes"])},
         "collectives": {} if mesh is None else c["collectives"],
     })
+    if mesh is not None and "dp_gather" in c:
+        rec["dp_gather"] = c["dp_gather"]
     return rec
 
 

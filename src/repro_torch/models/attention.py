@@ -19,7 +19,14 @@ kernel.
 The reference's sharding constraints are called at the reference's points
 (:mod:`repro_torch.parallel.sharding`: ``constrain_decode_q``,
 ``maybe_seq_shard_q``, ``constrain_kv_cache``); they redistribute a DTensor
-under an installed mesh and leave a plain tensor as it is. The serving
+under an installed mesh and leave a plain tensor as it is. On the
+tensor-parallel path the query's sequence split is explicit: under an
+installed 'model' group that does not divide the heads (so the layer runs
+whole) but divides the query length, the plain path attends each rank's
+block of query positions and all-gathers the blocks along the sequence
+(:func:`~repro_torch.parallel.sharding.seq_split_group`). The flash route
+comes first, as in the reference, so such a layer under ``impl="flash"``
+runs the kernel whole. The serving
 engine on a mesh runs each rank on plain tensors and installs a
 :class:`~repro_torch.parallel.sharding.CacheBlock`: the cache writes then
 keep only the new entries in this rank's sequence block, and decode
@@ -60,14 +67,16 @@ from repro_torch.parallel.sharding import (block_softmax, combine_blocks,
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
          causal: bool, q_positions: Optional[torch.Tensor] = None,
          kv_valid_len: Optional[torch.Tensor] = None, impl: str = "xla",
-         q_chunk: int = -1) -> torch.Tensor:
+         q_chunk: int = -1, heads: Optional[int] = None) -> torch.Tensor:
     """Grouped scaled-dot-product attention.
 
     q, k: [B, Sq|Skv, H|Hkv, Dh]; v: [B, Skv, Hkv, Dv] with H % Hkv == 0;
     the output is [B, Sq, H, Dv] (MLA's Dv differs from Dh).
     ``q_positions``: absolute positions of the queries (causal masking
     when Sq != Skv, e.g. decode). ``kv_valid_len``: [B] valid cache
-    entries (decode).
+    entries (decode). ``heads``: the layer's global query head count
+    (default: q's), which decides the query's sequence split over an
+    installed 'model' group.
     """
     B, Sq, H, Dh = q.shape
     rep = H // k.shape[2]
@@ -107,12 +116,27 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         q_chunk = Sq if Sq <= 2048 else max(1024, Sq // 16)
     if q_chunk == 0 or Sq % q_chunk != 0:
         q_chunk = Sq
+    sq = Sh.seq_split_group(heads or H, Sq) if Sq > 1 else None
     if Sq > 1:
         q = maybe_seq_shard_q(q)
+    if sq is not None:
+        # the query's sequence split over 'model' (the heads do not divide
+        # it): this rank attends its block of query positions against
+        # every key; q, k and v are whole on every rank, so their gradients
+        # (each rank's block's share) are summed over the group
+        blk = sq.block(Sq)
+        q, k, v = (Sh.to_model(t, sq) for t in (q, k, v))
+        q, qpos = q[:, blk], qpos[blk]
+        Sq = blk.stop - blk.start
+        if Sq % q_chunk != 0:
+            q_chunk = Sq
     outs = [_attn_core(q[:, i:i + q_chunk], k, v, qpos[i:i + q_chunk],
                        causal, kv_valid_len, scale)
             for i in range(0, Sq, q_chunk)]
-    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+    # the blocks joined along the sequence (this rank's block of the
+    # gradient flows back)
+    return Sh.gather_model(out, sq, 1)
 
 
 def _decode_core_grouped(q, k, v, kv_valid_len, scale, rep):
@@ -272,7 +296,7 @@ def apply_gqa(p: dict, x: torch.Tensor, *, positions: torch.Tensor,
     if cache is None or S > 1:
         # no cache, or a prefill (cache_pos == 0): attend the fresh K/V
         out = sdpa(q, k_att, v_att, causal=causal, impl=impl,
-                   q_chunk=q_chunk)
+                   q_chunk=q_chunk, heads=n_heads)
     if cache is not None:
         ck, cv = cache
         if kv_mg is not None:
@@ -424,7 +448,8 @@ def apply_mla(p: dict, x: torch.Tensor, *, positions: torch.Tensor,
         k_full = torch.cat([k_nope, r_all[:, :, None, :].expand(
             *r_all.shape[:2], H, d_rope).to(k_nope.dtype)], dim=-1)
         out = sdpa(q_full, k_full, v, causal=True, q_positions=positions,
-                   kv_valid_len=valid, impl=impl, q_chunk=q_chunk)
+                   kv_valid_len=valid, impl=impl, q_chunk=q_chunk,
+                   heads=n_heads)
         if spread:
             out = out[:, :, mg.block(H)]
     y = einsum("bshv,hvd->bsd", out, p["wo"])
@@ -483,6 +508,7 @@ def apply_cross(p: dict, x: torch.Tensor, ctx: Optional[torch.Tensor] = None,
     if mg is not None and kv_mg is None:
         heads, _ = local_kv_heads(mg.index, h_loc, h_loc * mg.size // kv_loc)
         k_att, v_att = k[:, :, heads], v[:, :, heads]
-    out = sdpa(q, k_att, v_att, causal=False, impl=impl, q_chunk=q_chunk)
+    out = sdpa(q, k_att, v_att, causal=False, impl=impl, q_chunk=q_chunk,
+               heads=n_heads)
     y = einsum("bshk,hkd->bsd", out, p["wo"])
     return Sh.from_model(y, mg), (k, v)

@@ -26,7 +26,10 @@ column- then row-parallel, :func:`embed_lookup` and
 :func:`lm_head_logits` / :func:`cross_entropy_loss` vocab-parallel, each
 computing this rank's share and combining the shares over the group.
 Given whole leaves, or with no group installed, each is the meshless
-function.
+function. Under FSDP the step's parameters are also this rank's blocks over
+the DP axes: :func:`layer` (a stacked leaf's block) and the models' reads
+of their unstacked leaves gather them over those axes at their use
+(:class:`~repro_torch.parallel.sharding.DPGather`).
 
 Where the reference's ``einsum`` mixes dtypes, JAX promotes; ``torch``
 refuses, so :func:`einsum` promotes first.
@@ -164,30 +167,48 @@ def tree_leaves(tree) -> list:
 def tree_unflatten(tree, leaves):
     """A tree of ``tree``'s structure whose leaves are ``leaves``, taken in
     :func:`tree_leaves`' order."""
-    it = iter(leaves)
+    return _build(tree, iter(leaves))
 
-    def build(t):
-        if isinstance(t, dict):
-            out = dict.fromkeys(t)      # the keys in ``tree``'s order
-            for k in sorted(t):
-                out[k] = build(t[k])
-            return out
-        return next(it)
 
-    return build(tree)
+def _build(t, it):
+    """:func:`tree_unflatten`'s walk: a module function, not a closure that
+    calls itself, which would hold ``leaves`` in a reference cycle (a whole
+    gradient left alive until the cyclic collector runs)."""
+    if isinstance(t, dict):
+        out = dict.fromkeys(t)      # the keys in ``tree``'s order
+        for k in sorted(t):
+            out[k] = _build(t[k], it)
+        return out
+    return next(it)
 
 
 def unstack(params: Params, n: int) -> list:
     """The ``n`` blocks of a stacked parameter tree, as views from one
-    ``unbind`` per leaf."""
+    ``unbind`` per leaf. Under an installed
+    :class:`~repro_torch.parallel.sharding.DPGather` each view is
+    registered as split where its stacked leaf is: read a block through
+    :func:`~repro_torch.parallel.sharding.dp_tree`."""
     parts = tree_map(lambda t: t.unbind(0), params)
+    g = Sh.current_dp_gather()
+    if g is not None:
+        tree_map(lambda t, u: [g.alias(v, t) for v in u], params, parts)
     return [tree_map(lambda u, i=i: u[i], parts) for i in range(n)]
 
 
 def layer(params: Params, i: int) -> Params:
-    """Block ``i`` of a stacked parameter tree, as views."""
+    """Block ``i`` of a stacked parameter tree, as views; under an
+    installed :class:`~repro_torch.parallel.sharding.DPGather` each leaf
+    that the DP axes split is indexed, then gathered (one block at a
+    time)."""
+    g = Sh.current_dp_gather()
+    if g is None:
+        return _index(params, i)
+    return tree_map(lambda t: g.take(t, i), params)
+
+
+def _index(params, i):
     if isinstance(params, dict):
-        return {k: layer(v, i) for k, v in params.items()}
+        return {k: _index(v, i) for k, v in params.items()}
     return params[i]
 
 

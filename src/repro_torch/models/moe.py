@@ -39,9 +39,15 @@ block of the ``n_experts`` experts
 whole: every rank computes the same routing (the rows are the same on
 every 'model' rank), fills the buffers of its own experts only and
 scatters their weighted outputs; one all-reduce over 'model' sums the
-ranks' shares, with no all-to-all. Where the shared experts' matrices
-hold a block of their mlp width (``shared_width``), they run column- then
-row-parallel. The aux values stay the whole layer's.
+ranks' shares, with no all-to-all. Where 'model' does not divide the
+experts but divides their width (``expert_width``, the reference's rules
+then split each expert's mlp dim), every rank holds every expert's block
+of the width and each expert runs column- then row-parallel on it
+(:func:`~repro_torch.parallel.sharding.to_model` before the up and gate
+products, the ranks' shares summed after the down product). Where the
+shared experts' matrices hold a block of their mlp width
+(``shared_width``), they run column- then row-parallel. The aux values
+stay the whole layer's.
 """
 from __future__ import annotations
 
@@ -84,7 +90,8 @@ def _cummax(x: torch.Tensor) -> torch.Tensor:
 def apply_moe(p: dict, x: torch.Tensor, *, top_k: int, n_experts: int,
               capacity_factor: float = 1.25,
               router_bias: Optional[torch.Tensor] = None,
-              token_chunks: int = 1, shared_width: Optional[int] = None):
+              token_chunks: int = 1, shared_width: Optional[int] = None,
+              expert_width: Optional[int] = None):
     """x: [B, S, D] -> ([B, S, D], aux dict of ``load_balance_loss`` and
     ``dropped_fraction``, 0-d f32).
 
@@ -93,13 +100,14 @@ def apply_moe(p: dict, x: torch.Tensor, *, top_k: int, n_experts: int,
     tokens in that many interleaved chunks (chunk i holds tokens i, i + c,
     i + 2c, ...), when ``T % c == 0`` and each chunk holds at least
     ``n_experts`` tokens; each chunk's capacity comes from its own token
-    count, and the aux values are the chunks' means. ``shared_width``: the
-    shared experts' global mlp width (default: their matrices')."""
+    count, and the aux values are the chunks' means. ``shared_width``,
+    ``expert_width``: the shared experts' and each routed expert's global
+    mlp width (default: their matrices')."""
     B, S, D = x.shape
     T = B * S
     kw = dict(top_k=top_k, n_experts=n_experts,
               capacity_factor=capacity_factor, router_bias=router_bias,
-              shared_width=shared_width)
+              shared_width=shared_width, expert_width=expert_width)
     grp = current_token_group()
     Tg = T * (grp.count if grp is not None else 1)     # the global batch's
     if token_chunks > 1 and Tg % token_chunks == 0 \
@@ -163,15 +171,20 @@ def route(p: dict, xf: torch.Tensor, *, top_k: int, n_experts: int,
 
 def _moe_tokens(p: dict, xf: torch.Tensor, *, top_k: int, n_experts: int,
                 capacity_factor: float, router_bias,
-                shared_width: Optional[int] = None
+                shared_width: Optional[int] = None,
+                expert_width: Optional[int] = None
                 ) -> Tuple[torch.Tensor, dict]:
     T, D = xf.shape
     r = route(p, xf, top_k=top_k, n_experts=n_experts,
               capacity_factor=capacity_factor, router_bias=router_bias)
     se, keep, rows = r["se"], r["keep"], r["rows"]
-    n_loc = p["w_gate"].shape[0]
+    n_loc, f_loc = p["w_gate"].shape[0], p["w_gate"].shape[-1]
     ep = layer_group(n_loc, n_experts)
-    xe, w = to_model(xf, ep), to_model(r["w"], ep)
+    # each expert on this rank's block of its width (column- then
+    # row-parallel) where the experts are whole but their width is split
+    wp = layer_group(f_loc, expert_width or f_loc)
+    share = ep or wp        # the routed output is this rank's share
+    xe, w = to_model(xf, share), to_model(r["w"], share)
     if ep is not None:
         # this rank's experts only: the other copies go to the spare row
         # (the routing, computed whole on every rank, is the same on all)
@@ -204,15 +217,15 @@ def _moe_tokens(p: dict, xf: torch.Tensor, *, top_k: int, n_experts: int,
         gs = einsum("td,df->tf", xs, p["ws_gate"])
         us = einsum("td,df->tf", xs, p["ws_up"])
         ys = einsum("tf,fd->td", F.silu(gs) * us, p["ws_down"])
-        # EP and TP: this rank's shares are summed over 'model' (once,
-        # where both are shares)
-        if (tp is None) == (ep is None):
+        # the routed and shared outputs: this rank's shares are summed
+        # over 'model' (once, where both are shares)
+        if (tp is None) == (share is None):
             y = y + ys
-        elif ep is not None:
-            y, ep = from_model(y, ep) + ys, None
+        elif share is not None:
+            y, share = from_model(y, share) + ys, None
         else:
             y = y + from_model(ys, tp)
-    y = from_model(y, ep)
+    y = from_model(y, share)
 
     # ---- aux: Switch-style load-balance loss, and the dropped share
     me = r["probs"].mean(dim=0)                                  # [E]

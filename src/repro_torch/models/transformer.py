@@ -213,14 +213,26 @@ def head_width(cfg: ModelConfig) -> int:
 
 def _embed(cfg: ModelConfig, params, tokens) -> torch.Tensor:
     """The tokens' embeddings in the compute dtype (vocab-parallel where
-    ``embed`` is this rank's 'model' block)."""
-    return embed_lookup(params["embed"], tokens, cfg.vocab_size).to(cfg.cdt)
+    ``embed`` is this rank's 'model' block; gathered over the DP axes
+    that split it, :func:`~repro_torch.parallel.sharding.dp_leaf`)."""
+    return embed_lookup(Sh.dp_leaf(params["embed"]), tokens,
+                        cfg.vocab_size).to(cfg.cdt)
 
 
-def _logits(cfg: ModelConfig, x, head) -> torch.Tensor:
-    """The head's logits; this rank's block of the vocabulary where
-    ``head`` is this rank's 'model' block."""
+def _logits(cfg: ModelConfig, x, params) -> torch.Tensor:
+    """The head's logits: ``lm_head``, or the embedding transposed where
+    the tree has no ``lm_head`` (a tied decoder), each gathered over the
+    DP axes that split it; this rank's block of the vocabulary where the
+    head is this rank's 'model' block."""
+    head = (Sh.dp_leaf(params["lm_head"]) if "lm_head" in params
+            else Sh.dp_leaf(params["embed"]).T)
     return lm_head_logits(x, head, cfg.vocab_size, width=head_width(cfg))
+
+
+def _final_norm(cfg: ModelConfig, x, gamma) -> torch.Tensor:
+    """The final RMS norm with ``gamma`` (``ln_f``, ``ln_enc``, ``ln_dec``)
+    gathered over the DP axes that split it."""
+    return rms_norm(x, Sh.dp_leaf(gamma), cfg.norm_eps)
 
 
 def _loss(cfg: ModelConfig, logits, labels) -> torch.Tensor:
@@ -268,7 +280,8 @@ def _apply_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig,
             p, x, top_k=cfg.moe_top_k, n_experts=cfg.n_experts,
             capacity_factor=cfg.capacity_factor,
             token_chunks=cfg.moe_token_chunks,
-            shared_width=cfg.n_shared_experts * cfg.moe_d_ff)
+            shared_width=cfg.n_shared_experts * cfg.moe_d_ff,
+            expert_width=cfg.moe_d_ff)
         return y, aux["load_balance_loss"]
     if cfg.mlp_type == "gelu":
         return gelu_mlp(x, p["w_up"], p["b_up"], p["w_down"],
@@ -459,10 +472,6 @@ class DecoderLM:
             b.sub(f"stage{si}", *stack_layers(gen, n, init_one))
         return _with_axes(b.done(), with_axes)
 
-    def _head(self, params):
-        return (params["embed"].T if self.cfg.tie_embeddings
-                else params["lm_head"])
-
     def _step(self, kind: str, inner: int, p, x, positions, cache=None,
               pos: int = 0, ctx=None):
         """One step of a stage: a block, or a super block's ``inner`` self
@@ -510,8 +519,8 @@ class DecoderLM:
             for i in range(n):
                 x, aux = step(x, i)
                 aux_total = aux_total + aux
-        x = rms_norm(x, params["ln_f"], c.norm_eps)
-        return _logits(c, x, self._head(params)), aux_total
+        x = _final_norm(c, x, params["ln_f"])
+        return _logits(c, x, params), aux_total
 
     def _forward(self, params, tokens: torch.Tensor,
                  ctx=None) -> torch.Tensor:
@@ -581,8 +590,8 @@ class DecoderLM:
             for i in range(n):
                 x, _ = self._step(kind, inner, layer(sp, i), x, positions,
                                   cache=_at(sc, i), pos=pos, ctx=ctx)
-        x = rms_norm(x, params["ln_f"], c.norm_eps)
-        logits = _logits(c, x[:, -1:], self._head(params))
+        x = _final_norm(c, x, params["ln_f"])
+        logits = _logits(c, x[:, -1:], params)
         return logits, cache
 
     def prefill(self, params, tokens: torch.Tensor, max_len: int, ctx=None):
@@ -694,8 +703,8 @@ class HybridSSM:
                                  else None, (i, j), fresh)
             cache = (kv["shared"][0][i], kv["shared"][1][i]) if cached \
                 else None
-            return _apply_attn_block(params["shared_attn"], xx, c,
-                                     positions=positions, cache=cache,
+            return _apply_attn_block(Sh.dp_tree(params["shared_attn"]), xx,
+                                     c, positions=positions, cache=cache,
                                      cache_pos=pos)[0]
 
         if not cached:      # the caches are written in place: no recompute
@@ -713,8 +722,8 @@ class HybridSSM:
         x = _embed(c, params, tokens)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
         x = self._backbone(params, x, positions)
-        x = rms_norm(x, params["ln_f"], c.norm_eps)
-        return _logits(c, x, params["lm_head"])
+        x = _final_norm(c, x, params["ln_f"])
+        return _logits(c, x, params)
 
     def loss_fn(self, params, batch):
         """Mean next-token cross entropy of ``batch["tokens"]`` against
@@ -766,8 +775,8 @@ class HybridSSM:
         positions = pos + torch.arange(tokens.shape[1], device=tokens.device)
         x = self._backbone(params, x, positions, states=cache["states"],
                            kv=cache["kv"], pos=pos)
-        x = rms_norm(x, params["ln_f"], c.norm_eps)
-        logits = _logits(c, x[:, -1:], params["lm_head"])
+        x = _final_norm(c, x, params["ln_f"])
+        logits = _logits(c, x[:, -1:], params)
         return logits, cache
 
     def prefill(self, params, tokens: torch.Tensor, max_len: int, ctx=None):
@@ -833,7 +842,7 @@ class XLSTM:
         blocks = unstack(params["supers"], self.n_super)
 
         def body(xx, i):
-            lp = blocks[i]
+            lp = Sh.dp_tree(blocks[i])
             st = layer(states, i) if cached else {"m": None, "s": None}
             y, nm = XL.apply_mlstm(lp["mlstm"],
                                    rms_norm(xx, lp["ln1"], c.norm_eps),
@@ -860,8 +869,8 @@ class XLSTM:
         mLSTM's chunkwise form)."""
         c = self.cfg
         x = self._backbone(params, _embed(c, params, tokens))
-        x = rms_norm(x, params["ln_f"], c.norm_eps)
-        return _logits(c, x, params["lm_head"])
+        x = _final_norm(c, x, params["ln_f"])
+        return _logits(c, x, params)
 
     def loss_fn(self, params, batch):
         """Mean next-token cross entropy of ``batch["tokens"]`` against
@@ -902,8 +911,8 @@ class XLSTM:
         c = self.cfg
         x = _embed(c, params, tokens)
         x = self._backbone(params, x, states=cache)
-        x = rms_norm(x[:, -1:], params["ln_f"], c.norm_eps)
-        logits = _logits(c, x, params["lm_head"])
+        x = _final_norm(c, x[:, -1:], params["ln_f"])
+        logits = _logits(c, x, params)
         return logits, cache
 
     def prefill(self, params, tokens: torch.Tensor, max_len: int, ctx=None):
@@ -1004,7 +1013,7 @@ class EncDec:
         body = _maybe_remat(body, c)
         for i in range(c.n_enc_layers):
             x = body(x, i)
-        return rms_norm(x, params["ln_enc"], c.norm_eps)
+        return _final_norm(c, x, params["ln_enc"])
 
     # ---------------- decoder
     def _decode(self, params, tokens: torch.Tensor, enc_out, *, cache=None,
@@ -1046,13 +1055,13 @@ class EncDec:
             body = _maybe_remat(body, c)
         for i in range(c.n_dec_layers):
             x = body(x, i)
-        return rms_norm(x, params["ln_dec"], c.norm_eps)
+        return _final_norm(c, x, params["ln_dec"])
 
     def _forward(self, params, tokens: torch.Tensor,
                  frames: torch.Tensor) -> torch.Tensor:
         """Logits [B, S, V_pad] of the full target sequence."""
         x = self._decode(params, tokens, self.encode(params, frames))
-        return _logits(self.cfg, x, params["lm_head"])
+        return _logits(self.cfg, x, params)
 
     def loss_fn(self, params, batch):
         """Mean next-token cross entropy of ``batch["tokens"]`` against
@@ -1083,7 +1092,7 @@ class EncDec:
                 mk(n_ctx or c.n_ctx, Sh.local_count(c.n_kv_heads)))
 
     def _last_logits(self, params, x):
-        return _logits(self.cfg, x[:, -1:], params["lm_head"])
+        return _logits(self.cfg, x[:, -1:], params)
 
     def prefill(self, params, tokens: torch.Tensor, max_len: int, ctx=None):
         """``ctx``: the frames ``[B, S_enc, D]``, encoded once; the cross
@@ -1139,18 +1148,14 @@ def _leaf_axes(cfg: ModelConfig) -> Dict[Tuple[str, ...], tuple]:
 def model_parallel_leaf(model, path: Tuple[str, ...], size: int) -> bool:
     """Whether the leaf at ``path`` (its keys) of ``model``'s parameters
     stays in its 'model' block on a 'model' axis of ``size`` ranks: exactly
-    where the reference's rules (``BASE_RULES``) split it over 'model',
-    since every layer then computes on its block. The one exception is a
-    routed expert's ``mlp`` dim, which the rules split where ``size`` does
-    not divide the experts: there the experts are gathered whole (the MoE
-    layer splits its experts, not their width). A path that names no leaf
-    is whole."""
+    where the reference's rules (``BASE_RULES``) give its spec a 'model'
+    dim, since every layer then computes on its block (a routed expert
+    whose experts the axis does not divide, on its block of their mlp
+    width). A path that names no leaf is whole."""
     leaves = _leaf_axes(model.cfg)
     if tuple(path) not in leaves:
         return False
     names, shape = leaves[tuple(path)]
     spec = Sh.spec_for_axes(names, shape, Sh.MeshShape(("model",), (size,)),
                             Sh.make_rules())
-    d = Sh.model_dim(spec)
-    return d is not None and ("experts" not in names
-                              or names[d] == "experts")
+    return Sh.model_dim(spec) is not None

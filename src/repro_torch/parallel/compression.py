@@ -13,6 +13,7 @@ reference's bit for bit: ``torch.round`` rounds half to even as
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -35,15 +36,24 @@ def _div(a: torch.Tensor, b) -> torch.Tensor:
     return a / a.new_full((), b)
 
 
+def _groups(group) -> tuple:
+    """``group`` as a tuple of groups: none, one
+    (:class:`~repro_torch.parallel.sharding.AxisGroup`) or several."""
+    if group is None:
+        return ()
+    return tuple(group) if isinstance(group, (tuple, list)) else (group,)
+
+
 def quantize_int8(g: torch.Tensor, group=None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(q int8, scale)``: ``scale = max(max |g|, 1e-12) / 127`` (0-d, g's
-    dtype), ``q = clip(round(g / scale), -127, 127)``. With ``group`` (a
-    :class:`~repro_torch.parallel.sharding.ModelGroup`) ``g`` is one block
-    of a leaf split over it, and the max is the whole leaf's."""
+    dtype), ``q = clip(round(g / scale), -127, 127)``. With ``group`` (an
+    :class:`~repro_torch.parallel.sharding.AxisGroup`, or several) ``g`` is
+    one block of a leaf split over them, and the max is the whole
+    leaf's."""
     amax = g.abs().amax()
-    if group is not None:
-        amax = group.all_reduce(amax, dist.ReduceOp.MAX)
+    for grp in _groups(group):
+        amax = grp.all_reduce(amax, dist.ReduceOp.MAX)
     scale = _div(torch.clamp_min(amax, 1e-12), 127.0)
     q = torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
     return q, scale
@@ -57,17 +67,18 @@ def topk_mask(g: torch.Tensor, ratio: float, group=None) -> torch.Tensor:
     """1 where ``|g|`` is at least the k-th largest ``|g|`` (``k = max(1,
     int(n * ratio))``; ties with it kept), else 0, in g's dtype. With
     ``group``, as :func:`quantize_int8`'s: ``n`` and the k-th largest are
-    the whole leaf's, found among the blocks' own k largest (all-gathered:
-    they hold the leaf's k largest)."""
+    the whole leaf's, found among the blocks' own k largest (all-gathered
+    over each group in turn, the k largest kept: they hold the leaf's k
+    largest)."""
     flat = g.reshape(-1).abs()
-    size = 1 if group is None else group.size
-    k = max(1, int(flat.shape[0] * size * ratio))
-    if group is None:
-        thresh = torch.topk(flat, k).values[-1]
-    else:
-        own = torch.topk(flat, min(k, flat.shape[0])).values
-        thresh = torch.topk(group.all_gather(own, 0), k).values[-1]
-    return (g.abs() >= thresh).to(g.dtype)
+    groups = _groups(group)
+    k = max(1, int(flat.shape[0] * math.prod(grp.size for grp in groups)
+                   * ratio))
+    top = torch.topk(flat, min(k, flat.shape[0])).values
+    for grp in groups:
+        every = grp.all_gather(top, 0)
+        top = torch.topk(every, min(k, every.shape[0])).values
+    return (g.abs() >= top[k - 1]).to(g.dtype)
 
 
 def compress_leaf(cfg: CompressionConfig, g: torch.Tensor,
@@ -78,7 +89,7 @@ def compress_leaf(cfg: CompressionConfig, g: torch.Tensor,
     g32 = g.to(torch.float32)
     if err is not None and cfg.error_feedback:
         g32 = g32 + err.to(torch.float32)
-    n = g.numel() * (1 if group is None else group.size)
+    n = g.numel() * math.prod(grp.size for grp in _groups(group))
     if cfg.kind == "int8":
         q, s = quantize_int8(g32, group)
         g_hat = dequantize_int8(q, s)
@@ -101,9 +112,10 @@ def compressed_psum_pod(cfg: CompressionConfig, grads, err_state,
     error tree or None, total wire bytes)``. ``group=None`` is a group of
     one (no collective, n = 1); otherwise ``torch.distributed`` must be
     initialised and every rank of ``group`` calls with the same tree.
-    ``split`` (a bool per leaf, in ``tree_leaves`` order) marks the leaves
-    that are blocks of a leaf split over ``model_group``, compressed as
-    the whole leaf (:func:`compress_leaf`)."""
+    ``split`` (per leaf, in ``tree_leaves`` order: ``True`` for
+    ``model_group``, or the groups themselves) marks the leaves that are
+    blocks of a leaf split over those groups, compressed as the whole leaf
+    (:func:`compress_leaf`)."""
     n = 1 if group is None else dist.get_world_size(group)
     flat_g = tree_leaves(grads)
     flat_e = (tree_leaves(err_state) if err_state is not None
@@ -111,8 +123,8 @@ def compressed_psum_pod(cfg: CompressionConfig, grads, err_state,
     split = split or [False] * len(flat_g)
     out, new_err, wire_total = [], [], 0
     for g, e, sp in zip(flat_g, flat_e, split):
-        g_hat, ne, wire = compress_leaf(cfg, g, e,
-                                        model_group if sp else None)
+        g_hat, ne, wire = compress_leaf(
+            cfg, g, e, model_group if sp is True else (sp or None))
         wire_total += wire
         if group is not None:
             g_hat = g_hat.contiguous()      # NCCL reduces contiguous tensors

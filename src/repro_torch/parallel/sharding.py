@@ -33,6 +33,7 @@ from __future__ import annotations
 import contextvars
 import dataclasses
 import math
+import weakref
 from collections.abc import Mapping
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -266,21 +267,25 @@ def replicated(mesh) -> NamedSharding:
     return NamedSharding(mesh, ())
 
 
+def gather_whole(t: DTensor) -> torch.Tensor:
+    """The whole value of the DTensor ``t`` on every rank of its mesh, by
+    c10d all-gathers of its local block over each mesh dim that shards it
+    (the inner dim first: a tensor dim split over several mesh dims nests
+    them in mesh order); a replicated ``t`` moves nothing."""
+    mesh = t.device_mesh
+    x = t.to_local()
+    groups = axis_groups(mesh)
+    for name, p in reversed(list(zip(mesh.mesh_dim_names, t.placements))):
+        if p.is_shard() and groups[name].size > 1:
+            x = groups[name].all_gather(x, p.dim)
+    return x
+
+
 def full_tensors(tree):
-    """``tree`` with each DTensor leaf gathered whole (``full_tensor``);
+    """``tree`` with each DTensor leaf gathered whole (:func:`gather_whole`);
     plain leaves stay as they are."""
-    return _map(lambda t: t.full_tensor() if isinstance(t, DTensor) else t,
+    return _map(lambda t: gather_whole(t) if isinstance(t, DTensor) else t,
                 tree)
-
-
-def from_block(t: torch.Tensor, mesh, placements, shape) -> DTensor:
-    """This rank's block ``t`` of a contiguous ``shape`` tensor placed by
-    ``placements`` on ``mesh``, as a DTensor (no communication)."""
-    shape = tuple(shape)
-    return DTensor.from_local(t.contiguous(), mesh, placements,
-                              run_check=False, shape=shape,
-                              stride=torch.empty(shape,
-                                                 device="meta").stride())
 
 
 def distribute(tensor: torch.Tensor, sharding: NamedSharding) -> DTensor:
@@ -489,27 +494,31 @@ def combine_across(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor,
 @dataclasses.dataclass(frozen=True)
 class TokenGroup:
     """The DP ranks whose rows make one batch (the MoE routing's group):
-    this rank's ``index`` among ``count``, in row order, and the mesh and
-    placements (``Shard(0)`` on the group's DP axes) over which a per-rank
-    vector is gathered. ``aux``: the load-balance loss, which a train
+    this rank's ``index`` among ``count``, in row order, and the
+    :class:`AxisGroup` of each of the group's DP axes, outer first, over
+    which a per-rank vector is gathered (c10d, the inner axis first: the
+    rows nest in mesh order). ``aux``: the load-balance loss, which a train
     step's loss reads, takes the group's expert shares (serving drops
     it)."""
     index: int
     count: int
-    mesh: Any
-    placements: Any
+    axes: Tuple[Any, ...] = ()
     aux: bool = False
+
+    def every(self, x: torch.Tensor) -> torch.Tensor:
+        """``[count, *x.shape]``: every rank's ``x``, in row order."""
+        out = x[None]
+        for g in reversed(self.axes):
+            out = g.all_gather(out, 0)
+        return out
 
     def before(self, x: torch.Tensor) -> torch.Tensor:
         """The sum of ``x`` over the ranks before this one."""
-        every = from_block(x[None], self.mesh, self.placements,
-                           (self.count,) + tuple(x.shape)).full_tensor()
-        return every[:self.index].sum(0)
+        return self.every(x)[:self.index].sum(0)
 
     def mean(self, x: torch.Tensor) -> torch.Tensor:
         """The mean of ``x`` over the group's ranks."""
-        return from_block(x[None], self.mesh, self.placements,
-                          (self.count,) + tuple(x.shape)).full_tensor().mean(0)
+        return self.every(x).mean(0)
 
 
 def token_group_of(mesh, coord, axes: Sequence[str], *,
@@ -525,9 +534,10 @@ def token_group_of(mesh, coord, axes: Sequence[str], *,
     index = 0
     for a in axes:
         index = index * sizes[a] + coord[ms.axis_names.index(a)]
-    return TokenGroup(index, count, mesh,
-                      [Shard(0) if n in axes else Replicate()
-                       for n in ms.axis_names], aux)
+    groups = axis_groups(mesh, coord)
+    return TokenGroup(index, count,
+                      tuple(groups[a] for a in ms.axis_names
+                            if a in axes and groups[a].size > 1), aux)
 
 
 _TOKEN_GROUP: contextvars.ContextVar = contextvars.ContextVar(
@@ -562,10 +572,11 @@ def current_token_group() -> Optional[TokenGroup]:
 # spec puts 'model' on a dim stays in its 'model' block on its rank, at rest
 # and in every step (:func:`local_params`, told which by the one rule of
 # :func:`repro_torch.models.transformer.model_parallel_leaf`: every such
-# leaf but a routed expert's mlp dim), and every layer computes on its
-# blocks. The steps
-# install this rank's :class:`ModelGroup` (:class:`model_parallel`), and a
-# layer asks :func:`layer_group` whether its leaf is such a block: if so it
+# leaf), and every layer computes on its blocks. Where 'model' does not
+# divide an attention's heads, the query's sequence splits instead
+# (:func:`seq_split_group`). The steps install this rank's
+# :class:`ModelGroup` (:class:`model_parallel`), and a layer asks
+# :func:`layer_group` whether its leaf is such a block: if so it
 # computes its share and combines the shares through explicit collectives
 # over the group, in Megatron's form: :func:`to_model` before a
 # column-parallel product (identity forward, the gradient all-reduced
@@ -599,20 +610,24 @@ class AxisGroup:
         k = n // self.size
         return slice(self.index * k, (self.index + 1) * k)
 
+    # The collectives below move values, with no autograd: a differentiable
+    # one is an autograd function around them (``_FromModel``, ...).
+    @torch.no_grad()
     def all_reduce(self, x: torch.Tensor,
                    op=dist.ReduceOp.SUM) -> torch.Tensor:
         """``x`` reduced by ``op`` over the group, in a tensor of its own."""
-        out = x.contiguous().clone()
+        out = x.detach().contiguous().clone()
         if self.group is None:
             self.calls.append(("all-reduce", out.numel() * out.element_size()))
         else:
             dist.all_reduce(out, op=op, group=self.group)
         return out
 
+    @torch.no_grad()
     def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """Every rank's ``x`` joined along ``dim``, in rank order."""
         dim = dim % x.dim()
-        src = x.movedim(dim, 0).contiguous()
+        src = x.detach().movedim(dim, 0).contiguous()
         out = src.new_empty((self.size * src.shape[0],) + src.shape[1:])
         if self.group is None:
             self.calls.append(("all-gather", out.numel() * out.element_size()))
@@ -621,9 +636,37 @@ class AxisGroup:
             dist.all_gather_into_tensor(out, src, group=self.group)
         return out.movedim(0, dim).contiguous()
 
+    @torch.no_grad()
+    def reduce_scatter(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's block along ``dim`` of ``x`` summed over the group
+        (c10d's reduce-scatter, which ``gloo`` runs on CUDA tensors too)."""
+        dim = dim % x.dim()
+        src = x.detach().movedim(dim, 0).contiguous()
+        blk = self.block(src.shape[0])
+        if self.group is None:
+            self.calls.append(("reduce-scatter",
+                               src.numel() * src.element_size()))
+            out = src[blk].clone()
+        else:
+            out = src.new_empty((blk.stop - blk.start,) + src.shape[1:])
+            dist.reduce_scatter_tensor(out, src, group=self.group)
+        return out.movedim(0, dim).contiguous()
+
 
 # the 'model' axis' group, the one the layers split over
 ModelGroup = AxisGroup
+
+
+def axis_groups(mesh, coord=None) -> Dict[str, AxisGroup]:
+    """``{axis name: AxisGroup}`` of the rank at ``coord`` (a
+    ``DeviceMesh``'s own coordinate unless given), each with its process
+    group (none on a :class:`MeshShape`: the collectives are counted)."""
+    ms = mesh_shape(mesh)
+    if coord is None:
+        coord = tuple(mesh.get_coordinate())
+    real = hasattr(mesh, "get_group")
+    return {n: AxisGroup(coord[i], size, mesh.get_group(n) if real else None)
+            for i, (n, size) in enumerate(zip(ms.axis_names, ms.sizes))}
 
 
 def model_group_of(mesh, coord=None) -> Optional[ModelGroup]:
@@ -745,6 +788,19 @@ def from_model(x: torch.Tensor, mg: Optional[ModelGroup]) -> torch.Tensor:
     return x if mg is None else _FromModel.apply(x, mg)
 
 
+def seq_split_group(heads: int, seq: int) -> Optional[ModelGroup]:
+    """The installed 'model' group where an attention of ``heads`` query
+    heads over ``seq`` query positions splits its queries' sequence (the
+    reference's :func:`maybe_seq_shard_q` on the tensor-parallel path: the
+    group does not divide the heads, so the layer runs whole, and divides
+    ``seq``); ``None`` elsewhere."""
+    mg = _MODEL_GROUP.get()
+    if mg is None or mg.size == 1 or heads % mg.size == 0 \
+            or seq % mg.size != 0:
+        return None
+    return mg
+
+
 def _map_paths(fn, tree, prefix=()):
     """``fn(path, leaf)`` over the leaves of nested dicts."""
     if isinstance(tree, dict):
@@ -758,27 +814,18 @@ def model_dim(spec: Tuple) -> Optional[int]:
 
 
 def local_params(params, keep, *, shardings=None, shapes=None, group=None):
-    """The parameters as a step on a mesh computes on them, as plain
-    tensors. ``keep(path)``: whether the leaf at ``path`` (its keys) runs in
-    its 'model' block or whole (the model's rule).
-
-    A DTensor leaf is gathered over its DP/FSDP mesh dims and, unless
-    ``keep(path)``, over 'model' too (one gather per leaf). A plain leaf is
-    taken as it is unless it is the whole leaf (its shape in ``shapes``, a
-    tree of the model's meta
-    parameters), ``keep(path)`` and its sharding in ``shardings`` (a tree
-    of :class:`NamedSharding`) splits it over 'model': then it is cut to
-    this rank's block of ``group`` (:class:`ModelGroup`), a tensor of its
+    """The parameters as a step on a mesh holds them, as plain tensors:
+    a DTensor leaf is this rank's block (``to_local()``: over the DP axes
+    and 'model', no communication), which :class:`DPGather` gathers over
+    the DP axes at its use. A plain leaf is taken as it is unless it is the
+    whole leaf (its shape in ``shapes``, a tree of the model's meta
+    parameters), ``keep(path)`` (the model's rule: its layer runs in its
+    'model' block) and its sharding in ``shardings`` (a tree of
+    :class:`NamedSharding`) splits it over 'model': then it is cut to this
+    rank's block of ``group`` (:class:`ModelGroup`), a tensor of its
     own."""
     def one(path, t):
         if isinstance(t, DTensor):
-            mesh = t.device_mesh
-            kept = keep(path)
-            pl = [p if (n == "model" and kept and p.is_shard())
-                  else Replicate()
-                  for n, p in zip(mesh.mesh_dim_names, t.placements)]
-            if list(t.placements) != pl:
-                t = t.redistribute(mesh, pl)
             return t.to_local()
         if group is None or shardings is None or not keep(path):
             return t
@@ -791,3 +838,297 @@ def local_params(params, keep, *, shardings=None, shapes=None, group=None):
         return t[(slice(None),) * d + (group.block(t.shape[d]),)].clone()
 
     return _map_paths(one, params)
+
+
+# ---------------------------------------------------------------------------
+# FSDP: a leaf held as this rank's block over the DP axes, gathered at its
+# use.
+#
+# The reference's FSDP rule puts ``embed`` on the DP axes; its layers are a
+# ``lax.scan`` over stacked leaves, so GSPMD gathers one block at a time.
+# Here a step's parameters are this rank's blocks (over the DP axes and
+# 'model') as plain tensors (:func:`local_params`), and the step installs a
+# :class:`DPGather` (:class:`dp_gather`) that knows which of them the DP
+# axes split. The model reads a leaf through it where it uses it:
+#
+# - a stacked leaf's block ``i`` in :func:`repro_torch.models.common.layer`
+#   (and ``unstack``): the index first, then the gather, so one step of a
+#   stage (a block, a super block, a hybrid's group of Mamba blocks) is
+#   gathered at a time;
+# - an unstacked leaf at its use (:func:`dp_leaf`, :func:`dp_tree`): the
+#   embedding (again at a tied head), ``ln_f``, the untied ``lm_head``, the
+#   hybrid's shared attention block (at each application), the
+#   encoder-decoder's ``ln_enc`` and ``ln_dec``.
+#
+# The gather all-gathers the block over each DP axis that splits it, the
+# inner axis first (the blocks nest in mesh order, as the serving engine's
+# row gathers do); its backward reduce-scatters the gradient with a sum
+# over the same axes, the outer axis first, so each rank's gradient comes
+# back as its block of the DP ranks' sum. Autograd keeps no gathered
+# tensor: the gather's saved-tensors hooks replace a saved gathered tensor
+# (or a view of one) by its block, and the backward gathers it again
+# (``regathers``), so a block gathered for the forward is freed once its
+# step ends. Without a gather installed, or where the DP axes do not split
+# a leaf, the leaf is read as it is.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class DPSplit:
+    """How a leaf at rest is split over the DP axes: the tensor ``dim`` and
+    the :class:`AxisGroup` of each DP mesh dim that splits it, outer first.
+    ``outer``: the dim holds that many chunks, one per rank of an outer DP
+    axis gathered before (the compressed step's 'pod'), each split over
+    ``groups``."""
+    dim: int
+    groups: Tuple[AxisGroup, ...]
+    outer: int = 1
+
+    def _chunks(self, x: torch.Tensor) -> torch.Tensor:
+        return x.unflatten(self.dim, (self.outer, -1))
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The blocks of ``x`` all-gathered over the groups, the inner
+        first (the blocks nest in mesh order)."""
+        y = self._chunks(x)
+        for g in reversed(self.groups):
+            y = g.all_gather(y, self.dim + 1)
+        return y.flatten(self.dim, self.dim + 1)
+
+    def scatter(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's block of ``x`` summed over the groups, the outer
+        first (the gather's transpose)."""
+        y = self._chunks(x)
+        for g in self.groups:
+            y = g.reduce_scatter(y, self.dim + 1)
+        return y.flatten(self.dim, self.dim + 1)
+
+    def cut(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's block of a gathered ``x`` (no communication)."""
+        y = self._chunks(x)
+        for g in self.groups:
+            y = y[(slice(None),) * (self.dim + 1)
+                  + (g.block(y.shape[self.dim + 1]),)]
+        return y.flatten(self.dim, self.dim + 1)
+
+    def block(self) -> "DPSplit":
+        """The split of one block of a stacked leaf (its first dim indexed
+        away)."""
+        return dataclasses.replace(self, dim=self.dim - 1)
+
+
+def dp_split(t: DTensor, axes: Sequence[str],
+             groups: Dict[str, AxisGroup], outer: int = 1
+             ) -> Optional[DPSplit]:
+    """The :class:`DPSplit` of the DTensor ``t`` over the mesh ``axes``
+    (those of more than one rank that shard it; ``outer``: as
+    :class:`DPSplit`'s), ``None`` where none does."""
+    names = t.device_mesh.mesh_dim_names
+    split = [(n, p.dim) for n, p in zip(names, t.placements)
+             if n in axes and p.is_shard() and groups[n].size > 1]
+    if not split:
+        return None
+    dims = {d for _, d in split}
+    if len(dims) != 1:
+        raise ValueError(f"the DP axes {axes} shard dims {sorted(dims)} of "
+                         "one leaf; a gather takes one")
+    return DPSplit(dims.pop(), tuple(groups[n] for n, _ in split), outer)
+
+
+class _GatherDP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, block, gather, split):
+        ctx.gather, ctx.split = gather, split
+        return gather._gather(block, split)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.gather._scatter(g, ctx.split), None, None
+
+
+@dataclasses.dataclass
+class _Gathered:
+    """A gathered tensor, weakly, and the block and split it was gathered
+    from (what a saved-tensor hook keeps in its place)."""
+    block: torch.Tensor
+    split: DPSplit
+    ref: Any
+
+
+class DPGather:
+    """The DP gather of one step (the section above: where the model reads
+    its leaves through it, stacked and unstacked): which leaves the DP axes
+    split (:meth:`register`), and its counts: ``gathers`` (the forward's),
+    ``regathers`` (the backward's: in place of a saved gathered tensor, and
+    a remat's recompute), ``reduce_scatters`` (the gradients'), the bytes of
+    each (``gathered_bytes``, ``regathered_bytes``, ``scattered_bytes``:
+    the gathered tensors'), ``live_bytes`` (the gathered tensors alive
+    now) and ``high_bytes`` (their most at once since :meth:`reset`)."""
+
+    def __init__(self):
+        self.splits: Dict[int, Tuple[torch.Tensor, DPSplit]] = {}
+        self._live: Dict[int, _Gathered] = {}
+        self.live_bytes = 0
+        self.reset()
+
+    def reset(self) -> None:
+        """The counts back to 0, the high-water mark to the live bytes."""
+        self.gathers = self.regathers = self.reduce_scatters = 0
+        self.gathered_bytes = self.regathered_bytes = 0
+        self.scattered_bytes = 0
+        self.high_bytes = self.live_bytes
+
+    def counts(self) -> Dict[str, int]:
+        return {k: getattr(self, k) for k in (
+            "gathers", "regathers", "reduce_scatters", "gathered_bytes",
+            "regathered_bytes", "scattered_bytes", "high_bytes")}
+
+    # ---------------- the leaves
+    def register(self, placed, local, axes: Sequence[str], mesh,
+                 outer=None) -> None:
+        """Forgets the leaves registered before, then registers each leaf
+        of ``local`` (the blocks the step computes on) that the mesh
+        ``axes`` split in its DTensor twin in ``placed`` (``outer(t)``: the
+        :class:`DPSplit`'s ``outer`` of the DTensor ``t``, 1 unless
+        given)."""
+        self.splits = {}
+        groups = axis_groups(mesh)
+
+        def one(t, leaf):
+            s = dp_split(t, axes, groups, outer(t) if outer else 1) \
+                if isinstance(t, DTensor) else None
+            if s is not None:
+                self.splits[id(leaf)] = (leaf, s)
+            return leaf
+
+        _map(one, placed, local)
+
+    def forget(self) -> None:
+        """Forgets the registered leaves (the step's blocks, which it would
+        otherwise keep alive)."""
+        self.splits = {}
+
+    def split_of(self, t) -> Optional[DPSplit]:
+        e = self.splits.get(id(t))
+        return e[1] if e is not None and e[0] is t else None
+
+    def alias(self, view: torch.Tensor, stacked: torch.Tensor) -> None:
+        """Registers ``view``, one block of the stacked leaf ``stacked``
+        (its first dim indexed away), as split where ``stacked`` is."""
+        s = self.split_of(stacked)
+        if s is not None:
+            self.splits[id(view)] = (view, s.block())
+
+    def take(self, t: torch.Tensor, i: int) -> torch.Tensor:
+        """Block ``i`` of the stacked leaf ``t``, gathered where the DP axes
+        split it."""
+        s = self.split_of(t)
+        return t[i] if s is None else self.gather(t[i], s.block())
+
+    def leaf(self, t: torch.Tensor) -> torch.Tensor:
+        """The leaf ``t``, gathered where the DP axes split it."""
+        s = self.split_of(t)
+        return t if s is None else self.gather(t, s)
+
+    # ---------------- the collectives
+    def gather(self, block: torch.Tensor, split: DPSplit) -> torch.Tensor:
+        if block.requires_grad and torch.is_grad_enabled():
+            return _GatherDP.apply(block, self, split)
+        return self._gather(block, split)
+
+    def _gather(self, block, split, again: bool = False) -> torch.Tensor:
+        """``split.gather(block)``, counted; the tensor that holds its
+        storage (the root of its views) is tracked until it is freed."""
+        with torch.no_grad():
+            out = split.gather(block)
+        root = out if out._base is None else out._base
+        n = root.numel() * root.element_size()
+        # a gather while autograd runs a backward (a remat's recompute) is
+        # the backward's too
+        again = again or torch._C._current_graph_task_id() != -1
+        if again:
+            self.regathers += 1
+            self.regathered_bytes += n
+        else:
+            self.gathers += 1
+            self.gathered_bytes += n
+            self._live[id(root)] = _Gathered(block, split, weakref.ref(root))
+        self.live_bytes += n
+        self.high_bytes = max(self.high_bytes, self.live_bytes)
+        weakref.finalize(root, self._release, id(root), n, again)
+        return out
+
+    def _release(self, key: int, n: int, again: bool) -> None:
+        self.live_bytes -= n
+        if not again:
+            self._live.pop(key, None)
+
+    def _scatter(self, g: torch.Tensor, split: DPSplit) -> torch.Tensor:
+        self.reduce_scatters += 1
+        self.scattered_bytes += g.numel() * g.element_size()
+        return split.scatter(g)
+
+    # ---------------- the saved-tensors hooks
+    def pack(self, t: torch.Tensor):
+        """A saved tensor, or in place of a gathered tensor (or a view of
+        one) its block and the view's geometry."""
+        root = t if t._base is None else t._base
+        h = self._live.get(id(root))
+        if h is None or h.ref() is not root:
+            return t
+        return (h, tuple(t.size()), tuple(t.stride()), t.storage_offset())
+
+    def unpack(self, saved):
+        if isinstance(saved, torch.Tensor):
+            return saved
+        h, size, stride, offset = saved
+        root = h.ref()
+        if root is None:
+            out = self._gather(h.block, h.split, again=True)
+            root = out if out._base is None else out._base
+            h.ref = weakref.ref(root)
+        return root.as_strided(size, stride, offset)
+
+
+_DP_GATHER: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_dp_gather", default=None)
+
+
+class dp_gather:
+    """Context manager installing a :class:`DPGather` (``None``: none) for
+    the model's reads of its leaves, with its saved-tensors hooks."""
+
+    def __init__(self, gather: Optional[DPGather]):
+        self.gather = gather
+
+    def __enter__(self):
+        self._tok = _DP_GATHER.set(self.gather)
+        self._hooks = None
+        if self.gather is not None:
+            self._hooks = torch.autograd.graph.saved_tensors_hooks(
+                self.gather.pack, self.gather.unpack)
+            self._hooks.__enter__()
+        return self
+
+    def __exit__(self, *a):
+        if self._hooks is not None:
+            self._hooks.__exit__(*a)
+        _DP_GATHER.reset(self._tok)
+        return False
+
+
+def current_dp_gather() -> Optional[DPGather]:
+    return _DP_GATHER.get()
+
+
+def dp_leaf(t: torch.Tensor) -> torch.Tensor:
+    """An unstacked leaf as the model uses it: gathered over the DP axes
+    where the installed :class:`DPGather` says they split it, else
+    ``t``."""
+    g = _DP_GATHER.get()
+    return t if g is None else g.leaf(t)
+
+
+def dp_tree(tree):
+    """:func:`dp_leaf` over the leaves of a dict tree."""
+    g = _DP_GATHER.get()
+    return tree if g is None else _map(g.leaf, tree)

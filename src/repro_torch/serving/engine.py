@@ -17,10 +17,16 @@ computes on plain local tensors, the design of the sharded training step
   'model' block, and its layer computes on it (attention, MLA and
   cross-attention on this rank's heads, the Mamba mixer and the xLSTM
   cells on its heads, the MLPs on its mlp block, the vocabulary, the
-  experts; :func:`~repro_torch.models.transformer.model_parallel_leaf`,
-  :func:`~repro_torch.parallel.sharding.local_params`); the layers
-  combine their shares over 'model', and the logits' vocabulary blocks
-  are all-gathered for the sampling (the last position only);
+  experts or their width; :func:`~repro_torch.models.transformer.
+  model_parallel_leaf`, :func:`~repro_torch.parallel.sharding.
+  local_params`); the layers combine their shares over 'model', and the
+  logits' vocabulary blocks are all-gathered for the sampling (the last
+  position only);
+- parameters placed by FSDP (DTensors whose blocks the DP axes split)
+  stay this rank's blocks: each step installs a
+  :class:`~repro_torch.parallel.sharding.DPGather`, which gathers a
+  block over the DP axes where the model reads it, one layer at a time
+  (parameters placed without FSDP, or whole, gather nothing);
 - a sequence-sharded leaf stays in its block: the attention writes the new
   entries that fall in it (the fresh K/V of every head, all-gathered over
   'model' where the KV heads split, or MLA's latents) and decode attends
@@ -163,25 +169,30 @@ class MeshServe:
         self.axes = [Sh.AxisGroup(self.coord[i], sizes[n], mesh.get_group(n))
                      for i, n in enumerate(Sh.mesh_shape(mesh).axis_names)]
         self.n_dp = n_dp
+        self.gather = Sh.DPGather()
+        # the parameters' meta shapes and shardings without FSDP (a whole
+        # leaf is cut to its 'model' block of them)
+        shapes, axes = self.model.init(0, device="meta", with_axes=True)
+        self.param_specs = (shapes, Sh.param_shardings(axes, shapes, mesh))
         self._bound = True
         return self
 
     # ---------------- the parameters
     def local_params(self, params):
-        """The parameters this rank computes on
-        (:func:`~repro_torch.parallel.sharding.local_params`): a leaf the
-        reference splits over 'model' in its 'model' block (a whole one
-        passed in is cut to it), any other leaf whole."""
+        """The parameters this rank holds
+        (:func:`~repro_torch.parallel.sharding.local_params`, no
+        communication): a DTensor leaf's block, which the step's
+        :attr:`gather` gathers over the DP axes that split it (registered
+        here); a whole leaf the reference splits over 'model' cut to its
+        'model' block, any other leaf whole."""
         model = self.model
         size = 1 if self.mg is None else self.mg.size
-        if not hasattr(self, "_param_specs"):
-            shapes, axes = model.init(0, device="meta", with_axes=True)
-            self._param_specs = (
-                shapes, Sh.param_shardings(axes, shapes, self.mesh))
-        shapes, shardings = self._param_specs
-        return Sh.local_params(
+        shapes, shardings = self.param_specs
+        local = Sh.local_params(
             params, lambda path: model_parallel_leaf(model, path, size),
             shardings=shardings, shapes=shapes, group=self.mg)
+        self.gather.register(params, local, Sh.dp_axes(self.mesh), self.mesh)
+        return local
 
     def full_logits(self, logits: torch.Tensor) -> torch.Tensor:
         """The logits of every vocabulary column: this rank's block
@@ -256,9 +267,11 @@ class MeshServe:
     @contextlib.contextmanager
     def context(self):
         """The reference's constraint points, this rank's cache block, its
-        DP ranks' token group and its 'model' group."""
+        DP ranks' token group, its 'model' group and the DP gather of its
+        parameters' blocks."""
         with Sh.activation_mesh(self.mesh), Sh.cache_block(self.block), \
-                Sh.token_group(self.group), Sh.model_parallel(self.mg):
+                Sh.token_group(self.group), Sh.model_parallel(self.mg), \
+                Sh.dp_gather(self.gather):
             yield
 
     # ---------------- the steps on this rank's rows
@@ -309,8 +322,10 @@ class ServingEngine:
     ``cache_shardings`` only) ``prefill`` and ``decode`` take the global
     batch on every rank and return this rank's rows' logits and its cache
     blocks; ``generate`` returns the global tokens on every rank.
-    ``params`` are whole on every rank: DTensor leaves are gathered once,
-    here."""
+    ``params`` whole tensors (cut to this rank's 'model' blocks on a
+    mesh) or DTensors: on a mesh each rank keeps its blocks, and a block
+    the DP axes split (FSDP) is gathered at each use; without a mesh a
+    DTensor leaf is gathered whole once, here (c10d)."""
 
     def __init__(self, cfg: ModelConfig, serve_cfg: ServeConfig, params=None,
                  device=None, mesh=None):

@@ -1,6 +1,6 @@
 """Training step builders (mirrors :mod:`repro.train.trainer`): the step
-on one device, the sharded step on a mesh (DP, FSDP) and the multi-pod
-step with a compressed pod-level reduction.
+on one device, the sharded step on a mesh (DP, FSDP, TP and EP) and the
+multi-pod step with a compressed pod-level reduction.
 
 A step is the gradient of the model's ``loss_fn`` (``torch.autograd.grad``
 in place of ``jax.value_and_grad``), then :func:`repro_torch.optim.adamw.
@@ -11,33 +11,50 @@ gradients in f32 and report the last microbatch's metrics.
 
 On a mesh (a ``DeviceMesh``, :mod:`repro_torch.launch.mesh`) the state at
 rest is DTensors placed by :func:`state_shardings`: 'model' splits the
-heads, MLP, vocabulary and experts (the reference's rules), and under FSDP
+heads, MLP, vocabulary and experts (the reference's rules; where 'model'
+divides neither the heads nor the experts, the query's sequence and each
+expert's width), and under FSDP the DP axes split every ``embed`` dim, so
 each rank holds ``1/(data*model)`` of most leaves. The parameters are dict
 trees, not ``nn.Module``s, so the sharded step is written in plain
-``torch.distributed``: (1) each parameter is gathered over the DP axes
-only: a leaf that 'model' splits stays in this rank's 'model' block where
-its layer runs tensor or expert parallel (GQA attention, the MLPs, the
-vocabulary, the routed and shared experts), and is gathered whole where it
-does not (MLA, the Mamba and xLSTM blocks, cross-attention, the encoder;
-:func:`~repro_torch.parallel.sharding.local_params`); (2) the forward and
-backward run on this rank's rows of the batch (sharded over the DP axes as
-:func:`~repro_torch.parallel.sharding.batch_shardings` says), each
-parallel layer computing its share and combining the shares over 'model'
-through explicit collectives (Megatron's ``to_model`` / ``from_model``);
-(3) the gradients are averaged over the DP axes, a 'model' block staying a
-block; (4) they are clipped by the whole gradient's norm (the blocks' sums
-of squares all-reduced over 'model', each element counted once), as
-``apply_updates`` does, and (5) this rank's shards of the parameters and
-moments are updated. A MoE layer routes the global batch, as the
-reference's global program does
-(:class:`~repro_torch.parallel.sharding.TokenGroup`; the compressed step:
-each pod's batch). On a mesh whose 'model' axis has one rank nothing is
-split, and on a mesh of one rank the step is the one-device step's, bit for
-bit. The compressed step averages each pod's gradient over its 'data'
-ranks, then runs it through
-:func:`~repro_torch.parallel.compression.compressed_psum_pod` over the
-mesh's 'pod' group; a 'model' block is compressed as its whole leaf (the
-int8 scale and the top-k threshold come from the 'model' group).
+``torch.distributed`` (c10d; no DTensor collective):
+
+1. the forward and backward run on this rank's blocks of the parameters as
+   plain tensors (``DTensor.to_local``, which moves nothing;
+   :func:`~repro_torch.parallel.sharding.local_params`): every leaf the
+   reference's rules split over 'model' stays in its 'model' block, and
+   its layer computes its share on it (GQA, MLA and cross-attention heads,
+   the encoder, the MLPs, the vocabulary, the experts or their width, the
+   Mamba mixer and the xLSTM cells), combining the shares over 'model'
+   through explicit collectives (Megatron's ``to_model`` /
+   ``from_model``);
+2. a block the DP axes split (FSDP) is gathered over them where the model
+   reads it, one step of a stage at a time, by the step's
+   :class:`~repro_torch.parallel.sharding.DPGather`: c10d all-gathers, the
+   inner axis first; autograd keeps no gathered tensor (the backward
+   gathers a block again) and the gradient comes back reduce-scattered,
+   this rank's block of the DP ranks' sum;
+3. the rows are this rank's rows of the batch (sharded over the DP axes as
+   :func:`~repro_torch.parallel.sharding.batch_shardings` says; a DTensor
+   batch is taken as its local rows, or gathered over c10d);
+4. the gradients become the global batch's mean: a reduce-scattered one is
+   divided by the DP size, any other all-reduced over the DP axes first;
+5. they are clipped by the whole gradient's norm, as ``apply_updates``
+   does (each leaf's sum of squares all-reduced over every axis that
+   splits it, each element counted once), and
+6. this rank's blocks of the parameters and moments are updated.
+
+A MoE layer routes the global batch, as the reference's global program
+does (:class:`~repro_torch.parallel.sharding.TokenGroup`; the compressed
+step: each pod's batch). On a mesh whose 'model' axis has one rank nothing
+is split over it, without FSDP nothing is gathered over the DP axes, and on
+a mesh of one rank the step is the one-device step's, bit for bit. The
+compressed step (:func:`make_compressed_train_step`) takes each leaf whole
+over 'pod' first, as the reference's ``shard_map`` does, gathers over
+'data' at its use, averages each pod's gradient over its 'data' ranks and
+runs it through :func:`~repro_torch.parallel.compression.
+compressed_psum_pod` over the mesh's 'pod' group, each gradient block
+compressed as its whole leaf (the int8 scale and the top-k threshold come
+from every group that holds a block of it).
 """
 from __future__ import annotations
 
@@ -53,8 +70,7 @@ from torch.distributed.tensor import DTensor
 from repro_torch.configs import param_specs
 from repro_torch.models.common import (tree_leaves, tree_map,
                                        tree_unflatten)
-from repro_torch.models.transformer import (ModelConfig, get_model,
-                                            model_parallel_leaf)
+from repro_torch.models.transformer import ModelConfig, get_model
 from repro_torch.optim import adamw
 from repro_torch.parallel import compression as C
 from repro_torch.parallel import sharding as Sh
@@ -161,45 +177,89 @@ def shard_state(tree, shardings):
     return tree_map(Sh.distribute, tree, shardings)
 
 
+def _merged(a, b, sizes) -> bool:
+    """Whether two DTensor placement lists place the same blocks: they
+    differ only on mesh dims of one rank."""
+    return all(p == q or n == 1 for p, q, n in zip(a, b, sizes))
+
+
 class _MeshStep:
     """What a sharded step needs of its mesh: this rank's coordinate, the
-    DP axes' groups and sizes, and its 'model' group."""
+    DP axes, the axes' groups, its 'model' group and the step's
+    :class:`~repro_torch.parallel.sharding.DPGather` over ``gather_axes``
+    (the DP axes unless given). ``eager``: DP axes over which
+    :meth:`local` gathers a leaf before the step (the compressed step's
+    'pod'; the gather at use then takes the chunks it made)."""
 
-    def __init__(self, cfg, mesh, fsdp: bool):
+    def __init__(self, cfg, mesh, fsdp: bool, gather_axes=None, eager=()):
         self.mesh = mesh
         self.shardings = state_shardings(cfg, mesh, fsdp=fsdp)
         self.coord = tuple(mesh.get_coordinate())
         self.dp = Sh.dp_axes(mesh)
         self.sizes = Sh.mesh_shape(mesh).shape
+        self.groups = Sh.axis_groups(mesh, self.coord)
         self.mg = Sh.model_group_of(mesh, self.coord)
-        model = get_model(cfg)
-        size = self.sizes.get("model", 1)
-        self.keep = lambda path: model_parallel_leaf(model, path, size)
+        self.gather = Sh.DPGather()
+        self.gather_axes = self.dp if gather_axes is None else gather_axes
+        self.eager = tuple(eager)
+
+    def split_axes(self, t: DTensor) -> list:
+        """The mesh axes of more than one rank that shard the DTensor
+        ``t``, in mesh order."""
+        return [n for n, p in zip(self.mesh.mesh_dim_names, t.placements)
+                if p.is_shard() and self.sizes[n] > 1]
 
     def local(self, params):
         """The parameters the forward and backward run on, as leaves that
-        require grad: each gathered over the DP axes, a 'model'-split leaf
-        of a parallel layer kept in its 'model' block, any other gathered
-        whole (:func:`~repro_torch.parallel.sharding.local_params`)."""
-        return tree_map(lambda t: t.detach().requires_grad_(),
-                        Sh.local_params(params, self.keep))
+        require grad: this rank's blocks (``DTensor.to_local()``, no
+        communication), each gathered first over the ``eager`` axes that
+        split it; the step's ``gather`` registers those the gather axes
+        split, and gathers them where the model reads them (installed by
+        :meth:`context`)."""
+        def one(t):
+            x = (t.to_local() if isinstance(t, DTensor) else t).detach()
+            s = Sh.dp_split(t, self.eager, self.groups) if self.eager \
+                else None
+            if s is not None:
+                with torch.no_grad():
+                    x = s.gather(x)
+            return x.requires_grad_()
+
+        blocks = tree_map(one, params)
+        self.gather.register(params, blocks, self.gather_axes, self.mesh,
+                             outer=self.outer)
+        return blocks
+
+    def outer(self, t: DTensor) -> int:
+        """The chunks an ``eager`` gather leaves in the dim it gathers."""
+        return math.prod(self.sizes[n] for n in self.split_axes(t)
+                         if n in self.eager)
 
     def context(self, batch, axes):
-        """The step's groups: the MoE routing's over the DP ``axes`` and
-        this rank's 'model' group."""
+        """The step's groups: the MoE routing's over the DP ``axes``, this
+        rank's 'model' group and the step's DP gather."""
         stack = contextlib.ExitStack()
         stack.enter_context(Sh.token_group(self.group(batch, axes)))
         stack.enter_context(Sh.model_parallel(self.mg))
+        stack.enter_context(Sh.dp_gather(self.gather))
         return stack
 
     def rows(self, batch, microbatches: int = 1):
-        """This rank's rows of each leaf of ``batch`` (the global batch,
-        on every rank), as ``batch_shardings`` places them."""
-        batch = {k: v.full_tensor() if isinstance(v, DTensor) else v
-                 for k, v in batch.items()}
+        """This rank's rows of each leaf of ``batch``, as
+        ``batch_shardings`` places them: of a plain leaf (the global batch,
+        on every rank) by slicing; of a DTensor leaf its local block where
+        it already holds those rows, else its whole value gathered over
+        c10d, then sliced."""
         sh = Sh.batch_shardings(batch, self.mesh)
-        out = {k: v[sh[k].block(tuple(v.shape), self.coord)]
-               for k, v in batch.items()}
+        sizes = Sh.mesh_shape(self.mesh).sizes
+        out = {}
+        for k, v in batch.items():
+            if isinstance(v, DTensor):
+                if _merged(v.placements, sh[k].placements, sizes):
+                    out[k] = v.to_local()
+                    continue
+                v = Sh.gather_whole(v)
+            out[k] = v[sh[k].block(tuple(v.shape), self.coord)]
         for k, v in out.items():
             if v.shape[0] % microbatches:
                 raise ValueError(
@@ -229,54 +289,49 @@ class _MeshStep:
         buf.div_(math.prod(self.sizes[a] for a in axes))
         return t if buf is t else t.copy_(buf)
 
-    def split(self, grads, params) -> list:
-        """Per leaf (in ``tree_leaves`` order), whether its gradient is a
-        'model' block: its shape is not the parameter's global one."""
-        return [tuple(g.shape) != tuple(p.shape) for g, p in
-                zip(tree_leaves(grads), tree_leaves(params))]
+    def average(self, grads, params, axes) -> None:
+        """The gradients, summed over the DP ``axes``' ranks' rows, as
+        their mean, in place: a leaf the axes split came back
+        reduce-scattered (this rank's block of the sum) and is divided; any
+        other is all-reduced over the axes first (:meth:`mean`)."""
+        n = math.prod(self.sizes[a] for a in axes)
+        for g, p in zip(tree_leaves(grads), tree_leaves(params)):
+            if set(self.split_axes(p)) & set(axes):
+                g.div_(n)
+            else:
+                self.mean(g, axes)
 
     def global_norm(self, grads, params) -> torch.Tensor:
-        """The norm of the whole gradient, each element counted once: the
-        sums of squares of the 'model' blocks all-reduced over the 'model'
-        group (one call), added in the leaves' order to those of the
-        leaves every rank holds whole (``adamw.global_norm``'s order)."""
-        split = self.split(grads, params)
-        if not any(split):
+        """The norm of the whole gradient, each element counted once: each
+        leaf's sum of squares all-reduced over every mesh axis that splits
+        it (one call per axis, the leaves it splits stacked), added in the
+        leaves' order (``adamw.global_norm``'s)."""
+        axes = [self.split_axes(p) for p in tree_leaves(params)]
+        if not any(axes):
             return adamw.global_norm(grads)
         sq = [torch.sum(torch.square(g.float())) for g in tree_leaves(grads)]
-        idx = [i for i, s in enumerate(split) if s]
-        summed = self.mg.all_reduce(torch.stack([sq[i] for i in idx]))
-        for j, i in enumerate(idx):
-            sq[i] = summed[j]
+        for a in self.mesh.mesh_dim_names:
+            idx = [i for i, ax in enumerate(axes) if a in ax]
+            if idx:
+                summed = self.groups[a].all_reduce(
+                    torch.stack([sq[i] for i in idx]))
+                for j, i in enumerate(idx):
+                    sq[i] = summed[j]
         return torch.sqrt(sum(sq))
 
-    def model_block(self, t, like, sharding) -> torch.Tensor:
-        """``t`` cut to this rank's 'model' block of ``sharding`` where
-        ``like`` (a gradient) is such a block and ``t`` still whole."""
-        if tuple(t.shape) == tuple(like.shape):
-            return t
-        d = Sh.model_dim(sharding.spec)
-        return t[(slice(None),) * d + (self.mg.block(t.shape[d]),)]
-
-    def cut(self, g, sharding, param) -> torch.Tensor:
-        """This rank's block of the gradient ``g`` of ``param`` (whole over
-        the DP axes): the block of ``sharding``, less its 'model' entry
-        where ``g`` is already a 'model' block."""
-        spec = sharding.spec
-        if tuple(g.shape) != tuple(param.shape):
-            d = Sh.model_dim(spec)
-            spec = spec[:d] + (None,) + spec[d + 1:]
-        return g[Sh.NamedSharding(self.mesh, spec).block(tuple(g.shape),
-                                                          self.coord)]
+    def block(self, t, sharding) -> torch.Tensor:
+        """This rank's block of a whole leaf ``t`` placed by ``sharding``
+        (a :class:`~repro_torch.parallel.sharding.NamedSharding`)."""
+        return t[sharding.block(tuple(t.shape), self.coord)]
 
     def update(self, opt_cfg, params, opt_state, grads):
         """This rank's shards of the parameters and moments updated by the
-        whole averaged ``grads`` (clipped by their norm), as DTensors."""
+        averaged ``grads`` (this rank's blocks), clipped by the whole
+        gradient's norm, as DTensors."""
         gnorm = self.global_norm(grads, params)
         local = lambda t: t.to_local()
-        g_loc = tree_map(self.cut, grads, self.shardings["params"], params)
         new_p, new_opt, opt_m = adamw.apply_updates(
-            opt_cfg, tree_map(local, params), g_loc,
+            opt_cfg, tree_map(local, params), grads,
             {"m": tree_map(local, opt_state["m"]),
              "v": tree_map(local, opt_state["v"]),
              "step": opt_state["step"].to_local()}, gnorm=gnorm)
@@ -324,9 +379,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
     ms = _MeshStep(cfg, mesh, fsdp)
 
     def finish(params, opt_state, grads, loss, metrics):
-        """Steps (3)-(5) of the module docstring, and the metrics' means."""
-        for g in tree_leaves(grads):
-            ms.mean(g, ms.dp)
+        """Steps (4)-(6) of the module docstring, and the metrics' means."""
+        ms.average(grads, params, ms.dp)
         new_params, new_opt, opt_m = ms.update(opt_cfg, params, opt_state,
                                                grads)
         metrics = {k: ms.mean(v.clone(), ms.dp) for k, v in metrics.items()}
@@ -338,6 +392,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
         with ms.context(batch, ms.dp):
             grads, loss, metrics = grads_of(ms.local(params),
                                             ms.rows(batch, microbatches))
+        ms.gather.forget()
         return finish(params, opt_state, grads, loss, metrics)
 
     # the step's pieces, for a count of one rank's step by its parts
@@ -353,37 +408,67 @@ def make_compressed_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
     """The multi-pod step ``step(params, opt_state, err_state, batch) ->
     (params, opt_state, err_state, metrics)`` on a mesh with a 'pod' axis
     (the reference's assert): each pod's gradient, averaged over its
-    'data' ranks, is compressed with its error feedback (``err_state``:
-    ``compression.init_error_state`` of the full parameters, on every
-    rank) and averaged over the 'pod' group; the loss is the pods' mean,
-    and ``metrics["wire_bytes_pod"]`` the bytes one pod sends (a Python
-    int). The state is placed as :func:`make_train_step`'s. On a 'model'
-    axis of several ranks an error leaf of a 'model'-split gradient holds
-    this rank's 'model' block (a whole leaf passed in is cut to it), and
-    that gradient is compressed as the whole leaf would be: its int8 scale
-    and top-k threshold come from the 'model' group."""
+    'data' ranks, is compressed with its error feedback and averaged over
+    the 'pod' group; the loss is the pods' mean, and
+    ``metrics["wire_bytes_pod"]`` the bytes one pod sends (a Python int).
+    The state is placed as :func:`make_train_step`'s.
+
+    As the reference's ``shard_map`` over 'pod' takes the parameters whole
+    over 'pod', a leaf split over ('pod', 'data') is gathered over 'pod'
+    first (its pod chunks, each this rank's 'data' block), then gathered
+    over 'data' at its use, and its gradient comes back reduce-scattered
+    over 'data': each pod chunk's 'data' block, summed over the pod's
+    ranks. A gradient is compressed in that layout, this rank's block over
+    'data' and 'model' of its pod's gradient, as the whole leaf would be
+    (the int8 scale and the top-k threshold come from the 'data' and
+    'model' groups that hold its other blocks), then summed over 'pod' and
+    cut to this rank's pod chunk. An ``err_state`` leaf
+    (``compression.init_error_state``) is held in the same layout: a whole
+    leaf passed in is cut to it."""
     if mesh is None or "pod" not in Sh.mesh_shape(mesh).axis_names:
         raise ValueError("the compressed step reduces over a 'pod' mesh "
                          "axis: pass a mesh with one")
     grads_of = _grad_fn(get_model(cfg), 1)
-    ms = _MeshStep(cfg, mesh, fsdp)
-    data = tuple(a for a in ms.dp if a != "pod")
+    data = tuple(a for a in Sh.dp_axes(mesh) if a != "pod")
+    ms = _MeshStep(cfg, mesh, fsdp, gather_axes=data, eager=("pod",))
+
+    def held(p) -> tuple:
+        """The groups holding the other blocks of a gradient of ``p`` as
+        the step compresses it (every axis that splits it but 'pod')."""
+        return tuple(ms.groups[a] for a in ms.split_axes(p) if a != "pod")
+
+    def comp_block(t, p, sharding):
+        """A whole leaf ``t`` of ``p``'s shape (placed by ``sharding``) in
+        the compression layout (this rank's 'model' block, and its 'data'
+        block of each pod chunk); any other ``t`` as it is."""
+        if tuple(t.shape) != tuple(p.shape):
+            return t
+        d = Sh.model_dim(sharding.spec)
+        if d is not None and ms.mg is not None:
+            t = t[(slice(None),) * d + (ms.mg.block(t.shape[d]),)]
+        s = Sh.dp_split(p, data, ms.groups, ms.outer(p))
+        return t if s is None else s.cut(t)
+
+    def pod_cut(g, p):
+        """This rank's pod chunk of a gradient in the compression
+        layout."""
+        s = Sh.dp_split(p, ("pod",), ms.groups)
+        return g if s is None else s.cut(g)
 
     def pod_step(params, opt_state, err_state, batch):
         with ms.context(batch, data):
             grads, loss, metrics = grads_of(ms.local(params),
                                             ms.rows(batch))
-        for g in tree_leaves(grads):
-            ms.mean(g, data)
-        split = ms.split(grads, params)
-        if err_state is not None and any(split):
-            err_state = tree_map(ms.model_block, err_state, grads,
+        ms.gather.forget()
+        ms.average(grads, params, data)
+        if err_state is not None:
+            err_state = tree_map(comp_block, err_state, params,
                                  ms.shardings["params"])
         grads, new_err, wire = C.compressed_psum_pod(
             comp, grads, err_state, group=mesh.get_group("pod"),
-            model_group=ms.mg, split=split)
-        new_params, new_opt, opt_m = ms.update(opt_cfg, params, opt_state,
-                                               grads)
+            split=[held(p) for p in tree_leaves(params)])
+        new_params, new_opt, opt_m = ms.update(
+            opt_cfg, params, opt_state, tree_map(pod_cut, grads, params))
         metrics = {k: ms.mean(v.clone(), ms.dp) for k, v in metrics.items()}
         metrics.update(opt_m)
         metrics["loss"] = ms.mean(ms.mean(loss.clone(), data), ("pod",))

@@ -1,10 +1,13 @@
 """The port's meshes on four ``gloo`` ranks on the CPU: sharded placement
 against the reference's ``NamedSharding``, the sharded and compressed
 training steps, restoring across meshes, the crash-restart loop, the
-serving engine on the 2 x 2 and 1 x 4 meshes, and tensor and expert
-parallelism on 'model': each parallel layer against the whole layer, the
-shapes the step and the engine compute on, and the compressed step's
-'model' blocks.
+serving engine on the 2 x 2 and 1 x 4 meshes (and on 2 x 2 with
+parameters placed by FSDP), tensor and expert parallelism on 'model':
+each parallel layer against the whole layer (the query's sequence split
+and a routed expert's width among them), the shapes the step and the
+engine compute on, and the compressed step's 'model' blocks; and the FSDP
+step's DP gathers: one block at a time, counted as the dry-run counts
+them, with no DTensor collective on the step, a save or a decode.
 
 One group of 4 ranks, spawned once for the whole file
 (``tests/torch_mesh_ranks.py`` runs every check on every rank), joins
@@ -291,6 +294,7 @@ def test_constraints_redistribute_a_dtensor(ranks):
 
 
 SERVE_IDS = [f"{c}-{m}" for c in R.SERVE_CASES for m in R.SERVE_MESHES]
+FSDP_SERVE_IDS = [f"{c}-{R.SERVE_FSDP}" for c in R.SERVE_CASES]
 MESH_SHAPES = {"2x2": ((2, 2), ("data", "model")),
                "1x4": ((1, 4), ("data", "model"))}
 
@@ -300,12 +304,19 @@ def serving(ranks, case_mesh):
     return [got[case_mesh] for got in result(ranks, "serving")]
 
 
-@pytest.mark.parametrize("case_mesh", SERVE_IDS)
+@pytest.mark.parametrize("case_mesh", SERVE_IDS + FSDP_SERVE_IDS)
 def test_mesh_engine_equals_reference_engine(ranks, case_mesh):
     """Greedy tokens equal to the reference's meshless engine on every
-    rank; each rank's rows' logits within 1e-5 of each row's norm."""
+    rank; each rank's rows' logits within 1e-5 of each row's norm. On
+    ``2x2fsdp`` the parameters are placed by the FSDP rules (``embed`` on
+    'data'): the engine keeps its blocks and gathers them over 'data' at
+    each use (some leaves split, some gathers in a decode step)."""
     want = ranks["reference"][case_mesh.split("-")[0]]
     for got in serving(ranks, case_mesh):
+        if case_mesh.endswith(R.SERVE_FSDP):
+            assert got["dp_split"] > 0 and got["dp_gathers"] > 0, got
+        else:
+            assert got["dp_split"] == 0 and got["dp_gathers"] == 0, got
         np.testing.assert_array_equal(np.asarray(got["tokens"]),
                                       want["tokens"])
         for step, (g, w) in enumerate(zip(got["logits"], want["logits"])):
@@ -428,7 +439,9 @@ LAYERS = {"gqa": ("prefill", "prefill_grads", "decode", "cache"),
           "mamba": ("prefill", "prefill_grads", "long", "long_grads",
                     "kernel_prefill", "decode", "state"),
           "mlstm": ("prefill", "prefill_grads", "decode", "state"),
-          "slstm": ("prefill", "prefill_grads", "decode", "state")}
+          "slstm": ("prefill", "prefill_grads", "decode", "state"),
+          "seq_split": ("out", "grads"),
+          "expert_width": ("out", "grads")}
 
 
 @pytest.mark.parametrize("mesh_name", R.SERVE_MESHES)
@@ -446,7 +459,10 @@ def test_layer_twins_on_the_model_axis(ranks, layer, mesh_name):
     (``R.GRAD_FLOOR``: a gate bias's gradient is a sum that all but
     cancels). On 1 x 4 the 2 KV heads do not split and on 2 x 2 they do;
     the MoE's routing (and so its aux values) is the whole layer's
-    exactly."""
+    exactly. ``seq_split``: a GQA layer of 6 heads, which 4 ranks do not
+    divide, so its query's sequence splits over 'model'; ``expert_width``:
+    a MoE layer of 6 experts, which 4 ranks do not divide, so each expert
+    runs on this rank's block of its width."""
     for got in result(ranks, "layers"):
         twin = got[mesh_name][layer]
         for key in LAYERS[layer]:
@@ -457,6 +473,14 @@ def test_layer_twins_on_the_model_axis(ranks, layer, mesh_name):
             assert twin["local_heads"] == 8 // MESH_SHAPES[mesh_name][0][1]
         if layer == "moe":
             assert twin["aux"] and twin["dropped"] > 0, twin
+        if layer == "seq_split":
+            # 6 heads: split on 2 ranks, the sequence split on 4
+            assert twin["seq_split"] == (mesh_name == "1x4"), twin
+        if layer == "expert_width":
+            # 6 experts: 3 a rank on 2 ranks, on 4 every expert's width
+            # block
+            assert twin["expert_shape"] == ([6, 64, 16] if mesh_name == "1x4"
+                                            else [3, 64, 64]), twin
 
 
 COMPUTE_CASES = [f"{a}-{m}" for a in R.COMPUTE_ARCHS
@@ -468,8 +492,10 @@ def test_no_model_split_leaf_is_whole_on_a_rank(ranks, case):
     """The shapes the sharded step and the serving engine compute on:
     every leaf the reference's rules split over 'model' is this rank's
     block (every layer runs split: GQA, MLA, cross-attention, the encoder,
-    the MLPs, the vocabulary, the experts, the Mamba mixer and the xLSTM
-    cells), every other leaf whole."""
+    the MLPs, the vocabulary, the experts or, where 'model' does not
+    divide them, their width, the Mamba mixer and the xLSTM cells), every
+    other leaf whole; also a smoke llama with 6 heads and a smoke
+    maverick with 6 experts."""
     for got in result(ranks, "compute_shapes"):
         for where in ("step", "engine"):
             leaves = got[case][where]
@@ -500,3 +526,55 @@ def test_compressed_step_compresses_model_blocks_as_whole_leaves(ranks,
         assert unit["split"] > 0 and got["keep_all"]
         assert max(got["none"]) < 1e-5, got["none"]
         assert all(got["int8_err_blocks"])
+
+
+# ------------------------------------------------------------ FSDP gathers
+
+def test_fsdp_step_gathers_one_block_at_a_time(ranks):
+    """During a 2 x 2 FSDP step the gathered bytes alive at once stay at
+    or below one step's block of the stacked leaves plus the largest
+    unstacked leaf (each whole over 'data'), far below the rank's 'model'
+    shard whole over 'data'; none is alive after the step."""
+    for got in result(ranks, "fsdp_gathers"):
+        high = got["gather"]["high_bytes"]
+        assert 0 < high <= got["block"] + got["unstacked"], got
+        assert high < got["shard"] and got["live_after"] == 0, got
+
+
+def test_fsdp_step_gathers_equal_the_dry_run_count(ranks):
+    """The step's DP gathers (the forward's, and the backward's re-gathers
+    in place of the saved gathered tensors) and its reduce-scatters equal,
+    in number and bytes, the all-gathers and reduce-scatters the dry-run's
+    counter (``dryrun.count``) finds in the same step (the smoke llama's
+    other collectives are all-reduces); the backward re-gathers and
+    reduce-scatters every block the forward gathered for a leaf that
+    requires grad."""
+    for got in result(ranks, "fsdp_gathers"):
+        g, c = got["gather"], got["dryrun"]
+        assert g["gathers"] > 0 and g["regathers"] > 0, got
+        assert c["all-gather"]["count"] == g["gathers"] + g["regathers"]
+        assert c["all-gather"]["bytes"] == \
+            g["gathered_bytes"] + g["regathered_bytes"]
+        assert c["reduce-scatter"]["count"] == g["reduce_scatters"] > 0
+        assert c["reduce-scatter"]["bytes"] == g["scattered_bytes"]
+
+
+@pytest.mark.parametrize("path", ["train", "save", "decode"])
+def test_no_dtensor_collective_on_the_mesh_paths(ranks, path):
+    """With ``DTensor.full_tensor`` and ``DTensor.redistribute`` refused,
+    a 2 x 2 FSDP training step still equals the one-device step (within
+    the sharded step's bounds), its state saves and reads back whole bit
+    for bit, and the mesh engine with FSDP-placed parameters prefills and
+    decodes, picking the meshless engine's greedy tokens; nothing called
+    either."""
+    for got in result(ranks, "fsdp_gathers"):
+        assert got["dtensor_calls"] == []
+        if path == "train":
+            assert got["train"]["loss_rel"] <= 1e-6, got["train"]
+            assert got["train"]["params_rel"] < 1e-5, got["train"]
+            assert got["held"] < 0.26
+        elif path == "save":
+            assert got["save"] == {"same": True, "steps": [1]}
+        else:
+            d = got["decode"]
+            assert d["tokens_equal"] and d["gathers"] > 0 and d["split"] > 0

@@ -220,25 +220,33 @@ def test_mesh_records_hold_the_exact_identities(cells, mesh_name, dp):
         assert r["n_devices"] == dp * 16 and r["fsdp"] is False
         assert sorted(r["collectives"]) == sorted(dryrun.COLLECTIVES)
     # TP on 'model' (16 ranks): the smoke llama's MLP (d_ff 128) and
-    # vocabulary (128) split, its 4 / 2 heads do not, so the attention runs
-    # whole on each rank's rows and the MLP's and the head's FLOPs fall by
-    # 16 more: mesh = (one - X) / dp + X / (dp * 16), X their one-card
-    # FLOPs (per layer 6 T D F forward; to train, 3x that and the remat's
-    # gate and up again, and the head 3 x 2 T D V; the prefill's head reads
-    # the last position only)
+    # vocabulary (128) split, its 4 / 2 heads do not, so the attention's
+    # projections run whole on each rank's rows, and its query sequence
+    # splits over 'model' instead (the reference's maybe_seq_shard_q): the
+    # MLP's, the head's and the attention core's FLOPs fall by 16 more:
+    # mesh = (one - X) / dp + X / (dp * 16), X their one-card FLOPs (per
+    # layer 6 T D F forward; to train, 3x that and the remat's gate and up
+    # again, and the head 3 x 2 T D V; the prefill's head reads the last
+    # position only; the core's two products 4 T S H hd forward, and to
+    # train the remat's recompute and 2x that backward)
     cfg = CN.get_config("llama3.2-1b", **over)
     L, D, F, V = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size
+    Hd = cfg.n_heads * cfg.hd
     x = {}
     for sh in ("train_4k", "prefill_32k"):
         B, S = CN.SHAPES[sh].global_batch, CN.SHAPES[sh].seq_len
         T = B * S
         x[sh] = (L * (18 * T * D * F + 4 * T * D * F) + 6 * T * D * V
-                 if sh == "train_4k" else L * 6 * T * D * F + 2 * B * D * V)
+                 + L * 16 * T * S * Hd
+                 if sh == "train_4k" else
+                 L * 6 * T * D * F + 2 * B * D * V + L * 4 * T * S * Hd)
         assert 16 * dp * got[sh]["flops_per_device"] == \
             16 * one[sh]["flops_per_device"] - 15 * x[sh], sh
-    # the train step keeps each 'model'-split leaf in its block: its
-    # all-gathers carry only split leaves the rule gathers whole (none in
-    # llama; no FSDP, so nothing on 'data')
+    # the train step keeps each 'model'-split leaf in its block (no FSDP,
+    # so nothing is gathered on 'data'): its all-gathers are the sequence
+    # split's, one per layer of its rows' attention output [rows, S, H,
+    # hd] in bf16, in the forward and again in the remat's recompute, per
+    # microbatch
     from repro_torch.models.transformer import get_model, model_parallel_leaf
     from repro_torch.train import trainer
     mesh = Sh.MeshShape(*reversed(MESHES["pod16x16" if dp == 16
@@ -249,8 +257,11 @@ def test_mesh_records_hold_the_exact_identities(cells, mesh_name, dp):
     split = [(p, t) for p, t in tree_items(shapes)
              if Sh.model_dim(sh[p].spec) is not None]
     assert split and all(keep(p, 16) for p, _ in split)
-    assert got["train_4k"]["collectives"]["all-gather"]["bytes"] == sum(
-        t.numel() * t.element_size() for p, t in split if not keep(p, 16))
+    train = CN.SHAPES["train_4k"]
+    mb = got["train_4k"]["microbatches"]
+    rows = train.global_batch // dp // mb
+    assert got["train_4k"]["collectives"]["all-gather"]["bytes"] == \
+        mb * L * 2 * rows * train.seq_len * Hd * 2
     # a decode cell holds 1 / (DP x 16) of the cache, its rows' tokens and
     # its blocks of the parameters
     spec = CN.SHAPES["decode_32k"]
@@ -373,9 +384,9 @@ def test_model_parallel_leaf_is_one_rule_defaulting_to_whole(arch):
     block exactly where the reference's rules split it over 'model' (the
     vocabulary, GQA, MLA and cross-attention heads, the encoder, the MLPs
     and shared experts, the Mamba mixer, the xLSTM cells, the routed
-    experts where the axis divides their count); a leaf the rules keep
-    whole, a path that names no leaf, and a routed expert's mlp dim (split
-    by the rules where the axis does not divide the experts) are whole."""
+    experts where the axis divides their count, else their mlp width where
+    it divides that); a leaf the rules keep whole and a path that names no
+    leaf are whole."""
     from repro_torch.models.transformer import get_model, model_parallel_leaf
     cfg = CN.get_smoke_config(arch)
     model = get_model(cfg)
@@ -389,8 +400,8 @@ def test_model_parallel_leaf_is_one_rule_defaulting_to_whole(arch):
     if cfg.n_experts:
         experts = [p for p in kept if p.endswith(("ffn/w_gate", "ffn/w_up"))
                    and ("moe" in p or "stage1" in p)]
-        # 8 and 4 experts on 3 ranks: not divided, so the experts are
-        # whole; on 16 the rules split their mlp dim instead, and they
-        # stay whole
-        assert experts and not any(rule(p, 3) or rule(p, 16)
-                                   for p in experts)
+        # 8 and 4 experts on 3 ranks: neither they nor their width are
+        # divided, so the experts are whole; on 16 the rules split their
+        # mlp dim instead, and each rank keeps its block of every expert
+        assert experts and not any(rule(p, 3) for p in experts)
+        assert all(rule(p, 16) for p in experts)

@@ -20,8 +20,10 @@ relative (the hybrid's gradient norm within its gradients' 1e-4).
 Parameters after an update are compared only through the later losses: Adam's first step is about ``g / |g|``, so a gradient element at
 rounding level may flip its sign and move by 2 lr on one side only.
 """
+import gc
 import os
 import time
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -239,6 +241,25 @@ def test_microbatches_equal_one_pass():
     g4, l4, _ = trainer._grad_fn(model, 4)(params, batch)
     assert float(l4) == pytest.approx(float(l1), rel=1e-5)
     assert rel_err(g4, g1) < 1e-4
+
+
+def test_a_step_frees_its_gradients_without_the_cycle_collector():
+    """The gradients a step returns are freed once the caller drops them,
+    with the cyclic collector off: no reference cycle keeps a whole
+    gradient tree alive past its step (``tree_unflatten``)."""
+    cfg = CN.get_smoke_config("llama3.2-1b")
+    model = get_model(cfg)
+    params = trainer.trainable(model.init(0, "cpu"))
+    batch = data.synth_batch(data.DataConfig(cfg.vocab_size, 4, 16), 0, "cpu")
+    gc.collect()
+    gc.disable()
+    try:
+        grads, _, _ = trainer._grad_fn(model, 1)(params, batch)
+        refs = [weakref.ref(g) for g in tree_leaves(grads)]
+        del grads
+        assert refs and all(r() is None for r in refs)
+    finally:
+        gc.enable()
 
 
 def test_unported_training_arguments_are_refused():

@@ -6,6 +6,7 @@ check in turn on every rank (they are collective: every rank runs them in
 the same order) and writes ``rank<r>.json`` with each check's result, or
 the traceback it raised. Imports torch and the port only.
 """
+import contextlib
 import datetime
 import functools
 import json
@@ -45,6 +46,9 @@ SERVE_B, SERVE_S, SERVE_NEW, SERVE_L = 6, 8, 4, 16
 # encoder-decoder's frames
 CTX_INPUT = {"vlm": "ctx", "audio": "frames"}
 SERVE_MESHES = ("2x2", "1x4")
+# the serving twin with the parameters placed by FSDP (the reference's
+# rules with ``embed`` on 'data') on the 2 x 2 mesh
+SERVE_FSDP = "2x2fsdp"
 F32 = {"param_dtype": "float32", "compute_dtype": "float32"}
 
 
@@ -75,11 +79,11 @@ def _same(a, b) -> bool:
         x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb))
 
 
-def _setup(arch=CFG_ARCH):
+def _setup(arch=CFG_ARCH, **over):
     from repro_torch import configs
     from repro_torch.data.pipeline import DataConfig, synth_batch
     from repro_torch.optim import adamw
-    cfg = configs.get_smoke_config(arch)
+    cfg = configs.get_smoke_config(arch, **over)
     opt = adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
     dcfg = DataConfig(cfg.vocab_size, B, S)
     return cfg, opt, [synth_batch(dcfg, i, "cpu") for i in range(STEPS)]
@@ -191,13 +195,36 @@ def check_compressed_step(meshes):
         out["params_err"].append(max(float((a - b).abs().max()) for a, b in
                                      zip(tree_leaves(_full(p)),
                                          tree_leaves(q))))
+        # this rank's error leaves: its blocks of its pod's error, each pod
+        # chunk's 'data' block (the step's compression layout)
+        held = tree_map(lambda t, sh: _pod_layout(t, sh.spec, mesh),
+                        errs[pod], sh["params"])
         out["err_err"].append(max(float((a.float() - b.float()).abs().max())
                                   for a, b in zip(tree_leaves(err),
-                                                  tree_leaves(errs[pod]))))
+                                                  tree_leaves(held))))
         out["wire"].append(m["wire_bytes_pod"])
         out["want_wire"].append(sum(t.numel() + 4
                                     for t in tree_leaves(st.params)))
     return out
+
+
+def _pod_layout(t, spec, mesh):
+    """This rank's block of a whole leaf ``t`` as the compressed step holds
+    its gradient and error: on a dim split over ('pod', 'data') the
+    'data' block of each of the 'pod' chunks, on a 'model' dim the 'model'
+    block (by reshaping and slicing)."""
+    names = list(mesh.mesh_dim_names)
+    coord = dict(zip(names, mesh.get_coordinate()))
+    size = dict(zip(names, mesh.shape))
+    for d, entry in enumerate(spec):
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        for a in ("data", "model"):
+            if a not in axes or size[a] == 1:
+                continue
+            outer = math.prod(size[b] for b in axes[:axes.index(a)])
+            y = t.unflatten(d, (outer, size[a], -1))
+            t = y.select(d + 1, coord[a]).flatten(d, d + 1)
+    return t
 
 
 def check_checkpoint(meshes, ckpt_dir):
@@ -227,6 +254,132 @@ def check_checkpoint(meshes, ckpt_dir):
             "placements": placements,
             "onto_no_mesh": _same(plain, full),
             "steps": mgr.all_steps()}
+
+
+@contextlib.contextmanager
+def _no_dtensor_collectives():
+    """``DTensor.full_tensor`` and ``DTensor.redistribute`` patched to
+    raise; yields the list of the names called."""
+    from torch.distributed.tensor import DTensor
+    called = []
+    saved = DTensor.full_tensor, DTensor.redistribute
+
+    def refuse(name):
+        def fn(*a, **k):
+            called.append(name)
+            raise AssertionError(f"DTensor.{name} on a mesh path")
+        return fn
+
+    DTensor.full_tensor = refuse("full_tensor")
+    DTensor.redistribute = refuse("redistribute")
+    try:
+        yield called
+    finally:
+        DTensor.full_tensor, DTensor.redistribute = saved
+
+
+def _gathered_bytes(placed, n_dp):
+    """``(largest block, largest unstacked leaf, whole 'model' shard)``:
+    the bytes a rank gathers over 'data' for one step of a stage (its
+    blocks of every stacked leaf the DP axes split) and for the largest
+    unstacked such leaf, and the bytes of its 'model' shard whole over
+    'data' (every leaf)."""
+    from repro_torch.models.common import tree_items
+    blocks, unstacked, shard = {}, 0, 0
+    for path, t in tree_items(placed):
+        loc = t.to_local()
+        split = any(p.is_shard() and n == "data" for n, p in
+                    zip(t.device_mesh.mesh_dim_names, t.placements))
+        n = loc.numel() * loc.element_size() * (n_dp if split else 1)
+        shard += n
+        if not split:
+            continue
+        if path[0].startswith("stage"):
+            blocks[path[0]] = blocks.get(path[0], 0) + n // t.shape[0]
+        else:
+            unstacked = max(unstacked, n)
+    return max(blocks.values()), unstacked, shard
+
+
+def check_fsdp_gathers(meshes, ckpt_dir):
+    """The 2 x 2 FSDP step's gathers over 'data': one step counted by the
+    dry-run (``dryrun.count``: its all-gathers and reduce-scatters, the DP
+    gathers' alone in the smoke llama's step) beside the step's
+    ``DPGather`` counts and its high-water mark of live gathered bytes
+    against :func:`_gathered_bytes`; then with ``DTensor.full_tensor`` and
+    ``redistribute`` refused (:func:`_no_dtensor_collectives`): a second
+    step on a DTensor batch (against the one-device step), a checkpoint
+    save of its state
+    (read back whole) and a mesh-engine prefill and decode with
+    FSDP-placed parameters (against the meshless engine's tokens)."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.launch import dryrun
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.transformer import get_model
+    from repro_torch.parallel import sharding as Sh
+    from repro_torch.serving.engine import ServeConfig, ServingEngine
+    from repro_torch.train import trainer
+    cfg, opt, batches = _setup()
+    mesh = meshes["2x2"]
+    st = trainer.init_train_state(cfg, opt, 0, "cpu")
+    sh = trainer.state_shardings(cfg, mesh, fsdp=True)
+    placed = trainer.shard_state({"params": st.params,
+                                  "opt_state": st.opt_state},
+                                 {"params": sh["params"],
+                                  "opt_state": sh["opt_state"]})
+    step = trainer.make_train_step(cfg, opt, mesh, fsdp=True)
+    one = trainer.make_train_step(cfg, opt)
+    gather = step.pieces["mesh_step"].gather
+    gather.reset()
+    got = {}
+
+    def first():
+        got["state"] = step(placed["params"], placed["opt_state"],
+                            batches[0])
+        return got["state"][0]
+
+    c = dryrun.count(first)["collectives"]
+    counts = gather.counts()
+    block, unstacked, shard = _gathered_bytes(placed["params"], 2)
+    out = {"dryrun": {k: c[k] for k in ("all-gather", "reduce-scatter")},
+           "gather": counts, "live_after": gather.live_bytes,
+           "block": block, "unstacked": unstacked, "shard": shard}
+    q, r, _ = one(st.params, st.opt_state, batches[0])
+    q, r, n = one(q, r, batches[1])
+    mgr = CheckpointManager(ckpt_dir)
+    # the second step's batch as DTensors placed by batch_shardings: the
+    # step takes each rank's rows as their local blocks
+    placed_batch = {k: Sh.distribute(v, sh_b) for (k, v), sh_b in zip(
+        batches[1].items(), Sh.batch_shardings(batches[1], mesh).values())}
+    with _no_dtensor_collectives() as called:
+        p, o, m = step(*got["state"][:2], placed_batch)
+        mgr.save(1, {"params": p}, block=True)
+        model = get_model(cfg)
+        shapes, axes = model.init(0, device="meta", with_axes=True)
+        fsdp = trainer.shard_state(st.params, Sh.param_shardings(
+            axes, shapes, mesh, Sh.make_rules(fsdp=True,
+                                              data_axes=("data",))))
+        prompts = batches[0]["tokens"][:, :SERVE_S]
+        scfg = ServeConfig(B, SERVE_L)
+        eng = ServingEngine(cfg, scfg, params=fsdp, device="cpu", mesh=mesh)
+        tokens = eng.generate(prompts, SERVE_NEW)
+        eng._mesh.gather.reset()
+        logits, cache = eng.prefill(prompts)
+        eng.decode(torch.from_numpy(tokens[:, :1]), cache, SERVE_S)
+        want = ServingEngine(cfg, scfg, params=st.params,
+                             device="cpu").generate(prompts, SERVE_NEW)
+        out["decode"] = {"tokens_equal": bool((tokens == want).all()),
+                         "gathers": eng._mesh.gather.gathers,
+                         "split": len(eng._mesh.gather.splits)}
+    out["dtensor_calls"] = called
+    out["train"] = {"loss_rel": abs(float(m["loss"]) - float(n["loss"]))
+                    / abs(float(n["loss"])), "params_rel": _rel(_full(p), q)}
+    back = mgr.restore(1, {"params": q})
+    out["save"] = {"same": _same(back["params"], _full(p)),
+                   "steps": mgr.all_steps()}
+    out["held"] = sum(t.to_local().numel() for t in tree_leaves(p)) \
+        / sum(t.numel() for t in tree_leaves(q))
+    return out
 
 
 def check_crash_restart(meshes, ckpt_dir):
@@ -327,7 +480,9 @@ def check_serving(meshes, serve_dir, timeout_s):
     from repro_torch import configs
     from repro_torch.models import weights
     from repro_torch.models.transformer import get_model
+    from repro_torch.parallel import sharding as Sh
     from repro_torch.serving.engine import ServeConfig, ServingEngine
+    from repro_torch.train import trainer
     deadline = time.monotonic() + timeout_s
     inputs = _load(serve_dir, "inputs", deadline)
     prompts = torch.from_numpy(inputs["prompts"])
@@ -341,12 +496,20 @@ def check_serving(meshes, serve_dir, timeout_s):
         sdims = sequence_dims(cfg)
         full = dict(_leaves(get_model(cfg).init_cache(SERVE_B, SERVE_L,
                                                       device="meta")))
-        for mesh_name in SERVE_MESHES:
-            mesh = meshes[mesh_name]
+        for mesh_name in SERVE_MESHES + (SERVE_FSDP,):
+            fsdp = mesh_name == SERVE_FSDP
+            mesh = meshes["2x2" if fsdp else mesh_name]
             coord = tuple(mesh.get_coordinate())
             tp = mesh.shape[mesh.mesh_dim_names.index("model")]
+            placed = params
+            if fsdp:
+                shapes, axes = get_model(cfg).init(0, device="meta",
+                                                   with_axes=True)
+                placed = trainer.shard_state(params, Sh.param_shardings(
+                    axes, shapes, mesh, Sh.make_rules(
+                        fsdp=True, data_axes=Sh.dp_axes(mesh))))
             eng = ServingEngine(cfg, ServeConfig(SERVE_B, SERVE_L),
-                                params=params, device="cpu", mesh=mesh)
+                                params=placed, device="cpu", mesh=mesh)
             tokens = eng.generate(prompts, SERVE_NEW, ctx=ctx)
             logits, cache = eng.prefill(prompts, ctx)
             sh = dict(_leaves(eng.cache_shardings))
@@ -358,9 +521,11 @@ def check_serving(meshes, serve_dir, timeout_s):
                 whole |= p in sdims and tp > 1 \
                     and t.shape[sdims[p]] == SERVE_L
             steps = [logits]
+            gather = eng._mesh.gather
             for i in range(SERVE_NEW - 1):
                 tok = torch.from_numpy(tokens[:, i:i + 1])
                 comm = CommDebugMode()
+                gather.reset()
                 with comm:
                     logits, cache = eng.decode(tok, cache, SERVE_S + i)
                 steps.append(logits)
@@ -371,7 +536,8 @@ def check_serving(meshes, serve_dir, timeout_s):
                 "rows": eng.rows(torch.arange(SERVE_B)).tolist(),
                 "logits": [t[:, -1].double().tolist() for t in steps],
                 "blocks": blocks_ok, "whole_sequence_leaf": whole,
-                "decode_gathers": gathers}
+                "decode_gathers": gathers, "dp_gathers": gather.gathers,
+                "dp_split": len(gather.splits)}
     return out
 
 
@@ -818,6 +984,51 @@ def twin_slstm(mg, gen):
                           _no_grad(local), x)}
 
 
+def twin_seq_split(mg, gen):
+    """``apply_gqa`` with 6 query heads and 2 KV heads (a smoke GQA layer
+    whose heads a 'model' axis of 4 does not divide: the layer runs whole
+    and the query's sequence splits over 'model'; on 2 the heads split)
+    against the whole layer: the output and the gradients of x and of the
+    leaves."""
+    from repro_torch.models import attention as A
+    from repro_torch.parallel import sharding as Sh
+    D, H, Hkv, hd = 64, 6, 2, 16
+    params, axes = A.init_gqa(gen, D, H, Hkv, hd, torch.float32)
+    x = torch.randn((LAYER_B, LAYER_S, D), generator=gen)
+    pos = torch.arange(LAYER_S)
+
+    def fwd(p, xs):
+        return A.apply_gqa(p, xs, positions=pos, n_heads=H,
+                           n_kv_heads=Hkv)[0]
+
+    out, grads, _ = _twin(mg, params, axes, fwd, [x])
+    with Sh.model_parallel(mg):
+        split = Sh.seq_split_group(H, LAYER_S) is not None
+    return {"out": out, "grads": grads, "seq_split": split}
+
+
+def twin_expert_width(mg, gen):
+    """The smoke maverick's MoE layer with 6 experts (top 1, a shared
+    expert; a 'model' axis of 4 does not divide the experts, so each
+    expert runs on this rank's block of its width, column- then
+    row-parallel; on 2 the experts split) against the whole layer: the
+    output plus the load-balance loss, and the gradients."""
+    from repro_torch.models import moe
+    D, E, Fd, k = 64, 6, 64, 1
+    params, axes = moe.init_moe(gen, D, Fd, E, 1, Fd, torch.float32, "cpu")
+    x = torch.randn((LAYER_B, LAYER_S, D), generator=gen)
+    kw = dict(top_k=k, n_experts=E, capacity_factor=1.25, shared_width=Fd,
+              expert_width=Fd)
+
+    def fwd(p, xs):
+        y, aux = moe.apply_moe(p, xs, **kw)
+        return y + aux["load_balance_loss"]
+
+    out, grads, (_, local, _) = _twin(mg, params, axes, fwd, [x])
+    return {"out": out, "grads": grads,
+            "expert_shape": list(local["w_gate"].shape)}
+
+
 def check_layers(meshes):
     """Every layer twin on the 2 x 2 and 1 x 4 meshes' 'model' groups."""
     from repro_torch.parallel import sharding as Sh
@@ -835,7 +1046,9 @@ def check_layers(meshes):
                           "encoder": twin_encoder(mg, gen),
                           "mamba": twin_mamba(mg, gen),
                           "mlstm": twin_mlstm(mg, gen),
-                          "slstm": twin_slstm(mg, gen)}
+                          "slstm": twin_slstm(mg, gen),
+                          "seq_split": twin_seq_split(mg, gen),
+                          "expert_width": twin_expert_width(mg, gen)}
     return out
 
 
@@ -854,14 +1067,21 @@ def _shapes(tree, shapes, shardings, keep, tp):
     return out
 
 
-COMPUTE_ARCHS = (CFG_ARCH, MOE_ARCH, "zamba2-1.2b", "seamless-m4t-large-v2",
-                 "xlstm-125m")
+# name -> (arch, overrides): the smoke configs, and two whose 'model' axis
+# of 4 divides neither the heads (6: the query's sequence splits) nor the
+# experts (6: each expert's width splits)
+COMPUTE_ARCHS = {**{a: (a, {}) for a in (
+    CFG_ARCH, MOE_ARCH, "zamba2-1.2b", "seamless-m4t-large-v2",
+    "xlstm-125m")},
+    "gqa-6-heads": (CFG_ARCH, {"n_heads": 6}),
+    "maverick-6-experts": ("llama4-maverick-400b-a17b", {"n_experts": 6})}
 
 
 def check_compute_shapes(meshes):
     """The shapes the sharded step and the serving engine compute on, for
     the smoke llama, deepseek (MLA, EP), zamba2 (Mamba and the shared
-    block), seamless (the encoder, cross-attention) and the xLSTM, on both
+    block), seamless (the encoder, cross-attention), the xLSTM, the smoke
+    llama with 6 heads and the smoke maverick with 6 experts, on both
     meshes."""
     from repro_torch import configs
     from repro_torch.models.transformer import (get_model,
@@ -870,8 +1090,8 @@ def check_compute_shapes(meshes):
     from repro_torch.serving.engine import ServeConfig, ServingEngine
     from repro_torch.train import trainer
     out = {}
-    for arch in COMPUTE_ARCHS:
-        cfg, opt, _ = _setup(arch)
+    for name, (arch, over) in COMPUTE_ARCHS.items():
+        cfg, opt, _ = _setup(arch, **over)
         model = get_model(cfg)
         shapes, axes = configs.param_specs(cfg)
         st = trainer.init_train_state(cfg, opt, 0, "cpu")
@@ -885,7 +1105,7 @@ def check_compute_shapes(meshes):
             local = step.pieces["local"](placed)
             eng = ServingEngine(cfg, ServeConfig(SERVE_B, SERVE_L),
                                 params=st.params, device="cpu", mesh=mesh)
-            out[f"{arch}-{mesh_name}"] = {
+            out[f"{name}-{mesh_name}"] = {
                 "step": _shapes(local, shapes, sh, keep, tp),
                 "engine": _shapes(eng.params, shapes,
                                   Sh.param_shardings(axes, shapes, mesh),
@@ -999,6 +1219,8 @@ def main(rank: int, world: int, init_file: str, out_dir: str, cases,
                 meshes, os.path.join(tmp[0], "ckpt"))),
             ("restart", lambda: check_crash_restart(
                 meshes, os.path.join(tmp[0], "train"))),
+            ("fsdp_gathers", lambda: check_fsdp_gathers(
+                meshes, os.path.join(tmp[0], "fsdp"))),
             ("meshes", check_meshes),
             ("constraints", lambda: check_constraints(meshes)),
             ("layers", lambda: check_layers(meshes)),

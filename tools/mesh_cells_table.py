@@ -13,6 +13,11 @@ not times.
     python3 tools/mesh_cells_table.py
 
 ``--root DIR`` reads ``DIR/dryrun_torch/`` (the dry-run's ``--root``).
+``--dp`` prints instead the FSDP cells' DP gathers per step (the records'
+``dp_gather``): gathers (the forward's and a remat's recompute),
+re-gathers (the backward's, in place of a saved gathered block) and
+reduce-scatters, each ``count / GiB``, and the most gathered GiB alive at
+once.
 """
 from __future__ import annotations
 
@@ -43,11 +48,32 @@ def cell(rec, one) -> str:
     return out
 
 
+def dp_cell(rec) -> str:
+    if rec is None or rec.get("status") != "ok" or not rec.get("fsdp"):
+        return "—"
+    g = rec["dp_gather"]
+    gib = lambda n: f"{n / 2**30:.3g}"
+    return (f"{g['gathers']} / {gib(g['gathered_bytes'])}; "
+            f"{g['regathers']} / {gib(g['regathered_bytes'])}; "
+            f"{g['reduce_scatters']} / {gib(g['scattered_bytes'])}; "
+            f"{gib(g['high_bytes'])}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=None)
+    ap.add_argument("--dp", action="store_true")
     args = ap.parse_args(argv)
     cols = [(sh, m) for sh in CN.SHAPES for m in MESHES]
+    if args.dp:
+        print("| arch | " + " | ".join(f"{sh} {m}" for sh, m in cols) + " |")
+        print("|---" * (len(cols) + 1) + "|")
+        for arch in CN.ARCHS:
+            row = [dp_cell(costmodel.load_cell(m, arch, sh, root=args.root))
+                   for sh, m in cols]
+            if any(c != "—" for c in row):
+                print(f"| {arch} | " + " | ".join(row) + " |")
+        return
     print("| arch | " + " | ".join(f"{sh} {m}" for sh, m in cols) + " |")
     print("|---" * (len(cols) + 1) + "|")
     for arch in CN.ARCHS:
